@@ -8,24 +8,39 @@ Phases, in order; any failure raises and the exit code is not 0:
 1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
 2. build the CUDA kernels from ``spsnet_torch/csrc`` (seconds printed);
 3. each kernel against its plain PyTorch version on the card, index for
-   index, at the main path's shapes: FPS at (8, 16384) -> 4096, at
-   (1, 16384) -> 4096 and at sizes that are no multiple of 1024 (with a
-   mask, and above the shared-memory limit); the prefix-nesting identity
-   FPS(layer-0 chain, 1024) == arange(1024); the fused ball query at every
-   SA layer with radii, on the centers the path produces. Times are CUDA
-   events, median of repeated runs;
-4. the main path: IA-SSD KITTI (``tools/cfgs/kitti_models/IA-SSD.yaml``) at
-   full width with seeded random weights serves five requests of
-   8 x 16384 points through forward + class-agnostic NMS; outputs must be
-   finite with counts in [0, 500], and the launch counters, zeroed just
-   before, must show one FPS and four ball-query launches per forward;
+   index (and bit for bit on distances), at the main paths' shapes: FPS at
+   (8, 16384) -> 4096, at (1, 16384) -> 4096 and at sizes that are no
+   multiple of 1024 (with a mask, and above the shared-memory limit); the
+   prefix-nesting identity FPS(layer-0 chain, 1024) == arange(1024); the
+   fused ball query at every SA layer with radii, on the centers the path
+   produces; the seeded D-FPS kernels (min distance to the seeds, seeded
+   FPS) at the train path's two layers, (4, 16384) -> 4096 from 3072 grid
+   seeds and (4, 4096) -> 1024 from 768, plus head seeds and an N that is
+   no multiple of 128. Times are CUDA events, median of repeated runs;
+4. the serving path: IA-SSD KITTI (``tools/cfgs/kitti_models/IA-SSD.yaml``)
+   at full width with seeded random weights serves five requests of
+   8 x 16384 points through forward + class-agnostic NMS, with exact FPS
+   (the default); outputs must be finite with counts in [0, 500], and the
+   launch counters, zeroed just before, must show one FPS and four
+   ball-query launches per forward and no seeded-FPS launch;
 5. one scene through the same weights on the CPU, where the plain versions
    run: FPS, sampled points and ball-query indices identical (the CPU
    replays the card's ctr_aware picks once they check out as a top-k order
    of its own scores), predictions within the tolerance stated below, NMS
    outputs identical;
 6. a CUDA-kernel breakdown of one request from ``torch.profiler``;
-7. one JSON line per kernel set, then the result line.
+7. the train path: the same model with grid-seeded D-FPS
+   (``FpsSeeding(0.75, 'grid')``) takes ten ``adam_onecycle`` steps of
+   4 x 16384-point synthetic scenes with gt boxes; loss and gradients must
+   be finite, every parameter must move, and the counters must show per
+   step two seed_min, two fps_seeded and four ball-query launches and no
+   exact FPS;
+8. one train step on one scene on the card and on the CPU from the same
+   weights: seeded D-FPS picks identical, loss terms within the tolerance
+   stated below, gradients and updated parameters within a stated factor
+   of what a 1e-6 jitter of the weights does to the CPU's own step;
+9. a CUDA-kernel breakdown of one train step and the card's busy share;
+10. one JSON line per kernel set, then the result line.
 
 Exits non-zero without printing a result when no CUDA device is present.
 """
@@ -54,6 +69,31 @@ PRED_ATOL, PRED_RTOL = 1e-4, 1e-4
 # ctr_aware: the card-vs-CPU difference of one fp32 sigmoid score is a few
 # ulps (~2e-7 measured); 1e-5 is far below the spread of a score list
 CTR_SCORE_TOL = 1e-5
+# the train path: IA-SSD.yaml's batch per card, and its schedule over the
+# 3712 KITTI train frames (928 steps an epoch, 80 epochs)
+TRAIN_B, TRAIN_STEPS, KITTI_TRAIN_FRAMES = 4, 10, 3712
+# card vs CPU after one train step. In training, BatchNorm normalises with
+# the batch's own statistics, so its 1/std amplifies the forward's fp32
+# differences (the vote centers differ ~20x more than in eval mode), and
+# max-pool routes a gradient to another point where two features come
+# within that difference. So the gradients are held to what the same CPU
+# step gives when every weight is perturbed by WEIGHT_JITTER relative (the
+# order of cuBLAS-vs-CPU-BLAS differences over K up to 1024): the card's
+# relative L2 difference may be at most TRAIN_GRAD_FACTOR times that, and
+# its updated parameters may differ by more than PARAM_ATOL on at most
+# TRAIN_GRAD_FACTOR times as many entries. Adam's first update is
+# lr * g / (|g| + eps), so an entry whose gradient lies within that
+# difference of zero moves by up to 2 lr the other way, never more. Loss
+# terms: the forward's differences summed into scalars.
+TRAIN_LOSS_RTOL = 1e-3
+WEIGHT_JITTER, TRAIN_GRAD_FACTOR, PARAM_ATOL = 1e-6, 5.0, 1e-5
+
+
+def seeding():
+    """The train path's D-FPS: grid-seeded at f = 0.75, the JAX package's
+    default on its accelerator."""
+    from spsnet_torch.ops import FpsSeeding
+    return FpsSeeding(0.75, 'grid')
 
 
 def log(*args):
@@ -196,6 +236,96 @@ def ball_query_phase(model, points):
             'shape': 'sum of the per-forward calls', 'calls': calls}
 
 
+def _seeded_case(xyz, npoint, k0, seed_idx, what, errs):
+    """K3 and K4 kernel vs plain on one input, their largest differences
+    (0) kept in ``errs``; returns the seeds, d0 and the seeded picks."""
+    from spsnet_torch.ops import gather_points
+    from spsnet_torch.ops.sampling import (
+        farthest_point_sample_seeded_kernel,
+        farthest_point_sample_seeded_plain, seed_min_d2_kernel,
+        seed_min_d2_plain)
+    seeds = gather_points(xyz, seed_idx).contiguous()
+    d0 = seed_min_d2_kernel(xyz, seeds)
+    errs['seed_min'] = max(errs['seed_min'], require_equal(
+        d0, seed_min_d2_plain(xyz, seeds),
+        f'seed_min {tuple(xyz.shape)} k0={k0} ({what}), bit for bit'))
+    picks = farthest_point_sample_seeded_kernel(xyz, npoint, d0, seed_idx)
+    errs['fps_seeded'] = max(errs['fps_seeded'], require_equal(
+        picks, farthest_point_sample_seeded_plain(xyz, npoint, d0, seed_idx),
+        f'fps_seeded {tuple(xyz.shape)} k0={k0} -> {npoint} ({what})'))
+    return seeds, d0, picks
+
+
+def seeded_phase(scenes):
+    """The seeded D-FPS kernels vs plain at the train path's two layers on
+    grid seeds, then on head seeds and at an N that is no multiple of 128;
+    returns the JSON entries of seed_min and fps_seeded without launches."""
+    from spsnet_torch.ops import gather_points
+    from spsnet_torch.ops.sampling import (
+        farthest_point_sample_seeded_kernel,
+        farthest_point_sample_seeded_plain, grid_seed_indices, seed_k0,
+        seed_min_d2_kernel, seed_min_d2_plain)
+    xyz = scenes[..., :3].contiguous()
+    calls = {'seed_min': [], 'fps_seeded': []}
+    errs = {'seed_min': 0.0, 'fps_seeded': 0.0}
+    for layer, npoint in enumerate((4096, 1024)):
+        b, n, _ = xyz.shape
+        k0 = seed_k0(seeding(), npoint)
+        idx = grid_seed_indices(xyz, k0)
+        seeds, d0, picks = _seeded_case(xyz, npoint, k0, idx, 'grid seeds',
+                                        errs)
+        for name, fn, plain, n_bytes, n_ops in (
+                ('seed_min', lambda: seed_min_d2_kernel(xyz, seeds),
+                 lambda: seed_min_d2_plain(xyz, seeds),
+                 (xyz.numel() + seeds.numel() + b * n) * 4,
+                 b * n * k0 * 9),           # 3 sub 3 mul 2 add 1 min
+                ('fps_seeded',
+                 lambda: farthest_point_sample_seeded_kernel(xyz, npoint, d0,
+                                                             idx),
+                 lambda: farthest_point_sample_seeded_plain(xyz, npoint, d0,
+                                                            idx),
+                 (xyz.numel() + d0.numel()) * 4 + (idx.numel()
+                                                   + b * npoint) * 8,
+                 (npoint - k0) * b * n * 10)):  # 3 sub 3 mul 2 add min cmp
+            ms = cuda_ms(fn, reps=10)
+            plain_ms = cuda_ms(plain, reps=3)
+            bnd, by = bound_ms(n_bytes, n_ops)
+            log(f'  {name} layer {layer} ({b}, {n}, 3) k0={k0} -> {npoint}: '
+                f'kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound '
+                f'{bnd:.4f} ms ({by})')
+            calls[name].append({'layer': layer, 'B': b, 'N': n, 'k0': k0,
+                                'npoint': npoint, 'ms': ms,
+                                'plain_ms': plain_ms, 'bound_ms': bnd,
+                                'bound_by': by})
+        xyz = gather_points(xyz, picks).contiguous()
+    head = torch.arange(3072, device='cuda').expand(TRAIN_B, 3072)
+    _seeded_case(scenes[..., :3].contiguous(), 4096, 3072,
+                 head.contiguous(), 'head seeds', errs)
+    gen = torch.Generator(device='cuda').manual_seed(1)
+    odd = torch.randn(2, 5000, 3, device='cuda', generator=gen) * 20
+    _seeded_case(odd, 1024, 768, grid_seed_indices(odd, 768),
+                 'N % 128 != 0', errs)
+    entries = []
+    for name, source, replaces in (
+            ('seed_min', 'spsnet_torch/csrc/seed_min.cu',
+             'spsnet_tpu/ops/pallas/fps.py:461'),
+            ('fps_seeded', 'spsnet_torch/csrc/fps.cu',
+             'spsnet_tpu/ops/pallas/fps.py:387')):
+        c = calls[name]
+        entries.append({
+            'name': name, 'route': 'cuda', 'source': source,
+            'replaces': replaces, 'match': True, 'max_abs_err': errs[name],
+            'ms': sum(x['ms'] for x in c),
+            'plain_ms': sum(x['plain_ms'] for x in c),
+            'bound_ms': sum(x['bound_ms'] for x in c),
+            'bound_by': 'operations' if any(x['bound_by'] == 'operations'
+                                            for x in c) else 'bytes',
+            'library_ms': None,
+            'library_note': 'no single PyTorch call computes this function',
+            'shape': 'sum of the per-train-step calls', 'calls': c})
+    return entries
+
+
 def detect(model, points, post):
     """One request: forward + class-agnostic NMS, as a server runs it."""
     from spsnet_torch.models.detectors.detector3d import \
@@ -254,7 +384,7 @@ def ctr_picks(replay=None):
             picks.append(own)
             return own
         want = replay[len(picks)].to(own.device)
-        s = torch.sigmoid(cls_features.amax(-1))
+        s = torch.sigmoid(cls_features.detach().amax(-1))
         diff = float((s.gather(1, want) - s.gather(1, own)).abs().max())
         log(f'  ctr_aware picks {len(picks)}: {int((want != own).sum())} of '
             f'{own.numel()} ranks differ, largest rank-wise score difference '
@@ -316,25 +446,184 @@ def cpu_phase(model, cfg, scene):
         require_equal(gpu_dets[key], cpu_dets[key], f'card vs CPU NMS {key}')
 
 
-def profile_phase(model, points, post):
-    """Top CUDA kernels of one request by device time."""
+def profile_phase(fn, what):
+    """Top CUDA kernels of one call of ``fn`` by device time, and the
+    share of the call's wall time in which a kernel ran."""
     from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
             as prof:
-        detect(model, points, post)
+        t0 = time.perf_counter()
+        fn()
         torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    # kernels only: a user-annotated range (Optimizer.step) also carries
+    # the device time of the kernels inside it
     events = [e for e in prof.key_averages()
               if getattr(e, 'device_type', None) is not None
               and str(e.device_type).endswith('CUDA')
+              and not getattr(e, 'is_user_annotation', False)
               and e.self_device_time_total > 0]
     events.sort(key=lambda e: e.self_device_time_total, reverse=True)
     total = sum(e.self_device_time_total for e in events) / 1e3
-    log(f'  device time of one request: {total:.3f} ms over '
-        f'{sum(e.count for e in events)} kernel launches')
+    log(f'  device time of {what}: {total:.3f} ms over '
+        f'{sum(e.count for e in events)} kernel launches in {wall:.3f} ms '
+        f'(profiled); busy share {total / wall:.3f}')
     for e in events[:12]:
         log(f'    {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} '
             f'{e.key[:90]}')
-    return total
+    return {'device_ms': total, 'wall_ms': wall, 'busy_share': total / wall}
+
+
+def _scene_batch(seed, b, device):
+    from spsnet_torch.runtime.trainer import device_batch
+    from spsnet_torch.utils.synthetic import synthetic_scene_batch
+    pts, gt = synthetic_scene_batch(seed, b, N)
+    return device_batch({'points': pts, 'gt_boxes': gt}, device)
+
+
+def build_trainer(cfg, device, generator_seed):
+    """IA-SSD with seeded D-FPS in train mode, its adam_onecycle optimizer
+    over the KITTI schedule, and its train step."""
+    from spsnet_torch.models import build_detector
+    from spsnet_torch.runtime.optimization import build_optimizer
+    from spsnet_torch.runtime.trainer import make_train_step
+    model = build_detector(
+        cfg.MODEL, len(cfg.CLASS_NAMES), device=device,
+        generator=torch.Generator().manual_seed(generator_seed),
+        fps_seeding=seeding()).train()
+    opt = cfg.OPTIMIZATION
+    iters = KITTI_TRAIN_FRAMES // int(opt.BATCH_SIZE_PER_GPU)
+    optimizer = build_optimizer(opt, model.parameters(), iters,
+                                int(opt.NUM_EPOCHS))
+    return model, optimizer, make_train_step(model, optimizer)
+
+
+def _finite_grads(model):
+    return bool(torch.stack([torch.isfinite(p.grad).all()
+                             for p in model.parameters()]).all())
+
+
+def train_path(model, step, batches):
+    """Train steps over ``batches``, each checked: finite loss terms and
+    gradients, the launches of one step. Returns (ms per step, launch
+    counts of the run)."""
+    from spsnet_torch.ops import _build
+    before = {k: p.detach().clone() for k, p in model.named_parameters()}
+    want = {'fps': 0, 'fps_seeded': 2, 'seed_min': 2, 'ball_query': 4}
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    times = []
+    for batch in batches:
+        seen = dict(_build.LAUNCHES)
+        t0 = time.perf_counter()
+        loss, tb = step(batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        n = {k: _build.LAUNCHES[k] - seen[k] for k in want}
+        if n != want:
+            raise AssertionError(f'launches in a train step: {n}, want {want}')
+        if not torch.isfinite(loss) or not all(
+                torch.isfinite(v).all() for v in tb.values()
+                if torch.is_tensor(v)) or not _finite_grads(model):
+            raise AssertionError(f'non-finite loss or gradient: {float(loss)}')
+        log(f'  step {len(times)}: {times[-1]:.3f} ms, loss {float(loss):.4f}')
+    for name, p in model.named_parameters():
+        if torch.equal(p.detach(), before[name]):
+            raise AssertionError(f'{name} did not move in {len(times)} steps')
+    return times, dict(_build.LAUNCHES)
+
+
+@contextlib.contextmanager
+def dfps_picks():
+    """Record the D-FPS picks of the SA layers (seeded where it engages)."""
+    from spsnet_torch.models import samplers
+    own = samplers.sample_dfps
+    picks = []
+
+    def sampler(*args, **kwargs):
+        idx = own(*args, **kwargs)
+        picks.append(idx)
+        return idx
+
+    samplers.sample_dfps = sampler
+    try:
+        yield picks
+    finally:
+        samplers.sample_dfps = own
+
+
+def _step_difference(a, b, lr):
+    """Gradients (relative L2 of all of them at once, and their cosine) and
+    updated parameters (largest difference, entries beyond PARAM_ATOL) of
+    model ``a`` against model ``b`` after one step."""
+    ga = torch.cat([p.grad.detach().cpu().double().flatten()
+                    for p in a.parameters()])
+    gb = torch.cat([p.grad.detach().double().flatten()
+                    for p in b.parameters()])
+    d = torch.cat([(pa.detach().cpu() - pb.detach()).abs().flatten()
+                   for pa, pb in zip(a.parameters(), b.parameters())])
+    return {'grad_rel_l2': float((ga - gb).norm() / gb.norm()),
+            'grad_cos': float(ga @ gb / ga.norm() / gb.norm()),
+            'param_max': float(d.max()),
+            'param_beyond': int((d > PARAM_ATOL).sum()), 'params': d.numel(),
+            'two_lr': 2 * lr}
+
+
+def train_cpu_phase(cfg):
+    """One train step on one scene on the card and on the CPU from the same
+    weights, and on the CPU from weights jittered by WEIGHT_JITTER; the CPU
+    runs replay the card's ctr_aware picks (``ctr_picks``)."""
+    gpu, _, gpu_step = build_trainer(cfg, 'cuda', 1)
+    cpu, cpu_opt, cpu_step = build_trainer(cfg, 'cpu', 1)
+    jit, _, jit_step = build_trainer(cfg, 'cpu', 1)
+    cpu.load_state_dict(gpu.state_dict())
+    jit.load_state_dict(gpu.state_dict())
+    gen = torch.Generator().manual_seed(5)
+    with torch.no_grad():
+        for p in jit.parameters():
+            p.mul_(1 + WEIGHT_JITTER * torch.randn(p.shape, generator=gen))
+    batch = _scene_batch(100, 1, 'cpu')
+    with ctr_picks() as picks, dfps_picks() as gpu_dfps:
+        gpu_loss, gpu_tb = gpu_step({k: v.cuda() for k, v in batch.items()})
+    with ctr_picks(replay=picks), dfps_picks() as cpu_dfps:
+        cpu_loss, cpu_tb = cpu_step(batch)
+    with ctr_picks(replay=picks):
+        jit_step(batch)
+    if len(gpu_dfps) != 2 or len(cpu_dfps) != 2:
+        raise AssertionError('want two D-FPS layers a step')
+    for k, (g, c) in enumerate(zip(gpu_dfps, cpu_dfps)):
+        require_equal(g, c, f'card vs CPU train step: seeded D-FPS layer {k} '
+                            f'picks {tuple(g.shape)}')
+    worst = {}
+    for key in ('loss', *sorted(gpu_tb)):
+        g = float(gpu_loss if key == 'loss' else gpu_tb[key])
+        c = float(cpu_loss if key == 'loss' else cpu_tb[key])
+        worst[key] = abs(g - c) / max(abs(c), 1e-12)
+        if worst[key] > TRAIN_LOSS_RTOL:
+            raise AssertionError(f'card vs CPU {key}: {g} vs {c}')
+    log(f'  card vs CPU loss terms: largest relative difference '
+        f'{max(worst.values()):.3e} ({max(worst, key=worst.get)}; tolerance '
+        f'{TRAIN_LOSS_RTOL})')
+    lr = cpu_opt.lr_fn(0)
+    card = _step_difference(gpu, cpu, lr)
+    base = _step_difference(jit, cpu, lr)
+    log(f'  card vs CPU after the step: {card}')
+    log(f'  CPU with weights x (1 + {WEIGHT_JITTER} N(0, 1)) vs CPU: {base}')
+    if card['grad_rel_l2'] > TRAIN_GRAD_FACTOR * base['grad_rel_l2'] or \
+            card['param_beyond'] > TRAIN_GRAD_FACTOR * base['param_beyond'] \
+            or card['param_max'] > 2 * lr * (1 + 1e-3):
+        raise AssertionError(f'card vs CPU train step beyond {TRAIN_GRAD_FACTOR}'
+                             f' x the weight-jitter baseline')
+    log(f'  card vs CPU gradients and parameters: within '
+        f'{TRAIN_GRAD_FACTOR} x the baseline, no entry beyond 2 lr')
+    for (name, g), c in zip(gpu.named_buffers(), cpu.buffers()):
+        if name.endswith(('running_mean', 'running_var')):
+            err = float((g.cpu() - c).abs().max())
+            if err > PRED_ATOL + PRED_RTOL * float(c.abs().max()):
+                raise AssertionError(f'card vs CPU {name}: {err:.3e}')
+    log('  card vs CPU BN running stats: within '
+        f'atol {PRED_ATOL} + rtol {PRED_RTOL}')
 
 
 def main() -> int:
@@ -367,13 +656,16 @@ def main() -> int:
                 for s in range(REQUESTS)]
 
     log('== 3. kernels vs plain on the card')
+    train_batches = [_scene_batch(s, TRAIN_B, 'cuda')
+                     for s in range(TRAIN_STEPS)]
     entries = [fps_phase(requests[0][..., :3].contiguous()),
-               ball_query_phase(model, requests[0])]
+               ball_query_phase(model, requests[0]),
+               *seeded_phase(train_batches[0]['points'])]
 
-    log('== 4. main path')
+    log('== 4. serving path')
     post = cfg.MODEL.POST_PROCESSING
     times, launches = main_path(model, requests, post)
-    per_forward = {'fps': 1, 'ball_query': 4}
+    per_forward = {'fps': 1, 'ball_query': 4, 'seed_min': 0, 'fps_seeded': 0}
     for name, n in per_forward.items():
         if launches[name] != n * REQUESTS:
             raise AssertionError(f'{name}: {launches[name]} launches in '
@@ -387,13 +679,38 @@ def main() -> int:
     log('== 5. card vs CPU, one scene')
     cpu_phase(model, cfg, requests[0][:1])
 
-    log('== 6. where the time goes')
-    profile_phase(model, requests[0], post)
+    log('== 6. where the time goes: one request')
+    serve_profile = profile_phase(lambda: detect(model, requests[0], post),
+                                  'one request')
+
+    log('== 7. train path')
+    train_model, _, step = build_trainer(cfg, 'cuda', 0)
+    step_times, train_launches = train_path(train_model, step, train_batches)
+    step_ms = statistics.median(step_times)
+    log(f'  launches over {TRAIN_STEPS} train steps: {train_launches}')
+    log(f'  ms/train step (B={TRAIN_B}, N={N}, forward + loss + backward + '
+        f'adam_onecycle): median {step_ms:.3f}, all '
+        f'{[round(t, 3) for t in step_times]}; steps/s '
+        f'{1e3 / step_ms:.3f} on {smi}')
+
+    log('== 8. card vs CPU, one train step')
+    train_cpu_phase(cfg)
+
+    log('== 9. where the time goes: one train step')
+    train_profile = profile_phase(lambda: step(train_batches[0]),
+                                  'one train step')
 
     for entry in entries:
-        entry['launches'] = launches[entry['name']]
+        entry['launches_by_path'] = {'serve': launches[entry['name']],
+                                     'train': train_launches[entry['name']]}
+        entry['launches'] = launches[entry['name']] + \
+            train_launches[entry['name']]
     log(json.dumps({'kernels': entries, 'ms_per_batch': ms,
-                    'scenes_per_s': B / ms * 1e3, 'card': smi}))
+                    'scenes_per_s': B / ms * 1e3,
+                    'ms_per_train_step': step_ms,
+                    'train_steps_per_s': 1e3 / step_ms,
+                    'serve_profile': serve_profile,
+                    'train_profile': train_profile, 'card': smi}))
     log(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

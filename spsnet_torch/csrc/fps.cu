@@ -1,9 +1,15 @@
-// Exact farthest point sampling for Hopper (sm_90a).
+// Exact and seeded farthest point sampling for Hopper (sm_90a).
 //
-// Replaces the TPU kernels `_fps_kernel_unrolled_b` (spsnet_tpu/ops/pallas/
-// fps.py:167, dispatched through `_fps_pallas_allbatch`) and `_fps_kernel`
-// (fps.py:26, through `_fps_pallas_grid`). Both compute the same function;
-// they differ only in how the TPU batches rows, so one kernel serves both.
+// `fps` replaces the TPU kernels `_fps_kernel_unrolled_b` (spsnet_tpu/ops/
+// pallas/fps.py:167, dispatched through `_fps_pallas_allbatch`) and
+// `_fps_kernel` (fps.py:26, through `_fps_pallas_grid`). Both compute the
+// same function; they differ only in how the TPU batches rows, so one kernel
+// serves both. `fps_seeded` replaces `_fps_kernel_seeded` (fps.py:387,
+// through `farthest_point_sample_seeded`): the same step loop, with the
+// running min loaded from d0 (the min squared distance to k0 seeds, from
+// csrc/seed_min.cu) instead of 1e10, the seeds copied verbatim to the head
+// of the output and the chain started from the last seed, so it runs only
+// npoint - k0 steps. Same bound and design as `fps` below.
 //
 // Function: (B, N, 3) fp32 -> (B, npoint) int64. The first pick is index 0
 // (or the first valid point under a mask); each step lowers every point's
@@ -69,10 +75,12 @@ __device__ __forceinline__ void warp_argmax(float& v, int& i) {
   }
 }
 
-template <int PPT, bool kSmem>
+// kSeeded: d0 (B, N) and seeds (B, k0) are given and valid is NULL.
+template <int PPT, bool kSmem, bool kSeeded>
 __global__ void __launch_bounds__(kThreads)
     fps_kernel(const float* __restrict__ xyz, const uint8_t* __restrict__ valid,
-               int64_t* __restrict__ out, int N, int npoint) {
+               const float* __restrict__ d0, const int64_t* __restrict__ seeds,
+               int64_t* __restrict__ out, int N, int npoint, int k0) {
   extern __shared__ float planes[];  // x | y | z, N floats each (kSmem only)
   __shared__ float s_val[2][kWarps];
   __shared__ int s_idx[2][kWarps];
@@ -85,6 +93,10 @@ __global__ void __launch_bounds__(kThreads)
   const uint8_t* vm =
       valid ? valid + static_cast<size_t>(blockIdx.x) * N : nullptr;
   int64_t* o = out + static_cast<size_t>(blockIdx.x) * npoint;
+  const float* dz0 = kSeeded ? d0 + static_cast<size_t>(blockIdx.x) * N
+                             : nullptr;
+  const int64_t* sd =
+      kSeeded ? seeds + static_cast<size_t>(blockIdx.x) * k0 : nullptr;
 
   if (kSmem) {
     for (int i = tid; i < N; i += kThreads) {
@@ -107,19 +119,33 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int k = 0; k < PPT; ++k) {
     const int i = tid + k * kThreads;
-    const bool ok = i < N && (vm == nullptr || vm[i] != 0);
-    dist[k] = ok ? 1e10f : -1.0f;
-    if (ok && my_first == INT_MAX) my_first = i;
+    if (kSeeded) {
+      dist[k] = i < N ? dz0[i] : -1.0f;
+    } else {
+      const bool ok = i < N && (vm == nullptr || vm[i] != 0);
+      dist[k] = ok ? 1e10f : -1.0f;
+      if (ok && my_first == INT_MAX) my_first = i;
+    }
   }
   if (vm != nullptr && my_first != INT_MAX) atomicMin(&s_first, my_first);
   __syncthreads();
 
-  // seed: index 0, or the first valid point (0 when none is valid)
-  int last = (vm != nullptr && s_first < N) ? s_first : 0;
-  if (tid == 0) o[0] = last;
+  int last, j0;
+  if (kSeeded) {
+    // the seeds verbatim, then the chain from the last seed (its distances
+    // are already in d0; the first step recomputes them, min is idempotent)
+    for (int s = tid; s < k0; s += kThreads) o[s] = sd[s];
+    last = static_cast<int>(sd[k0 - 1]);
+    j0 = k0;
+  } else {
+    // index 0, or the first valid point (0 when none is valid)
+    last = (vm != nullptr && s_first < N) ? s_first : 0;
+    if (tid == 0) o[0] = last;
+    j0 = 1;
+  }
   float lx = xs[last * st], ly = ys[last * st], lz = zs[last * st];
 
-  for (int j = 1; j < npoint; ++j) {
+  for (int j = j0; j < npoint; ++j) {
     float bv = -FLT_MAX;
     int bi = INT_MAX;
 #pragma unroll
@@ -153,9 +179,10 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int PPT>
-cudaError_t launch(const float* xyz, const uint8_t* valid, int64_t* out,
-                   int B, int N, int npoint, cudaStream_t stream) {
+template <int PPT, bool kSeeded>
+cudaError_t launch(const float* xyz, const uint8_t* valid, const float* d0,
+                   const int64_t* seeds, int64_t* out, int B, int N,
+                   int npoint, int k0, cudaStream_t stream) {
   int dev = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -165,17 +192,32 @@ cudaError_t launch(const float* xyz, const uint8_t* valid, int64_t* out,
   const size_t smem = static_cast<size_t>(N) * 3 * sizeof(float);
   // keep 1 KB for the kernel's static shared arrays
   if (smem + 1024 <= static_cast<size_t>(optin)) {
-    err = cudaFuncSetAttribute(fps_kernel<PPT, true>,
+    err = cudaFuncSetAttribute(fps_kernel<PPT, true, kSeeded>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return err;
-    fps_kernel<PPT, true><<<B, kThreads, smem, stream>>>(xyz, valid, out, N,
-                                                         npoint);
+    fps_kernel<PPT, true, kSeeded><<<B, kThreads, smem, stream>>>(
+        xyz, valid, d0, seeds, out, N, npoint, k0);
   } else {
-    fps_kernel<PPT, false><<<B, kThreads, 0, stream>>>(xyz, valid, out, N,
-                                                       npoint);
+    fps_kernel<PPT, false, kSeeded><<<B, kThreads, 0, stream>>>(
+        xyz, valid, d0, seeds, out, N, npoint, k0);
   }
   return cudaGetLastError();
+}
+
+// one instantiation per power-of-two share of points per thread
+template <bool kSeeded>
+cudaError_t dispatch(const float* xyz, const uint8_t* valid, const float* d0,
+                     const int64_t* seeds, int64_t* out, int B, int N,
+                     int npoint, int k0, cudaStream_t s) {
+  const int ppt = (N + kThreads - 1) / kThreads;
+  if (ppt <= 1) return launch<1, kSeeded>(xyz, valid, d0, seeds, out, B, N, npoint, k0, s);
+  if (ppt <= 2) return launch<2, kSeeded>(xyz, valid, d0, seeds, out, B, N, npoint, k0, s);
+  if (ppt <= 4) return launch<4, kSeeded>(xyz, valid, d0, seeds, out, B, N, npoint, k0, s);
+  if (ppt <= 8) return launch<8, kSeeded>(xyz, valid, d0, seeds, out, B, N, npoint, k0, s);
+  if (ppt <= 16) return launch<16, kSeeded>(xyz, valid, d0, seeds, out, B, N, npoint, k0, s);
+  if (ppt <= 32) return launch<32, kSeeded>(xyz, valid, d0, seeds, out, B, N, npoint, k0, s);
+  return launch<64, kSeeded>(xyz, valid, d0, seeds, out, B, N, npoint, k0, s);
 }
 
 }  // namespace
@@ -191,20 +233,24 @@ int spsnet_fps(const void* xyz, const void* valid, void* out, int B, int N,
   if (B < 1 || N < 1 || N > kMaxN || npoint < 1 || npoint > N) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const auto* x = static_cast<const float*>(xyz);
-  const auto* v = static_cast<const uint8_t*>(valid);
-  auto* o = static_cast<int64_t*>(out);
-  auto s = static_cast<cudaStream_t>(stream);
-  const int ppt = (N + kThreads - 1) / kThreads;
-  cudaError_t err;
-  if (ppt <= 1) err = launch<1>(x, v, o, B, N, npoint, s);
-  else if (ppt <= 2) err = launch<2>(x, v, o, B, N, npoint, s);
-  else if (ppt <= 4) err = launch<4>(x, v, o, B, N, npoint, s);
-  else if (ppt <= 8) err = launch<8>(x, v, o, B, N, npoint, s);
-  else if (ppt <= 16) err = launch<16>(x, v, o, B, N, npoint, s);
-  else if (ppt <= 32) err = launch<32>(x, v, o, B, N, npoint, s);
-  else err = launch<64>(x, v, o, B, N, npoint, s);
-  return static_cast<int>(err);
+  return static_cast<int>(dispatch<false>(
+      static_cast<const float*>(xyz), static_cast<const uint8_t*>(valid),
+      nullptr, nullptr, static_cast<int64_t*>(out), B, N, npoint, 0,
+      static_cast<cudaStream_t>(stream)));
+}
+
+// xyz (B, N, 3) fp32; d0 (B, N) fp32; seeds (B, k0) int64 in [0, N);
+// out (B, npoint) int64, 1 <= k0 < npoint. Returns a cudaError_t code.
+int spsnet_fps_seeded(const void* xyz, const void* d0, const void* seeds,
+                      void* out, int B, int N, int npoint, int k0,
+                      void* stream) {
+  if (B < 1 || N < 1 || N > kMaxN || npoint > N || k0 < 1 || k0 >= npoint) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(dispatch<true>(
+      static_cast<const float*>(xyz), nullptr, static_cast<const float*>(d0),
+      static_cast<const int64_t*>(seeds), static_cast<int64_t*>(out), B, N,
+      npoint, k0, static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

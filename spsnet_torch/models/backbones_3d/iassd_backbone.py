@@ -6,20 +6,26 @@ Port of ``spsnet_tpu/models/backbones_3d/iassd_backbone.py``
 RADIUS_LIST, NSAMPLE_LIST, MLPS, LAYER_TYPE, DILATED_GROUP,
 AGGREGATION_MLPS, CONFIDENCE_MLPS, LAYER_INPUT, CTR_INDEX,
 MAX_TRANSLATE_RANGE. The layers live in ``SA_modules``, as in the reference
-state dict.
+state dict. ``fps_seeding`` (an ``ops.FpsSeeding`` or None) goes to every
+SA layer's D-FPS.
 """
 from __future__ import annotations
 
 from torch import nn
 
+from ... import ops
 from ..sa_module import SAModuleMSGWithSampling, VoteLayer
 
 
-def _layer_fps_ordered(sampled_here: bool, prev_ordered: bool) -> bool:
+def _layer_fps_ordered(sampled_here: bool, seeded: bool,
+                       prev_ordered: bool) -> bool:
     """Whether a pure single-D-FPS layer's output is a D-FPS chain in
-    selection order: yes when it ran (exact) FPS; a pass-through
-    (n <= npoint) keeps its input's order."""
-    return True if sampled_here else prev_ordered
+    selection order: yes when it ran exact FPS; a seeded run puts its seeds
+    first, which is no FPS chain; a pass-through (n <= npoint) keeps its
+    input's order."""
+    if not sampled_here:
+        return prev_ordered
+    return not seeded
 
 
 def _input_index(layer_input):
@@ -28,8 +34,10 @@ def _input_index(layer_input):
 
 class IASSDBackbone(nn.Module):
 
-    def __init__(self, model_cfg, num_class: int, input_channels: int):
+    def __init__(self, model_cfg, num_class: int, input_channels: int,
+                 fps_seeding=None):
         super().__init__()
+        self.fps_seeding = fps_seeding
         sa_cfg = model_cfg.SA_CONFIG
         if sa_cfg.get('USE_SURFACE', False):
             raise NotImplementedError(
@@ -69,7 +77,8 @@ class IASSDBackbone(nn.Module):
                     num_class=num_class,
                     dilated_group=bool(sa_cfg.DILATED_GROUP[k]),
                     aggregation_mlp=list(agg) if agg else None,
-                    confidence_mlp=list(conf) if conf else None)
+                    confidence_mlp=list(conf) if conf else None,
+                    fps_seeding=fps_seeding)
             elif layer_type == 'Vote_Layer':
                 self.dfps_static.append(False)
                 self.npoint0.append(0)
@@ -108,6 +117,9 @@ class IASSDBackbone(nn.Module):
                 if self.dfps_static[i + 1] and ctr_xyz is None:
                     fps_ordered.append(_layer_fps_ordered(
                         xyz_input.shape[1] > self.npoint0[i],
+                        ops.fps_seeding_active(self.fps_seeding,
+                                               self.npoint0[i],
+                                               allow_seed=True),
                         fps_ordered[in_idx]))
                 else:
                     fps_ordered.append(False)

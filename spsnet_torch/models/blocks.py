@@ -13,20 +13,37 @@ import math
 from typing import Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
 class BatchNormLast(nn.BatchNorm1d):
     """BatchNorm over the last axis of a (..., C) tensor, statistics over all
     leading dims (``BatchNorm2d`` on (B, C, M, S)). eps 1e-5 and momentum
-    0.1 match flax's momentum 0.9 (``spsnet_tpu/models/blocks.py:52-54``)."""
+    0.1 match flax's momentum 0.9 (``spsnet_tpu/models/blocks.py:52-54``).
+
+    In training the batch is normalised with its biased variance, as in
+    both frameworks, and the running variance moves toward the biased
+    variance too, as flax's does (torch's own update takes the unbiased
+    one, n/(n-1) larger)."""
 
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
 
     def forward(self, x):
         shape = x.shape
-        return super().forward(x.reshape(-1, shape[-1])).reshape(shape)
+        x = x.reshape(-1, shape[-1])
+        if not self.training:
+            return super().forward(x).reshape(shape)
+        y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                         self.eps)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=0, unbiased=False)
+            m = self.momentum
+            self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
+            self.running_var.copy_((1 - m) * self.running_var + m * var)
+            self.num_batches_tracked += 1
+        return y.reshape(shape)
 
 
 class SharedMLP(nn.Sequential):

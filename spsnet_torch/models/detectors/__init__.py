@@ -1,5 +1,5 @@
 """Detector registry (``pcdet/models/detectors/__init__.py``) and the
-port's inference entry point."""
+port's entry point."""
 from __future__ import annotations
 
 import torch
@@ -28,17 +28,21 @@ def resolve_device(device) -> torch.device:
 
 def build_detector(model_cfg, num_class: int, device='cuda',
                    generator: torch.Generator | None = None,
-                   input_channels: int = 4):
+                   input_channels: int = 4, fps_seeding=None):
     """Build the detector named by ``model_cfg.NAME`` on ``device`` in eval
     mode, with seeded random weights drawn from ``generator`` (a CPU
     ``torch.Generator``; seed 0 when None). Load trained weights with
-    ``load_state_dict`` or ``utils.weights.load_flax``."""
+    ``load_state_dict`` or ``utils.weights.load_flax``; call ``.train()``
+    for the train step (``runtime.trainer``). ``fps_seeding``
+    (``ops.FpsSeeding``) turns on seeded D-FPS in the SA layers; None, the
+    default, keeps exact FPS."""
     device = resolve_device(device)
     name = model_cfg.NAME
     if name not in _DETECTORS:
         raise NotImplementedError(
             f'detector {name}: only IASSD is ported (ROADMAP Queue 1)')
-    model = _DETECTORS[name](model_cfg, num_class, input_channels)
+    model = _DETECTORS[name](model_cfg, num_class, input_channels,
+                             fps_seeding)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     init_weights(model, generator)

@@ -1,17 +1,19 @@
 """IA-SSD detector (``detectors/IASSD.py``, as in
-``spsnet_tpu/models/detectors/iassd.py``): backbone + point head. The
-caller runs the post-processing NMS (``detector3d.class_agnostic_nms_batch``)."""
+``spsnet_tpu/models/detectors/iassd.py``): backbone + point head; in
+training, ``loss`` gives the head loss. The caller runs the
+post-processing NMS (``detector3d.class_agnostic_nms_batch``)."""
 from __future__ import annotations
 
 from torch import nn
 
 from ..backbones_3d.iassd_backbone import IASSDBackbone
-from ..dense_heads.iassd_head import IASSDHead
+from ..dense_heads.iassd_head import IASSDHead, iassd_head_loss
 
 
 class IASSD(nn.Module):
 
-    def __init__(self, model_cfg, num_class: int, input_channels: int = 4):
+    def __init__(self, model_cfg, num_class: int, input_channels: int = 4,
+                 fps_seeding=None):
         super().__init__()
         for key, name, want in (('BACKBONE_3D', model_cfg.BACKBONE_3D.NAME,
                                  'IASSD_Backbone'),
@@ -20,17 +22,26 @@ class IASSD(nn.Module):
             if name != want:
                 raise NotImplementedError(
                     f'{key} {name}: only {want} is ported to IASSD')
+        self.model_cfg = model_cfg
+        self.num_class = num_class
         self.backbone_3d = IASSDBackbone(model_cfg.BACKBONE_3D, num_class,
-                                         input_channels)
+                                         input_channels, fps_seeding)
         self.point_head = IASSDHead(model_cfg.POINT_HEAD, num_class,
                                     self.backbone_3d.num_point_features)
 
     def forward(self, batch):
-        """batch: dict with 'points' (B, N, 3 + C). Returns the batch with
-        the backbone outputs, 'batch_cls_preds' (B, M, num_class) logits and
-        'batch_box_preds' (B, M, 7)."""
-        if self.training:
-            raise NotImplementedError(
-                'the IA-SSD train step is ROADMAP Queue 1 item 5; call '
-                '.eval() for inference')
+        """batch: dict with 'points' (B, N, 3 + C), and in training
+        'gt_boxes' (B, T, 8). Returns the batch with the backbone outputs,
+        'batch_cls_preds' (B, M, num_class) logits, 'batch_box_preds'
+        (B, M, 7) and the head's 'head_ret' (with targets in training)."""
         return self.point_head(self.backbone_3d(batch))
+
+    def loss(self, batch):
+        """(loss, tb dict) of a forward's output in training mode."""
+        head_cfg = self.model_cfg.POINT_HEAD
+        sa_list = head_cfg.LOSS_CONFIG.get(
+            'SAMPLE_METHOD_LIST',
+            self.model_cfg.BACKBONE_3D.SA_CONFIG.SAMPLE_METHOD_LIST)
+        return iassd_head_loss(batch['head_ret'], head_cfg.LOSS_CONFIG,
+                               self.num_class, self.point_head.box_coder,
+                               sample_method_list=sa_list)

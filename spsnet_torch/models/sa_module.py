@@ -45,7 +45,8 @@ class SAModuleMSGWithSampling(nn.Module):
                  num_class: int, dilated_group: bool = False,
                  pool_method: str = 'max_pool',
                  aggregation_mlp: Optional[Sequence[int]] = None,
-                 confidence_mlp: Optional[Sequence[int]] = None):
+                 confidence_mlp: Optional[Sequence[int]] = None,
+                 fps_seeding: Optional[ops.FpsSeeding] = None):
         super().__init__()
         if dilated_group:
             raise NotImplementedError(
@@ -58,6 +59,7 @@ class SAModuleMSGWithSampling(nn.Module):
         self.radii = list(radii)
         self.nsamples = list(nsamples)
         self.pool_method = pool_method
+        self.fps_seeding = fps_seeding
 
         self.out_channels = in_channels
         self.mlps = nn.ModuleList(SharedMLP(in_channels + 3, m) for m in mlps)
@@ -93,15 +95,17 @@ class SAModuleMSGWithSampling(nn.Module):
                 idx = torch.arange(n_t, device=xyz.device).expand(B, n_t)
             elif kind == 'ctr':
                 idx = samplers.sample_ctr_aware(cls_t, npoint)
-            elif input_fps_ordered and at_head:
+            elif input_fps_ordered and at_head and not ops.fps_seeding_active(
+                    self.fps_seeding, npoint, allow_seed=True):
                 # prefix nesting: xyz_t is (a head slice of) an exact D-FPS
                 # chain in selection order, and FPS of a chain's head is
                 # that head (each pick of FPS(chain) is the global argmax
                 # over the original cloud, which is the next chain entry).
-                # Valid only because the FPS here is exact.
+                # Valid only because the FPS here is exact, not seeded.
                 idx = torch.arange(npoint, device=xyz.device).expand(B, npoint)
             else:
-                idx = samplers.sample_dfps(xyz_t, npoint)
+                idx = samplers.sample_dfps(xyz_t, npoint,
+                                           seeding=self.fps_seeding)
             sampled.append(idx)
         return torch.cat(sampled, dim=-1)
 

@@ -3,7 +3,7 @@
 One function per ``SAMPLE_METHOD_LIST`` entry ported so far
 (``pointnet2_modules.py:267-419``, as in ``spsnet_tpu/models/samplers.py``):
 
-- ``D-FPS``     — euclidean farthest point sampling;
+- ``D-FPS``     — euclidean farthest point sampling, exact or seeded;
 - ``ctr``/``cls`` — top-k of sigmoid(max class logit) (IA-SSD ctr_aware).
 """
 from __future__ import annotations
@@ -22,7 +22,9 @@ def sample_ctr_aware(cls_features, npoint: int):
     return topk_desc(scores, npoint)[1]
 
 
-def sample_dfps(xyz, npoint: int, valid_mask=None):
-    """Exact D-FPS, (B, N, 3) -> (B, npoint) int64."""
+def sample_dfps(xyz, npoint: int, valid_mask=None, seeding=None):
+    """D-FPS, (B, N, 3) -> (B, npoint) int64: the SA-module call site,
+    the one that opts into ``seeding`` (an ``ops.FpsSeeding`` or None for
+    exact FPS)."""
     return ops.farthest_point_sample(xyz.contiguous(), npoint,
-                                     valid_mask=valid_mask)
+                                     valid_mask=valid_mask, seeding=seeding)

@@ -8,7 +8,7 @@ hash covers the sources and the flags, so an edited source is rebuilt.
 
 Every kernel wrapper adds one to ``LAUNCHES[name]`` where it launches its
 kernel and nowhere else, so a run can show which kernels its path went
-through.
+through. ``fps.cu`` holds two kernels (``fps``, ``fps_seeded``).
 """
 from __future__ import annotations
 
@@ -31,15 +31,19 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# C signatures: every pointer and the stream as c_void_p
+# C signatures by library (one per source): every pointer and the stream
+# as c_void_p
 SIGNATURES = {
     'fps': {'spsnet_fps': [_P, _P, _P, _I, _I, _I, _P],
+            'spsnet_fps_seeded': [_P, _P, _P, _P, _I, _I, _I, _I, _P],
             'spsnet_fps_max_n': []},
     'ball_query': {'spsnet_ball_query': [_P, _P, _P, _P, _I, _I, _I, _F, _I,
                                          _F, _I, _P]},
+    'seed_min': {'spsnet_seed_min': [_P, _P, _P, _I, _I, _I, _P]},
 }
+KERNELS = ('fps', 'fps_seeded', 'ball_query', 'seed_min')
 
-LAUNCHES = {name: 0 for name in SIGNATURES}
+LAUNCHES = {name: 0 for name in KERNELS}
 _LIBS: dict = {}
 
 

@@ -1,14 +1,17 @@
-"""Rotated BEV IoU and greedy NMS, batched over frames.
+"""Rotated BEV IoU, greedy NMS and points in boxes, batched over frames.
 
-Port of ``spsnet_tpu/ops/boxes.py:30-41,107-165,248-310`` (the rebuild of
-``iou3d_nms_kernel.cu``'s ``nms_gpu``): exact rotated-rectangle overlap by
-Liang-Barsky clipping of each quad's edges against the other's half-planes,
-then the canonical greedy suppression over score-sorted boxes. Plain
-PyTorch on every device; every function takes leading batch dims.
+Port of ``spsnet_tpu/ops/boxes.py:30-41,107-165,227-310`` (the rebuild of
+``iou3d_nms_kernel.cu``'s ``nms_gpu`` and ``roiaware_pool3d_kernel.cu``'s
+``points_in_boxes``): exact rotated-rectangle overlap by Liang-Barsky
+clipping of each quad's edges against the other's half-planes, then the
+canonical greedy suppression over score-sorted boxes. Plain PyTorch on
+every device; every function takes leading batch dims.
 """
 from __future__ import annotations
 
 import torch
+
+from ..utils import box_utils
 
 _EPS = 1e-8
 
@@ -124,3 +127,15 @@ def nms_bev(boxes, scores, thresh: float, pre_maxsize: int = 4096,
     keep_idx.scatter_(1, slot, order)
     num = keep.sum(dim=1).clamp(max=post)
     return keep_idx[:, :post], num
+
+
+def points_in_boxes(points, boxes):
+    """(B, N, 3) points, (B, T, 7) zero-padded boxes -> (B, N) int64: the
+    first box containing each point, or -1 (``roiaware_pool3d_kernel.cu:
+    313-339``: ``|z| <= dz/2``, xy with a 1e-5 margin). Padding rows
+    (dx == 0) never contain a point, even one at the origin."""
+    local = box_utils.points_to_box_local(points, boxes[..., :7])
+    inside = box_utils.in_canonical_box(local, boxes[..., None, :, 3:6])
+    inside = inside & (boxes[..., None, :, 3] > 0)
+    first = inside.to(torch.uint8).argmax(dim=-1)  # first True
+    return torch.where(inside.any(dim=-1), first, -1)

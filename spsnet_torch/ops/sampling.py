@@ -1,4 +1,5 @@
-"""Farthest point sampling: a CUDA kernel and its plain PyTorch version.
+"""Farthest point sampling, exact and seeded: CUDA kernels and their plain
+PyTorch versions.
 
 Semantics (``pcdet/ops/pointnet2/pointnet2_batch/src/sampling_gpu.cu:93-209``,
 as in ``spsnet_tpu/ops/sampling.py``): the first pick is index 0, each step
@@ -7,14 +8,26 @@ picks the argmax, the lowest index winning ties. Under a ``valid_mask`` the
 first pick is the first valid point and invalid points hold distance -1, so
 they are never picked while a valid point remains.
 
-``farthest_point_sample`` runs the plain version for a CPU tensor and the
-kernel (``csrc/fps.cu``) for a CUDA tensor; there is no other path.
+Seeded FPS (``spsnet_tpu/ops/pallas/fps.py:387-606``) pre-selects ``k0``
+seeds, starts the running min from their min squared distance (``seed_min_d2``)
+and runs only ``npoint - k0`` exact steps from the last seed. It is an
+approximation of FPS and off unless a ``FpsSeeding`` is passed.
+
+Each op runs its plain version for a CPU tensor and its kernel for a CUDA
+tensor (``csrc/fps.cu``, ``csrc/seed_min.cu``); there is no other path.
 """
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import torch
 
 from . import _build
+
+# seeds per distance block of the plain seed_min_d2: (4, 16384, 256) fp32
+# planes are 64 MB each
+_SEED_CHUNK = 256
+SEED_GRID = (32, 32, 8)
 
 
 def calc_square_dist(a, b):
@@ -32,6 +45,56 @@ def sq_dist_to(xyz, pt):
     return d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2]
 
 
+@dataclass(frozen=True)
+class FpsSeeding:
+    """Seeded D-FPS at the call sites that opt in (the SA-module D-FPS).
+
+    ``mode``: ``head`` seeds with the first ``k0`` points (the cloud is
+    shuffled upstream, so a uniform subsample), ``grid`` with
+    ``grid_seed_indices`` (one point per occupied voxel first), and
+    ``grid_only`` takes all ``npoint`` picks from ``grid_seed_indices`` and
+    runs no FPS step (``fraction`` must then be 1.0). ``fraction`` in (0, 1)
+    sets ``k0`` (``seed_k0``).
+    """
+    fraction: float = 0.75
+    mode: str = 'grid'
+
+    def __post_init__(self):
+        if self.mode not in ('head', 'grid', 'grid_only'):
+            raise ValueError(f'FpsSeeding mode must be head, grid or '
+                             f'grid_only, got {self.mode!r}')
+        if self.mode == 'grid_only':
+            if self.fraction != 1.0:
+                raise ValueError('grid_only takes every pick from the grid: '
+                                 'fraction must be 1.0')
+        elif not 0.0 < self.fraction < 1.0:
+            raise ValueError(f'FpsSeeding fraction must be in (0, 1), got '
+                             f'{self.fraction}')
+
+
+def seed_k0(seeding: FpsSeeding | None, npoint: int) -> int:
+    """Seeds of a seeded FPS of ``npoint`` picks, 0 when seeding does not
+    engage (``spsnet_tpu/ops/sampling.py:69-88``): ``int(f * npoint)``
+    rounded down to a multiple of 128, engaged only when ``0 < k0 < npoint``
+    (npoint <= 170 disengages at f = 0.75); ``grid_only`` engages with
+    ``k0 = npoint`` when npoint is a multiple of 128."""
+    if seeding is None:
+        return 0
+    if seeding.mode == 'grid_only':
+        return npoint if npoint % 128 == 0 else 0
+    k0 = int(seeding.fraction * npoint) // 128 * 128
+    return k0 if 0 < k0 < npoint else 0
+
+
+def fps_seeding_active(seeding: FpsSeeding | None, npoint: int, *,
+                       allow_seed: bool) -> bool:
+    """Whether a D-FPS of ``npoint`` picks at a call site with opt-in
+    ``allow_seed`` runs seeded. The single source of the engagement rule for
+    the dispatch and for the prefix-nesting gates of the SA layer and the
+    backbone."""
+    return allow_seed and seed_k0(seeding, npoint) > 0
+
+
 def _check(xyz, npoint, valid_mask):
     if xyz.dim() != 3 or xyz.shape[-1] != 3 or xyz.dtype != torch.float32:
         raise ValueError(f'xyz must be (B, N, 3) float32, got '
@@ -43,6 +106,15 @@ def _check(xyz, npoint, valid_mask):
                                    or valid_mask.device != xyz.device):
         raise ValueError('valid_mask must be a (B, N) bool tensor on the '
                          'device of xyz')
+
+
+def _require_cuda(what, *tensors):
+    for t in tensors:
+        if t.device.type != 'cuda':
+            raise ValueError(f'the {what} kernel needs CUDA tensors, got '
+                             f'{t.device}')
+        if not t.is_contiguous():
+            raise ValueError(f'the {what} kernel needs contiguous inputs')
 
 
 def farthest_point_sample_plain(xyz, npoint: int, valid_mask=None):
@@ -73,11 +145,7 @@ def farthest_point_sample_kernel(xyz, npoint: int, valid_mask=None):
     """FPS through the CUDA kernel ``csrc/fps.cu``: (B, N, 3) -> (B, npoint)
     int64 on the device of ``xyz``."""
     _check(xyz, npoint, valid_mask)
-    if xyz.device.type != 'cuda':
-        raise ValueError(f'the FPS kernel needs a CUDA tensor, got {xyz.device}')
-    if not xyz.is_contiguous() or (valid_mask is not None
-                                   and not valid_mask.is_contiguous()):
-        raise ValueError('the FPS kernel needs contiguous inputs')
+    _require_cuda('FPS', xyz, *([] if valid_mask is None else [valid_mask]))
     lib = _build.library('fps')
     B, N, _ = xyz.shape
     max_n = lib.spsnet_fps_max_n()
@@ -94,9 +162,170 @@ def farthest_point_sample_kernel(xyz, npoint: int, valid_mask=None):
     return out
 
 
-def farthest_point_sample(xyz, npoint: int, valid_mask=None):
-    """Exact FPS, (B, N, 3) float32 -> (B, npoint) int64: the plain version
-    for a CPU tensor, the CUDA kernel for a CUDA tensor."""
+def _check_seeds(xyz, seeds):
+    if seeds.dim() != 3 or seeds.shape[0] != xyz.shape[0] or \
+            seeds.shape[-1] != 3 or seeds.dtype != torch.float32 or \
+            seeds.shape[1] < 1 or seeds.device != xyz.device:
+        raise ValueError(f'seeds must be (B, k0 >= 1, 3) float32 on the '
+                         f'device of xyz, got {tuple(seeds.shape)} '
+                         f'{seeds.dtype}')
+
+
+def seed_min_d2_plain(xyz, seeds):
+    """(B, N, 3) points, (B, k0, 3) seeds -> (B, N) min squared distance to
+    the seeds, each ``(dx*dx + dy*dy) + dz*dz`` with d = point - seed, in
+    blocks of seeds (never (B, N, k0) at once)."""
+    _check(xyz, 1, None)
+    _check_seeds(xyz, seeds)
+    out = None
+    for c0 in range(0, seeds.shape[1], _SEED_CHUNK):
+        s = seeds[:, c0:c0 + _SEED_CHUNK]
+        d = [xyz[..., i][:, :, None] - s[..., i][:, None, :] for i in range(3)]
+        m = (d[0] * d[0] + d[1] * d[1] + d[2] * d[2]).amin(dim=-1)
+        out = m if out is None else torch.minimum(out, m)
+    return out
+
+
+def seed_min_d2_kernel(xyz, seeds):
+    """``seed_min_d2`` through the CUDA kernel ``csrc/seed_min.cu``."""
+    _check(xyz, 1, None)
+    _check_seeds(xyz, seeds)
+    _require_cuda('seed_min', xyz, seeds)
+    lib = _build.library('seed_min')
+    B, N, _ = xyz.shape
+    out = torch.empty((B, N), dtype=torch.float32, device=xyz.device)
+    with torch.cuda.device(xyz.device):
+        err = lib.spsnet_seed_min(xyz.data_ptr(), seeds.data_ptr(),
+                                  out.data_ptr(), B, N, seeds.shape[1],
+                                  _build.stream_ptr(xyz.device))
+    _build.check(err, 'seed_min')
+    _build.LAUNCHES['seed_min'] += 1
+    return out
+
+
+def seed_min_d2(xyz, seeds):
+    """Min squared distance of each point to the seeds, (B, N) float32: the
+    plain version for a CPU tensor, the CUDA kernel for a CUDA tensor."""
     if xyz.device.type == 'cpu':
-        return farthest_point_sample_plain(xyz, npoint, valid_mask)
-    return farthest_point_sample_kernel(xyz, npoint, valid_mask)
+        return seed_min_d2_plain(xyz, seeds)
+    return seed_min_d2_kernel(xyz, seeds)
+
+
+def _check_seeded(xyz, npoint, d0, seed_idx):
+    _check(xyz, npoint, None)
+    B, N, _ = xyz.shape
+    if d0.shape != (B, N) or d0.dtype != torch.float32 or \
+            d0.device != xyz.device:
+        raise ValueError('d0 must be a (B, N) float32 tensor on the device '
+                         'of xyz')
+    if seed_idx.dim() != 2 or seed_idx.shape[0] != B or \
+            seed_idx.dtype != torch.int64 or seed_idx.device != xyz.device \
+            or not 1 <= seed_idx.shape[1] < npoint:
+        raise ValueError(f'seed_idx must be (B, k0) int64 on the device of '
+                         f'xyz with 1 <= k0 < npoint={npoint}, got '
+                         f'{tuple(seed_idx.shape)} {seed_idx.dtype}')
+
+
+def farthest_point_sample_seeded_plain(xyz, npoint: int, d0, seed_idx):
+    """Plain seeded FPS completion: the seeds verbatim, then ``npoint - k0``
+    exact FPS steps whose running min starts from ``d0`` and whose chain
+    starts from the last seed. -> (B, npoint) int64."""
+    _check_seeded(xyz, npoint, d0, seed_idx)
+    B, k0 = seed_idx.shape
+    out = torch.empty((B, npoint), dtype=torch.int64, device=xyz.device)
+    out[:, :k0] = seed_idx
+    rows = torch.arange(B, device=xyz.device)
+    dist, last = d0, seed_idx[:, -1]
+    for j in range(k0, npoint):
+        d2 = sq_dist_to(xyz, xyz[rows, last][:, None, :])
+        dist = torch.minimum(dist, d2)
+        last = dist.argmax(dim=1)  # first maximal index
+        out[:, j] = last
+    return out
+
+
+def farthest_point_sample_seeded_kernel(xyz, npoint: int, d0, seed_idx):
+    """Seeded FPS completion through the CUDA kernel in ``csrc/fps.cu``."""
+    _check_seeded(xyz, npoint, d0, seed_idx)
+    _require_cuda('seeded FPS', xyz, d0, seed_idx)
+    lib = _build.library('fps')
+    B, N, _ = xyz.shape
+    max_n = lib.spsnet_fps_max_n()
+    if N > max_n:
+        raise ValueError(f'the FPS kernel takes N <= {max_n}, got {N}')
+    out = torch.empty((B, npoint), dtype=torch.int64, device=xyz.device)
+    with torch.cuda.device(xyz.device):
+        err = lib.spsnet_fps_seeded(
+            xyz.data_ptr(), d0.data_ptr(), seed_idx.data_ptr(),
+            out.data_ptr(), B, N, npoint, seed_idx.shape[1],
+            _build.stream_ptr(xyz.device))
+    _build.check(err, 'fps_seeded')
+    _build.LAUNCHES['fps_seeded'] += 1
+    return out
+
+
+def farthest_point_sample_seeded(xyz, npoint: int, k0: int, seed_idx=None):
+    """Seeded FPS (``fps.py:514-572``): (B, N, 3) -> (B, npoint) int64, the
+    ``k0`` seeds first (``seed_idx``, or ``arange(k0)`` when None), then the
+    completion picks in selection order."""
+    _check(xyz, npoint, None)
+    B = xyz.shape[0]
+    if not 0 < k0 < npoint:
+        raise ValueError(f'need 0 < k0 < npoint, got k0={k0}, '
+                         f'npoint={npoint}')
+    if seed_idx is None:
+        seed_idx = torch.arange(k0, device=xyz.device).expand(B, k0)
+    if seed_idx.shape != (B, k0):
+        raise ValueError(f'seed_idx must be (B, k0) = ({B}, {k0}), got '
+                         f'{tuple(seed_idx.shape)}')
+    seed_idx = seed_idx.to(torch.int64).contiguous()
+    seeds = xyz.gather(1, seed_idx[..., None].expand(-1, -1, 3)).contiguous()
+    d0 = seed_min_d2(xyz, seeds)
+    if xyz.device.type == 'cpu':
+        return farthest_point_sample_seeded_plain(xyz, npoint, d0, seed_idx)
+    return farthest_point_sample_seeded_kernel(xyz, npoint, d0, seed_idx)
+
+
+def grid_seed_indices(xyz, k0: int, grid=SEED_GRID):
+    """(B, N, 3) -> (B, k0) int64 voxel-stratified seeds (``fps.py:576-606``):
+    quantise each scene onto ``grid`` cells of its bounding box, take one
+    point per occupied cell (the lowest index), in index order, then the
+    lowest-index other points. All indices are distinct: the sort key
+    ``cell * N + index`` has no ties."""
+    B, N, _ = xyz.shape
+    if not 1 <= k0 <= N:
+        raise ValueError(f'k0 must be in [1, N={N}], got {k0}')
+    gf = torch.tensor(grid, dtype=torch.float32, device=xyz.device)
+    gi = torch.tensor(grid, dtype=torch.int32, device=xyz.device)
+    mn = xyz.amin(dim=1, keepdim=True)
+    mx = xyz.amax(dim=1, keepdim=True)
+    cell = torch.clamp((mx - mn) / gf, min=1e-6)
+    q = torch.minimum(torch.clamp(((xyz - mn) / cell).to(torch.int32), min=0),
+                      gi - 1).to(torch.int64)
+    vid = (q[..., 2] * grid[1] + q[..., 1]) * grid[0] + q[..., 0]
+    comp = torch.sort(vid * N + torch.arange(N, device=xyz.device)).values
+    svid, sidx = comp // N, comp % N
+    first = torch.ones_like(svid, dtype=torch.bool)
+    first[:, 1:] = svid[:, 1:] != svid[:, :-1]
+    key = torch.where(first, sidx, sidx + N)  # cell representatives first
+    return torch.topk(key, k0, dim=1, largest=False, sorted=True).values % N
+
+
+def farthest_point_sample(xyz, npoint: int, valid_mask=None,
+                          seeding: FpsSeeding | None = None):
+    """D-FPS, (B, N, 3) float32 -> (B, npoint) int64: exact unless
+    ``seeding`` engages for this ``npoint`` (``seed_k0``); then grid or head
+    seeds, their min distances (``seed_min_d2``) and the seeded completion.
+    Plain versions for a CPU tensor, CUDA kernels for a CUDA tensor."""
+    k0 = seed_k0(seeding, npoint)
+    if k0 == 0:
+        if xyz.device.type == 'cpu':
+            return farthest_point_sample_plain(xyz, npoint, valid_mask)
+        return farthest_point_sample_kernel(xyz, npoint, valid_mask)
+    if valid_mask is not None:
+        raise ValueError('seeded FPS takes no valid_mask')
+    _check(xyz, npoint, None)
+    if k0 == npoint:  # grid_only
+        return grid_seed_indices(xyz, npoint)
+    seed_idx = grid_seed_indices(xyz, k0) if seeding.mode == 'grid' else None
+    return farthest_point_sample_seeded(xyz, npoint, k0, seed_idx)

@@ -1,0 +1,127 @@
+"""The train step and the epoch loop (``spsnet_tpu/runtime/trainer.py:77-122,
+176-307``; reference ``tools/train_utils/train_utils.py``): forward in train
+mode, the detector's loss, backward, global-norm clip and the scheduled
+optimizer step; epoch-end checkpoints, auto-resume and a graceful stop on
+SIGTERM/SIGUSR1. One process on one device; data parallel is a later
+slice.
+"""
+from __future__ import annotations
+
+import signal
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from .checkpoint import CheckpointManager
+from .optimization import build_optimizer
+
+
+def make_train_step(model, optimizer):
+    """``step(batch) -> (loss, tb)``: one update of ``model`` from a batch
+    dict ('points' (B, N, 3 + C), 'gt_boxes' (B, T, 8)) on its device. The
+    loss and the tb terms come back as detached tensors on the device, so a
+    step waits for nothing."""
+    def train_step(batch):
+        model.train()
+        out = model(batch)
+        loss, tb = model.loss(out)
+        optimizer.zero_grad()
+        loss.backward()
+        optimizer.step()
+        return loss.detach(), {k: v.detach() if torch.is_tensor(v) else v
+                               for k, v in tb.items()}
+    return train_step
+
+
+def device_batch(batch, device):
+    """The numeric arrays of ``batch`` as tensors on ``device``; other
+    entries (frame ids, metadata) stay on the host and are dropped."""
+    out = {}
+    for k, v in batch.items():
+        if isinstance(v, np.ndarray) and (np.issubdtype(v.dtype, np.number)
+                                          or v.dtype == np.bool_):
+            v = torch.from_numpy(v)
+        if torch.is_tensor(v):
+            out[k] = v.to(device, non_blocking=True)
+    return out
+
+
+class Trainer:
+    """Trains ``model`` (on its device) with ``cfg.OPTIMIZATION``; saves a
+    checkpoint of the model, the optimizer and the step count at the end of
+    each epoch into ``output_dir/ckpt``."""
+
+    def __init__(self, cfg, model, output_dir, total_iters_each_epoch: int,
+                 logger=None):
+        self.cfg = cfg
+        self.model = model
+        self.logger = logger
+        self.device = next(model.parameters()).device
+        self.total_epochs = int(cfg.OPTIMIZATION.NUM_EPOCHS)
+        self.total_iters_each_epoch = total_iters_each_epoch
+        self.ckpt = CheckpointManager(
+            Path(output_dir) / 'ckpt',
+            max_to_keep=int(cfg.OPTIMIZATION.get('MAX_CKPT_SAVE_NUM', 20)))
+        self.optimizer = build_optimizer(cfg.OPTIMIZATION, model.parameters(),
+                                         total_iters_each_epoch,
+                                         self.total_epochs)
+        self.train_step = make_train_step(model, self.optimizer)
+
+    def state_dict(self):
+        return {'model': self.model.state_dict(),
+                'optimizer': self.optimizer.state_dict()}
+
+    def maybe_resume(self) -> int:
+        """Restore the latest checkpoint, if any: model, optimizer state and
+        step count. Returns the epochs it completed (0 without one)."""
+        state, step = self.ckpt.restore(map_location=self.device)
+        if state is None:
+            return 0
+        self.model.load_state_dict(state['model'])
+        self.optimizer.load_state_dict(state['optimizer'])
+        if self.logger:
+            self.logger.info('auto-resumed from epoch %d', step)
+        return step
+
+    def train(self, train_loader, start_epoch: int = 0, log_every: int = 50):
+        """Epochs ``start_epoch`` .. NUM_EPOCHS - 1 over ``train_loader`` (an
+        iterable of batch dicts). SIGTERM or SIGUSR1 stops the loop at the
+        next step boundary without a checkpoint: checkpoint k means k epochs
+        completed, so resume redoes the interrupted epoch. Returns the
+        epochs completed."""
+        stop = {'hit': False}
+
+        def on_signal(signum, frame):
+            stop['hit'] = True
+
+        saved = []
+        for sig in (signal.SIGTERM, signal.SIGUSR1):
+            try:
+                saved.append((sig, signal.signal(sig, on_signal)))
+            except ValueError:  # not the main thread
+                pass
+        try:
+            for epoch in range(start_epoch, self.total_epochs):
+                t0 = time.perf_counter()
+                for n_iter, batch in enumerate(train_loader, 1):
+                    loss, _ = self.train_step(device_batch(batch,
+                                                           self.device))
+                    if stop['hit']:
+                        if self.logger:
+                            self.logger.info(
+                                'stop signal in epoch %d: exiting without '
+                                'a checkpoint', epoch)
+                        return epoch
+                    if self.logger and n_iter % log_every == 0:
+                        self.logger.info('epoch %d iter %d loss %.4f', epoch,
+                                         n_iter, float(loss))
+                self.ckpt.save(epoch + 1, self.state_dict())
+                if self.logger:
+                    self.logger.info('epoch %d done in %.1fs', epoch,
+                                     time.perf_counter() - t0)
+        finally:
+            for sig, handler in saved:
+                signal.signal(sig, handler)
+        return self.total_epochs

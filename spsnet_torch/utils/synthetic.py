@@ -1,9 +1,10 @@
-"""Structured synthetic LiDAR scans for tests and the chip smoke run.
+"""Structured synthetic LiDAR scenes for tests and the chip smoke run.
 
 A KITTI-like scan inside the standard crop range: a ground plane with
-range-attenuated density, object-sized clusters and sparse walls, made
-deterministically from a seed with numpy alone. The same seed gives the same
-scan as the JAX package's generator, so both packages see one input.
+range-attenuated density, object-sized clusters and sparse walls, plus the
+gt boxes of the clusters, made deterministically from a seed with numpy
+alone. The same seed gives the same scene as the JAX package's generator
+(``spsnet_tpu/utils/synthetic.py``), so both packages see one input.
 """
 from __future__ import annotations
 
@@ -12,9 +13,11 @@ import numpy as np
 KITTI_RANGE = (0.0, -40.0, -3.0, 70.4, 40.0, 1.0)
 
 
-def synthetic_scan(rng, n_points=16384, pc_range=KITTI_RANGE,
-                   ground_frac=0.62, cluster_frac=0.30, n_clusters=24):
-    """(n_points, 4) float32 scan ``[x, y, z, intensity]``."""
+def synthetic_scene(rng, n_points=16384, pc_range=KITTI_RANGE,
+                    ground_frac=0.62, cluster_frac=0.30, n_clusters=24):
+    """(n_points, 4) float32 scan ``[x, y, z, intensity]`` and the
+    (n_clusters, 8) gt boxes ``[x, y, z, dx, dy, dz, heading=0, cls=1]`` of
+    its clusters, each about 2 sigma of the cluster's scatter."""
     x0, y0, z0, x1, y1, z1 = pc_range
     n_ground = int(n_points * ground_frac)
     n_cluster = int(n_points * cluster_frac)
@@ -58,7 +61,22 @@ def synthetic_scan(rng, n_points=16384, pc_range=KITTI_RANGE,
     np.clip(xyz[:, 2], z0, z1 - 1e-3, out=xyz[:, 2])
     rng.shuffle(xyz)
     intensity = rng.uniform(0, 1, (n_points, 1)).astype(np.float32)
-    return np.concatenate([xyz, intensity], axis=1)
+    points = np.concatenate([xyz, intensity], axis=1)
+
+    gt = np.zeros((n_clusters, 8), dtype=np.float32)
+    gt[:, 0] = cx
+    gt[:, 1] = cy
+    gt[:, 2] = -1.65 + sizes[:, 2] / 2
+    gt[:, 3:6] = sizes
+    gt[:, 7] = 1.0
+    return points, gt
+
+
+def synthetic_scan(rng, n_points=16384, pc_range=KITTI_RANGE,
+                   ground_frac=0.62, cluster_frac=0.30, n_clusters=24):
+    """(n_points, 4) float32 scan of ``synthetic_scene``."""
+    return synthetic_scene(rng, n_points, pc_range, ground_frac,
+                           cluster_frac, n_clusters)[0]
 
 
 def synthetic_scan_batch(seed, batch_size, n_points=16384,
@@ -67,3 +85,14 @@ def synthetic_scan_batch(seed, batch_size, n_points=16384,
     rng = np.random.default_rng(seed)
     return np.stack([synthetic_scan(rng, n_points, pc_range)
                      for _ in range(batch_size)])
+
+
+def synthetic_scene_batch(seed, batch_size, n_points=16384,
+                          pc_range=KITTI_RANGE, n_clusters=24):
+    """(batch_size, n_points, 4) float32 scans and (batch_size, n_clusters,
+    8) float32 gt boxes from one seed."""
+    rng = np.random.default_rng(seed)
+    pts, boxes = zip(*[synthetic_scene(rng, n_points, pc_range,
+                                       n_clusters=n_clusters)
+                       for _ in range(batch_size)])
+    return np.stack(pts), np.stack(boxes)

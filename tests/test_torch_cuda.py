@@ -1,9 +1,11 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
-Edge cases that the main path's shapes do not reach: N and M off the
+Edge cases that the main paths' shapes do not reach: N and M off the
 kernels' tiles, balls that are empty or hit exactly on the radius, more
 than 32 slots, one or three radii, masks with too few valid points, the
-shared-memory and register limits of the FPS kernel. Indices must be equal.
+shared-memory and register limits of the FPS kernels, one seed or more
+seeds than a shared-memory tile, seeds in any order. Indices must be equal,
+and the min distances to the seeds bit for bit.
 
 These tests need a CUDA card and skip without one. On the H100:
 
@@ -19,7 +21,9 @@ import torch
 from spsnet_torch.ops import _build
 from spsnet_torch.ops.grouping import (ball_query_multi_kernel,
                                        ball_query_multi_plain)
-from spsnet_torch.ops.sampling import (farthest_point_sample_kernel,
+from spsnet_torch.ops import sampling
+from spsnet_torch.ops.sampling import (FpsSeeding,
+                                       farthest_point_sample_kernel,
                                        farthest_point_sample_plain)
 
 pytestmark = pytest.mark.cuda
@@ -110,3 +114,75 @@ def test_fps_counts_one_launch_per_call(cuda):
     farthest_point_sample_kernel(xyz, 10)
     farthest_point_sample_plain(xyz, 10)
     assert _build.LAUNCHES['fps'] - before == 1
+
+
+@pytest.mark.parametrize('B,N,k0', [
+    (1, 1, 1),          # one point, one seed
+    (3, 257, 5),        # one block and one point past it
+    (2, 3000, 1025),    # one seed past a shared-memory tile
+    (1, 70000, 64),     # many blocks along N
+])
+def test_seed_min_kernel_matches_plain_bit_for_bit(cuda, B, N, k0):
+    xyz = _cloud(N + k0, B, N).to(cuda)
+    seeds = _cloud(k0, B, k0).to(cuda)
+    got = sampling.seed_min_d2_kernel(xyz, seeds)
+    torch.cuda.synchronize()
+    assert torch.equal(got, sampling.seed_min_d2_plain(xyz, seeds))
+
+
+@pytest.mark.parametrize('B,N,npoint,k0,order', [
+    (1, 2, 2, 1, 'head'),         # one step
+    (2, 1000, 1000, 999, 'random'),  # npoint == N, one step left
+    (3, 1025, 300, 128, 'random'),   # one past a multiple of 1024
+    (1, 19000, 256, 128, 'grid'),    # above the shared-memory planes
+    (1, 65536, 200, 100, 'grid'),    # the largest N
+])
+def test_seeded_fps_kernel_matches_plain(cuda, B, N, npoint, k0, order):
+    xyz = _cloud(N + 1, B, N).to(cuda)
+    if order == 'head':
+        idx = torch.arange(k0, device=cuda).expand(B, k0).contiguous()
+    elif order == 'random':
+        rng = np.random.default_rng(N)
+        idx = torch.from_numpy(np.stack([rng.permutation(N)[:k0]
+                                         for _ in range(B)])).to(cuda)
+    else:
+        idx = sampling.grid_seed_indices(xyz, k0)
+    seeds = xyz.gather(1, idx[..., None].expand(-1, -1, 3)).contiguous()
+    d0 = sampling.seed_min_d2_kernel(xyz, seeds)
+    got = sampling.farthest_point_sample_seeded_kernel(xyz, npoint, d0, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(got, sampling.farthest_point_sample_seeded_plain(
+        xyz, npoint, d0, idx))
+    assert torch.equal(got[:, :k0], idx)
+
+
+def test_seeded_fps_kernel_rejects_what_it_cannot_take(cuda):
+    xyz = _cloud(0, 1, 500).to(cuda)
+    d0 = torch.zeros(1, 500, device=cuda)
+    idx = torch.arange(10, device=cuda)[None]
+    with pytest.raises(ValueError, match='k0 < npoint'):
+        sampling.farthest_point_sample_seeded_kernel(xyz, 10, d0, idx)
+    with pytest.raises(ValueError, match='N <='):
+        big = torch.zeros(1, 65537, 3, device=cuda)
+        sampling.farthest_point_sample_seeded_kernel(
+            big, 20, torch.zeros(1, 65537, device=cuda), idx)
+    with pytest.raises(ValueError, match='valid_mask'):
+        sampling.farthest_point_sample(
+            xyz, 256, torch.ones(1, 500, dtype=torch.bool, device=cuda),
+            seeding=FpsSeeding(0.75, 'grid'))
+
+
+def test_seeded_dispatch_counts_one_launch_of_each(cuda):
+    """A seeded D-FPS launches K3 and K4 once each and no exact FPS; the
+    same call without seeding launches the exact kernel."""
+    xyz = _cloud(2, 2, 5000).to(cuda)
+    _build.reset_launches()
+    got = sampling.farthest_point_sample(xyz, 1024,
+                                         seeding=FpsSeeding(0.75, 'grid'))
+    assert {k: _build.LAUNCHES[k] for k in ('seed_min', 'fps_seeded',
+                                            'fps')} == \
+        {'seed_min': 1, 'fps_seeded': 1, 'fps': 0}
+    assert torch.equal(got.cpu(), sampling.farthest_point_sample(
+        xyz.cpu(), 1024, seeding=FpsSeeding(0.75, 'grid')))
+    sampling.farthest_point_sample(xyz, 1024)
+    assert _build.LAUNCHES['fps'] == 1

@@ -23,7 +23,9 @@ from spsnet_torch import zoo
 from spsnet_torch.models import build_detector
 from spsnet_torch.ops import _build
 from spsnet_torch.ops.grouping import ball_query_multi_kernel
-from spsnet_torch.ops.sampling import farthest_point_sample_kernel
+from spsnet_torch.ops.sampling import (farthest_point_sample_kernel,
+                                       farthest_point_sample_seeded_kernel,
+                                       seed_min_d2_kernel)
 from spsnet_torch.utils.synthetic import synthetic_scan_batch
 from spsnet_torch.utils.weights import flax_to_torch, load_flax
 
@@ -61,21 +63,38 @@ subprocess.Popen = NoProcess
 import torch
 import spsnet_torch
 from spsnet_torch.models import build_detector
-from spsnet_torch.ops import _build
-from spsnet_torch.utils.synthetic import synthetic_scan_batch
+from spsnet_torch.config import EDict
+from spsnet_torch.ops import FpsSeeding, _build
+from spsnet_torch.runtime.optimization import build_optimizer
+from spsnet_torch.runtime.trainer import device_batch, make_train_step
+from spsnet_torch.utils.synthetic import (synthetic_scan_batch,
+                                          synthetic_scene_batch)
 from spsnet_torch.zoo import tiny_iassd_cfg
 model = build_detector(tiny_iassd_cfg(), 3, device='cpu')
 with torch.no_grad():
     out = model({'points': torch.from_numpy(synthetic_scan_batch(0, 1, 256))})
+cfg = tiny_iassd_cfg()
+cfg.BACKBONE_3D.SA_CONFIG.NPOINT_LIST[0] = [256]   # seeded: k0 = 128
+trained = build_detector(cfg, 3, device='cpu',
+                         fps_seeding=FpsSeeding(0.75, 'grid')).train()
+opt = build_optimizer(EDict({
+    'OPTIMIZER': 'adam_onecycle', 'LR': 0.01, 'WEIGHT_DECAY': 0.01,
+    'MOMS': [0.95, 0.85], 'PCT_START': 0.4, 'DIV_FACTOR': 10}),
+    trained.parameters(), 10, 1)
+pts, gt = synthetic_scene_batch(0, 1, 512)
+loss, _ = make_train_step(trained, opt)(
+    device_batch({'points': pts, 'gt_boxes': gt}, 'cpu'))
 print(json.dumps({
     'jax_modules': sorted(m for m in sys.modules
-                          if m.split('.')[0] in ('jax', 'flax', 'spsnet_tpu')),
+                          if m.split('.')[0] in ('jax', 'flax', 'optax',
+                                                 'orbax', 'spsnet_tpu')),
     'processes': len(started), 'libraries': len(_build._LIBS),
-    'boxes': list(out['batch_box_preds'].shape)}))
+    'boxes': list(out['batch_box_preds'].shape),
+    'finite_loss': bool(torch.isfinite(loss))}))
 '''
 
 
-def test_import_and_cpu_forward_load_no_jax_and_build_nothing():
+def test_import_cpu_forward_and_train_step_load_no_jax_and_build_nothing():
     env = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}
     env['PYTHONPATH'] = str(ROOT)
     res = subprocess.run([sys.executable, '-c', _CHILD], cwd=ROOT, env=env,
@@ -83,7 +102,7 @@ def test_import_and_cpu_forward_load_no_jax_and_build_nothing():
     assert res.returncode == 0, res.stderr
     got = json.loads(res.stdout.strip().splitlines()[-1])
     assert got == {'jax_modules': [], 'processes': 0, 'libraries': 0,
-                   'boxes': [1, 16, 7]}
+                   'boxes': [1, 16, 7], 'finite_loss': True}
 
 
 def test_default_device_raises_without_cuda(monkeypatch):
@@ -99,6 +118,11 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         farthest_point_sample_kernel(xyz, 4)
     with pytest.raises(ValueError, match='CUDA'):
         ball_query_multi_kernel((0.5,), (4,), xyz, xyz[:, :2])
+    with pytest.raises(ValueError, match='CUDA'):
+        seed_min_d2_kernel(xyz, xyz[:, :2])
+    with pytest.raises(ValueError, match='CUDA'):
+        farthest_point_sample_seeded_kernel(
+            xyz, 4, torch.zeros(1, 8), torch.arange(2)[None])
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
