@@ -40,7 +40,34 @@ Phases, in order; any failure raises and the exit code is not 0:
    stated below, gradients and updated parameters within a stated factor
    of what a 1e-6 jitter of the weights does to the CPU's own step;
 9. a CUDA-kernel breakdown of one train step and the card's busy share;
-10. one JSON line per kernel set, then the result line.
+10. the SPSNet serving path: ``tools/cfgs/kitti_models/SPSNet.yaml`` at
+    full width (the frozen stability model, the deletion of 500 points a
+    scene, the PAGNet backbone with surface features and sss_aware
+    sampling, the MLT head) with seeded random weights serves five
+    requests of 8 x 16384 synthetic scenes with gt boxes through
+    ``make_stability_preprocess`` + ``make_eval_step``; outputs finite,
+    counts in [0, 500], 15884 points kept a scene, and per forward one FPS
+    and six ball-query launches (stability SA, surface graph, SA layers 0,
+    1, 2 and 5) and no other kernel;
+11. one SPSNet scene on the card and on the CPU with the same weights: stds
+    within the tolerance stated below, the foreground, FPS, ball-query and
+    surface-graph indices identical, the deletion identical or, where
+    near-equal stds order differently, replayed (as the sss_aware picks
+    are, like phase 5's ctr_aware picks), predictions within tolerance, NMS
+    outputs identical;
+12. a CUDA-kernel breakdown of one SPSNet request;
+13. the experimental FPS entries (the counterparts of the JAX package's
+    K5a-c), ``farthest_point_sample_batched`` and
+    ``farthest_point_sample_hier_argmax``, called at the four shapes of
+    phase 3 with the counters zeroed just before;
+14. one JSON line per kernel set, then the result line.
+
+Phase 3 also holds the two kernels of those entries (``fps_rows``,
+``fps_hier``) to the plain FPS at (8, 16384) -> 4096, (8, 15884) -> 4096
+(SPSNet's layer 0), (1, 16384) -> 4096 and (32, 4096) -> 1024, and FPS and
+the ball query at SPSNet's shapes: FPS at (8, 15884) -> 4096, the ball
+query of the stability SA (16384 centers on 16384 points, r 0.2 / 0.8) and
+of the surface graph (15884 on 15884, r 0.8, 16 neighbours).
 
 Exits non-zero without printing a result when no CUDA device is present.
 """
@@ -87,6 +114,17 @@ TRAIN_B, TRAIN_STEPS, KITTI_TRAIN_FRAMES = 4, 10, 3712
 # terms: the forward's differences summed into scalars.
 TRAIN_LOSS_RTOL = 1e-3
 WEIGHT_JITTER, TRAIN_GRAD_FACTOR, PARAM_ATOL = 1e-6, 5.0, 1e-5
+# SPSNet: the scenes of a request, and the points a scene keeps after the
+# stability hook deletes DELETE_NUMBER (SPSNet.yaml)
+SPSNET_REQUESTS, DELETE_NUMBER = 5, 500
+KEPT = N - DELETE_NUMBER
+# card vs CPU on the stds: a sum of 8 exp(0.5 * logvar) after the stability
+# SA's 3-layer MLPs (K up to 64), max-pool, the 64-wide aggregation and a
+# Linear, summed in another order by cuBLAS and the CPU BLAS (~1e-7 relative
+# each)
+STDS_RTOL = 1e-5
+# the K5 shapes: IA-SSD's and SPSNet's layer 0, one row, many small rows
+K5_SHAPES = ((8, N, 4096), (8, KEPT, 4096), (1, N, 4096), (32, 4096, 1024))
 
 
 def seeding():
@@ -133,16 +171,44 @@ def require_equal(a, b, what):
     return float((a - b).abs().max()) if a.numel() else 0.0
 
 
-def fps_phase(xyz):
-    """FPS kernel vs plain; returns the JSON entry without launches."""
+def fps_bound(b, n, npoint, steps=None):
+    """Bound of an exact FPS of ``steps`` (npoint - 1) steps over (b, n)
+    points: xyz read once, the picks written once; 3 sub, 3 mul, 2 add, a
+    min and a compare per point and step."""
+    steps = npoint - 1 if steps is None else steps
+    return bound_ms(b * n * 12 + b * npoint * 8, steps * b * n * 10)
+
+
+def fps_call(name, kernel, xyz, npoint, plain_ms=None):
+    """One FPS kernel vs the plain FPS at one shape: indices identical,
+    CUDA-event times, bound. Returns the call's record (with 'err')."""
+    from spsnet_torch.ops.sampling import farthest_point_sample_plain
+    b, n, _ = xyz.shape
+    err = require_equal(kernel(xyz, npoint),
+                        farthest_point_sample_plain(xyz, npoint),
+                        f'{name} ({b}, {n}, 3) -> {npoint}')
+    ms = cuda_ms(lambda: kernel(xyz, npoint), reps=10)
+    if plain_ms is None:
+        plain_ms = cuda_ms(lambda: farthest_point_sample_plain(xyz, npoint),
+                           reps=3)
+    bnd, by = fps_bound(b, n, npoint)
+    log(f'  {name} ({b}, {n}, 3) -> {npoint}: kernel {ms:.3f} ms, plain '
+        f'{plain_ms:.3f} ms, bound {bnd:.4f} ms ({by})')
+    return {'B': b, 'N': n, 'npoint': npoint, 'ms': ms, 'plain_ms': plain_ms,
+            'bound_ms': bnd, 'bound_by': by, 'err': err}
+
+
+def fps_phase(xyz, kept_xyz):
+    """FPS kernel vs plain, at IA-SSD's layer 0 and SPSNet's (``kept_xyz``,
+    the scenes after the stability hook), one row, masks and the prefix
+    nesting; returns the JSON entry without launches."""
     from spsnet_torch.ops import gather_points
     from spsnet_torch.ops.sampling import (farthest_point_sample_kernel,
                                            farthest_point_sample_plain)
     npoint = 4096
-    got = farthest_point_sample_kernel(xyz, npoint)
-    err = require_equal(got, farthest_point_sample_plain(xyz, npoint),
-                        f'fps {tuple(xyz.shape)} -> {npoint}')
-    err = max(err, require_equal(
+    main = fps_call('fps', farthest_point_sample_kernel, xyz, npoint)
+    spsnet = fps_call('fps', farthest_point_sample_kernel, kept_xyz, npoint)
+    err = max(main.pop('err'), spsnet.pop('err'), require_equal(
         farthest_point_sample_kernel(xyz[:1].contiguous(), npoint),
         farthest_point_sample_plain(xyz[:1], npoint),
         f'fps (1, {N}, 3) -> {npoint}'))
@@ -154,23 +220,19 @@ def fps_phase(xyz):
             farthest_point_sample_kernel(pts, m, mask),
             farthest_point_sample_plain(pts, m, mask),
             f'fps ({b}, {n}, 3) -> {m} masked'))
-    chain = gather_points(xyz, got)
+    chain = gather_points(xyz, farthest_point_sample_kernel(xyz, npoint))
     require_equal(farthest_point_sample_kernel(chain, 1024),
                   torch.arange(1024, device='cuda').expand(B, 1024),
                   'prefix nesting FPS(layer-0 chain, 1024) == arange(1024)')
-    ms = cuda_ms(lambda: farthest_point_sample_kernel(xyz, npoint), reps=10)
-    plain = cuda_ms(lambda: farthest_point_sample_plain(xyz, npoint), reps=3)
-    bnd, by = bound_ms(xyz.numel() * 4 + B * npoint * 8,
-                       (npoint - 1) * B * N * 10)  # 3 sub 3 mul 2 add min cmp
-    log(f'  fps ({B}, {N}, 3) -> {npoint}: kernel {ms:.3f} ms, plain '
-        f'{plain:.3f} ms, bound {bnd:.4f} ms ({by})')
     return {'name': 'fps', 'route': 'cuda',
             'source': 'spsnet_torch/csrc/fps.cu',
             'replaces': 'spsnet_tpu/ops/pallas/fps.py:167',
             'also_replaces': 'spsnet_tpu/ops/pallas/fps.py:26',
-            'match': True, 'max_abs_err': err, 'ms': ms, 'plain_ms': plain,
-            'bound_ms': bnd, 'bound_by': by, 'library_ms': None,
-            'shape': f'({B},{N},3)->{npoint}'}
+            'match': True, 'max_abs_err': err,
+            **{key: main[key] for key in ('ms', 'plain_ms', 'bound_ms',
+                                          'bound_by')},
+            'library_ms': None, 'shape': f'({B},{N},3)->{npoint}',
+            'spsnet_layer0': spsnet}
 
 
 def _scan_pairs(idx_list, nsamples, n):
@@ -187,42 +249,57 @@ def _scan_pairs(idx_list, nsamples, n):
     return int(need.sum())
 
 
-def ball_query_phase(model, points):
-    """Ball-query kernel vs plain at every grouping layer, on the centers
-    the path produces; returns the JSON entry without launches."""
+def ball_query_call(radii, ns, xyz, ctr, what):
+    """The ball-query kernel vs plain on one input: indices identical,
+    CUDA-event times, bound over the pairs the centers scanned. Returns the
+    call's record (with 'err')."""
     from spsnet_torch.ops.grouping import (ball_query_multi_kernel,
                                            ball_query_multi_plain)
+    radii, ns = tuple(radii), tuple(ns)
+    got = ball_query_multi_kernel(radii, ns, xyz, ctr)
+    want = ball_query_multi_plain(radii, ns, xyz, ctr)
+    err = 0.0
+    for r, g, w in zip(radii, got, want):
+        err = max(err, require_equal(
+            g, w, f'ball query {what} r={r} '
+                  f'{tuple(ctr.shape[:2])}x{xyz.shape[1]}'))
+    ms = cuda_ms(lambda: ball_query_multi_kernel(radii, ns, xyz, ctr),
+                 reps=10)
+    plain = cuda_ms(lambda: ball_query_multi_plain(radii, ns, xyz, ctr),
+                    reps=3)
+    pairs = _scan_pairs(got, ns, xyz.shape[1])
+    n_bytes = (xyz.numel() + ctr.numel()) * 4 + \
+        sum(g.numel() for g in got) * 8
+    bnd, by = bound_ms(n_bytes, pairs * 10)  # 3 sub 3 mul 2 add 2 cmp
+    log(f'  ball query {what} B={xyz.shape[0]} M={ctr.shape[1]} '
+        f'N={xyz.shape[1]} r={radii} ns={ns}: kernel {ms:.3f} ms, plain '
+        f'{plain:.3f} ms, bound {bnd:.4f} ms ({by}, {pairs} pairs)')
+    return {'layer': what, 'B': xyz.shape[0], 'M': ctr.shape[1],
+            'N': xyz.shape[1], 'radii': radii, 'nsamples': ns, 'ms': ms,
+            'plain_ms': plain, 'bound_ms': bnd, 'bound_by': by,
+            'pairs': pairs, 'err': err}
+
+
+def ball_query_phase(model, points, raw_xyz, kept_xyz):
+    """Ball-query kernel vs plain at every grouping layer of IA-SSD, on the
+    centers the path produces, and at SPSNet's two new shapes: the stability
+    SA (every point of the raw scenes a center) and the surface graph (every
+    kept point a center); returns the JSON entry without launches."""
     with torch.no_grad():
         enc = model({'points': points})['encoder_xyz']
     backbone = model.backbone_3d
-    calls, err = [], 0.0
+    calls = []
     for k, module in enumerate(backbone.SA_modules):
-        if not getattr(module, 'radii', None):
-            continue
-        xyz = enc[backbone.layer_inputs[k]].contiguous()
-        ctr = enc[k + 1].contiguous()
-        radii, ns = tuple(module.radii), tuple(module.nsamples)
-        got = ball_query_multi_kernel(radii, ns, xyz, ctr)
-        want = ball_query_multi_plain(radii, ns, xyz, ctr)
-        for r, g, w in zip(radii, got, want):
-            err = max(err, require_equal(
-                g, w, f'ball query layer {k} r={r} '
-                      f'{tuple(ctr.shape[:2])}x{xyz.shape[1]}'))
-        ms = cuda_ms(lambda: ball_query_multi_kernel(radii, ns, xyz, ctr),
-                     reps=10)
-        plain = cuda_ms(lambda: ball_query_multi_plain(radii, ns, xyz, ctr),
-                        reps=3)
-        pairs = _scan_pairs(got, ns, xyz.shape[1])
-        n_bytes = (xyz.numel() + ctr.numel()) * 4 + \
-            sum(g.numel() for g in got) * 8
-        bnd, by = bound_ms(n_bytes, pairs * 10)  # 3 sub 3 mul 2 add 2 cmp
-        log(f'  ball query layer {k} B={xyz.shape[0]} M={ctr.shape[1]} '
-            f'N={xyz.shape[1]} r={radii} ns={ns}: kernel {ms:.3f} ms, plain '
-            f'{plain:.3f} ms, bound {bnd:.4f} ms ({by}, {pairs} pairs)')
-        calls.append({'layer': k, 'B': xyz.shape[0], 'M': ctr.shape[1],
-                      'N': xyz.shape[1], 'radii': radii, 'nsamples': ns,
-                      'ms': ms, 'plain_ms': plain, 'bound_ms': bnd,
-                      'bound_by': by, 'pairs': pairs})
+        if getattr(module, 'radii', None):
+            calls.append(ball_query_call(
+                module.radii, module.nsamples,
+                enc[backbone.layer_inputs[k]].contiguous(),
+                enc[k + 1].contiguous(), f'layer {k}'))
+    spsnet = [ball_query_call((0.2, 0.8), (16, 32), raw_xyz, raw_xyz,
+                              'stability SA'),
+              ball_query_call((0.8,), (16,), kept_xyz, kept_xyz,
+                              'surface graph')]
+    err = max(c.pop('err') for c in calls + spsnet)
     total = {key: sum(c[key] for c in calls)
              for key in ('ms', 'plain_ms', 'bound_ms', 'pairs')}
     by = 'bytes' if all(c['bound_by'] == 'bytes' for c in calls) else \
@@ -233,7 +310,67 @@ def ball_query_phase(model, points):
             'match': True, 'max_abs_err': err, 'ms': total['ms'],
             'plain_ms': total['plain_ms'], 'bound_ms': total['bound_ms'],
             'bound_by': by, 'library_ms': None,
-            'shape': 'sum of the per-forward calls', 'calls': calls}
+            'shape': 'sum of the IA-SSD per-forward calls', 'calls': calls,
+            'spsnet_calls': spsnet}
+
+
+def fps_variant_phase(clouds):
+    """The kernels of the experimental FPS entries (K5a-c's counterparts)
+    vs the plain FPS at the K5 shapes; returns their JSON entries without
+    launches. ``clouds``: (xyz, npoint) pairs."""
+    from spsnet_torch.ops import _build, sampling
+    plain = {}
+    entries = []
+    for name, kernel, replaces in (
+            ('fps_rows', sampling.farthest_point_sample_rows_kernel,
+             ['spsnet_tpu/ops/pallas/fps.py:73',
+              'spsnet_tpu/ops/pallas/fps.py:677']),
+            ('fps_hier', sampling.farthest_point_sample_hier_kernel,
+             ['spsnet_tpu/ops/pallas/fps.py:239'])):
+        calls = []
+        for k, (xyz, npoint) in enumerate(clouds):
+            call = fps_call(name, kernel, xyz, npoint, plain.get(k))
+            plain[k] = call['plain_ms']
+            if name == 'fps_rows':
+                call['rows_per_cta'] = _build.library(
+                    'fps_rows').spsnet_fps_rows_per_cta(*xyz.shape[:2])
+            calls.append(call)
+        entries.append({
+            'name': name, 'route': 'cuda',
+            'source': f'spsnet_torch/csrc/{name}.cu',
+            'replaces': replaces[0], 'also_replaces': replaces[1:],
+            'match': True, 'max_abs_err': max(c.pop('err') for c in calls),
+            **{key: sum(c[key] for c in calls)
+               for key in ('ms', 'plain_ms', 'bound_ms')},
+            'bound_by': 'operations' if any(c['bound_by'] == 'operations'
+                                            for c in calls) else 'bytes',
+            'library_ms': None, 'library_note': 'no PyTorch call computes FPS',
+            'shape': 'sum of the four entry-point calls', 'calls': calls})
+    return entries
+
+
+def fps_entry_path(clouds):
+    """The experimental FPS entries as a user calls them, at the K5 shapes,
+    with the counters zeroed just before; returns the launch counts."""
+    from spsnet_torch.ops import _build, sampling
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    for xyz, npoint in clouds:
+        for entry in (sampling.farthest_point_sample_batched,
+                      sampling.farthest_point_sample_hier_argmax):
+            idx = entry(xyz, npoint)
+            if idx.shape != (xyz.shape[0], npoint) or \
+                    int(idx.min()) < 0 or int(idx.max()) >= xyz.shape[1]:
+                raise AssertionError(f'{entry.__name__}: bad picks')
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    want = {k: len(clouds) if k in ('fps_rows', 'fps_hier') else 0
+            for k in launches}
+    if launches != want:
+        raise AssertionError(f'launches of the FPS entries: {launches}, '
+                             f'want {want}')
+    log(f'  launches over {len(clouds)} shapes: {launches}')
+    return launches
 
 
 def _seeded_case(xyz, npoint, k0, seed_idx, what, errs):
@@ -327,11 +464,13 @@ def seeded_phase(scenes):
 
 
 def detect(model, points, post):
-    """One request: forward + class-agnostic NMS, as a server runs it."""
+    """One request: forward + class-agnostic NMS, as a server runs it.
+    ``points``: the (B, N, 4) scans, or a batch dict."""
     from spsnet_torch.models.detectors.detector3d import \
         class_agnostic_nms_batch
+    batch = points if isinstance(points, dict) else {'points': points}
     with torch.no_grad():
-        out = model({'points': points})
+        out = model(batch)
         return out, class_agnostic_nms_batch(
             out['batch_box_preds'], out['batch_cls_preds'],
             score_thresh=float(post.SCORE_THRESH),
@@ -364,63 +503,85 @@ def main_path(model, requests, post):
 
 
 @contextlib.contextmanager
-def ctr_picks(replay=None):
-    """Record the ctr_aware picks of a run, or replay recorded picks.
+def topk_picks(replay=None):
+    """Record the top-k sampler picks (ctr_aware, sss_aware) of a run, or
+    replay recorded picks.
 
-    ctr_aware sampling orders ~1000 sigmoid scores packed within a few fp32
-    ulps of each other, so two devices whose matmuls round differently may
+    Both samplers order hundreds of scores packed within a few fp32 ulps of
+    each other (sigmoids of random-weight logits, for sss_aware times a
+    stability score), so two devices whose matmuls round differently may
     order near-ties differently, and the order decides the first-k
     neighbours downstream. A replayed pick list must be a descending order
     of this run's own scores within CTR_SCORE_TOL rank by rank; then both
     runs continue from the same picks and stay comparable.
     """
     from spsnet_torch.models import samplers
-    own_sampler = samplers.sample_ctr_aware
+    own_ctr, own_sss = samplers.sample_ctr_aware, samplers.sample_sss_aware
     picks = []
 
-    def sampler(cls_features, npoint):
-        own = own_sampler(cls_features, npoint)
+    def take(own, scores, what):
         if replay is None:
             picks.append(own)
             return own
         want = replay[len(picks)].to(own.device)
-        s = torch.sigmoid(cls_features.detach().amax(-1))
-        diff = float((s.gather(1, want) - s.gather(1, own)).abs().max())
-        log(f'  ctr_aware picks {len(picks)}: {int((want != own).sum())} of '
+        diff = float((scores.gather(1, want) - scores.gather(1, own))
+                     .abs().max())
+        log(f'  {what} picks {len(picks)}: {int((want != own).sum())} of '
             f'{own.numel()} ranks differ, largest rank-wise score difference '
             f'{diff:.3e} (tolerance {CTR_SCORE_TOL})')
         if diff > CTR_SCORE_TOL:
-            raise AssertionError('ctr_aware picks are no top-k order of the '
+            raise AssertionError(f'{what} picks are no top-k order of the '
                                  'other run\'s scores')
         picks.append(want)
         return want
 
-    samplers.sample_ctr_aware = sampler
+    def ctr(cls_features, npoint):
+        return take(own_ctr(cls_features, npoint),
+                    torch.sigmoid(cls_features.detach().amax(-1)),
+                    'ctr_aware')
+
+    def sss(cls_features, stds, npoint):
+        idx = take(own_sss(cls_features, stds, npoint)[0],
+                   samplers.sss_aware_scores(cls_features.detach(), stds),
+                   'sss_aware')
+        return idx, stds.gather(1, idx)
+
+    samplers.sample_ctr_aware, samplers.sample_sss_aware = ctr, sss
     try:
         yield picks
     finally:
-        samplers.sample_ctr_aware = own_sampler
+        samplers.sample_ctr_aware, samplers.sample_sss_aware = own_ctr, own_sss
 
 
 def cpu_phase(model, cfg, scene):
     """One scene on the card and on the CPU with the same weights; the CPU
-    run replays the card's ctr_aware picks (see ``ctr_picks``)."""
+    run replays the card's ctr_aware picks (see ``topk_picks``)."""
     from spsnet_torch.models import build_detector
-    from spsnet_torch.ops import farthest_point_sample
-    from spsnet_torch.ops.grouping import ball_query_multi
     post = cfg.MODEL.POST_PROCESSING
     cpu = build_detector(cfg.MODEL, len(cfg.CLASS_NAMES), device='cpu')
     cpu.load_state_dict(model.state_dict())
-    with ctr_picks() as picks:
+    with topk_picks() as picks:
         gpu_out, gpu_dets = detect(model, scene, post)
-    with ctr_picks(replay=picks):
+    with topk_picks(replay=picks):
         cpu_out, cpu_dets = detect(cpu, scene.cpu(), post)
+    compare_forwards(model, scene[..., :3].contiguous(), gpu_out, gpu_dets,
+                     cpu_out, cpu_dets)
+
+
+def compare_forwards(model, xyz, gpu_out, gpu_dets, cpu_out, cpu_dets):
+    """Card vs CPU on one forward of ``model`` over the cloud ``xyz``: the
+    layer-0 FPS, every layer's ball query (the card's kernel and the CPU's
+    plain version on the CPU run's points), the D-FPS layers' sampled
+    points, the predictions and the NMS outputs."""
+    from spsnet_torch.ops import farthest_point_sample
+    from spsnet_torch.ops.grouping import ball_query_multi
     backbone = model.backbone_3d
     enc = cpu_out['encoder_xyz']
-    xyz = scene[..., :3].contiguous()
-    require_equal(farthest_point_sample(xyz, 4096),
-                  farthest_point_sample(xyz.cpu(), 4096),
-                  'card kernel vs CPU plain: layer-0 FPS indices')
+    npoint = backbone.npoint0[0]
+    require_equal(farthest_point_sample(xyz, npoint),
+                  farthest_point_sample(xyz.cpu(), npoint),
+                  f'card kernel vs CPU plain: layer-0 FPS indices '
+                  f'{tuple(xyz.shape)} -> {npoint}')
     for k, module in enumerate(backbone.SA_modules):
         if getattr(module, 'radii', None):
             pts, ctr = enc[backbone.layer_inputs[k]].contiguous(), enc[k + 1]
@@ -446,17 +607,157 @@ def cpu_phase(model, cfg, scene):
         require_equal(gpu_dets[key], cpu_dets[key], f'card vs CPU NMS {key}')
 
 
+def build_spsnet(device):
+    """SPSNet.yaml at full width on ``device``: its config, the stability
+    preprocess (generator weights from ``torch.Generator`` seed 1) and the
+    detector (seed 0)."""
+    from spsnet_torch.models import build_detector
+    from spsnet_torch.runtime.trainer import make_stability_preprocess
+    from spsnet_torch.zoo import spsnet_kitti_cfg
+    cfg = spsnet_kitti_cfg()
+    preprocess = make_stability_preprocess(
+        cfg.MODEL.STABILITY_HOOK, device, torch.Generator().manual_seed(1))
+    model = build_detector(cfg.MODEL, len(cfg.CLASS_NAMES), device=device,
+                           generator=torch.Generator().manual_seed(0))
+    return cfg, preprocess, model
+
+
+def spsnet_path(step, kept, requests, post):
+    """Serve SPSNet requests through the eval step ``step`` (whose
+    preprocess appends each batch's kept point count to ``kept``); returns
+    (ms per request, launch counts)."""
+    from spsnet_torch.ops import _build
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    times = []
+    for batch in requests:
+        t0 = time.perf_counter()
+        dets, box_preds = step(batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        for key, t in (('batch_box_preds', box_preds),
+                       ('boxes', dets['boxes']), ('scores', dets['scores'])):
+            if not torch.isfinite(t).all():
+                raise AssertionError(f'non-finite {key}')
+        count = dets['count']
+        if count.shape != (B,) or count.min() < 0 or \
+                count.max() > int(post.NMS_CONFIG.NMS_POST_MAXSIZE):
+            raise AssertionError(f'detection counts out of range: {count}')
+        if kept[-1] != KEPT:
+            raise AssertionError(f'{kept[-1]} points kept a scene, want '
+                                 f'{KEPT}')
+    return times, dict(_build.LAUNCHES)
+
+
+def _deletion(stds, fake, points):
+    from spsnet_torch.stability.hook import stability_delete_points
+    return stability_delete_points(points, stds, fake,
+                                   delete_number=DELETE_NUMBER)[1]
+
+
+def _order_slack(keep, own_keep, key):
+    """How far ``keep`` (one scene's kept indices, in key order) is from an
+    ascending order of ``key``, whose own order keeps ``own_keep``: how far
+    what ``keep`` deletes lies above what it keeps (<= 0 when below), and
+    the largest rank-wise key difference of its kept points."""
+    gone = torch.ones(key.shape[0], dtype=torch.bool)
+    gone[keep] = False
+    return (float(key[gone].max() - key[~gone].min()),
+            float((key[keep] - key[own_keep]).abs().max()))
+
+
+def spsnet_cpu_phase(cfg, preprocess, model, batch):
+    """One SPSNet scene on the card and on the CPU with the same weights:
+    the stds, the foreground, the stability SA's and the surface graph's
+    ball queries, the deletion, then the detector and the NMS as
+    ``compare_forwards`` checks them. The deletion sorts ~4500 foreground
+    stds, and two of them within the card-vs-CPU difference of each other
+    order differently on the two devices, so the kept points' order may
+    differ; the CPU then takes the card's once it checks out as an
+    ascending order of the CPU's own keys within STDS_RTOL. Its sss_aware
+    picks replay the card's (``topk_picks``)."""
+    from spsnet_torch.models import build_detector
+    from spsnet_torch.ops import ball_query, ball_query_multi, gather_points
+    from spsnet_torch.runtime.trainer import make_stability_preprocess
+    from spsnet_torch.stability.hook import fake_labels_from_boxes
+    post = cfg.MODEL.POST_PROCESSING
+    cpu_pre = make_stability_preprocess(cfg.MODEL.STABILITY_HOOK, 'cpu')
+    cpu_pre.model.load_state_dict(preprocess.model.state_dict())
+    cpu = build_detector(cfg.MODEL, len(cfg.CLASS_NAMES), device='cpu')
+    cpu.load_state_dict(model.state_dict())
+    card = {k: v[:1].contiguous() for k, v in batch.items()}
+    host = {k: v.cpu() for k, v in card.items()}
+    with torch.no_grad():
+        stds_g = preprocess.model(card)['stds']
+        stds_c = cpu_pre.model(host)['stds']
+    rel = float(((stds_g.cpu() - stds_c).abs() / stds_c.abs()).max())
+    if not torch.allclose(stds_g.cpu(), stds_c, rtol=STDS_RTOL, atol=0.0):
+        raise AssertionError(f'card vs CPU stds: {rel:.3e} relative over '
+                             f'{STDS_RTOL}')
+    log(f'  card vs CPU stds: largest relative difference {rel:.3e} '
+        f'(tolerance {STDS_RTOL})')
+    xyz = card['points'][..., :3].contiguous()
+    for g, c in zip(ball_query_multi((0.2, 0.8), (16, 32), xyz, xyz),
+                    ball_query_multi((0.2, 0.8), (16, 32), xyz.cpu(),
+                                     xyz.cpu())):
+        require_equal(g, c, 'card kernel vs CPU plain: stability SA ball '
+                            'query')
+    fake_g = fake_labels_from_boxes(card['points'], card['gt_boxes'])
+    fake_c = fake_labels_from_boxes(host['points'], host['gt_boxes'])
+    require_equal(fake_g, fake_c, 'card vs CPU foreground labels')
+    keep_g = _deletion(stds_g, fake_g, card['points'])
+    keep_c = _deletion(stds_c, fake_c, host['points'])
+    n_fg = int((fake_c > 0).sum())
+    if torch.equal(keep_g.cpu(), keep_c):
+        log(f'  card vs CPU deletion: identical ({n_fg} foreground points)')
+    else:
+        tol = STDS_RTOL * float(stds_c.max())
+        slack, ranks = _order_slack(keep_g[0].cpu(), keep_c[0],
+                                    torch.where(fake_c[0] > 0, stds_c[0], 1e9))
+        if slack > tol or ranks > tol:
+            raise AssertionError(
+                f'the card\'s deletion is no ascending order of the CPU\'s '
+                f'keys (deleted above kept by {slack:.3e}, rank-wise '
+                f'{ranks:.3e}; tolerance {tol:.3e})')
+        log(f'  card vs CPU deletion: {int((keep_g.cpu() != keep_c).sum())} '
+            f'of {KEPT} kept ranks differ ({n_fg} foreground points), the '
+            f'largest rank-wise key difference {ranks:.3e}, the deleted set '
+            f'below the kept by {-slack:.3e} (tolerance {tol:.3e}); the CPU '
+            'replays the card\'s')
+        keep_c = keep_g.cpu()
+    kept_g = {'points': gather_points(card['points'], keep_g),
+              'stds': stds_g.gather(1, keep_g)}
+    kept_c = {'points': gather_points(host['points'], keep_c),
+              'stds': stds_c.gather(1, keep_c)}
+    kxyz = kept_g['points'][..., :3].contiguous()
+    require_equal(ball_query(0.8, 16, kxyz, kxyz),
+                  ball_query(0.8, 16, kxyz.cpu(), kxyz.cpu()),
+                  'card kernel vs CPU plain: surface graph')
+    with topk_picks() as picks:
+        gpu_out, gpu_dets = detect(model, kept_g, post)
+    with topk_picks(replay=picks):
+        cpu_out, cpu_dets = detect(cpu, kept_c, post)
+    compare_forwards(model, kxyz, gpu_out, gpu_dets, cpu_out, cpu_dets)
+
+
 def profile_phase(fn, what):
     """Top CUDA kernels of one call of ``fn`` by device time, and the
-    share of the call's wall time in which a kernel ran."""
-    from torch.profiler import ProfilerActivity, profile
+    share of the call's wall time in which a kernel ran. A first call runs
+    as the profiler's warm-up step: a trace started right before the call
+    loses its first kernels."""
+    from torch.profiler import ProfilerActivity, profile, schedule
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) \
             as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
+        prof.step()
     # kernels only: a user-annotated range (Optimizer.step) also carries
     # the device time of the kernels inside it
     events = [e for e in prof.key_averages()
@@ -472,7 +773,17 @@ def profile_phase(fn, what):
     for e in events[:12]:
         log(f'    {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} '
             f'{e.key[:90]}')
-    return {'device_ms': total, 'wall_ms': wall, 'busy_share': total / wall}
+    # the host side: operators and CUDA runtime calls by their own CPU time
+    host = sorted((e for e in prof.key_averages()
+                   if e.self_cpu_time_total > 0),
+                  key=lambda e: e.self_cpu_time_total, reverse=True)[:8]
+    log(f'  host time of {what}, top entries by own CPU time:')
+    for e in host:
+        log(f'    {e.self_cpu_time_total / 1e3:9.3f} ms  x{e.count:<5d} '
+            f'{e.key[:90]}')
+    return {'device_ms': total, 'wall_ms': wall, 'busy_share': total / wall,
+            'host_top': [[e.key[:60], e.self_cpu_time_total / 1e3, e.count]
+                         for e in host]}
 
 
 def _scene_batch(seed, b, device):
@@ -542,9 +853,9 @@ def dfps_picks():
     picks = []
 
     def sampler(*args, **kwargs):
-        idx = own(*args, **kwargs)
+        idx, stds = own(*args, **kwargs)
         picks.append(idx)
-        return idx
+        return idx, stds
 
     samplers.sample_dfps = sampler
     try:
@@ -573,7 +884,7 @@ def _step_difference(a, b, lr):
 def train_cpu_phase(cfg):
     """One train step on one scene on the card and on the CPU from the same
     weights, and on the CPU from weights jittered by WEIGHT_JITTER; the CPU
-    runs replay the card's ctr_aware picks (``ctr_picks``)."""
+    runs replay the card's ctr_aware picks (``topk_picks``)."""
     gpu, _, gpu_step = build_trainer(cfg, 'cuda', 1)
     cpu, cpu_opt, cpu_step = build_trainer(cfg, 'cpu', 1)
     jit, _, jit_step = build_trainer(cfg, 'cpu', 1)
@@ -584,11 +895,11 @@ def train_cpu_phase(cfg):
         for p in jit.parameters():
             p.mul_(1 + WEIGHT_JITTER * torch.randn(p.shape, generator=gen))
     batch = _scene_batch(100, 1, 'cpu')
-    with ctr_picks() as picks, dfps_picks() as gpu_dfps:
+    with topk_picks() as picks, dfps_picks() as gpu_dfps:
         gpu_loss, gpu_tb = gpu_step({k: v.cuda() for k, v in batch.items()})
-    with ctr_picks(replay=picks), dfps_picks() as cpu_dfps:
+    with topk_picks(replay=picks), dfps_picks() as cpu_dfps:
         cpu_loss, cpu_tb = cpu_step(batch)
-    with ctr_picks(replay=picks):
+    with topk_picks(replay=picks):
         jit_step(batch)
     if len(gpu_dfps) != 2 or len(cpu_dfps) != 2:
         raise AssertionError('want two D-FPS layers a step')
@@ -633,6 +944,7 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     from spsnet_torch.models import build_detector
     from spsnet_torch.ops import _build
+    from spsnet_torch.runtime.trainer import make_eval_step
     from spsnet_torch.utils.synthetic import synthetic_scan_batch
     from spsnet_torch.zoo import iassd_kitti_cfg
 
@@ -654,22 +966,34 @@ def main() -> int:
                            generator=torch.Generator().manual_seed(0))
     requests = [torch.from_numpy(synthetic_scan_batch(s, B, N)).cuda()
                 for s in range(REQUESTS)]
+    sps_cfg, sps_pre, sps_model = build_spsnet('cuda')
+    sps_requests = [_scene_batch(100 + s, B, 'cuda')
+                    for s in range(SPSNET_REQUESTS)]
+    with torch.no_grad():
+        kept_xyz = sps_pre(sps_requests[0], torch.Generator().manual_seed(0))[
+            'points'][..., :3].contiguous()
+    raw_xyz = sps_requests[0]['points'][..., :3].contiguous()
+    k5_clouds = [(requests[0][..., :3].contiguous(), 4096),
+                 (kept_xyz, 4096),
+                 (requests[0][:1, :, :3].contiguous(), 4096),
+                 (torch.from_numpy(synthetic_scan_batch(7, 32, 4096))[
+                     ..., :3].contiguous().cuda(), 1024)]
+    if [(*x.shape[:2], m) for x, m in k5_clouds] != list(K5_SHAPES):
+        raise AssertionError('K5 shapes')
 
     log('== 3. kernels vs plain on the card')
     train_batches = [_scene_batch(s, TRAIN_B, 'cuda')
                      for s in range(TRAIN_STEPS)]
-    entries = [fps_phase(requests[0][..., :3].contiguous()),
-               ball_query_phase(model, requests[0]),
-               *seeded_phase(train_batches[0]['points'])]
+    entries = [fps_phase(requests[0][..., :3].contiguous(), kept_xyz),
+               ball_query_phase(model, requests[0], raw_xyz, kept_xyz),
+               *seeded_phase(train_batches[0]['points']),
+               *fps_variant_phase(k5_clouds)]
 
     log('== 4. serving path')
     post = cfg.MODEL.POST_PROCESSING
     times, launches = main_path(model, requests, post)
-    per_forward = {'fps': 1, 'ball_query': 4, 'seed_min': 0, 'fps_seeded': 0}
-    for name, n in per_forward.items():
-        if launches[name] != n * REQUESTS:
-            raise AssertionError(f'{name}: {launches[name]} launches in '
-                                 f'{REQUESTS} forwards, want {n} each')
+    _require_per_call(launches, {'fps': 1, 'ball_query': 4}, REQUESTS,
+                      'IA-SSD forwards')
     ms = statistics.median(times)
     log(f'  launches over {REQUESTS} requests: {launches}')
     log(f'  ms/batch (B={B}, N={N}, forward + NMS): median {ms:.3f}, all '
@@ -699,22 +1023,67 @@ def main() -> int:
     log('== 9. where the time goes: one train step')
     train_profile = profile_phase(lambda: step(train_batches[0]),
                                   'one train step')
+    del train_model, step
 
+    log('== 10. SPSNet serving path')
+    sps_post = sps_cfg.MODEL.POST_PROCESSING
+    kept = []
+
+    def recorded(batch, generator):
+        out = sps_pre(batch, generator)
+        kept.append(out['points'].shape[1])
+        return out
+    sps_step = make_eval_step(sps_model, sps_post, recorded)
+    sps_times, sps_launches = spsnet_path(sps_step, kept, sps_requests,
+                                          sps_post)
+    _require_per_call(sps_launches, {'fps': 1, 'ball_query': 6},
+                      SPSNET_REQUESTS, 'SPSNet forwards')
+    sps_ms = statistics.median(sps_times)
+    log(f'  launches over {SPSNET_REQUESTS} requests: {sps_launches}')
+    log(f'  ms/batch (B={B}, N={N} -> {KEPT} kept, stability model + '
+        f'deletion + forward + NMS): median {sps_ms:.3f}, all '
+        f'{[round(t, 3) for t in sps_times]}; scenes/s '
+        f'{B / sps_ms * 1e3:.2f} on {smi}')
+
+    log('== 11. SPSNet card vs CPU, one scene')
+    spsnet_cpu_phase(sps_cfg, sps_pre, sps_model, sps_requests[0])
+
+    log('== 12. where the time goes: one SPSNet request')
+    sps_profile = profile_phase(lambda: sps_step(sps_requests[0]),
+                                'one SPSNet request')
+
+    log('== 13. the experimental FPS entries')
+    entry_launches = fps_entry_path(k5_clouds)
+
+    paths = {'serve': launches, 'train': train_launches,
+             'spsnet': sps_launches, 'fps_entries': entry_launches}
     for entry in entries:
-        entry['launches_by_path'] = {'serve': launches[entry['name']],
-                                     'train': train_launches[entry['name']]}
-        entry['launches'] = launches[entry['name']] + \
-            train_launches[entry['name']]
+        entry['launches_by_path'] = {path: counts[entry['name']]
+                                     for path, counts in paths.items()}
+        entry['launches'] = sum(entry['launches_by_path'].values())
     log(json.dumps({'kernels': entries, 'ms_per_batch': ms,
                     'scenes_per_s': B / ms * 1e3,
                     'ms_per_train_step': step_ms,
                     'train_steps_per_s': 1e3 / step_ms,
+                    'spsnet_ms_per_batch': sps_ms,
+                    'spsnet_scenes_per_s': B / sps_ms * 1e3,
                     'serve_profile': serve_profile,
-                    'train_profile': train_profile, 'card': smi}))
+                    'train_profile': train_profile,
+                    'spsnet_profile': sps_profile, 'card': smi}))
+    log(smi)
     log(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))
     return 0
+
+
+def _require_per_call(launches, per_call, calls, what):
+    """Raise unless ``launches`` counts ``per_call[name]`` launches of each
+    kernel for each of ``calls`` calls, and none of any other kernel."""
+    for name, n in launches.items():
+        if n != per_call.get(name, 0) * calls:
+            raise AssertionError(f'{name}: {n} launches in {calls} {what}, '
+                                 f'want {per_call.get(name, 0)} each')
 
 
 if __name__ == '__main__':

@@ -5,9 +5,16 @@ Port of ``spsnet_tpu/models/backbones_3d/iassd_backbone.py``
 (``SA_CONFIG``): NPOINT_LIST, SAMPLE_RANGE_LIST, SAMPLE_METHOD_LIST,
 RADIUS_LIST, NSAMPLE_LIST, MLPS, LAYER_TYPE, DILATED_GROUP,
 AGGREGATION_MLPS, CONFIDENCE_MLPS, LAYER_INPUT, CTR_INDEX,
-MAX_TRANSLATE_RANGE. The layers live in ``SA_modules``, as in the reference
-state dict. ``fps_seeding`` (an ``ops.FpsSeeding`` or None) goes to every
-SA layer's D-FPS.
+MAX_TRANSLATE_RANGE, and USE_SURFACE. The layers live in ``SA_modules``, as
+in the reference state dict. ``fps_seeding`` (an ``ops.FpsSeeding`` or None)
+goes to every SA layer's D-FPS.
+
+The same class serves as ``PAGNet_Backbone`` (``backbones_3d/
+PAGNet_backbone.py``): with ``USE_SURFACE`` a DenseEdgeConv 60-d surface
+descriptor (``SF_extract``) is computed on the raw cloud, gathered along the
+sampling chain of SA layers 0-3 and fed to the vote layer in front of its
+features; per-point ``stds`` from the batch (SPSNet stability) are carried
+through every SA layer.
 """
 from __future__ import annotations
 
@@ -15,6 +22,7 @@ from torch import nn
 
 from ... import ops
 from ..sa_module import SAModuleMSGWithSampling, VoteLayer
+from ..surface_feature import FeatureExtraction
 
 
 def _layer_fps_ordered(sampled_here: bool, seeded: bool,
@@ -39,9 +47,10 @@ class IASSDBackbone(nn.Module):
         super().__init__()
         self.fps_seeding = fps_seeding
         sa_cfg = model_cfg.SA_CONFIG
-        if sa_cfg.get('USE_SURFACE', False):
-            raise NotImplementedError(
-                'USE_SURFACE (PAGNet surface features): ROADMAP Queue 1 item 6')
+        self.SF_extract = FeatureExtraction() \
+            if sa_cfg.get('USE_SURFACE', False) else None
+        surface = 0 if self.SF_extract is None else \
+            self.SF_extract.out_channels
         self.layer_types = list(sa_cfg.LAYER_TYPE)
         self.ctr_idx_list = list(sa_cfg.CTR_INDEX)
         self.layer_inputs = [_input_index(x) for x in sa_cfg.LAYER_INPUT]
@@ -83,7 +92,8 @@ class IASSDBackbone(nn.Module):
                 self.dfps_static.append(False)
                 self.npoint0.append(0)
                 module = VoteLayer(channel_in, list(sa_cfg.MLPS[k]),
-                                   sa_cfg.get('MAX_TRANSLATE_RANGE', None))
+                                   sa_cfg.get('MAX_TRANSLATE_RANGE', None),
+                                   surface_channels=surface)
             else:
                 raise NotImplementedError(layer_type)
             channel_out_list.append(module.out_channels)
@@ -94,7 +104,8 @@ class IASSDBackbone(nn.Module):
     def forward(self, batch):
         """
         Args:
-            batch: dict with 'points' (B, N, 3 + C) [x, y, z, feat...].
+            batch: dict with 'points' (B, N, 3 + C) [x, y, z, feat...] and
+                optionally 'stds' (B, N) from the stability model (SPSNet).
         Returns: ``batch`` updated with centers / centers_origin /
             ctr_offsets (B, M, 3), centers_features (B, M, C), encoder_xyz,
             encoder_features and sa_ins_preds (lists, one entry per layer).
@@ -102,10 +113,11 @@ class IASSDBackbone(nn.Module):
         points = batch['points']
         xyz = points[..., 0:3].contiguous()
         features = points[..., 3:] if points.shape[-1] > 3 else None
+        stds = batch.get('stds', None)
 
         encoder_xyz, encoder_features, sa_ins_preds = [xyz], [features], []
         li_cls_pred = None
-        centers = centers_origin = ctr_offsets = None
+        centers = centers_origin = ctr_offsets = surface = None
         fps_ordered = [False]
         for i, module in enumerate(self.SA_modules):
             in_idx = self.layer_inputs[i]
@@ -123,13 +135,17 @@ class IASSDBackbone(nn.Module):
                         fps_ordered[in_idx]))
                 else:
                     fps_ordered.append(False)
-                li_xyz, li_features, li_cls_pred, _ = module(
+                li_xyz, li_features, li_cls_pred, sampled_idx, stds = module(
                     xyz_input, feat_input, li_cls_pred, ctr_xyz=ctr_xyz,
-                    input_fps_ordered=fps_ordered[in_idx])
+                    stds=stds, input_fps_ordered=fps_ordered[in_idx])
+                if self.SF_extract is not None and i <= 3:
+                    if i == 0:
+                        surface = self.SF_extract(xyz)
+                    surface = ops.gather_points(surface, sampled_idx)
             else:
                 fps_ordered.append(False)
                 li_xyz, li_features, centers_origin, ctr_offsets = module(
-                    xyz_input, feat_input)
+                    xyz_input, feat_input, surface_features=surface)
                 centers = li_xyz
                 li_cls_pred = None
             encoder_xyz.append(li_xyz)

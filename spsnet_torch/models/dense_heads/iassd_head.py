@@ -23,6 +23,9 @@ from . import target_assign
 
 
 class IASSDHead(nn.Module):
+    # the loss masks the SA instance targets of ctr_aware levels by
+    # centerness (``iassd_head_loss``)
+    sa_centerness_mask = True
 
     def __init__(self, model_cfg, num_class: int, input_channels: int):
         super().__init__()
@@ -114,6 +117,12 @@ class IASSDHead(nn.Module):
         batch['cls_preds_normalized'] = False
         batch['head_ret'] = ret
         return batch
+
+
+class MLTSSDHead(IASSDHead):
+    """``MLT_SSD_Head``: the IA-SSD head without SA centerness masking
+    (``dense_heads/MLT_SSD_head.py:603-605``), used by SPSNet.yaml."""
+    sa_centerness_mask = False
 
 
 def _masked_mean(x, mask, eps=1.0):

@@ -7,7 +7,10 @@ import torch
 from ..blocks import init_weights
 from .iassd import IASSD
 
-_DETECTORS = {'IASSD': IASSD}
+# PAGNet and SPSNet-IA are IASSD with the PAGNet backbone and the MLT head,
+# both picked by the config; SPSNet's batch carries the stability hook's
+# 'stds' (``runtime.trainer.make_stability_preprocess``)
+_DETECTORS = {'IASSD': IASSD, 'PAGNet': IASSD, 'SPSNet': IASSD}
 
 
 def resolve_device(device) -> torch.device:
@@ -38,9 +41,11 @@ def build_detector(model_cfg, num_class: int, device='cuda',
     default, keeps exact FPS."""
     device = resolve_device(device)
     name = model_cfg.NAME
-    if name not in _DETECTORS:
+    if name not in _DETECTORS or 'VFE' in model_cfg:
+        # a PAGNet config with a VFE block is the AL_3D pillar stack
         raise NotImplementedError(
-            f'detector {name}: only IASSD is ported (ROADMAP Queue 1)')
+            f'detector {name}: the port has the point configs of '
+            f'{sorted(_DETECTORS)} (ROADMAP Queue 1)')
     model = _DETECTORS[name](model_cfg, num_class, input_channels,
                              fps_seeding)
     if generator is None:

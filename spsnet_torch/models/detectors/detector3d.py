@@ -42,3 +42,20 @@ def class_agnostic_nms_batch(batch_box_preds, batch_cls_preds,
         'count': count,
         'indices': keep_idx,
     }
+
+
+def post_processing(batch, post_cfg):
+    """The configured NMS over a forward's outputs (``spsnet_tpu/models/
+    detectors/detector3d.py:111-135``): class-agnostic NMS, the
+    ``MULTI_CLASSES_NMS: False`` setting of the IA-SSD and SPSNet configs.
+    Returns ``class_agnostic_nms_batch``'s dict."""
+    nms_cfg = post_cfg.NMS_CONFIG
+    if nms_cfg.get('MULTI_CLASSES_NMS', False):
+        raise NotImplementedError('MULTI_CLASSES_NMS (ROADMAP Queue 1 item 9)')
+    return class_agnostic_nms_batch(
+        batch['batch_box_preds'], batch['batch_cls_preds'],
+        score_thresh=float(post_cfg.SCORE_THRESH),
+        nms_thresh=float(nms_cfg.NMS_THRESH),
+        nms_pre=int(nms_cfg.NMS_PRE_MAXSIZE),
+        nms_post=int(nms_cfg.NMS_POST_MAXSIZE),
+        cls_preds_normalized=bool(batch.get('cls_preds_normalized', False)))

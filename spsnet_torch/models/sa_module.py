@@ -23,9 +23,11 @@ def _sampler_kind(stype: str) -> str:
     the samplers ported so far."""
     if 'cls' in stype or 'ctr' in stype:
         return 'ctr'
-    if any(k in stype for k in ('sss', 'ss', 'S-FPS', 'SFS')):
+    if 'sss' in stype or 'ss' in stype:
+        return 'sss'
+    if 'S-FPS' in stype or 'SFS' in stype:
         raise NotImplementedError(
-            f'sampler {stype} (ROADMAP Queue 1 item 6)')
+            f'sampler {stype}: S-FPS is ROADMAP Queue 1 item 6')
     if 'D-FPS' in stype or 'DFS' in stype:
         return 'dfps'
     raise NotImplementedError(
@@ -74,8 +76,10 @@ class SAModuleMSGWithSampling(nn.Module):
             MLPHead(self.out_channels, confidence_mlp, num_class)
             if confidence_mlp else None)
 
-    def _sample(self, xyz, cls_features, input_fps_ordered: bool):
-        """Run the configured sampler chain -> (B, M) int64 indices."""
+    def _sample(self, xyz, cls_features, input_fps_ordered: bool,
+                stds=None):
+        """Run the configured sampler chain -> ((B, M) int64 indices, the
+        per-point stds carried along the picks, or None)."""
         B = xyz.shape[0]
         sampled, last_end = [], 0
         for kind, srange, npoint in zip(self.sampler_kinds,
@@ -95,6 +99,10 @@ class SAModuleMSGWithSampling(nn.Module):
                 idx = torch.arange(n_t, device=xyz.device).expand(B, n_t)
             elif kind == 'ctr':
                 idx = samplers.sample_ctr_aware(cls_t, npoint)
+            elif kind == 'sss':
+                if stds is None:
+                    raise ValueError('the sss_aware sampler needs stds')
+                idx, stds = samplers.sample_sss_aware(cls_t, stds, npoint)
             elif input_fps_ordered and at_head and not ops.fps_seeding_active(
                     self.fps_seeding, npoint, allow_seed=True):
                 # prefix nesting: xyz_t is (a head slice of) an exact D-FPS
@@ -103,26 +111,30 @@ class SAModuleMSGWithSampling(nn.Module):
                 # over the original cloud, which is the next chain entry).
                 # Valid only because the FPS here is exact, not seeded.
                 idx = torch.arange(npoint, device=xyz.device).expand(B, npoint)
+                stds = None if stds is None else stds[:, :npoint]
             else:
-                idx = samplers.sample_dfps(xyz_t, npoint,
-                                           seeding=self.fps_seeding)
+                idx, stds = samplers.sample_dfps(xyz_t, npoint, stds=stds,
+                                                 seeding=self.fps_seeding)
             sampled.append(idx)
-        return torch.cat(sampled, dim=-1)
+        return torch.cat(sampled, dim=-1), stds
 
     def forward(self, xyz, features=None, cls_features=None, ctr_xyz=None,
-                input_fps_ordered: bool = False):
+                stds=None, input_fps_ordered: bool = False):
         """
         Args:
             xyz: (B, N, 3); features: (B, N, C) or None;
             cls_features: (B, N, num_class) from the previous confidence MLP;
-            ctr_xyz: (B, M, 3) centers to group around instead of sampling.
+            ctr_xyz: (B, M, 3) centers to group around instead of sampling;
+            stds: (B, N) per-point stability (SPSNet) or None, carried
+                along the picks.
         Returns:
             new_xyz (B, M, 3), new_features (B, M, C'), cls_preds or None,
-            sampled_idx (B, M) or None.
+            sampled_idx (B, M) or None, stds (B, M), (B, N) or None.
         """
         sampled_idx = None
         if ctr_xyz is None:
-            sampled_idx = self._sample(xyz, cls_features, input_fps_ordered)
+            sampled_idx, stds = self._sample(xyz, cls_features,
+                                             input_fps_ordered, stds)
             new_xyz = ops.gather_points(xyz, sampled_idx)
         else:
             new_xyz = ctr_xyz
@@ -146,28 +158,32 @@ class SAModuleMSGWithSampling(nn.Module):
 
         cls_preds = (self.confidence_layers(new_features)
                      if self.confidence_layers is not None else None)
-        return new_xyz, new_features, cls_preds, sampled_idx
+        return new_xyz, new_features, cls_preds, sampled_idx, stds
 
 
 class VoteLayer(nn.Module):
     """Light voting with offset limits (``pointnet2_modules.py:462-516``);
-    returns the pre-vote features unchanged, as the JAX package does."""
+    returns the pre-vote features unchanged, as the JAX package does. With
+    ``surface_channels`` (PAGNet), the MLP reads ``[surface, features]``
+    concatenated in that order."""
 
     def __init__(self, in_channels: int, mlp_list: Sequence[int],
-                 max_translate_range: Optional[Sequence[float]] = None):
+                 max_translate_range: Optional[Sequence[float]] = None,
+                 surface_channels: int = 0):
         super().__init__()
         self.out_channels = in_channels  # features pass through
-        self.mlp_modules = SharedMLP(in_channels, mlp_list) if mlp_list \
-            else None
-        self.ctr_reg = nn.Linear(
-            mlp_list[-1] if mlp_list else in_channels, 3)
+        width = in_channels + surface_channels
+        self.mlp_modules = SharedMLP(width, mlp_list) if mlp_list else None
+        self.ctr_reg = nn.Linear(mlp_list[-1] if mlp_list else width, 3)
         self.max_translate_range = (
             None if max_translate_range is None
             else [float(v) for v in max_translate_range])
 
-    def forward(self, xyz, features):
-        x = self.mlp_modules(features) if self.mlp_modules is not None \
-            else features
+    def forward(self, xyz, features, surface_features=None):
+        x = features if surface_features is None else \
+            torch.cat([surface_features, features], dim=-1)
+        if self.mlp_modules is not None:
+            x = self.mlp_modules(x)
         ctr_offsets = self.ctr_reg(x)
         limited = ctr_offsets
         if self.max_translate_range is not None:

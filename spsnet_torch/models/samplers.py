@@ -1,10 +1,15 @@
-"""Point downsampling strategies of the IA-SSD main path.
+"""Point downsampling strategies of the IA-SSD and SPSNet paths.
 
 One function per ``SAMPLE_METHOD_LIST`` entry ported so far
 (``pointnet2_modules.py:267-419``, as in ``spsnet_tpu/models/samplers.py``):
 
 - ``D-FPS``     — euclidean farthest point sampling, exact or seeded;
-- ``ctr``/``cls`` — top-k of sigmoid(max class logit) (IA-SSD ctr_aware).
+- ``ctr``/``cls`` — top-k of sigmoid(max class logit) (IA-SSD ctr_aware);
+- ``sss``       — top-k of the class score times the stability score
+                   ``1 - sigmoid(stds / 8 - 3)`` (SPSNet's sss_aware).
+
+Samplers that take the per-point stability ``stds`` return it gathered
+along their picks (None when there is none).
 """
 from __future__ import annotations
 
@@ -12,6 +17,16 @@ import torch
 
 from .. import ops
 from ..ops.boxes import topk_desc
+
+
+def _gather_stds(stds, idx):
+    return None if stds is None else stds.gather(1, idx)
+
+
+def stability_score(stds):
+    """SPSNet's stability mapping ``1 - sigmoid(stds / 8 - 3)``
+    (``pointnet2_modules.py:301``): high stds (unstable) -> low score."""
+    return 1.0 - torch.sigmoid(stds / 8.0 - 3.0)
 
 
 def sample_ctr_aware(cls_features, npoint: int):
@@ -22,9 +37,23 @@ def sample_ctr_aware(cls_features, npoint: int):
     return topk_desc(scores, npoint)[1]
 
 
-def sample_dfps(xyz, npoint: int, valid_mask=None, seeding=None):
-    """D-FPS, (B, N, 3) -> (B, npoint) int64: the SA-module call site,
-    the one that opts into ``seeding`` (an ``ops.FpsSeeding`` or None for
-    exact FPS)."""
-    return ops.farthest_point_sample(xyz.contiguous(), npoint,
-                                     valid_mask=valid_mask, seeding=seeding)
+def sss_aware_scores(cls_features, stds):
+    """(B, N) scores that ``sample_sss_aware`` ranks."""
+    return torch.sigmoid(cls_features.amax(dim=-1)) * stability_score(stds)
+
+
+def sample_sss_aware(cls_features, stds, npoint: int):
+    """(B, N, num_class) logits and (B, N) stds -> ((B, npoint) int64
+    indices of the highest ``sss_aware_scores``, lowest index first among
+    ties; the stds gathered along them)."""
+    idx = topk_desc(sss_aware_scores(cls_features, stds), npoint)[1]
+    return idx, _gather_stds(stds, idx)
+
+
+def sample_dfps(xyz, npoint: int, stds=None, valid_mask=None, seeding=None):
+    """D-FPS, (B, N, 3) -> ((B, npoint) int64, stds gathered along it or
+    None): the SA-module call site, the one that opts into ``seeding`` (an
+    ``ops.FpsSeeding`` or None for exact FPS)."""
+    idx = ops.farthest_point_sample(xyz.contiguous(), npoint,
+                                    valid_mask=valid_mask, seeding=seeding)
+    return idx, _gather_stds(stds, idx)

@@ -8,7 +8,8 @@ hash covers the sources and the flags, so an edited source is rebuilt.
 
 Every kernel wrapper adds one to ``LAUNCHES[name]`` where it launches its
 kernel and nowhere else, so a run can show which kernels its path went
-through. ``fps.cu`` holds two kernels (``fps``, ``fps_seeded``).
+through. ``fps.cu`` holds two kernels (``fps``, ``fps_seeded``); every
+other source holds one, named as its library.
 """
 from __future__ import annotations
 
@@ -40,8 +41,14 @@ SIGNATURES = {
     'ball_query': {'spsnet_ball_query': [_P, _P, _P, _P, _I, _I, _I, _F, _I,
                                          _F, _I, _P]},
     'seed_min': {'spsnet_seed_min': [_P, _P, _P, _I, _I, _I, _P]},
+    'fps_rows': {'spsnet_fps_rows': [_P, _P, _I, _I, _I, _P],
+                 'spsnet_fps_rows_per_cta': [_I, _I],
+                 'spsnet_fps_rows_max_n': []},
+    'fps_hier': {'spsnet_fps_hier': [_P, _P, _I, _I, _I, _P],
+                 'spsnet_fps_hier_max_n': []},
 }
-KERNELS = ('fps', 'fps_seeded', 'ball_query', 'seed_min')
+KERNELS = ('fps', 'fps_seeded', 'ball_query', 'seed_min', 'fps_rows',
+           'fps_hier')
 
 LAUNCHES = {name: 0 for name in KERNELS}
 _LIBS: dict = {}

@@ -13,8 +13,15 @@ seeds, starts the running min from their min squared distance (``seed_min_d2``)
 and runs only ``npoint - k0`` exact steps from the last seed. It is an
 approximation of FPS and off unless a ``FpsSeeding`` is passed.
 
+``farthest_point_sample_batched`` and ``farthest_point_sample_hier_argmax``
+are the counterparts of the JAX package's experimental FPS entries (K5a-c),
+which compute exact FPS through other TPU layouts; here each has its own
+kernel (``csrc/fps_rows.cu``, ``csrc/fps_hier.cu``). The JAX entries take
+no mask and pad N to 128 lanes; the kernels handle any N.
+
 Each op runs its plain version for a CPU tensor and its kernel for a CUDA
-tensor (``csrc/fps.cu``, ``csrc/seed_min.cu``); there is no other path.
+tensor (``csrc/fps.cu``, ``csrc/seed_min.cu``, ``csrc/fps_rows.cu``,
+``csrc/fps_hier.cu``); there is no other path.
 """
 from __future__ import annotations
 
@@ -160,6 +167,64 @@ def farthest_point_sample_kernel(xyz, npoint: int, valid_mask=None):
     _build.check(err, 'fps')
     _build.LAUNCHES['fps'] += 1
     return out
+
+
+def _fps_variant_kernel(name, xyz, npoint: int):
+    """Launch the exact-FPS kernel of library ``name`` (``fps_rows``,
+    ``fps_hier``): (B, N, 3) -> (B, npoint) int64 on the device of ``xyz``."""
+    _check(xyz, npoint, None)
+    _require_cuda(name, xyz)
+    lib = _build.library(name)
+    B, N, _ = xyz.shape
+    max_n = getattr(lib, f'spsnet_{name}_max_n')()
+    if N > max_n:
+        raise ValueError(f'the {name} kernel takes N <= {max_n}, got {N}')
+    out = torch.empty((B, npoint), dtype=torch.int64, device=xyz.device)
+    with torch.cuda.device(xyz.device):
+        err = getattr(lib, f'spsnet_{name}')(xyz.data_ptr(), out.data_ptr(),
+                                             B, N, npoint,
+                                             _build.stream_ptr(xyz.device))
+    _build.check(err, name)
+    _build.LAUNCHES[name] += 1
+    return out
+
+
+def farthest_point_sample_rows_kernel(xyz, npoint: int):
+    """Exact FPS through ``csrc/fps_rows.cu``: G batch rows per CTA advance
+    in lock-step (G from the library's ``spsnet_fps_rows_per_cta``: the
+    largest power of two <= B, at most 32, with at most 16 points a
+    thread)."""
+    return _fps_variant_kernel('fps_rows', xyz, npoint)
+
+
+def farthest_point_sample_batched(xyz, npoint: int):
+    """Exact FPS with every batch row in one step loop: the counterpart of
+    the JAX package's ``farthest_point_sample_pallas_batched`` (K5a,
+    ``spsnet_tpu/ops/pallas/fps.py:138``) and
+    ``farthest_point_sample_pallas_batched2d`` (K5c, ``fps.py:761``), which
+    compute this function through two TPU layouts. (B, N, 3) float32 ->
+    (B, npoint) int64: ``farthest_point_sample_plain`` for a CPU tensor,
+    ``csrc/fps_rows.cu`` for a CUDA tensor."""
+    if xyz.device.type == 'cpu':
+        return farthest_point_sample_plain(xyz, npoint)
+    return farthest_point_sample_rows_kernel(xyz, npoint)
+
+
+def farthest_point_sample_hier_kernel(xyz, npoint: int):
+    """Exact FPS through ``csrc/fps_hier.cu`` (max first, then the lowest
+    index holding it)."""
+    return _fps_variant_kernel('fps_hier', xyz, npoint)
+
+
+def farthest_point_sample_hier_argmax(xyz, npoint: int):
+    """Exact FPS with a hierarchical argmax: the counterpart of the JAX
+    package's ``_fps_pallas_allbatch_v2`` (K5b,
+    ``spsnet_tpu/ops/pallas/fps.py:316``). (B, N, 3) float32 -> (B, npoint)
+    int64: ``farthest_point_sample_plain`` for a CPU tensor,
+    ``csrc/fps_hier.cu`` for a CUDA tensor."""
+    if xyz.device.type == 'cpu':
+        return farthest_point_sample_plain(xyz, npoint)
+    return farthest_point_sample_hier_kernel(xyz, npoint)
 
 
 def _check_seeds(xyz, seeds):

@@ -1,9 +1,10 @@
-"""The train step and the epoch loop (``spsnet_tpu/runtime/trainer.py:77-122,
-176-307``; reference ``tools/train_utils/train_utils.py``): forward in train
-mode, the detector's loss, backward, global-norm clip and the scheduled
-optimizer step; epoch-end checkpoints, auto-resume and a graceful stop on
-SIGTERM/SIGUSR1. One process on one device; data parallel is a later
-slice.
+"""The train step, the eval step with SPSNet's stability preprocess, and
+the epoch loop (``spsnet_tpu/runtime/trainer.py:77-307``; reference
+``tools/train_utils/train_utils.py``): forward in train mode, the
+detector's loss, backward, global-norm clip and the scheduled optimizer
+step; forward in eval mode and the NMS; epoch-end checkpoints, auto-resume
+and a graceful stop on SIGTERM/SIGUSR1. One process on one device; data
+parallel is a later slice.
 """
 from __future__ import annotations
 
@@ -14,6 +15,12 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ..config import EDict
+from ..models.blocks import init_weights
+from ..models.detectors import resolve_device
+from ..models.detectors.detector3d import post_processing
+from ..stability.hook import apply_stability_hook
+from ..stability.model import GenerateCenter
 from .checkpoint import CheckpointManager
 from .optimization import build_optimizer
 
@@ -33,6 +40,72 @@ def make_train_step(model, optimizer):
         return loss.detach(), {k: v.detach() if torch.is_tensor(v) else v
                                for k, v in tb.items()}
     return train_step
+
+
+def make_eval_step(model, post_cfg, preprocess=None):
+    """``step(batch, generator=None) -> (dets, batch_box_preds)``: the
+    optional ``preprocess`` (``make_stability_preprocess``; the noise of its
+    ``random`` method from ``generator``, a seed-0 ``torch.Generator`` when
+    None, as the JAX eval step uses ``PRNGKey(0)``), the forward in eval mode without gradients
+    and the configured NMS (``post_processing``)."""
+    def eval_step(batch, generator: torch.Generator | None = None):
+        model.eval()
+        with torch.no_grad():
+            if preprocess is not None:
+                if generator is None:
+                    generator = torch.Generator().manual_seed(0)
+                batch = preprocess(batch, generator)
+            out = model(batch)
+            return post_processing(out, post_cfg), out['batch_box_preds']
+    return eval_step
+
+
+class StabilityPreprocess:
+    """SPSNet's preprocess: the frozen ``GenerateCenter`` (``model``, in
+    eval mode) gives the stds, then ``delete_number`` points per scene go
+    (``stability.hook.apply_stability_hook``). ``preprocess(batch,
+    generator)`` draws the (B, N) noise of the ``random`` method from
+    ``generator``, a CPU ``torch.Generator``, so a seed gives the same noise
+    on every device; the ``stability`` method draws none."""
+
+    def __init__(self, model, delete_number: int, method: str):
+        self.model = model
+        self.delete_number = delete_number
+        self.method = method
+
+    def __call__(self, batch, generator: torch.Generator):
+        noise = None
+        if self.method == 'random':
+            points = batch['points']
+            noise = torch.rand(points.shape[:2], generator=generator).to(
+                points.device)
+        return apply_stability_hook(self.model, batch, noise,
+                                    delete_number=self.delete_number,
+                                    method=self.method)
+
+
+def make_stability_preprocess(hook_cfg, device='cuda',
+                              generator: torch.Generator | None = None):
+    """The stability preprocess of ``MODEL.STABILITY_HOOK``
+    (``spsnet_tpu/runtime/trainer.py:137-173``) on ``device``. With
+    ``CKPT`` set, the generator's weights are the state dict at that path
+    (written by the port with ``torch.save``); with ``CKPT`` null they are
+    drawn from ``generator`` (seed 0 when None), which makes the deletion
+    arbitrary but the path complete."""
+    device = resolve_device(device)
+    model = GenerateCenter(EDict(hook_cfg.MODEL))
+    ckpt = hook_cfg.get('CKPT', None)
+    if ckpt:
+        model.load_state_dict(torch.load(ckpt, map_location='cpu',
+                                         weights_only=True))
+    else:
+        init_weights(model, generator if generator is not None
+                     else torch.Generator().manual_seed(0))
+    model = model.to(device).eval()
+    for p in model.parameters():
+        p.requires_grad_(False)
+    return StabilityPreprocess(model, int(hook_cfg.get('DELETE_NUMBER', 500)),
+                               str(hook_cfg.get('DELETE_METHOD', 'stability')))
 
 
 def device_batch(batch, device):

@@ -13,6 +13,18 @@ package's checkpoint importer maps the other way
     backbone_3d/vote_{i}/mlp/...                   backbone_3d.SA_modules.{i}.mlp_modules.*
     backbone_3d/vote_{i}/ctr_reg/*                 backbone_3d.SA_modules.{i}.ctr_reg.*
     point_head/{cls_center,box_center,box_iou3d}/  point_head.{cls_center,box_center,box_iou3d}_layers.*
+    backbone_3d/sf_extract/transform_{i}/Dense_0   backbone_3d.SF_extract.transforms.{i}.linear
+    backbone_3d/sf_extract/conv_{i}/layer_first    backbone_3d.SF_extract.convs.{i}.layer_first.linear
+      .../layer_{j}, .../layer_last (/Dense_0)       ....convs.{i}.layers.{j-1}.linear, ....layer_last.linear
+
+(the surface DGCNN's names as ``checkpoint_import.py:255-280`` maps them).
+The stability model ``GenerateCenter`` has its own tree, mapped by
+``generator_flax_to_torch``:
+
+    surface_pw_feature/{mlp_{s},aggregation}/...   surface_pw_feature.{mlps.{s},aggregation_layer}.*
+    feature_encoder/{fc_mu,fc_logvar}              feature_encoder.{fc_mu,fc_logvar}
+    obj_encoder/{fc1,fc2,fc_ce1,fc_ce2}            obj_encoder.{fc1,fc2,fc_ce1,fc_ce2}
+    sf_extract/...                                 sf_extract.* (as SF_extract above)
 
 A Dense kernel (in, out) becomes a Linear weight (out, in).
 """
@@ -60,31 +72,73 @@ def _head_index(head, rest, hidden) -> int:
     raise KeyError(rest)
 
 
-def _torch_name(module, hidden) -> str:
-    """Torch name prefix of a flax module path."""
-    if module[0] == 'point_head' and len(module) > 2 and module[1] in _HEADS:
-        idx = _head_index(module[:2], module[2:], hidden)
-        return f'point_head.{_HEADS[module[1]]}.{idx}'
-    m = re.fullmatch(r'(sa|vote)_(\d+)', module[1]) \
-        if module[0] == 'backbone_3d' and len(module) > 2 else None
-    if m is None:
-        raise KeyError(module)
-    base = f'backbone_3d.SA_modules.{m.group(2)}'
-    rest = module[2:]
-    if m.group(1) == 'vote':
-        if rest == ('ctr_reg',):
-            return f'{base}.ctr_reg'
-        if len(rest) == 2 and rest[0] == 'mlp':
-            return f'{base}.mlp_modules.{_seq_index(rest[1])}'
-        raise KeyError(module)
+def _sa_name(base, module, rest, hidden) -> str:
+    """Torch name of a module inside an SA layer (``rest`` below it)."""
     mm = re.fullmatch(r'mlp_(\d+)', rest[0])
     if mm and len(rest) == 2:
         return f'{base}.mlps.{mm.group(1)}.{_seq_index(rest[1])}'
     if rest[0] == 'aggregation' and len(rest) == 2:
         return f'{base}.aggregation_layer.{_seq_index(rest[1])}'
     if rest[0] == 'confidence':
-        idx = _head_index(module[:3], rest[1:], hidden)
-        return f'{base}.confidence_layers.{idx}'
+        head = module[:len(module) - len(rest) + 1]
+        return f'{base}.confidence_layers.{_head_index(head, rest[1:], hidden)}'
+    raise KeyError(module)
+
+
+def _surface_name(base, module, rest) -> str:
+    """Torch name of a Dense of the surface DGCNN (``rest`` below it)."""
+    if rest[-1:] != ('Dense_0',):
+        raise KeyError(module)
+    m = re.fullmatch(r'transform_(\d+)', rest[0])
+    if m and len(rest) == 2:
+        return f'{base}.transforms.{m.group(1)}.linear'
+    m = re.fullmatch(r'conv_(\d+)', rest[0])
+    if m and len(rest) == 3:
+        sub = rest[1]
+        layer = re.fullmatch(r'layer_(\d+)', sub)
+        if layer:
+            sub = f'layers.{int(layer.group(1)) - 1}'
+        elif sub not in ('layer_first', 'layer_last'):
+            raise KeyError(module)
+        return f'{base}.convs.{m.group(1)}.{sub}.linear'
+    raise KeyError(module)
+
+
+def _torch_name(module, hidden) -> str:
+    """Torch name prefix of a flax module path of the detector."""
+    if module[0] == 'point_head' and len(module) > 2 and module[1] in _HEADS:
+        idx = _head_index(module[:2], module[2:], hidden)
+        return f'point_head.{_HEADS[module[1]]}.{idx}'
+    if module[0] != 'backbone_3d' or len(module) < 3:
+        raise KeyError(module)
+    if module[1] == 'sf_extract':
+        return _surface_name('backbone_3d.SF_extract', module, module[2:])
+    m = re.fullmatch(r'(sa|vote)_(\d+)', module[1])
+    if m is None:
+        raise KeyError(module)
+    base = f'backbone_3d.SA_modules.{m.group(2)}'
+    rest = module[2:]
+    if m.group(1) == 'sa':
+        return _sa_name(base, module, rest, hidden)
+    if rest == ('ctr_reg',):
+        return f'{base}.ctr_reg'
+    if len(rest) == 2 and rest[0] == 'mlp':
+        return f'{base}.mlp_modules.{_seq_index(rest[1])}'
+    raise KeyError(module)
+
+
+def _generator_name(module, hidden) -> str:
+    """Torch name prefix of a flax module path of ``GenerateCenter``."""
+    rest = module[1:]
+    if module[0] == 'surface_pw_feature' and rest:
+        return _sa_name('surface_pw_feature', module, rest, hidden)
+    if module[0] == 'sf_extract' and rest:
+        return _surface_name('sf_extract', module, rest)
+    if (module[0] == 'feature_encoder' and rest in (('fc_mu',),
+                                                     ('fc_logvar',))) or \
+            (module[0] == 'obj_encoder' and rest in (
+                ('fc1',), ('fc2',), ('fc_ce1',), ('fc_ce2',))):
+        return f'{module[0]}.{rest[0]}'
     raise KeyError(module)
 
 
@@ -100,10 +154,7 @@ def _n_hidden(params) -> dict:
     return {k: len(v) for k, v in counts.items()}
 
 
-def flax_to_torch(variables) -> "OrderedDict[str, torch.Tensor]":
-    """``{'params', 'batch_stats'}`` flax trees (numpy-convertible leaves)
-    -> the port's state dict, with ``num_batches_tracked`` = 0 for every
-    BatchNorm. Raises ``KeyError`` on a flax leaf it cannot map."""
+def _convert(variables, name_of) -> "OrderedDict[str, torch.Tensor]":
     unknown = set(variables) - {'params', 'batch_stats'}
     if unknown:
         raise KeyError(f'unmapped flax collections: {sorted(unknown)}')
@@ -118,8 +169,8 @@ def flax_to_torch(variables) -> "OrderedDict[str, torch.Tensor]":
             if (coll, leaf) not in leaf_map:
                 raise KeyError(f'unmapped flax leaf: {where}')
             try:
-                name = f'{_torch_name(module, hidden)}.{leaf_map[coll, leaf]}'
-            except KeyError as e:
+                name = f'{name_of(module, hidden)}.{leaf_map[coll, leaf]}'
+            except (KeyError, IndexError) as e:
                 raise KeyError(f'unmapped flax leaf: {where}') from e
             if name in sd:
                 raise KeyError(f'flax leaf {where} maps onto {name} twice')
@@ -133,8 +184,24 @@ def flax_to_torch(variables) -> "OrderedDict[str, torch.Tensor]":
     return sd
 
 
-def load_flax(model: torch.nn.Module, variables) -> torch.nn.Module:
-    """Load flax variables into ``model``; raises on any key left unmapped
-    on either side or on a shape mismatch (``strict`` load)."""
-    model.load_state_dict(flax_to_torch(variables), strict=True)
+def flax_to_torch(variables) -> "OrderedDict[str, torch.Tensor]":
+    """A detector's ``{'params', 'batch_stats'}`` flax trees
+    (numpy-convertible leaves) -> the port's state dict, with
+    ``num_batches_tracked`` = 0 for every BatchNorm. Raises ``KeyError`` on
+    a flax leaf it cannot map."""
+    return _convert(variables, _torch_name)
+
+
+def generator_flax_to_torch(variables) -> "OrderedDict[str, torch.Tensor]":
+    """``flax_to_torch`` for the variables of the stability model
+    ``GenerateCenter`` (``stability/model.py``)."""
+    return _convert(variables, _generator_name)
+
+
+def load_flax(model: torch.nn.Module, variables,
+              convert=flax_to_torch) -> torch.nn.Module:
+    """Load flax variables into ``model`` (a detector; pass ``convert=
+    generator_flax_to_torch`` for a ``GenerateCenter``); raises on any key
+    left unmapped on either side or on a shape mismatch (``strict`` load)."""
+    model.load_state_dict(convert(variables), strict=True)
     return model

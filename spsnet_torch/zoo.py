@@ -14,6 +14,12 @@ def iassd_kitti_cfg() -> EDict:
     return load_yaml_cfg('tools/cfgs/kitti_models/IA-SSD.yaml')
 
 
+def spsnet_kitti_cfg() -> EDict:
+    """The SPSNet flagship KITTI config (stability hook, PAGNet backbone,
+    sss_aware sampling, MLT head)."""
+    return load_yaml_cfg('tools/cfgs/kitti_models/SPSNet.yaml')
+
+
 def scale_sa_config(model_cfg: EDict, factor: int) -> EDict:
     """Shrink NPOINT_LIST by ``factor`` (for small test shapes)."""
     sa = model_cfg.BACKBONE_3D.SA_CONFIG
@@ -98,4 +104,48 @@ def tiny_iassd_cfg() -> EDict:
                 'NMS_POST_MAXSIZE': 16,
             },
         },
+    })
+
+
+def tiny_spsnet_cfg() -> EDict:
+    """Tiny SPSNet-IA: PAGNet backbone (surface features + stds threading),
+    sss_aware samplers, MLT head."""
+    cfg = tiny_iassd_cfg()
+    cfg.NAME = 'SPSNet'
+    sa = cfg.BACKBONE_3D.SA_CONFIG
+    cfg.BACKBONE_3D.NAME = 'PAGNet_Backbone'
+    sa.SAMPLE_METHOD_LIST = [['D-FPS'], ['D-FPS'], ['sss_aware'],
+                             ['sss_aware'], [], []]
+    sa.SS_RADIUS_LIST = [[0.05], [0.2], [0.4], [0.8], [], []]
+    sa.SS_NSAMPLE_LIST = [[4], [4], [4], [4], [], []]
+    sa.USE_SURFACE = True
+    cfg.POINT_HEAD.NAME = 'MLT_SSD_Head'
+    cfg.POINT_HEAD.LOSS_CONFIG.SAMPLE_METHOD_LIST = sa.SAMPLE_METHOD_LIST
+    return cfg
+
+
+def tiny_stability_model_cfg() -> EDict:
+    """A tiny ``STABILITY_HOOK.MODEL`` (the stability model of the JAX
+    package's SPSNet chain test): one SA layer at npoint 256."""
+    return EDict({
+        'SF_FEATURE_DIM': 32, 'LATENT_DIM': 4,
+        'SA_CONFIG': {
+            'NPOINT_LIST': [[256]],
+            'SAMPLE_RANGE_LIST': [[-1]],
+            'SAMPLE_METHOD_LIST': [['D-FPS']],
+            'RADIUS_LIST': [[0.2, 0.8]],
+            'NSAMPLE_LIST': [[4, 8]],
+            'MLPS': [[[8, 8, 16], [8, 8, 16]]],
+            'LAYER_TYPE': ['SA_Layer'],
+            'DILATED_GROUP': [False],
+            'AGGREGATION_MLPS': [[32]],
+            'CONFIDENCE_MLPS': [[]],
+            'LAYER_INPUT': [0],
+            'CTR_INDEX': [-1],
+        },
+        'GENERATOR': {'LATENT_DIM': 4, 'PW_FEATURE_DIM': 32},
+        'TARGET_CONFIG': {'INS_AWARE_ASSIGN': True,
+                          'GT_EXTRA_WIDTH': [0.2, 0.2, 0.2]},
+        'LOSS_CONFIG': {'LOSS_REG': 'WeightedSmoothL1Loss',
+                        'LOSS_WEIGHTS': {'code_weights': [1.0, 1.0, 1.0]}},
     })

@@ -4,8 +4,10 @@ Edge cases that the main paths' shapes do not reach: N and M off the
 kernels' tiles, balls that are empty or hit exactly on the radius, more
 than 32 slots, one or three radii, masks with too few valid points, the
 shared-memory and register limits of the FPS kernels, one seed or more
-seeds than a shared-memory tile, seeds in any order. Indices must be equal,
-and the min distances to the seeds bit for bit.
+seeds than a shared-memory tile, seeds in any order, the experimental FPS
+entries' kernels (``fps_rows``, ``fps_hier``) at one point, at N off the
+128-lane padding, on all-equal points and with several rows a CTA. Indices
+must be equal, and the min distances to the seeds bit for bit.
 
 These tests need a CUDA card and skip without one. On the H100:
 
@@ -186,3 +188,37 @@ def test_seeded_dispatch_counts_one_launch_of_each(cuda):
         xyz.cpu(), 1024, seeding=FpsSeeding(0.75, 'grid')))
     sampling.farthest_point_sample(xyz, 1024)
     assert _build.LAUNCHES['fps'] == 1
+
+
+FPS_VARIANTS = {'fps_rows': sampling.farthest_point_sample_rows_kernel,
+                'fps_hier': sampling.farthest_point_sample_hier_kernel}
+
+
+@pytest.mark.parametrize('name', sorted(FPS_VARIANTS))
+@pytest.mark.parametrize('B,N,M,equal', [
+    (1, 1, 1, False),          # one point
+    (3, 197, 64, False),       # N % 128 != 0, B not a power of two
+    (2, 300, 300, True),       # all points equal: every pick is a tie
+    (32, 1000, 200, False),    # many small rows: fps_rows packs 16 a CTA
+    (5, 4096, 512, False),     # 4 rows a CTA, three idle in the second
+    (2, 15884, 256, False),    # SPSNet's layer-0 N
+    (1, 40000, 64, False),     # above the shared-memory planes
+])
+def test_fps_variant_kernels_match_plain(cuda, name, B, N, M, equal):
+    xyz = _cloud(B + N, B, N).to(cuda)
+    if equal:
+        xyz = xyz[:, :1].expand(B, N, 3).contiguous()
+    before = _build.LAUNCHES[name]
+    got = FPS_VARIANTS[name](xyz, M)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[name] - before == 1
+    assert torch.equal(got, farthest_point_sample_plain(xyz, M))
+
+
+@pytest.mark.parametrize('B,N,G', [(1, 16384, 1), (8, 15884, 1),
+                                   (32, 4096, 4), (5, 4096, 4),
+                                   (32, 1000, 16), (3, 2048, 2),
+                                   (64, 100, 32)])
+def test_fps_rows_packs_rows_while_a_thread_holds_at_most_16_points(
+        cuda, B, N, G):
+    assert _build.library('fps_rows').spsnet_fps_rows_per_cta(B, N) == G

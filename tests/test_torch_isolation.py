@@ -17,17 +17,23 @@ import pytest
 import torch
 
 from spsnet_tpu import zoo as jax_zoo
+from spsnet_tpu.config import StaticConfig
 from spsnet_tpu.models import build_detector as jax_build_detector
+from spsnet_tpu.stability.model import GenerateCenter as JaxGenerateCenter
 from spsnet_tpu.utils.synthetic import synthetic_scan_batch as jax_scan_batch
 from spsnet_torch import zoo
 from spsnet_torch.models import build_detector
 from spsnet_torch.ops import _build
 from spsnet_torch.ops.grouping import ball_query_multi_kernel
-from spsnet_torch.ops.sampling import (farthest_point_sample_kernel,
+from spsnet_torch.ops.sampling import (farthest_point_sample_hier_kernel,
+                                       farthest_point_sample_kernel,
+                                       farthest_point_sample_rows_kernel,
                                        farthest_point_sample_seeded_kernel,
                                        seed_min_d2_kernel)
+from spsnet_torch.stability.model import GenerateCenter
 from spsnet_torch.utils.synthetic import synthetic_scan_batch
-from spsnet_torch.utils.weights import flax_to_torch, load_flax
+from spsnet_torch.utils.weights import (flax_to_torch,
+                                        generator_flax_to_torch, load_flax)
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted(str(p.relative_to(ROOT))
@@ -66,10 +72,13 @@ from spsnet_torch.models import build_detector
 from spsnet_torch.config import EDict
 from spsnet_torch.ops import FpsSeeding, _build
 from spsnet_torch.runtime.optimization import build_optimizer
-from spsnet_torch.runtime.trainer import device_batch, make_train_step
+from spsnet_torch.runtime.trainer import (device_batch, make_eval_step,
+                                          make_stability_preprocess,
+                                          make_train_step)
 from spsnet_torch.utils.synthetic import (synthetic_scan_batch,
                                           synthetic_scene_batch)
-from spsnet_torch.zoo import tiny_iassd_cfg
+from spsnet_torch.zoo import (tiny_iassd_cfg, tiny_spsnet_cfg,
+                              tiny_stability_model_cfg)
 model = build_detector(tiny_iassd_cfg(), 3, device='cpu')
 with torch.no_grad():
     out = model({'points': torch.from_numpy(synthetic_scan_batch(0, 1, 256))})
@@ -84,17 +93,28 @@ opt = build_optimizer(EDict({
 pts, gt = synthetic_scene_batch(0, 1, 512)
 loss, _ = make_train_step(trained, opt)(
     device_batch({'points': pts, 'gt_boxes': gt}, 'cpu'))
+spsnet = build_detector(tiny_spsnet_cfg(), 3, device='cpu')
+hook = EDict({'CKPT': None, 'DELETE_NUMBER': 32,
+              'MODEL': tiny_stability_model_cfg()})
+pts, gt = synthetic_scene_batch(1, 2, 256)
+dets, _ = make_eval_step(spsnet, tiny_spsnet_cfg().POST_PROCESSING,
+                         make_stability_preprocess(hook, 'cpu'))(
+    device_batch({'points': pts, 'gt_boxes': gt}, 'cpu'))
 print(json.dumps({
     'jax_modules': sorted(m for m in sys.modules
                           if m.split('.')[0] in ('jax', 'flax', 'optax',
                                                  'orbax', 'spsnet_tpu')),
     'processes': len(started), 'libraries': len(_build._LIBS),
     'boxes': list(out['batch_box_preds'].shape),
-    'finite_loss': bool(torch.isfinite(loss))}))
+    'finite_loss': bool(torch.isfinite(loss)),
+    'spsnet_indices': list(dets['indices'].shape)}))
 '''
 
 
 def test_import_cpu_forward_and_train_step_load_no_jax_and_build_nothing():
+    """Import, an IA-SSD forward, a train step and an SPSNet eval step with
+    the stability preprocess, all on the CPU: no JAX module is loaded and
+    no kernel is built."""
     env = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}
     env['PYTHONPATH'] = str(ROOT)
     res = subprocess.run([sys.executable, '-c', _CHILD], cwd=ROOT, env=env,
@@ -102,7 +122,8 @@ def test_import_cpu_forward_and_train_step_load_no_jax_and_build_nothing():
     assert res.returncode == 0, res.stderr
     got = json.loads(res.stdout.strip().splitlines()[-1])
     assert got == {'jax_modules': [], 'processes': 0, 'libraries': 0,
-                   'boxes': [1, 16, 7], 'finite_loss': True}
+                   'boxes': [1, 16, 7], 'finite_loss': True,
+                   'spsnet_indices': [2, 16]}
 
 
 def test_default_device_raises_without_cuda(monkeypatch):
@@ -123,6 +144,10 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match='CUDA'):
         farthest_point_sample_seeded_kernel(
             xyz, 4, torch.zeros(1, 8), torch.arange(2)[None])
+    for kernel in (farthest_point_sample_rows_kernel,
+                   farthest_point_sample_hier_kernel):
+        with pytest.raises(ValueError, match='CUDA'):
+            kernel(xyz, 4)
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
@@ -138,33 +163,85 @@ def test_build_dir_is_keyed_by_sources_and_ignored_by_git():
     assert 'build/' in (ROOT / '.gitignore').read_text().split()
 
 
-@pytest.fixture(scope='module')
-def tiny_variables():
+def _jax_variables(kind):
     points = synthetic_scan_batch(0, 1, 256)
-    model = jax_build_detector(jax_zoo.tiny_iassd_cfg(), num_class=3)
-    variables = jax.jit(lambda key, pts: model.init(
-        key, {'points': pts}, train=False))(jax.random.PRNGKey(0), points)
+    if kind == 'generator':
+        model = JaxGenerateCenter(
+            model_cfg=StaticConfig(zoo.tiny_stability_model_cfg()))
+        # train=True creates every variable (eval skips obj_encoder)
+        variables = jax.jit(lambda key, pts: model.init(
+            {'params': key, 'latent': key}, {'points': pts}, train=True))(
+                jax.random.PRNGKey(0), points)
+    else:
+        cfg = jax_zoo.tiny_iassd_cfg() if kind == 'iassd' else \
+            jax_zoo.tiny_spsnet_cfg()
+        batch = {'points': points}
+        if kind == 'spsnet':
+            batch['stds'] = np.linspace(0.5, 9.0, 256,
+                                        dtype=np.float32)[None]
+        model = jax_build_detector(cfg, num_class=3)
+        variables = jax.jit(lambda key, b: model.init(key, b, train=False))(
+            jax.random.PRNGKey(0), batch)
     return jax.tree_util.tree_map(np.asarray, dict(variables))
 
 
-def test_flax_to_torch_maps_every_key(tiny_variables):
-    """Every flax leaf lands on a port parameter or buffer and back: the
-    strict load accepts it and each Dense kernel arrives transposed."""
-    model = build_detector(zoo.tiny_iassd_cfg(), 3, device='cpu')
-    sd = flax_to_torch(tiny_variables)
+# the bridge of each variable tree: the port's module and its converter
+BRIDGES = {
+    'iassd': (lambda: build_detector(zoo.tiny_iassd_cfg(), 3, device='cpu'),
+              flax_to_torch),
+    'spsnet': (lambda: build_detector(zoo.tiny_spsnet_cfg(), 3,
+                                      device='cpu'), flax_to_torch),
+    'generator': (lambda: GenerateCenter(zoo.tiny_stability_model_cfg()),
+                  generator_flax_to_torch),
+}
+
+
+@pytest.fixture(scope='module')
+def variables_of():
+    """The flax variables of a bridge kind, made once per module."""
+    cache = {}
+
+    def get(kind):
+        if kind not in cache:
+            cache[kind] = _jax_variables(kind)
+        return jax.tree_util.tree_map(lambda a: a, cache[kind])
+    return get
+
+
+def _first_dense(kind, variables):
+    """The first SA layer's first Dense kernel of a variable tree, and the
+    name of the module it maps onto."""
+    if kind == 'generator':
+        return (variables['params']['surface_pw_feature']['mlp_0']['Dense_0']
+                ['kernel'], 'surface_pw_feature.mlps.0.0')
+    return (variables['params']['backbone_3d']['sa_0']['mlp_0']['Dense_0']
+            ['kernel'], 'backbone_3d.SA_modules.0.mlps.0.0')
+
+
+def _maps_every_key(kind, variables):
+    build, convert = BRIDGES[kind]
+    model = build()
+    sd = convert(variables)
     assert set(sd) == set(model.state_dict())
-    load_flax(model, tiny_variables)
-    k = tiny_variables['params']['backbone_3d']['sa_0']['mlp_0']['Dense_0'][
-        'kernel']
-    w = model.backbone_3d.SA_modules[0].mlps[0][0].weight
+    load_flax(model, variables, convert=convert)
+    k, name = _first_dense(kind, variables)
+    w = model.get_submodule(name).weight
     np.testing.assert_array_equal(w.detach().numpy(), k.T)
+    if kind == 'spsnet':
+        k = variables['params']['backbone_3d']['sf_extract']['conv_1'][
+            'layer_1']['Dense_0']['kernel']
+        w = model.backbone_3d.SF_extract.convs[1].layers[0].linear.weight
+        np.testing.assert_array_equal(w.detach().numpy(), k.T)
 
 
-@pytest.mark.parametrize('where', ['flax_leaf', 'flax_module',
-                                   'collection'])
-def test_flax_to_torch_raises_on_unmapped_flax_keys(tiny_variables, where):
-    variables = jax.tree_util.tree_map(lambda a: a, tiny_variables)
-    sa0 = variables['params']['backbone_3d']['sa_0']
+def _module_tree(kind, variables):
+    if kind == 'generator':
+        return variables['params']['surface_pw_feature']
+    return variables['params']['backbone_3d']['sa_0']
+
+
+def _raises_on_unmapped(kind, variables, where):
+    sa0 = _module_tree(kind, variables)
     if where == 'flax_leaf':   # a BatchNorm leaf on a Dense module
         sa0['mlp_0']['Dense_0']['scale'] = np.ones(3, np.float32)
     elif where == 'flax_module':
@@ -172,26 +249,70 @@ def test_flax_to_torch_raises_on_unmapped_flax_keys(tiny_variables, where):
     else:
         variables['cache'] = {}
     with pytest.raises(KeyError, match='unmapped|twice'):
-        flax_to_torch(variables)
+        BRIDGES[kind][1](variables)
 
 
-def test_load_flax_raises_on_a_port_key_left_unfilled(tiny_variables):
-    variables = jax.tree_util.tree_map(lambda a: a, tiny_variables)
-    del variables['params']['backbone_3d']['sa_0']['mlp_0']['Dense_0']
-    model = build_detector(zoo.tiny_iassd_cfg(), 3, device='cpu')
+def _raises_on_unfilled(kind, variables):
+    build, convert = BRIDGES[kind]
+    del _module_tree(kind, variables)['mlp_0']['Dense_0']
     with pytest.raises(RuntimeError, match='Missing key'):
-        load_flax(model, variables)
+        load_flax(build(), variables, convert=convert)
 
 
-@pytest.mark.parametrize('name', ['tiny', 'iassd_kitti', 'iassd_kitti_scaled'])
+def test_flax_to_torch_maps_every_key(variables_of):
+    """Every flax leaf lands on a port parameter or buffer and back: the
+    strict load accepts it and each Dense kernel arrives transposed."""
+    _maps_every_key('iassd', variables_of('iassd'))
+
+
+@pytest.mark.parametrize('kind', ['spsnet', 'generator'])
+def test_flax_to_torch_maps_every_key_of_the_spsnet_trees(variables_of,
+                                                          kind):
+    """The same for the SPSNet detector (the surface DGCNN, the wider vote
+    layer) and for the stability model, whose tree has its own converter."""
+    _maps_every_key(kind, variables_of(kind))
+
+
+WHERE = ['flax_leaf', 'flax_module', 'collection']
+
+
+@pytest.mark.parametrize('where', WHERE)
+def test_flax_to_torch_raises_on_unmapped_flax_keys(variables_of, where):
+    _raises_on_unmapped('iassd', variables_of('iassd'), where)
+
+
+@pytest.mark.parametrize('where', WHERE)
+@pytest.mark.parametrize('kind', ['spsnet', 'generator'])
+def test_spsnet_trees_raise_on_unmapped_flax_keys(variables_of, kind,
+                                                  where):
+    _raises_on_unmapped(kind, variables_of(kind), where)
+
+
+def test_load_flax_raises_on_a_port_key_left_unfilled(variables_of):
+    _raises_on_unfilled('iassd', variables_of('iassd'))
+
+
+@pytest.mark.parametrize('kind', ['spsnet', 'generator'])
+def test_spsnet_trees_raise_on_a_port_key_left_unfilled(variables_of, kind):
+    _raises_on_unfilled(kind, variables_of(kind))
+
+
+@pytest.mark.parametrize('name', ['tiny', 'iassd_kitti', 'iassd_kitti_scaled',
+                                  'tiny_spsnet', 'spsnet_kitti'])
 def test_config_copies_match_the_jax_package(name):
     """The port's own config loader and zoo give the JAX package's configs
-    (``_BASE_CONFIG_`` resolution included for IA-SSD.yaml)."""
+    (``_BASE_CONFIG_`` resolution included for IA-SSD.yaml and
+    SPSNet.yaml)."""
     def build(z):
         if name == 'tiny':
             return z.tiny_iassd_cfg()
         if name == 'iassd_kitti':
             return z.iassd_kitti_cfg()
+        if name == 'tiny_spsnet':
+            return z.tiny_spsnet_cfg()
+        if name == 'spsnet_kitti':
+            return z.spsnet_kitti_cfg() if z is zoo else \
+                z.load_yaml_cfg('tools/cfgs/kitti_models/SPSNet.yaml')
         return z.scale_sa_config(z.iassd_kitti_cfg().MODEL, 8)
     assert json.dumps(build(zoo), sort_keys=True) == \
         json.dumps(build(jax_zoo), sort_keys=True)

@@ -18,6 +18,7 @@ from spsnet_tpu.ops.pallas import fps as jfps
 from spsnet_torch import ops
 from spsnet_torch.models import samplers
 from spsnet_torch.ops import grouping as tg
+from spsnet_torch.ops import sampling as ts
 from spsnet_torch.utils.synthetic import synthetic_scan_batch
 
 
@@ -45,17 +46,28 @@ def test_fps_matches_jax_xla_and_pallas(B, N, M, seed):
     assert got.max() < N
 
 
-@pytest.mark.parametrize('variant', ['farthest_point_sample_pallas_batched',
-                                     '_fps_pallas_allbatch_v2',
-                                     'farthest_point_sample_pallas_batched2d'])
+# each experimental Pallas entry (K5a-c) and its counterpart in the port
+EXPERIMENTAL_FPS = {
+    'farthest_point_sample_pallas_batched': 'farthest_point_sample_batched',
+    '_fps_pallas_allbatch_v2': 'farthest_point_sample_hier_argmax',
+    'farthest_point_sample_pallas_batched2d': 'farthest_point_sample_batched',
+}
+
+
+@pytest.mark.parametrize('variant', sorted(EXPERIMENTAL_FPS))
 @pytest.mark.parametrize('B,N,M,seed', [(3, 300, 64, 0), (2, 197, 32, 1)])
 def test_fps_matches_the_experimental_pallas_variants(variant, B, N, M, seed):
     """K5a-c compute K1's function through other TPU layouts and are never
-    dispatched; the port's FPS gives their indices too (interpret mode)."""
+    dispatched; each is held to its own port entry (here its plain version;
+    on the card ``csrc/fps_rows.cu`` or ``csrc/fps_hier.cu``) in interpret
+    mode, and the port's FPS gives their indices too."""
     xyz = np.random.default_rng(seed).normal(size=(B, N, 3)).astype(np.float32)
-    got = ops.farthest_point_sample(_t(xyz), M).numpy()
-    want = getattr(jfps, variant)(jnp.asarray(xyz), M, interpret=True)
-    np.testing.assert_array_equal(got, np.asarray(want))
+    want = np.asarray(getattr(jfps, variant)(jnp.asarray(xyz), M,
+                                             interpret=True))
+    entry = getattr(ts, EXPERIMENTAL_FPS[variant])
+    np.testing.assert_array_equal(entry(_t(xyz), M).numpy(), want)
+    np.testing.assert_array_equal(
+        ops.farthest_point_sample(_t(xyz), M).numpy(), want)
 
 
 def test_fps_matches_jax_on_a_kitti_scan():

@@ -198,7 +198,7 @@ def test_sa_layer_takes_the_prefix_shortcut_only_for_exact_fps(seeding):
     layer = SAModuleMSGWithSampling(
         1, [256], [-1], ['D-FPS'], [], [], [], num_class=3,
         fps_seeding=seeding)
-    idx = layer._sample(xyz, None, input_fps_ordered=True)
+    idx, _ = layer._sample(xyz, None, input_fps_ordered=True)
     head = torch.arange(256).expand(2, 256)
     if seeding is None:
         assert torch.equal(idx, head)
