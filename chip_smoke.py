@@ -2,21 +2,28 @@
 """Chip smoke run of the PyTorch port (``spsnet_torch``) on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phase3 ROOT   # phases 1-3 of another checkout
 
 Phases, in order; any failure raises and the exit code is not 0:
 
 1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
-2. build the CUDA kernels from ``spsnet_torch/csrc`` (seconds printed);
+2. build the CUDA kernels from ``spsnet_torch/csrc`` (seconds printed) and
+   print ptxas's registers, shared memory and spills of the FPS and
+   ball-query kernels;
 3. each kernel against its plain PyTorch version on the card, index for
    index (and bit for bit on distances), at the main paths' shapes: FPS at
    (8, 16384) -> 4096, at (1, 16384) -> 4096 and at sizes that are no
-   multiple of 1024 (with a mask, and above the shared-memory limit); the
-   prefix-nesting identity FPS(layer-0 chain, 1024) == arange(1024); the
-   fused ball query at every SA layer with radii, on the centers the path
-   produces; the seeded D-FPS kernels (min distance to the seeds, seeded
-   FPS) at the train path's two layers, (4, 16384) -> 4096 from 3072 grid
-   seeds and (4, 4096) -> 1024 from 768, plus head seeds and an N that is
-   no multiple of 128. Times are CUDA events, median of repeated runs;
+   multiple of 1024 (with a mask, up to N = 65536), with its time a step,
+   its cluster size and CTA width; the prefix-nesting identity FPS(layer-0
+   chain, 1024) == arange(1024); the fused ball query at every SA layer
+   with radii, on the centers the path produces, with the centers a warp
+   (W) its rule takes; the seeded D-FPS kernels (min distance to the
+   seeds, seeded FPS) at the train path's two layers, (4, 16384) ->
+   4096 from 3072 grid seeds and (4, 4096) -> 1024 from 768, plus head
+   seeds and an N that is no multiple of 128. Times are CUDA events, median
+   of repeated runs; then the device time of one call (``torch.profiler``,
+   median kernel duration) of K1, ``fps_hier``, K4 and K2 at the paths'
+   shapes;
 4. the serving path: IA-SSD KITTI (``tools/cfgs/kitti_models/IA-SSD.yaml``)
    at full width with seeded random weights serves five requests of
    8 x 16384 points through forward + class-agnostic NMS, with exact FPS
@@ -68,6 +75,12 @@ Phase 3 also holds the two kernels of those entries (``fps_rows``,
 the ball query at SPSNet's shapes: FPS at (8, 15884) -> 4096, the ball
 query of the stability SA (16384 centers on 16384 points, r 0.2 / 0.8) and
 of the surface graph (15884 on 15884, r 0.8, 16 neighbours).
+
+``--phase3 ROOT`` runs phases 1-3 with the package and the phase functions
+of the checkout at ROOT and prints their kernel entries as one JSON line:
+run on the parent commit's tree (``git archive`` into an ignored directory)
+and on this one in turns within one call, it compares the kernels of two
+commits on one card.
 
 Exits non-zero without printing a result when no CUDA device is present.
 """
@@ -208,6 +221,8 @@ def fps_phase(xyz, kept_xyz):
     npoint = 4096
     main = fps_call('fps', farthest_point_sample_kernel, xyz, npoint)
     spsnet = fps_call('fps', farthest_point_sample_kernel, kept_xyz, npoint)
+    for call in (main, spsnet):
+        _cluster_note('fps', call, npoint - 1, seeded=False)
     err = max(main.pop('err'), spsnet.pop('err'), require_equal(
         farthest_point_sample_kernel(xyz[:1].contiguous(), npoint),
         farthest_point_sample_plain(xyz[:1], npoint),
@@ -232,7 +247,25 @@ def fps_phase(xyz, kept_xyz):
             **{key: main[key] for key in ('ms', 'plain_ms', 'bound_ms',
                                           'bound_by')},
             'library_ms': None, 'shape': f'({B},{N},3)->{npoint}',
+            **{key: main[key] for key in ('us_per_step', 'cluster',
+                                          'cta_threads',
+                                          'max_active_clusters')},
             'spsnet_layer0': spsnet}
+
+
+def _cluster_note(name, call, steps, seeded):
+    """Add to an FPS call's record (and print) its time a step, its cluster
+    size and CTA width, and how many such clusters the card holds at once."""
+    from spsnet_torch.ops import _build
+    from spsnet_torch.ops.sampling import fps_launch_shape
+    c, t = fps_launch_shape(call['B'], call['N'])
+    active = _build.library('fps').spsnet_fps_max_active_clusters(
+        call['B'], call['N'], int(seeded))
+    call.update(us_per_step=call['ms'] * 1e3 / steps, cluster=c,
+                cta_threads=t, max_active_clusters=active)
+    log(f'  {name} ({call["B"]}, {call["N"]}, 3): {call["us_per_step"]:.3f} '
+        f'us a step over {steps} steps; clusters of {c} CTAs x {t} threads, '
+        f'{call["B"]} clusters launched, {active} fit at once')
 
 
 def _scan_pairs(idx_list, nsamples, n):
@@ -253,6 +286,7 @@ def ball_query_call(radii, ns, xyz, ctr, what):
     """The ball-query kernel vs plain on one input: indices identical,
     CUDA-event times, bound over the pairs the centers scanned. Returns the
     call's record (with 'err')."""
+    from spsnet_torch.ops import _build
     from spsnet_torch.ops.grouping import (ball_query_multi_kernel,
                                            ball_query_multi_plain)
     radii, ns = tuple(radii), tuple(ns)
@@ -274,10 +308,14 @@ def ball_query_call(radii, ns, xyz, ctr, what):
     log(f'  ball query {what} B={xyz.shape[0]} M={ctr.shape[1]} '
         f'N={xyz.shape[1]} r={radii} ns={ns}: kernel {ms:.3f} ms, plain '
         f'{plain:.3f} ms, bound {bnd:.4f} ms ({by}, {pairs} pairs)')
-    return {'layer': what, 'B': xyz.shape[0], 'M': ctr.shape[1],
-            'N': xyz.shape[1], 'radii': radii, 'nsamples': ns, 'ms': ms,
-            'plain_ms': plain, 'bound_ms': bnd, 'bound_by': by,
-            'pairs': pairs, 'err': err}
+    record = {'layer': what, 'B': xyz.shape[0], 'M': ctr.shape[1],
+              'N': xyz.shape[1], 'radii': radii, 'nsamples': ns, 'ms': ms,
+              'plain_ms': plain, 'bound_ms': bnd, 'bound_by': by,
+              'pairs': pairs, 'err': err}
+    record['warp_centers'] = _build.library(
+        'ball_query').spsnet_ball_query_warp_centers(*ctr.shape[:2])
+    log(f'    W (centers a warp): {record["warp_centers"]}')
+    return record
 
 
 def ball_query_phase(model, points, raw_xyz, kept_xyz):
@@ -434,6 +472,8 @@ def seeded_phase(scenes):
                                 'npoint': npoint, 'ms': ms,
                                 'plain_ms': plain_ms, 'bound_ms': bnd,
                                 'bound_by': by})
+            if name == 'fps_seeded':
+                _cluster_note(name, calls[name][-1], npoint - k0, seeded=True)
         xyz = gather_points(xyz, picks).contiguous()
     head = torch.arange(3072, device='cuda').expand(TRAIN_B, 3072)
     _seeded_case(scenes[..., :3].contiguous(), 4096, 3072,
@@ -937,17 +977,9 @@ def train_cpu_phase(cfg):
         f'atol {PRED_ATOL} + rtol {PRED_RTOL}')
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print('chip_smoke: no CUDA device', file=sys.stderr)
-        return 1
-    sys.path.insert(0, str(Path(__file__).resolve().parent))
-    from spsnet_torch.models import build_detector
+def card_and_build():
+    """Phases 1 and 2; returns the card's nvidia-smi line."""
     from spsnet_torch.ops import _build
-    from spsnet_torch.runtime.trainer import make_eval_step
-    from spsnet_torch.utils.synthetic import synthetic_scan_batch
-    from spsnet_torch.zoo import iassd_kitti_cfg
-
     log('== 1. card')
     smi = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit',
@@ -960,7 +992,18 @@ def main() -> int:
     log('== 2. build')
     log(f'  kernels built in {_build.build_all():.2f} s '
         f'({_build.build_dir()})')
+    for name in ('fps', 'ball_query'):
+        if hasattr(_build, 'ptxas_report'):
+            for line in _build.ptxas_report(name):
+                log(f'  ptxas {name}: {line}')
+    return smi
 
+
+def kernel_inputs():
+    """The models and clouds that phase 3 and the paths share."""
+    from spsnet_torch.models import build_detector
+    from spsnet_torch.utils.synthetic import synthetic_scan_batch
+    from spsnet_torch.zoo import iassd_kitti_cfg
     cfg = iassd_kitti_cfg()
     model = build_detector(cfg.MODEL, len(cfg.CLASS_NAMES), device='cuda',
                            generator=torch.Generator().manual_seed(0))
@@ -980,14 +1023,146 @@ def main() -> int:
                      ..., :3].contiguous().cuda(), 1024)]
     if [(*x.shape[:2], m) for x, m in k5_clouds] != list(K5_SHAPES):
         raise AssertionError('K5 shapes')
-
-    log('== 3. kernels vs plain on the card')
     train_batches = [_scene_batch(s, TRAIN_B, 'cuda')
                      for s in range(TRAIN_STEPS)]
-    entries = [fps_phase(requests[0][..., :3].contiguous(), kept_xyz),
-               ball_query_phase(model, requests[0], raw_xyz, kept_xyz),
-               *seeded_phase(train_batches[0]['points']),
-               *fps_variant_phase(k5_clouds)]
+    return {'cfg': cfg, 'model': model, 'requests': requests,
+            'sps': (sps_cfg, sps_pre, sps_model), 'sps_requests': sps_requests,
+            'kept_xyz': kept_xyz, 'raw_xyz': raw_xyz, 'k5_clouds': k5_clouds,
+            'train_batches': train_batches}
+
+
+def kernel_phase(phases, inp):
+    """Phase 3 through the phase functions of module ``phases`` (this
+    script, or the same script of another checkout); returns the kernels'
+    JSON entries without launches, and the device time of each kernel call
+    at the paths' shapes (``kernel_device_ms``)."""
+    log('== 3. kernels vs plain on the card')
+    requests = inp['requests']
+    entries = [phases.fps_phase(requests[0][..., :3].contiguous(),
+                                inp['kept_xyz']),
+               phases.ball_query_phase(inp['model'], requests[0],
+                                       inp['raw_xyz'], inp['kept_xyz']),
+               *phases.seeded_phase(inp['train_batches'][0]['points']),
+               *phases.fps_variant_phase(inp['k5_clouds'])]
+    return entries, kernel_device_ms(inp)
+
+
+def device_ms(fn, reps=10):
+    """Device time of one call of ``fn``, whose calls launch one kernel
+    each: the median kernel duration over ``reps`` traced calls
+    (``torch.profiler``, a warm-up step before each window). CUDA events
+    around a call also count the host's time to issue it, which is most of
+    a small kernel's event time. The trace may drop records of short
+    kernels, so windows repeat (at most four) until ``reps`` are in."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    kernels = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for _ in range(2):
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        kernels += [e.self_device_time_total for e in prof.events()
+                    if str(getattr(e, 'device_type', '')).endswith('CUDA')
+                    and not getattr(e, 'is_user_annotation', False)
+                    and e.self_device_time_total > 0]
+        if len(kernels) >= reps:
+            break
+    if not kernels:
+        raise AssertionError('no kernel traced')
+    return statistics.median(kernels) / 1e3
+
+
+def kernel_device_ms(inp):
+    """Device time a call of K1, ``fps_hier``, K4 and K2 at the paths'
+    shapes, through the kernel wrappers that both this commit and its
+    parent have; returns {call: ms}."""
+    from spsnet_torch.ops import gather_points
+    from spsnet_torch.ops import sampling as smp
+    from spsnet_torch.ops.grouping import ball_query_multi_kernel
+    xyz = inp['requests'][0][..., :3].contiguous()
+    calls = {}
+    for what, cloud in (('IA-SSD', xyz), ('SPSNet', inp['kept_xyz'])):
+        shape = f'({B}, {cloud.shape[1]}) -> 4096'
+        calls[f'fps {shape}, {what} layer 0'] = \
+            lambda c=cloud: smp.farthest_point_sample_kernel(c, 4096)
+        calls[f'fps_hier {shape}'] = \
+            lambda c=cloud: smp.farthest_point_sample_hier_kernel(c, 4096)
+    cloud = inp['train_batches'][0]['points'][..., :3].contiguous()
+    for layer, npoint in enumerate((4096, 1024)):
+        k0 = smp.seed_k0(seeding(), npoint)
+        idx = smp.grid_seed_indices(cloud, k0)
+        d0 = smp.seed_min_d2_kernel(cloud, gather_points(cloud, idx)
+                                    .contiguous())
+        calls[f'fps_seeded layer {layer} ({TRAIN_B}, {cloud.shape[1]}) '
+              f'k0={k0} -> {npoint}'] = \
+            lambda c=cloud, m=npoint, d=d0, i=idx: \
+            smp.farthest_point_sample_seeded_kernel(c, m, d, i)
+        cloud = gather_points(cloud, smp.farthest_point_sample_seeded_kernel(
+            cloud, npoint, d0, idx)).contiguous()
+    with torch.no_grad():
+        enc = inp['model']({'points': inp['requests'][0]})['encoder_xyz']
+    backbone = inp['model'].backbone_3d
+    for k, module in enumerate(backbone.SA_modules):
+        if getattr(module, 'radii', None):
+            calls[f'ball_query layer {k}'] = \
+                lambda r=tuple(module.radii), n=tuple(module.nsamples), \
+                p=enc[backbone.layer_inputs[k]].contiguous(), \
+                c=enc[k + 1].contiguous(): ball_query_multi_kernel(r, n, p, c)
+    raw, kept = inp['raw_xyz'], inp['kept_xyz']
+    calls['ball_query stability SA'] = \
+        lambda: ball_query_multi_kernel((0.2, 0.8), (16, 32), raw, raw)
+    calls['ball_query surface graph'] = \
+        lambda: ball_query_multi_kernel((0.8,), (16,), kept, kept)
+    out = {}
+    for name, fn in calls.items():
+        out[name] = device_ms(fn, reps=5 if 'fps' in name else 21)
+        log(f'  device time {name}: {out[name]:.4f} ms a call')
+    return out
+
+
+def phase3_of(root) -> int:
+    """``--phase3 ROOT``: phases 1-3 only, with the package and the phase
+    functions of the checkout at ROOT (the parent commit's, unpacked with
+    ``git archive``, to compare kernels on one card in one call); prints
+    the entries as one JSON line."""
+    import importlib.util
+    root = Path(root).resolve()
+    sys.path.insert(0, str(root))
+    spec = importlib.util.spec_from_file_location('phases_of_root',
+                                                  root / 'chip_smoke.py')
+    phases = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(phases)
+    smi = card_and_build()
+    entries, dev = kernel_phase(phases, kernel_inputs())
+    log(json.dumps({'phase3_of': str(root), 'kernels': entries,
+                    'kernel_device_ms': dev, 'card': smi}))
+    return 0
+
+
+def main(argv=()) -> int:
+    if not torch.cuda.is_available():
+        print('chip_smoke: no CUDA device', file=sys.stderr)
+        return 1
+    if len(argv) == 2 and argv[0] == '--phase3':
+        return phase3_of(argv[1])
+    if argv:
+        print('usage: chip_smoke.py [--phase3 ROOT]', file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from spsnet_torch.runtime.trainer import make_eval_step
+
+    smi = card_and_build()
+    inp = kernel_inputs()
+    entries, kernel_dev = kernel_phase(sys.modules[__name__], inp)
+    cfg, model, requests = inp['cfg'], inp['model'], inp['requests']
+    sps_cfg, sps_pre, sps_model = inp['sps']
+    sps_requests, train_batches = inp['sps_requests'], inp['train_batches']
+    k5_clouds = inp['k5_clouds']
 
     log('== 4. serving path')
     post = cfg.MODEL.POST_PROCESSING
@@ -1061,7 +1236,8 @@ def main() -> int:
         entry['launches_by_path'] = {path: counts[entry['name']]
                                      for path, counts in paths.items()}
         entry['launches'] = sum(entry['launches_by_path'].values())
-    log(json.dumps({'kernels': entries, 'ms_per_batch': ms,
+    log(json.dumps({'kernels': entries, 'kernel_device_ms': kernel_dev,
+                    'ms_per_batch': ms,
                     'scenes_per_s': B / ms * 1e3,
                     'ms_per_train_step': step_ms,
                     'train_steps_per_s': 1e3 / step_ms,
@@ -1087,4 +1263,4 @@ def _require_per_call(launches, per_call, calls, what):
 
 
 if __name__ == '__main__':
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -26,8 +26,11 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / 'csrc'
 BUILD_ROOT = _PKG.parent / 'build' / 'spsnet_torch'
+# -Xptxas -v: ptxas reports each kernel's registers, shared memory and
+# spills; the report is kept beside the library (``ptxas_report``)
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
-              '-fmad=false', '-shared', '-Xcompiler', '-fPIC')
+              '-fmad=false', '-Xptxas', '-v', '-shared', '-Xcompiler',
+              '-fPIC')
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -37,9 +40,13 @@ _F = ctypes.c_float
 SIGNATURES = {
     'fps': {'spsnet_fps': [_P, _P, _P, _I, _I, _I, _P],
             'spsnet_fps_seeded': [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-            'spsnet_fps_max_n': []},
+            'spsnet_fps_max_n': [],
+            'spsnet_fps_cluster_size': [_I, _I],
+            'spsnet_fps_threads': [],
+            'spsnet_fps_max_active_clusters': [_I, _I, _I]},
     'ball_query': {'spsnet_ball_query': [_P, _P, _P, _P, _I, _I, _I, _F, _I,
-                                         _F, _I, _P]},
+                                         _F, _I, _P],
+                   'spsnet_ball_query_warp_centers': [_I, _I]},
     'seed_min': {'spsnet_seed_min': [_P, _P, _P, _I, _I, _I, _P]},
     'fps_rows': {'spsnet_fps_rows': [_P, _P, _I, _I, _I, _P],
                  'spsnet_fps_rows_per_cta': [_I, _I],
@@ -100,10 +107,19 @@ def build_all() -> float:
         if proc.returncode != 0:
             errors.append(f'{name}.cu (nvcc exit {proc.returncode}):\n{log}')
         else:
+            (out_dir / f'{name}.log').write_text(log)
             os.replace(tmp, out_dir / f'{name}.so')  # atomic publish
     if errors:
         raise RuntimeError('kernel build failed:\n' + '\n'.join(errors))
     return time.perf_counter() - t0
+
+
+def ptxas_report(name: str) -> list:
+    """ptxas's lines on the kernels of library ``name`` (registers, shared
+    memory, spill stores and loads), from its build."""
+    lines = (build_dir() / f'{name}.log').read_text().splitlines()
+    return [ln.split('ptxas info    : ', 1)[-1] for ln in lines
+            if 'Used' in ln or 'spill' in ln or 'Compiling entry' in ln]
 
 
 def library(name: str) -> ctypes.CDLL:

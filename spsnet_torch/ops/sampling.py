@@ -148,24 +148,48 @@ def farthest_point_sample_plain(xyz, npoint: int, valid_mask=None):
     return out
 
 
+# cudaErrorLaunchOutOfResources: the FPS launch returns it when
+# cudaOccupancyMaxActiveClusters is 0 for its cluster
+_NO_CLUSTER = 701
+
+
+def fps_launch_shape(B: int, N: int) -> tuple:
+    """(cluster size, CTA threads) of the cluster FPS launch over (B, N),
+    by the fixed rule of ``csrc/fps.cu``. Raises on an N the kernel cannot
+    take."""
+    lib = _build.library('fps')
+    max_n = lib.spsnet_fps_max_n()
+    if N > max_n:
+        raise ValueError(f'the FPS kernel takes N <= {max_n}, got {N}')
+    return lib.spsnet_fps_cluster_size(B, N), lib.spsnet_fps_threads()
+
+
+def _fps_launched(err, what, B, N):
+    if err == _NO_CLUSTER:
+        c, t = fps_launch_shape(B, N)
+        raise RuntimeError(f'{what}: the card cannot schedule a cluster of {c} '
+                           f'CTAs of {t} threads '
+                           '(cudaOccupancyMaxActiveClusters is 0)')
+    _build.check(err, what)
+    _build.LAUNCHES[what] += 1
+
+
 def farthest_point_sample_kernel(xyz, npoint: int, valid_mask=None):
     """FPS through the CUDA kernel ``csrc/fps.cu``: (B, N, 3) -> (B, npoint)
-    int64 on the device of ``xyz``."""
+    int64 on the device of ``xyz``. Each row runs on a cluster of CTAs
+    (``fps_launch_shape``)."""
     _check(xyz, npoint, valid_mask)
     _require_cuda('FPS', xyz, *([] if valid_mask is None else [valid_mask]))
     lib = _build.library('fps')
     B, N, _ = xyz.shape
-    max_n = lib.spsnet_fps_max_n()
-    if N > max_n:
-        raise ValueError(f'the FPS kernel takes N <= {max_n}, got {N}')
+    fps_launch_shape(B, N)
     out = torch.empty((B, npoint), dtype=torch.int64, device=xyz.device)
     with torch.cuda.device(xyz.device):
         err = lib.spsnet_fps(
             xyz.data_ptr(),
             None if valid_mask is None else valid_mask.data_ptr(),
             out.data_ptr(), B, N, npoint, _build.stream_ptr(xyz.device))
-    _build.check(err, 'fps')
-    _build.LAUNCHES['fps'] += 1
+    _fps_launched(err, 'fps', B, N)
     return out
 
 
@@ -310,22 +334,20 @@ def farthest_point_sample_seeded_plain(xyz, npoint: int, d0, seed_idx):
 
 
 def farthest_point_sample_seeded_kernel(xyz, npoint: int, d0, seed_idx):
-    """Seeded FPS completion through the CUDA kernel in ``csrc/fps.cu``."""
+    """Seeded FPS completion through the CUDA kernel in ``csrc/fps.cu``, on
+    the exact kernel's cluster launch."""
     _check_seeded(xyz, npoint, d0, seed_idx)
     _require_cuda('seeded FPS', xyz, d0, seed_idx)
     lib = _build.library('fps')
     B, N, _ = xyz.shape
-    max_n = lib.spsnet_fps_max_n()
-    if N > max_n:
-        raise ValueError(f'the FPS kernel takes N <= {max_n}, got {N}')
+    fps_launch_shape(B, N)
     out = torch.empty((B, npoint), dtype=torch.int64, device=xyz.device)
     with torch.cuda.device(xyz.device):
         err = lib.spsnet_fps_seeded(
             xyz.data_ptr(), d0.data_ptr(), seed_idx.data_ptr(),
             out.data_ptr(), B, N, npoint, seed_idx.shape[1],
             _build.stream_ptr(xyz.device))
-    _build.check(err, 'fps_seeded')
-    _build.LAUNCHES['fps_seeded'] += 1
+    _fps_launched(err, 'fps_seeded', B, N)
     return out
 
 

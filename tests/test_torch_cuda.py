@@ -6,8 +6,12 @@ than 32 slots, one or three radii, masks with too few valid points, the
 shared-memory and register limits of the FPS kernels, one seed or more
 seeds than a shared-memory tile, seeds in any order, the experimental FPS
 entries' kernels (``fps_rows``, ``fps_hier``) at one point, at N off the
-128-lane padding, on all-equal points and with several rows a CTA. Indices
-must be equal, and the min distances to the seeds bit for bit.
+128-lane padding, on all-equal points and with several rows a CTA. For the
+cluster FPS: batch sizes that set each cluster size, tied maxima in
+different CTAs of a cluster at each cluster size, masks, seeds in several
+shards. For the ball query: radii either way round, more slots than points,
+both numbers of centers a warp, rows that are not 16-byte aligned. Indices must
+be equal, and the min distances to the seeds bit for bit.
 
 These tests need a CUDA card and skip without one. On the H100:
 
@@ -49,7 +53,7 @@ def _cloud(seed, b, n, scale=20.0):
     (3, 17, 17, True),         # npoint == N, fewer valid points than npoint
     (2, 1000, 1000, False),    # N below one thread's share, npoint == N
     (2, 1025, 300, True),      # one past a multiple of 1024
-    (1, 19000, 64, False),     # above the shared-memory planes (global path)
+    (1, 19000, 64, False),     # above the first design's shared-memory planes
     (1, 65536, 16, True),      # the largest N
 ])
 def test_fps_kernel_matches_plain(cuda, B, N, M, mask):
@@ -136,7 +140,7 @@ def test_seed_min_kernel_matches_plain_bit_for_bit(cuda, B, N, k0):
     (1, 2, 2, 1, 'head'),         # one step
     (2, 1000, 1000, 999, 'random'),  # npoint == N, one step left
     (3, 1025, 300, 128, 'random'),   # one past a multiple of 1024
-    (1, 19000, 256, 128, 'grid'),    # above the shared-memory planes
+    (1, 19000, 256, 128, 'grid'),    # above the first design's smem planes
     (1, 65536, 200, 100, 'grid'),    # the largest N
 ])
 def test_seeded_fps_kernel_matches_plain(cuda, B, N, npoint, k0, order):
@@ -222,3 +226,203 @@ def test_fps_variant_kernels_match_plain(cuda, name, B, N, M, equal):
 def test_fps_rows_packs_rows_while_a_thread_holds_at_most_16_points(
         cuda, B, N, G):
     assert _build.library('fps_rows').spsnet_fps_rows_per_cta(B, N) == G
+
+
+# --- the cluster FPS (csrc/fps.cu) -----------------------------------------
+
+def _lattice_cloud(b, n, seed):
+    """A 0.5 m lattice rolled by a random offset per row: equal distances
+    recur all along the row, in every CTA of a cluster."""
+    side = int(np.ceil(n ** (1 / 3)))
+    g = np.arange(side, dtype=np.float32) * 0.5
+    pts = np.stack(np.meshgrid(g, g, g, indexing='ij'), -1).reshape(-1, 3)[:n]
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(np.stack([np.roll(pts, rng.integers(n), axis=0)
+                                      for _ in range(b)]))
+
+
+def _repeated(b, n, copies, seed):
+    """``copies`` copies of one cloud end to end: with C = copies CTAs a
+    row, each CTA holds one copy, so every maximum ties across all CTAs."""
+    one = _cloud(seed, b, -(-n // copies))
+    return one.repeat(1, copies, 1)[:, :n].contiguous()
+
+
+@pytest.mark.parametrize('N', [37, 1000, 15884, 16384, 40000, 65536])
+@pytest.mark.parametrize('B', [1, 4, 8, 33])
+def test_cluster_fps_matches_plain(cuda, B, N):
+    """Every batch size of the cluster rule (16 CTAs a row for B <= 8, 4 for
+    B = 33) at every N up to the largest."""
+    xyz = _cloud(B * 7 + N, B, N).to(cuda)
+    M = min(N, 200)
+    got = farthest_point_sample_kernel(xyz, M)
+    torch.cuda.synchronize()
+    assert torch.equal(got, farthest_point_sample_plain(xyz, M))
+
+
+@pytest.mark.parametrize('mask', ['none_valid', 'one_valid', 'last_valid',
+                                  'random'])
+@pytest.mark.parametrize('B,N', [(4, 37), (4, 16384), (2, 65536)])
+def test_cluster_fps_masks_match_plain(cuda, mask, B, N):
+    """The first pick is the cluster's lowest valid index (0 when none is
+    valid); one valid point in the middle, only the last one, or a random
+    half."""
+    xyz = _cloud(N, B, N).to(cuda)
+    idx = torch.arange(N, device=cuda).expand(B, N)
+    rng = np.random.default_rng(N)
+    vm = {'none_valid': idx < 0, 'one_valid': idx == N // 2 + 1,
+          'last_valid': idx == N - 1,
+          'random': torch.from_numpy(rng.uniform(size=(B, N)) > 0.5)
+          .to(cuda)}[mask].contiguous()
+    M = min(N, 150)
+    got = farthest_point_sample_kernel(xyz, M, vm)
+    torch.cuda.synchronize()
+    assert torch.equal(got, farthest_point_sample_plain(xyz, M, vm))
+    if mask == 'one_valid':
+        assert (got == N // 2 + 1).all()
+
+
+@pytest.mark.parametrize('B,cluster', [(8, 16), (16, 8), (33, 4), (64, 2)])
+@pytest.mark.parametrize('cloud', ['lattice', 'repeated'])
+def test_cluster_fps_ties_across_ctas(cuda, cloud, B, cluster):
+    """Tied maxima in different CTAs: the lowest global index must win, at
+    every cluster size, which the batch size sets (N = 8192: what 2 CTAs of
+    256 threads hold)."""
+    N = 8192
+    assert sampling.fps_launch_shape(B, N) == (cluster, 256)
+    xyz = (_lattice_cloud(B, N, cluster) if cloud == 'lattice'
+           else _repeated(B, N, cluster, cluster)).to(cuda)
+    got = farthest_point_sample_kernel(xyz, 600)
+    torch.cuda.synchronize()
+    assert torch.equal(got, farthest_point_sample_plain(xyz, 600))
+
+
+@pytest.mark.parametrize('B,N,npoint,k0', [(4, 16384, 4096, 3072),
+                                           (4, 4096, 1024, 768),
+                                           (33, 5000, 300, 128),
+                                           (2, 65536, 300, 200)])
+def test_cluster_seeded_fps_with_seeds_in_every_shard(cuda, B, N, npoint,
+                                                      k0):
+    """Seeds drawn from the whole row, so every CTA of the cluster holds
+    seeds, in random order: the chain starts from the last seed, which lies
+    in any shard."""
+    xyz = _cloud(N + k0, B, N).to(cuda)
+    rng = np.random.default_rng(N)
+    idx = torch.from_numpy(np.stack([rng.permutation(N)[:k0]
+                                     for _ in range(B)])).to(cuda)
+    shard = -(-N // sampling.fps_launch_shape(B, N)[0])
+    assert len(set((idx[:, -1] // shard).tolist())) > 1
+    seeds = xyz.gather(1, idx[..., None].expand(-1, -1, 3)).contiguous()
+    d0 = sampling.seed_min_d2_kernel(xyz, seeds)
+    got = sampling.farthest_point_sample_seeded_kernel(xyz, npoint, d0, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(got, sampling.farthest_point_sample_seeded_plain(
+        xyz, npoint, d0, idx))
+
+
+def test_cluster_seeded_fps_on_repeated_points(cuda):
+    """Seeded completion on a cloud whose copies lie in different CTAs."""
+    xyz = _repeated(2, 16384, 16, 3).to(cuda)
+    rng = np.random.default_rng(3)
+    idx = torch.from_numpy(np.stack([rng.permutation(16384)[:1000]
+                                     for _ in range(2)])).to(cuda)
+    seeds = xyz.gather(1, idx[..., None].expand(-1, -1, 3)).contiguous()
+    d0 = sampling.seed_min_d2_kernel(xyz, seeds)
+    got = sampling.farthest_point_sample_seeded_kernel(xyz, 1500, d0, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(got, sampling.farthest_point_sample_seeded_plain(
+        xyz, 1500, d0, idx))
+
+
+def test_cluster_fps_follows_the_cluster_rule(cuda):
+    """B * C <= 132 where possible, enough CTAs for 16 points a thread, and
+    every rule's cluster can be scheduled on this card."""
+    for (B, N), want in {(1, 16384): 16, (8, 16384): 16, (8, 15884): 16,
+                         (16, 4096): 8, (33, 5000): 4, (64, 4096): 2,
+                         (64, 65536): 16, (8, 37): 2, (4, 600): 4}.items():
+        assert sampling.fps_launch_shape(B, N) == (want, 256), (B, N)
+        for seeded in (0, 1):
+            assert _build.library('fps').spsnet_fps_max_active_clusters(
+                B, N, seeded) > 0
+
+
+def test_cluster_fps_raises_and_never_falls_back(cuda):
+    """What the cluster cannot hold raises, on the card, with no launch of
+    any kernel: N past the largest for the exact and the seeded kernel,
+    through the kernel wrappers and the dispatching entry."""
+    before = dict(_build.LAUNCHES)
+    with pytest.raises(ValueError, match='N <='):
+        farthest_point_sample_kernel(torch.zeros(1, 65537, 3, device=cuda), 8)
+    with pytest.raises(ValueError, match='N <='):
+        sampling.farthest_point_sample_seeded_kernel(
+            torch.zeros(1, 65537, 3, device=cuda), 8,
+            torch.zeros(1, 65537, device=cuda),
+            torch.zeros(1, 2, dtype=torch.int64, device=cuda))
+    with pytest.raises(ValueError, match='N <='):
+        sampling.farthest_point_sample(torch.zeros(2, 65537, 3, device=cuda),
+                                       8)
+    assert _build.LAUNCHES == before
+
+
+# --- the ball query (csrc/ball_query.cu) -----------------------------------
+
+@pytest.mark.parametrize('M,w', [(203, 1), (2731, 2)])
+@pytest.mark.parametrize('N', [4096, 4097, 1024, 1001, 1002])
+@pytest.mark.parametrize('radii,nsamples', [
+    ((0.3, 0.9), (16, 32)),      # ascending
+    ((0.9, 0.3), (32, 16)),      # descending
+    ((0.5,), (24,)),             # one radius
+])
+def test_ball_query_kernel_every_warp_shape(cuda, M, w, N, radii, nsamples):
+    """Both numbers of centers a warp (the rule's W by B x M), on aligned
+    rows of several tiles (bulk copies) and on rows of one tile or not
+    16-byte aligned (plain loads), M no multiple of any CTA's centers, a
+    far center with an empty ball."""
+    B = 3
+    assert _build.library('ball_query').spsnet_ball_query_warp_centers(
+        B, M) == w
+    pts = _cloud(N + M, B, N, scale=1.0).to(cuda)
+    near = torch.arange(7, 7 + M - 1, device=cuda) % N
+    ctr = torch.cat([pts[:, near],
+                     torch.full((B, 1, 3), 40.0, device=cuda)], 1)
+    got = ball_query_multi_kernel(radii, nsamples, pts, ctr.contiguous())
+    torch.cuda.synchronize()
+    for g, want in zip(got, ball_query_multi_plain(radii, nsamples, pts, ctr)):
+        assert torch.equal(g, want)
+        assert (g[:, -1] == 0).all()
+
+
+@pytest.mark.parametrize('N', [37, 40])
+def test_ball_query_kernel_more_slots_than_points(cuda, N):
+    """nsample > N: a ball can never fill, so every center scans the whole
+    row and pads with its first hit."""
+    pts = _cloud(N, 2, N, scale=0.3).to(cuda)
+    got = ball_query_multi_kernel((0.8, 0.2), (64, 50), pts, pts)
+    torch.cuda.synchronize()
+    for g, want in zip(got, ball_query_multi_plain((0.8, 0.2), (64, 50), pts,
+                                                   pts)):
+        assert torch.equal(g, want)
+
+
+def test_ball_query_kernel_on_an_unaligned_view(cuda):
+    """A tensor whose data starts 4 bytes past a 16-byte boundary takes the
+    plain-load path even when N % 4 == 0."""
+    base = _cloud(5, 1, 2049, scale=1.0).to(cuda).flatten()
+    pts = base[1:1 + 2048 * 3].view(1, 2048, 3)
+    assert pts.data_ptr() % 16 != 0
+    ctr = pts[:, :100].contiguous()
+    got = ball_query_multi_kernel((0.4, 0.8), (16, 32), pts, ctr)
+    torch.cuda.synchronize()
+    for g, want in zip(got, ball_query_multi_plain((0.4, 0.8), (16, 32), pts,
+                                                   ctr)):
+        assert torch.equal(g, want)
+
+
+def test_ball_query_warp_centers_rule(cuda):
+    """Two centers a warp from 8192 centers on (IA-SSD's layers 0 and 1,
+    the stability SA, the surface graph), one at the small layers."""
+    lib = _build.library('ball_query')
+    for (B, M), w in {(8, 4096): 2, (8, 16384): 2, (8, 15884): 2,
+                      (8, 1024): 2, (8, 512): 1, (8, 256): 1,
+                      (1, 8191): 1}.items():
+        assert lib.spsnet_ball_query_warp_centers(B, M) == w, (B, M)
