@@ -8,8 +8,8 @@ Phases, in order; any failure raises and the exit code is not 0:
 
 1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
 2. build the CUDA kernels from ``spsnet_torch/csrc`` (seconds printed) and
-   print ptxas's registers, shared memory and spills of the FPS and
-   ball-query kernels;
+   print ptxas's registers, shared memory and spills of the FPS,
+   ball-query and min-distance kernels;
 3. each kernel against its plain PyTorch version on the card, index for
    index (and bit for bit on distances), at the main paths' shapes: FPS at
    (8, 16384) -> 4096, at (1, 16384) -> 4096 and at sizes that are no
@@ -20,10 +20,15 @@ Phases, in order; any failure raises and the exit code is not 0:
    (W) its rule takes; the seeded D-FPS kernels (min distance to the
    seeds, seeded FPS) at the train path's two layers, (4, 16384) ->
    4096 from 3072 grid seeds and (4, 4096) -> 1024 from 768, plus head
-   seeds and an N that is no multiple of 128. Times are CUDA events, median
-   of repeated runs; then the device time of one call (``torch.profiler``,
-   median kernel duration) of K1, ``fps_hier``, K4 and K2 at the paths'
-   shapes;
+   seeds and an N that is no multiple of 128, with the min-distance
+   launch's shape (CTAs a cluster, points a thread, CTAs), and that
+   kernel alone at the edges of its tiling (one seed, a seed past a
+   cluster share, k0 no multiple of 4, one point, a point past a tile,
+   seeds that are points); the experimental FPS entries at the four K5
+   shapes. Times are CUDA events, median of repeated runs; then the device
+   time of one call (``torch.profiler``, median kernel duration) of K1,
+   K3, K4 and K2 at the paths' shapes and of the two experimental entries
+   at the K5 shapes;
 4. the serving path: IA-SSD KITTI (``tools/cfgs/kitti_models/IA-SSD.yaml``)
    at full width with seeded random weights serves five requests of
    8 x 16384 points through forward + class-agnostic NMS, with exact FPS
@@ -65,13 +70,13 @@ Phases, in order; any failure raises and the exit code is not 0:
 12. a CUDA-kernel breakdown of one SPSNet request;
 13. the experimental FPS entries (the counterparts of the JAX package's
     K5a-c), ``farthest_point_sample_batched`` and
-    ``farthest_point_sample_hier_argmax``, called at the four shapes of
-    phase 3 with the counters zeroed just before;
+    ``farthest_point_sample_hier_argmax``, called at the four K5 shapes
+    with the counters zeroed just before: each call launches the exact FPS
+    kernel once and nothing else;
 14. one JSON line per kernel set, then the result line.
 
-Phase 3 also holds the two kernels of those entries (``fps_rows``,
-``fps_hier``) to the plain FPS at (8, 16384) -> 4096, (8, 15884) -> 4096
-(SPSNet's layer 0), (1, 16384) -> 4096 and (32, 4096) -> 1024, and FPS and
+The K5 shapes are (8, 16384) -> 4096, (8, 15884) -> 4096 (SPSNet's layer
+0), (1, 16384) -> 4096 and (32, 4096) -> 1024. Phase 3 also holds FPS and
 the ball query at SPSNet's shapes: FPS at (8, 15884) -> 4096, the ball
 query of the stability SA (16384 centers on 16384 points, r 0.2 / 0.8) and
 of the surface graph (15884 on 15884, r 0.8, 16 neighbours).
@@ -242,7 +247,8 @@ def fps_phase(xyz, kept_xyz):
     return {'name': 'fps', 'route': 'cuda',
             'source': 'spsnet_torch/csrc/fps.cu',
             'replaces': 'spsnet_tpu/ops/pallas/fps.py:167',
-            'also_replaces': 'spsnet_tpu/ops/pallas/fps.py:26',
+            'also_replaces': [f'spsnet_tpu/ops/pallas/fps.py:{line}'
+                              for line in (26, 73, 239, 677)],
             'match': True, 'max_abs_err': err,
             **{key: main[key] for key in ('ms', 'plain_ms', 'bound_ms',
                                           'bound_by')},
@@ -352,58 +358,44 @@ def ball_query_phase(model, points, raw_xyz, kept_xyz):
             'spsnet_calls': spsnet}
 
 
+def k5_entries():
+    """The experimental FPS entries, the counterparts of the JAX package's
+    K5a-c; on the card both launch the exact FPS kernel."""
+    from spsnet_torch.ops import sampling
+    return (sampling.farthest_point_sample_batched,
+            sampling.farthest_point_sample_hier_argmax)
+
+
 def fps_variant_phase(clouds):
-    """The kernels of the experimental FPS entries (K5a-c's counterparts)
-    vs the plain FPS at the K5 shapes; returns their JSON entries without
-    launches. ``clouds``: (xyz, npoint) pairs."""
-    from spsnet_torch.ops import _build, sampling
-    plain = {}
-    entries = []
-    for name, kernel, replaces in (
-            ('fps_rows', sampling.farthest_point_sample_rows_kernel,
-             ['spsnet_tpu/ops/pallas/fps.py:73',
-              'spsnet_tpu/ops/pallas/fps.py:677']),
-            ('fps_hier', sampling.farthest_point_sample_hier_kernel,
-             ['spsnet_tpu/ops/pallas/fps.py:239'])):
-        calls = []
-        for k, (xyz, npoint) in enumerate(clouds):
-            call = fps_call(name, kernel, xyz, npoint, plain.get(k))
-            plain[k] = call['plain_ms']
-            if name == 'fps_rows':
-                call['rows_per_cta'] = _build.library(
-                    'fps_rows').spsnet_fps_rows_per_cta(*xyz.shape[:2])
-            calls.append(call)
-        entries.append({
-            'name': name, 'route': 'cuda',
-            'source': f'spsnet_torch/csrc/{name}.cu',
-            'replaces': replaces[0], 'also_replaces': replaces[1:],
-            'match': True, 'max_abs_err': max(c.pop('err') for c in calls),
-            **{key: sum(c[key] for c in calls)
-               for key in ('ms', 'plain_ms', 'bound_ms')},
-            'bound_by': 'operations' if any(c['bound_by'] == 'operations'
-                                            for c in calls) else 'bytes',
-            'library_ms': None, 'library_note': 'no PyTorch call computes FPS',
-            'shape': 'sum of the four entry-point calls', 'calls': calls})
-    return entries
+    """The experimental FPS entries vs the plain FPS at the K5 shapes
+    (``clouds``: (xyz, npoint) pairs), indices identical, with CUDA-event
+    times; returns ``{'k5_entries': [call records]}`` for the FPS kernel's
+    JSON entry."""
+    calls = []
+    for xyz, npoint in clouds:
+        plain_ms = None
+        for entry in k5_entries():
+            call = fps_call(entry.__name__, entry, xyz, npoint, plain_ms)
+            plain_ms = call['plain_ms']
+            calls.append({'entry': entry.__name__, **call})
+    return {'k5_entries': calls}
 
 
 def fps_entry_path(clouds):
     """The experimental FPS entries as a user calls them, at the K5 shapes,
     with the counters zeroed just before; returns the launch counts."""
-    from spsnet_torch.ops import _build, sampling
+    from spsnet_torch.ops import _build
     torch.cuda.synchronize()
     _build.reset_launches()
     for xyz, npoint in clouds:
-        for entry in (sampling.farthest_point_sample_batched,
-                      sampling.farthest_point_sample_hier_argmax):
+        for entry in k5_entries():
             idx = entry(xyz, npoint)
             if idx.shape != (xyz.shape[0], npoint) or \
                     int(idx.min()) < 0 or int(idx.max()) >= xyz.shape[1]:
                 raise AssertionError(f'{entry.__name__}: bad picks')
     torch.cuda.synchronize()
     launches = dict(_build.LAUNCHES)
-    want = {k: len(clouds) if k in ('fps_rows', 'fps_hier') else 0
-            for k in launches}
+    want = {k: 2 * len(clouds) if k == 'fps' else 0 for k in launches}
     if launches != want:
         raise AssertionError(f'launches of the FPS entries: {launches}, '
                              f'want {want}')
@@ -431,10 +423,56 @@ def _seeded_case(xyz, npoint, k0, seed_idx, what, errs):
     return seeds, d0, picks
 
 
+def _seed_min_note(call):
+    """Add to a K3 call's record (and print) its launch shape."""
+    from spsnet_torch.ops.sampling import seed_min_launch_shape
+    s, p, ctas, t = seed_min_launch_shape(call['B'], call['N'], call['k0'])
+    call.update(cluster=s, points_a_thread=p, ctas=ctas, cta_threads=t)
+    log(f'  seed_min ({call["B"]}, {call["N"]}, 3) k0={call["k0"]}: '
+        f'clusters of {s} CTAs split the seeds, {ctas} CTAs of {t} threads '
+        f'x {p} points')
+
+
+def seed_min_edges(errs):
+    """K3 alone vs plain, bit for bit, at the edges of its tiling: one seed,
+    one seed past the train path's k0 at both layers (so the last cluster
+    share comes up short), k0 no multiple of 4, one point, one point past a
+    multiple of a CTA's points, and seeds that are points (d2 = +0
+    there)."""
+    from spsnet_torch.ops.sampling import (seed_min_d2_kernel,
+                                           seed_min_d2_plain,
+                                           seed_min_launch_shape)
+    gen = torch.Generator(device='cuda').manual_seed(2)
+    _, p, _, t = seed_min_launch_shape(TRAIN_B, N, 3072)
+    tile = t * p
+    for b, n, k0, what in ((2, 5000, 1, 'one seed'),
+                           (TRAIN_B, N, 3073, 'a seed past the path\'s k0'),
+                           (TRAIN_B, 4096, 769, 'a seed past the path\'s k0'),
+                           (3, 2000, 7, 'k0 % 4 != 0'),
+                           (3, 1, 5, 'one point'),
+                           (2, 4 * tile + 1, 300, 'a point past a tile')):
+        xyz = torch.randn(b, n, 3, device='cuda', generator=gen) * 20
+        seeds = torch.randn(b, k0, 3, device='cuda', generator=gen) * 20
+        errs['seed_min'] = max(errs['seed_min'], require_equal(
+            seed_min_d2_kernel(xyz, seeds), seed_min_d2_plain(xyz, seeds),
+            f'seed_min ({b}, {n}, 3) k0={k0} ({what}; launch '
+            f'{seed_min_launch_shape(b, n, k0)}), bit for bit'))
+    xyz = torch.randn(2, 3000, 3, device='cuda', generator=gen) * 20
+    seeds = xyz[:, ::7].contiguous()
+    d0 = seed_min_d2_kernel(xyz, seeds)
+    errs['seed_min'] = max(errs['seed_min'], require_equal(
+        d0, seed_min_d2_plain(xyz, seeds),
+        f'seed_min (2, 3000, 3) k0={seeds.shape[1]} (seeds that are points)'))
+    at = d0[:, ::7]
+    if not ((at == 0) & ~torch.signbit(at)).all():
+        raise AssertionError('seed_min: d2 at a seed is not +0')
+
+
 def seeded_phase(scenes):
     """The seeded D-FPS kernels vs plain at the train path's two layers on
-    grid seeds, then on head seeds and at an N that is no multiple of 128;
-    returns the JSON entries of seed_min and fps_seeded without launches."""
+    grid seeds, then on head seeds, at an N that is no multiple of 128 and
+    K3 at the edges of its tiling; returns the JSON entries of seed_min and
+    fps_seeded without launches."""
     from spsnet_torch.ops import gather_points
     from spsnet_torch.ops.sampling import (
         farthest_point_sample_seeded_kernel,
@@ -474,6 +512,8 @@ def seeded_phase(scenes):
                                 'bound_by': by})
             if name == 'fps_seeded':
                 _cluster_note(name, calls[name][-1], npoint - k0, seeded=True)
+            else:
+                _seed_min_note(calls[name][-1])
         xyz = gather_points(xyz, picks).contiguous()
     head = torch.arange(3072, device='cuda').expand(TRAIN_B, 3072)
     _seeded_case(scenes[..., :3].contiguous(), 4096, 3072,
@@ -482,6 +522,7 @@ def seeded_phase(scenes):
     odd = torch.randn(2, 5000, 3, device='cuda', generator=gen) * 20
     _seeded_case(odd, 1024, 768, grid_seed_indices(odd, 768),
                  'N % 128 != 0', errs)
+    seed_min_edges(errs)
     entries = []
     for name, source, replaces in (
             ('seed_min', 'spsnet_torch/csrc/seed_min.cu',
@@ -992,7 +1033,7 @@ def card_and_build():
     log('== 2. build')
     log(f'  kernels built in {_build.build_all():.2f} s '
         f'({_build.build_dir()})')
-    for name in ('fps', 'ball_query'):
+    for name in ('fps', 'ball_query', 'seed_min'):
         if hasattr(_build, 'ptxas_report'):
             for line in _build.ptxas_report(name):
                 log(f'  ptxas {name}: {line}')
@@ -1042,8 +1083,12 @@ def kernel_phase(phases, inp):
                                 inp['kept_xyz']),
                phases.ball_query_phase(inp['model'], requests[0],
                                        inp['raw_xyz'], inp['kept_xyz']),
-               *phases.seeded_phase(inp['train_batches'][0]['points']),
-               *phases.fps_variant_phase(inp['k5_clouds'])]
+               *phases.seeded_phase(inp['train_batches'][0]['points'])]
+    k5 = phases.fps_variant_phase(inp['k5_clouds'])
+    if isinstance(k5, dict):
+        entries[0].update(k5)
+    else:  # a checkout whose K5 entries had kernels of their own
+        entries += k5
     return entries, kernel_device_ms(inp)
 
 
@@ -1078,9 +1123,11 @@ def device_ms(fn, reps=10):
 
 
 def kernel_device_ms(inp):
-    """Device time a call of K1, ``fps_hier``, K4 and K2 at the paths'
-    shapes, through the kernel wrappers that both this commit and its
-    parent have; returns {call: ms}."""
+    """Device time a call of K1, K3, K4 and K2 at the paths' shapes and of
+    the experimental FPS entries at the K5 shapes, through the kernel
+    wrappers and entries that both this commit and its parent have (the
+    parent's K5 entries launched kernels of their own); returns {call:
+    ms}."""
     from spsnet_torch.ops import gather_points
     from spsnet_torch.ops import sampling as smp
     from spsnet_torch.ops.grouping import ball_query_multi_kernel
@@ -1090,14 +1137,20 @@ def kernel_device_ms(inp):
         shape = f'({B}, {cloud.shape[1]}) -> 4096'
         calls[f'fps {shape}, {what} layer 0'] = \
             lambda c=cloud: smp.farthest_point_sample_kernel(c, 4096)
-        calls[f'fps_hier {shape}'] = \
-            lambda c=cloud: smp.farthest_point_sample_hier_kernel(c, 4096)
+    for cloud, npoint in inp['k5_clouds']:
+        for entry in k5_entries():
+            calls[f'fps K5 entry {entry.__name__} ({cloud.shape[0]}, '
+                  f'{cloud.shape[1]}) -> {npoint}'] = \
+                lambda e=entry, c=cloud, m=npoint: e(c, m)
     cloud = inp['train_batches'][0]['points'][..., :3].contiguous()
     for layer, npoint in enumerate((4096, 1024)):
         k0 = smp.seed_k0(seeding(), npoint)
         idx = smp.grid_seed_indices(cloud, k0)
-        d0 = smp.seed_min_d2_kernel(cloud, gather_points(cloud, idx)
-                                    .contiguous())
+        seeds = gather_points(cloud, idx).contiguous()
+        d0 = smp.seed_min_d2_kernel(cloud, seeds)
+        calls[f'seed_min layer {layer} ({TRAIN_B}, {cloud.shape[1]}) '
+              f'k0={k0}'] = \
+            lambda c=cloud, s=seeds: smp.seed_min_d2_kernel(c, s)
         calls[f'fps_seeded layer {layer} ({TRAIN_B}, {cloud.shape[1]}) '
               f'k0={k0} -> {npoint}'] = \
             lambda c=cloud, m=npoint, d=d0, i=idx: \

@@ -1,0 +1,226 @@
+#!/usr/bin/env python3
+"""Launch-shape sweeps of the port's kernels on one CUDA card.
+
+    python3 launch_sweep.py
+
+The launch shapes of the kernels are fixed rules in their sources
+(``spsnet_torch/csrc``), with no override in the C entries or the Python
+wrappers. To see what another shape would do, this script compiles
+variants of a source into ``build/launch_sweep/`` (the rule's result
+replaced by a value the script sets through an added C entry, or another
+constant), checks every variant against the plain PyTorch version on the
+card, and times it beside the kept source in one process (device time of
+one call, ``chip_smoke.device_ms``):
+
+1. K3, the min distance to the seeds (``csrc/seed_min.cu``), at the train
+   path's two layers, (4, 16384) with 3072 grid seeds and (4, 4096) with
+   768: tiles of points (CTA threads x points a thread) against the
+   cluster size S, the default cluster scheduling against load balancing,
+   two ``fminf`` against the DPX three-way min, and the kernel with its
+   distance loop taken out (the fixed cost of launch, staging and
+   reduction);
+2. K1, exact FPS (``csrc/fps.cu``), at batch sizes past 8 and at the K5
+   shapes, against the cluster size C.
+
+Prints one line per variant and shape, then one JSON line with every
+number and the card's name and power limit. Exits non-zero without a card.
+"""
+from __future__ import annotations
+
+import ctypes
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parent
+OUT = ROOT / 'build' / 'launch_sweep'
+K1_SHAPES = ((32, 4096, 1024), (16, 16384, 4096), (64, 4096, 1024),
+             (16, 4096, 1024), (1, 16384, 4096), (8, 16384, 4096),
+             (8, 15884, 4096))
+SPLITS = (1, 2, 4, 8, 16)
+
+
+def _sub(text, old, new):
+    if old not in text:
+        raise AssertionError(f'variant: {old!r} not in the source')
+    return text.replace(old, new, 1)
+
+
+def seed_min_variant(src, threads=128, points=4, policy=True, fmin=False,
+                     compute=True):
+    """csrc/seed_min.cu with S settable (``set_split``) and the given CTA
+    width, points a thread, scheduling policy, min and distance loop."""
+    text = _sub(src, 'const int S = split(B, N, k0);',
+                'const int S = g_split > 0 ? g_split : split(B, N, k0);')
+    text = _sub(text, 'cudaError_t launch(', 'int g_split = 0;\n'
+                'cudaError_t launch(')
+    text += '\nextern "C" void set_split(int s) { g_split = s; }\n'
+    text = _sub(text, 'constexpr int kThreads = 128;',
+                f'constexpr int kThreads = {threads};')
+    text = _sub(text, 'constexpr int kPoints = 4;',
+                f'constexpr int kPoints = {points};')
+    if not policy:
+        text = _sub(text, 'cfg.numAttrs = 2;', 'cfg.numAttrs = 1;')
+    if fmin:
+        text = text.replace('m[k] = __vimin3_s32(', 'm[k] = fmin3(')
+        text = _sub(text, '__global__ void __launch_bounds__(kThreads)',
+                    '__device__ __forceinline__ int fmin3(int a, int b, '
+                    'int c) {\n  return __float_as_int(fminf(fminf('
+                    '__int_as_float(a), __int_as_float(b)), '
+                    '__int_as_float(c)));\n}\n'
+                    '__global__ void __launch_bounds__(kThreads)')
+    if not compute:
+        text = _sub(text, 'for (int j = 0; j < n4 / 4; ++j) {',
+                    'for (int j = 0; j < 0; ++j) {')
+    return text
+
+
+def fps_variant(src):
+    """csrc/fps.cu with the cluster size settable (``set_c``)."""
+    text = _sub(src, 'const int C = cluster_size(B, N);\n  const int shard',
+                'const int C = g_c > 0 ? g_c : cluster_size(B, N);\n'
+                '  const int shard')
+    text = _sub(text, 'template <bool kSeeded>\ncudaError_t dispatch(',
+                'int g_c = 0;\ntemplate <bool kSeeded>\ncudaError_t dispatch(')
+    return text + '\nextern "C" void set_c(int c) { g_c = c; }\n'
+
+
+def build(variants):
+    """Compile {name: source text} in parallel; returns {name: CDLL}."""
+    from spsnet_torch.ops import _build
+    OUT.mkdir(parents=True, exist_ok=True)
+    nvcc = _build.find_nvcc()
+    procs = {}
+    for name, text in variants.items():
+        (OUT / f'{name}.cu').write_text(text)
+        procs[name] = subprocess.Popen(
+            [nvcc, *_build.NVCC_FLAGS, '-o', str(OUT / f'{name}.so'),
+             str(OUT / f'{name}.cu')],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    libs = {}
+    for name, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f'{name}: nvcc failed\n{log}')
+        regs = [ln.split('ptxas info    : ')[-1] for ln in log.splitlines()
+                if 'Used' in ln]
+        print(f'{name}: {" | ".join(regs)}', flush=True)
+        libs[name] = ctypes.CDLL(str(OUT / f'{name}.so'))
+    return libs
+
+
+def seed_min_inputs():
+    """The train path's K3 inputs: grid seeds of layer 0's scenes, then of
+    layer 1's points (the plain seeded FPS picks)."""
+    import chip_smoke as cs
+    from spsnet_torch.ops import gather_points
+    from spsnet_torch.ops import sampling as smp
+    cloud = cs._scene_batch(0, cs.TRAIN_B, 'cuda')['points'][..., :3]
+    cloud = cloud.contiguous()
+    cases = []
+    for layer, npoint in enumerate((4096, 1024)):
+        k0 = smp.seed_k0(cs.seeding(), npoint)
+        idx = smp.grid_seed_indices(cloud, k0)
+        seeds = gather_points(cloud, idx).contiguous()
+        d0 = smp.seed_min_d2_plain(cloud, seeds)
+        cases.append((f'layer {layer} {tuple(cloud.shape)} k0={k0}', cloud,
+                      seeds, d0))
+        picks = smp.farthest_point_sample_seeded_plain(cloud, npoint, d0, idx)
+        cloud = gather_points(cloud, picks).contiguous()
+    return cases
+
+
+def sweep_seed_min(results):
+    import chip_smoke as cs
+    src = (ROOT / 'spsnet_torch/csrc/seed_min.cu').read_text()
+    swept = {f't{t}p{p}': seed_min_variant(src, t, p)
+             for t, p in ((128, 4), (256, 2), (128, 2), (256, 4), (256, 8))}
+    swept['t128p4_default_policy'] = seed_min_variant(src, policy=False)
+    extra = {'t128p4_fminf': seed_min_variant(src, fmin=True),
+             't128p4_no_distance_loop': seed_min_variant(src, compute=False)}
+    libs = build({**swept, **extra})
+    cases = seed_min_inputs()
+    P, I = ctypes.c_void_p, ctypes.c_int
+    stream = torch.cuda.current_stream().cuda_stream
+    for name, lib in libs.items():
+        fn = lib.spsnet_seed_min
+        fn.argtypes = [P, P, P, I, I, I, P]
+        for split in (0,) + (SPLITS if name in swept else ()):
+            lib.set_split(split)
+            for label, xyz, seeds, want in cases:
+                out = torch.empty(xyz.shape[:2], device='cuda')
+
+                def call(x=xyz, s=seeds, o=out):
+                    err = fn(x.data_ptr(), s.data_ptr(), o.data_ptr(),
+                             x.shape[0], x.shape[1], s.shape[1], stream)
+                    if err:
+                        raise RuntimeError(f'{name}: CUDA error {err}')
+                call()
+                torch.cuda.synchronize()
+                same = torch.equal(out, want)
+                if not same and 'no_distance' not in name:
+                    raise AssertionError(f'{name} S={split} {label}: != plain')
+                us = [cs.device_ms(call, reps=31) * 1e3 for _ in range(2)]
+                key = f'seed_min {name} S={split or "rule"} {label}'
+                results[key] = us
+                print(f'{key}: {us[0]:.2f} {us[1]:.2f} us', flush=True)
+
+
+def sweep_fps(results):
+    import chip_smoke as cs
+    from spsnet_torch.ops.sampling import farthest_point_sample_plain
+    from spsnet_torch.utils.synthetic import synthetic_scan_batch
+    src = (ROOT / 'spsnet_torch/csrc/fps.cu').read_text()
+    lib = build({'fps_c': fps_variant(src)})['fps_c']
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.spsnet_fps.argtypes = [P, P, P, I, I, I, P]
+    stream = torch.cuda.current_stream().cuda_stream
+    for b, n, m in K1_SHAPES:
+        xyz = torch.from_numpy(synthetic_scan_batch(11, b, n)[..., :3]
+                               .copy()).cuda().contiguous()
+        want = farthest_point_sample_plain(xyz, m)
+        out = torch.empty(b, m, dtype=torch.int64, device='cuda')
+        rule = lib.spsnet_fps_cluster_size(b, n)
+        for c in (2, 4, 8, 16):
+            if n > c * lib.spsnet_fps_threads() * 16:
+                continue  # more than 16 points a thread: no instantiation
+            lib.set_c(c)
+
+            def call(x=xyz, o=out, b=b, n=n, m=m):
+                err = lib.spsnet_fps(x.data_ptr(), None, o.data_ptr(), b, n,
+                                     m, stream)
+                if err:
+                    raise RuntimeError(f'fps C={c}: CUDA error {err}')
+            call()
+            torch.cuda.synchronize()
+            if not torch.equal(out, want):
+                raise AssertionError(f'fps C={c} ({b}, {n}) -> {m}: != plain')
+            ms = [cs.device_ms(call, reps=5) for _ in range(2)]
+            key = f'fps ({b}, {n}) -> {m} C={c}' + (' (rule)' if c == rule
+                                                     else '')
+            results[key] = ms
+            print(f'{key}: {ms[0]:.4f} {ms[1]:.4f} ms', flush=True)
+        lib.set_c(0)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print('launch_sweep: no CUDA device', file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT))
+    card = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                           '--format=csv,noheader'], capture_output=True,
+                          text=True, check=True).stdout.strip()
+    print(card, flush=True)
+    results = {}
+    sweep_seed_min(results)
+    sweep_fps(results)
+    print(json.dumps({'launch_sweep': results, 'card': card}))
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main())

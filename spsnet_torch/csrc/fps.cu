@@ -95,6 +95,7 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxN = 65536;
 constexpr int kMaxCluster = 16;
 constexpr int kMaxPPT = 16;
+constexpr int kFastPPT = 4;  // points a thread that cluster_size() aims at
 constexpr int kThreads = 256;  // T, the threads of a CTA
 constexpr int kWarps = kThreads / 32;
 
@@ -351,13 +352,16 @@ int pow2_ceil(int x) {
 }
 
 // The fixed rule: B * C <= 132 SMs where possible (16 for B <= 8, 8 for
-// B <= 16, 4 for B <= 33, else 2), at least enough CTAs that a thread holds
-// <= kMaxPPT points (so any N <= kMaxN fits), and no more than leave each
-// thread one point. Measured at (8, 16384) on the H100 (PERF.md): C = 16
-// ahead of 8 and 4.
+// B <= 16, 4 for B <= 33, else 2), but at least enough CTAs that a thread
+// holds <= kFastPPT points (up to 16 CTAs; a thread then holds <= kMaxPPT,
+// so any N <= kMaxN fits), and no more than leave each thread one point.
+// Measured on the H100 (PERF.md): C = 16 ahead of 8 and 4 at (8, 16384);
+// at B > 8, C = 16 ahead of 8 at (16, 16384) and 4 ahead of 2 at
+// (64, 4096), 4 points a thread each time, and more CTAs than that no
+// faster.
 int cluster_size(int B, int N) {
   const int by_rows = B <= 8 ? 16 : B <= 16 ? 8 : B <= 33 ? 4 : 2;
-  const int per_cta = kThreads * kMaxPPT;
+  const int per_cta = kThreads * kFastPPT;
   const int need = pow2_ceil((N + per_cta - 1) / per_cta);
   const int useful = pow2_ceil((N + kThreads - 1) / kThreads);
   const int c = need > by_rows ? need : (useful < by_rows ? useful : by_rows);

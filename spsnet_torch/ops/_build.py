@@ -35,8 +35,9 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_IP = ctypes.POINTER(ctypes.c_int)
 # C signatures by library (one per source): every pointer and the stream
-# as c_void_p
+# as c_void_p, an int array written by the library as _IP
 SIGNATURES = {
     'fps': {'spsnet_fps': [_P, _P, _P, _I, _I, _I, _P],
             'spsnet_fps_seeded': [_P, _P, _P, _P, _I, _I, _I, _I, _P],
@@ -47,15 +48,10 @@ SIGNATURES = {
     'ball_query': {'spsnet_ball_query': [_P, _P, _P, _P, _I, _I, _I, _F, _I,
                                          _F, _I, _P],
                    'spsnet_ball_query_warp_centers': [_I, _I]},
-    'seed_min': {'spsnet_seed_min': [_P, _P, _P, _I, _I, _I, _P]},
-    'fps_rows': {'spsnet_fps_rows': [_P, _P, _I, _I, _I, _P],
-                 'spsnet_fps_rows_per_cta': [_I, _I],
-                 'spsnet_fps_rows_max_n': []},
-    'fps_hier': {'spsnet_fps_hier': [_P, _P, _I, _I, _I, _P],
-                 'spsnet_fps_hier_max_n': []},
+    'seed_min': {'spsnet_seed_min': [_P, _P, _P, _I, _I, _I, _P],
+                 'spsnet_seed_min_shape': [_I, _I, _I, _IP]},
 }
-KERNELS = ('fps', 'fps_seeded', 'ball_query', 'seed_min', 'fps_rows',
-           'fps_hier')
+KERNELS = ('fps', 'fps_seeded', 'ball_query', 'seed_min')
 
 LAUNCHES = {name: 0 for name in KERNELS}
 _LIBS: dict = {}

@@ -15,16 +15,18 @@ approximation of FPS and off unless a ``FpsSeeding`` is passed.
 
 ``farthest_point_sample_batched`` and ``farthest_point_sample_hier_argmax``
 are the counterparts of the JAX package's experimental FPS entries (K5a-c),
-which compute exact FPS through other TPU layouts; here each has its own
-kernel (``csrc/fps_rows.cu``, ``csrc/fps_hier.cu``). The JAX entries take
-no mask and pad N to 128 lanes; the kernels handle any N.
+which compute exact FPS through other TPU layouts. Both ideas (every row in
+one step loop, a hierarchical argmax) are inside the exact FPS kernel
+already (one cluster a row, all rows at once; ``redux.sync`` reductions), so
+on the card both entries launch it. The JAX entries take no mask and pad N
+to 128 lanes; the kernel handles any N.
 
 Each op runs its plain version for a CPU tensor and its kernel for a CUDA
-tensor (``csrc/fps.cu``, ``csrc/seed_min.cu``, ``csrc/fps_rows.cu``,
-``csrc/fps_hier.cu``); there is no other path.
+tensor (``csrc/fps.cu``, ``csrc/seed_min.cu``); there is no other path.
 """
 from __future__ import annotations
 
+import ctypes
 from dataclasses import dataclass
 
 import torch
@@ -193,62 +195,22 @@ def farthest_point_sample_kernel(xyz, npoint: int, valid_mask=None):
     return out
 
 
-def _fps_variant_kernel(name, xyz, npoint: int):
-    """Launch the exact-FPS kernel of library ``name`` (``fps_rows``,
-    ``fps_hier``): (B, N, 3) -> (B, npoint) int64 on the device of ``xyz``."""
-    _check(xyz, npoint, None)
-    _require_cuda(name, xyz)
-    lib = _build.library(name)
-    B, N, _ = xyz.shape
-    max_n = getattr(lib, f'spsnet_{name}_max_n')()
-    if N > max_n:
-        raise ValueError(f'the {name} kernel takes N <= {max_n}, got {N}')
-    out = torch.empty((B, npoint), dtype=torch.int64, device=xyz.device)
-    with torch.cuda.device(xyz.device):
-        err = getattr(lib, f'spsnet_{name}')(xyz.data_ptr(), out.data_ptr(),
-                                             B, N, npoint,
-                                             _build.stream_ptr(xyz.device))
-    _build.check(err, name)
-    _build.LAUNCHES[name] += 1
-    return out
-
-
-def farthest_point_sample_rows_kernel(xyz, npoint: int):
-    """Exact FPS through ``csrc/fps_rows.cu``: G batch rows per CTA advance
-    in lock-step (G from the library's ``spsnet_fps_rows_per_cta``: the
-    largest power of two <= B, at most 32, with at most 16 points a
-    thread)."""
-    return _fps_variant_kernel('fps_rows', xyz, npoint)
-
-
 def farthest_point_sample_batched(xyz, npoint: int):
     """Exact FPS with every batch row in one step loop: the counterpart of
     the JAX package's ``farthest_point_sample_pallas_batched`` (K5a,
     ``spsnet_tpu/ops/pallas/fps.py:138``) and
     ``farthest_point_sample_pallas_batched2d`` (K5c, ``fps.py:761``), which
     compute this function through two TPU layouts. (B, N, 3) float32 ->
-    (B, npoint) int64: ``farthest_point_sample_plain`` for a CPU tensor,
-    ``csrc/fps_rows.cu`` for a CUDA tensor."""
-    if xyz.device.type == 'cpu':
-        return farthest_point_sample_plain(xyz, npoint)
-    return farthest_point_sample_rows_kernel(xyz, npoint)
-
-
-def farthest_point_sample_hier_kernel(xyz, npoint: int):
-    """Exact FPS through ``csrc/fps_hier.cu`` (max first, then the lowest
-    index holding it)."""
-    return _fps_variant_kernel('fps_hier', xyz, npoint)
+    (B, npoint) int64: exact ``farthest_point_sample``."""
+    return farthest_point_sample(xyz, npoint)
 
 
 def farthest_point_sample_hier_argmax(xyz, npoint: int):
     """Exact FPS with a hierarchical argmax: the counterpart of the JAX
     package's ``_fps_pallas_allbatch_v2`` (K5b,
     ``spsnet_tpu/ops/pallas/fps.py:316``). (B, N, 3) float32 -> (B, npoint)
-    int64: ``farthest_point_sample_plain`` for a CPU tensor,
-    ``csrc/fps_hier.cu`` for a CUDA tensor."""
-    if xyz.device.type == 'cpu':
-        return farthest_point_sample_plain(xyz, npoint)
-    return farthest_point_sample_hier_kernel(xyz, npoint)
+    int64: exact ``farthest_point_sample``."""
+    return farthest_point_sample(xyz, npoint)
 
 
 def _check_seeds(xyz, seeds):
@@ -275,18 +237,34 @@ def seed_min_d2_plain(xyz, seeds):
     return out
 
 
+def seed_min_launch_shape(B: int, N: int, k0: int) -> tuple:
+    """(CTAs a cluster S, points a thread, CTAs of the grid, threads a CTA)
+    of the ``seed_min`` launch over (B, N, k0), by the fixed rule of
+    ``csrc/seed_min.cu``."""
+    shape = (ctypes.c_int * 4)()
+    _build.library('seed_min').spsnet_seed_min_shape(B, N, k0, shape)
+    return tuple(shape)
+
+
 def seed_min_d2_kernel(xyz, seeds):
-    """``seed_min_d2`` through the CUDA kernel ``csrc/seed_min.cu``."""
+    """``seed_min_d2`` through the CUDA kernel ``csrc/seed_min.cu``: each
+    tile of points on a cluster of CTAs that split the seeds
+    (``seed_min_launch_shape``)."""
     _check(xyz, 1, None)
     _check_seeds(xyz, seeds)
     _require_cuda('seed_min', xyz, seeds)
     lib = _build.library('seed_min')
     B, N, _ = xyz.shape
+    k0 = seeds.shape[1]
     out = torch.empty((B, N), dtype=torch.float32, device=xyz.device)
     with torch.cuda.device(xyz.device):
         err = lib.spsnet_seed_min(xyz.data_ptr(), seeds.data_ptr(),
-                                  out.data_ptr(), B, N, seeds.shape[1],
+                                  out.data_ptr(), B, N, k0,
                                   _build.stream_ptr(xyz.device))
+    if err == _NO_CLUSTER:
+        s = seed_min_launch_shape(B, N, k0)[0]
+        raise RuntimeError(f'seed_min: the card cannot schedule a cluster of '
+                           f'{s} CTAs (cudaOccupancyMaxActiveClusters is 0)')
     _build.check(err, 'seed_min')
     _build.LAUNCHES['seed_min'] += 1
     return out

@@ -3,15 +3,17 @@
 Edge cases that the main paths' shapes do not reach: N and M off the
 kernels' tiles, balls that are empty or hit exactly on the radius, more
 than 32 slots, one or three radii, masks with too few valid points, the
-shared-memory and register limits of the FPS kernels, one seed or more
-seeds than a shared-memory tile, seeds in any order, the experimental FPS
-entries' kernels (``fps_rows``, ``fps_hier``) at one point, at N off the
-128-lane padding, on all-equal points and with several rows a CTA. For the
-cluster FPS: batch sizes that set each cluster size, tied maxima in
-different CTAs of a cluster at each cluster size, masks, seeds in several
-shards. For the ball query: radii either way round, more slots than points,
-both numbers of centers a warp, rows that are not 16-byte aligned. Indices must
-be equal, and the min distances to the seeds bit for bit.
+shared-memory and register limits of the FPS kernels, the experimental FPS
+entries at one point, at N off the 128-lane padding, on all-equal points
+and with many rows, launching the exact FPS kernel. For the cluster FPS:
+batch sizes that set each cluster size, tied maxima in different CTAs of a
+cluster at each cluster size, masks, seeds in several shards. For the min
+distance to the seeds: one seed, seed counts off the cluster shares and no
+multiple of 4, one point, a point past a CTA's points, seeds that are
+points, every cluster size its rule picks. For the ball query: radii
+either way round, more slots than points, both numbers of centers a warp,
+rows that are not 16-byte aligned. Indices must be equal, and the min
+distances to the seeds bit for bit.
 
 These tests need a CUDA card and skip without one. On the H100:
 
@@ -122,11 +124,33 @@ def test_fps_counts_one_launch_per_call(cuda):
     assert _build.LAUNCHES['fps'] - before == 1
 
 
+# (B, N, k0) -> the cluster size S of csrc/seed_min.cu's rule: the smallest
+# power of two <= 16 that brings B * ceil(N / 512) * S to 512 CTAs while a
+# share keeps 32 seeds
+SEED_MIN_SPLITS = [
+    (1, 1, 1, 1),
+    (4, 16384, 40, 1),       # too few seeds to split
+    (4, 70000, 64, 1),       # 548 tiles of points fill the card alone
+    (2, 5000, 100, 2),       # a third split would leave 25 seeds a CTA
+    (2, 70000, 64, 2),       # 274 tiles
+    (4, 16384, 3072, 4),     # the train path's first layer
+    (1, 40000, 300, 8),      # 79 tiles
+    (4, 4096, 768, 16),      # the train path's second layer
+    (1, 5000, 1000, 16),     # 10 tiles
+]
+
+
 @pytest.mark.parametrize('B,N,k0', [
     (1, 1, 1),          # one point, one seed
-    (3, 257, 5),        # one block and one point past it
-    (2, 3000, 1025),    # one seed past a shared-memory tile
+    (3, 257, 5),        # part of one tile of points
+    (2, 3000, 1025),    # 16 shares of 68 seeds, the last one short
     (1, 70000, 64),     # many blocks along N
+    (4, 16384, 3073),   # one seed past the train path's k0 (4 shares)
+    (4, 4096, 769),     # the same at its second layer (16 shares)
+    (3, 2000, 7),       # k0 % 4 != 0
+    (3, 1, 5),          # one point
+    (2, 1025, 300),     # one point past two tiles of 128 x 4 points
+    (2, 70000, 4500),   # one share, staged in three chunks of 2048
 ])
 def test_seed_min_kernel_matches_plain_bit_for_bit(cuda, B, N, k0):
     xyz = _cloud(N + k0, B, N).to(cuda)
@@ -134,6 +158,25 @@ def test_seed_min_kernel_matches_plain_bit_for_bit(cuda, B, N, k0):
     got = sampling.seed_min_d2_kernel(xyz, seeds)
     torch.cuda.synchronize()
     assert torch.equal(got, sampling.seed_min_d2_plain(xyz, seeds))
+
+
+@pytest.mark.parametrize('B,N,k0,S', SEED_MIN_SPLITS)
+def test_seed_min_kernel_every_cluster_split(cuda, B, N, k0, S):
+    """Every cluster size the rule picks, reached through (B, N, k0), on
+    seeds that are points of the cloud (d2 = +0 there, never -0)."""
+    assert sampling.seed_min_launch_shape(B, N, k0)[0] == S
+    xyz = _cloud(S + N, B, N).to(cuda)
+    rng = np.random.default_rng(k0)
+    idx = torch.from_numpy(np.stack([rng.permutation(N)[:k0]
+                                     for _ in range(B)])).to(cuda)
+    seeds = xyz.gather(1, idx[..., None].expand(-1, -1, 3)).contiguous()
+    before = _build.LAUNCHES['seed_min']
+    got = sampling.seed_min_d2_kernel(xyz, seeds)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES['seed_min'] - before == 1
+    assert torch.equal(got, sampling.seed_min_d2_plain(xyz, seeds))
+    at = got.gather(1, idx)
+    assert ((at == 0) & ~torch.signbit(at)).all()
 
 
 @pytest.mark.parametrize('B,N,npoint,k0,order', [
@@ -194,38 +237,47 @@ def test_seeded_dispatch_counts_one_launch_of_each(cuda):
     assert _build.LAUNCHES['fps'] == 1
 
 
-FPS_VARIANTS = {'fps_rows': sampling.farthest_point_sample_rows_kernel,
-                'fps_hier': sampling.farthest_point_sample_hier_kernel}
+# (B, N) -> the cluster size of csrc/fps.cu's rule at B >= 8
+CLUSTER_RULE_MANY_ROWS = [(8, 16384, 16), (16, 16384, 16), (16, 4096, 8),
+                          (32, 4096, 4), (33, 5000, 8), (64, 4096, 4),
+                          (128, 1000, 2)]
 
 
-@pytest.mark.parametrize('name', sorted(FPS_VARIANTS))
+K5_ENTRIES = ('farthest_point_sample_batched',
+              'farthest_point_sample_hier_argmax')
+
+
+@pytest.mark.parametrize('entry', K5_ENTRIES)
 @pytest.mark.parametrize('B,N,M,equal', [
     (1, 1, 1, False),          # one point
     (3, 197, 64, False),       # N % 128 != 0, B not a power of two
     (2, 300, 300, True),       # all points equal: every pick is a tie
-    (32, 1000, 200, False),    # many small rows: fps_rows packs 16 a CTA
-    (5, 4096, 512, False),     # 4 rows a CTA, three idle in the second
+    (32, 1000, 200, False),    # many small rows
+    (5, 4096, 512, False),     # B just past a power of two
     (2, 15884, 256, False),    # SPSNet's layer-0 N
-    (1, 40000, 64, False),     # above the shared-memory planes
+    (1, 40000, 64, False),     # a row past the first designs' limits
 ])
-def test_fps_variant_kernels_match_plain(cuda, name, B, N, M, equal):
+def test_fps_entries_launch_the_exact_kernel(cuda, entry, B, N, M, equal):
+    """The experimental FPS entries (K5a-c's counterparts) launch the exact
+    FPS kernel once a call and nothing else, and pick what plain FPS picks."""
     xyz = _cloud(B + N, B, N).to(cuda)
     if equal:
         xyz = xyz[:, :1].expand(B, N, 3).contiguous()
-    before = _build.LAUNCHES[name]
-    got = FPS_VARIANTS[name](xyz, M)
+    before = dict(_build.LAUNCHES)
+    got = getattr(sampling, entry)(xyz, M)
     torch.cuda.synchronize()
-    assert _build.LAUNCHES[name] - before == 1
+    assert {k: n - before[k] for k, n in _build.LAUNCHES.items()} == \
+        {k: int(k == 'fps') for k in before}
     assert torch.equal(got, farthest_point_sample_plain(xyz, M))
 
 
-@pytest.mark.parametrize('B,N,G', [(1, 16384, 1), (8, 15884, 1),
-                                   (32, 4096, 4), (5, 4096, 4),
-                                   (32, 1000, 16), (3, 2048, 2),
-                                   (64, 100, 32)])
-def test_fps_rows_packs_rows_while_a_thread_holds_at_most_16_points(
-        cuda, B, N, G):
-    assert _build.library('fps_rows').spsnet_fps_rows_per_cta(B, N) == G
+@pytest.mark.parametrize('B,N,C', CLUSTER_RULE_MANY_ROWS)
+def test_fps_cluster_size_for_eight_rows_and_more(cuda, B, N, C):
+    """The cluster rule at B >= 8 (measured on the H100, PERF.md), and the
+    card can schedule each such cluster."""
+    lib = _build.library('fps')
+    assert lib.spsnet_fps_cluster_size(B, N) == C
+    assert lib.spsnet_fps_max_active_clusters(B, N, 0) > 0
 
 
 # --- the cluster FPS (csrc/fps.cu) -----------------------------------------
@@ -282,13 +334,12 @@ def test_cluster_fps_masks_match_plain(cuda, mask, B, N):
         assert (got == N // 2 + 1).all()
 
 
-@pytest.mark.parametrize('B,cluster', [(8, 16), (16, 8), (33, 4), (64, 2)])
+@pytest.mark.parametrize('B,N,cluster', [(8, 8192, 16), (16, 8192, 8),
+                                         (33, 4096, 4), (64, 2048, 2)])
 @pytest.mark.parametrize('cloud', ['lattice', 'repeated'])
-def test_cluster_fps_ties_across_ctas(cuda, cloud, B, cluster):
+def test_cluster_fps_ties_across_ctas(cuda, cloud, B, N, cluster):
     """Tied maxima in different CTAs: the lowest global index must win, at
-    every cluster size, which the batch size sets (N = 8192: what 2 CTAs of
-    256 threads hold)."""
-    N = 8192
+    every cluster size, which the batch size and N set."""
     assert sampling.fps_launch_shape(B, N) == (cluster, 256)
     xyz = (_lattice_cloud(B, N, cluster) if cloud == 'lattice'
            else _repeated(B, N, cluster, cluster)).to(cuda)
@@ -335,10 +386,10 @@ def test_cluster_seeded_fps_on_repeated_points(cuda):
 
 
 def test_cluster_fps_follows_the_cluster_rule(cuda):
-    """B * C <= 132 where possible, enough CTAs for 16 points a thread, and
-    every rule's cluster can be scheduled on this card."""
+    """B * C <= 132 where possible, but enough CTAs for 4 points a thread
+    (up to 16), and every rule's cluster can be scheduled on this card."""
     for (B, N), want in {(1, 16384): 16, (8, 16384): 16, (8, 15884): 16,
-                         (16, 4096): 8, (33, 5000): 4, (64, 4096): 2,
+                         (16, 4096): 8, (33, 5000): 8, (64, 4096): 4,
                          (64, 65536): 16, (8, 37): 2, (4, 600): 4}.items():
         assert sampling.fps_launch_shape(B, N) == (want, 256), (B, N)
         for seeded in (0, 1):

@@ -25,9 +25,7 @@ from spsnet_torch import zoo
 from spsnet_torch.models import build_detector
 from spsnet_torch.ops import _build
 from spsnet_torch.ops.grouping import ball_query_multi_kernel
-from spsnet_torch.ops.sampling import (farthest_point_sample_hier_kernel,
-                                       farthest_point_sample_kernel,
-                                       farthest_point_sample_rows_kernel,
+from spsnet_torch.ops.sampling import (farthest_point_sample_kernel,
                                        farthest_point_sample_seeded_kernel,
                                        seed_min_d2_kernel)
 from spsnet_torch.stability.model import GenerateCenter
@@ -38,7 +36,7 @@ from spsnet_torch.utils.weights import (flax_to_torch,
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted(str(p.relative_to(ROOT))
                     for p in (ROOT / 'spsnet_torch').rglob('*.py')) + \
-    ['chip_smoke.py']
+    ['chip_smoke.py', 'launch_sweep.py']
 FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'spsnet_tpu')
 
 
@@ -144,10 +142,6 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match='CUDA'):
         farthest_point_sample_seeded_kernel(
             xyz, 4, torch.zeros(1, 8), torch.arange(2)[None])
-    for kernel in (farthest_point_sample_rows_kernel,
-                   farthest_point_sample_hier_kernel):
-        with pytest.raises(ValueError, match='CUDA'):
-            kernel(xyz, 4)
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):

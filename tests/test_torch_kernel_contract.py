@@ -1,15 +1,18 @@
-"""What the FPS and ball-query kernels must match, pinned to the JAX package.
+"""What the FPS, ball-query and min-distance kernels must match, pinned to
+the JAX package.
 
-The card kernels (``csrc/fps.cu``, ``csrc/ball_query.cu``) are held index
-for index to the port's plain versions (``tests/test_torch_cuda.py``,
-``chip_smoke.py``). Here, on the CPU, those plain versions are held to the
-JAX package's CPU functions on the inputs where a kernel that splits a row
-(across the CTAs of a cluster, or across tiles and warps) goes wrong first:
-clouds whose maxima tie (a lattice, a cloud repeated so that equal points
-lie far apart in index order), masks that leave one or no valid point,
-radii in descending order, and N that is no multiple of 4 (a row that is
-not 16-byte aligned). Inputs are made with numpy from fixed seeds; indices
-must be equal.
+The card kernels (``csrc/fps.cu``, ``csrc/ball_query.cu``,
+``csrc/seed_min.cu``) are held index for index, or bit for bit, to the
+port's plain versions (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
+Here, on the CPU, those plain versions are held to the JAX package's CPU
+functions on the inputs where a kernel that splits a row (across the CTAs
+of a cluster, or across tiles and warps) goes wrong first: clouds whose
+maxima tie (a lattice, a cloud repeated so that equal points lie far apart
+in index order), masks that leave one or no valid point, radii in
+descending order, N that is no multiple of 4 (a row that is not 16-byte
+aligned), and for the min distance to the seeds one seed, seed counts off
+a split, one point, a point past a tile, and seeds that are points.
+Inputs are made with numpy from fixed seeds; indices must be equal.
 """
 import numpy as np
 import jax.numpy as jnp
@@ -106,6 +109,47 @@ def test_plain_seeded_fps_breaks_ties_as_jax_does(cloud):
         jnp.asarray(xyz), npoint, k0, jnp.asarray(seed_idx, jnp.int32),
         interpret=True))
     np.testing.assert_array_equal(got, want)
+
+
+def _separately_rounded_min(xyz, seeds):
+    """min over the seeds of (dx*dx + dy*dy) + dz*dz in numpy fp32, each
+    product and sum rounded on its own."""
+    d = xyz[:, :, None, :] - seeds[:, None, :, :]
+    return ((d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1])
+            + d[..., 2] * d[..., 2]).min(axis=-1)
+
+
+@pytest.mark.parametrize('B,N,k0,seeds', [
+    (2, 300, 1, 'random'),       # one seed
+    (2, 640, 385, 'random'),     # one seed past 8 shares of 48
+    (3, 333, 7, 'random'),       # k0 % 4 != 0
+    (3, 1, 5, 'random'),         # one point
+    (2, 1025, 64, 'random'),     # one point past 2 tiles of 128 x 4
+    (1, 2049, 33, 'random'),     # one point past 4 such tiles
+    (2, 1024, 256, 'points'),    # seeds that are points: d2 = +0 there
+    (1, 2048, 384, 'random'),    # three seed blocks of the Pallas kernel
+])
+def test_plain_seed_min_d2_is_the_separately_rounded_min(B, N, k0, seeds):
+    """K3's plain version (the kernel's reference) at the edges of a tiling
+    that splits seeds and points: bit for bit the separately rounded numpy
+    form, and where N and k0 are multiples of 128 (what the Pallas kernel
+    takes) within 2 ulp of ``_seed_min_d2`` in interpret mode (XLA:CPU
+    contracts the sum into FMAs)."""
+    rng = np.random.default_rng(N + k0)
+    xyz = (rng.normal(size=(B, N, 3)) * 20).astype(np.float32)
+    if seeds == 'points':
+        s = np.ascontiguousarray(xyz[:, ::N // k0][:, :k0])
+    else:
+        s = (rng.normal(size=(B, k0, 3)) * 20).astype(np.float32)
+    got = ts.seed_min_d2(_t(xyz), _t(s)).numpy()
+    np.testing.assert_array_equal(
+        got.view(np.int32), _separately_rounded_min(xyz, s).view(np.int32))
+    if seeds == 'points':
+        assert (got[:, ::N // k0].view(np.int32) == 0).all()  # +0, not -0
+    if N % 128 == 0 and k0 % 128 == 0:
+        want = np.asarray(jfps._seed_min_d2(jnp.asarray(xyz), jnp.asarray(s),
+                                            interpret=True))
+        np.testing.assert_array_max_ulp(got, want, maxulp=2)
 
 
 @pytest.mark.parametrize('radii,nsamples', [

@@ -59,8 +59,8 @@ EXPERIMENTAL_FPS = {
 def test_fps_matches_the_experimental_pallas_variants(variant, B, N, M, seed):
     """K5a-c compute K1's function through other TPU layouts and are never
     dispatched; each is held to its own port entry (here its plain version;
-    on the card ``csrc/fps_rows.cu`` or ``csrc/fps_hier.cu``) in interpret
-    mode, and the port's FPS gives their indices too."""
+    on the card the exact FPS kernel ``csrc/fps.cu``) in interpret mode, and
+    the port's FPS gives their indices too."""
     xyz = np.random.default_rng(seed).normal(size=(B, N, 3)).astype(np.float32)
     want = np.asarray(getattr(jfps, variant)(jnp.asarray(xyz), M,
                                              interpret=True))
