@@ -73,13 +73,39 @@ Phases, in order; any failure raises and the exit code is not 0:
     ``farthest_point_sample_hier_argmax``, called at the four K5 shapes
     with the counters zeroed just before: each call launches the exact FPS
     kernel once and nothing else;
-14. one JSON line per kernel set, then the result line.
+14. the SPSNet train path: SPSNet.yaml at full width with seeded random
+    weights (the frozen stability model as in phase 10) and grid-seeded
+    D-FPS takes ten ``adam_onecycle`` steps of 4 x 16384-point scenes with
+    gt boxes through ``make_train_step(..., preprocess)``; loss and
+    gradients finite, every detector parameter moves, the frozen model's
+    parameters and buffers bit-unchanged, 15884 points kept a scene, and
+    per step two seed_min, two fps_seeded and six ball-query launches (the
+    stability SA, the surface graph, SA layers 0, 1, 2 and 5) and no exact
+    FPS;
+15. one SPSNet train step on one scene on the card and on the CPU, as
+    phase 8, with the stds within the tolerance stated below and the
+    deletion and the sss_aware picks replayed after their order checks;
+16. the stability train path: ``tools/cfgs/stability/sf_unc.yaml`` at
+    full width (npoint 16384, MSG 0.2 / 0.8, 16 / 32 neighbours, latent 8)
+    takes ten steps of 16 x 16384-point scenes with gt boxes through
+    ``make_stability_train_step``; loss and gradients finite, every
+    parameter moves, one ball-query launch a step and no other kernel; the
+    foreground share of the points;
+17. one stability train step on one scene on the card and on the CPU, as
+    phase 8, with the same latent noise (drawn on the CPU);
+18. a CUDA-kernel breakdown of one SPSNet train step and of one stability
+    train step;
+19. one JSON line per kernel set, then the result line.
 
 The K5 shapes are (8, 16384) -> 4096, (8, 15884) -> 4096 (SPSNet's layer
 0), (1, 16384) -> 4096 and (32, 4096) -> 1024. Phase 3 also holds FPS and
 the ball query at SPSNet's shapes: FPS at (8, 15884) -> 4096, the ball
 query of the stability SA (16384 centers on 16384 points, r 0.2 / 0.8) and
-of the surface graph (15884 on 15884, r 0.8, 16 neighbours).
+of the surface graph (15884 on 15884, r 0.8, 16 neighbours); and at the
+shapes of training: the ball query of the stability train step (16 x
+16384 centers), the seeded kernels at SPSNet training's layer 0 ((4,
+15884) -> 4096 from 3072 seeds) and S-FPS at (4, 16384) -> 4096 (K1, then
+K2 at r 0.05 with 16 neighbours), with the device time of each call.
 
 ``--phase3 ROOT`` runs phases 1-3 with the package and the phase functions
 of the checkout at ROOT and prints their kernel entries as one JSON line:
@@ -143,6 +169,15 @@ KEPT = N - DELETE_NUMBER
 STDS_RTOL = 1e-5
 # the K5 shapes: IA-SSD's and SPSNet's layer 0, one row, many small rows
 K5_SHAPES = ((8, N, 4096), (8, KEPT, 4096), (1, N, 4096), (32, 4096, 1024))
+# the stability model's own training (tools/cfgs/stability/sf_unc.yaml):
+# 16 scenes a step
+STAB_B = 16
+# launches a step of each train path: IA-SSD (SA 0, 1, 2, 5), SPSNet (the
+# stability SA, the surface graph and SA 0, 1, 2, 5) and the stability model
+TRAIN_LAUNCHES = {'fps': 0, 'fps_seeded': 2, 'seed_min': 2, 'ball_query': 4}
+SPSNET_TRAIN_LAUNCHES = dict(TRAIN_LAUNCHES, ball_query=6)
+STAB_TRAIN_LAUNCHES = {'fps': 0, 'fps_seeded': 0, 'seed_min': 0,
+                       'ball_query': 1}
 
 
 def seeding():
@@ -468,52 +503,59 @@ def seed_min_edges(errs):
         raise AssertionError('seed_min: d2 at a seed is not +0')
 
 
+def _seeded_records(xyz, npoint, k0, idx, seeds, d0, layer):
+    """K3 and K4 at one layer's shape, from the seeds ``idx`` and their min
+    distances ``d0``: event times of kernel and plain, bound and launch
+    shape; returns {'seed_min': record, 'fps_seeded': record}."""
+    from spsnet_torch.ops.sampling import (
+        farthest_point_sample_seeded_kernel,
+        farthest_point_sample_seeded_plain, seed_min_d2_kernel,
+        seed_min_d2_plain)
+    b, n, _ = xyz.shape
+    records = {}
+    for name, fn, plain, n_bytes, n_ops in (
+            ('seed_min', lambda: seed_min_d2_kernel(xyz, seeds),
+             lambda: seed_min_d2_plain(xyz, seeds),
+             (xyz.numel() + seeds.numel() + b * n) * 4,
+             b * n * k0 * 9),           # 3 sub 3 mul 2 add 1 min
+            ('fps_seeded',
+             lambda: farthest_point_sample_seeded_kernel(xyz, npoint, d0, idx),
+             lambda: farthest_point_sample_seeded_plain(xyz, npoint, d0, idx),
+             (xyz.numel() + d0.numel()) * 4 + (idx.numel() + b * npoint) * 8,
+             (npoint - k0) * b * n * 10)):  # 3 sub 3 mul 2 add min cmp
+        ms = cuda_ms(fn, reps=10)
+        plain_ms = cuda_ms(plain, reps=3)
+        bnd, by = bound_ms(n_bytes, n_ops)
+        log(f'  {name} layer {layer} ({b}, {n}, 3) k0={k0} -> {npoint}: '
+            f'kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound '
+            f'{bnd:.4f} ms ({by})')
+        records[name] = {'layer': layer, 'B': b, 'N': n, 'k0': k0,
+                         'npoint': npoint, 'ms': ms, 'plain_ms': plain_ms,
+                         'bound_ms': bnd, 'bound_by': by}
+    _cluster_note('fps_seeded', records['fps_seeded'], npoint - k0,
+                  seeded=True)
+    _seed_min_note(records['seed_min'])
+    return records
+
+
 def seeded_phase(scenes):
     """The seeded D-FPS kernels vs plain at the train path's two layers on
     grid seeds, then on head seeds, at an N that is no multiple of 128 and
     K3 at the edges of its tiling; returns the JSON entries of seed_min and
     fps_seeded without launches."""
     from spsnet_torch.ops import gather_points
-    from spsnet_torch.ops.sampling import (
-        farthest_point_sample_seeded_kernel,
-        farthest_point_sample_seeded_plain, grid_seed_indices, seed_k0,
-        seed_min_d2_kernel, seed_min_d2_plain)
+    from spsnet_torch.ops.sampling import grid_seed_indices, seed_k0
     xyz = scenes[..., :3].contiguous()
     calls = {'seed_min': [], 'fps_seeded': []}
     errs = {'seed_min': 0.0, 'fps_seeded': 0.0}
     for layer, npoint in enumerate((4096, 1024)):
-        b, n, _ = xyz.shape
         k0 = seed_k0(seeding(), npoint)
         idx = grid_seed_indices(xyz, k0)
         seeds, d0, picks = _seeded_case(xyz, npoint, k0, idx, 'grid seeds',
                                         errs)
-        for name, fn, plain, n_bytes, n_ops in (
-                ('seed_min', lambda: seed_min_d2_kernel(xyz, seeds),
-                 lambda: seed_min_d2_plain(xyz, seeds),
-                 (xyz.numel() + seeds.numel() + b * n) * 4,
-                 b * n * k0 * 9),           # 3 sub 3 mul 2 add 1 min
-                ('fps_seeded',
-                 lambda: farthest_point_sample_seeded_kernel(xyz, npoint, d0,
-                                                             idx),
-                 lambda: farthest_point_sample_seeded_plain(xyz, npoint, d0,
-                                                            idx),
-                 (xyz.numel() + d0.numel()) * 4 + (idx.numel()
-                                                   + b * npoint) * 8,
-                 (npoint - k0) * b * n * 10)):  # 3 sub 3 mul 2 add min cmp
-            ms = cuda_ms(fn, reps=10)
-            plain_ms = cuda_ms(plain, reps=3)
-            bnd, by = bound_ms(n_bytes, n_ops)
-            log(f'  {name} layer {layer} ({b}, {n}, 3) k0={k0} -> {npoint}: '
-                f'kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound '
-                f'{bnd:.4f} ms ({by})')
-            calls[name].append({'layer': layer, 'B': b, 'N': n, 'k0': k0,
-                                'npoint': npoint, 'ms': ms,
-                                'plain_ms': plain_ms, 'bound_ms': bnd,
-                                'bound_by': by})
-            if name == 'fps_seeded':
-                _cluster_note(name, calls[name][-1], npoint - k0, seeded=True)
-            else:
-                _seed_min_note(calls[name][-1])
+        for name, record in _seeded_records(xyz, npoint, k0, idx, seeds, d0,
+                                            layer).items():
+            calls[name].append(record)
         xyz = gather_points(xyz, picks).contiguous()
     head = torch.arange(3072, device='cuda').expand(TRAIN_B, 3072)
     _seeded_case(scenes[..., :3].contiguous(), 4096, 3072,
@@ -542,6 +584,90 @@ def seeded_phase(scenes):
             'library_note': 'no single PyTorch call computes this function',
             'shape': 'sum of the per-train-step calls', 'calls': c})
     return entries
+
+
+def train_shapes_phase(inp):
+    """Phase 3 at the shapes the two new train paths give the kernels: K2 at
+    the stability train step (16 x 16384 centers on 16384 points, r 0.2 /
+    0.8), K3 + K4 at SPSNet training's layer 0 ((4, 15884) -> 4096 from
+    3072 grid seeds), and S-FPS (K1, then K2 with SPSNet.yaml's layer-0 ball,
+    r 0.05 and 16 neighbours) at (4, 16384) -> 4096 on the frozen
+    generator's stds, once with min_unique 3500 and once with 0, so that
+    the swap runs for certain. Each kernel is held to its plain version
+    (S-FPS to the CPU's plain run), with event times, the device time of
+    a call and the launch shape; returns {name: [call records]}."""
+    from spsnet_torch.models import samplers
+    from spsnet_torch.ops import gather_points
+    from spsnet_torch.ops import sampling as smp
+    from spsnet_torch.ops.grouping import ball_query_multi_kernel
+    out = {'ball_query': [], 'seed_min': [], 'fps_seeded': [], 'fps': [],
+           'sfps': []}
+    errs = {'seed_min': 0.0, 'fps_seeded': 0.0, 'ball_query': 0.0,
+            'fps': 0.0}
+
+    def k2(radii, ns, xyz, ctr, what):
+        record = ball_query_call(radii, ns, xyz, ctr, what)
+        errs['ball_query'] = max(errs['ball_query'], record.pop('err'))
+        record['device_ms'] = device_ms(
+            lambda: ball_query_multi_kernel(radii, ns, xyz, ctr), reps=5)
+        log(f'    device time {record["device_ms"]:.4f} ms a call')
+        out['ball_query'].append(record)
+
+    xyz = inp['stab_batches'][0]['points'][..., :3].contiguous()
+    k2((0.2, 0.8), (16, 32), xyz, xyz, 'stability train step')
+
+    kept = inp['sps_train_kept']
+    k0 = smp.seed_k0(seeding(), 4096)
+    idx = smp.grid_seed_indices(kept, k0)
+    seeds, d0, _ = _seeded_case(kept, 4096, k0, idx,
+                                'grid seeds, SPSNet train layer 0', errs)
+    records = _seeded_records(kept, 4096, k0, idx, seeds, d0, 0)
+    records['seed_min']['device_ms'] = device_ms(
+        lambda: smp.seed_min_d2_kernel(kept, seeds), reps=21)
+    records['fps_seeded']['device_ms'] = device_ms(
+        lambda: smp.farthest_point_sample_seeded_kernel(kept, 4096, d0, idx),
+        reps=5)
+    for name, record in records.items():
+        log(f'    {name} device time {record["device_ms"]:.4f} ms a call')
+        out[name].append(record)
+
+    batch = inp['train_batches'][0]
+    with torch.no_grad():
+        stds = inp['sps'][1].model(batch)['stds']
+    pts = batch['points'][..., :3].contiguous()
+    fps = fps_call('fps', smp.farthest_point_sample_kernel, pts, 4096)
+    errs['fps'] = fps.pop('err')
+    _cluster_note('fps', fps, 4095, seeded=False)
+    fps['device_ms'] = device_ms(
+        lambda: smp.farthest_point_sample_kernel(pts, 4096), reps=5)
+    log(f'    device time {fps["device_ms"]:.4f} ms a call')
+    out['fps'].append(fps)
+    base = smp.farthest_point_sample_kernel(pts, 4096)
+    k2((0.05,), (16,), pts, gather_points(pts, base).contiguous(),
+       'S-FPS swap ball')
+    for min_unique in (3500, 0):
+        what = f'S-FPS (4, {N}) -> 4096 min_unique={min_unique}'
+        got = samplers.sample_sfps(pts, stds, 4096, 0.05, 16, min_unique)
+        want = samplers.sample_sfps(pts.cpu(), stds.cpu(), 4096, 0.05, 16,
+                                    min_unique)
+        require_equal(got[0], want[0], f'{what}: card vs CPU plain picks')
+        require_equal(got[1], want[1], f'{what}: card vs CPU plain stds')
+        fell_back = torch.equal(got[0], base)
+        if min_unique == 0 and fell_back:
+            raise AssertionError(f'{what}: the swap did not run')
+        row0 = torch.sort(got[0][0]).values
+        unique = int((row0[1:] != row0[:-1]).sum()) + 1
+        ms = cuda_ms(lambda m=min_unique: samplers.sample_sfps(
+            pts, stds, 4096, 0.05, 16, m), reps=5)
+        branch = 'D-FPS picks (fallback)' if fell_back else 'swapped picks'
+        log(f'  {what}: took the {branch}, {unique} unique picks in row 0; '
+            f'{ms:.3f} ms a call (events)')
+        out['sfps'].append({'B': pts.shape[0], 'N': N, 'npoint': 4096,
+                            'ss_radius': 0.05, 'ss_nsample': 16,
+                            'min_unique': min_unique, 'branch': branch,
+                            'unique_row0': unique, 'ms': ms})
+    out['errs'] = errs
+    return out
 
 
 def detect(model, points, post):
@@ -632,6 +758,53 @@ def topk_picks(replay=None):
         yield picks
     finally:
         samplers.sample_ctr_aware, samplers.sample_sss_aware = own_ctr, own_sss
+
+
+@contextlib.contextmanager
+def deletion_picks(replay=None):
+    """Record the stability hook's deletions of a run (kept indices and the
+    stds they came from), or replay recorded ones.
+
+    The deletion sorts thousands of foreground stds, and two of them within
+    the card-vs-CPU difference of each other order differently on the two
+    devices. A replayed deletion must keep an ascending order of this run's
+    own keys within STDS_RTOL of the largest stds (``_order_slack``); then
+    both runs continue from the same points."""
+    from spsnet_torch.ops import gather_points
+    from spsnet_torch.stability import hook
+    own = hook.stability_delete_points
+    record = []
+
+    def delete(points, stds, fake_labels, noise=None, delete_number=500,
+               method='stability'):
+        kept, keep = own(points, stds, fake_labels, noise,
+                         delete_number=delete_number, method=method)
+        if replay is not None:
+            want = replay[len(record)][0].to(keep.device)
+            if not torch.equal(want, keep):
+                tol = STDS_RTOL * float(stds.max())
+                key = torch.where(fake_labels > 0, stds, 1e9).cpu()
+                for b in range(keep.shape[0]):
+                    slack, ranks = _order_slack(want[b].cpu(), keep[b].cpu(),
+                                                key[b])
+                    if slack > tol or ranks > tol:
+                        raise AssertionError(
+                            f'scene {b}: the replayed deletion is no '
+                            f'ascending order of this run\'s keys (deleted '
+                            f'above kept by {slack:.3e}, rank-wise '
+                            f'{ranks:.3e}; tolerance {tol:.3e})')
+                log(f'  deletion {len(record)}: {int((want != keep).sum())} '
+                    f'of {keep.numel()} kept ranks differ, within {tol:.3e} '
+                    'of this run\'s key order; replayed')
+                keep, kept = want, gather_points(points, want)
+        record.append((keep, stds))
+        return kept, keep
+
+    hook.stability_delete_points = delete
+    try:
+        yield record
+    finally:
+        hook.stability_delete_points = own
 
 
 def cpu_phase(model, cfg, scene):
@@ -730,12 +903,6 @@ def spsnet_path(step, kept, requests, post):
     return times, dict(_build.LAUNCHES)
 
 
-def _deletion(stds, fake, points):
-    from spsnet_torch.stability.hook import stability_delete_points
-    return stability_delete_points(points, stds, fake,
-                                   delete_number=DELETE_NUMBER)[1]
-
-
 def _order_slack(keep, own_keep, key):
     """How far ``keep`` (one scene's kept indices, in key order) is from an
     ascending order of ``key``, whose own order keeps ``own_keep``: how far
@@ -750,15 +917,12 @@ def _order_slack(keep, own_keep, key):
 def spsnet_cpu_phase(cfg, preprocess, model, batch):
     """One SPSNet scene on the card and on the CPU with the same weights:
     the stds, the foreground, the stability SA's and the surface graph's
-    ball queries, the deletion, then the detector and the NMS as
-    ``compare_forwards`` checks them. The deletion sorts ~4500 foreground
-    stds, and two of them within the card-vs-CPU difference of each other
-    order differently on the two devices, so the kept points' order may
-    differ; the CPU then takes the card's once it checks out as an
-    ascending order of the CPU's own keys within STDS_RTOL. Its sss_aware
-    picks replay the card's (``topk_picks``)."""
+    ball queries, the deletion (the CPU replays the card's after its order
+    check, ``deletion_picks``), then the detector and the NMS as
+    ``compare_forwards`` checks them. Its sss_aware picks replay the
+    card's (``topk_picks``)."""
     from spsnet_torch.models import build_detector
-    from spsnet_torch.ops import ball_query, ball_query_multi, gather_points
+    from spsnet_torch.ops import ball_query, ball_query_multi
     from spsnet_torch.runtime.trainer import make_stability_preprocess
     from spsnet_torch.stability.hook import fake_labels_from_boxes
     post = cfg.MODEL.POST_PROCESSING
@@ -768,11 +932,13 @@ def spsnet_cpu_phase(cfg, preprocess, model, batch):
     cpu.load_state_dict(model.state_dict())
     card = {k: v[:1].contiguous() for k, v in batch.items()}
     host = {k: v.cpu() for k, v in card.items()}
-    with torch.no_grad():
-        stds_g = preprocess.model(card)['stds']
-        stds_c = cpu_pre.model(host)['stds']
-    rel = float(((stds_g.cpu() - stds_c).abs() / stds_c.abs()).max())
-    if not torch.allclose(stds_g.cpu(), stds_c, rtol=STDS_RTOL, atol=0.0):
+    with torch.no_grad(), deletion_picks() as dels:
+        kept_g = preprocess(card, torch.Generator())
+    with torch.no_grad(), deletion_picks(replay=dels) as cpu_dels:
+        kept_c = cpu_pre(host, torch.Generator())
+    stds_g, stds_c = dels[0][1].cpu(), cpu_dels[0][1]
+    rel = float(((stds_g - stds_c).abs() / stds_c.abs()).max())
+    if not torch.allclose(stds_g, stds_c, rtol=STDS_RTOL, atol=0.0):
         raise AssertionError(f'card vs CPU stds: {rel:.3e} relative over '
                              f'{STDS_RTOL}')
     log(f'  card vs CPU stds: largest relative difference {rel:.3e} '
@@ -783,37 +949,18 @@ def spsnet_cpu_phase(cfg, preprocess, model, batch):
                                      xyz.cpu())):
         require_equal(g, c, 'card kernel vs CPU plain: stability SA ball '
                             'query')
-    fake_g = fake_labels_from_boxes(card['points'], card['gt_boxes'])
     fake_c = fake_labels_from_boxes(host['points'], host['gt_boxes'])
-    require_equal(fake_g, fake_c, 'card vs CPU foreground labels')
-    keep_g = _deletion(stds_g, fake_g, card['points'])
-    keep_c = _deletion(stds_c, fake_c, host['points'])
-    n_fg = int((fake_c > 0).sum())
-    if torch.equal(keep_g.cpu(), keep_c):
-        log(f'  card vs CPU deletion: identical ({n_fg} foreground points)')
-    else:
-        tol = STDS_RTOL * float(stds_c.max())
-        slack, ranks = _order_slack(keep_g[0].cpu(), keep_c[0],
-                                    torch.where(fake_c[0] > 0, stds_c[0], 1e9))
-        if slack > tol or ranks > tol:
-            raise AssertionError(
-                f'the card\'s deletion is no ascending order of the CPU\'s '
-                f'keys (deleted above kept by {slack:.3e}, rank-wise '
-                f'{ranks:.3e}; tolerance {tol:.3e})')
-        log(f'  card vs CPU deletion: {int((keep_g.cpu() != keep_c).sum())} '
-            f'of {KEPT} kept ranks differ ({n_fg} foreground points), the '
-            f'largest rank-wise key difference {ranks:.3e}, the deleted set '
-            f'below the kept by {-slack:.3e} (tolerance {tol:.3e}); the CPU '
-            'replays the card\'s')
-        keep_c = keep_g.cpu()
-    kept_g = {'points': gather_points(card['points'], keep_g),
-              'stds': stds_g.gather(1, keep_g)}
-    kept_c = {'points': gather_points(host['points'], keep_c),
-              'stds': stds_c.gather(1, keep_c)}
+    require_equal(fake_labels_from_boxes(card['points'], card['gt_boxes']),
+                  fake_c, 'card vs CPU foreground labels')
+    log(f'  card vs CPU deletion: both runs go on from the same {KEPT} '
+        f'points ({int((fake_c > 0).sum())} foreground points; any replay '
+        'is logged above)')
     kxyz = kept_g['points'][..., :3].contiguous()
     require_equal(ball_query(0.8, 16, kxyz, kxyz),
                   ball_query(0.8, 16, kxyz.cpu(), kxyz.cpu()),
                   'card kernel vs CPU plain: surface graph')
+    kept_g = {k: kept_g[k] for k in ('points', 'stds')}
+    kept_c = {k: kept_c[k] for k in ('points', 'stds')}
     with topk_picks() as picks:
         gpu_out, gpu_dets = detect(model, kept_g, post)
     with topk_picks(replay=picks):
@@ -874,21 +1021,73 @@ def _scene_batch(seed, b, device):
     return device_batch({'points': pts, 'gt_boxes': gt}, device)
 
 
-def build_trainer(cfg, device, generator_seed):
-    """IA-SSD with seeded D-FPS in train mode, its adam_onecycle optimizer
-    over the KITTI schedule, and its train step."""
-    from spsnet_torch.models import build_detector
+def _kitti_optimizer(opt, params):
+    """``opt`` (a config's OPTIMIZATION) over the 3712 KITTI train frames."""
     from spsnet_torch.runtime.optimization import build_optimizer
+    return build_optimizer(opt, params,
+                           KITTI_TRAIN_FRAMES // int(opt.BATCH_SIZE_PER_GPU),
+                           int(opt.NUM_EPOCHS))
+
+
+def build_trainer(cfg, device, generator_seed, preprocess=None):
+    """The detector of ``cfg`` with seeded D-FPS in train mode, its
+    adam_onecycle optimizer over the KITTI schedule, and its train step
+    (behind ``preprocess``, SPSNet's stability hook, when given)."""
+    from spsnet_torch.models import build_detector
     from spsnet_torch.runtime.trainer import make_train_step
     model = build_detector(
         cfg.MODEL, len(cfg.CLASS_NAMES), device=device,
         generator=torch.Generator().manual_seed(generator_seed),
         fps_seeding=seeding()).train()
-    opt = cfg.OPTIMIZATION
-    iters = KITTI_TRAIN_FRAMES // int(opt.BATCH_SIZE_PER_GPU)
-    optimizer = build_optimizer(opt, model.parameters(), iters,
-                                int(opt.NUM_EPOCHS))
-    return model, optimizer, make_train_step(model, optimizer)
+    optimizer = _kitti_optimizer(cfg.OPTIMIZATION, model.parameters())
+    return model, optimizer, make_train_step(model, optimizer, preprocess)
+
+
+def build_spsnet_trainer(device, kept=None):
+    """SPSNet.yaml in train mode (``build_trainer``) behind the frozen
+    stability preprocess of phase 10 (generator weights from seed 1); with
+    ``kept``, the preprocess appends each batch's kept point count to it.
+    Returns (model, optimizer, step, preprocess)."""
+    from spsnet_torch.runtime.trainer import make_stability_preprocess
+    from spsnet_torch.zoo import spsnet_kitti_cfg
+    cfg = spsnet_kitti_cfg()
+    pre = make_stability_preprocess(cfg.MODEL.STABILITY_HOOK, device,
+                                    torch.Generator().manual_seed(1))
+
+    def recorded(batch, generator):
+        out = pre(batch, generator)
+        if kept is not None:
+            kept.append(out['points'].shape[1])
+        return out
+    return (*build_trainer(cfg, device, 0, recorded), pre)
+
+
+def build_stability_trainer(device, seed=0):
+    """The stability model of ``tools/cfgs/stability/sf_unc.yaml`` at full
+    width (npoint 16384, MSG 0.2 / 0.8, 64-wide aggregation, latent 8) with
+    seeded random weights, its OPTIMIZATION over the KITTI schedule and
+    ``make_stability_train_step``; returns (model, optimizer, step)."""
+    from spsnet_torch.models.blocks import init_weights
+    from spsnet_torch.stability import (GenerateCenter,
+                                        make_stability_train_step)
+    from spsnet_torch.zoo import stability_cfg
+    cfg = stability_cfg()
+    model = GenerateCenter(cfg.MODEL)
+    init_weights(model, torch.Generator().manual_seed(seed))
+    model = model.to(device).train()
+    optimizer = _kitti_optimizer(cfg.OPTIMIZATION, model.parameters())
+    return model, optimizer, make_stability_train_step(model, optimizer,
+                                                       seed)
+
+
+def _foreground_share(batches):
+    """The share of the stability model's points that its targets call
+    foreground (``assign_stability_targets``; its SA layer keeps every
+    point in order)."""
+    from spsnet_torch.stability import assign_stability_targets
+    fg = [assign_stability_targets(b['points'][..., :3], b['gt_boxes'])[0]
+          for b in batches]
+    return float(torch.cat(fg).float().mean())
 
 
 def _finite_grads(model):
@@ -896,13 +1095,13 @@ def _finite_grads(model):
                              for p in model.parameters()]).all())
 
 
-def train_path(model, step, batches):
+def train_path(model, step, batches, want, after_step=None):
     """Train steps over ``batches``, each checked: finite loss terms and
-    gradients, the launches of one step. Returns (ms per step, launch
-    counts of the run)."""
+    gradients, ``want`` launches of each kernel a step, and
+    ``after_step()`` when given. Returns (ms per step, launch counts of the
+    run)."""
     from spsnet_torch.ops import _build
     before = {k: p.detach().clone() for k, p in model.named_parameters()}
-    want = {'fps': 0, 'fps_seeded': 2, 'seed_min': 2, 'ball_query': 4}
     torch.cuda.synchronize()
     _build.reset_launches()
     times = []
@@ -912,13 +1111,15 @@ def train_path(model, step, batches):
         loss, tb = step(batch)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-        n = {k: _build.LAUNCHES[k] - seen[k] for k in want}
+        n = {k: _build.LAUNCHES[k] - seen[k] for k in _build.LAUNCHES}
         if n != want:
             raise AssertionError(f'launches in a train step: {n}, want {want}')
         if not torch.isfinite(loss) or not all(
                 torch.isfinite(v).all() for v in tb.values()
                 if torch.is_tensor(v)) or not _finite_grads(model):
             raise AssertionError(f'non-finite loss or gradient: {float(loss)}')
+        if after_step is not None:
+            after_step()
         log(f'  step {len(times)}: {times[-1]:.3f} ms, loss {float(loss):.4f}')
     for name, p in model.named_parameters():
         if torch.equal(p.detach(), before[name]):
@@ -962,28 +1163,40 @@ def _step_difference(a, b, lr):
             'two_lr': 2 * lr}
 
 
-def train_cpu_phase(cfg):
-    """One train step on one scene on the card and on the CPU from the same
-    weights, and on the CPU from weights jittered by WEIGHT_JITTER; the CPU
-    runs replay the card's ctr_aware picks (``topk_picks``)."""
-    gpu, _, gpu_step = build_trainer(cfg, 'cuda', 1)
-    cpu, cpu_opt, cpu_step = build_trainer(cfg, 'cpu', 1)
-    jit, _, jit_step = build_trainer(cfg, 'cpu', 1)
+def train_cpu_phase(build, batch, n_dfps):
+    """One train step on one scene (``batch``, on the CPU) on the card and
+    on the CPU from the same weights, and on the CPU from weights jittered
+    by WEIGHT_JITTER; ``build(device)`` gives (model, optimizer, step),
+    whose frozen parts (the stability hook's generator) are the same on
+    every device. The CPU runs replay the card's top-k picks
+    (``topk_picks``) and stability-hook deletions (``deletion_picks``);
+    ``n_dfps`` D-FPS layers run a step."""
+    gpu, _, gpu_step = build('cuda')
+    cpu, cpu_opt, cpu_step = build('cpu')
+    jit, _, jit_step = build('cpu')
     cpu.load_state_dict(gpu.state_dict())
     jit.load_state_dict(gpu.state_dict())
     gen = torch.Generator().manual_seed(5)
     with torch.no_grad():
         for p in jit.parameters():
             p.mul_(1 + WEIGHT_JITTER * torch.randn(p.shape, generator=gen))
-    batch = _scene_batch(100, 1, 'cpu')
-    with topk_picks() as picks, dfps_picks() as gpu_dfps:
+    with topk_picks() as picks, dfps_picks() as gpu_dfps, \
+            deletion_picks() as dels:
         gpu_loss, gpu_tb = gpu_step({k: v.cuda() for k, v in batch.items()})
-    with topk_picks(replay=picks), dfps_picks() as cpu_dfps:
+    with topk_picks(replay=picks), dfps_picks() as cpu_dfps, \
+            deletion_picks(replay=dels) as cpu_dels:
         cpu_loss, cpu_tb = cpu_step(batch)
-    with topk_picks(replay=picks):
+    with topk_picks(replay=picks), deletion_picks(replay=dels):
         jit_step(batch)
-    if len(gpu_dfps) != 2 or len(cpu_dfps) != 2:
-        raise AssertionError('want two D-FPS layers a step')
+    for (_, g), (_, c) in zip(dels, cpu_dels):
+        rel = float(((g.cpu() - c).abs() / c.abs()).max())
+        if rel > STDS_RTOL:
+            raise AssertionError(f'card vs CPU stds: {rel:.3e} relative over '
+                                 f'{STDS_RTOL}')
+        log(f'  card vs CPU stds: largest relative difference {rel:.3e} '
+            f'(tolerance {STDS_RTOL})')
+    if len(gpu_dfps) != n_dfps or len(cpu_dfps) != n_dfps:
+        raise AssertionError(f'want {n_dfps} D-FPS layers a step')
     for k, (g, c) in enumerate(zip(gpu_dfps, cpu_dfps)):
         require_equal(g, c, f'card vs CPU train step: seeded D-FPS layer {k} '
                             f'picks {tuple(g.shape)}')
@@ -1016,6 +1229,7 @@ def train_cpu_phase(cfg):
                 raise AssertionError(f'card vs CPU {name}: {err:.3e}')
     log('  card vs CPU BN running stats: within '
         f'atol {PRED_ATOL} + rtol {PRED_RTOL}')
+    return card, base
 
 
 def card_and_build():
@@ -1066,10 +1280,16 @@ def kernel_inputs():
         raise AssertionError('K5 shapes')
     train_batches = [_scene_batch(s, TRAIN_B, 'cuda')
                      for s in range(TRAIN_STEPS)]
+    with torch.no_grad():
+        sps_train_kept = sps_pre(train_batches[0], torch.Generator())[
+            'points'][..., :3].contiguous()
+    stab_batches = [_scene_batch(200 + s, STAB_B, 'cuda')
+                    for s in range(TRAIN_STEPS)]
     return {'cfg': cfg, 'model': model, 'requests': requests,
             'sps': (sps_cfg, sps_pre, sps_model), 'sps_requests': sps_requests,
             'kept_xyz': kept_xyz, 'raw_xyz': raw_xyz, 'k5_clouds': k5_clouds,
-            'train_batches': train_batches}
+            'train_batches': train_batches, 'sps_train_kept': sps_train_kept,
+            'stab_batches': stab_batches}
 
 
 def kernel_phase(phases, inp):
@@ -1212,6 +1432,14 @@ def main(argv=()) -> int:
     smi = card_and_build()
     inp = kernel_inputs()
     entries, kernel_dev = kernel_phase(sys.modules[__name__], inp)
+    log('== 3. kernels vs plain on the card: the shapes of SPSNet training')
+    shapes = train_shapes_phase(inp)
+    for entry in entries:
+        entry['train_shape_calls'] = shapes[entry['name']]
+        entry['max_abs_err'] = max(entry['max_abs_err'],
+                                   shapes['errs'][entry['name']])
+        if entry['name'] == 'fps':
+            entry['sfps_calls'] = shapes['sfps']
     cfg, model, requests = inp['cfg'], inp['model'], inp['requests']
     sps_cfg, sps_pre, sps_model = inp['sps']
     sps_requests, train_batches = inp['sps_requests'], inp['train_batches']
@@ -1237,7 +1465,8 @@ def main(argv=()) -> int:
 
     log('== 7. train path')
     train_model, _, step = build_trainer(cfg, 'cuda', 0)
-    step_times, train_launches = train_path(train_model, step, train_batches)
+    step_times, train_launches = train_path(train_model, step, train_batches,
+                                            TRAIN_LAUNCHES)
     step_ms = statistics.median(step_times)
     log(f'  launches over {TRAIN_STEPS} train steps: {train_launches}')
     log(f'  ms/train step (B={TRAIN_B}, N={N}, forward + loss + backward + '
@@ -1246,7 +1475,8 @@ def main(argv=()) -> int:
         f'{1e3 / step_ms:.3f} on {smi}')
 
     log('== 8. card vs CPU, one train step')
-    train_cpu_phase(cfg)
+    train_cpu_phase(lambda device: build_trainer(cfg, device, 1),
+                    _scene_batch(100, 1, 'cpu'), 2)
 
     log('== 9. where the time goes: one train step')
     train_profile = profile_phase(lambda: step(train_batches[0]),
@@ -1283,8 +1513,65 @@ def main(argv=()) -> int:
     log('== 13. the experimental FPS entries')
     entry_launches = fps_entry_path(k5_clouds)
 
+    log('== 14. SPSNet train path')
+    kept = []
+    sps_train, _, sps_train_step, frozen = build_spsnet_trainer('cuda', kept)
+    frozen_before = {k: v.clone()
+                     for k, v in frozen.model.state_dict().items()}
+
+    def kept_all():
+        if kept[-1] != KEPT:
+            raise AssertionError(f'{kept[-1]} points kept a scene, want '
+                                 f'{KEPT}')
+    sps_step_times, sps_train_launches = train_path(
+        sps_train, sps_train_step, train_batches, SPSNET_TRAIN_LAUNCHES,
+        kept_all)
+    if frozen.model.training or any(
+            p.requires_grad for p in frozen.model.parameters()) or any(
+            not torch.equal(v, frozen_before[k])
+            for k, v in frozen.model.state_dict().items()):
+        raise AssertionError('the frozen stability model changed in training')
+    log('  the frozen stability model: eval mode, no gradients, parameters '
+        'and buffers bit-unchanged')
+    sps_step_ms = statistics.median(sps_step_times)
+    log(f'  launches over {TRAIN_STEPS} train steps: {sps_train_launches}')
+    log(f'  ms/train step (B={TRAIN_B}, N={N} -> {KEPT} kept, stability '
+        f'model + deletion + forward + loss + backward + adam_onecycle): '
+        f'median {sps_step_ms:.3f}, all '
+        f'{[round(t, 3) for t in sps_step_times]}; steps/s '
+        f'{1e3 / sps_step_ms:.3f} on {smi}')
+
+    log('== 15. SPSNet card vs CPU, one train step')
+    train_cpu_phase(lambda device: build_spsnet_trainer(device)[:3],
+                    _scene_batch(100, 1, 'cpu'), 2)
+
+    log('== 16. stability train path')
+    stab_model, _, stab_step = build_stability_trainer('cuda')
+    stab_times, stab_launches = train_path(stab_model, stab_step,
+                                           inp['stab_batches'],
+                                           STAB_TRAIN_LAUNCHES)
+    stab_ms = statistics.median(stab_times)
+    fg_share = _foreground_share(inp['stab_batches'])
+    log(f'  launches over {TRAIN_STEPS} train steps: {stab_launches}')
+    log(f'  ms/train step (B={STAB_B}, N={N}, forward + loss + backward + '
+        f'adam_onecycle): median {stab_ms:.3f}, all '
+        f'{[round(t, 3) for t in stab_times]}; steps/s '
+        f'{1e3 / stab_ms:.3f}; foreground share {fg_share:.4f} on {smi}')
+
+    log('== 17. stability card vs CPU, one train step')
+    train_cpu_phase(build_stability_trainer, _scene_batch(300, 1, 'cpu'), 0)
+
+    log('== 18. where the time goes: one SPSNet train step, one stability '
+        'train step')
+    sps_train_profile = profile_phase(
+        lambda: sps_train_step(train_batches[0]), 'one SPSNet train step')
+    stab_profile = profile_phase(lambda: stab_step(inp['stab_batches'][0]),
+                                 'one stability train step')
+
     paths = {'serve': launches, 'train': train_launches,
-             'spsnet': sps_launches, 'fps_entries': entry_launches}
+             'spsnet': sps_launches, 'fps_entries': entry_launches,
+             'spsnet_train': sps_train_launches,
+             'stability_train': stab_launches}
     for entry in entries:
         entry['launches_by_path'] = {path: counts[entry['name']]
                                      for path, counts in paths.items()}
@@ -1296,9 +1583,16 @@ def main(argv=()) -> int:
                     'train_steps_per_s': 1e3 / step_ms,
                     'spsnet_ms_per_batch': sps_ms,
                     'spsnet_scenes_per_s': B / sps_ms * 1e3,
+                    'spsnet_ms_per_train_step': sps_step_ms,
+                    'spsnet_train_steps_per_s': 1e3 / sps_step_ms,
+                    'stability_ms_per_train_step': stab_ms,
+                    'stability_train_steps_per_s': 1e3 / stab_ms,
+                    'stability_foreground_share': fg_share,
                     'serve_profile': serve_profile,
                     'train_profile': train_profile,
-                    'spsnet_profile': sps_profile, 'card': smi}))
+                    'spsnet_profile': sps_profile,
+                    'spsnet_train_profile': sps_train_profile,
+                    'stability_train_profile': stab_profile, 'card': smi}))
     log(smi)
     log(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -5,9 +5,10 @@ Port of ``spsnet_tpu/models/backbones_3d/iassd_backbone.py``
 (``SA_CONFIG``): NPOINT_LIST, SAMPLE_RANGE_LIST, SAMPLE_METHOD_LIST,
 RADIUS_LIST, NSAMPLE_LIST, MLPS, LAYER_TYPE, DILATED_GROUP,
 AGGREGATION_MLPS, CONFIDENCE_MLPS, LAYER_INPUT, CTR_INDEX,
-MAX_TRANSLATE_RANGE, and USE_SURFACE. The layers live in ``SA_modules``, as
-in the reference state dict. ``fps_seeding`` (an ``ops.FpsSeeding`` or None)
-goes to every SA layer's D-FPS.
+MAX_TRANSLATE_RANGE, USE_SURFACE, and SS_RADIUS_LIST / SS_NSAMPLE_LIST
+(S-FPS's swap ball, the first entry of a layer's list). The layers live in
+``SA_modules``, as in the reference state dict. ``fps_seeding`` (an
+``ops.FpsSeeding`` or None) goes to every SA layer's D-FPS.
 
 The same class serves as ``PAGNet_Backbone`` (``backbones_3d/
 PAGNet_backbone.py``): with ``USE_SURFACE`` a DenseEdgeConv 60-d surface
@@ -56,6 +57,8 @@ class IASSDBackbone(nn.Module):
         self.layer_inputs = [_input_index(x) for x in sa_cfg.LAYER_INPUT]
         aggregation_mlps = sa_cfg.get('AGGREGATION_MLPS', None)
         confidence_mlps = sa_cfg.get('CONFIDENCE_MLPS', None)
+        ss_radii = sa_cfg.get('SS_RADIUS_LIST', None)
+        ss_nsamples = sa_cfg.get('SS_NSAMPLE_LIST', None)
 
         channel_out_list = [input_channels - 3]
         # dfps_static[j]: encoder_xyz[j] is configured as the output of a
@@ -87,7 +90,11 @@ class IASSDBackbone(nn.Module):
                     dilated_group=bool(sa_cfg.DILATED_GROUP[k]),
                     aggregation_mlp=list(agg) if agg else None,
                     confidence_mlp=list(conf) if conf else None,
-                    fps_seeding=fps_seeding)
+                    fps_seeding=fps_seeding,
+                    ss_radius=(ss_radii[k][0] if ss_radii and ss_radii[k]
+                               else None),
+                    ss_nsample=(ss_nsamples[k][0]
+                                if ss_nsamples and ss_nsamples[k] else None))
             elif layer_type == 'Vote_Layer':
                 self.dfps_static.append(False)
                 self.npoint0.append(0)

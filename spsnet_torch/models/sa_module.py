@@ -26,8 +26,7 @@ def _sampler_kind(stype: str) -> str:
     if 'sss' in stype or 'ss' in stype:
         return 'sss'
     if 'S-FPS' in stype or 'SFS' in stype:
-        raise NotImplementedError(
-            f'sampler {stype}: S-FPS is ROADMAP Queue 1 item 6')
+        return 'sfps'
     if 'D-FPS' in stype or 'DFS' in stype:
         return 'dfps'
     raise NotImplementedError(
@@ -38,7 +37,9 @@ def _sampler_kind(stype: str) -> str:
 class SAModuleMSGWithSampling(nn.Module):
     """Sampler dispatch -> MSG grouping -> shared MLPs -> aggregation ->
     confidence. ``mlps`` entries exclude the input width (``in_channels``);
-    the relative xyz is prepended (use_xyz)."""
+    the relative xyz is prepended (use_xyz). ``ss_radius`` and
+    ``ss_nsample`` give S-FPS's swap ball, ``sfps_min_unique`` its
+    degeneracy guard (``samplers.sample_sfps``)."""
 
     def __init__(self, in_channels: int, npoint_list: Sequence[int],
                  sample_range_list: Sequence[int],
@@ -48,7 +49,10 @@ class SAModuleMSGWithSampling(nn.Module):
                  pool_method: str = 'max_pool',
                  aggregation_mlp: Optional[Sequence[int]] = None,
                  confidence_mlp: Optional[Sequence[int]] = None,
-                 fps_seeding: Optional[ops.FpsSeeding] = None):
+                 fps_seeding: Optional[ops.FpsSeeding] = None,
+                 ss_radius: Optional[float] = None,
+                 ss_nsample: Optional[int] = None,
+                 sfps_min_unique: int = 3500):
         super().__init__()
         if dilated_group:
             raise NotImplementedError(
@@ -62,6 +66,8 @@ class SAModuleMSGWithSampling(nn.Module):
         self.nsamples = list(nsamples)
         self.pool_method = pool_method
         self.fps_seeding = fps_seeding
+        self.ss_radius, self.ss_nsample = ss_radius, ss_nsample
+        self.sfps_min_unique = sfps_min_unique
 
         self.out_channels = in_channels
         self.mlps = nn.ModuleList(SharedMLP(in_channels + 3, m) for m in mlps)
@@ -103,6 +109,12 @@ class SAModuleMSGWithSampling(nn.Module):
                 if stds is None:
                     raise ValueError('the sss_aware sampler needs stds')
                 idx, stds = samplers.sample_sss_aware(cls_t, stds, npoint)
+            elif kind == 'sfps':
+                if stds is None:
+                    raise ValueError('the S-FPS sampler needs stds')
+                idx, stds = samplers.sample_sfps(
+                    xyz_t, stds, npoint, self.ss_radius, self.ss_nsample,
+                    self.sfps_min_unique)
             elif input_fps_ordered and at_head and not ops.fps_seeding_active(
                     self.fps_seeding, npoint, allow_seed=True):
                 # prefix nesting: xyz_t is (a head slice of) an exact D-FPS

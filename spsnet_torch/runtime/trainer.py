@@ -1,6 +1,6 @@
-"""The train step, the eval step with SPSNet's stability preprocess, and
-the epoch loop (``spsnet_tpu/runtime/trainer.py:77-307``; reference
-``tools/train_utils/train_utils.py``): forward in train mode, the
+"""The train and eval steps, each with SPSNet's stability preprocess
+inside it, and the epoch loop (``spsnet_tpu/runtime/trainer.py:77-307``;
+reference ``tools/train_utils/train_utils.py``): forward in train mode, the
 detector's loss, backward, global-norm clip and the scheduled optimizer
 step; forward in eval mode and the NMS; epoch-end checkpoints, auto-resume
 and a graceful stop on SIGTERM/SIGUSR1. One process on one device; data
@@ -25,12 +25,20 @@ from .checkpoint import CheckpointManager
 from .optimization import build_optimizer
 
 
-def make_train_step(model, optimizer):
+def make_train_step(model, optimizer, preprocess=None):
     """``step(batch) -> (loss, tb)``: one update of ``model`` from a batch
     dict ('points' (B, N, 3 + C), 'gt_boxes' (B, T, 8)) on its device. The
-    loss and the tb terms come back as detached tensors on the device, so a
-    step waits for nothing."""
+    optional ``preprocess`` (``make_stability_preprocess``) runs first,
+    without gradients, its noise from a CPU ``torch.Generator`` seeded with
+    the optimizer's update count (the JAX step's ``fold_in(PRNGKey(0),
+    step)``), so a resumed run draws the same noise. The loss and the tb
+    terms come back as detached tensors on the device, so a step waits for
+    nothing."""
     def train_step(batch):
+        if preprocess is not None:
+            with torch.no_grad():
+                batch = preprocess(
+                    batch, torch.Generator().manual_seed(optimizer.count))
         model.train()
         out = model(batch)
         loss, tb = model.loss(out)
@@ -122,9 +130,10 @@ def device_batch(batch, device):
 
 
 class Trainer:
-    """Trains ``model`` (on its device) with ``cfg.OPTIMIZATION``; saves a
-    checkpoint of the model, the optimizer and the step count at the end of
-    each epoch into ``output_dir/ckpt``."""
+    """Trains ``model`` (on its device) with ``cfg.OPTIMIZATION``, behind
+    the stability preprocess of ``cfg.MODEL.STABILITY_HOOK`` when the
+    config has one (SPSNet); saves a checkpoint of the model, the optimizer
+    and the step count at the end of each epoch into ``output_dir/ckpt``."""
 
     def __init__(self, cfg, model, output_dir, total_iters_each_epoch: int,
                  logger=None):
@@ -140,7 +149,11 @@ class Trainer:
         self.optimizer = build_optimizer(cfg.OPTIMIZATION, model.parameters(),
                                          total_iters_each_epoch,
                                          self.total_epochs)
-        self.train_step = make_train_step(model, self.optimizer)
+        hook = cfg.get('MODEL', {}).get('STABILITY_HOOK', None)
+        self.preprocess = None if hook is None else \
+            make_stability_preprocess(hook, device=self.device)
+        self.train_step = make_train_step(model, self.optimizer,
+                                          self.preprocess)
 
     def state_dict(self):
         return {'model': self.model.state_dict(),

@@ -13,7 +13,8 @@ Port of ``spsnet_tpu/stability/model.py:34-109`` (reference
 In eval mode the forward gives ``stds = sum_dim exp(0.5 * logvar)``, the
 per-point stability that the SPSNet samplers and the delete hook read; in
 training it gives ``center_pred`` from a latent drawn with an explicit
-``torch.Generator``. Its training loss is not ported.
+``torch.Generator``, and ``generate_center_loss`` (``model.py:112-168``;
+reference ``model.py:454-508``) is its training loss.
 """
 from __future__ import annotations
 
@@ -21,8 +22,13 @@ import torch
 from torch import nn
 
 from .. import ops
+from ..models.dense_heads import target_assign
 from ..models.sa_module import SAModuleMSGWithSampling
 from ..models.surface_feature import FeatureExtraction
+from ..utils import box_utils, loss_utils
+
+# added to the latent scale, as the reference does
+_SCALE_EPS = 3e-22
 
 
 class EncoderSurfaceFeature(nn.Module):
@@ -109,3 +115,61 @@ class GenerateCenter(nn.Module):
         else:
             ret['stds'] = torch.exp(0.5 * logvar).sum(dim=-1)
         return ret
+
+
+def assign_stability_targets(layer_xyz, gt_boxes):
+    """The foreground of the layer's points and their offsets to the
+    centre of their box (``model.py:363-370, 392-407``): gt boxes (B, T, 8
+    or 10; a 10-column box drops its two velocity columns) enlarged by 0.5
+    give the ignore ring. Returns (fg_mask (B, M) bool, offsets (B, M, 3))."""
+    if gt_boxes.shape[-1] == 10:
+        gt_boxes = torch.cat([gt_boxes[..., 0:7], gt_boxes[..., -1:]], dim=-1)
+    ext = box_utils.enlarge_box3d(gt_boxes, [0.5, 0.5, 0.5])
+    t = target_assign.assign_targets_iassd(
+        layer_xyz.detach(), gt_boxes, ext, set_ignore_flag=True, num_class=3)
+    return t.fg_mask, layer_xyz - t.gt_box_of_points[..., 0:3]
+
+
+def params_l2_norm_sum(model: nn.Module):
+    """The sum over ``model``'s parameter tensors of their L2 norms, not
+    squared (``l2_regularisation``, ``model.py:24-32``); the 1e-12 keeps
+    the gradient of an all-zero tensor finite. BatchNorm's running
+    statistics are buffers and stay out, as flax keeps them out of
+    ``params``."""
+    return sum(torch.sqrt((p * p).sum() + 1e-12) for p in model.parameters())
+
+
+def _kl_diag_normal(mu1, sigma1, mu2, sigma2):
+    """KL(N(mu1, sigma1^2) || N(mu2, sigma2^2)) summed over the last dim."""
+    return (torch.log(sigma2 / sigma1)
+            + (sigma1 ** 2 + (mu1 - mu2) ** 2) / (2.0 * sigma2 ** 2)
+            - 0.5).sum(dim=-1)
+
+
+def generate_center_loss(model, ret, gt_boxes, code_weights=None):
+    """The stability model's training loss of a training forward ``ret`` of
+    ``model`` against (B, T, 8 or 10) ``gt_boxes``: smooth-L1 of
+    ``center_pred`` against the foreground offsets, 5e-4 times
+    ``params_l2_norm_sum``, and 5e-2 times two KL terms of the latent
+    N(mu, sigma) with sigma = exp(logvar) (the reference's scale, not
+    exp(logvar / 2)): from N(0, 1) on the foreground and from N(mu, 20) on
+    the background, each a mean over its points. Returns (loss, tb) with
+    the JAX package's tb keys."""
+    fg_mask, gt_offsets = assign_stability_targets(ret['layer_xyz'], gt_boxes)
+    fg = fg_mask.to(torch.float32)
+    pos_norm = fg.sum().clamp(min=1.0)
+    reg = loss_utils.weighted_smooth_l1(
+        ret['center_pred'], gt_offsets.detach(), weights=fg / pos_norm,
+        code_weights=code_weights).sum()
+    l2 = 5e-4 * params_l2_norm_sum(model)
+    mu = ret['mu']
+    sigma = torch.exp(ret['logvar']) + _SCALE_EPS
+    kl_fg_all = _kl_diag_normal(torch.zeros_like(mu), torch.ones_like(sigma),
+                                mu, sigma)
+    kl_fg = 5e-2 * (kl_fg_all * fg).sum() / pos_norm
+    bg = 1.0 - fg
+    kl_bg_all = _kl_diag_normal(mu, torch.full_like(sigma, 20.0), mu, sigma)
+    kl_bg = 5e-2 * (kl_bg_all * bg).sum() / bg.sum().clamp(min=1.0)
+    loss = reg + l2 + kl_fg + kl_bg
+    return loss, {'center_loss_box': reg, 'l2_reg': l2, 'lattent_loss': kl_fg,
+                  'lattent_loss2': kl_bg, 'loss': loss}

@@ -20,6 +20,13 @@ def spsnet_kitti_cfg() -> EDict:
     return load_yaml_cfg('tools/cfgs/kitti_models/SPSNet.yaml')
 
 
+def stability_cfg() -> EDict:
+    """The stability model's own training config (MODEL: ``GenerateCenter``
+    at npoint 16384, MSG 0.2 / 0.8; OPTIMIZATION: ``adam_onecycle`` at LR
+    0.003, 16 scenes a step)."""
+    return load_yaml_cfg('tools/cfgs/stability/sf_unc.yaml')
+
+
 def scale_sa_config(model_cfg: EDict, factor: int) -> EDict:
     """Shrink NPOINT_LIST by ``factor`` (for small test shapes)."""
     sa = model_cfg.BACKBONE_3D.SA_CONFIG

@@ -12,7 +12,9 @@ distance to the seeds: one seed, seed counts off the cluster shares and no
 multiple of 4, one point, a point past a CTA's points, seeds that are
 points, every cluster size its rule picks. For the ball query: radii
 either way round, more slots than points, both numbers of centers a warp,
-rows that are not 16-byte aligned. Indices must be equal, and the min
+rows that are not 16-byte aligned. At the shapes of SPSNet training: the
+stability train step's ball query, the seeded kernels at the points SPSNet
+keeps, and S-FPS against the CPU. Indices must be equal, and the min
 distances to the seeds bit for bit.
 
 These tests need a CUDA card and skip without one. On the H100:
@@ -477,3 +479,72 @@ def test_ball_query_warp_centers_rule(cuda):
                       (8, 1024): 2, (8, 512): 1, (8, 256): 1,
                       (1, 8191): 1}.items():
         assert lib.spsnet_ball_query_warp_centers(B, M) == w, (B, M)
+
+
+# the shapes of SPSNet training: the stability train step's K2, K3 and K4
+# at the points SPSNet keeps after its deletion, and S-FPS (K1 then K2)
+
+
+def _scans(seed, b, n):
+    from spsnet_torch.utils.synthetic import synthetic_scan_batch
+    return torch.from_numpy(
+        np.ascontiguousarray(synthetic_scan_batch(seed, b, n)[..., :3]))
+
+
+def test_ball_query_kernel_at_the_stability_train_shape(cuda):
+    """Every point of 16 scans of 16384 a center, r 0.2 / 0.8, 16 / 32
+    neighbours: one launch, both radii equal to plain."""
+    xyz = _scans(5, 16, 16384).to(cuda)
+    before = _build.LAUNCHES['ball_query']
+    got = ball_query_multi_kernel((0.2, 0.8), (16, 32), xyz, xyz)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES['ball_query'] - before == 1
+    for g, w in zip(got, ball_query_multi_plain((0.2, 0.8), (16, 32), xyz,
+                                                xyz)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize('order', ['grid', 'head'])
+def test_seeded_kernels_at_the_spsnet_train_shape(cuda, order):
+    """K3 (bit for bit, S = 4 by its rule) and K4 at SPSNet training's
+    layer 0: (4, 15884) -> 4096 from 3072 seeds."""
+    B, N, npoint, k0 = 4, 15884, 4096, 3072
+    assert sampling.seed_min_launch_shape(B, N, k0)[0] == 4
+    xyz = _scans(6, B, N).to(cuda)
+    idx = sampling.grid_seed_indices(xyz, k0) if order == 'grid' else \
+        torch.arange(k0, device=cuda).expand(B, k0).contiguous()
+    seeds = xyz.gather(1, idx[..., None].expand(-1, -1, 3)).contiguous()
+    d0 = sampling.seed_min_d2_kernel(xyz, seeds)
+    got = sampling.farthest_point_sample_seeded_kernel(xyz, npoint, d0, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(d0, sampling.seed_min_d2_plain(xyz, seeds))
+    assert torch.equal(got, sampling.farthest_point_sample_seeded_plain(
+        xyz, npoint, d0, idx))
+
+
+@pytest.mark.parametrize('min_unique', [0, 3500, 4097])
+def test_sfps_on_the_card_matches_the_cpu(cuda, min_unique):
+    """S-FPS at (4, 16384) -> 4096 with SPSNet.yaml's layer-0 ball (r 0.05,
+    16 neighbours): one exact-FPS and one ball-query launch, and the CPU's
+    plain picks and stds; min_unique 0 keeps the swap, 4097 (above npoint)
+    the D-FPS picks, 3500 whichever this data gives."""
+    from spsnet_torch.models import samplers
+    xyz = _scans(7, 4, 16384)
+    stds = torch.from_numpy(np.random.default_rng(7).uniform(
+        0.5, 30.0, (4, 16384)).astype(np.float32))
+    _build.reset_launches()
+    idx, got_stds = samplers.sample_sfps(xyz.to(cuda), stds.to(cuda), 4096,
+                                         0.05, 16, min_unique)
+    torch.cuda.synchronize()
+    assert {k: _build.LAUNCHES[k] for k in ('fps', 'ball_query', 'seed_min',
+                                            'fps_seeded')} == \
+        {'fps': 1, 'ball_query': 1, 'seed_min': 0, 'fps_seeded': 0}
+    want, want_stds = samplers.sample_sfps(xyz, stds, 4096, 0.05, 16,
+                                           min_unique)
+    assert torch.equal(idx.cpu(), want)
+    assert torch.equal(got_stds.cpu(), want_stds)
+    base = farthest_point_sample_kernel(xyz.to(cuda), 4096).cpu()
+    if min_unique == 4097:
+        assert torch.equal(want, base)
+    elif min_unique == 0:
+        assert not torch.equal(want, base)

@@ -84,10 +84,10 @@ cfg = tiny_iassd_cfg()
 cfg.BACKBONE_3D.SA_CONFIG.NPOINT_LIST[0] = [256]   # seeded: k0 = 128
 trained = build_detector(cfg, 3, device='cpu',
                          fps_seeding=FpsSeeding(0.75, 'grid')).train()
-opt = build_optimizer(EDict({
+opt_cfg = EDict({
     'OPTIMIZER': 'adam_onecycle', 'LR': 0.01, 'WEIGHT_DECAY': 0.01,
-    'MOMS': [0.95, 0.85], 'PCT_START': 0.4, 'DIV_FACTOR': 10}),
-    trained.parameters(), 10, 1)
+    'MOMS': [0.95, 0.85], 'PCT_START': 0.4, 'DIV_FACTOR': 10})
+opt = build_optimizer(opt_cfg, trained.parameters(), 10, 1)
 pts, gt = synthetic_scene_batch(0, 1, 512)
 loss, _ = make_train_step(trained, opt)(
     device_batch({'points': pts, 'gt_boxes': gt}, 'cpu'))
@@ -98,6 +98,15 @@ pts, gt = synthetic_scene_batch(1, 2, 256)
 dets, _ = make_eval_step(spsnet, tiny_spsnet_cfg().POST_PROCESSING,
                          make_stability_preprocess(hook, 'cpu'))(
     device_batch({'points': pts, 'gt_boxes': gt}, 'cpu'))
+sps_loss, _ = make_train_step(
+    spsnet, build_optimizer(opt_cfg, spsnet.parameters(), 10, 1),
+    make_stability_preprocess(hook, 'cpu'))(
+        device_batch({'points': pts, 'gt_boxes': gt}, 'cpu'))
+from spsnet_torch.stability import GenerateCenter, make_stability_train_step
+gen = GenerateCenter(tiny_stability_model_cfg())
+stab_loss, _ = make_stability_train_step(
+    gen, build_optimizer(opt_cfg, gen.parameters(), 10, 1), 0)(
+        device_batch({'points': pts, 'gt_boxes': gt}, 'cpu'))
 print(json.dumps({
     'jax_modules': sorted(m for m in sys.modules
                           if m.split('.')[0] in ('jax', 'flax', 'optax',
@@ -105,14 +114,17 @@ print(json.dumps({
     'processes': len(started), 'libraries': len(_build._LIBS),
     'boxes': list(out['batch_box_preds'].shape),
     'finite_loss': bool(torch.isfinite(loss)),
-    'spsnet_indices': list(dets['indices'].shape)}))
+    'spsnet_indices': list(dets['indices'].shape),
+    'finite_train_losses': bool(torch.isfinite(sps_loss))
+                           and bool(torch.isfinite(stab_loss))}))
 '''
 
 
 def test_import_cpu_forward_and_train_step_load_no_jax_and_build_nothing():
-    """Import, an IA-SSD forward, a train step and an SPSNet eval step with
-    the stability preprocess, all on the CPU: no JAX module is loaded and
-    no kernel is built."""
+    """Import, an IA-SSD forward, a train step, an SPSNet eval step and
+    train step with the stability preprocess and a stability-model train
+    step, all on the CPU: no JAX module is loaded and no kernel is
+    built."""
     env = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}
     env['PYTHONPATH'] = str(ROOT)
     res = subprocess.run([sys.executable, '-c', _CHILD], cwd=ROOT, env=env,
@@ -121,7 +133,7 @@ def test_import_cpu_forward_and_train_step_load_no_jax_and_build_nothing():
     got = json.loads(res.stdout.strip().splitlines()[-1])
     assert got == {'jax_modules': [], 'processes': 0, 'libraries': 0,
                    'boxes': [1, 16, 7], 'finite_loss': True,
-                   'spsnet_indices': [2, 16]}
+                   'spsnet_indices': [2, 16], 'finite_train_losses': True}
 
 
 def test_default_device_raises_without_cuda(monkeypatch):
