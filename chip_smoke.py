@@ -95,7 +95,37 @@ Phases, in order; any failure raises and the exit code is not 0:
     phase 8, with the same latent noise (drawn on the CPU);
 18. a CUDA-kernel breakdown of one SPSNet train step and of one stability
     train step;
-19. one JSON line per kernel set, then the result line.
+19. the PointRCNN serving path: ``tools/cfgs/kitti_models/pointrcnn.yaml``
+    at full width with seeded random weights (PointNet2MSG with its FP
+    decoder, the point head, the proposal NMS at pre 9000 / post 100, RoI
+    pooling of 512 points, the RoI head's SA stack, the final NMS with the
+    RoIs' labels) serves one warm-up and five requests of 8 x 16384 points
+    through ``build_detector`` -> forward -> ``post_processing``; outputs
+    finite, counts in [0, 500], and per request six FPS and six ball-query
+    launches (SA layers 0-3 and the RoI head's two D-FPS layers) and no
+    other kernel;
+20. FPS and the ball query vs their plain versions at the PointRCNN
+    shapes, on the inputs a request produces: FPS at (8, 4096) -> 1024,
+    (8, 1024) -> 256, (8, 256) -> 64 and over the 800 RoI rows, (800, 512)
+    -> 128 and (800, 128) -> 32, with empty (all-zero) and padded rows; the
+    ball query at the four MSG layers and the two RoI layers; and chunked
+    FPS, 4 slices of (8, 16384) -> 4096, one launch;
+21. one PointRCNN scene on the card and on the CPU, stage by stage from the
+    card's inputs: FPS, ball-query and three-NN indices identical, point
+    features and predictions within the tolerance stated below, proposal
+    and final NMS indices identical or the card's a greedy NMS of the CPU's
+    IoUs within NMS_IOU_TOL, pooled points identical, the RoI stage's
+    picks identical and its outputs within tolerance;
+22. a CUDA-kernel breakdown of one PointRCNN request and of its proposal
+    NMS alone (time and launches);
+23. a Waymo IA-SSD request path (``waymo_models/IA-SSD.yaml``, 2 x 65536
+    points of 5 channels in Waymo's range) and a nuScenes one
+    (``nuscenes_models/IA-SSD.yaml``, 2 x 20480 of 4 channels, 10 classes),
+    one warm-up and two requests each, one FPS and four ball-query
+    launches a forward, their layer-0 FPS ((2, 65536) -> 16384, the FPS
+    kernel's largest N, and (2, 20480) -> 8192) and ball queries held to
+    the plain versions;
+24. one JSON line per kernel set, then the result line.
 
 The K5 shapes are (8, 16384) -> 4096, (8, 15884) -> 4096 (SPSNet's layer
 0), (1, 16384) -> 4096 and (32, 4096) -> 1024. Phase 3 also holds FPS and
@@ -125,6 +155,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 # H100 SXM published peaks (dense): fp32 outside the tensor cores, HBM3
@@ -178,6 +209,20 @@ TRAIN_LAUNCHES = {'fps': 0, 'fps_seeded': 2, 'seed_min': 2, 'ball_query': 4}
 SPSNET_TRAIN_LAUNCHES = dict(TRAIN_LAUNCHES, ball_query=6)
 STAB_TRAIN_LAUNCHES = {'fps': 0, 'fps_seeded': 0, 'seed_min': 0,
                        'ball_query': 1}
+# PointRCNN serving (pointrcnn.yaml) on the IA-SSD requests: per request
+# the backbone's four SA layers and the RoI head's two D-FPS layers (its
+# third groups all points)
+PRCNN_LAUNCHES = {'fps': 6, 'ball_query': 6}
+# card vs CPU NMS over the same boxes: IoUs within this of the threshold
+# may decide either way (cos and sin of the two devices may differ by an
+# ulp, ~1e-7 relative in an IoU)
+NMS_IOU_TOL = 1e-5
+# Waymo and nuScenes IA-SSD: BATCH_SIZE_PER_GPU 2, each dataset's points
+# and channels (Waymo adds elongation; nuScenes.yaml's model reads 4 of its
+# 5), one warm-up and two requests; (config, points, channels, data seed)
+OTHER_B, OTHER_REQUESTS = 2, 2
+WAYMO = ('tools/cfgs/waymo_models/IA-SSD.yaml', 65536, 5, 400)
+NUSCENES = ('tools/cfgs/nuscenes_models/IA-SSD.yaml', 20480, 4, 500)
 
 
 def seeding():
@@ -187,7 +232,14 @@ def seeding():
     return FpsSeeding(0.75, 'grid')
 
 
+_T0 = time.perf_counter()
+
+
 def log(*args):
+    """Print a line; a phase header ('== ...') with the seconds since the
+    start."""
+    if args and str(args[0]).startswith('== '):
+        args = (*args, f'[{time.perf_counter() - _T0:.1f} s]')
     print(*args, flush=True)
 
 
@@ -232,9 +284,10 @@ def fps_bound(b, n, npoint, steps=None):
     return bound_ms(b * n * 12 + b * npoint * 8, steps * b * n * 10)
 
 
-def fps_call(name, kernel, xyz, npoint, plain_ms=None):
+def fps_call(name, kernel, xyz, npoint, plain_ms=None, plain_reps=3):
     """One FPS kernel vs the plain FPS at one shape: indices identical,
-    CUDA-event times, bound. Returns the call's record (with 'err')."""
+    CUDA-event times (the plain version's over ``plain_reps`` runs after a
+    warm-up), bound. Returns the call's record (with 'err')."""
     from spsnet_torch.ops.sampling import farthest_point_sample_plain
     b, n, _ = xyz.shape
     err = require_equal(kernel(xyz, npoint),
@@ -243,7 +296,7 @@ def fps_call(name, kernel, xyz, npoint, plain_ms=None):
     ms = cuda_ms(lambda: kernel(xyz, npoint), reps=10)
     if plain_ms is None:
         plain_ms = cuda_ms(lambda: farthest_point_sample_plain(xyz, npoint),
-                           reps=3)
+                           reps=plain_reps)
     bnd, by = fps_bound(b, n, npoint)
     log(f'  {name} ({b}, {n}, 3) -> {npoint}: kernel {ms:.3f} ms, plain '
         f'{plain_ms:.3f} ms, bound {bnd:.4f} ms ({by})')
@@ -670,25 +723,53 @@ def train_shapes_phase(inp):
     return out
 
 
+@contextlib.contextmanager
+def timed_calls(owner, attr):
+    """Time each call of ``owner.attr`` while the context is open: its host
+    milliseconds and a pair of CUDA events around it (no launch, no sync).
+    Yields a list that ``range_ms`` reads after a ``synchronize``."""
+    fn = getattr(owner, attr)
+    calls = []
+
+    def timed(*args, **kwargs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        out = fn(*args, **kwargs)
+        end.record()
+        calls.append((start, end, (time.perf_counter() - t0) * 1e3))
+        return out
+    setattr(owner, attr, timed)
+    try:
+        yield calls
+    finally:
+        setattr(owner, attr, fn)
+
+
+def range_ms(calls):
+    """[(host ms, event ms)] of ``timed_calls``' record."""
+    return [(host, start.elapsed_time(end)) for start, end, host in calls]
+
+
 def detect(model, points, post):
-    """One request: forward + class-agnostic NMS, as a server runs it.
-    ``points``: the (B, N, 4) scans, or a batch dict."""
-    from spsnet_torch.models.detectors.detector3d import \
-        class_agnostic_nms_batch
+    """One request as a server runs it: forward + ``post_processing``
+    (class-agnostic NMS; PointRCNN's labels from its RoIs). ``points``: the
+    (B, N, C) scans, or a batch dict."""
+    from spsnet_torch.models.detectors.detector3d import post_processing
     batch = points if isinstance(points, dict) else {'points': points}
     with torch.no_grad():
         out = model(batch)
-        return out, class_agnostic_nms_batch(
-            out['batch_box_preds'], out['batch_cls_preds'],
-            score_thresh=float(post.SCORE_THRESH),
-            nms_thresh=float(post.NMS_CONFIG.NMS_THRESH),
-            nms_pre=int(post.NMS_CONFIG.NMS_PRE_MAXSIZE),
-            nms_post=int(post.NMS_CONFIG.NMS_POST_MAXSIZE))
+        return out, post_processing(out, post)
 
 
-def main_path(model, requests, post):
-    """Serve the requests; returns (ms per request, launch counts)."""
+def main_path(model, requests, post, per_call, what):
+    """One warm-up request, then the requests with the launch counters
+    zeroed just before; outputs finite and counts in range, ``per_call``
+    launches a request and none of another kernel. Returns (ms per
+    request, launch counts)."""
     from spsnet_torch.ops import _build
+    detect(model, requests[0], post)
     torch.cuda.synchronize()
     _build.reset_launches()
     times = []
@@ -701,12 +782,15 @@ def main_path(model, requests, post):
                        ('batch_cls_preds', out['batch_cls_preds']),
                        ('boxes', dets['boxes']), ('scores', dets['scores'])):
             if not torch.isfinite(t).all():
-                raise AssertionError(f'non-finite {key}')
+                raise AssertionError(f'{what}: non-finite {key}')
         count = dets['count']
         if count.shape != (points.shape[0],) or count.min() < 0 or \
                 count.max() > int(post.NMS_CONFIG.NMS_POST_MAXSIZE):
-            raise AssertionError(f'detection counts out of range: {count}')
-    return times, dict(_build.LAUNCHES)
+            raise AssertionError(f'{what}: detection counts out of range: '
+                                 f'{count}')
+    launches = dict(_build.LAUNCHES)
+    _require_per_call(launches, per_call, len(requests), what)
+    return times, launches
 
 
 @contextlib.contextmanager
@@ -850,13 +934,7 @@ def compare_forwards(model, xyz, gpu_out, gpu_dets, cpu_out, cpu_dets):
             require_equal(gpu_out['encoder_xyz'][k + 1], enc[k + 1],
                           f'card vs CPU: layer {k} sampled points')
     for key in ('batch_cls_preds', 'batch_box_preds'):
-        a, c = gpu_out[key].cpu(), cpu_out[key]
-        err = float((a - c).abs().max())
-        if not torch.allclose(a, c, atol=PRED_ATOL, rtol=PRED_RTOL):
-            raise AssertionError(f'card vs CPU {key}: max abs err {err:.3e} '
-                                 f'over atol {PRED_ATOL} rtol {PRED_RTOL}')
-        log(f'  card vs CPU {key}: max abs err {err:.3e} (atol '
-            f'{PRED_ATOL}, rtol {PRED_RTOL})')
+        _require_close(gpu_out[key], cpu_out[key], key)
     for key in ('count', 'indices'):
         require_equal(gpu_dets[key], cpu_dets[key], f'card vs CPU NMS {key}')
 
@@ -968,11 +1046,13 @@ def spsnet_cpu_phase(cfg, preprocess, model, batch):
     compare_forwards(model, kxyz, gpu_out, gpu_dets, cpu_out, cpu_dets)
 
 
-def profile_phase(fn, what):
+def profile_phase(fn, what, ranges=()):
     """Top CUDA kernels of one call of ``fn`` by device time, and the
-    share of the call's wall time in which a kernel ran. A first call runs
-    as the profiler's warm-up step: a trace started right before the call
-    loses its first kernels."""
+    share of the call's wall time in which a kernel ran; for each name in
+    ``ranges`` (a ``record_function`` range inside ``fn``), its host time,
+    the device time of its kernels and its kernel launches. A first call
+    runs as the profiler's warm-up step: a trace started right before the
+    call loses its first kernels."""
     from torch.profiler import ProfilerActivity, profile, schedule
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
@@ -1009,7 +1089,25 @@ def profile_phase(fn, what):
     for e in host:
         log(f'    {e.self_cpu_time_total / 1e3:9.3f} ms  x{e.count:<5d} '
             f'{e.key[:90]}')
+    spans = {}
+    if ranges:
+        timeline = prof.events()
+        for name in ranges:
+            span = [e for e in timeline if e.name == name
+                    and not str(getattr(e, 'device_type', '')).endswith(
+                        'CUDA')][-1]
+            lo, hi = span.time_range.start, span.time_range.end
+            spans[name] = {
+                'host_ms': (hi - lo) / 1e3,
+                'device_ms': span.device_time_total / 1e3,
+                'launches': sum(1 for e in timeline
+                                if e.name == 'cudaLaunchKernel'
+                                and lo <= e.time_range.start <= hi)}
+            log(f'  {name} inside {what}: {spans[name]["host_ms"]:.3f} ms on '
+                f'the host, {spans[name]["device_ms"]:.3f} ms of kernels, '
+                f'{spans[name]["launches"]} kernel launches')
     return {'device_ms': total, 'wall_ms': wall, 'busy_share': total / wall,
+            'launches': sum(e.count for e in events), 'ranges': spans,
             'host_top': [[e.key[:60], e.self_cpu_time_total / 1e3, e.count]
                          for e in host]}
 
@@ -1232,6 +1330,426 @@ def train_cpu_phase(build, batch, n_dfps):
     return card, base
 
 
+def build_pointrcnn(device):
+    """pointrcnn.yaml at full width on ``device`` (weights from
+    ``torch.Generator`` seed 0): its config and the detector. The point
+    head's box output layer is scaled by 1e-2: at the seed's scale its
+    residuals put each proposal ~1 m off its point (z and width), so that
+    ~90% of the RoIs hold no point; scaled, the proposals sit on their
+    points at about their class's mean size, as a trained head's do, and
+    the RoI stage pools real points."""
+    from spsnet_torch.models import build_detector
+    from spsnet_torch.zoo import pointrcnn_kitti_cfg
+    cfg = pointrcnn_kitti_cfg()
+    model = build_detector(cfg.MODEL, len(cfg.CLASS_NAMES), device=device,
+                           generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for p in model.point_head.box_layers[-1].parameters():
+            p.mul_(1e-2)
+    return cfg, model
+
+
+def _roi_levels(model, out):
+    """The RoI head's SA inputs of a card forward: the pooled canonical
+    xyz (B * R, S, 3) and its FPS-picked levels, and how many RoI rows are
+    empty or padded (fewer hits than slots)."""
+    from spsnet_torch.ops import gather_points
+    with torch.no_grad():
+        pooled = model.roi_head.roipool(out, out['rois'])
+    B, R, S, _ = pooled.shape
+    levels = [pooled[..., :3].reshape(B * R, S, 3).contiguous()]
+    for idx in out['roi_sa_idx'][:-1]:
+        levels.append(gather_points(levels[-1], idx).contiguous())
+    rows = levels[0]
+    empty = int((rows == 0).all(-1).all(-1).sum())
+    padded = int((rows[:, -1] == rows[:, 0]).all(-1).sum()) - empty
+    return levels, empty, padded
+
+
+def pointrcnn_shapes_phase(model, points):
+    """K1 and K2 vs their plain versions at the shapes a PointRCNN request
+    gives them, on the inputs the card's forward produces: FPS at the
+    backbone's layers 1-3 ((8, 4096) -> 1024, (8, 1024) -> 256, (8, 256)
+    -> 64; layer 0 is phase 3's call) and the RoI head's (800, 512) -> 128
+    and (800, 128) -> 32 over rows with empty and padded RoIs; the fused
+    MSG ball query at the four backbone layers and the RoI head's two, with
+    event times, device time a call, bounds and launch shapes. Returns
+    {'fps': [...], 'ball_query': [...], 'errs': {...}}."""
+    from spsnet_torch.ops import sampling as smp
+    from spsnet_torch.ops.grouping import ball_query_multi_kernel
+    with torch.no_grad():
+        out = model({'points': points})
+    res = {'fps': [], 'ball_query': [], 'errs': {'fps': 0.0,
+                                                  'ball_query': 0.0}}
+    roi, empty, padded = _roi_levels(model, out)
+    res['empty_rois'], res['padded_rois'] = empty, padded
+    log(f'  RoI rows: {roi[0].shape[0]}, {empty} empty (all zero), {padded} '
+        f'more with fewer points than {roi[0].shape[1]} slots')
+    bb = model.backbone_3d
+    fps_inputs = [(f'backbone layer {k}', out['sa_xyz'][k], m.npoint)
+                  for k, m in enumerate(bb.SA_modules) if k > 0]
+    fps_inputs += [(f'RoI layer {k}', roi[k], m.npoint)
+                   for k, m in enumerate(model.roi_head.SA_modules)
+                   if m.npoint is not None]
+    for what, xyz, npoint in fps_inputs:
+        call = fps_call('fps', smp.farthest_point_sample_kernel,
+                        xyz.contiguous(), npoint)
+        res['errs']['fps'] = max(res['errs']['fps'], call.pop('err'))
+        _cluster_note('fps', call, npoint - 1, seeded=False)
+        call['device_ms'] = device_ms(
+            lambda x=xyz.contiguous(), m=npoint:
+            smp.farthest_point_sample_kernel(x, m), reps=5)
+        call['layer'] = what
+        log(f'    {what}: device time {call["device_ms"]:.4f} ms a call')
+        res['fps'].append(call)
+    k2_inputs = [(f'backbone layer {k}', m, out['sa_xyz'][k],
+                  out['sa_xyz'][k + 1]) for k, m in enumerate(bb.SA_modules)]
+    k2_inputs += [(f'RoI layer {k}', m, roi[k], roi[k + 1])
+                  for k, m in enumerate(model.roi_head.SA_modules)
+                  if m.npoint is not None]
+    for what, module, xyz, ctr in k2_inputs:
+        radii, ns = tuple(module.radii), tuple(module.nsamples)
+        xyz, ctr = xyz.contiguous(), ctr.contiguous()
+        call = ball_query_call(radii, ns, xyz, ctr, what)
+        res['errs']['ball_query'] = max(res['errs']['ball_query'],
+                                        call.pop('err'))
+        call['device_ms'] = device_ms(
+            lambda r=radii, n=ns, p=xyz, c=ctr:
+            ball_query_multi_kernel(r, n, p, c), reps=5)
+        log(f'    device time {call["device_ms"]:.4f} ms a call')
+        res['ball_query'].append(call)
+    return res
+
+
+def overlap_mask_phase(proposals, stage1):
+    """The proposal NMS's overlap mask on the profiled request's sorted
+    boxes: how many candidate pairs it tests, the candidate mask against
+    the dense one in row blocks (equal, and each one's event time), and the
+    greedy loop's event time over it."""
+    from spsnet_torch.ops import boxes as tboxes
+    seen = []
+    real = tboxes.overlap_mask
+
+    def capture(sorted_boxes, thresh):
+        seen.append((sorted_boxes, thresh))
+        return real(sorted_boxes, thresh)
+    tboxes.overlap_mask = capture
+    try:
+        proposals(stage1)
+    finally:
+        tboxes.overlap_mask = real
+    (sorted_boxes, thresh), = seen
+    B_, K, _ = sorted_boxes.shape
+    pairs = sum(int(pb.numel())
+                for pb, _, _ in tboxes.candidate_pairs(sorted_boxes))
+    cand = real(sorted_boxes, thresh)
+    dense = tboxes.dense_overlap_mask(sorted_boxes, thresh)
+    if not torch.equal(cand, dense):
+        raise AssertionError(f'proposal NMS: the candidate mask differs from '
+                             f'the dense one at {int((cand != dense).sum())} '
+                             f'pairs')
+    del dense
+    valid = torch.ones((B_, K), dtype=torch.bool, device=cand.device)
+    res = {'boxes': [B_, K], 'candidate_pairs': pairs,
+           'pairs': B_ * K * (K - 1) // 2,
+           'candidate_mask_ms': cuda_ms(lambda: real(sorted_boxes, thresh),
+                                        reps=3),
+           'dense_mask_ms': cuda_ms(
+               lambda: tboxes.dense_overlap_mask(sorted_boxes, thresh),
+               reps=1),
+           'greedy_loop_ms': cuda_ms(
+               lambda: tboxes._greedy_suppress(cand, valid), reps=3)}
+    log(f'  proposal NMS overlap mask over ({B_}, {K}) boxes: '
+        f'{pairs} candidate pairs of {res["pairs"]}; candidate mask '
+        f'{res["candidate_mask_ms"]:.3f} ms, the dense mask in row blocks '
+        f'{res["dense_mask_ms"]:.3f} ms (equal masks), greedy loop '
+        f'{res["greedy_loop_ms"]:.3f} ms (events)')
+    return res
+
+
+def chunked_fps_phase(xyz):
+    """Chunked FPS, 4 slices of (8, 16384) -> 4096: one K1 launch over
+    (32, 4096) -> 1024, the CPU's plain picks, its event and device time
+    and bound."""
+    from spsnet_torch.ops import _build
+    from spsnet_torch.ops.sampling import (farthest_point_sample_chunked,
+                                           farthest_point_sample_kernel)
+    b, n, _ = xyz.shape
+    npoint, chunks = n // 4, 4
+    what = f'chunked FPS ({b}, {n}) -> {npoint} in {chunks} slices'
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    got = farthest_point_sample_chunked(xyz, npoint, chunks)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    _require_per_call(launches, {'fps': 1}, 1, 'chunked FPS call')
+    err = require_equal(got, farthest_point_sample_chunked(
+        xyz.cpu(), npoint, chunks), f'{what}: card vs CPU plain')
+    ms = cuda_ms(lambda: farthest_point_sample_chunked(xyz, npoint, chunks),
+                 reps=10)
+    # the call's one K1 launch (its other kernels are the offsets' adds)
+    rows = xyz.reshape(chunks * b, n // chunks, 3)
+    dev = device_ms(lambda: farthest_point_sample_kernel(
+        rows, npoint // chunks), reps=5)
+    bnd, by = fps_bound(chunks * b, n // chunks, npoint // chunks)
+    log(f'  {what}: {ms:.3f} ms (events), device {dev:.4f} ms, bound '
+        f'{bnd:.4f} ms ({by}), {launches["fps"]} FPS launch')
+    return {'B': b, 'N': n, 'npoint': npoint, 'chunks': chunks, 'ms': ms,
+            'device_ms': dev, 'bound_ms': bnd, 'bound_by': by,
+            'launches_per_call': launches['fps'], 'err': err}
+
+
+def _require_close(a, b, what, atol=PRED_ATOL, rtol=PRED_RTOL):
+    a, b = a.cpu(), b.cpu()
+    err = float((a - b).abs().max()) if a.numel() else 0.0
+    if not torch.allclose(a, b, atol=atol, rtol=rtol):
+        raise AssertionError(f'card vs CPU {what}: max abs err {err:.3e} '
+                             f'over atol {atol} rtol {rtol}')
+    log(f'  card vs CPU {what}: max abs err {err:.3e} (atol {atol}, rtol '
+        f'{rtol})')
+    return err
+
+
+def _require_heading_close(theta_g, theta_c, cos_sin):
+    """Card vs CPU headings decoded as atan2 of (cos, sin) channels that
+    agree within PRED_ATOL + PRED_RTOL (checked before): a change d of the
+    (cos, sin) vector turns its angle by at most ~|d| / r, r its length,
+    so each heading is held to 2 (PRED_ATOL + PRED_RTOL r) / r, wrapped to
+    (-pi, pi]."""
+    theta_g, theta_c, cos_sin = theta_g.cpu(), theta_c.cpu(), cos_sin.cpu()
+    r = cos_sin.norm(dim=-1).clamp(min=1e-12)
+    diff = torch.remainder(theta_g - theta_c + torch.pi, 2 * torch.pi) - \
+        torch.pi
+    allowed = 2 * (PRED_ATOL + PRED_RTOL * r) / r
+    worst = float((diff.abs() / allowed).max())
+    if worst > 1.0:
+        raise AssertionError(f'card vs CPU point headings: {worst:.3f} of '
+                             'the tolerance 2 (atol + rtol r) / r')
+    log(f'  card vs CPU point headings: max abs err '
+        f'{float(diff.abs().max()):.3e}, at most {worst:.3f} of the '
+        f'tolerance 2 (atol + rtol r) / r (r = |(cos, sin)|, smallest '
+        f'{float(r.min()):.3e})')
+
+
+def nms_agrees(card_idx, boxes, scores, valid, thresh, pre, post, what):
+    """Card vs CPU NMS over the same (1, K, 7) boxes, (1, K) scores and
+    valid mask: the CPU's keep list equals the card's ``card_idx``, or the
+    card's is a greedy NMS of the CPU's own IoUs within NMS_IOU_TOL of the
+    threshold (the IoUs go through cos and sin, which the two devices may
+    round 1 ulp apart). Over the same scores both sort alike, and only the
+    boxes up to the last one the card's ``post`` slots report bear on
+    them."""
+    from spsnet_torch.ops import boxes_iou_bev_fast, nms_bev
+    from spsnet_torch.ops.boxes import topk_desc
+    keep, _ = nms_bev(boxes, scores, thresh, pre_maxsize=pre,
+                      post_maxsize=post, valid=valid)
+    card = card_idx.cpu()
+    if torch.equal(keep, card):
+        log(f'  card vs CPU {what}: identical')
+        return
+    kept = card[0][card[0] >= 0]
+    masked = torch.where(valid[0], scores[0], -torch.inf)
+    order = topk_desc(masked, min(pre, masked.shape[0]))[1]
+    order = order[torch.isfinite(masked[order])]
+    pos = torch.full((masked.shape[0],), -1, dtype=torch.int64)
+    pos[order] = torch.arange(order.shape[0])
+    last = int(pos[kept].max()) + 1 if kept.numel() == post else \
+        order.shape[0]
+    iou = boxes_iou_bev_fast(boxes[0, kept], boxes[0, order[:last]])
+    before = pos[kept][:, None] < torch.arange(last)[None, :]
+    top = torch.where(before, iou, -torch.inf).amax(0)
+    is_kept = torch.zeros(last, dtype=torch.bool)
+    is_kept[pos[kept]] = True
+    slack = max(float(torch.where(is_kept, top - thresh, -1.0).max()),
+                float(torch.where(is_kept, -1.0, thresh - top).max()))
+    if slack > NMS_IOU_TOL:
+        raise AssertionError(f'card vs CPU {what}: the card\'s keep list is '
+                             f'no greedy NMS of the CPU\'s IoUs (off by '
+                             f'{slack:.3e} > {NMS_IOU_TOL})')
+    log(f'  card vs CPU {what}: {int((keep != card).sum())} slots differ; '
+        f'the card\'s list is a greedy NMS of the CPU\'s IoUs within '
+        f'{slack:.3e} of the threshold; the CPU goes on from the card\'s')
+
+
+def pointrcnn_cpu_phase(model, cfg, scene):
+    """One PointRCNN scene on the card and on the CPU with the same
+    weights, stage by stage, each CPU stage from the card's input to it:
+    the backbone and point head from the same points (FPS, ball-query and
+    three-NN indices identical, features and point predictions within
+    tolerance), the proposal NMS over the card's point boxes
+    (``nms_agrees``), the pooling over the card's RoIs (pooled points
+    identical), the RoI stage over the card's pooled points (FPS and
+    ball-query picks identical, rcnn_cls / rcnn_reg within tolerance), the
+    decode and the final NMS over the card's refined outputs."""
+    from spsnet_torch.models import build_detector
+    from spsnet_torch.models.detectors.detector3d import (
+        class_agnostic_nms_batch, post_processing)
+    from spsnet_torch.ops import gather_points
+    from spsnet_torch.ops.grouping import ball_query_multi
+    from spsnet_torch.ops.interpolate import three_nn
+    cpu = build_detector(cfg.MODEL, len(cfg.CLASS_NAMES), device='cpu')
+    cpu.load_state_dict(model.state_dict())
+    head, cpu_head = model.roi_head, cpu.roi_head
+    post = cfg.MODEL.POST_PROCESSING
+    with torch.no_grad():
+        g = model({'points': scene})
+        dets_g = post_processing(g, post)
+        c = cpu.point_head(cpu.backbone_3d({'points': scene.cpu()}))
+        for k, module in enumerate(cpu.backbone_3d.SA_modules):
+            require_equal(g['sa_idx'][k + 1], c['sa_idx'][k + 1],
+                          f'card kernel vs CPU plain: backbone layer {k} FPS '
+                          'picks')
+            ns = tuple(module.nsamples)
+            for gi, ci in zip(
+                    ball_query_multi(module.radii, ns, g['sa_xyz'][k],
+                                     g['sa_xyz'][k + 1]),
+                    ball_query_multi(module.radii, ns, c['sa_xyz'][k],
+                                     c['sa_xyz'][k + 1])):
+                require_equal(gi, ci, f'card kernel vs CPU plain: backbone '
+                                      f'layer {k} ball query')
+        for i in range(len(c['sa_xyz']) - 1):
+            dg, ig = three_nn(g['sa_xyz'][i], g['sa_xyz'][i + 1])
+            dc, ic = three_nn(c['sa_xyz'][i], c['sa_xyz'][i + 1])
+            require_equal(ig, ic, f'card vs CPU: FP layer {i} three-NN')
+            require_equal(dg, dc, f'card vs CPU: FP layer {i} three-NN '
+                                  'squared distances, bit for bit')
+        for key in ('point_features', 'point_cls_scores'):
+            _require_close(g[key], c[key], key)
+        ph, ph_c = g['point_head_ret'], c['point_head_ret']
+        for key in ('point_cls_preds', 'point_box_preds_raw'):
+            _require_close(ph[key], ph_c[key], key)
+        _require_close(ph['point_box_preds'][..., :6],
+                       ph_c['point_box_preds'][..., :6],
+                       'point_box_preds, center and size')
+        _require_heading_close(ph['point_box_preds'][..., 6],
+                               ph_c['point_box_preds'][..., 6],
+                               ph_c['point_box_preds_raw'][..., 6:8])
+        nms = cfg.MODEL.ROI_HEAD.NMS_CONFIG.TEST
+        kw = dict(thresh=float(nms.NMS_THRESH), pre=int(nms.NMS_PRE_MAXSIZE),
+                  post=int(nms.NMS_POST_MAXSIZE))
+        card_idx = class_agnostic_nms_batch(
+            ph['point_box_preds'], ph['point_cls_preds'], -1e9,
+            kw['thresh'], kw['pre'], kw['post'])['indices']
+        scores = torch.sigmoid(ph['point_cls_preds'].cpu()).amax(-1)
+        nms_agrees(card_idx, ph['point_box_preds'].cpu(), scores,
+                   scores > -1e9, what='proposal NMS indices', **kw)
+        rois = g['rois']
+        stage1 = {k: g[k].cpu() for k in ('point_coords', 'point_features',
+                                           'point_cls_scores')}
+        raw_g, empty_g = head.pool(g, rois)
+        raw_c, empty_c = cpu_head.pool(stage1, rois.cpu())
+        require_equal(empty_g.int(), empty_c.int(), 'card vs CPU: empty RoIs')
+        require_equal(raw_g[..., :3], raw_c[..., :3],
+                      'card vs CPU: pooled points')
+        _require_close(raw_g, raw_c, 'pooled point channels')
+        pooled_g = head.roipool(g, rois)
+        _require_close(pooled_g, cpu_head.roipool(stage1, rois.cpu()),
+                       'pooled points in the canonical frame')
+        cls_g, reg_g, picks_g = head.refine(pooled_g)
+        cls_c, reg_c, picks_c = cpu_head.refine(pooled_g.cpu())
+        xyz = pooled_g[..., :3].reshape(-1, *pooled_g.shape[2:3], 3)
+        for k, module in enumerate(cpu_head.SA_modules):
+            if module.npoint is None:
+                continue
+            require_equal(picks_g[k], picks_c[k], f'card kernel vs CPU plain: '
+                                                  f'RoI layer {k} FPS picks')
+            ctr = gather_points(xyz, picks_g[k]).contiguous()
+            ns = tuple(module.nsamples)
+            for gi, ci in zip(
+                    ball_query_multi(module.radii, ns, xyz.contiguous(), ctr),
+                    ball_query_multi(module.radii, ns, xyz.cpu().contiguous(),
+                                     ctr.cpu())):
+                require_equal(gi, ci, f'card kernel vs CPU plain: RoI layer '
+                                      f'{k} ball query')
+            xyz = ctr
+        _require_close(cls_g, cls_c, 'rcnn_cls')
+        _require_close(reg_g, reg_c, 'rcnn_reg')
+        _require_close(g['batch_box_preds'],
+                       cpu_head.decode(reg_g.cpu(), rois.cpu()),
+                       'refined boxes')
+        final = {'batch_box_preds': g['batch_box_preds'].cpu(),
+                 'batch_cls_preds': g['batch_cls_preds'].cpu(),
+                 'batch_roi_labels': g['batch_roi_labels'].cpu(),
+                 'has_class_labels': True}
+        dets_c = post_processing(final, post)
+        scores = torch.sigmoid(final['batch_cls_preds']).amax(-1)
+        nms_agrees(dets_g['indices'], final['batch_box_preds'], scores,
+                   scores > float(post.SCORE_THRESH),
+                   float(post.NMS_CONFIG.NMS_THRESH),
+                   int(post.NMS_CONFIG.NMS_PRE_MAXSIZE),
+                   int(post.NMS_CONFIG.NMS_POST_MAXSIZE), 'final NMS indices')
+        if torch.equal(dets_c['indices'], dets_g['indices'].cpu()):
+            for key in ('count', 'labels'):
+                require_equal(dets_g[key], dets_c[key],
+                              f'card vs CPU final NMS {key}')
+    log(f'  {int(dets_g["count"][0])} detections, labels '
+        f'{sorted(set(dets_g["labels"][0].tolist()))} from the RoIs; '
+        f'{int(empty_g.sum())} of {empty_g.shape[1]} RoIs empty')
+
+
+def other_iassd_path(path, n, channels, seed):
+    """A Waymo or nuScenes IA-SSD request path: the config at full width
+    (weights from seed 0), OTHER_B scans of ``n`` points with ``channels``
+    channels in the dataset's range, one warm-up and OTHER_REQUESTS
+    requests (one FPS and four ball-query launches a forward); its layer-0
+    FPS and four ball queries held to their plain versions on the path's
+    inputs, with event and device times. Returns its record."""
+    from spsnet_torch.models import build_detector
+    from spsnet_torch.ops import sampling as smp
+    from spsnet_torch.ops.grouping import ball_query_multi_kernel
+    from spsnet_torch.utils.synthetic import synthetic_scan_batch
+    from spsnet_torch.zoo import load_yaml_cfg
+    cfg = load_yaml_cfg(path)
+    model = build_detector(cfg.MODEL, len(cfg.CLASS_NAMES), device='cuda',
+                           generator=torch.Generator().manual_seed(0),
+                           input_channels=channels)
+    pc_range = tuple(float(v) for v in cfg.DATA_CONFIG.POINT_CLOUD_RANGE)
+    requests = []
+    for s in range(OTHER_REQUESTS):
+        pts = synthetic_scan_batch(seed + s, OTHER_B, n, pc_range)
+        extra = np.random.default_rng(seed + s).uniform(
+            0, 1, (OTHER_B, n, channels - 4)).astype(np.float32)
+        requests.append(torch.from_numpy(
+            np.concatenate([pts, extra], -1)).cuda())
+    post = cfg.MODEL.POST_PROCESSING
+    times, launches = main_path(model, requests, post,
+                                {'fps': 1, 'ball_query': 4}, path)
+    ms = statistics.median(times)
+    log(f'  launches over {OTHER_REQUESTS} requests: {launches}')
+    log(f'  ms/batch (B={OTHER_B}, N={n}, {channels} channels, '
+        f'{len(cfg.CLASS_NAMES)} classes, forward + NMS): median {ms:.3f}, '
+        f'all {[round(t, 3) for t in times]}')
+    with torch.no_grad():
+        enc = model({'points': requests[0]})['encoder_xyz']
+    bb = model.backbone_3d
+    npoint = bb.npoint0[0]
+    # the plain FPS at (2, 65536) -> 16384 takes seconds a run: one timed
+    fps = fps_call('fps', smp.farthest_point_sample_kernel,
+                   enc[0].contiguous(), npoint, plain_reps=1)
+    err = {'fps': fps.pop('err'), 'ball_query': 0.0}
+    _cluster_note('fps', fps, npoint - 1, seeded=False)
+    fps['device_ms'] = device_ms(
+        lambda: smp.farthest_point_sample_kernel(enc[0].contiguous(),
+                                                 npoint), reps=3)
+    log(f'    device time {fps["device_ms"]:.4f} ms a call')
+    calls = []
+    for k, module in enumerate(bb.SA_modules):
+        if getattr(module, 'radii', None):
+            xyz = enc[bb.layer_inputs[k]].contiguous()
+            ctr = enc[k + 1].contiguous()
+            call = ball_query_call(module.radii, module.nsamples, xyz, ctr,
+                                   f'layer {k}')
+            err['ball_query'] = max(err['ball_query'], call.pop('err'))
+            call['device_ms'] = device_ms(
+                lambda r=tuple(module.radii), s=tuple(module.nsamples),
+                p=xyz, c=ctr: ball_query_multi_kernel(r, s, p, c), reps=5)
+            log(f'    device time {call["device_ms"]:.4f} ms a call')
+            calls.append(call)
+    return {'config': path, 'B': OTHER_B, 'N': n, 'channels': channels,
+            'ms_per_batch': ms, 'all_ms': times, 'launches': launches,
+            'fps': fps, 'ball_query': calls, 'errs': err}
+
+
 def card_and_build():
     """Phases 1 and 2; returns the card's nvidia-smi line."""
     from spsnet_torch.ops import _build
@@ -1447,9 +1965,8 @@ def main(argv=()) -> int:
 
     log('== 4. serving path')
     post = cfg.MODEL.POST_PROCESSING
-    times, launches = main_path(model, requests, post)
-    _require_per_call(launches, {'fps': 1, 'ball_query': 4}, REQUESTS,
-                      'IA-SSD forwards')
+    times, launches = main_path(model, requests, post,
+                                {'fps': 1, 'ball_query': 4}, 'IA-SSD forwards')
     ms = statistics.median(times)
     log(f'  launches over {REQUESTS} requests: {launches}')
     log(f'  ms/batch (B={B}, N={N}, forward + NMS): median {ms:.3f}, all '
@@ -1568,14 +2085,90 @@ def main(argv=()) -> int:
     stab_profile = profile_phase(lambda: stab_step(inp['stab_batches'][0]),
                                  'one stability train step')
 
+    del sps_train, sps_train_step, stab_model, stab_step
+
+    log('== 19. PointRCNN serving path')
+    prcnn_cfg, prcnn = build_pointrcnn('cuda')
+    prcnn_post = prcnn_cfg.MODEL.POST_PROCESSING
+    retries = torch.cuda.memory_stats().get('num_alloc_retries', 0)
+    with timed_calls(prcnn.roi_head, 'proposal_layer') as nms_calls:
+        prcnn_times, prcnn_launches = main_path(
+            prcnn, requests, prcnn_post, PRCNN_LAUNCHES, 'PointRCNN requests')
+    retries = torch.cuda.memory_stats().get('num_alloc_retries', 0) - retries
+    # the first call is main_path's warm-up
+    prcnn_nms = range_ms(nms_calls)[1:]
+    prcnn_ms = statistics.median(prcnn_times)
+    log(f'  launches over {REQUESTS} requests: {prcnn_launches}')
+    log(f'  ms/batch (B={B}, N={N}, backbone + point head + proposal NMS + '
+        f'RoI pooling + RoI head + NMS): median {prcnn_ms:.3f}, all '
+        f'{[round(t, 3) for t in prcnn_times]}; scenes/s '
+        f'{B / prcnn_ms * 1e3:.2f} on {smi}')
+    for k, (total, (host, events)) in enumerate(zip(prcnn_times, prcnn_nms)):
+        log(f'    request {k}: {total:.3f} ms; proposal NMS {host:.3f} ms on '
+            f'the host, {events:.3f} ms between its events; the rest '
+            f'{total - host:.3f} ms')
+    log(f'  caching-allocator retries (frees and a sync) over the warm-up '
+        f'and the requests: {retries}')
+
+    log('== 20. kernels vs plain at the PointRCNN shapes; chunked FPS')
+    prcnn_shapes = pointrcnn_shapes_phase(prcnn, requests[0])
+    chunked = chunked_fps_phase(requests[0][..., :3].contiguous())
+
+    log('== 21. PointRCNN card vs CPU, one scene')
+    pointrcnn_cpu_phase(prcnn, prcnn_cfg, requests[0][:1].contiguous())
+
+    log('== 22. where the time goes: one PointRCNN request, its proposal NMS')
+    proposals = prcnn.roi_head.proposal_layer
+
+    def annotated(batch):
+        with torch.profiler.record_function('proposal NMS'):
+            return proposals(batch)
+    prcnn.roi_head.proposal_layer = annotated
+    prcnn_profile = profile_phase(
+        lambda: detect(prcnn, requests[0], prcnn_post), 'one PointRCNN request',
+        ranges=('proposal NMS',))
+    nms_profile = prcnn_profile['ranges']['proposal NMS']
+    with torch.no_grad():
+        stage1 = prcnn.point_head(prcnn.backbone_3d({'points': requests[0]}))
+        nms_profile['event_ms'] = cuda_ms(lambda: proposals(stage1), reps=3)
+        nms_profile.update(overlap_mask_phase(proposals, stage1))
+    nms_profile['all_ms'] = prcnn_nms
+    nms_profile['empty_rois'] = prcnn_shapes['empty_rois']
+    nms_profile['padded_rois'] = prcnn_shapes['padded_rois']
+    log(f'  proposal NMS (pre 9000, post 100, B=8) alone: '
+        f'{nms_profile["event_ms"]:.3f} ms a request (events)')
+    log(f'  the profiled request: {prcnn_profile["wall_ms"]:.3f} ms, '
+        f'{nms_profile["candidate_pairs"]} candidate pairs in its proposal '
+        f'NMS, {nms_profile["empty_rois"]} empty and '
+        f'{nms_profile["padded_rois"]} padded RoIs of {B * 100}')
+    del prcnn, stage1, proposals
+
+    log('== 23. Waymo and nuScenes IA-SSD requests')
+    waymo = other_iassd_path(*WAYMO)
+    nuscenes = other_iassd_path(*NUSCENES)
+
     paths = {'serve': launches, 'train': train_launches,
              'spsnet': sps_launches, 'fps_entries': entry_launches,
              'spsnet_train': sps_train_launches,
-             'stability_train': stab_launches}
+             'stability_train': stab_launches, 'pointrcnn': prcnn_launches,
+             'waymo': waymo['launches'], 'nuscenes': nuscenes['launches']}
     for entry in entries:
         entry['launches_by_path'] = {path: counts[entry['name']]
                                      for path, counts in paths.items()}
         entry['launches'] = sum(entry['launches_by_path'].values())
+        name = entry['name']
+        if name in prcnn_shapes:
+            entry['pointrcnn_calls'] = prcnn_shapes[name]
+            entry['waymo_calls'] = waymo[name]
+            entry['nuscenes_calls'] = nuscenes[name]
+            entry['max_abs_err'] = max(entry['max_abs_err'],
+                                       prcnn_shapes['errs'][name],
+                                       waymo['errs'][name],
+                                       nuscenes['errs'][name])
+        if name == 'fps':
+            entry['max_abs_err'] = max(entry['max_abs_err'],
+                                       chunked.pop('err'))
+            entry['chunked_call'] = chunked
     log(json.dumps({'kernels': entries, 'kernel_device_ms': kernel_dev,
                     'ms_per_batch': ms,
                     'scenes_per_s': B / ms * 1e3,
@@ -1592,7 +2185,16 @@ def main(argv=()) -> int:
                     'train_profile': train_profile,
                     'spsnet_profile': sps_profile,
                     'spsnet_train_profile': sps_train_profile,
-                    'stability_train_profile': stab_profile, 'card': smi}))
+                    'stability_train_profile': stab_profile,
+                    'pointrcnn_ms_per_batch': prcnn_ms,
+                    'pointrcnn_scenes_per_s': B / prcnn_ms * 1e3,
+                    'pointrcnn_all_ms': prcnn_times,
+                    'pointrcnn_profile': prcnn_profile,
+                    'proposal_nms': nms_profile,
+                    'waymo_ms_per_batch': waymo['ms_per_batch'],
+                    'nuscenes_ms_per_batch': nuscenes['ms_per_batch'],
+                    'waymo_all_ms': waymo['all_ms'],
+                    'nuscenes_all_ms': nuscenes['all_ms'], 'card': smi}))
     log(smi)
     log(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

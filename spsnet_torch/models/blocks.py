@@ -5,7 +5,8 @@ The reference's ``Conv2d(1x1)+BatchNorm2d+ReLU`` stacks
 ``nn.Linear`` + BatchNorm over the last axis + ReLU on (..., C) tensors.
 Each stack is an ``nn.Sequential`` laid out like the reference's, so the
 parameter names match its state dict (Linear at 3k, BatchNorm at 3k+1, ReLU
-at 3k+2, the biased output Linear last).
+at 3k+2, the biased output Linear last; without BatchNorm, a biased Linear
+at 2k and ReLU at 2k+1).
 """
 from __future__ import annotations
 
@@ -47,13 +48,23 @@ class BatchNormLast(nn.BatchNorm1d):
 
 
 class SharedMLP(nn.Sequential):
-    """Pointwise Linear(no bias) + BN + ReLU per width in ``channels``."""
+    """Pointwise Linear(no bias) + BN + ReLU per width in ``channels``; with
+    ``use_bn=False``, biased Linear + ReLU (``spsnet_tpu/models/blocks.py:
+    30-60``). ``dropout_idx`` puts an ``nn.Dropout(dropout)`` after the
+    ReLU of those layers, as the reference's RoI heads do
+    (``roi_head_template.py:36-44``); it is the identity in eval mode."""
 
-    def __init__(self, in_channels: int, channels: Sequence[int]):
+    def __init__(self, in_channels: int, channels: Sequence[int],
+                 use_bn: bool = True, dropout: float = 0.0,
+                 dropout_idx: Sequence[int] = ()):
         layers = []
-        for c in channels:
-            layers += [nn.Linear(in_channels, c, bias=False), BatchNormLast(c),
-                       nn.ReLU()]
+        for k, c in enumerate(channels):
+            layers.append(nn.Linear(in_channels, c, bias=not use_bn))
+            if use_bn:
+                layers.append(BatchNormLast(c))
+            layers.append(nn.ReLU())
+            if k in tuple(dropout_idx):
+                layers.append(nn.Dropout(dropout))
             in_channels = c
         super().__init__(*layers)
         self.out_channels = in_channels
@@ -64,8 +75,10 @@ class MLPHead(nn.Sequential):
     (``point_head_template.py:36-47``)."""
 
     def __init__(self, in_channels: int, hidden: Sequence[int],
-                 out_channels: int):
-        mlp = SharedMLP(in_channels, hidden)
+                 out_channels: int, dropout: float = 0.0,
+                 dropout_idx: Sequence[int] = ()):
+        mlp = SharedMLP(in_channels, hidden, dropout=dropout,
+                        dropout_idx=dropout_idx)
         super().__init__(*mlp, nn.Linear(mlp.out_channels, out_channels))
 
 
@@ -73,9 +86,9 @@ class MLPHead(nn.Sequential):
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     """Seeded random weights for the MLP stacks of ``module``.
 
-    A Linear followed by BatchNorm gets He-normal weights (std
+    A Linear followed by BatchNorm or ReLU gets He-normal weights (std
     sqrt(2 / fan_in)), which keeps activations at unit scale through ReLU; an
-    output Linear gets std sqrt(1 / fan_in) and a N(0, 0.1) bias. BatchNorm
+    output Linear gets std sqrt(1 / fan_in); every bias is N(0, 0.1). BatchNorm
     keeps its identity statistics. Draws happen on the CPU in module order,
     so a seed gives the same weights on every device.
     """
@@ -84,7 +97,8 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     for seq in module.modules():
         if isinstance(seq, nn.Sequential):
             for a, b in zip(seq, list(seq)[1:]):
-                if isinstance(a, nn.Linear) and isinstance(b, BatchNormLast):
+                if isinstance(a, nn.Linear) and isinstance(
+                        b, (BatchNormLast, nn.ReLU)):
                     hidden.add(id(a))
     for lin in linears:
         gain = 2.0 if id(lin) in hidden else 1.0

@@ -6,11 +6,13 @@ import torch
 
 from ..blocks import init_weights
 from .iassd import IASSD
+from .point_rcnn import PointRCNN
 
 # PAGNet and SPSNet-IA are IASSD with the PAGNet backbone and the MLT head,
 # both picked by the config; SPSNet's batch carries the stability hook's
 # 'stds' (``runtime.trainer.make_stability_preprocess``)
-_DETECTORS = {'IASSD': IASSD, 'PAGNet': IASSD, 'SPSNet': IASSD}
+_DETECTORS = {'IASSD': IASSD, 'PAGNet': IASSD, 'SPSNet': IASSD,
+              'PointRCNN': PointRCNN}
 
 
 def resolve_device(device) -> torch.device:
@@ -42,10 +44,12 @@ def build_detector(model_cfg, num_class: int, device='cuda',
     device = resolve_device(device)
     name = model_cfg.NAME
     if name not in _DETECTORS or 'VFE' in model_cfg:
-        # a PAGNet config with a VFE block is the AL_3D pillar stack
+        # a PAGNet config with a VFE block is the AL_3D pillar stack, a
+        # PointRCNN one PartA2_free's voxel stack
         raise NotImplementedError(
             f'detector {name}: the port has the point configs of '
-            f'{sorted(_DETECTORS)} (ROADMAP Queue 1)')
+            f'{sorted(_DETECTORS)}; the voxel, pillar and two-stage zoo is '
+            'ROADMAP Queue 1 item F')
     model = _DETECTORS[name](model_cfg, num_class, input_channels,
                              fps_seeding)
     if generator is None:

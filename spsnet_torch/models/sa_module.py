@@ -1,10 +1,12 @@
-"""Set-abstraction layer with sampling + multi-scale grouping, and the vote
-layer, channel-last.
+"""Set-abstraction layers with sampling + multi-scale grouping, the vote
+layer and the feature-propagation layer, channel-last.
 
 Port of ``spsnet_tpu/models/sa_module.py`` (``PointnetSAModuleMSG_WithSampling``
-and ``Vote_layer``, ``pointnet2_modules.py:128-516``). Submodule names follow
-the reference state dict: ``mlps.{s}``, ``aggregation_layer``,
-``confidence_layers``, ``mlp_modules``, ``ctr_reg``.
+and ``Vote_layer``, ``pointnet2_modules.py:128-516``; the plain D-FPS
+``PointnetSAModuleMSG`` and ``PointnetFPModule``, ``:86-126,539-587``).
+Submodule names follow the reference state dict: ``mlps.{s}``,
+``aggregation_layer``, ``confidence_layers``, ``mlp_modules``, ``ctr_reg``,
+``mlp``.
 """
 from __future__ import annotations
 
@@ -14,6 +16,8 @@ import torch
 from torch import nn
 
 from .. import ops
+from ..ops.interpolate import (three_interpolate, three_interpolate_weights,
+                               three_nn)
 from . import samplers
 from .blocks import MLPHead, SharedMLP
 
@@ -202,3 +206,70 @@ class VoteLayer(nn.Module):
             limit = xyz.new_tensor(self.max_translate_range)
             limited = torch.clamp(ctr_offsets, -limit, limit)
         return xyz + limited, features, xyz, ctr_offsets
+
+
+class SAModule(nn.Module):
+    """Plain single- or multi-scale SA layer (PointNet++ MSG, as
+    ``spsnet_tpu/models/sa_module.py:241-276``): exact D-FPS to ``npoint``
+    centers (no prefix-nesting shortcut), one fused ball query for all
+    radii, a shared MLP per radius over ``[relative xyz, features]`` and a
+    pool over the samples. ``npoint=None`` groups all points around no
+    center (absolute xyz) and returns ``new_xyz`` None."""
+
+    def __init__(self, in_channels: int, npoint: Optional[int],
+                 radii: Sequence[float], nsamples: Sequence[int],
+                 mlps: Sequence[Sequence[int]]):
+        super().__init__()
+        self.npoint = npoint
+        self.radii = list(radii)
+        self.nsamples = list(nsamples)
+        self.mlps = nn.ModuleList(SharedMLP(in_channels + 3, m) for m in mlps)
+        self.out_channels = sum(m[-1] for m in mlps)
+
+    def forward(self, xyz, features=None):
+        """(B, N, 3) points, (B, N, C) features or None -> new_xyz (B, M, 3)
+        (None when grouping all), features (B, M, C'), sampled indices
+        (B, M) or None."""
+        new_xyz = sampled_idx = None
+        if self.npoint is not None:
+            xyz = xyz.contiguous()
+            sampled_idx = ops.farthest_point_sample(xyz, self.npoint)
+            new_xyz = ops.gather_points(xyz, sampled_idx).contiguous()
+            multi_idx = ops.ball_query_multi(self.radii, self.nsamples, xyz,
+                                             new_xyz)
+        scale_feats = []
+        for s, mlp in enumerate(self.mlps):
+            if self.npoint is None:
+                grouped = ops.group_all(xyz, features)
+            else:
+                grouped, _ = ops.query_and_group(
+                    self.radii[s], self.nsamples[s], xyz, new_xyz, features,
+                    idx=multi_idx[s])
+            scale_feats.append(mlp(grouped).amax(dim=2))
+        return new_xyz, torch.cat(scale_feats, dim=-1), sampled_idx
+
+
+class FPModule(nn.Module):
+    """Feature propagation (``spsnet_tpu/models/sa_module.py:279-295``):
+    the 3-NN inverse-distance interpolation of the known features onto the
+    unknown points, concatenated before the unknown points' own features,
+    then a shared MLP."""
+
+    def __init__(self, in_channels: int, mlp: Sequence[int]):
+        super().__init__()
+        self.mlp = SharedMLP(in_channels, mlp)
+        self.out_channels = self.mlp.out_channels
+
+    def forward(self, unknown, known, unknown_feats, known_feats):
+        """(B, N, 3), (B, M, 3) or None, (B, N, C1) or None, (B, M, C2) ->
+        (B, N, C'). With ``known`` None, ``known_feats`` (B, 1, C2) is
+        broadcast to every unknown point."""
+        if known is not None:
+            d2, idx = three_nn(unknown, known)
+            interp = three_interpolate(known_feats, idx,
+                                       three_interpolate_weights(d2))
+        else:
+            interp = known_feats.expand(-1, unknown.shape[1], -1)
+        x = interp if unknown_feats is None else \
+            torch.cat([interp, unknown_feats], dim=-1)
+        return self.mlp(x)

@@ -57,7 +57,9 @@ def _directed_contrib(ca, cb):
     s0 = p_ + t0[..., None] * d_
     s1 = p_ + t1[..., None] * d_
     contrib = s0[..., 0] * s1[..., 1] - s1[..., 0] * s0[..., 1]
-    return torch.where(ok, contrib, 0.0).sum(dim=-1)
+    c = torch.where(ok, contrib, 0.0)
+    # summed in edge order, whatever the leading shape, on every device
+    return ((c[..., 0] + c[..., 1]) + c[..., 2]) + c[..., 3]
 
 
 def _pairwise_overlap_lb(corners_a, corners_b):
@@ -86,16 +88,99 @@ def topk_desc(scores, k: int):
     return scores.gather(-1, order), order
 
 
-def _greedy_suppress(iou, valid, thresh: float):
+def _pair_iou(boxes_a, boxes_b, corners_a, corners_b):
+    """IoU of P box pairs, (P, 7) boxes and their (P, 4, 2) corners ->
+    (P,): each pair's value bit for bit what ``boxes_iou_bev_fast`` gives
+    it (the same elementwise ops)."""
+    overlap = _pairwise_overlap_lb(corners_a[:, None],
+                                   corners_b[:, None])[:, 0, 0]
+    area_a = boxes_a[:, 3] * boxes_a[:, 4]
+    area_b = boxes_b[:, 3] * boxes_b[:, 4]
+    return overlap / (area_a + area_b - overlap).clamp(min=1e-6)
+
+
+# pairs a block of the dense IoU: one block for IA-SSD's final NMS (8 x
+# 256 x 256); larger sets take the candidate pairs
+_DENSE_PAIRS = 1 << 22
+# pairs a block of the candidate test, and candidate pairs an IoU call:
+# fp32 intermediates of ~0.5 GB
+_CANDIDATE_BLOCK = 1 << 27
+_PAIR_CHUNK = 1 << 21
+
+
+def dense_overlap_mask(sorted_boxes, thresh: float):
+    """(B, K, 7) boxes -> (B, K, K) bool ``iou(i, j) > thresh`` for i < j,
+    by ``boxes_iou_bev_fast`` over every pair in blocks of rows of at most
+    ``_DENSE_PAIRS`` pairs (every value is elementwise, so the blocks keep
+    the bits)."""
+    B, K, _ = sorted_boxes.shape
+    rows = max(1, _DENSE_PAIRS // (B * K))
+    over = torch.empty((B, K, K), dtype=torch.bool,
+                       device=sorted_boxes.device)
+    for r0 in range(0, K, rows):
+        over[:, r0:r0 + rows] = boxes_iou_bev_fast(
+            sorted_boxes[:, r0:r0 + rows], sorted_boxes) > thresh
+    return over.triu_(1)
+
+
+def candidate_pairs(sorted_boxes):
+    """The pairs (frame, i, j), i < j, of (B, K, 7) boxes whose BEV
+    circumscribed circles meet, with a margin far above rounding, in chunks
+    of at most ``_PAIR_CHUNK``; a box of zero length or width (no inside
+    for the clipping to work with, so its IoU is no overlap measure) pairs
+    with every box. One ``nonzero`` (a host sync) per block of
+    ``_CANDIDATE_BLOCK`` tested pairs."""
+    B, K, _ = sorted_boxes.shape
+    xy = sorted_boxes[..., 0:2]
+    dx, dy = sorted_boxes[..., 3], sorted_boxes[..., 4]
+    radius = torch.where(dx * dy > 0, 0.5 * torch.sqrt(dx * dx + dy * dy),
+                         torch.inf)
+    cols = torch.arange(K, device=sorted_boxes.device)
+    rows = max(1, _CANDIDATE_BLOCK // (B * K))
+    for r0 in range(0, K, rows):
+        d = xy[:, r0:r0 + rows, None, :] - xy[:, None, :, :]
+        reach = radius[:, r0:r0 + rows, None] + radius[:, None, :]
+        cand = (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) <= \
+            reach * reach * 1.001 + 1e-4
+        cand &= cols[None, None, :] > cols[None, r0:r0 + rows, None]
+        b, i, j = cand.nonzero(as_tuple=True)
+        i = i + r0
+        for p0 in range(0, b.shape[0], _PAIR_CHUNK):
+            yield tuple(t[p0:p0 + _PAIR_CHUNK] for t in (b, i, j))
+
+
+def overlap_mask(sorted_boxes, thresh: float):
+    """(B, K, 7) boxes -> (B, K, K) bool ``iou(i, j) > thresh`` for i < j.
+
+    Sets of at most ``_DENSE_PAIRS`` pairs take ``dense_overlap_mask``.
+    Larger ones (PointRCNN's proposal NMS, K = 9000) compute the IoU only
+    of the ``candidate_pairs``: a pair further apart cannot overlap, and
+    its IoU computes to exactly 0, not above a threshold >= 0. Each
+    candidate's IoU is bit for bit its dense value, so the result is
+    ``dense_overlap_mask``'s (``chip_smoke.py`` holds the two to each other
+    on the card and times both)."""
+    B, K, _ = sorted_boxes.shape
+    if B * K * K <= _DENSE_PAIRS or thresh < 0:
+        return dense_overlap_mask(sorted_boxes, thresh)
+    over = torch.zeros((B, K, K), dtype=torch.bool,
+                       device=sorted_boxes.device)
+    corners = _bev_corners(sorted_boxes)
+    for pb, pi, pj in candidate_pairs(sorted_boxes):
+        over[pb, pi, pj] = _pair_iou(
+            sorted_boxes[pb, pi], sorted_boxes[pb, pj],
+            corners[pb, pi], corners[pb, pj]) > thresh
+    return over
+
+
+def _greedy_suppress(over, valid):
     """Greedy NMS over boxes sorted by descending score, batched over
-    frames: (B, K, K) IoU, (B, K) valid -> (B, K) keep mask."""
-    K = iou.shape[-1]
-    over = torch.triu(iou > thresh, diagonal=1)  # overlap with a later box
-    suppressed = torch.zeros_like(valid)
-    for i in range(K):
-        kept_i = valid[:, i] & ~suppressed[:, i]
-        suppressed |= over[:, i] & kept_i[:, None]
-    return valid & ~suppressed
+    frames: (B, K, K) ``overlap_mask``, (B, K) valid -> (B, K) keep mask.
+    An invalid box starts suppressed, so it suppresses nothing; three
+    launches a box on a CUDA tensor."""
+    suppressed = ~valid
+    for i in range(over.shape[-1]):
+        suppressed |= over[:, i] & ~suppressed[:, i:i + 1]
+    return ~suppressed
 
 
 def nms_bev(boxes, scores, thresh: float, pre_maxsize: int = 4096,
@@ -115,8 +200,8 @@ def nms_bev(boxes, scores, thresh: float, pre_maxsize: int = 4096,
     pre = min(pre_maxsize, K)
     top_scores, order = topk_desc(torch.where(valid, scores, -torch.inf), pre)
     sorted_boxes = boxes.gather(1, order[..., None].expand(-1, -1, 7))
-    keep = _greedy_suppress(boxes_iou_bev_fast(sorted_boxes, sorted_boxes),
-                            top_scores > -torch.inf, thresh)
+    keep = _greedy_suppress(overlap_mask(sorted_boxes, thresh),
+                            top_scores > -torch.inf)
 
     # first `post` kept boxes in score order; column `post` collects the rest
     post = min(post_maxsize, pre)

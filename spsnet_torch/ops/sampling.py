@@ -21,6 +21,12 @@ already (one cluster a row, all rows at once; ``redux.sync`` reductions), so
 on the card both entries launch it. The JAX entries take no mask and pad N
 to 128 lanes; the kernel handles any N.
 
+Chunked FPS (``spsnet_tpu/ops/pallas/fps.py:610-639``) splits each row's
+index space into S equal slices and runs exact FPS of npoint / S picks in
+each: on a shuffled cloud, a spatially stratified approximation of FPS.
+It is off unless an ``FpsChunks`` is passed; on the card it is a reshape
+around the exact kernel.
+
 Each op runs its plain version for a CPU tensor and its kernel for a CUDA
 tensor (``csrc/fps.cu``, ``csrc/seed_min.cu``); there is no other path.
 """
@@ -81,13 +87,29 @@ class FpsSeeding:
                              f'{self.fraction}')
 
 
+@dataclass(frozen=True)
+class FpsChunks:
+    """Chunked FPS at the call sites that opt in (the SA-module D-FPS, in
+    the place of an ``FpsSeeding``): ``chunks`` equal slices of each row's
+    index space, exact FPS of npoint / chunks picks in each
+    (``farthest_point_sample_chunked``), where ``chunks`` divides N and
+    npoint and no mask is given; exact FPS elsewhere. No config turns it
+    on, and no quality gate covers it."""
+    chunks: int = 4
+
+    def __post_init__(self):
+        if self.chunks < 2:
+            raise ValueError(f'FpsChunks needs chunks >= 2, got '
+                             f'{self.chunks}')
+
+
 def seed_k0(seeding: FpsSeeding | None, npoint: int) -> int:
     """Seeds of a seeded FPS of ``npoint`` picks, 0 when seeding does not
     engage (``spsnet_tpu/ops/sampling.py:69-88``): ``int(f * npoint)``
     rounded down to a multiple of 128, engaged only when ``0 < k0 < npoint``
     (npoint <= 170 disengages at f = 0.75); ``grid_only`` engages with
     ``k0 = npoint`` when npoint is a multiple of 128."""
-    if seeding is None:
+    if not isinstance(seeding, FpsSeeding):
         return 0
     if seeding.mode == 'grid_only':
         return npoint if npoint % 128 == 0 else 0
@@ -98,10 +120,12 @@ def seed_k0(seeding: FpsSeeding | None, npoint: int) -> int:
 def fps_seeding_active(seeding: FpsSeeding | None, npoint: int, *,
                        allow_seed: bool) -> bool:
     """Whether a D-FPS of ``npoint`` picks at a call site with opt-in
-    ``allow_seed`` runs seeded. The single source of the engagement rule for
-    the dispatch and for the prefix-nesting gates of the SA layer and the
-    backbone."""
-    return allow_seed and seed_k0(seeding, npoint) > 0
+    ``allow_seed`` runs seeded or chunked, so that its picks are no exact
+    FPS chain. The single source of the engagement rule for the prefix-
+    nesting gates of the SA layer and the backbone (any ``FpsChunks``
+    turns the shortcut off, as in ``spsnet_tpu/models/sa_module.py:97-100``)."""
+    return allow_seed and (isinstance(seeding, FpsChunks)
+                           or seed_k0(seeding, npoint) > 0)
 
 
 def _check(xyz, npoint, valid_mask):
@@ -211,6 +235,26 @@ def farthest_point_sample_hier_argmax(xyz, npoint: int):
     ``spsnet_tpu/ops/pallas/fps.py:316``). (B, N, 3) float32 -> (B, npoint)
     int64: exact ``farthest_point_sample``."""
     return farthest_point_sample(xyz, npoint)
+
+
+def farthest_point_sample_chunked(xyz, npoint: int, chunks: int):
+    """Chunked FPS, (B, N, 3) float32 -> (B, npoint) int64: each row's
+    ``chunks`` index slices of N / chunks points take npoint / chunks
+    exact FPS picks each (the slice's first point first), in slice order,
+    with the slice offsets added. One (B * chunks, N / chunks) exact FPS:
+    the plain version for a CPU tensor, one kernel launch for a CUDA
+    tensor."""
+    _check(xyz, npoint, None)
+    B, N, _ = xyz.shape
+    if chunks < 1 or N % chunks or npoint % chunks:
+        raise ValueError(f'chunks={chunks} must divide N={N} and '
+                         f'npoint={npoint}')
+    nc, mc = N // chunks, npoint // chunks
+    idx = farthest_point_sample(xyz.contiguous().reshape(B * chunks, nc, 3),
+                                mc)
+    offs = torch.arange(chunks, device=xyz.device) * nc
+    return (idx.reshape(B, chunks, mc) + offs[None, :, None]).reshape(
+        B, npoint)
 
 
 def _check_seeds(xyz, seeds):
@@ -377,11 +421,18 @@ def grid_seed_indices(xyz, k0: int, grid=SEED_GRID):
 
 
 def farthest_point_sample(xyz, npoint: int, valid_mask=None,
-                          seeding: FpsSeeding | None = None):
+                          seeding: FpsSeeding | FpsChunks | None = None):
     """D-FPS, (B, N, 3) float32 -> (B, npoint) int64: exact unless
     ``seeding`` engages for this ``npoint`` (``seed_k0``); then grid or head
     seeds, their min distances (``seed_min_d2``) and the seeded completion.
-    Plain versions for a CPU tensor, CUDA kernels for a CUDA tensor."""
+    An ``FpsChunks`` takes the chunked FPS where its chunks divide N and
+    npoint and no mask is given. Plain versions for a CPU tensor, CUDA
+    kernels for a CUDA tensor."""
+    if isinstance(seeding, FpsChunks):
+        s = seeding.chunks
+        if valid_mask is None and xyz.shape[1] % s == 0 and npoint % s == 0:
+            return farthest_point_sample_chunked(xyz, npoint, s)
+        seeding = None
     k0 = seed_k0(seeding, npoint)
     if k0 == 0:
         if xyz.device.type == 'cpu':

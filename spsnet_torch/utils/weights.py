@@ -13,6 +13,12 @@ package's checkpoint importer maps the other way
     backbone_3d/vote_{i}/mlp/...                   backbone_3d.SA_modules.{i}.mlp_modules.*
     backbone_3d/vote_{i}/ctr_reg/*                 backbone_3d.SA_modules.{i}.ctr_reg.*
     point_head/{cls_center,box_center,box_iou3d}/  point_head.{cls_center,box_center,box_iou3d}_layers.*
+    point_head/{cls_layers,box_layers}/            point_head.{cls_layers,box_layers}.* (PointHeadBox)
+    backbone_3d/fp_{i}/mlp/...                     backbone_3d.FP_modules.{i}.mlp.*
+    roi_head/xyz_up/Dense_{k}, roi_head/merge/...  roi_head.{xyz_up_layer,merge_down_layer}.{2k} (no BN)
+    roi_head/sa_{i}/mlp_0/...                      roi_head.SA_modules.{i}.mlps.0.*
+    roi_head/{cls_layers,reg_layers}/...           roi_head.{cls_layers,reg_layers}.* (a Dropout
+                                                     after the first block shifts later indices by 1)
     backbone_3d/sf_extract/transform_{i}/Dense_0   backbone_3d.SF_extract.transforms.{i}.linear
     backbone_3d/sf_extract/conv_{i}/layer_first    backbone_3d.SF_extract.convs.{i}.layer_first.linear
       .../layer_{j}, .../layer_last (/Dense_0)       ....convs.{i}.layers.{j-1}.linear, ....layer_last.linear
@@ -26,7 +32,9 @@ The stability model ``GenerateCenter`` has its own tree, mapped by
     obj_encoder/{fc1,fc2,fc_ce1,fc_ce2}            obj_encoder.{fc1,fc2,fc_ce1,fc_ce2}
     sf_extract/...                                 sf_extract.* (as SF_extract above)
 
-A Dense kernel (in, out) becomes a Linear weight (out, in).
+A Dense kernel (in, out) becomes a Linear weight (out, in). A SharedMLP
+without BatchNorm (no ``BatchNorm_k`` beside its ``Dense_k``) has its
+Linear at 2k.
 """
 from __future__ import annotations
 
@@ -37,7 +45,8 @@ import numpy as np
 import torch
 
 _HEADS = {'cls_center': 'cls_center_layers', 'box_center': 'box_center_layers',
-          'box_iou3d': 'box_iou3d_layers'}
+          'box_iou3d': 'box_iou3d_layers', 'cls_layers': 'cls_layers',
+          'box_layers': 'box_layers'}
 # (collection, leaf) -> torch leaf, for a Dense and a BatchNorm module
 _DENSE_LEAF = {('params', 'kernel'): 'weight', ('params', 'bias'): 'bias'}
 _BN_LEAF = {('params', 'scale'): 'weight', ('params', 'bias'): 'bias',
@@ -53,22 +62,27 @@ def _leaves(tree, prefix=()):
             yield prefix + (k,), v
 
 
-def _seq_index(layer: str) -> int:
-    """Sequential index of a SharedMLP layer: Dense_k -> 3k,
-    BatchNorm_k -> 3k+1 (ReLU at 3k+2 holds no weights)."""
+def _seq_index(layer: str, bn: bool = True, shift: int = 0) -> int:
+    """Sequential index of a SharedMLP layer: Dense_k -> 3k, BatchNorm_k
+    -> 3k+1 (ReLU at 3k+2 holds no weights); Dense_k -> 2k without
+    BatchNorm; plus ``shift`` from layer 1 on (a Dropout after layer 0)."""
     m = re.fullmatch(r'(Dense|BatchNorm)_(\d+)', layer)
     if m is None:
         raise KeyError(layer)
-    return 3 * int(m.group(2)) + (m.group(1) == 'BatchNorm')
+    k = int(m.group(2))
+    return (3 if bn else 2) * k + (m.group(1) == 'BatchNorm') + \
+        (shift if k >= 1 else 0)
 
 
-def _head_index(head, rest, hidden) -> int:
+def _head_index(head, rest, hidden, shift: int = 0) -> int:
     """Index in an MLPHead: its SharedMLP_0 layers, then the output Dense_0
-    at 3h for h hidden layers."""
+    at 3h for h hidden layers (plus ``shift`` after a Dropout behind the
+    first)."""
+    h = hidden.get(head, 0)
     if len(rest) == 2 and rest[0] == 'SharedMLP_0':
-        return _seq_index(rest[1])
+        return _seq_index(rest[1], shift=shift)
     if rest == ('Dense_0',):
-        return 3 * hidden.get(head, 0)
+        return 3 * h + (shift if h >= 1 else 0)
     raise KeyError(rest)
 
 
@@ -104,20 +118,19 @@ def _surface_name(base, module, rest) -> str:
     raise KeyError(module)
 
 
-def _torch_name(module, hidden) -> str:
-    """Torch name prefix of a flax module path of the detector."""
-    if module[0] == 'point_head' and len(module) > 2 and module[1] in _HEADS:
-        idx = _head_index(module[:2], module[2:], hidden)
-        return f'point_head.{_HEADS[module[1]]}.{idx}'
-    if module[0] != 'backbone_3d' or len(module) < 3:
-        raise KeyError(module)
+def _backbone_name(module, hidden) -> str:
     if module[1] == 'sf_extract':
         return _surface_name('backbone_3d.SF_extract', module, module[2:])
-    m = re.fullmatch(r'(sa|vote)_(\d+)', module[1])
+    m = re.fullmatch(r'(sa|vote|fp)_(\d+)', module[1])
     if m is None:
         raise KeyError(module)
-    base = f'backbone_3d.SA_modules.{m.group(2)}'
     rest = module[2:]
+    if m.group(1) == 'fp':
+        if len(rest) == 2 and rest[0] == 'mlp':
+            return (f'backbone_3d.FP_modules.{m.group(2)}.mlp.'
+                    f'{_seq_index(rest[1])}')
+        raise KeyError(module)
+    base = f'backbone_3d.SA_modules.{m.group(2)}'
     if m.group(1) == 'sa':
         return _sa_name(base, module, rest, hidden)
     if rest == ('ctr_reg',):
@@ -127,7 +140,35 @@ def _torch_name(module, hidden) -> str:
     raise KeyError(module)
 
 
-def _generator_name(module, hidden) -> str:
+def _roi_head_name(module, hidden, bn_paths) -> str:
+    """Torch name prefix of a flax module path of the PointRCNN head."""
+    rest = module[1:]
+    if len(rest) == 2 and rest[0] in ('xyz_up', 'merge'):
+        sub = 'xyz_up_layer' if rest[0] == 'xyz_up' else 'merge_down_layer'
+        return (f'roi_head.{sub}.'
+                f'{_seq_index(rest[1], module[:2] in bn_paths)}')
+    m = re.fullmatch(r'sa_(\d+)', rest[0])
+    if m and len(rest) == 3 and rest[1] == 'mlp_0':
+        return f'roi_head.SA_modules.{m.group(1)}.mlps.0.{_seq_index(rest[2])}'
+    if rest[0] in ('cls_layers', 'reg_layers'):
+        idx = _head_index(module[:2], rest[1:], hidden, shift=1)
+        return f'roi_head.{rest[0]}.{idx}'
+    raise KeyError(module)
+
+
+def _torch_name(module, hidden, bn_paths) -> str:
+    """Torch name prefix of a flax module path of the detector."""
+    if module[0] == 'point_head' and len(module) > 2 and module[1] in _HEADS:
+        idx = _head_index(module[:2], module[2:], hidden)
+        return f'point_head.{_HEADS[module[1]]}.{idx}'
+    if module[0] == 'backbone_3d' and len(module) >= 3:
+        return _backbone_name(module, hidden)
+    if module[0] == 'roi_head' and len(module) >= 3:
+        return _roi_head_name(module, hidden, bn_paths)
+    raise KeyError(module)
+
+
+def _generator_name(module, hidden, bn_paths) -> str:
     """Torch name prefix of a flax module path of ``GenerateCenter``."""
     rest = module[1:]
     if module[0] == 'surface_pw_feature' and rest:
@@ -159,6 +200,8 @@ def _convert(variables, name_of) -> "OrderedDict[str, torch.Tensor]":
     if unknown:
         raise KeyError(f'unmapped flax collections: {sorted(unknown)}')
     hidden = _n_hidden(variables['params'])
+    bn_paths = {path[:-2] for path, _ in _leaves(variables['params'])
+                if path[-2].startswith('BatchNorm_')}
     sd = OrderedDict()
     for coll in ('params', 'batch_stats'):
         for path, value in _leaves(variables.get(coll, {})):
@@ -169,7 +212,8 @@ def _convert(variables, name_of) -> "OrderedDict[str, torch.Tensor]":
             if (coll, leaf) not in leaf_map:
                 raise KeyError(f'unmapped flax leaf: {where}')
             try:
-                name = f'{name_of(module, hidden)}.{leaf_map[coll, leaf]}'
+                name = (f'{name_of(module, hidden, bn_paths)}.'
+                        f'{leaf_map[coll, leaf]}')
             except (KeyError, IndexError) as e:
                 raise KeyError(f'unmapped flax leaf: {where}') from e
             if name in sd:

@@ -20,6 +20,13 @@ def spsnet_kitti_cfg() -> EDict:
     return load_yaml_cfg('tools/cfgs/kitti_models/SPSNet.yaml')
 
 
+def pointrcnn_kitti_cfg() -> EDict:
+    """PointRCNN KITTI (``tools/cfgs/kitti_models/pointrcnn.yaml``): the
+    two-stage point detector, PointNet2MSG + PointHeadBox +
+    PointRCNNHead."""
+    return load_yaml_cfg('tools/cfgs/kitti_models/pointrcnn.yaml')
+
+
 def stability_cfg() -> EDict:
     """The stability model's own training config (MODEL: ``GenerateCenter``
     at npoint 16384, MSG 0.2 / 0.8; OPTIMIZATION: ``adam_onecycle`` at LR
@@ -129,6 +136,101 @@ def tiny_spsnet_cfg() -> EDict:
     cfg.POINT_HEAD.NAME = 'MLT_SSD_Head'
     cfg.POINT_HEAD.LOSS_CONFIG.SAMPLE_METHOD_LIST = sa.SAMPLE_METHOD_LIST
     return cfg
+
+
+def tiny_pointrcnn_cfg() -> EDict:
+    """Tiny PointRCNN (CPU-fast) with the flagship two-stage topology."""
+    return EDict({
+        'NAME': 'PointRCNN',
+        'BACKBONE_3D': {
+            'NAME': 'PointNet2MSG',
+            'SA_CONFIG': {
+                'NPOINTS': [64, 32, 16, 8],
+                'RADIUS': [[0.1, 0.5], [0.5, 1.0], [1.0, 2.0], [2.0, 4.0]],
+                'NSAMPLE': [[4, 8], [4, 8], [4, 8], [4, 8]],
+                'MLPS': [[[8, 8, 16], [8, 8, 16]],
+                         [[16, 16, 32], [16, 16, 32]],
+                         [[32, 32, 64], [32, 32, 64]],
+                         [[64, 64, 128], [64, 64, 128]]],
+            },
+            'FP_MLPS': [[32, 32], [32, 32], [64, 64], [64, 64]],
+        },
+        'POINT_HEAD': {
+            'NAME': 'PointHeadBox',
+            'CLS_FC': [32], 'REG_FC': [32],
+            'CLASS_AGNOSTIC': False,
+            'TARGET_CONFIG': {
+                'GT_EXTRA_WIDTH': [0.2, 0.2, 0.2],
+                'BOX_CODER': 'PointResidualCoder',
+                'BOX_CODER_CONFIG': {
+                    'use_mean_size': True,
+                    'mean_size': [[3.9, 1.6, 1.56], [0.8, 0.6, 1.73],
+                                  [1.76, 0.6, 1.73]],
+                },
+            },
+            'LOSS_CONFIG': {
+                'LOSS_REG': 'WeightedSmoothL1Loss',
+                'LOSS_WEIGHTS': {
+                    'point_cls_weight': 1.0, 'point_box_weight': 1.0,
+                    'code_weights': [1.0] * 8,
+                },
+            },
+        },
+        'ROI_HEAD': {
+            'NAME': 'PointRCNNHead',
+            'CLASS_AGNOSTIC': True,
+            'ROI_POINT_POOL': {
+                # generous so sparse synthetic clouds still pool points
+                'POOL_EXTRA_WIDTH': [8.0, 8.0, 8.0],
+                'NUM_SAMPLED_POINTS': 32,
+                'DEPTH_NORMALIZER': 70.0,
+            },
+            'XYZ_UP_LAYER': [16, 16],
+            'CLS_FC': [32], 'REG_FC': [32],
+            'DP_RATIO': 0.0, 'USE_BN': False,
+            'SA_CONFIG': {
+                'NPOINTS': [16, 8, -1],
+                'RADIUS': [0.2, 0.4, 100],
+                'NSAMPLE': [4, 4, 4],
+                'MLPS': [[16, 16], [16, 32], [32, 64]],
+            },
+            'NMS_CONFIG': {
+                'TRAIN': {'NMS_TYPE': 'nms_gpu', 'MULTI_CLASSES_NMS': False,
+                          'NMS_PRE_MAXSIZE': 64, 'NMS_POST_MAXSIZE': 16,
+                          'NMS_THRESH': 0.8},
+                'TEST': {'NMS_TYPE': 'nms_gpu', 'MULTI_CLASSES_NMS': False,
+                         'NMS_PRE_MAXSIZE': 64, 'NMS_POST_MAXSIZE': 8,
+                         'NMS_THRESH': 0.85},
+            },
+            'TARGET_CONFIG': {
+                'BOX_CODER': 'ResidualCoder',
+                'ROI_PER_IMAGE': 16, 'FG_RATIO': 0.5,
+                'SAMPLE_ROI_BY_EACH_CLASS': True,
+                'CLS_SCORE_TYPE': 'cls',
+                'CLS_FG_THRESH': 0.6, 'CLS_BG_THRESH': 0.45,
+                'CLS_BG_THRESH_LO': 0.1, 'HARD_BG_RATIO': 0.8,
+                'REG_FG_THRESH': 0.55,
+            },
+            'LOSS_CONFIG': {
+                'CLS_LOSS': 'BinaryCrossEntropy',
+                'REG_LOSS': 'smooth-l1',
+                'CORNER_LOSS_REGULARIZATION': True,
+                'LOSS_WEIGHTS': {
+                    'rcnn_cls_weight': 1.0, 'rcnn_reg_weight': 1.0,
+                    'rcnn_corner_weight': 1.0, 'code_weights': [1.0] * 7,
+                },
+            },
+        },
+        'POST_PROCESSING': {
+            'RECALL_THRESH_LIST': [0.3, 0.5, 0.7],
+            'SCORE_THRESH': 0.1,
+            'NMS_CONFIG': {
+                'MULTI_CLASSES_NMS': False, 'NMS_TYPE': 'nms_gpu',
+                'NMS_THRESH': 0.1, 'NMS_PRE_MAXSIZE': 64,
+                'NMS_POST_MAXSIZE': 16,
+            },
+        },
+    })
 
 
 def tiny_stability_model_cfg() -> EDict:

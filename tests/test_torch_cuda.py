@@ -14,8 +14,10 @@ points, every cluster size its rule picks. For the ball query: radii
 either way round, more slots than points, both numbers of centers a warp,
 rows that are not 16-byte aligned. At the shapes of SPSNet training: the
 stability train step's ball query, the seeded kernels at the points SPSNet
-keeps, and S-FPS against the CPU. Indices must be equal, and the min
-distances to the seeds bit for bit.
+keeps, and S-FPS against the CPU. At the shapes of PointRCNN serving:
+FPS and the ball query over 800 RoI rows with empty and padded RoIs, and
+chunked FPS; FPS at Waymo's (2, 65536) -> 16384. Indices must be equal,
+and the min distances to the seeds bit for bit.
 
 These tests need a CUDA card and skip without one. On the H100:
 
@@ -548,3 +550,74 @@ def test_sfps_on_the_card_matches_the_cpu(cuda, min_unique):
         assert torch.equal(want, base)
     elif min_unique == 0:
         assert not torch.equal(want, base)
+
+
+def _roi_rows(seed, rows, n):
+    """(rows, n, 3) pooled RoI rows as PointRCNN's RoI head gives them to
+    its SA layers: points of a box in its canonical frame; every fifth row
+    all zero (a RoI with no point), and rows that hold 1, 3, 40 or n / 2
+    distinct points, then their first point repeated (a RoI with fewer
+    points than slots), so that most distances tie."""
+    rng = np.random.default_rng(seed)
+    x = (rng.uniform(-1, 1, (rows, n, 3)) * [2.0, 0.9, 0.8]).astype(
+        np.float32)
+    few = (1, 3, 40, n // 2)
+    for r in range(rows):
+        if r % 5 == 0:
+            x[r] = 0.0
+        elif r % 5 == 1:
+            k = few[(r // 5) % len(few)]
+            x[r, k:] = x[r, 0]
+    return torch.from_numpy(x)
+
+
+@pytest.mark.parametrize('n,npoint', [(512, 128), (128, 32)])
+def test_fps_kernel_at_the_roi_shapes(cuda, n, npoint):
+    """PointRCNN's RoI SA layers: (800, 512) -> 128 and (800, 128) -> 32,
+    clusters of 2 CTAs by the rule (at N = 128, 192 of a CTA's 256 threads
+    hold no point), all-zero and padded rows where the lowest index must
+    win every tie."""
+    xyz = _roi_rows(n, 800, n).to(cuda)
+    assert sampling.fps_launch_shape(800, n)[0] == 2
+    got = farthest_point_sample_kernel(xyz, npoint)
+    torch.cuda.synchronize()
+    want = farthest_point_sample_plain(xyz, npoint)
+    assert torch.equal(got, want)
+    assert torch.equal(want[0], torch.zeros_like(want[0]))  # an empty row
+
+
+def test_fps_kernel_at_the_waymo_shape(cuda):
+    """Waymo IA-SSD's layer 0: (2, 65536) -> 16384, the kernel's largest N,
+    on scans in the Waymo range."""
+    from spsnet_torch.utils.synthetic import synthetic_scan_batch
+    xyz = torch.from_numpy(np.ascontiguousarray(synthetic_scan_batch(
+        8, 2, 65536, (-75.2, -75.2, -2.0, 75.2, 75.2, 4.0))[..., :3]))
+    xyz = xyz.to(cuda)
+    got = farthest_point_sample_kernel(xyz, 16384)
+    torch.cuda.synchronize()
+    assert torch.equal(got, farthest_point_sample_plain(xyz, 16384))
+
+
+@pytest.mark.parametrize('n,m,r', [(512, 128, 0.2), (128, 32, 0.4)])
+def test_ball_query_kernel_at_the_roi_shapes(cuda, n, m, r):
+    """The RoI SA layers' balls: 16 neighbours at r 0.2 around 128 FPS
+    picks of 512 points, at r 0.4 around 32 of 128, over 800 rows with
+    empty and padded RoIs (centers on points, many duplicates)."""
+    xyz = _roi_rows(n + 1, 800, n).to(cuda)
+    ctr = xyz.gather(1, farthest_point_sample_kernel(xyz, m)[..., None]
+                     .expand(-1, -1, 3)).contiguous()
+    got = ball_query_multi_kernel((r,), (16,), xyz, ctr)[0]
+    torch.cuda.synchronize()
+    assert torch.equal(got, ball_query_multi_plain((r,), (16,), xyz, ctr)[0])
+
+
+def test_chunked_fps_is_one_kernel_launch(cuda):
+    """Chunked FPS of (8, 16384) -> 4096 in 4 slices: one exact-FPS launch
+    over (32, 4096) -> 1024, and the CPU's plain picks."""
+    xyz = _scans(9, 8, 16384)
+    _build.reset_launches()
+    got = sampling.farthest_point_sample_chunked(xyz.to(cuda), 4096, 4)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES['fps'] == 1
+    assert torch.equal(got.cpu(),
+                       sampling.farthest_point_sample_chunked(xyz, 4096, 4))

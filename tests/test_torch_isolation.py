@@ -75,8 +75,9 @@ from spsnet_torch.runtime.trainer import (device_batch, make_eval_step,
                                           make_train_step)
 from spsnet_torch.utils.synthetic import (synthetic_scan_batch,
                                           synthetic_scene_batch)
-from spsnet_torch.zoo import (tiny_iassd_cfg, tiny_spsnet_cfg,
-                              tiny_stability_model_cfg)
+from spsnet_torch.models.detectors.detector3d import post_processing
+from spsnet_torch.zoo import (tiny_iassd_cfg, tiny_pointrcnn_cfg,
+                              tiny_spsnet_cfg, tiny_stability_model_cfg)
 model = build_detector(tiny_iassd_cfg(), 3, device='cpu')
 with torch.no_grad():
     out = model({'points': torch.from_numpy(synthetic_scan_batch(0, 1, 256))})
@@ -107,6 +108,11 @@ gen = GenerateCenter(tiny_stability_model_cfg())
 stab_loss, _ = make_stability_train_step(
     gen, build_optimizer(opt_cfg, gen.parameters(), 10, 1), 0)(
         device_batch({'points': pts, 'gt_boxes': gt}, 'cpu'))
+prcnn = build_detector(tiny_pointrcnn_cfg(), 3, device='cpu')
+with torch.no_grad():
+    prcnn_dets = post_processing(
+        prcnn({'points': torch.from_numpy(synthetic_scan_batch(0, 1, 256))}),
+        tiny_pointrcnn_cfg().POST_PROCESSING)
 print(json.dumps({
     'jax_modules': sorted(m for m in sys.modules
                           if m.split('.')[0] in ('jax', 'flax', 'optax',
@@ -115,6 +121,7 @@ print(json.dumps({
     'boxes': list(out['batch_box_preds'].shape),
     'finite_loss': bool(torch.isfinite(loss)),
     'spsnet_indices': list(dets['indices'].shape),
+    'pointrcnn_indices': list(prcnn_dets['indices'].shape),
     'finite_train_losses': bool(torch.isfinite(sps_loss))
                            and bool(torch.isfinite(stab_loss))}))
 '''
@@ -122,9 +129,9 @@ print(json.dumps({
 
 def test_import_cpu_forward_and_train_step_load_no_jax_and_build_nothing():
     """Import, an IA-SSD forward, a train step, an SPSNet eval step and
-    train step with the stability preprocess and a stability-model train
-    step, all on the CPU: no JAX module is loaded and no kernel is
-    built."""
+    train step with the stability preprocess, a stability-model train
+    step and a PointRCNN forward with its post-processing, all on the CPU:
+    no JAX module is loaded and no kernel is built."""
     env = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}
     env['PYTHONPATH'] = str(ROOT)
     res = subprocess.run([sys.executable, '-c', _CHILD], cwd=ROOT, env=env,
@@ -133,7 +140,8 @@ def test_import_cpu_forward_and_train_step_load_no_jax_and_build_nothing():
     got = json.loads(res.stdout.strip().splitlines()[-1])
     assert got == {'jax_modules': [], 'processes': 0, 'libraries': 0,
                    'boxes': [1, 16, 7], 'finite_loss': True,
-                   'spsnet_indices': [2, 16], 'finite_train_losses': True}
+                   'spsnet_indices': [2, 16], 'pointrcnn_indices': [1, 8],
+                   'finite_train_losses': True}
 
 
 def test_default_device_raises_without_cuda(monkeypatch):
@@ -179,8 +187,9 @@ def _jax_variables(kind):
             {'params': key, 'latent': key}, {'points': pts}, train=True))(
                 jax.random.PRNGKey(0), points)
     else:
-        cfg = jax_zoo.tiny_iassd_cfg() if kind == 'iassd' else \
-            jax_zoo.tiny_spsnet_cfg()
+        cfg = {'iassd': jax_zoo.tiny_iassd_cfg,
+               'spsnet': jax_zoo.tiny_spsnet_cfg,
+               'pointrcnn': jax_zoo.tiny_pointrcnn_cfg}[kind]()
         batch = {'points': points}
         if kind == 'spsnet':
             batch['stds'] = np.linspace(0.5, 9.0, 256,
@@ -199,7 +208,22 @@ BRIDGES = {
                                       device='cpu'), flax_to_torch),
     'generator': (lambda: GenerateCenter(zoo.tiny_stability_model_cfg()),
                   generator_flax_to_torch),
+    'pointrcnn': (lambda: build_detector(zoo.tiny_pointrcnn_cfg(), 3,
+                                         device='cpu'), flax_to_torch),
 }
+# PointRCNN's trees: (flax module path, torch module name) of a Dense that
+# each new mapping rule places (the FP decoder, the point head, the no-BN
+# xyz-up MLP, the RoI SA layers and the towers behind their Dropout)
+POINTRCNN_DENSES = [
+    (('backbone_3d', 'fp_0', 'mlp', 'Dense_1'), 'backbone_3d.FP_modules.0.mlp.3'),
+    (('point_head', 'box_layers', 'Dense_0'), 'point_head.box_layers.3'),
+    (('roi_head', 'xyz_up', 'Dense_1'), 'roi_head.xyz_up_layer.2'),
+    (('roi_head', 'merge', 'Dense_0'), 'roi_head.merge_down_layer.0'),
+    (('roi_head', 'sa_2', 'mlp_0', 'Dense_1'), 'roi_head.SA_modules.2.mlps.0.3'),
+    (('roi_head', 'cls_layers', 'Dense_0'), 'roi_head.cls_layers.4'),
+    (('roi_head', 'reg_layers', 'SharedMLP_0', 'Dense_0'),
+     'roi_head.reg_layers.0'),
+]
 
 
 @pytest.fixture(scope='module')
@@ -238,6 +262,17 @@ def _maps_every_key(kind, variables):
             'layer_1']['Dense_0']['kernel']
         w = model.backbone_3d.SF_extract.convs[1].layers[0].linear.weight
         np.testing.assert_array_equal(w.detach().numpy(), k.T)
+    if kind == 'pointrcnn':
+        for path, name in POINTRCNN_DENSES:
+            tree = variables['params']
+            for key in path:
+                tree = tree[key]
+            lin = model.get_submodule(name)
+            np.testing.assert_array_equal(lin.weight.detach().numpy(),
+                                          tree['kernel'].T, err_msg=name)
+            if 'bias' in tree:
+                np.testing.assert_array_equal(lin.bias.detach().numpy(),
+                                              tree['bias'], err_msg=name)
 
 
 def _module_tree(kind, variables):
@@ -279,6 +314,12 @@ def test_flax_to_torch_maps_every_key_of_the_spsnet_trees(variables_of,
     _maps_every_key(kind, variables_of(kind))
 
 
+def test_flax_to_torch_maps_every_key_of_the_pointrcnn_tree(variables_of):
+    """The same for PointRCNN (PointNet2MSG with its FP decoder, the point
+    head, the RoI head): every leaf lands where its rule places it."""
+    _maps_every_key('pointrcnn', variables_of('pointrcnn'))
+
+
 WHERE = ['flax_leaf', 'flax_module', 'collection']
 
 
@@ -294,6 +335,22 @@ def test_spsnet_trees_raise_on_unmapped_flax_keys(variables_of, kind,
     _raises_on_unmapped(kind, variables_of(kind), where)
 
 
+@pytest.mark.parametrize('where', WHERE + ['roi_head_module'])
+def test_pointrcnn_tree_raises_on_unmapped_flax_keys(variables_of, where):
+    variables = variables_of('pointrcnn')
+    if where == 'roi_head_module':
+        variables['params']['roi_head']['fc_extra'] = {
+            'Dense_0': {'kernel': np.ones((3, 3), np.float32)}}
+        with pytest.raises(KeyError, match='unmapped'):
+            flax_to_torch(variables)
+    else:
+        _raises_on_unmapped('pointrcnn', variables, where)
+
+
+def test_pointrcnn_tree_raises_on_a_port_key_left_unfilled(variables_of):
+    _raises_on_unfilled('pointrcnn', variables_of('pointrcnn'))
+
+
 def test_load_flax_raises_on_a_port_key_left_unfilled(variables_of):
     _raises_on_unfilled('iassd', variables_of('iassd'))
 
@@ -304,14 +361,20 @@ def test_spsnet_trees_raise_on_a_port_key_left_unfilled(variables_of, kind):
 
 
 @pytest.mark.parametrize('name', ['tiny', 'iassd_kitti', 'iassd_kitti_scaled',
-                                  'tiny_spsnet', 'spsnet_kitti'])
+                                  'tiny_spsnet', 'spsnet_kitti',
+                                  'tiny_pointrcnn', 'pointrcnn_kitti'])
 def test_config_copies_match_the_jax_package(name):
     """The port's own config loader and zoo give the JAX package's configs
-    (``_BASE_CONFIG_`` resolution included for IA-SSD.yaml and
-    SPSNet.yaml)."""
+    (``_BASE_CONFIG_`` resolution included for IA-SSD.yaml, SPSNet.yaml
+    and pointrcnn.yaml)."""
     def build(z):
         if name == 'tiny':
             return z.tiny_iassd_cfg()
+        if name == 'tiny_pointrcnn':
+            return z.tiny_pointrcnn_cfg()
+        if name == 'pointrcnn_kitti':
+            return z.pointrcnn_kitti_cfg() if z is zoo else \
+                z.load_yaml_cfg('tools/cfgs/kitti_models/pointrcnn.yaml')
         if name == 'iassd_kitti':
             return z.iassd_kitti_cfg()
         if name == 'tiny_spsnet':
