@@ -125,7 +125,35 @@ Phases, in order; any failure raises and the exit code is not 0:
     launches a forward, their layer-0 FPS ((2, 65536) -> 16384, the FPS
     kernel's largest N, and (2, 20480) -> 8192) and ball queries held to
     the plain versions;
-24. one JSON line per kernel set, then the result line.
+24. the PointRCNN train path: pointrcnn.yaml at full width with the
+    weights of phase 19 (seed 0, the point-box output at 1e-2) in train
+    mode takes a warm-up and ten ``adam_onecycle`` steps of 2 x 16384-point
+    synthetic scenes with gt boxes through ``make_train_step`` (proposal
+    NMS at pre 9000 / post 512 / 0.8, 128 sampled RoIs a scene with their
+    draws from the step's CPU generator, 512 pooled points a RoI, both
+    stages' losses); losses and gradients finite, every parameter moves,
+    six FPS and six ball-query launches a step and no other kernel; each
+    step's grad norm, proposal-NMS time, fg / hard / easy RoIs and the
+    share of RoIs with a pooled point; the share of the point head's
+    box-layer gradient that comes through the RoIs, at the seed weights;
+25. FPS and the ball query vs their plain versions at the train step's
+    shapes: the backbone at (2, 16384) -> 4096 -> 1024 -> 256 -> 64 and
+    the RoI layers over 256 rows, (256, 512) -> 128 and (256, 128) -> 32;
+26. one PointRCNN train step on one scene on the card and on the CPU with
+    the same weights and RoI draws: the backbone's FPS, ball-query and
+    three-NN indices identical; the RoI layers' picks identical or, where
+    their inputs (the RoIs' frames) differ by rounding, an FPS and a ball
+    query of the CPU's points within that rounding, then replayed; the
+    proposal NMS as phase 21 holds it; the RoIs' max IoUs, replayed where
+    they lie within 1e-5 of a sampling threshold; sampled RoI indices
+    identical; loss terms, gradients and parameters as phase 8 holds them;
+27. ``proposal_target_layer`` and ``pointrcnn_head_loss`` card vs CPU on
+    RoIs made by jittering gt boxes, so that the regression and corner
+    terms are not zero (random-weight proposals seldom reach IoU 0.55),
+    and which of the two carried those terms;
+28. a CUDA-kernel breakdown of one PointRCNN train step, its proposal
+    NMS's time, launches and share of the step;
+29. one JSON line per kernel set, then the result line.
 
 The K5 shapes are (8, 16384) -> 4096, (8, 15884) -> 4096 (SPSNet's layer
 0), (1, 16384) -> 4096 and (32, 4096) -> 1024. Phase 3 also holds FPS and
@@ -213,6 +241,9 @@ STAB_TRAIN_LAUNCHES = {'fps': 0, 'fps_seeded': 0, 'seed_min': 0,
 # the backbone's four SA layers and the RoI head's two D-FPS layers (its
 # third groups all points)
 PRCNN_LAUNCHES = {'fps': 6, 'ball_query': 6}
+# PointRCNN training (pointrcnn.yaml): BATCH_SIZE_PER_GPU scenes a step, a
+# warm-up and the timed steps
+PRCNN_TRAIN_B, PRCNN_TRAIN_STEPS = 2, 10
 # card vs CPU NMS over the same boxes: IoUs within this of the threshold
 # may decide either way (cos and sin of the two devices may differ by an
 # ulp, ~1e-7 relative in an IoU)
@@ -1366,19 +1397,22 @@ def _roi_levels(model, out):
     return levels, empty, padded
 
 
-def pointrcnn_shapes_phase(model, points):
-    """K1 and K2 vs their plain versions at the shapes a PointRCNN request
-    gives them, on the inputs the card's forward produces: FPS at the
-    backbone's layers 1-3 ((8, 4096) -> 1024, (8, 1024) -> 256, (8, 256)
-    -> 64; layer 0 is phase 3's call) and the RoI head's (800, 512) -> 128
-    and (800, 128) -> 32 over rows with empty and padded RoIs; the fused
-    MSG ball query at the four backbone layers and the RoI head's two, with
-    event times, device time a call, bounds and launch shapes. Returns
-    {'fps': [...], 'ball_query': [...], 'errs': {...}}."""
+def pointrcnn_shapes_phase(model, batch, first_layer=1):
+    """K1 and K2 vs their plain versions at the shapes a PointRCNN forward
+    of ``batch`` (a request's points, or a train batch with its 'rngs' and
+    the model in train mode) gives them, on the inputs the card's forward
+    produces: FPS at the backbone's layers from ``first_layer`` on
+    (serving, 1-3: (8, 4096) -> 1024, (8, 1024) -> 256, (8, 256) -> 64;
+    layer 0 is phase 3's call) and at the RoI head's two layers over its
+    rows, with empty and padded RoIs ((800, 512) -> 128 and (800, 128) ->
+    32 serving); the fused MSG ball query at the four backbone layers and
+    the RoI head's two, with event times, device time a call, bounds and
+    launch shapes. Returns {'fps': [...], 'ball_query': [...], 'errs':
+    {...}}."""
     from spsnet_torch.ops import sampling as smp
     from spsnet_torch.ops.grouping import ball_query_multi_kernel
     with torch.no_grad():
-        out = model({'points': points})
+        out = model(batch if isinstance(batch, dict) else {'points': batch})
     res = {'fps': [], 'ball_query': [], 'errs': {'fps': 0.0,
                                                   'ball_query': 0.0}}
     roi, empty, padded = _roi_levels(model, out)
@@ -1387,7 +1421,7 @@ def pointrcnn_shapes_phase(model, points):
         f'more with fewer points than {roi[0].shape[1]} slots')
     bb = model.backbone_3d
     fps_inputs = [(f'backbone layer {k}', out['sa_xyz'][k], m.npoint)
-                  for k, m in enumerate(bb.SA_modules) if k > 0]
+                  for k, m in enumerate(bb.SA_modules) if k >= first_layer]
     fps_inputs += [(f'RoI layer {k}', roi[k], m.npoint)
                    for k, m in enumerate(model.roi_head.SA_modules)
                    if m.npoint is not None]
@@ -1687,6 +1721,576 @@ def pointrcnn_cpu_phase(model, cfg, scene):
         f'{int(empty_g.sum())} of {empty_g.shape[1]} RoIs empty')
 
 
+def build_pointrcnn_trainer(device):
+    """pointrcnn.yaml in train mode as ``build_pointrcnn`` makes it (seed-0
+    weights, the point-box output at 1e-2), its adam_onecycle optimizer
+    over the KITTI schedule and ``make_train_step``: (model, optimizer,
+    step)."""
+    from spsnet_torch.runtime.trainer import make_train_step
+    cfg, model = build_pointrcnn(device)
+    model.train()
+    optimizer = _kitti_optimizer(cfg.OPTIMIZATION, model.parameters())
+    return model, optimizer, make_train_step(model, optimizer)
+
+
+@contextlib.contextmanager
+def roi_head_outputs(model):
+    """The RoI head's output batch of each forward while open (a forward
+    hook; no compute)."""
+    outs = []
+    handle = model.roi_head.register_forward_hook(
+        lambda module, args, out: outs.append(out))
+    try:
+        yield outs
+    finally:
+        handle.remove()
+
+
+def roi_stats(model, out, cfg):
+    """The sampled RoIs of a train forward's RoI-head output: how many are
+    foreground (IoU >= min(REG_FG_THRESH, CLS_FG_THRESH)), hard (CLS_BG_
+    THRESH_LO <= IoU < REG_FG_THRESH) and easy background, how many carry
+    regression targets (IoU > REG_FG_THRESH), and the share of them with
+    at least one pooled point."""
+    t = out['roi_head_ret']['targets']
+    iou = t.gt_iou_of_rois
+    fg_t = min(float(cfg.REG_FG_THRESH), float(cfg.CLS_FG_THRESH))
+    lo = float(cfg.CLS_BG_THRESH_LO)
+    with torch.no_grad():
+        empty = model.roi_head.pool(out, out['rois'])[1]
+    return {'fg': int((iou >= fg_t).sum()),
+            'hard': int(((iou >= lo) & (iou < float(cfg.REG_FG_THRESH)))
+                        .sum()),
+            'easy': int((iou < lo).sum()),
+            'reg_valid': int(t.reg_valid_mask.sum()),
+            'pooled_share': float((~empty).float().mean())}
+
+
+def pointrcnn_train_path(batches, smi):
+    """Phase 24: PointRCNN training at full width, a warm-up step and the
+    timed steps (``train_path``: finite losses and gradients, six FPS and
+    six ball-query launches a step, every parameter moves), each step's
+    grad norm before the clip, proposal-NMS time and sampled RoIs. Returns
+    its record, the model and its step."""
+    from spsnet_torch.ops import _build
+    model, opt, step = build_pointrcnn_trainer('cuda')
+    tcfg = model.model_cfg.ROI_HEAD.TARGET_CONFIG
+    log('  the point head\'s box output layer at 1e-2 of its seed-0 weights '
+        '(as phase 19), so that the proposals land on their points')
+    step(batches[0])
+    torch.cuda.synchronize()
+    stats, norms = [], []
+
+    def after_step():
+        norms.append(float(opt.grad_norm))
+        stats.append(roi_stats(model, outs.pop(), tcfg))
+        log(f'    grad norm {norms[-1]:.4f} (clip 10); RoIs {stats[-1]}')
+    with roi_head_outputs(model) as outs, \
+            timed_calls(model.roi_head, 'proposal_layer') as nms_calls:
+        times, launches = train_path(
+            model, step, batches[1:],
+            {**{k: 0 for k in _build.LAUNCHES}, **PRCNN_LAUNCHES},
+            after_step)
+    nms = range_ms(nms_calls)
+    ms = statistics.median(times)
+    log(f'  launches over {len(times)} train steps: {launches}')
+    log(f'  ms/train step (B={PRCNN_TRAIN_B}, N={N}, backbone + point head '
+        f'+ proposal NMS (pre 9000, post 512) + RoI sampling + pooling + RoI '
+        f'head + both losses + backward + adam_onecycle): median {ms:.3f}, '
+        f'range {min(times):.3f}-{max(times):.3f}, all '
+        f'{[round(t, 3) for t in times]}; steps/s {1e3 / ms:.3f} on {smi}')
+    share = [host / total for (host, _), total in zip(nms, times)]
+    log(f'  proposal NMS a step: host ms {[round(h, 3) for h, _ in nms]}; '
+        f'share of the step {min(share):.3f}-{max(share):.3f}')
+    fg = [s['fg'] for s in stats]
+    log(f'  RoIs a step of {PRCNN_TRAIN_B * int(tcfg.ROI_PER_IMAGE)}: fg '
+        f'{min(fg)}-{max(fg)}, with regression targets '
+        f'{max(s["reg_valid"] for s in stats)} at most, pooled share '
+        f'{min(s["pooled_share"] for s in stats):.4f}-'
+        f'{max(s["pooled_share"] for s in stats):.4f}')
+    return {'ms': ms, 'all_ms': times, 'launches': launches,
+            'grad_norms': norms, 'roi_stats': stats,
+            'nms_host_ms': [h for h, _ in nms], 'nms_share': share}, \
+        model, step
+
+
+def _rounding_slack(d2, e):
+    """How far a squared distance d2 between two points may move when
+    each coordinate of both moves by at most e: |d| moves by up to
+    2 sqrt(3) e = s, d2 by 2 |d| s + s^2."""
+    s = 2 * 3 ** 0.5 * e
+    return 2 * d2.clamp(min=0).sqrt() * s + s * s
+
+
+def fps_within(xyz, picks, e):
+    """Largest ratio, over the steps of every row, of how far the picks'
+    minimum distance falls short of the farthest point's to the rounding
+    slack ``_rounding_slack`` of inputs ``e`` apart: at most 1 when
+    ``picks`` (R, M) is an FPS of (R, N, 3) ``xyz`` up to that rounding."""
+    x = xyz.double()
+    if not (picks[:, 0] == 0).all():
+        return float('inf')
+    mind = torch.full(x.shape[:2], float('inf'), dtype=torch.float64)
+    worst = 0.0
+    for i in range(1, picks.shape[1]):
+        last = x.gather(1, picks[:, i - 1, None, None].expand(-1, 1, 3))
+        mind = torch.minimum(mind, ((x - last) ** 2).sum(-1))
+        best = mind.amax(-1)
+        short = best - mind.gather(1, picks[:, i, None])[:, 0]
+        worst = max(worst, float((short / _rounding_slack(best, e)).max()))
+    return worst
+
+
+def ball_within(xyz, ctr, radius, card, own, e):
+    """Largest ratio, over the (row, center) lists where the card's
+    first-k ball ``card`` differs from ``own``, of how far the first point
+    in one list and not the other lies from the sphere to the rounding
+    slack of inputs ``e`` apart (0 when none differ)."""
+    rows, cols = (card != own).any(-1).nonzero(as_tuple=True)
+    worst = 0.0
+    for r, c in zip(rows.tolist(), cols.tolist()):
+        p = min(set(card[r, c].tolist()) ^ set(own[r, c].tolist()))
+        d2 = ((xyz[r, p].double() - ctr[r, c].double()) ** 2).sum()
+        worst = max(worst, float((d2 - radius ** 2).abs() /
+                                 _rounding_slack(d2, e)))
+    return worst
+
+
+def pool_within(points, rois, ref_rois, extra, card, own):
+    """Largest ratio, over the RoIs whose pooled point lists ``card`` and
+    ``own`` (B, R, S) differ, of how far the first point in one list and
+    not the other lies from the nearest face of its RoI (enlarged by
+    ``extra``, in this run's frame) to the slack by which the RoI moved
+    against ``ref_rois``: its center by |dc|, its size by |ds| and its
+    heading by |dh| move a point r from the center by up to sqrt(3) |dc|
+    + |ds| / 2 + r |dh| along an axis (0 when none differ)."""
+    from spsnet_torch.utils import box_utils
+    ext = box_utils.enlarge_box3d(rois, extra)
+    d = (rois - ref_rois).abs()
+    worst = 0.0
+    for b, r in zip(*(card != own).any(-1).nonzero(as_tuple=True)):
+        b, r = int(b), int(r)
+        p = min(set(card[b, r].tolist()) ^ set(own[b, r].tolist()))
+        box = ext[b, r]
+        local = box_utils.points_to_box_local(points[b, p][None, None],
+                                              box[None, None])[0, 0, 0]
+        face = float((local.abs() - box[3:6] / 2).abs().min())
+        dist = float((points[b, p] - box[:3]).norm())
+        slack = 3 ** 0.5 * float(d[b, r, :3].max()) + \
+            float(d[b, r, 3:6].max()) / 2 + dist * float(d[b, r, 6]) + 1e-5
+        worst = max(worst, face / slack)
+    return worst
+
+
+class PrcnnDecisions:
+    """The discrete decisions of a PointRCNN train step, in call order: the
+    FPS picks and ball-query indices of the six SA layers, the three-NN of
+    the four FP layers, the proposal NMS's keep list, each RoI's best IoU
+    and gt (the sampling's input), the sampled RoIs and the points each
+    sampled RoI pools. ``mode`` 'record'
+    (the card) keeps them with their inputs; 'check' (the CPU) holds each
+    to ``ref``'s, a recorded run: equal where the inputs are equal, else
+    within the rounding of inputs that far apart (FPS, ball query: the
+    inputs of the RoI layers come from the RoIs; the pooling: the RoIs
+    themselves), a greedy NMS of this
+    run's IoUs within NMS_IOU_TOL (``nms_agrees``), IoUs within
+    NMS_IOU_TOL where they lie that close to a sampling threshold; then it
+    goes on from ``ref``'s. 'replay' (the jittered CPU baseline) takes
+    ``ref``'s without a check. ``used`` keeps what the run went on from."""
+
+    def __init__(self, mode, ref=None, thresholds=()):
+        self.mode, self.ref, self.thresholds = mode, ref, thresholds
+        self.used = {k: [] for k in ('fps', 'ball', 'three_nn', 'nms',
+                                     'max_iou', 'sampled', 'pool')}
+        self.inputs = {'fps': [], 'ball': [], 'pool': [], 'max_iou': []}
+        self.notes = []
+        self.differ = {'fps': 0, 'ball': 0, 'pool': 0}
+
+    def _ref(self, kind):
+        return self.ref.used[kind][len(self.used[kind])]
+
+    def _inputs_apart(self, kind, *tensors):
+        ref = self.ref.inputs[kind][len(self.used[kind])]
+        return max(float((a.cpu() - b.cpu()).abs().max())
+                   for a, b in zip(ref, tensors))
+
+    def fps(self, real, xyz, npoint, *args, **kwargs):
+        own = real(xyz, npoint, *args, **kwargs)
+        if self.mode == 'record':
+            self.inputs['fps'].append((xyz.detach().cpu(),))
+            return self._use('fps', own)
+        want = self._ref('fps').to(own.device)
+        if self.mode == 'check' and not torch.equal(own, want):
+            self.differ['fps'] += 1
+            e = self._inputs_apart('fps', xyz)
+            ratio = fps_within(xyz.detach().cpu(), want.cpu(), e) if e > 0 \
+                else float('inf')
+            rows = int((own != want).any(-1).sum())
+            self.notes.append(f'FPS call {len(self.used["fps"])} '
+                              f'{tuple(own.shape)}: {rows} rows differ; '
+                              f'inputs {e:.3e} apart; the card\'s picks an '
+                              f'FPS of the CPU\'s points within {ratio:.3f} '
+                              'of the rounding slack')
+            if ratio > 1:
+                raise AssertionError(self.notes[-1])
+        return self._use('fps', want)
+
+    def ball(self, real, radii, nsamples, xyz, new_xyz):
+        own = real(radii, nsamples, xyz, new_xyz)
+        if self.mode == 'record':
+            self.inputs['ball'].append((xyz.detach().cpu(),
+                                        new_xyz.detach().cpu()))
+            return self._use('ball', own)
+        want = tuple(w.to(o.device) for w, o in zip(self._ref('ball'), own))
+        if self.mode == 'check' and not all(
+                torch.equal(o, w) for o, w in zip(own, want)):
+            self.differ['ball'] += 1
+            e = self._inputs_apart('ball', xyz, new_xyz)
+            ratio = max(ball_within(xyz.detach().cpu(), new_xyz.detach().cpu(),
+                                    r, w.cpu(), o.cpu(), e)
+                        for r, w, o in zip(radii, want, own)) if e > 0 \
+                else float('inf')
+            self.notes.append(f'ball query call {len(self.used["ball"])}: '
+                              f'inputs {e:.3e} apart; each differing list '
+                              f'within {ratio:.3f} of the rounding slack')
+            if ratio > 1:
+                raise AssertionError(self.notes[-1])
+        return self._use('ball', want)
+
+    def three_nn(self, real, unknown, known):
+        own = real(unknown, known)
+        if self.mode == 'record':
+            return self._use('three_nn', own)
+        want = tuple(w.to(o.device) for w, o in zip(self._ref('three_nn'),
+                                                    own))
+        if self.mode == 'check':
+            for o, w, what in zip(own, want, ('squared distances', 'indices')):
+                if not torch.equal(o, w):
+                    raise AssertionError(f'card vs CPU three-NN {what} of FP '
+                                         f'call {len(self.used["three_nn"])}')
+        return self._use('three_nn', want)
+
+    def nms(self, real, boxes, scores, thresh, pre_maxsize=4096,
+            post_maxsize=500, valid=None):
+        own = real(boxes, scores, thresh, pre_maxsize=pre_maxsize,
+                   post_maxsize=post_maxsize, valid=valid)
+        if self.mode == 'record':
+            return self._use('nms', own)
+        want = tuple(w.to(o.device) for w, o in zip(self._ref('nms'), own))
+        if self.mode == 'check':
+            # nms_agrees takes the package's nms_bev: the real one
+            import spsnet_torch.ops as ops_pkg
+            hooked, ops_pkg.nms_bev = ops_pkg.nms_bev, real
+            try:
+                nms_agrees(want[0], boxes.detach(), scores.detach(), valid,
+                           thresh, pre_maxsize, post_maxsize,
+                           'proposal NMS (train) indices')
+            finally:
+                ops_pkg.nms_bev = hooked
+        return self._use('nms', want)
+
+    def max_iou(self, real, rois, labels, gt):
+        own = real(rois, labels, gt)
+        if self.mode == 'record':
+            self.inputs['max_iou'].append(rois.detach().cpu())
+            return self._use('max_iou', own)
+        ref_iou, ref_idx = (t.detach().to(own[0].device)
+                            for t in self._ref('max_iou'))
+        ref_rois = self.ref.inputs['max_iou'][len(self.used['max_iou'])]
+        self.inputs['max_iou'].append(rois.detach().cpu())
+        apart = (rois.detach().cpu() - ref_rois).abs().flatten(0, -2).amax(0)
+        self.notes.append(f'RoIs (the proposals), {self.mode} run against '
+                          'its reference, largest difference of x, y, z, '
+                          'dx, dy, dz, heading: ' +
+                          ', '.join(f'{float(v):.3e}' for v in apart))
+        if self.mode == 'replay':
+            return self._use('max_iou', (ref_iou, ref_idx))
+        iou, idx = own
+        diff = (iou.detach() - ref_iou).abs()
+        near = torch.zeros_like(diff, dtype=torch.bool)
+        for t in self.thresholds:
+            near |= (iou.detach() - t).abs() <= NMS_IOU_TOL
+        if (diff[near] > NMS_IOU_TOL).any() or not torch.equal(
+                idx[iou > 0], ref_idx[iou > 0]):
+            raise AssertionError('card vs CPU RoI max IoU: a gt differs, or '
+                                 'an IoU near a threshold moved more than '
+                                 f'{NMS_IOU_TOL}')
+        replaced = near & (diff > 0)
+        self.notes.append(
+            f'RoI max IoU: largest card vs CPU difference '
+            f'{float(diff.max()):.3e}; {int(near.sum())} within '
+            f'{NMS_IOU_TOL} of a threshold {self.thresholds}, '
+            f'{int(replaced.sum())} of them take the card\'s value')
+        mixed = torch.where(near, ref_iou, iou.detach())
+        return self._use('max_iou', (iou + (mixed - iou).detach(), idx))
+
+    def pool(self, real, points, rois, num_sampled_points, extra):
+        own = real(points, rois, num_sampled_points, extra)
+        if self.mode == 'record':
+            self.inputs['pool'].append((points.detach().cpu(),
+                                        rois.detach().cpu()))
+            return self._use('pool', own)
+        want = tuple(w.to(o.device) for w, o in zip(self._ref('pool'), own))
+        if self.mode == 'check' and not all(
+                torch.equal(o, w) for o, w in zip(own, want)):
+            self.differ['pool'] += 1
+            ref_points, ref_rois = self.ref.inputs['pool'][len(
+                self.used['pool'])]
+            ratio = pool_within(points.detach().cpu(), rois.detach().cpu(),
+                                ref_rois, extra, want[0].cpu(), own[0].cpu())
+            self.notes.append(
+                f'RoI pooling: {int((own[0] != want[0]).any(-1).sum())} of '
+                f'{own[0].shape[0] * own[0].shape[1]} RoIs pool other '
+                f'points; each first such point within {ratio:.3f} of the '
+                'rounding slack of a face')
+            if ratio > 1:
+                raise AssertionError(self.notes[-1])
+        return self._use('pool', want)
+
+    def sampled(self, real, *args, **kwargs):
+        return self._use('sampled', real(*args, **kwargs))
+
+    def _use(self, kind, value):
+        self.used[kind].append(value)
+        return value
+
+
+@contextlib.contextmanager
+def prcnn_decisions(decisions):
+    """Route the decision points of a PointRCNN train step through
+    ``decisions`` (``PrcnnDecisions``) while open."""
+    import spsnet_torch.ops as ops_pkg
+    from spsnet_torch.models import sa_module
+    from spsnet_torch.models.roi_heads import roi_utils
+    hooks = [(ops_pkg, 'farthest_point_sample', decisions.fps),
+             (ops_pkg, 'ball_query_multi', decisions.ball),
+             (sa_module, 'three_nn', decisions.three_nn),
+             (ops_pkg, 'nms_bev', decisions.nms),
+             (roi_utils, 'max_iou_with_same_class', decisions.max_iou),
+             (roi_utils, 'roi_point_indices', decisions.pool),
+             (roi_utils, 'subsample_rois', decisions.sampled)]
+    saved = [(owner, name, getattr(owner, name)) for owner, name, _ in hooks]
+    for (owner, name, hook), (_, _, real) in zip(hooks, saved):
+        setattr(owner, name,
+                lambda *a, _h=hook, _r=real, **k: _h(_r, *a, **k))
+    try:
+        yield decisions
+    finally:
+        for owner, name, real in saved:
+            setattr(owner, name, real)
+
+
+def _grad_rel_l2(a, b, prefix):
+    """Relative L2 of model ``a``'s gradients against model ``b``'s (on
+    the CPU) over the parameters under ``prefix``."""
+    ga, gb = ([p.grad.detach().cpu().double().flatten()
+               for n, p in m.named_parameters() if n.startswith(prefix)]
+              for m in (a, b))
+    ga, gb = torch.cat(ga), torch.cat(gb)
+    return float((ga - gb).norm() / gb.norm())
+
+
+def _bn_stats_rel_l2(a, b):
+    """Relative L2 of model ``a``'s BatchNorm running means and variances
+    against model ``b``'s (on the CPU)."""
+    sa, sb = ([t.detach().cpu().double().flatten()
+               for n, t in m.named_buffers()
+               if n.endswith(('running_mean', 'running_var'))]
+              for m in (a, b))
+    sa, sb = torch.cat(sa), torch.cat(sb)
+    return float((sa - sb).norm() / sb.norm())
+
+
+def pointrcnn_train_cpu_phase(batch):
+    """Phase 26: one PointRCNN train step on one scene (``batch``, on the
+    CPU) on the card and on the CPU from the same weights and the same RoI
+    draws (the step's CPU generator), and on the CPU from weights jittered
+    by WEIGHT_JITTER. Every decision the CPU makes is held to the card's
+    (``PrcnnDecisions``) and the CPU goes on from the card's; the jittered
+    run replays the CPU's. Then the loss terms, the gradients and the
+    updated parameters as ``train_cpu_phase`` holds them, and the BN
+    running statistics to TRAIN_GRAD_FACTOR times the baseline's relative
+    L2 (the RoI towers normalise 128 RoIs, whose features move with the
+    RoIs' frames). Returns the card's and the baseline's differences and
+    the notes."""
+    from spsnet_torch.zoo import pointrcnn_kitti_cfg
+    tcfg = pointrcnn_kitti_cfg().MODEL.ROI_HEAD.TARGET_CONFIG
+    thresholds = tuple(float(tcfg[k]) for k in (
+        'CLS_BG_THRESH_LO', 'CLS_BG_THRESH', 'REG_FG_THRESH',
+        'CLS_FG_THRESH'))
+    gpu, _, gpu_step = build_pointrcnn_trainer('cuda')
+    cpu, cpu_opt, cpu_step = build_pointrcnn_trainer('cpu')
+    jit, _, jit_step = build_pointrcnn_trainer('cpu')
+    cpu.load_state_dict(gpu.state_dict())
+    jit.load_state_dict(gpu.state_dict())
+    gen = torch.Generator().manual_seed(5)
+    with torch.no_grad():
+        for p in jit.parameters():
+            p.mul_(1 + WEIGHT_JITTER * torch.randn(p.shape, generator=gen))
+    card = PrcnnDecisions('record')
+    with prcnn_decisions(card):
+        gpu_loss, gpu_tb = gpu_step({k: v.cuda() for k, v in batch.items()})
+    own = PrcnnDecisions('check', card, thresholds)
+    with prcnn_decisions(own):
+        cpu_loss, cpu_tb = cpu_step(batch)
+    jittered = PrcnnDecisions('replay', own)
+    with prcnn_decisions(jittered):
+        jit_step(batch)
+    for note in own.notes + jittered.notes:
+        log(f'  {note}')
+    n_fps, n_ball = len(card.used['fps']), len(card.used['ball'])
+    log(f'  card vs CPU: {n_fps - own.differ["fps"]} of {n_fps} FPS and '
+        f'{n_ball - own.differ["ball"]} of {n_ball} ball-query calls '
+        f'identical (the others as the notes above say), '
+        f'{len(card.used["three_nn"])} three-NN calls identical, bit for '
+        'bit')
+    if n_fps != 6 or n_ball != 6 or len(card.used['three_nn']) != 4:
+        raise AssertionError('want 6 FPS, 6 ball-query and 4 three-NN calls '
+                             'a PointRCNN train step')
+    for k, (g, c) in enumerate(zip(card.used['sampled'],
+                                   own.used['sampled'])):
+        require_equal(g, c, f'card vs CPU train step: sampled RoI indices '
+                            f'{tuple(g.shape)}')
+    worst = {}
+    for key in ('loss', *sorted(gpu_tb)):
+        g = float(gpu_loss if key == 'loss' else gpu_tb[key])
+        c = float(cpu_loss if key == 'loss' else cpu_tb[key])
+        worst[key] = abs(g - c) / max(abs(c), 1e-12)
+        if worst[key] > TRAIN_LOSS_RTOL:
+            raise AssertionError(f'card vs CPU {key}: {g} vs {c}')
+    log(f'  card vs CPU loss terms {sorted(gpu_tb)}: largest relative '
+        f'difference {max(worst.values()):.3e} ({max(worst, key=worst.get)};'
+        f' tolerance {TRAIN_LOSS_RTOL}); card {float(gpu_loss):.6f}, CPU '
+        f'{float(cpu_loss):.6f}')
+    lr = cpu_opt.lr_fn(0)
+    diff = _step_difference(gpu, cpu, lr)
+    base = _step_difference(jit, cpu, lr)
+    log(f'  card vs CPU after the step: {diff}')
+    log(f'  CPU with weights x (1 + {WEIGHT_JITTER} N(0, 1)) vs CPU: {base}')
+    if diff['grad_rel_l2'] > TRAIN_GRAD_FACTOR * base['grad_rel_l2'] or \
+            diff['param_beyond'] > TRAIN_GRAD_FACTOR * base['param_beyond'] \
+            or diff['param_max'] > 2 * lr * (1 + 1e-3):
+        raise AssertionError(f'card vs CPU train step beyond '
+                             f'{TRAIN_GRAD_FACTOR} x the weight-jitter '
+                             'baseline')
+    log(f'  card vs CPU gradients and parameters: within '
+        f'{TRAIN_GRAD_FACTOR} x the baseline, no entry beyond 2 lr')
+    by_module = {}
+    for part in ('backbone_3d', 'point_head', 'roi_head'):
+        by_module[part] = [_grad_rel_l2(a, cpu, part) for a in (gpu, jit)]
+    log('  gradient relative L2 by module, card vs CPU and baseline: ' +
+        ', '.join(f'{k} {v[0]:.4f} / {v[1]:.4f}'
+                  for k, v in by_module.items()))
+    stats = [_bn_stats_rel_l2(a, cpu) for a in (gpu, jit)]
+    log(f'  BN running stats, relative L2: card vs CPU {stats[0]:.3e}, '
+        f'baseline {stats[1]:.3e}')
+    if stats[0] > TRAIN_GRAD_FACTOR * stats[1]:
+        raise AssertionError(f'card vs CPU BN running stats beyond '
+                             f'{TRAIN_GRAD_FACTOR} x the baseline')
+    return {'card': diff, 'baseline': base, 'notes': own.notes,
+            'by_module': by_module, 'bn_stats': stats,
+            'differ': own.differ, 'loss_rel': worst}
+
+
+def roi_target_loss_phase(fg_in_step):
+    """Phase 27: ``proposal_target_layer`` and ``pointrcnn_head_loss`` on
+    the card and on the CPU, on RoIs made by jittering the gt boxes of two
+    scenes (so that the regression and corner terms are not zero) with
+    the same draws: sampled indices identical, targets within PRED_ATOL /
+    PRED_RTOL, every loss term non-zero and within TRAIN_LOSS_RTOL.
+    ``fg_in_step``: the RoIs with regression targets in the train path's
+    steps, which says whether those terms were already non-zero there."""
+    from spsnet_torch.models.roi_heads.pointrcnn_head import \
+        pointrcnn_head_loss
+    from spsnet_torch.models.roi_heads.roi_utils import (
+        draw_roi_sampling, proposal_target_layer)
+    from spsnet_torch.utils.synthetic import synthetic_scene_batch
+    cfg, model = build_pointrcnn('cpu')
+    head, roi_head = cfg.MODEL.ROI_HEAD, model.roi_head
+    tcfg = head.TARGET_CONFIG
+    _, gt = synthetic_scene_batch(700, PRCNN_TRAIN_B, N)
+    rng = np.random.default_rng(701)
+    gt = gt[:, :12]
+    R, M = 512, int(tcfg.ROI_PER_IMAGE)
+    pick = rng.integers(0, gt.shape[1], (PRCNN_TRAIN_B, R))
+    base = np.take_along_axis(gt, pick[..., None], 1)
+    scale = rng.choice([0.03, 0.1, 0.3], (PRCNN_TRAIN_B, R, 1))
+    rois = base[..., :7].copy()
+    rois[..., 0:3] += rng.normal(size=(PRCNN_TRAIN_B, R, 3)) * scale * \
+        base[..., 3:6]
+    rois[..., 3:6] *= np.exp(rng.normal(size=(PRCNN_TRAIN_B, R, 3)) * scale)
+    rois[..., 6] += rng.normal(size=(PRCNN_TRAIN_B, R)) * scale[..., 0]
+    inputs = {'rois': rois.astype(np.float32),
+              'scores': rng.uniform(size=(PRCNN_TRAIN_B, R)).astype(
+                  np.float32),
+              'labels': base[..., 7].astype(np.int64),
+              'valid': np.ones((PRCNN_TRAIN_B, R), bool), 'gt': gt,
+              'cls': rng.normal(size=(PRCNN_TRAIN_B, M, 1)).astype(
+                  np.float32),
+              'reg': rng.normal(0, 0.1, (PRCNN_TRAIN_B, M, 7)).astype(
+                  np.float32)}
+    res = {}
+    for device in ('cuda', 'cpu'):
+        t = {k: torch.from_numpy(v).to(device) for k, v in inputs.items()}
+        draws = draw_roi_sampling(torch.Generator().manual_seed(702),
+                                  PRCNN_TRAIN_B, R, M, device)
+        targets = proposal_target_layer(draws, t['rois'], t['scores'],
+                                        t['labels'], t['valid'], t['gt'],
+                                        tcfg)
+        loss, tb = pointrcnn_head_loss(
+            {'targets': targets, 'rcnn_cls': t['cls'], 'rcnn_reg': t['reg'],
+             'batch_box_preds': roi_head.decode(t['reg'], targets.rois)},
+            head.LOSS_CONFIG, roi_head.box_coder)
+        res[device] = (targets, loss, tb)
+    (tg, lg, tbg), (tc, lc, tbc) = res['cuda'], res['cpu']
+    require_equal(tg.sampled, tc.sampled, 'card vs CPU sampled RoIs on '
+                                          'jittered gt')
+    for field in ('gt_iou_of_rois', 'gt_of_rois', 'rcnn_cls_labels'):
+        _require_close(getattr(tg, field), getattr(tc, field),
+                       f'RoI targets {field} on jittered gt')
+    require_equal(tg.reg_valid_mask.int(), tc.reg_valid_mask.int(),
+                  'card vs CPU regression mask on jittered gt')
+    for key in sorted(tbc):
+        g, c = float(tbg[key]), float(tbc[key])
+        if not (c > 0 and abs(g - c) <= TRAIN_LOSS_RTOL * c):
+            raise AssertionError(f'card vs CPU {key} on jittered gt: {g} vs '
+                                 f'{c}')
+    log(f'  RoI loss on jittered gt, card vs CPU: '
+        f'{ {k: (float(tbg[k]), float(tbc[k])) for k in sorted(tbc)} }; '
+        f'{int(tg.reg_valid_mask.sum())} of {tg.reg_valid_mask.numel()} '
+        'RoIs with regression targets')
+    branch = 'the train step had RoIs with regression targets' \
+        if fg_in_step else 'the train step had no RoI with regression ' \
+        'targets: its reg and corner terms were 0, so only this phase ' \
+        'tests them'
+    log(f'  branch: {branch}')
+    return {'branch': 'step' if fg_in_step else 'jittered_gt',
+            'terms': {k: [float(tbg[k]), float(tbc[k])] for k in tbc},
+            'reg_valid': int(tg.reg_valid_mask.sum())}
+
+
+def roi_gradient_share(model, batch):
+    """The share of the point head's box-layer gradient that reaches it
+    through the RoIs (|g_rcnn| / (|g_rcnn| + |g_point|), each stage's loss
+    alone) in one train forward of ``model`` (in train mode) on the
+    card."""
+    from spsnet_torch.runtime.trainer import step_rngs
+    out = model(dict(batch, rngs=step_rngs(0)))
+    _, tb = model.loss(out)
+    params = list(model.point_head.box_layers.parameters())
+    norms = []
+    for loss in (tb['rcnn_loss'], tb['point_loss_cls'] + tb['point_loss_box']):
+        grads = torch.autograd.grad(loss, params, retain_graph=True,
+                                    allow_unused=True)
+        norms.append(float(torch.sqrt(sum((g.double() ** 2).sum()
+                                          for g in grads if g is not None))))
+    share = norms[0] / (norms[0] + norms[1])
+    log(f'  the point head\'s box layers: |grad| through the RoIs '
+        f'{norms[0]:.4e}, from the point loss {norms[1]:.4e}; share through '
+        f'the RoIs {share:.4f}')
+    return share
+
+
 def other_iassd_path(path, n, channels, seed):
     """A Waymo or nuScenes IA-SSD request path: the config at full width
     (weights from seed 0), OTHER_B scans of ``n`` points with ``channels``
@@ -1836,14 +2440,17 @@ def device_ms(fn, reps=10):
     (``torch.profiler``, a warm-up step before each window). CUDA events
     around a call also count the host's time to issue it, which is most of
     a small kernel's event time. The trace may drop records of short
-    kernels, so windows repeat (at most four) until ``reps`` are in."""
+    kernels, and once lost every record of a 20 ms kernel in four windows
+    (the Waymo layer-0 FPS, phase 23), so windows repeat (at most eight)
+    until ``reps`` are in, each keeping its events past the end of its
+    cycle (``acc_events``)."""
     from torch.profiler import ProfilerActivity, profile, schedule
     kernels = []
-    for _ in range(4):
+    for _ in range(8):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA],
                      schedule=schedule(wait=0, warmup=1, active=1,
-                                       repeat=1)) as prof:
+                                       repeat=1), acc_events=True) as prof:
             for _ in range(2):
                 for _ in range(reps):
                     fn()
@@ -2147,11 +2754,58 @@ def main(argv=()) -> int:
     waymo = other_iassd_path(*WAYMO)
     nuscenes = other_iassd_path(*NUSCENES)
 
+    log('== 24. PointRCNN train path')
+    from spsnet_torch.runtime.trainer import step_rngs
+    prcnn_batches = [_scene_batch(600 + s, PRCNN_TRAIN_B, 'cuda')
+                     for s in range(PRCNN_TRAIN_STEPS + 1)]
+    # at the seed weights: after a few steps of random-weight training a
+    # foreground RoI's corner loss may dominate (grad norms up to ~1e4)
+    roi_share = roi_gradient_share(build_pointrcnn_trainer('cuda')[0],
+                                   prcnn_batches[0])
+    prcnn_train, prcnn_model, prcnn_step = pointrcnn_train_path(
+        prcnn_batches, smi)
+    prcnn_train['roi_grad_share'] = roi_share
+
+    log('== 25. kernels vs plain at the PointRCNN train shapes')
+    train_shapes = pointrcnn_shapes_phase(
+        prcnn_model, dict(prcnn_batches[0], rngs=step_rngs(0)),
+        first_layer=0)
+
+    log('== 26. PointRCNN card vs CPU, one train step')
+    prcnn_train['card_vs_cpu'] = pointrcnn_train_cpu_phase(
+        _scene_batch(610, 1, 'cpu'))
+
+    log('== 27. RoI targets and loss on jittered gt, card vs CPU')
+    prcnn_train['reg_corner'] = roi_target_loss_phase(
+        max(st['reg_valid'] for st in prcnn_train['roi_stats']) > 0)
+
+    log('== 28. where the time goes: one PointRCNN train step')
+    train_proposals = prcnn_model.roi_head.proposal_layer
+
+    def annotated_train(batch):
+        with torch.profiler.record_function('proposal NMS'):
+            return train_proposals(batch)
+    prcnn_model.roi_head.proposal_layer = annotated_train
+    prcnn_train['profile'] = profile_phase(
+        lambda: prcnn_step(prcnn_batches[1]), 'one PointRCNN train step',
+        ranges=('proposal NMS',))
+    prof = prcnn_train['profile']
+    span = prof['ranges']['proposal NMS']
+    prcnn_train['nms_share_profiled'] = span['host_ms'] / prof['wall_ms']
+    log(f'  the proposal NMS (pre 9000, post 512, B={PRCNN_TRAIN_B}): '
+        f'{span["host_ms"]:.3f} of {prof["wall_ms"]:.3f} ms of the profiled '
+        f'step ({prcnn_train["nms_share_profiled"]:.3f}), '
+        f'{span["launches"]} of its kernel launches; the rest '
+        f'{prof["launches"] - span["launches"]} launches; busy share '
+        f'{prof["busy_share"]:.3f}')
+    del prcnn_model, prcnn_step, train_proposals
+
     paths = {'serve': launches, 'train': train_launches,
              'spsnet': sps_launches, 'fps_entries': entry_launches,
              'spsnet_train': sps_train_launches,
              'stability_train': stab_launches, 'pointrcnn': prcnn_launches,
-             'waymo': waymo['launches'], 'nuscenes': nuscenes['launches']}
+             'waymo': waymo['launches'], 'nuscenes': nuscenes['launches'],
+             'pointrcnn_train': prcnn_train['launches']}
     for entry in entries:
         entry['launches_by_path'] = {path: counts[entry['name']]
                                      for path, counts in paths.items()}
@@ -2161,10 +2815,12 @@ def main(argv=()) -> int:
             entry['pointrcnn_calls'] = prcnn_shapes[name]
             entry['waymo_calls'] = waymo[name]
             entry['nuscenes_calls'] = nuscenes[name]
+            entry['pointrcnn_train_calls'] = train_shapes[name]
             entry['max_abs_err'] = max(entry['max_abs_err'],
                                        prcnn_shapes['errs'][name],
                                        waymo['errs'][name],
-                                       nuscenes['errs'][name])
+                                       nuscenes['errs'][name],
+                                       train_shapes['errs'][name])
         if name == 'fps':
             entry['max_abs_err'] = max(entry['max_abs_err'],
                                        chunked.pop('err'))
@@ -2194,7 +2850,8 @@ def main(argv=()) -> int:
                     'waymo_ms_per_batch': waymo['ms_per_batch'],
                     'nuscenes_ms_per_batch': nuscenes['ms_per_batch'],
                     'waymo_all_ms': waymo['all_ms'],
-                    'nuscenes_all_ms': nuscenes['all_ms'], 'card': smi}))
+                    'nuscenes_all_ms': nuscenes['all_ms'],
+                    'pointrcnn_train': prcnn_train, 'card': smi}))
     log(smi)
     log(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -17,6 +17,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils.common import to_device
+
 
 class BatchNormLast(nn.BatchNorm1d):
     """BatchNorm over the last axis of a (..., C) tensor, statistics over all
@@ -47,11 +49,30 @@ class BatchNormLast(nn.BatchNorm1d):
         return y.reshape(shape)
 
 
+class Dropout(nn.Dropout):
+    """``nn.Dropout`` whose mask comes from an explicit CPU generator (the
+    step's 'dropout' stream, ``runtime.trainer.step_rngs``), as flax's
+    Dropout draws from the 'dropout' rng: each element is kept with
+    probability 1 - p and scaled by 1 / (1 - p). The identity in eval mode
+    and at p = 0, where it draws nothing."""
+
+    def forward(self, x, generator=None):
+        if not self.training or self.p == 0:
+            return x
+        if generator is None:
+            raise ValueError('Dropout in training needs the step generator '
+                             "(batch['rngs']['dropout'])")
+        keep_prob = 1.0 - self.p
+        keep = to_device(torch.rand(x.shape, generator=generator) < keep_prob,
+                         x.device)
+        return torch.where(keep, x / keep_prob, 0.0)
+
+
 class SharedMLP(nn.Sequential):
     """Pointwise Linear(no bias) + BN + ReLU per width in ``channels``; with
     ``use_bn=False``, biased Linear + ReLU (``spsnet_tpu/models/blocks.py:
-    30-60``). ``dropout_idx`` puts an ``nn.Dropout(dropout)`` after the
-    ReLU of those layers, as the reference's RoI heads do
+    30-60``). ``dropout_idx`` puts a ``Dropout(dropout)`` after the ReLU of
+    those layers, as the reference's RoI heads do
     (``roi_head_template.py:36-44``); it is the identity in eval mode."""
 
     def __init__(self, in_channels: int, channels: Sequence[int],
@@ -64,7 +85,7 @@ class SharedMLP(nn.Sequential):
                 layers.append(BatchNormLast(c))
             layers.append(nn.ReLU())
             if k in tuple(dropout_idx):
-                layers.append(nn.Dropout(dropout))
+                layers.append(Dropout(dropout))
             in_channels = c
         super().__init__(*layers)
         self.out_channels = in_channels
@@ -80,6 +101,13 @@ class MLPHead(nn.Sequential):
         mlp = SharedMLP(in_channels, hidden, dropout=dropout,
                         dropout_idx=dropout_idx)
         super().__init__(*mlp, nn.Linear(mlp.out_channels, out_channels))
+
+    def forward(self, x, generator=None):
+        """``generator`` draws the masks of the Dropout layers."""
+        for layer in self:
+            x = layer(x, generator) if isinstance(layer, Dropout) \
+                else layer(x)
+        return x
 
 
 @torch.no_grad()

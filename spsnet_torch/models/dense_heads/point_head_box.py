@@ -1,21 +1,25 @@
 """PointRCNN's stage-1 head: per-point foreground logits and box residuals.
 
-Port of ``PointHeadBox``'s forward (``spsnet_tpu/models/dense_heads/
-point_head_box.py:22-70``; reference ``dense_heads/point_head_box.py``):
-the cls and box FC stacks over the backbone's point features, the
-per-point score, and every point's box decoded with the
-``PointResidualCoder`` and its predicted class's mean size, which the RoI
-head takes as proposals. Submodules ``cls_layers`` and ``box_layers``, as
-the reference's; its targets and loss come with PointRCNN training
-(ROADMAP Queue 1).
+Port of ``PointHeadBox`` (``spsnet_tpu/models/dense_heads/
+point_head_box.py``; reference ``dense_heads/point_head_box.py`` and
+``point_head_template.py:131-191``): the cls and box FC stacks over the
+backbone's point features, the per-point score, and every point's box
+decoded with the ``PointResidualCoder`` and its predicted class's mean
+size, which the RoI head takes as proposals; in training, each point's
+target (``assign_targets_iassd`` with the ignore band of GT_EXTRA_WIDTH)
+and ``point_head_box_loss``. Submodules ``cls_layers`` and
+``box_layers``, as the reference's.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ...utils import box_coder as box_coder_lib
+from ...utils import box_utils, loss_utils
 from ..blocks import MLPHead
+from . import target_assign
 
 
 class PointHeadBox(nn.Module):
@@ -36,11 +40,8 @@ class PointHeadBox(nn.Module):
         """Consumes 'point_features' (B, N, C) and 'point_coords'
         (B, N, 3); adds 'point_cls_scores' (B, N), 'batch_cls_preds'
         (B, N, num_class) logits, 'batch_box_preds' (B, N, 7) and
-        'point_head_ret'."""
-        if self.training and 'gt_boxes' in batch:
-            raise NotImplementedError(
-                'PointHeadBox targets and loss: PointRCNN training is '
-                'ROADMAP Queue 1')
+        'point_head_ret' (with the points' 'targets' in training with
+        'gt_boxes' (B, T, 8))."""
         coords = batch['point_coords']
         point_cls_preds = self.cls_layers(batch['point_features'])
         point_box_preds = self.box_layers(batch['point_features'])
@@ -52,8 +53,38 @@ class PointHeadBox(nn.Module):
         batch['batch_cls_preds'] = point_cls_preds
         batch['batch_box_preds'] = decoded
         batch['cls_preds_normalized'] = False
-        batch['point_head_ret'] = {'point_cls_preds': point_cls_preds,
-                                   'point_box_preds_raw': point_box_preds,
-                                   'point_box_preds': decoded,
-                                   'point_coords': coords}
+        ret = {'point_cls_preds': point_cls_preds,
+               'point_box_preds_raw': point_box_preds,
+               'point_box_preds': decoded, 'point_coords': coords}
+        if self.training and 'gt_boxes' in batch:
+            gt = batch['gt_boxes']
+            ret['targets'] = target_assign.assign_targets_iassd(
+                coords.detach(), gt, box_utils.enlarge_box3d(
+                    gt, self.model_cfg.TARGET_CONFIG.GT_EXTRA_WIDTH),
+                set_ignore_flag=True, ret_box_labels=True,
+                box_coder=self.box_coder, num_class=self.num_class)
+        batch['point_head_ret'] = ret
         return batch
+
+
+def point_head_box_loss(ret, loss_cfg, num_class: int):
+    """Stage-1 loss (``spsnet_tpu/models/dense_heads/point_head_box.py:
+    72-93``): the focal loss of every cared-for point (label >= 0) and the
+    weighted smooth-L1 of the box residuals of the foreground points, both
+    normalised by the count of foreground points. Returns (loss, tb)."""
+    lw = loss_cfg.LOSS_WEIGHTS
+    labels = ret['targets'].cls_labels
+    positives = labels > 0
+    pos_norm = positives.float().sum().clamp(min=1.0)
+    cls_weights = ((labels == 0) | positives).float() / pos_norm
+    one_hot = F.one_hot(labels.clamp(min=0), num_class + 1)[..., 1:].float()
+    cls_loss = loss_utils.sigmoid_focal_loss(
+        ret['point_cls_preds'], one_hot, cls_weights).sum()
+    cls_loss = cls_loss * lw['point_cls_weight']
+    box_loss = loss_utils.weighted_smooth_l1(
+        ret['point_box_preds_raw'], ret['targets'].box_labels,
+        weights=positives.float() / pos_norm,
+        code_weights=lw.get('code_weights', None)).sum()
+    box_loss = box_loss * lw['point_box_weight']
+    return cls_loss + box_loss, {'point_loss_cls': cls_loss,
+                                 'point_loss_box': box_loss}

@@ -1,11 +1,14 @@
-"""Rotated BEV IoU, greedy NMS and points in boxes, batched over frames.
+"""Rotated BEV and 3D IoU, greedy NMS and points in boxes, batched over
+frames.
 
-Port of ``spsnet_tpu/ops/boxes.py:30-41,107-165,227-310`` (the rebuild of
-``iou3d_nms_kernel.cu``'s ``nms_gpu`` and ``roiaware_pool3d_kernel.cu``'s
-``points_in_boxes``): exact rotated-rectangle overlap by Liang-Barsky
-clipping of each quad's edges against the other's half-planes, then the
-canonical greedy suppression over score-sorted boxes. Plain PyTorch on
-every device; every function takes leading batch dims.
+Port of ``spsnet_tpu/ops/boxes.py`` (the rebuild of ``iou3d_nms_kernel.cu``'s
+``boxes_overlap_bev``, ``boxes_iou3d`` and ``nms_gpu`` and of
+``roiaware_pool3d_kernel.cu``'s ``points_in_boxes``): the exact overlap of
+two rotated rectangles from their sorted intersection vertices (RoI
+targets), the sort-free one by Liang-Barsky clipping of each quad's edges
+against the other's half-planes (NMS), and the canonical greedy suppression
+over score-sorted boxes. Plain PyTorch on every device; every function
+takes leading batch dims.
 """
 from __future__ import annotations
 
@@ -77,6 +80,124 @@ def boxes_iou_bev_fast(boxes_a, boxes_b):
     area_a = (boxes_a[..., 3] * boxes_a[..., 4])[..., :, None]
     area_b = (boxes_b[..., 3] * boxes_b[..., 4])[..., None, :]
     return overlap / (area_a + area_b - overlap).clamp(min=1e-6)
+
+
+def _cross2(u, v):
+    return u[..., 0] * v[..., 1] - u[..., 1] * v[..., 0]
+
+
+def _inside(points, quad):
+    """(..., P, 2) points left of every CCW edge of (..., 4, 2) quads ->
+    (..., P) bool, with a tolerance of 1e-4 edge lengths, so that shared
+    boundaries (identical or touching boxes) count as inside."""
+    d = torch.roll(quad, -1, dims=-2) - quad                 # (..., 4, 2)
+    edge_len = torch.sqrt(d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1])
+    rel = points[..., :, None, :] - quad[..., None, :, :]    # (.., P, 4, 2)
+    cross = d[..., None, :, 0] * rel[..., 1] - d[..., None, :, 1] * rel[..., 0]
+    return (cross >= -1e-4 * edge_len[..., None, :]).all(dim=-1)
+
+
+def quad_overlap(ca, cb):
+    """Overlap areas of CCW quads, (..., 4, 2) x (..., 4, 2) -> (...),
+    broadcast over the leading dims (``spsnet_tpu/ops/boxes.py:44-104``):
+    24 candidate vertices (the corners of each quad inside the other and
+    the 16 edge crossings), sorted by angle around their centroid (a stable
+    sort, as ``jnp.argsort``), then the shoelace sum over the valid fan,
+    its terms taken about the centroid. Exact where the sort-free
+    ``_pairwise_overlap_lb`` double-counts coincident edges."""
+    ca, cb = torch.broadcast_tensors(ca, cb)
+    in_ab, in_ba = _inside(ca, cb), _inside(cb, ca)          # (..., 4)
+    a1 = ca[..., :, None, :]                                 # (.., 4, 1, 2)
+    a2 = torch.roll(ca, -1, dims=-2)[..., :, None, :]
+    b1 = cb[..., None, :, :]                                 # (.., 1, 4, 2)
+    b2 = torch.roll(cb, -1, dims=-2)[..., None, :, :]
+    d1 = _cross2(b2 - b1, a1 - b1)
+    d2 = _cross2(b2 - b1, a2 - b1)
+    d3 = _cross2(a2 - a1, b1 - a1)
+    d4 = _cross2(a2 - a1, b2 - a1)
+    hit = (d1 * d2 < 0) & (d3 * d4 < 0)                      # (.., 4, 4)
+    denom = d1 - d2
+    t = d1 / torch.where(denom.abs() > _EPS, denom, 1.0)
+    inter = a1 + t[..., None] * (a2 - a1)                    # (.., 4, 4, 2)
+    lead = ca.shape[:-2]
+    cand = torch.cat([ca, cb, inter.reshape(*lead, 16, 2)], dim=-2)
+    valid = torch.cat([in_ab, in_ba, hit.reshape(*lead, 16)], dim=-1)
+
+    n_valid = valid.sum(dim=-1)
+    center = torch.where(valid[..., None], cand, 0.0).sum(dim=-2) / \
+        n_valid.clamp(min=1)[..., None]
+    ang = torch.atan2(cand[..., 1] - center[..., None, 1],
+                      cand[..., 0] - center[..., None, 0])
+    key = torch.where(valid, ang, torch.inf)
+    order = torch.argsort(key, dim=-1, stable=True)
+    pts = cand.gather(-2, order[..., None].expand(*order.shape, 2))
+    sorted_valid = valid.gather(-1, order)
+    # invalid tail slots collapse onto the first valid point: the extra
+    # edges add no area and the fan still closes
+    pts = torch.where(sorted_valid[..., None], pts, pts[..., :1, :])
+    # the shoelace terms about the centroid: about the origin (as the JAX
+    # package takes them) they cancel, and fp32 keeps only ~1e-3 of a car's
+    # area at 70 m
+    pts = pts - center[..., None, :]
+    nxt = torch.roll(pts, -1, dims=-2)
+    area = 0.5 * (pts[..., 0] * nxt[..., 1] - nxt[..., 0] * pts[..., 1]
+                  ).sum(dim=-1).abs()
+    return torch.where(n_valid >= 3, area, 0.0)
+
+
+def _overlap(ca, cb, area_a, area_b):
+    """``quad_overlap``, 0 where either box has no area: a quad of zero
+    size has every point on its edges, so the test above would put the
+    other quad inside it (the JAX package's overlap there is the other
+    box's area; the reference's CUDA overlap is 0)."""
+    return torch.where((area_a > 0) & (area_b > 0), quad_overlap(ca, cb),
+                       0.0)
+
+
+def boxes_overlap_bev(boxes_a, boxes_b):
+    """Exact rotated BEV overlap areas, (..., N, 7) x (..., M, 7) ->
+    (..., N, M) (``iou3d_nms_utils.py:31-45``)."""
+    return _overlap(_bev_corners(boxes_a)[..., :, None, :, :],
+                    _bev_corners(boxes_b)[..., None, :, :, :],
+                    (boxes_a[..., 3] * boxes_a[..., 4])[..., :, None],
+                    (boxes_b[..., 3] * boxes_b[..., 4])[..., None, :])
+
+
+def boxes_iou_bev(boxes_a, boxes_b):
+    """Exact rotated BEV IoU, (..., N, 7) x (..., M, 7) -> (..., N, M)."""
+    overlap = boxes_overlap_bev(boxes_a, boxes_b)
+    area_a = (boxes_a[..., 3] * boxes_a[..., 4])[..., :, None]
+    area_b = (boxes_b[..., 3] * boxes_b[..., 4])[..., None, :]
+    return overlap / (area_a + area_b - overlap).clamp(min=1e-6)
+
+
+def _iou3d(overlap_bev, boxes_a, boxes_b):
+    """3D IoU of z-centred boxes from their BEV overlap; ``boxes_a`` and
+    ``boxes_b`` broadcast against ``overlap_bev``'s shape."""
+    top = torch.minimum(boxes_a[..., 2] + boxes_a[..., 5] / 2,
+                        boxes_b[..., 2] + boxes_b[..., 5] / 2)
+    bot = torch.maximum(boxes_a[..., 2] - boxes_a[..., 5] / 2,
+                        boxes_b[..., 2] - boxes_b[..., 5] / 2)
+    overlap_3d = overlap_bev * (top - bot).clamp(min=0)
+    vol_a = boxes_a[..., 3] * boxes_a[..., 4] * boxes_a[..., 5]
+    vol_b = boxes_b[..., 3] * boxes_b[..., 4] * boxes_b[..., 5]
+    return overlap_3d / (vol_a + vol_b - overlap_3d).clamp(min=1e-6)
+
+
+def boxes_iou3d(boxes_a, boxes_b):
+    """3D IoU, (..., N, 7) x (..., M, 7) -> (..., N, M)
+    (``iou3d_nms_utils.py:48-81``)."""
+    return _iou3d(boxes_overlap_bev(boxes_a, boxes_b),
+                  boxes_a[..., :, None, :], boxes_b[..., None, :, :])
+
+
+def boxes_iou3d_paired(boxes_a, boxes_b):
+    """3D IoU of matched pairs, (..., N, 7) x (..., N, 7) -> (..., N): the
+    diagonal of ``boxes_iou3d`` at O(N)."""
+    overlap = _overlap(_bev_corners(boxes_a), _bev_corners(boxes_b),
+                       boxes_a[..., 3] * boxes_a[..., 4],
+                       boxes_b[..., 3] * boxes_b[..., 4])
+    return _iou3d(overlap, boxes_a, boxes_b)
 
 
 def topk_desc(scores, k: int):
@@ -199,7 +320,9 @@ def nms_bev(boxes, scores, thresh: float, pre_maxsize: int = 4096,
         valid = torch.ones((B, K), dtype=torch.bool, device=boxes.device)
     pre = min(pre_maxsize, K)
     top_scores, order = topk_desc(torch.where(valid, scores, -torch.inf), pre)
-    sorted_boxes = boxes.gather(1, order[..., None].expand(-1, -1, 7))
+    # the keep list is an index set: no gradient goes through the IoUs
+    sorted_boxes = boxes.detach().gather(
+        1, order[..., None].expand(-1, -1, 7))
     keep = _greedy_suppress(overlap_mask(sorted_boxes, thresh),
                             top_scores > -torch.inf)
 

@@ -85,6 +85,7 @@ class ScheduledOptimizer:
         self.max_norm = max_norm
         self.params = [p for g in inner.param_groups for p in g['params']]
         self.count = 0
+        self.grad_norm = None
 
     def zero_grad(self):
         self.inner.zero_grad(set_to_none=True)
@@ -92,11 +93,13 @@ class ScheduledOptimizer:
     def step(self):
         """Clip, set this step's hyperparameters, update. A parameter that
         got no gradient takes a zero one, so weight decay still reaches it
-        as optax's does."""
+        as optax's does. ``grad_norm`` keeps the global norm before the
+        clip (a 0-dim tensor on the device)."""
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        clip_by_global_norm_([p.grad for p in self.params], self.max_norm)
+        self.grad_norm = clip_by_global_norm_([p.grad for p in self.params],
+                                              self.max_norm)
         lr = self.lr_fn(self.count)
         for group in self.inner.param_groups:
             group['lr'] = lr

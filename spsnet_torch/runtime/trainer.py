@@ -21,8 +21,22 @@ from ..models.detectors import resolve_device
 from ..models.detectors.detector3d import post_processing
 from ..stability.hook import apply_stability_hook
 from ..stability.model import GenerateCenter
+from ..utils.common import step_generator
 from .checkpoint import CheckpointManager
 from .optimization import build_optimizer
+
+# the seeds of the per-step streams of the JAX train step
+# (``spsnet_tpu/runtime/trainer.py:93-104``): RoI target sampling and the
+# RoI towers' dropout
+STREAMS = {'roi_sampling': 17, 'dropout': 23}
+
+
+def step_rngs(step: int) -> dict:
+    """The CPU generators of step ``step``'s streams, the counterparts of
+    ``fold_in(PRNGKey(seed), step)``: {'roi_sampling': ..., 'dropout':
+    ...} (``utils.common.step_generator``)."""
+    return {name: step_generator(seed, step)
+            for name, seed in STREAMS.items()}
 
 
 def make_train_step(model, optimizer, preprocess=None):
@@ -31,16 +45,17 @@ def make_train_step(model, optimizer, preprocess=None):
     optional ``preprocess`` (``make_stability_preprocess``) runs first,
     without gradients, its noise from a CPU ``torch.Generator`` seeded with
     the optimizer's update count (the JAX step's ``fold_in(PRNGKey(0),
-    step)``), so a resumed run draws the same noise. The loss and the tb
-    terms come back as detached tensors on the device, so a step waits for
-    nothing."""
+    step)``). The model reads the step's RoI-sampling and dropout
+    generators from ``batch['rngs']`` (``step_rngs`` of the update count).
+    So a resumed run draws the same numbers. The loss and the tb terms come
+    back as detached tensors on the device, so a step waits for nothing."""
     def train_step(batch):
         if preprocess is not None:
             with torch.no_grad():
                 batch = preprocess(
                     batch, torch.Generator().manual_seed(optimizer.count))
         model.train()
-        out = model(batch)
+        out = model(dict(batch, rngs=step_rngs(optimizer.count)))
         loss, tb = model.loss(out)
         optimizer.zero_grad()
         loss.backward()

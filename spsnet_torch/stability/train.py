@@ -7,22 +7,8 @@ then ``adam_onecycle`` in ``tools/cfgs/stability/sf_unc.yaml``).
 """
 from __future__ import annotations
 
-import hashlib
-
-import torch
-
+from ..utils.common import step_generator as latent_generator
 from .model import generate_center_loss
-
-
-def latent_generator(seed: int, step: int) -> torch.Generator:
-    """The CPU generator of step ``step``'s latent noise, seeded from
-    ``(seed, step)``: the port's counterpart of ``fold_in(PRNGKey(seed),
-    step)``. The CPU generator keeps only the low 32 bits of a seed, so the
-    pair is hashed to 32 bits. Drawn on the CPU, the noise is the same on
-    every device."""
-    key = hashlib.blake2b(f'{int(seed)}:{int(step)}'.encode(),
-                          digest_size=4).digest()
-    return torch.Generator().manual_seed(int.from_bytes(key, 'little'))
 
 
 def make_stability_train_step(model, optimizer, seed: int):

@@ -611,6 +611,48 @@ def test_ball_query_kernel_at_the_roi_shapes(cuda, n, m, r):
     assert torch.equal(got, ball_query_multi_plain((r,), (16,), xyz, ctr)[0])
 
 
+@pytest.mark.parametrize('n,npoint', [(512, 128), (128, 32)])
+def test_fps_kernel_at_the_roi_train_shapes(cuda, n, npoint):
+    """PointRCNN training's RoI SA layers: ROI_PER_IMAGE 128 x B = 2 rows,
+    (256, 512) -> 128 and (256, 128) -> 32, with empty and padded RoIs."""
+    xyz = _roi_rows(n + 2, 256, n).to(cuda)
+    got = farthest_point_sample_kernel(xyz, npoint)
+    torch.cuda.synchronize()
+    assert torch.equal(got, farthest_point_sample_plain(xyz, npoint))
+
+
+@pytest.mark.parametrize('n,m,r', [(512, 128, 0.2), (128, 32, 0.4)])
+def test_ball_query_kernel_at_the_roi_train_shapes(cuda, n, m, r):
+    """The RoI SA layers' balls over the 256 rows of a PointRCNN train
+    step (16 neighbours at r 0.2 and 0.4)."""
+    xyz = _roi_rows(n + 3, 256, n).to(cuda)
+    ctr = xyz.gather(1, farthest_point_sample_kernel(xyz, m)[..., None]
+                     .expand(-1, -1, 3)).contiguous()
+    got = ball_query_multi_kernel((r,), (16,), xyz, ctr)[0]
+    torch.cuda.synchronize()
+    assert torch.equal(got, ball_query_multi_plain((r,), (16,), xyz, ctr)[0])
+
+
+@pytest.mark.parametrize('layer', [0, 1, 2, 3])
+def test_kernels_at_the_pointrcnn_train_backbone_shapes(cuda, layer):
+    """PointRCNN training's backbone at BATCH_SIZE_PER_GPU 2: FPS (2,
+    16384) -> 4096 -> 1024 -> 256 -> 64 on a scan, each layer's MSG ball
+    query (radii 0.1 / 0.5 ... 2.0 / 4.0, 16 / 32 neighbours) around its
+    picks."""
+    radii = [(0.1, 0.5), (0.5, 1.0), (1.0, 2.0), (2.0, 4.0)][layer]
+    xyz = _scans(11, 2, 16384).to(cuda)
+    for npoint in (4096, 1024, 256, 64)[:layer + 1]:
+        idx = farthest_point_sample_kernel(xyz, npoint)
+        torch.cuda.synchronize()
+        assert torch.equal(idx, farthest_point_sample_plain(xyz, npoint))
+        xyz, prev = xyz.gather(1, idx[..., None].expand(-1, -1, 3)) \
+            .contiguous(), xyz
+    got = ball_query_multi_kernel(radii, (16, 32), prev, xyz)
+    torch.cuda.synchronize()
+    for g, w in zip(got, ball_query_multi_plain(radii, (16, 32), prev, xyz)):
+        assert torch.equal(g, w)
+
+
 def test_chunked_fps_is_one_kernel_launch(cuda):
     """Chunked FPS of (8, 16384) -> 4096 in 4 slices: one exact-FPS launch
     over (32, 4096) -> 1024, and the CPU's plain picks."""
