@@ -153,7 +153,43 @@ Phases, in order; any failure raises and the exit code is not 0:
     and which of the two carried those terms;
 28. a CUDA-kernel breakdown of one PointRCNN train step, its proposal
     NMS's time, launches and share of the step;
-29. one JSON line per kernel set, then the result line.
+29. the PV-RCNN serving path: ``tools/cfgs/kitti_models/pv_rcnn.yaml``
+    through ``build_detector_from_cfg`` at full width with seeded random
+    weights, on batches of synthetic scans of 16384 points voxelized and
+    planned by the port's host code (``data.processor.voxel_batch``: 40 000
+    voxels of 5 points, the VoxelBackBone8x tables; its ms a frame timed
+    apart): a warm-up and ten requests of B = 2 and of B = 8 through
+    forward -> ``post_processing`` (MeanVFE, the sparse backbone, the BEV
+    map and backbone, the anchor head over 211 200 anchors, 2048 VSA
+    keypoints, the point head, the proposal NMS at pre 1024 / post 100 /
+    0.7, the RoI-grid head over 100 x 6^3 grid points, the final NMS);
+    outputs finite, counts in [0, 500], and per request one FPS and six
+    ball-query launches and no other kernel; the kept boxes and the share
+    of grid points with a keypoint within each pool radius;
+30. FPS and the ball query vs their plain versions at the PV-RCNN shapes,
+    on the inputs a request produces: FPS (2, 16384) -> 2048 and (8,
+    16384) -> 2048; the ball query of each VSA source (the raw points, N
+    16384; the voxel centers of each sparse level, N 40000 with the padded
+    ones far away) and of the RoI grid (21 600 centers over 2048
+    keypoints);
+31. one PV-RCNN request (B = 2) on the card and on the CPU with the same
+    weights and host tables, stage by stage from the card's inputs: the
+    voxel stack, the BEV map (its scatter bit for bit) and the anchor head
+    within the tolerance stated below; the card's 1024 proposal
+    candidates a top 1024 of the CPU's scores; the proposal NMS as phase
+    21 holds it; the VSA's FPS and ball-query indices identical, its
+    features and the point head within tolerance; the RoI-grid picks
+    identical or within the rounding slack of their grid points, then
+    replayed; the pooled features, the refinement, the decoded boxes and
+    the final NMS;
+32. SECOND (``second.yaml``) at full width, one warm-up and three
+    requests of the same B = 2 voxel batch, no kernel launch;
+33. a CUDA-kernel breakdown of one PV-RCNN request: its proposal NMS
+    (time, launches, share), the sparse gathers' and the BEV backbone's
+    share of the device time; the BEV backbone's time at B = 2 and 8 with
+    cuDNN's heuristic and with its timed algorithm choice, each in a child
+    process;
+34. one JSON line per kernel set, then the result line.
 
 The K5 shapes are (8, 16384) -> 4096, (8, 15884) -> 4096 (SPSNet's layer
 0), (1, 16384) -> 4096 and (32, 4096) -> 1024. Phase 3 also holds FPS and
@@ -254,6 +290,19 @@ NMS_IOU_TOL = 1e-5
 OTHER_B, OTHER_REQUESTS = 2, 2
 WAYMO = ('tools/cfgs/waymo_models/IA-SSD.yaml', 65536, 5, 400)
 NUSCENES = ('tools/cfgs/nuscenes_models/IA-SSD.yaml', 20480, 4, 500)
+# PV-RCNN serving (pv_rcnn.yaml): BATCH_SIZE_PER_GPU 2 scans a request
+# (the requests cycle through PV_BATCHES host batches: the sparse plan
+# takes about a second a frame on the host) and one batch of 8, a warm-up
+# and PV_REQUESTS timed requests each; per request one FPS launch (the
+# VSA's keypoints) and six fused ball queries (the VSA's five sources, the
+# RoI grid)
+PV_B, PV_B8, PV_REQUESTS, PV_BATCHES = 2, 8, 10, 3
+PV_LAUNCHES = {'fps': 1, 'ball_query': 6}
+# card vs CPU on the voxel stack, the VSA and the RoI head: within 1e-4
+# relative plus 1e-4 of each tensor's largest entry (cuBLAS and cuDNN
+# against the CPU's sums over K up to 27 x 64 and 9 x 256; the rounding of
+# a sum scales with its terms, and an entry near zero may sum large ones)
+VOXEL_RTOL, VOXEL_ATOL = 1e-4, 1e-4
 
 
 def seeding():
@@ -815,7 +864,9 @@ def main_path(model, requests, post, per_call, what):
             if not torch.isfinite(t).all():
                 raise AssertionError(f'{what}: non-finite {key}')
         count = dets['count']
-        if count.shape != (points.shape[0],) or count.min() < 0 or \
+        b = (points['points'] if isinstance(points, dict) else
+             points).shape[0]
+        if count.shape != (b,) or count.min() < 0 or \
                 count.max() > int(post.NMS_CONFIG.NMS_POST_MAXSIZE):
             raise AssertionError(f'{what}: detection counts out of range: '
                                  f'{count}')
@@ -1123,17 +1174,22 @@ def profile_phase(fn, what, ranges=()):
     spans = {}
     if ranges:
         timeline = prof.events()
+        launch_starts = [e.time_range.start for e in timeline
+                         if e.name == 'cudaLaunchKernel']
         for name in ranges:
-            span = [e for e in timeline if e.name == name
+            # every span of the name in the profiled call (the warm-up
+            # step's are not in the timeline)
+            hits = [e for e in timeline if e.name == name
                     and not str(getattr(e, 'device_type', '')).endswith(
-                        'CUDA')][-1]
-            lo, hi = span.time_range.start, span.time_range.end
+                        'CUDA')]
             spans[name] = {
-                'host_ms': (hi - lo) / 1e3,
-                'device_ms': span.device_time_total / 1e3,
-                'launches': sum(1 for e in timeline
-                                if e.name == 'cudaLaunchKernel'
-                                and lo <= e.time_range.start <= hi)}
+                'spans': len(hits),
+                'host_ms': sum(e.time_range.end - e.time_range.start
+                               for e in hits) / 1e3,
+                'device_ms': sum(e.device_time_total for e in hits) / 1e3,
+                'launches': sum(1 for t in launch_starts for e in hits
+                                if e.time_range.start <= t <=
+                                e.time_range.end)}
             log(f'  {name} inside {what}: {spans[name]["host_ms"]:.3f} ms on '
                 f'the host, {spans[name]["device_ms"]:.3f} ms of kernels, '
                 f'{spans[name]["launches"]} kernel launches')
@@ -2354,6 +2410,520 @@ def other_iassd_path(path, n, channels, seed):
             'fps': fps, 'ball_query': calls, 'errs': err}
 
 
+def build_voxel_detector(name, device):
+    """``tools/cfgs/kitti_models/{name}.yaml`` through
+    ``build_detector_from_cfg`` on ``device`` (weights from
+    ``torch.Generator`` seed 0): its config and the detector."""
+    from spsnet_torch.models import build_detector_from_cfg
+    from spsnet_torch.zoo import load_yaml_cfg
+    cfg = load_yaml_cfg(f'tools/cfgs/kitti_models/{name}.yaml')
+    return cfg, build_detector_from_cfg(
+        cfg, device=device, generator=torch.Generator().manual_seed(0))
+
+
+def pv_host_batches(cfg, seeds, b):
+    """Voxel batches of ``b`` synthetic scans of N points each (one seed a
+    batch), made by the port's host code (``data.processor.voxel_batch``:
+    the voxelization and the sparse plan at the config's test settings)
+    and copied to the card. Returns (batches, host ms a frame of each,
+    copy ms of each)."""
+    from spsnet_torch.data.processor import voxel_batch
+    from spsnet_torch.runtime.trainer import device_batch
+    from spsnet_torch.utils.synthetic import synthetic_scan_batch
+    batches, host_ms, copy_ms = [], [], []
+    for seed in seeds:
+        scans = synthetic_scan_batch(seed, b, N)
+        t0 = time.perf_counter()
+        host = voxel_batch(scans, cfg.DATA_CONFIG)
+        host_ms.append((time.perf_counter() - t0) * 1e3 / b)
+        t0 = time.perf_counter()
+        batches.append(device_batch(host, 'cuda'))
+        torch.cuda.synchronize()
+        copy_ms.append((time.perf_counter() - t0) * 1e3)
+    return batches, host_ms, copy_ms
+
+
+def pv_stages(model, batch):
+    """A PV-RCNN forward of ``batch`` stage by stage, without gradients:
+    {'rpn': the voxel stack's batch up to the anchor head, 'pfe', 'point',
+    'out': the RoI head's}."""
+    with torch.no_grad():
+        rpn = model.stage_one(batch)
+        pfe = model.pfe(rpn)
+        point = model.point_head(pfe)
+        return {'rpn': rpn, 'pfe': pfe, 'point': point,
+                'out': model.roi_head(point)}
+
+
+def grid_hits(model, out):
+    """Share of the valid RoIs' grid points with a keypoint within each
+    pool radius (the plain ball query on the card: no kernel launch)."""
+    from spsnet_torch.models.roi_heads.pvrcnn_head import roi_grid_points
+    from spsnet_torch.ops.grouping import (ball_query_multi_plain,
+                                           squared_radius)
+    head = model.roi_head
+    kp = out['point_coords']
+    grid = roi_grid_points(out['rois'][..., :7], head.template)
+    B, R, G3, _ = grid.shape
+    flat = grid.reshape(B, R * G3, 3).contiguous()
+    radii = head.roi_grid_pool_layer.radii
+    valid = out['roi_valid'][:, :, None].expand(-1, -1, G3).reshape(B, -1)
+    shares = []
+    for r, idx in zip(radii, ball_query_multi_plain(radii, (1,) * len(radii),
+                                                    kp, flat)):
+        d2 = ((kp.gather(1, idx[..., 0, None].expand(-1, -1, 3)) - flat)
+              ** 2).sum(-1)
+        shares.append(float((d2 < squared_radius(r))[valid].float().mean()))
+    return shares
+
+
+def pvrcnn_path(model, cfg, requests, what):
+    """A warm-up and the timed requests (forward + ``post_processing``)
+    with the launch counters zeroed just before: one FPS and six ball
+    queries a request. Returns its record: ms, launches, kept boxes and
+    the RoI grid's keypoint hits of the first request."""
+    post = cfg.MODEL.POST_PROCESSING
+    times, launches = main_path(model, requests, post, PV_LAUNCHES, what)
+    out, dets = detect(model, requests[0], post)
+    hits = grid_hits(model, out)
+    ms = statistics.median(times)
+    b = requests[0]['points'].shape[0]
+    rec = {'B': b, 'ms_per_batch': ms, 'all_ms': times,
+           'range_ms': [min(times), max(times)], 'launches': launches,
+           'kept_boxes': dets['count'].tolist(),
+           'valid_rois': out['roi_valid'].sum(1).tolist(),
+           'grid_points_with_a_keypoint': hits}
+    log(f'  launches over {len(requests)} requests: {launches}')
+    log(f'  ms/batch (B={b}, N={N}, voxel stack + anchor head + VSA + '
+        f'point head + proposal NMS + RoI-grid head + NMS): median '
+        f'{ms:.3f}, range {min(times):.3f}-{max(times):.3f}, all '
+        f'{[round(t, 3) for t in times]}; scenes/s {b / ms * 1e3:.2f}')
+    log(f'  first request: {rec["kept_boxes"]} boxes kept, '
+        f'{rec["valid_rois"]} RoIs; share of their grid points with a '
+        f'keypoint within r = {model.roi_head.roi_grid_pool_layer.radii}: '
+        f'{[round(h, 4) for h in hits]}')
+    return rec
+
+
+def pvrcnn_shapes_phase(model, batch, batch8):
+    """K1 and K2 vs their plain versions at the PV-RCNN shapes, on the
+    inputs a card forward of ``batch`` (B = 2) produces: FPS (2, 16384) ->
+    2048 and, on ``batch8``, (8, 16384) -> 2048; the fused query of each
+    VSA source around the keypoints (the raw points, N 16384; each sparse
+    level's voxel centers, N 40000 with the padded ones at 1e6) and of the
+    RoI grid (100 x 6^3 centers a frame over 2048 keypoints), with event
+    times, device time a call, bounds and launch shapes."""
+    from spsnet_torch.models.roi_heads.pvrcnn_head import roi_grid_points
+    from spsnet_torch.ops import sampling as smp
+    from spsnet_torch.ops.grouping import ball_query_multi_kernel
+    st = pv_stages(model, batch)
+    res = {'fps': [], 'ball_query': [], 'errs': {'fps': 0.0,
+                                                  'ball_query': 0.0}}
+    for b in (batch, batch8):
+        xyz = b['points'][..., :3].contiguous()
+        npoint = model.pfe.num_keypoints
+        call = fps_call('fps', smp.farthest_point_sample_kernel, xyz,
+                        npoint)
+        res['errs']['fps'] = max(res['errs']['fps'], call.pop('err'))
+        _cluster_note('fps', call, npoint - 1, seeded=False)
+        call['device_ms'] = device_ms(
+            lambda x=xyz, m=npoint: smp.farthest_point_sample_kernel(x, m),
+            reps=5)
+        call['layer'] = 'VSA keypoints'
+        log(f'    device time {call["device_ms"]:.4f} ms a call')
+        res['fps'].append(call)
+    pfe, kp = model.pfe, st['pfe']['point_coords']
+    xyz = batch['points'][..., :3].contiguous()
+    inputs = [('VSA raw_points', pfe.SA_rawpoints, xyz, kp)]
+    inputs += [(f'VSA {name}', group, pfe.voxel_centers(st['rpn'], name), kp)
+               for name, group in pfe.SA_layers.items()]
+    out, head = st['out'], model.roi_head
+    grid = roi_grid_points(out['rois'][..., :7], head.template)
+    inputs.append(('RoI grid', head.roi_grid_pool_layer, kp,
+                   grid.reshape(grid.shape[0], -1, 3).contiguous()))
+    for what, group, support, ctr in inputs:
+        radii, ns = group.radii, group.nsamples
+        call = ball_query_call(radii, ns, support, ctr, what)
+        res['errs']['ball_query'] = max(res['errs']['ball_query'],
+                                        call.pop('err'))
+        call['device_ms'] = device_ms(
+            lambda r=radii, n=ns, p=support, c=ctr:
+            ball_query_multi_kernel(r, n, p, c), reps=5)
+        log(f'    device time {call["device_ms"]:.4f} ms a call')
+        res['ball_query'].append(call)
+    return res
+
+
+def _cpu_tree(x):
+    if torch.is_tensor(x):
+        return x.cpu()
+    if isinstance(x, dict):
+        return {k: _cpu_tree(v) for k, v in x.items()}
+    return x
+
+
+def _require_scaled(a, b, what):
+    """Card ``a`` vs CPU ``b`` within VOXEL_RTOL relative plus VOXEL_ATOL
+    times b's largest entry; returns the largest difference over that
+    scale."""
+    a, b = a.cpu(), b.cpu()
+    scale = float(b.abs().max()) if b.numel() else 0.0
+    err = float((a - b).abs().max()) if b.numel() else 0.0
+    if not torch.allclose(a, b, rtol=VOXEL_RTOL,
+                          atol=VOXEL_ATOL * max(scale, 1e-30)):
+        raise AssertionError(f'card vs CPU {what}: max abs err {err:.3e} '
+                             f'over rtol {VOXEL_RTOL} + {VOXEL_ATOL} x '
+                             f'{scale:.3e}')
+    log(f'  card vs CPU {what}: max abs err {err:.3e} (largest entry '
+        f'{scale:.3e})')
+    return err / max(scale, 1e-30)
+
+
+def _require_anchor_headings(g, c):
+    """Card vs CPU headings of the anchor boxes: the direction bin may
+    flip where the CPU's two direction logits lie within the tolerance of
+    each other (a heading pi apart); elsewhere within tolerance."""
+    hg, hc = g['batch_box_preds'][..., 6].cpu(), c['batch_box_preds'][..., 6]
+    dirs = c['anchor_head_ret']['dir_preds']
+    tied = (dirs[..., 0] - dirs[..., 1]).abs() <= VOXEL_RTOL + VOXEL_ATOL * \
+        float(dirs.abs().max())
+    full = torch.remainder(hg - hc + torch.pi, 2 * torch.pi) - torch.pi
+    half = torch.remainder(hg - hc + torch.pi / 2, torch.pi) - torch.pi / 2
+    tol = VOXEL_RTOL * float(hc.abs().max()) + VOXEL_ATOL
+    if (half.abs() > tol).any() or (full.abs()[~tied] > tol).any():
+        raise AssertionError('card vs CPU anchor headings differ beyond '
+                             'the tolerance')
+    flipped = int((full.abs() > tol).sum())
+    log(f'  card vs CPU anchor headings: within {tol:.3e} mod pi; '
+        f'{flipped} direction bins flipped of {int(tied.sum())} near-tied '
+        f'ones')
+
+
+def _require_topk_order(card_scores, cpu_scores, k, what):
+    """The card's top-k (its NMS's candidates) is a top-k of the CPU's
+    scores up to CTR_SCORE_TOL: no score outside it above one inside by
+    more than that."""
+    from spsnet_torch.ops.boxes import topk_desc
+    sel = topk_desc(card_scores, k)[1].cpu()
+    inside = torch.zeros_like(cpu_scores, dtype=torch.bool).scatter_(
+        1, sel, True)
+    lo = torch.where(inside, cpu_scores, torch.inf).amin(1)
+    hi = torch.where(inside, -torch.inf, cpu_scores).amax(1)
+    worst = float((hi - lo).max())
+    if worst > CTR_SCORE_TOL:
+        raise AssertionError(f'card vs CPU {what}: the card\'s top {k} is no '
+                             f'top {k} of the CPU\'s scores ({worst:.3e})')
+    log(f'  card vs CPU {what}: the card\'s top {k} is a top {k} of the '
+        f'CPU\'s scores (the largest score outside over the smallest '
+        f'inside: {worst:.3e}, tolerance {CTR_SCORE_TOL})')
+
+
+def pvrcnn_cpu_phase(model, cfg, batch):
+    """One PV-RCNN request (B = 2) on the card and on the CPU with the same
+    weights and host tables, stage by stage, each CPU stage from the
+    card's input to it: voxel features, every sparse level, the BEV map
+    (the scatter bit for bit), the BEV backbone and the anchor head within
+    VOXEL_RTOL / VOXEL_ATOL; the card's 1024 proposal candidates a top
+    1024 of the CPU's scores; the proposal NMS (``nms_agrees``); the VSA's
+    FPS keypoints and every source's ball-query indices identical, its
+    features and the point head within tolerance; the RoI-grid picks
+    (the grid points of the card's RoIs, rotated on each device) equal or
+    within the rounding slack of their inputs, then replayed
+    (``PrcnnDecisions``); the pooled features, the refinement, the decoded
+    boxes and the final NMS."""
+    from spsnet_torch.models.detectors.detector3d import (
+        class_agnostic_nms_batch, post_processing)
+    from spsnet_torch.models.roi_heads.pointrcnn_head import \
+        decode_in_roi_frame
+    from spsnet_torch.ops.grouping import ball_query_multi
+    _, cpu = build_voxel_detector('pv_rcnn', 'cpu')
+    cpu.load_state_dict(model.state_dict())
+    host = _cpu_tree(batch)
+    st = pv_stages(model, batch)
+    errs = []
+    with torch.no_grad():
+        g = model.vfe(batch)
+        c = cpu.vfe(host)
+        errs.append(_require_scaled(g['voxel_features'], c['voxel_features'],
+                                    'voxel features'))
+        g = model.backbone_3d(g)
+        c = cpu.backbone_3d(dict(host, voxel_features=g[
+            'voxel_features'].cpu()))
+        for name, t in c['multi_scale_3d_features'].items():
+            errs.append(_require_scaled(
+                g['multi_scale_3d_features'][name], t, f'sparse level {name}'))
+        errs.append(_require_scaled(g['encoded_voxel_features'],
+                                    c['encoded_voxel_features'], 'conv_out'))
+        g = model.map_to_bev_module(g)
+        c = cpu.map_to_bev_module(_cpu_tree(dict(
+            host, **{k: g[k] for k in ('encoded_voxel_features',
+                                       'encoded_voxel_coords',
+                                       'encoded_voxel_valid')})))
+        require_equal(g['spatial_features'], c['spatial_features'],
+                      'card vs CPU: the BEV scatter (HeightCompression)')
+        g = model.backbone_2d(g)
+        c = cpu.backbone_2d({'spatial_features': g['spatial_features'].cpu()})
+        errs.append(_require_scaled(g['spatial_features_2d'],
+                                    c['spatial_features_2d'],
+                                    'BEV backbone'))
+        g = model.dense_head(g)
+        c = cpu.dense_head({'spatial_features_2d':
+                            g['spatial_features_2d'].cpu()})
+        for key in ('cls_preds', 'box_preds', 'dir_preds'):
+            errs.append(_require_scaled(g['anchor_head_ret'][key],
+                                        c['anchor_head_ret'][key],
+                                        f'anchor head {key}'))
+        errs.append(_require_scaled(g['batch_box_preds'][..., :6],
+                                    c['batch_box_preds'][..., :6],
+                                    'anchor boxes, centers and sizes'))
+        _require_anchor_headings(g, c)
+        rpn = st['rpn']
+        nms = cfg.MODEL.ROI_HEAD.NMS_CONFIG.TEST
+        kw = dict(thresh=float(nms.NMS_THRESH), pre=int(nms.NMS_PRE_MAXSIZE),
+                  post=int(nms.NMS_POST_MAXSIZE))
+        card_scores = torch.sigmoid(rpn['batch_cls_preds']).amax(-1)
+        _require_topk_order(card_scores,
+                            torch.sigmoid(c['batch_cls_preds']).amax(-1),
+                            kw['pre'], 'proposal candidates (anchor scores)')
+        card_idx = class_agnostic_nms_batch(
+            rpn['batch_box_preds'], rpn['batch_cls_preds'], -1e9,
+            kw['thresh'], kw['pre'], kw['post'])['indices']
+        for b in range(card_idx.shape[0]):
+            scores = card_scores[b:b + 1].cpu()
+            nms_agrees(card_idx[b:b + 1], rpn['batch_box_preds'][b:b + 1]
+                       .cpu(), scores, scores > -1e9,
+                       what=f'proposal NMS indices, frame {b}', **kw)
+        # the VSA from the card's stage-one outputs
+        pg = st['pfe']
+        pc = cpu.pfe(_cpu_tree(rpn))
+        require_equal(pg['keypoint_idx'], pc['keypoint_idx'],
+                      'card kernel vs CPU plain: VSA keypoints (FPS)')
+        xyz = rpn['points'][..., :3].contiguous()
+        sources = [('raw_points', model.pfe.SA_rawpoints, xyz, xyz.cpu())]
+        for name, group in model.pfe.SA_layers.items():
+            centers = model.pfe.voxel_centers(rpn, name)
+            own = cpu.pfe.voxel_centers(_cpu_tree(rpn), name)
+            require_equal(centers, own, f'card vs CPU: {name} voxel centers')
+            sources.append((name, group, centers, own))
+        for name, group, sg, sc in sources:
+            for r, gi, ci in zip(group.radii,
+                                 ball_query_multi(group.radii,
+                                                  group.nsamples, sg,
+                                                  pg['point_coords']),
+                                 ball_query_multi(group.radii,
+                                                  group.nsamples, sc,
+                                                  pc['point_coords'])):
+                require_equal(gi, ci, f'card kernel vs CPU plain: VSA {name} '
+                                      f'ball query r={r}')
+        for key in ('point_features_before_fusion', 'point_features'):
+            errs.append(_require_scaled(pg[key], pc[key], f'VSA {key}'))
+        ph = cpu.point_head(_cpu_tree(pg))
+        errs.append(_require_scaled(
+            st['point']['point_head_simple_ret']['point_cls_preds'],
+            ph['point_head_simple_ret']['point_cls_preds'],
+            'point head cls preds'))
+        out = st['out']
+        rois = out['rois']
+        rec = PrcnnDecisions('record')
+        with prcnn_decisions(rec):
+            pooled_g = model.roi_head.roi_grid_pool(st['point'], rois)
+        chk = PrcnnDecisions('check', ref=rec)
+        with prcnn_decisions(chk):
+            pooled_c = cpu.roi_head.roi_grid_pool(_cpu_tree(st['point']),
+                                                  rois.cpu())
+        for note in chk.notes or ['RoI-grid ball query: identical']:
+            log(f'  card vs CPU {note}')
+        errs.append(_require_scaled(pooled_g, pooled_c,
+                                    'RoI-grid pooled features'))
+        head = cpu.roi_head
+        shared = head.shared_fc_layer(pooled_c)
+        ret = out['roi_head_ret']
+        errs.append(_require_scaled(ret['rcnn_cls'], head.cls_layers(shared),
+                                    'rcnn_cls'))
+        errs.append(_require_scaled(ret['rcnn_reg'], head.reg_layers(shared),
+                                    'rcnn_reg'))
+        errs.append(_require_scaled(
+            out['batch_box_preds'],
+            decode_in_roi_frame(head.box_coder, ret['rcnn_reg'].cpu(),
+                                rois.cpu()), 'refined boxes'))
+        post = cfg.MODEL.POST_PROCESSING
+        dets_g = post_processing(out, post)
+        final = _cpu_tree({k: out[k] for k in (
+            'batch_box_preds', 'batch_cls_preds', 'batch_roi_labels')})
+        final['has_class_labels'] = True
+        dets_c = post_processing(final, post)
+        scores = torch.sigmoid(final['batch_cls_preds']).amax(-1)
+        for b in range(scores.shape[0]):
+            nms_agrees(dets_g['indices'][b:b + 1],
+                       final['batch_box_preds'][b:b + 1], scores[b:b + 1],
+                       scores[b:b + 1] > float(post.SCORE_THRESH),
+                       float(post.NMS_CONFIG.NMS_THRESH),
+                       int(post.NMS_CONFIG.NMS_PRE_MAXSIZE),
+                       int(post.NMS_CONFIG.NMS_POST_MAXSIZE),
+                       f'final NMS indices, frame {b}')
+        if torch.equal(dets_c['indices'], dets_g['indices'].cpu()):
+            for key in ('count', 'labels'):
+                require_equal(dets_g[key], dets_c[key],
+                              f'card vs CPU final NMS {key}')
+            errs.append(_require_scaled(dets_g['boxes'], dets_c['boxes'],
+                                        'final boxes'))
+            errs.append(_require_scaled(dets_g['scores'], dets_c['scores'],
+                                        'final scores'))
+    log(f'  {dets_g["count"].tolist()} detections, labels '
+        f'{sorted(set(dets_g["labels"].flatten().tolist()))}')
+    return {'max_scaled_err': max(errs), 'roi_grid_notes': chk.notes,
+            'ball_lists_differ': chk.differ['ball']}
+
+
+def second_phase(batch, pv_cfg):
+    """SECOND (second.yaml, full width, weights from seed 0) on the PV-RCNN
+    request's voxel batch (its voxelization settings are pv_rcnn.yaml's):
+    a warm-up and three timed requests; no kernel of the port runs."""
+    cfg, model = build_voxel_detector('second', 'cuda')
+    steps = lambda c: [p for p in c.DATA_CONFIG.DATA_PROCESSOR
+                       if p.NAME == 'transform_points_to_voxels']
+    if steps(cfg) != steps(pv_cfg):
+        raise AssertionError('second.yaml voxelizes unlike pv_rcnn.yaml')
+    times, launches = main_path(model, [batch] * 3, cfg.MODEL.POST_PROCESSING,
+                                {}, 'SECOND requests')
+    ms = statistics.median(times)
+    log(f'  ms/batch (B={batch["points"].shape[0]}, voxel stack + anchor head '
+        f'+ NMS): median {ms:.3f}, all {[round(t, 3) for t in times]}; '
+        f'launches {launches}')
+    return {'ms_per_batch': ms, 'all_ms': times, 'launches': launches}
+
+
+_BEV_CHILD = r'''
+import json, sys, torch
+sys.path.insert(0, sys.argv[2])
+from spsnet_torch.models.backbones_2d.base_bev_backbone import BaseBEVBackbone
+from spsnet_torch.models.blocks import init_weights
+from spsnet_torch.zoo import pv_rcnn_kitti_cfg
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cudnn.benchmark = sys.argv[1] == 'on'
+bev = BaseBEVBackbone(pv_rcnn_kitti_cfg().MODEL.BACKBONE_2D, 256)
+init_weights(bev, torch.Generator().manual_seed(0))
+bev = bev.cuda().eval()
+out = {}
+with torch.no_grad():
+    for b in (2, 8):
+        x = {'spatial_features': torch.randn(
+            b, 256, 200, 176, generator=torch.Generator().manual_seed(b)
+        ).cuda()}
+        times = []
+        for _ in range(4):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            bev(x)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        out[b] = times
+print(json.dumps(out))
+'''
+
+
+def bev_algorithm_phase():
+    """Event ms of pv_rcnn.yaml's BEV backbone on (B, 256, 200, 176) maps,
+    B = 2 and 8, with cuDNN's heuristic algorithm choice (``cudnn.benchmark``
+    off) and with its timed choice (on, the port's setting), each in a
+    process of its own (PyTorch caches the algorithm of a shape's first
+    call in either mode, so one process cannot hold both): the first call
+    (the choice and its run) and three more. Returns {'off': {B: [ms]},
+    'on': {...}}."""
+    root = str(Path(__file__).resolve().parent)
+    res = {}
+    for mode in ('off', 'on'):
+        run = subprocess.run([sys.executable, '-c', _BEV_CHILD, mode, root],
+                             capture_output=True, text=True, check=True)
+        res[mode] = json.loads(run.stdout.strip().splitlines()[-1])
+        log(f'  BEV backbone, cudnn.benchmark {mode}: event ms a call, the '
+            f'first and three more: ' + '; '.join(
+                f'B={b} {[round(t, 3) for t in ts]}'
+                for b, ts in res[mode].items()))
+    return res
+
+
+def pvrcnn_profile(model, batch, post):
+    """A CUDA-kernel breakdown of one PV-RCNN request: the proposal NMS,
+    the sparse gathers and the BEV backbone as ranges (time, kernels,
+    launches), with their shares."""
+    from spsnet_torch.models.backbones_3d import spconv_backbone
+    from spsnet_torch.models.roi_heads import pvrcnn_head
+    saved = (pvrcnn_head.proposal_layer, spconv_backbone.sparse_gather)
+
+    def ranged(name, fn):
+        def call(*args, **kwargs):
+            with torch.profiler.record_function(name):
+                return fn(*args, **kwargs)
+        return call
+    pvrcnn_head.proposal_layer = ranged('proposal NMS', saved[0])
+    spconv_backbone.sparse_gather = ranged('sparse gather', saved[1])
+    model.backbone_2d.forward = ranged('BEV backbone',
+                                       model.backbone_2d.forward)
+    try:
+        prof = profile_phase(lambda: detect(model, batch, post),
+                             'one PV-RCNN request (B=2)',
+                             ranges=('proposal NMS', 'sparse gather',
+                                     'BEV backbone'))
+    finally:
+        pvrcnn_head.proposal_layer, spconv_backbone.sparse_gather = saved
+        del model.backbone_2d.forward
+    spans = prof['ranges']
+    prof['nms_share'] = spans['proposal NMS']['host_ms'] / prof['wall_ms']
+    for name in ('sparse gather', 'BEV backbone'):
+        spans[name]['device_share'] = spans[name]['device_ms'] / \
+            prof['device_ms']
+    log(f'  proposal NMS (pre 1024, post 100): '
+        f'{spans["proposal NMS"]["host_ms"]:.3f} of {prof["wall_ms"]:.3f} ms '
+        f'({prof["nms_share"]:.3f}), {spans["proposal NMS"]["launches"]} '
+        f'launches; the rest {prof["launches"] - spans["proposal NMS"]["launches"]}'
+        f' launches; sparse gathers {spans["sparse gather"]["device_share"]:.3f}'
+        f' and BEV backbone {spans["BEV backbone"]["device_share"]:.3f} of '
+        f'the device time')
+    return prof
+
+
+def pvrcnn_phases():
+    """Phases 29-33; returns the PV-RCNN record, the kernel calls at its
+    shapes and SECOND's record."""
+    log('== 29. PV-RCNN serving path')
+    pv_cfg, pv = build_voxel_detector('pv_rcnn', 'cuda')
+    pv_batches, pv_host_ms, pv_copy_ms = pv_host_batches(
+        pv_cfg, range(700, 700 + PV_BATCHES), PV_B)
+    pv8_batches, pv8_host_ms, pv8_copy_ms = pv_host_batches(
+        pv_cfg, [710], PV_B8)
+    host_ms = pv_host_ms + pv8_host_ms
+    log(f'  host voxelization + sparse plan (port, numpy): '
+        f'{statistics.median(host_ms):.3f} ms a frame (median of '
+        f'{len(host_ms)} batches, {[round(t, 3) for t in host_ms]}); copy '
+        f'to the card {[round(t, 3) for t in pv_copy_ms + pv8_copy_ms]} ms a '
+        f'batch of {PV_B} / {PV_B8}')
+    pvrcnn = pvrcnn_path(pv, pv_cfg, [pv_batches[k % PV_BATCHES]
+                                      for k in range(PV_REQUESTS)],
+                         'PV-RCNN requests (B=2)')
+    pvrcnn['b8'] = pvrcnn_path(pv, pv_cfg, pv8_batches * PV_REQUESTS,
+                               'PV-RCNN requests (B=8)')
+    pvrcnn.update(host_ms_a_frame=host_ms, copy_ms=pv_copy_ms + pv8_copy_ms)
+
+    log('== 30. kernels vs plain at the PV-RCNN shapes')
+    pv_shapes = pvrcnn_shapes_phase(pv, pv_batches[0], pv8_batches[0])
+
+    log('== 31. PV-RCNN card vs CPU, one request (B=2)')
+    pvrcnn['card_vs_cpu'] = pvrcnn_cpu_phase(pv, pv_cfg, pv_batches[0])
+
+    log('== 32. SECOND, one request (B=2)')
+    second = second_phase(pv_batches[0], pv_cfg)
+
+    log('== 33. where the time goes: one PV-RCNN request')
+    pvrcnn['profile'] = pvrcnn_profile(pv, pv_batches[0],
+                                       pv_cfg.MODEL.POST_PROCESSING)
+    pvrcnn['bev_algorithm_ms'] = bev_algorithm_phase()
+    return pvrcnn, pv_shapes, second
+
+
 def card_and_build():
     """Phases 1 and 2; returns the card's nvidia-smi line."""
     from spsnet_torch.ops import _build
@@ -2800,14 +3370,18 @@ def main(argv=()) -> int:
         f'{prof["busy_share"]:.3f}')
     del prcnn_model, prcnn_step, train_proposals
 
+    pvrcnn, pv_shapes, second = pvrcnn_phases()
+
     paths = {'serve': launches, 'train': train_launches,
              'spsnet': sps_launches, 'fps_entries': entry_launches,
              'spsnet_train': sps_train_launches,
              'stability_train': stab_launches, 'pointrcnn': prcnn_launches,
              'waymo': waymo['launches'], 'nuscenes': nuscenes['launches'],
-             'pointrcnn_train': prcnn_train['launches']}
+             'pointrcnn_train': prcnn_train['launches'],
+             'pvrcnn': pvrcnn['launches'], 'pvrcnn_b8': pvrcnn['b8'][
+                 'launches'], 'second': second['launches']}
     for entry in entries:
-        entry['launches_by_path'] = {path: counts[entry['name']]
+        entry['launches_by_path'] = {path: counts.get(entry['name'], 0)
                                      for path, counts in paths.items()}
         entry['launches'] = sum(entry['launches_by_path'].values())
         name = entry['name']
@@ -2816,11 +3390,13 @@ def main(argv=()) -> int:
             entry['waymo_calls'] = waymo[name]
             entry['nuscenes_calls'] = nuscenes[name]
             entry['pointrcnn_train_calls'] = train_shapes[name]
+            entry['pvrcnn_calls'] = pv_shapes[name]
             entry['max_abs_err'] = max(entry['max_abs_err'],
                                        prcnn_shapes['errs'][name],
                                        waymo['errs'][name],
                                        nuscenes['errs'][name],
-                                       train_shapes['errs'][name])
+                                       train_shapes['errs'][name],
+                                       pv_shapes['errs'][name])
         if name == 'fps':
             entry['max_abs_err'] = max(entry['max_abs_err'],
                                        chunked.pop('err'))
@@ -2851,7 +3427,8 @@ def main(argv=()) -> int:
                     'nuscenes_ms_per_batch': nuscenes['ms_per_batch'],
                     'waymo_all_ms': waymo['all_ms'],
                     'nuscenes_all_ms': nuscenes['all_ms'],
-                    'pointrcnn_train': prcnn_train, 'card': smi}))
+                    'pointrcnn_train': prcnn_train,
+                    'pvrcnn': pvrcnn, 'second': second, 'card': smi}))
     log(smi)
     log(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

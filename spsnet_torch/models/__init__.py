@@ -1,3 +1,3 @@
-from .detectors import build_detector
+from .detectors import build_detector, build_detector_from_cfg
 
-__all__ = ['build_detector']
+__all__ = ['build_detector', 'build_detector_from_cfg']

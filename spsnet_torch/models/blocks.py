@@ -23,15 +23,17 @@ from ..utils.common import to_device
 class BatchNormLast(nn.BatchNorm1d):
     """BatchNorm over the last axis of a (..., C) tensor, statistics over all
     leading dims (``BatchNorm2d`` on (B, C, M, S)). eps 1e-5 and momentum
-    0.1 match flax's momentum 0.9 (``spsnet_tpu/models/blocks.py:52-54``).
+    0.1 match flax's momentum 0.9 (``spsnet_tpu/models/blocks.py:52-54``);
+    the sparse convolutions take eps 1e-3 and momentum 0.01 (flax 0.99).
 
     In training the batch is normalised with its biased variance, as in
     both frameworks, and the running variance moves toward the biased
     variance too, as flax's does (torch's own update takes the unbiased
     one, n/(n-1) larger)."""
 
-    def __init__(self, num_features: int):
-        super().__init__(num_features, eps=1e-5, momentum=0.1)
+    def __init__(self, num_features: int, eps: float = 1e-5,
+                 momentum: float = 0.1):
+        super().__init__(num_features, eps=eps, momentum=momentum)
 
     def forward(self, x):
         shape = x.shape
@@ -110,28 +112,43 @@ class MLPHead(nn.Sequential):
         return x
 
 
+def _fan_in(layer) -> float:
+    """Inputs summed into one output of a Linear, a convolution or a
+    transposed convolution (whose kernel taps a stride apart meet no
+    output together)."""
+    if isinstance(layer, nn.Linear):
+        return layer.in_features
+    taps = math.prod(layer.kernel_size)
+    if isinstance(layer, nn.ConvTranspose2d):
+        return layer.in_channels * taps / math.prod(layer.stride)
+    return layer.in_channels * taps / layer.groups
+
+
 @torch.no_grad()
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:
-    """Seeded random weights for the MLP stacks of ``module``.
+    """Seeded random weights for the Linear and convolution layers of
+    ``module``.
 
-    A Linear followed by BatchNorm or ReLU gets He-normal weights (std
+    A layer followed by BatchNorm or ReLU gets He-normal weights (std
     sqrt(2 / fan_in)), which keeps activations at unit scale through ReLU; an
-    output Linear gets std sqrt(1 / fan_in); every bias is N(0, 0.1). BatchNorm
-    keeps its identity statistics. Draws happen on the CPU in module order,
-    so a seed gives the same weights on every device.
+    output layer gets std sqrt(1 / fan_in); every bias is N(0, 0.1).
+    BatchNorm keeps its identity statistics. Draws happen on the CPU in
+    module order, so a seed gives the same weights on every device.
     """
-    linears = [m for m in module.modules() if isinstance(m, nn.Linear)]
+    kinds = (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)
+    layers = [m for m in module.modules() if isinstance(m, kinds)]
     hidden = set()
     for seq in module.modules():
         if isinstance(seq, nn.Sequential):
             for a, b in zip(seq, list(seq)[1:]):
-                if isinstance(a, nn.Linear) and isinstance(
-                        b, (BatchNormLast, nn.ReLU)):
+                if isinstance(a, kinds) and isinstance(
+                        b, (BatchNormLast, nn.BatchNorm2d, nn.ReLU)):
                     hidden.add(id(a))
-    for lin in linears:
-        gain = 2.0 if id(lin) in hidden else 1.0
-        std = math.sqrt(gain / lin.in_features)
-        w = torch.randn(lin.weight.shape, generator=generator) * std
-        lin.weight.copy_(w)
-        if lin.bias is not None:
-            lin.bias.copy_(torch.randn(lin.bias.shape, generator=generator) * 0.1)
+    for layer in layers:
+        gain = 2.0 if id(layer) in hidden else 1.0
+        std = math.sqrt(gain / _fan_in(layer))
+        w = torch.randn(layer.weight.shape, generator=generator) * std
+        layer.weight.copy_(w)
+        if layer.bias is not None:
+            layer.bias.copy_(torch.randn(layer.bias.shape,
+                                         generator=generator) * 0.1)

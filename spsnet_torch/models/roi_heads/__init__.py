@@ -1,4 +1,5 @@
-"""RoI heads of the two-stage point detectors."""
+"""RoI heads of the two-stage detectors."""
 from .pointrcnn_head import PointRCNNHead
+from .pvrcnn_head import PVRCNNHead
 
-__all__ = ['PointRCNNHead']
+__all__ = ['PointRCNNHead', 'PVRCNNHead']

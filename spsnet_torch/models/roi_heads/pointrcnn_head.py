@@ -41,6 +41,38 @@ from .roi_utils import (draw_roi_sampling, proposal_target_layer,
 N_PREFIX = 5
 
 
+def proposal_layer(batch, nms_cfg):
+    """The first stage's boxes -> (rois (B, R, 7), roi_scores (B, R),
+    roi_labels (B, R), roi_valid (B, R)) by class-agnostic NMS at
+    ``nms_cfg`` with no score threshold (``roi_head_template.py:35-100``);
+    R is NMS_POST_MAXSIZE, rows past a frame's count zero."""
+    dets = class_agnostic_nms_batch(
+        batch['batch_box_preds'], batch['batch_cls_preds'],
+        score_thresh=-1e9, nms_thresh=float(nms_cfg.NMS_THRESH),
+        nms_pre=int(nms_cfg.NMS_PRE_MAXSIZE),
+        nms_post=int(nms_cfg.NMS_POST_MAXSIZE),
+        cls_preds_normalized=bool(batch.get('cls_preds_normalized', False)))
+    R = dets['boxes'].shape[1]
+    valid = torch.arange(R, device=dets['count'].device)[None, :] < \
+        dets['count'][:, None]
+    return dets['boxes'], dets['scores'], dets['labels'], valid
+
+
+def decode_in_roi_frame(box_coder, rcnn_reg, rois):
+    """Refined boxes: the residuals decoded against each RoI moved to the
+    origin with zero heading, then rotated by the RoI's heading and moved
+    to its center."""
+    B, R, _ = rois.shape
+    local = torch.cat([torch.zeros_like(rois[..., 0:3]), rois[..., 3:6],
+                       torch.zeros_like(rois[..., 6:7])], dim=-1)
+    dec = box_coder.decode(rcnn_reg.reshape(B, R, box_coder.code_size),
+                           local)
+    xyz = rotate_points_along_z(dec[..., 0:3].reshape(B * R, 1, 3),
+                                rois[..., 6].reshape(B * R))
+    return torch.cat([xyz.reshape(B, R, 3) + rois[..., 0:3], dec[..., 3:6],
+                      dec[..., 6:7] + rois[..., 6:7], dec[..., 7:]], dim=-1)
+
+
 class PointRCNNHead(nn.Module):
 
     def __init__(self, model_cfg, num_class: int, input_channels: int):
@@ -72,24 +104,11 @@ class PointRCNNHead(nn.Module):
                                   dropout=dp, dropout_idx=(0,))
 
     def proposal_layer(self, batch):
-        """The point head's boxes -> (rois (B, R, 7), roi_scores (B, R),
-        roi_labels (B, R), roi_valid (B, R)) by class-agnostic NMS with no
-        score threshold (``roi_head_template.py:35-100``) at NMS_CONFIG.TRAIN
-        in training, TEST in eval; R is NMS_POST_MAXSIZE, rows past a
-        frame's count zero."""
+        """``proposal_layer`` at NMS_CONFIG.TRAIN in training, TEST in
+        eval."""
         nms_cfg = self.model_cfg.NMS_CONFIG.TRAIN if self.training \
             else self.model_cfg.NMS_CONFIG.TEST
-        dets = class_agnostic_nms_batch(
-            batch['batch_box_preds'], batch['batch_cls_preds'],
-            score_thresh=-1e9, nms_thresh=float(nms_cfg.NMS_THRESH),
-            nms_pre=int(nms_cfg.NMS_PRE_MAXSIZE),
-            nms_post=int(nms_cfg.NMS_POST_MAXSIZE),
-            cls_preds_normalized=bool(batch.get('cls_preds_normalized',
-                                                False)))
-        R = dets['boxes'].shape[1]
-        valid = torch.arange(R, device=dets['count'].device)[None, :] < \
-            dets['count'][:, None]
-        return dets['boxes'], dets['scores'], dets['labels'], valid
+        return proposal_layer(batch, nms_cfg)
 
     def pool(self, batch, rois):
         """``roipoint_pool3d`` in the raw frame of each point's xyz, score,
@@ -140,19 +159,7 @@ class PointRCNNHead(nn.Module):
                 self.reg_layers(shared, generator).reshape(B, R, -1), picks)
 
     def decode(self, rcnn_reg, rois):
-        """Refined boxes: the residuals decoded against each RoI moved to
-        the origin with zero heading, then rotated by the RoI's heading
-        and moved to its center."""
-        B, R, _ = rois.shape
-        local = torch.cat([torch.zeros_like(rois[..., 0:3]), rois[..., 3:6],
-                           torch.zeros_like(rois[..., 6:7])], dim=-1)
-        dec = self.box_coder.decode(
-            rcnn_reg.reshape(B, R, self.box_coder.code_size), local)
-        xyz = rotate_points_along_z(dec[..., 0:3].reshape(B * R, 1, 3),
-                                    rois[..., 6].reshape(B * R))
-        return torch.cat([xyz.reshape(B, R, 3) + rois[..., 0:3],
-                          dec[..., 3:6], dec[..., 6:7] + rois[..., 6:7],
-                          dec[..., 7:]], dim=-1)
+        return decode_in_roi_frame(self.box_coder, rcnn_reg, rois)
 
     def forward(self, batch):
         """The proposals, in training with 'gt_boxes' the sampled RoIs and

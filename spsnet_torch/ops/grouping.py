@@ -155,6 +155,20 @@ def query_and_group(radius, nsample, xyz, new_xyz, features=None,
     return grouped[..., 3:], idx
 
 
+def zero_empty_balls(grouped, radius: float):
+    """Zero the grouped rows of each ball with no point in radius, before
+    the MLP, as the reference's stack ``QueryAndGroup`` does
+    (``pointnet2_stack/pointnet2_utils.py:139-143``; ``spsnet_tpu/ops/
+    grouping.py:309-327``): the VSA and the RoI-grid pool. ``grouped``
+    (B, M, S, 3 + C) from ``query_and_group(use_xyz=True)``: slot 0 holds
+    the first hit when there is one, so a ball is empty iff slot 0's
+    center-relative squared distance, summed in the ball query's order,
+    is not below r^2."""
+    x, y, z = grouped[..., 0, 0], grouped[..., 0, 1], grouped[..., 0, 2]
+    empty = x * x + y * y + z * z >= squared_radius(radius)
+    return torch.where(empty[..., None, None], 0.0, grouped)
+
+
 def masked_pool(h, valid=None, method='max_pool'):
     """Pool (B, M, S, C) over S with an optional (B, M, S) validity mask."""
     if valid is None:

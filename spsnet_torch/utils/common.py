@@ -5,6 +5,7 @@ heading]`` with (x, y, z) the box center and heading a rotation about +z
 from __future__ import annotations
 
 import hashlib
+import math
 
 import torch
 
@@ -19,6 +20,12 @@ def rotate_points_along_z(points, angle):
                        zeros, zeros, ones], dim=1).reshape(-1, 3, 3)
     xyz = torch.bmm(points[..., 0:3], rot)
     return torch.cat([xyz, points[..., 3:]], dim=-1)
+
+
+def limit_period(val, offset: float = 0.5, period: float = 2 * math.pi):
+    """``val`` wrapped into ``[-offset * period, (1 - offset) * period)``
+    (``spsnet_tpu/utils/common.py:39-41``)."""
+    return val - torch.floor(val / period + offset) * period
 
 
 def step_generator(seed: int, step: int) -> torch.Generator:

@@ -32,7 +32,27 @@ The stability model ``GenerateCenter`` has its own tree, mapped by
     obj_encoder/{fc1,fc2,fc_ce1,fc_ce2}            obj_encoder.{fc1,fc2,fc_ce1,fc_ce2}
     sf_extract/...                                 sf_extract.* (as SF_extract above)
 
-A Dense kernel (in, out) becomes a Linear weight (out, in). A SharedMLP
+The voxel detectors (SECOND, PV-RCNN) add:
+
+    backbone_3d/{conv_input,conv1,conv2_down,...,conv_out}/{Dense_0,BatchNorm_0}
+                                                   backbone_3d.{name}.{0,1} (sparse conv)
+    backbone_2d/block{i}_down, block{i}_down_bn    backbone_2d.blocks.{i}.{1,2}
+    backbone_2d/block{i}_conv{j}, block{i}_bn{j}   backbone_2d.blocks.{i}.{4+3j,5+3j}
+    backbone_2d/deblock{i}, deblock{i}_bn          backbone_2d.deblocks.{i}.{0,1}
+    dense_head/{conv_cls,conv_box,conv_dir_cls}    dense_head.{conv_cls,conv_box,conv_dir_cls}
+    pfe/raw_mlp_{s}/...                            pfe.SA_rawpoints.mlps.{s}.*
+    pfe/x_conv{n}_mlp_{s}/...                      pfe.SA_layers.x_conv{n}.mlps.{s}.*
+    pfe/vsa_point_feature_fusion/...               pfe.vsa_point_feature_fusion.*
+    point_head/cls_layers/...                      point_head.cls_layers.* (PointHeadSimple)
+    roi_head/pool_mlp_{s}/...                      roi_head.roi_grid_pool_layer.mlps.{s}.*
+    roi_head/shared_fc/{Dense_k,BatchNorm_k}       roi_head.shared_fc_layer.{4k,4k+1} (a Dropout
+                                                     after each layer but the last)
+
+A Dense kernel (in, out) becomes a Linear weight (out, in); a Conv kernel
+(kh, kw, in, out) a Conv2d weight (out, in, kh, kw). A flax ConvTranspose
+kernel (kh, kw, in, out) becomes a ConvTranspose2d weight (in, out, kh, kw)
+flipped in both spatial axes: with kernel = stride, flax sends input i to
+output s * i + r through tap s - 1 - r, torch through tap r. A SharedMLP
 without BatchNorm (no ``BatchNorm_k`` beside its ``Dense_k``) has its
 Linear at 2k.
 """
@@ -141,8 +161,16 @@ def _backbone_name(module, hidden) -> str:
 
 
 def _roi_head_name(module, hidden, bn_paths) -> str:
-    """Torch name prefix of a flax module path of the PointRCNN head."""
+    """Torch name prefix of a flax module path of the PointRCNN or the
+    PV-RCNN head."""
     rest = module[1:]
+    m = re.fullmatch(r'pool_mlp_(\d+)', rest[0])
+    if m and len(rest) == 2:
+        return (f'roi_head.roi_grid_pool_layer.mlps.{m.group(1)}.'
+                f'{_seq_index(rest[1])}')
+    if rest[0] == 'shared_fc' and len(rest) == 2:
+        k = int(rest[1].split('_')[-1])
+        return f'roi_head.shared_fc_layer.{_seq_index(rest[1]) + k}'
     if len(rest) == 2 and rest[0] in ('xyz_up', 'merge'):
         sub = 'xyz_up_layer' if rest[0] == 'xyz_up' else 'merge_down_layer'
         return (f'roi_head.{sub}.'
@@ -156,8 +184,62 @@ def _roi_head_name(module, hidden, bn_paths) -> str:
     raise KeyError(module)
 
 
+_SPARSE_CONV = re.compile(r'conv(_input|_out|\d(_down|_a|_b)?)')
+_BEV_LAYER = re.compile(r'(de)?block(\d+)(_down|_conv(\d+))?(_bn(\d*))?')
+
+
+def _bev_name(layer) -> str:
+    """Torch name of a BaseBEVBackbone layer: ``blocks.{i}`` is ZeroPad,
+    Conv, BN, ReLU, then (Conv, BN, ReLU) per layer; ``deblocks.{i}``
+    ConvTranspose, BN, ReLU."""
+    m = _BEV_LAYER.fullmatch(layer)
+    if m is None:
+        raise KeyError(layer)
+    deblock, i, kind, conv_j, bn, bn_j = m.groups()
+    if deblock:
+        if kind:
+            raise KeyError(layer)
+        return f'backbone_2d.deblocks.{i}.{1 if bn else 0}'
+    if kind == '_down':
+        if bn_j:
+            raise KeyError(layer)
+        return f'backbone_2d.blocks.{i}.{2 if bn else 1}'
+    if kind is None and bn and bn_j:
+        return f'backbone_2d.blocks.{i}.{5 + 3 * int(bn_j)}'
+    if conv_j is not None and not bn:
+        return f'backbone_2d.blocks.{i}.{4 + 3 * int(conv_j)}'
+    raise KeyError(layer)
+
+
+def _voxel_name(module) -> str:
+    """Torch name prefix of a flax module of the voxel detectors' own
+    blocks (raises ``KeyError`` for any other)."""
+    top, rest = module[0], module[1:]
+    if top == 'backbone_3d' and len(rest) == 2 and \
+            _SPARSE_CONV.fullmatch(rest[0]):
+        return f'backbone_3d.{rest[0]}.{_seq_index(rest[1])}'
+    if top == 'backbone_2d' and len(rest) == 1:
+        return _bev_name(rest[0])
+    if top == 'dense_head' and rest in (('conv_cls',), ('conv_box',),
+                                        ('conv_dir_cls',)):
+        return f'dense_head.{rest[0]}'
+    if top == 'pfe' and len(rest) == 2:
+        m = re.fullmatch(r'(raw|x_conv\d)_mlp_(\d+)', rest[0])
+        if m:
+            group = 'SA_rawpoints' if m.group(1) == 'raw' else \
+                f'SA_layers.{m.group(1)}'
+            return f'pfe.{group}.mlps.{m.group(2)}.{_seq_index(rest[1])}'
+        if rest[0] == 'vsa_point_feature_fusion':
+            return f'pfe.vsa_point_feature_fusion.{_seq_index(rest[1])}'
+    raise KeyError(module)
+
+
 def _torch_name(module, hidden, bn_paths) -> str:
     """Torch name prefix of a flax module path of the detector."""
+    if module[0] in ('backbone_2d', 'dense_head', 'pfe') or (
+            module[0] == 'backbone_3d' and len(module) == 3 and
+            _SPARSE_CONV.fullmatch(module[1])):
+        return _voxel_name(module)
     if module[0] == 'point_head' and len(module) > 2 and module[1] in _HEADS:
         idx = _head_index(module[:2], module[2:], hidden)
         return f'point_head.{_HEADS[module[1]]}.{idx}'
@@ -195,6 +277,22 @@ def _n_hidden(params) -> dict:
     return {k: len(v) for k, v in counts.items()}
 
 
+def _is_bn(module_name: str) -> bool:
+    """A flax BatchNorm: ``BatchNorm_k`` in a SharedMLP or a sparse conv,
+    ``..._bn`` / ``block{i}_bn{j}`` in the BEV backbone."""
+    return module_name.startswith('BatchNorm') or \
+        re.fullmatch(r'\w+_bn\d*', module_name) is not None
+
+
+def _kernel_to_torch(arr, name):
+    """A Dense, Conv or ConvTranspose kernel in torch's layout."""
+    if arr.ndim == 2:
+        return arr.T
+    if '.deblocks.' in name:
+        return arr[::-1, ::-1].transpose(2, 3, 0, 1).copy()
+    return arr.transpose(3, 2, 0, 1).copy()
+
+
 def _convert(variables, name_of) -> "OrderedDict[str, torch.Tensor]":
     unknown = set(variables) - {'params', 'batch_stats'}
     if unknown:
@@ -206,7 +304,7 @@ def _convert(variables, name_of) -> "OrderedDict[str, torch.Tensor]":
     for coll in ('params', 'batch_stats'):
         for path, value in _leaves(variables.get(coll, {})):
             module, leaf = path[:-1], path[-1]
-            is_bn = bool(module) and module[-1].startswith('BatchNorm')
+            is_bn = bool(module) and _is_bn(module[-1])
             leaf_map = _BN_LEAF if is_bn else _DENSE_LEAF
             where = f'{coll}/{"/".join(path)}'
             if (coll, leaf) not in leaf_map:
@@ -220,7 +318,7 @@ def _convert(variables, name_of) -> "OrderedDict[str, torch.Tensor]":
                 raise KeyError(f'flax leaf {where} maps onto {name} twice')
             arr = np.asarray(value, dtype=np.float32)
             if leaf == 'kernel':
-                arr = arr.T
+                arr = _kernel_to_torch(arr, name)
             sd[name] = torch.tensor(arr)
             if is_bn and leaf == 'scale':
                 sd[name.replace('.weight', '.num_batches_tracked')] = \

@@ -27,6 +27,18 @@ def pointrcnn_kitti_cfg() -> EDict:
     return load_yaml_cfg('tools/cfgs/kitti_models/pointrcnn.yaml')
 
 
+def pv_rcnn_kitti_cfg() -> EDict:
+    """PV-RCNN KITTI (``tools/cfgs/kitti_models/pv_rcnn.yaml``): SECOND's
+    voxel stack for the proposals, voxel set abstraction of 2048 keypoints
+    and the RoI-grid head."""
+    return load_yaml_cfg('tools/cfgs/kitti_models/pv_rcnn.yaml')
+
+
+def second_kitti_cfg() -> EDict:
+    """SECOND KITTI (``tools/cfgs/kitti_models/second.yaml``)."""
+    return load_yaml_cfg('tools/cfgs/kitti_models/second.yaml')
+
+
 def stability_cfg() -> EDict:
     """The stability model's own training config (MODEL: ``GenerateCenter``
     at npoint 16384, MSG 0.2 / 0.8; OPTIMIZATION: ``adam_onecycle`` at LR
@@ -257,4 +269,91 @@ def tiny_stability_model_cfg() -> EDict:
                           'GT_EXTRA_WIDTH': [0.2, 0.2, 0.2]},
         'LOSS_CONFIG': {'LOSS_REG': 'WeightedSmoothL1Loss',
                         'LOSS_WEIGHTS': {'code_weights': [1.0, 1.0, 1.0]}},
+    })
+
+
+def tiny_pvrcnn_cfg(final_zyx) -> EDict:
+    """Tiny PV-RCNN (CPU-fast) with the topology of ``pv_rcnn.yaml``, for
+    a sparse grid whose final (nz, ny, nx) is ``final_zyx``; the JAX
+    package's tests build the same (``tests/test_pvrcnn.py``)."""
+    return EDict({
+        'NAME': 'PVRCNN',
+        'VFE': {'NAME': 'MeanVFE'},
+        'BACKBONE_3D': {'NAME': 'VoxelBackBone8x'},
+        'MAP_TO_BEV': {'NAME': 'HeightCompression',
+                       'NUM_BEV_FEATURES': int(final_zyx[0]) * 128},
+        'BACKBONE_2D': {'NAME': 'BaseBEVBackbone',
+                        'LAYER_NUMS': [1], 'LAYER_STRIDES': [1],
+                        'NUM_FILTERS': [32], 'UPSAMPLE_STRIDES': [1],
+                        'NUM_UPSAMPLE_FILTERS': [32]},
+        'DENSE_HEAD': {
+            'NAME': 'AnchorHeadSingle', 'CLASS_AGNOSTIC': False,
+            'USE_DIRECTION_CLASSIFIER': True,
+            'DIR_OFFSET': 0.78539, 'DIR_LIMIT_OFFSET': 0.0, 'NUM_DIR_BINS': 2,
+            'ANCHOR_GENERATOR_CONFIG': [
+                {'class_name': 'Car', 'anchor_sizes': [[3.9, 1.6, 1.56]],
+                 'anchor_rotations': [0, 1.57],
+                 'anchor_bottom_heights': [-1.78],
+                 'align_center': False, 'feature_map_stride': 8,
+                 'matched_threshold': 0.6, 'unmatched_threshold': 0.45}],
+            'TARGET_ASSIGNER_CONFIG': {'BOX_CODER': 'ResidualCoder'},
+            'LOSS_CONFIG': {'LOSS_WEIGHTS': {
+                'cls_weight': 1.0, 'loc_weight': 2.0, 'dir_weight': 0.2,
+                'code_weights': [1.0] * 7}},
+        },
+        'PFE': {
+            'NAME': 'VoxelSetAbstraction',
+            'NUM_KEYPOINTS': 64,
+            'NUM_OUTPUT_FEATURES': 32,
+            'FEATURES_SOURCE': ['bev', 'x_conv3', 'x_conv4', 'raw_points'],
+            'SA_LAYER': {
+                'raw_points': {'MLPS': [[8, 8], [8, 8]],
+                               'POOL_RADIUS': [0.4, 0.8], 'NSAMPLE': [4, 4]},
+                'x_conv3': {'DOWNSAMPLE_FACTOR': 4,
+                            'MLPS': [[8, 8], [8, 8]],
+                            'POOL_RADIUS': [1.2, 2.4], 'NSAMPLE': [4, 4]},
+                'x_conv4': {'DOWNSAMPLE_FACTOR': 8,
+                            'MLPS': [[8, 8], [8, 8]],
+                            'POOL_RADIUS': [2.4, 4.8], 'NSAMPLE': [4, 4]},
+            },
+        },
+        'POINT_HEAD': {
+            'NAME': 'PointHeadSimple',
+            'CLS_FC': [16],
+            'CLASS_AGNOSTIC': True,
+            'USE_POINT_FEATURES_BEFORE_FUSION': True,
+            'TARGET_CONFIG': {'GT_EXTRA_WIDTH': [0.2, 0.2, 0.2]},
+            'LOSS_CONFIG': {'LOSS_WEIGHTS': {'point_cls_weight': 1.0}},
+        },
+        'ROI_HEAD': {
+            'NAME': 'PVRCNNHead', 'CLASS_AGNOSTIC': True,
+            'SHARED_FC': [32, 32],
+            'CLS_FC': [32], 'REG_FC': [32],
+            'ROI_GRID_POOL': {'GRID_SIZE': 3,
+                              'MLPS': [[8, 8], [8, 8]],
+                              'POOL_RADIUS': [0.8, 1.6], 'NSAMPLE': [4, 4]},
+            'NMS_CONFIG': {
+                'TRAIN': {'NMS_PRE_MAXSIZE': 64, 'NMS_POST_MAXSIZE': 16,
+                          'NMS_THRESH': 0.8},
+                'TEST': {'NMS_PRE_MAXSIZE': 64, 'NMS_POST_MAXSIZE': 8,
+                         'NMS_THRESH': 0.85}},
+            'TARGET_CONFIG': {
+                'BOX_CODER': 'ResidualCoder',
+                'ROI_PER_IMAGE': 16, 'FG_RATIO': 0.5,
+                'SAMPLE_ROI_BY_EACH_CLASS': True,
+                'CLS_SCORE_TYPE': 'roi_iou',
+                'CLS_FG_THRESH': 0.75, 'CLS_BG_THRESH': 0.25,
+                'CLS_BG_THRESH_LO': 0.1, 'HARD_BG_RATIO': 0.8,
+                'REG_FG_THRESH': 0.55},
+            'LOSS_CONFIG': {
+                'CLS_LOSS': 'BinaryCrossEntropy', 'REG_LOSS': 'smooth-l1',
+                'CORNER_LOSS_REGULARIZATION': True,
+                'LOSS_WEIGHTS': {'rcnn_cls_weight': 1.0,
+                                 'rcnn_reg_weight': 1.0,
+                                 'rcnn_corner_weight': 1.0,
+                                 'code_weights': [1.0] * 7}},
+        },
+        'POST_PROCESSING': {'SCORE_THRESH': 0.1, 'NMS_CONFIG': {
+            'MULTI_CLASSES_NMS': False, 'NMS_THRESH': 0.1,
+            'NMS_PRE_MAXSIZE': 64, 'NMS_POST_MAXSIZE': 16}},
     })

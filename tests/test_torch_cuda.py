@@ -16,8 +16,12 @@ rows that are not 16-byte aligned. At the shapes of SPSNet training: the
 stability train step's ball query, the seeded kernels at the points SPSNet
 keeps, and S-FPS against the CPU. At the shapes of PointRCNN serving:
 FPS and the ball query over 800 RoI rows with empty and padded RoIs, and
-chunked FPS; FPS at Waymo's (2, 65536) -> 16384. Indices must be equal,
-and the min distances to the seeds bit for bit.
+chunked FPS; FPS at Waymo's (2, 65536) -> 16384. At the shapes of
+PV-RCNN serving: FPS to 2048 keypoints, the VSA's five fused queries (up
+to 40 000 voxel centers, most padded at 1e6 on the coarse levels), the
+RoI-grid query; the sparse gather and the voxel stack card against the
+CPU. Indices must be equal, and the min distances to the seeds bit for
+bit.
 
 These tests need a CUDA card and skip without one. On the H100:
 
@@ -663,3 +667,115 @@ def test_chunked_fps_is_one_kernel_launch(cuda):
     assert _build.LAUNCHES['fps'] == 1
     assert torch.equal(got.cpu(),
                        sampling.farthest_point_sample_chunked(xyz, 4096, 4))
+
+
+def _pv_rcnn_frames(seed, b):
+    """``b`` synthetic scans of 16384 points, pv_rcnn.yaml's config and the
+    port's host voxel batch of them."""
+    from spsnet_torch.data.processor import voxel_batch
+    from spsnet_torch.utils.synthetic import synthetic_scan_batch
+    from spsnet_torch.zoo import pv_rcnn_kitti_cfg
+    cfg = pv_rcnn_kitti_cfg()
+    batch = voxel_batch(synthetic_scan_batch(seed, b, 16384), cfg.DATA_CONFIG)
+    return cfg, {k: torch.from_numpy(v) for k, v in batch.items()}
+
+
+@pytest.mark.parametrize('B', [2, 8])
+def test_fps_kernel_at_the_pvrcnn_keypoint_shape(cuda, B):
+    """The VSA's keypoints: (B, 16384) -> 2048 on a scan."""
+    xyz = _scans(12, B, 16384).to(cuda)
+    got = farthest_point_sample_kernel(xyz, 2048)
+    torch.cuda.synchronize()
+    assert torch.equal(got, farthest_point_sample_plain(xyz, 2048))
+
+
+@pytest.mark.parametrize('source', ['raw_points', 'x_conv1', 'x_conv2',
+                                    'x_conv3', 'x_conv4'])
+def test_ball_query_kernel_at_the_vsa_shapes(cuda, source):
+    """Each VSA source's fused query around 2048 keypoints of 2 scans: the
+    raw points (N 16384) and the voxel centers of each sparse level (N
+    40000, padded voxels at 1e6), at pv_rcnn.yaml's radii and neighbours."""
+    from spsnet_torch.models.pfe.voxel_set_abstraction import \
+        VoxelSetAbstraction
+    cfg, batch = _pv_rcnn_frames(13, 2)
+    vsa = VoxelSetAbstraction(cfg.MODEL.PFE, (0.05, 0.05, 0.1),
+                              cfg.DATA_CONFIG.POINT_CLOUD_RANGE, 256,
+                              1).to(cuda)
+    batch = {k: v.to(cuda) for k, v in batch.items()}
+    xyz = batch['points'][..., :3].contiguous()
+    kp = xyz.gather(1, farthest_point_sample_kernel(xyz, 2048)[..., None]
+                    .expand(-1, -1, 3)).contiguous()
+    group = vsa.SA_rawpoints if source == 'raw_points' else \
+        vsa.SA_layers[source]
+    support = xyz if source == 'raw_points' else \
+        vsa.voxel_centers(batch, source)
+    assert support.shape[1] == (16384 if source == 'raw_points' else 40000)
+    got = ball_query_multi_kernel(group.radii, group.nsamples, support, kp)
+    torch.cuda.synchronize()
+    for g, w in zip(got, ball_query_multi_plain(group.radii, group.nsamples,
+                                                support, kp)):
+        assert torch.equal(g, w)
+
+
+def test_ball_query_kernel_at_the_roi_grid_shape(cuda):
+    """The RoI-grid pool: 100 RoIs x 6^3 grid points a frame (21 600
+    centers) over 2048 keypoints, r 0.8 / 1.6, 16 neighbours each."""
+    from spsnet_torch.models.roi_heads.pvrcnn_head import (grid_template,
+                                                           roi_grid_points)
+    xyz = _scans(14, 2, 16384).to(cuda)
+    kp = xyz.gather(1, farthest_point_sample_kernel(xyz, 2048)[..., None]
+                    .expand(-1, -1, 3)).contiguous()
+    rng = np.random.default_rng(15)
+    rois = torch.cat([kp[:, :100], torch.from_numpy(np.concatenate([
+        np.broadcast_to(np.float32([3.9, 1.6, 1.56]), (2, 100, 3)),
+        rng.uniform(-np.pi, np.pi, (2, 100, 1)).astype(np.float32)],
+        -1)).to(cuda)], -1)
+    grid = roi_grid_points(rois, torch.from_numpy(grid_template(6)).to(
+        cuda)).reshape(2, -1, 3).contiguous()
+    assert grid.shape == (2, 21600, 3)
+    got = ball_query_multi_kernel((0.8, 1.6), (16, 16), kp, grid)
+    torch.cuda.synchronize()
+    for g, w in zip(got, ball_query_multi_plain((0.8, 1.6), (16, 16), kp,
+                                                grid)):
+        assert torch.equal(g, w)
+
+
+def test_sparse_gather_on_the_card_matches_the_cpu(cuda):
+    """The sparse convolutions' gather, (2, 40000, 64) features by a
+    subm table of the KITTI plan, sentinel rows zero: exact."""
+    from spsnet_torch.models.backbones_3d.spconv_backbone import \
+        sparse_gather
+    _, batch = _pv_rcnn_frames(16, 2)
+    feats = torch.from_numpy(np.random.default_rng(17).normal(
+        size=(2, 40000, 64)).astype(np.float32))
+    table = batch['subm3_table']
+    got = sparse_gather(feats.to(cuda), table.to(cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), sparse_gather(feats, table))
+
+
+def test_voxel_forward_on_the_card_matches_the_cpu(cuda):
+    """pv_rcnn.yaml's voxel stack at full width on one scan, seeded
+    weights: voxel features, every sparse level, the BEV map and the
+    anchor head's predictions card vs CPU within 1e-4 relative plus 1e-4
+    of each tensor's largest entry (cuBLAS and cuDNN against the CPU's
+    sums over K up to 27 x 64 and 9 x 256, TF32 off)."""
+    from spsnet_torch.models import build_detector_from_cfg
+    cfg, batch = _pv_rcnn_frames(18, 1)
+    gpu = build_detector_from_cfg(cfg, device='cuda')
+    cpu = build_detector_from_cfg(cfg, device='cpu')
+    with torch.no_grad():
+        g = gpu.stage_one({k: v.to(cuda) for k, v in batch.items()})
+        c = cpu.stage_one(dict(batch))
+
+    def close(a, b, what):
+        scale = float(b.abs().max())
+        assert scale > 0, what
+        assert torch.allclose(a.cpu(), b, rtol=1e-4, atol=1e-4 * scale), what
+    close(g['voxel_features'], c['voxel_features'], 'voxel features')
+    for name, t in c['multi_scale_3d_features'].items():
+        close(g['multi_scale_3d_features'][name], t, name)
+    for key in ('spatial_features', 'spatial_features_2d'):
+        close(g[key], c[key], key)
+    for key in ('cls_preds', 'box_preds', 'dir_preds'):
+        close(g['anchor_head_ret'][key], c['anchor_head_ret'][key], key)

@@ -20,8 +20,11 @@ from spsnet_tpu import zoo as jax_zoo
 from spsnet_tpu.config import StaticConfig
 from spsnet_tpu.models import build_detector as jax_build_detector
 from spsnet_tpu.stability.model import GenerateCenter as JaxGenerateCenter
+from spsnet_tpu.config import EDict as jax_zoo_edict
+from spsnet_tpu.data.processor import sparse_plan as jax_plan
 from spsnet_tpu.utils.synthetic import synthetic_scan_batch as jax_scan_batch
 from spsnet_torch import zoo
+from spsnet_torch.data.processor import sparse_plan
 from spsnet_torch.models import build_detector
 from spsnet_torch.ops import _build
 from spsnet_torch.ops.grouping import ball_query_multi_kernel
@@ -32,6 +35,9 @@ from spsnet_torch.stability.model import GenerateCenter
 from spsnet_torch.utils.synthetic import synthetic_scan_batch
 from spsnet_torch.utils.weights import (flax_to_torch,
                                         generator_flax_to_torch, load_flax)
+from tests.test_pvrcnn import PCR as PV_PCR
+from tests.test_pvrcnn import VS as PV_VS
+from tests.test_pvrcnn import make_pv_batch, pvrcnn_tiny_cfg
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted(str(p.relative_to(ROOT))
@@ -113,7 +119,22 @@ with torch.no_grad():
     prcnn_dets = post_processing(
         prcnn({'points': torch.from_numpy(synthetic_scan_batch(0, 1, 256))}),
         tiny_pointrcnn_cfg().POST_PROCESSING)
+from spsnet_torch.data.processor import voxel_batch
+from spsnet_torch.runtime.trainer import device_batch
+from spsnet_torch.zoo import pv_rcnn_kitti_cfg, tiny_pvrcnn_cfg
+pv_cfg = pv_rcnn_kitti_cfg()
+crop = [0, -6.4, -3, 12.8, 6.4, 1]
+pv_cfg.DATA_CONFIG.POINT_CLOUD_RANGE = crop
+pv_model = build_detector(tiny_pvrcnn_cfg((2, 32, 32)), 1, device='cpu',
+                          voxel_size=(0.05, 0.05, 0.1), point_cloud_range=crop,
+                          final_grid_zyx=(2, 32, 32))
+with torch.no_grad():
+    pv_dets = post_processing(
+        pv_model(device_batch(voxel_batch(
+            synthetic_scan_batch(0, 1, 256, pc_range=crop), pv_cfg.DATA_CONFIG),
+            'cpu')), tiny_pvrcnn_cfg((2, 32, 32)).POST_PROCESSING)
 print(json.dumps({
+    'pvrcnn_indices': list(pv_dets['indices'].shape),
     'jax_modules': sorted(m for m in sys.modules
                           if m.split('.')[0] in ('jax', 'flax', 'optax',
                                                  'orbax', 'spsnet_tpu')),
@@ -130,15 +151,17 @@ print(json.dumps({
 def test_import_cpu_forward_and_train_step_load_no_jax_and_build_nothing():
     """Import, an IA-SSD forward, a train step, an SPSNet eval step and
     train step with the stability preprocess, a stability-model train
-    step and a PointRCNN forward with its post-processing, all on the CPU:
-    no JAX module is loaded and no kernel is built."""
+    step, a PointRCNN forward with its post-processing and a PV-RCNN one
+    on a batch of the port's own voxelization, all on the CPU: no JAX
+    module is loaded and no kernel is built."""
     env = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}
     env['PYTHONPATH'] = str(ROOT)
     res = subprocess.run([sys.executable, '-c', _CHILD], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     got = json.loads(res.stdout.strip().splitlines()[-1])
-    assert got == {'jax_modules': [], 'processes': 0, 'libraries': 0,
+    assert got == {'pvrcnn_indices': [1, 8],
+                   'jax_modules': [], 'processes': 0, 'libraries': 0,
                    'boxes': [1, 16, 7], 'finite_loss': True,
                    'spsnet_indices': [2, 16], 'pointrcnn_indices': [1, 8],
                    'finite_train_losses': True}
@@ -186,6 +209,15 @@ def _jax_variables(kind):
         variables = jax.jit(lambda key, pts: model.init(
             {'params': key, 'latent': key}, {'points': pts}, train=True))(
                 jax.random.PRNGKey(0), points)
+    elif kind == 'pvrcnn':
+        batch, final_zyx = make_pv_batch(np.random.default_rng(0))
+        model = jax_build_detector(
+            jax_zoo_edict(zoo.tiny_pvrcnn_cfg(final_zyx)), num_class=1,
+            voxel_size=PV_VS, point_cloud_range=PV_PCR,
+            final_grid_zyx=tuple(int(v) for v in final_zyx))
+        variables = jax.jit(lambda key, b: model.init(key, b, train=False))(
+            jax.random.PRNGKey(0), {k: v for k, v in batch.items()
+                                    if k != 'gt_boxes'})
     else:
         cfg = {'iassd': jax_zoo.tiny_iassd_cfg,
                'spsnet': jax_zoo.tiny_spsnet_cfg,
@@ -210,7 +242,30 @@ BRIDGES = {
                   generator_flax_to_torch),
     'pointrcnn': (lambda: build_detector(zoo.tiny_pointrcnn_cfg(), 3,
                                          device='cpu'), flax_to_torch),
+    'pvrcnn': (lambda: build_detector(
+        zoo.tiny_pvrcnn_cfg(PV_FINAL), 1, device='cpu', voxel_size=PV_VS,
+        point_cloud_range=PV_PCR, final_grid_zyx=PV_FINAL), flax_to_torch),
 }
+# PV-RCNN's tree (tests/test_pvrcnn.py's tiny config, whose random voxels
+# end on a (3, 2, 2) grid): a module that each new mapping rule places
+PV_FINAL = (3, 2, 2)
+PVRCNN_MODULES = [
+    (('backbone_3d', 'conv3_b', 'Dense_0'), 'backbone_3d.conv3_b.0'),
+    (('backbone_3d', 'conv_out', 'BatchNorm_0'), 'backbone_3d.conv_out.1'),
+    (('backbone_2d', 'block0_down'), 'backbone_2d.blocks.0.1'),
+    (('backbone_2d', 'block0_bn0'), 'backbone_2d.blocks.0.5'),
+    (('backbone_2d', 'deblock0'), 'backbone_2d.deblocks.0.0'),
+    (('dense_head', 'conv_dir_cls'), 'dense_head.conv_dir_cls'),
+    (('pfe', 'raw_mlp_1', 'Dense_1'), 'pfe.SA_rawpoints.mlps.1.3'),
+    (('pfe', 'x_conv4_mlp_0', 'BatchNorm_1'), 'pfe.SA_layers.x_conv4.mlps.0.4'),
+    (('pfe', 'vsa_point_feature_fusion', 'Dense_0'),
+     'pfe.vsa_point_feature_fusion.0'),
+    (('point_head', 'cls_layers', 'Dense_0'), 'point_head.cls_layers.3'),
+    (('roi_head', 'pool_mlp_0', 'Dense_1'),
+     'roi_head.roi_grid_pool_layer.mlps.0.3'),
+    (('roi_head', 'shared_fc', 'Dense_1'), 'roi_head.shared_fc_layer.4'),
+    (('roi_head', 'shared_fc', 'BatchNorm_1'), 'roi_head.shared_fc_layer.5'),
+]
 # PointRCNN's trees: (flax module path, torch module name) of a Dense that
 # each new mapping rule places (the FP decoder, the point head, the no-BN
 # xyz-up MLP, the RoI SA layers and the towers behind their Dropout)
@@ -241,6 +296,9 @@ def variables_of():
 def _first_dense(kind, variables):
     """The first SA layer's first Dense kernel of a variable tree, and the
     name of the module it maps onto."""
+    if kind == 'pvrcnn':
+        return (variables['params']['pfe']['raw_mlp_0']['Dense_0']['kernel'],
+                'pfe.SA_rawpoints.mlps.0.0')
     if kind == 'generator':
         return (variables['params']['surface_pw_feature']['mlp_0']['Dense_0']
                 ['kernel'], 'surface_pw_feature.mlps.0.0')
@@ -262,6 +320,22 @@ def _maps_every_key(kind, variables):
             'layer_1']['Dense_0']['kernel']
         w = model.backbone_3d.SF_extract.convs[1].layers[0].linear.weight
         np.testing.assert_array_equal(w.detach().numpy(), k.T)
+    if kind == 'pvrcnn':
+        for path, name in PVRCNN_MODULES:
+            tree = variables['params']
+            for key in path:
+                tree = tree[key]
+            module = model.get_submodule(name)
+            leaf = 'scale' if 'scale' in tree else 'kernel'
+            want = tree[leaf]
+            if want.ndim == 2:
+                want = want.T
+            elif name.startswith('backbone_2d.deblocks'):
+                want = want[::-1, ::-1].transpose(2, 3, 0, 1)
+            elif want.ndim == 4:
+                want = want.transpose(3, 2, 0, 1)
+            np.testing.assert_array_equal(module.weight.detach().numpy(),
+                                          want, err_msg=name)
     if kind == 'pointrcnn':
         for path, name in POINTRCNN_DENSES:
             tree = variables['params']
@@ -278,13 +352,16 @@ def _maps_every_key(kind, variables):
 def _module_tree(kind, variables):
     if kind == 'generator':
         return variables['params']['surface_pw_feature']
+    if kind == 'pvrcnn':
+        return variables['params']['pfe']
     return variables['params']['backbone_3d']['sa_0']
 
 
 def _raises_on_unmapped(kind, variables, where):
     sa0 = _module_tree(kind, variables)
+    mlp = 'raw_mlp_0' if kind == 'pvrcnn' else 'mlp_0'
     if where == 'flax_leaf':   # a BatchNorm leaf on a Dense module
-        sa0['mlp_0']['Dense_0']['scale'] = np.ones(3, np.float32)
+        sa0[mlp]['Dense_0']['scale'] = np.ones(3, np.float32)
     elif where == 'flax_module':
         sa0['extra'] = {'Dense_0': {'kernel': np.ones((3, 3), np.float32)}}
     else:
@@ -295,7 +372,8 @@ def _raises_on_unmapped(kind, variables, where):
 
 def _raises_on_unfilled(kind, variables):
     build, convert = BRIDGES[kind]
-    del _module_tree(kind, variables)['mlp_0']['Dense_0']
+    del _module_tree(kind, variables)[
+        'raw_mlp_0' if kind == 'pvrcnn' else 'mlp_0']['Dense_0']
     with pytest.raises(RuntimeError, match='Missing key'):
         load_flax(build(), variables, convert=convert)
 
@@ -351,6 +429,31 @@ def test_pointrcnn_tree_raises_on_a_port_key_left_unfilled(variables_of):
     _raises_on_unfilled('pointrcnn', variables_of('pointrcnn'))
 
 
+def test_flax_to_torch_maps_every_key_of_the_pvrcnn_tree(variables_of):
+    """The same for PV-RCNN (the sparse convs, the BEV convs and the
+    flipped ConvTranspose, the anchor convs, the VSA, the point head, the
+    RoI-grid head): every leaf lands where its rule places it."""
+    _maps_every_key('pvrcnn', variables_of('pvrcnn'))
+
+
+@pytest.mark.parametrize('where', WHERE + ['bev_module', 'sparse_module'])
+def test_pvrcnn_tree_raises_on_unmapped_flax_keys(variables_of, where):
+    variables = variables_of('pvrcnn')
+    if where in ('bev_module', 'sparse_module'):
+        top, name = ('backbone_2d', 'block0_extra') if where == \
+            'bev_module' else ('backbone_3d', 'conv5')
+        variables['params'][top][name] = {
+            'kernel': np.ones((3, 3), np.float32)}
+        with pytest.raises(KeyError, match='unmapped'):
+            flax_to_torch(variables)
+    else:
+        _raises_on_unmapped('pvrcnn', variables, where)
+
+
+def test_pvrcnn_tree_raises_on_a_port_key_left_unfilled(variables_of):
+    _raises_on_unfilled('pvrcnn', variables_of('pvrcnn'))
+
+
 def test_load_flax_raises_on_a_port_key_left_unfilled(variables_of):
     _raises_on_unfilled('iassd', variables_of('iassd'))
 
@@ -362,7 +465,9 @@ def test_spsnet_trees_raise_on_a_port_key_left_unfilled(variables_of, kind):
 
 @pytest.mark.parametrize('name', ['tiny', 'iassd_kitti', 'iassd_kitti_scaled',
                                   'tiny_spsnet', 'spsnet_kitti',
-                                  'tiny_pointrcnn', 'pointrcnn_kitti'])
+                                  'tiny_pointrcnn', 'pointrcnn_kitti',
+                                  'pv_rcnn_kitti', 'second_kitti',
+                                  'tiny_pvrcnn'])
 def test_config_copies_match_the_jax_package(name):
     """The port's own config loader and zoo give the JAX package's configs
     (``_BASE_CONFIG_`` resolution included for IA-SSD.yaml, SPSNet.yaml
@@ -370,6 +475,12 @@ def test_config_copies_match_the_jax_package(name):
     def build(z):
         if name == 'tiny':
             return z.tiny_iassd_cfg()
+        if name == 'tiny_pvrcnn':
+            return z.tiny_pvrcnn_cfg(PV_FINAL) if z is zoo else \
+                pvrcnn_tiny_cfg(PV_FINAL)
+        if name in ('pv_rcnn_kitti', 'second_kitti'):
+            return getattr(z, f'{name[:-6]}_kitti_cfg')() if z is zoo else \
+                z.load_yaml_cfg(f'tools/cfgs/kitti_models/{name[:-6]}.yaml')
         if name == 'tiny_pointrcnn':
             return z.tiny_pointrcnn_cfg()
         if name == 'pointrcnn_kitti':
@@ -390,3 +501,32 @@ def test_config_copies_match_the_jax_package(name):
 def test_synthetic_scans_match_the_jax_package():
     np.testing.assert_array_equal(synthetic_scan_batch(3, 2, 1000),
                                   jax_scan_batch(3, 2, 1000))
+
+
+def test_sparse_plan_copy_matches_the_jax_package():
+    """Each function of the port's copy of ``sparse_plan.py`` against the
+    original on random voxels: subm and strided tables, the transposed
+    (UNet) table, the final grid."""
+    rng = np.random.default_rng(4)
+    grid = (12, 20, 18)
+    coords = np.unique(np.stack([rng.integers(0, g, 90) for g in grid], 1),
+                       axis=0)
+    V = 96
+    pad = np.zeros((V, 3), np.int64)
+    pad[:len(coords)] = coords
+    valid = np.arange(V) < len(coords)
+    np.testing.assert_array_equal(sparse_plan.subm_table(pad, valid, grid),
+                                  jax_plan.subm_table(pad, valid, grid))
+    args = (pad, valid, grid, (2, 2, 2), (1, 1, 1), (3, 3, 3))
+    got = sparse_plan.spconv_down(*args, max_out=V)
+    want = jax_plan.spconv_down(*args, max_out=V)
+    for g, w in zip(got[:3], want[:3]):
+        np.testing.assert_array_equal(g, w)
+    assert got[3] == want[3]
+    np.testing.assert_array_equal(
+        sparse_plan.spconv_up_table(pad, valid, grid, got[0], got[1], got[3],
+                                    (2, 2, 2), (1, 1, 1), (3, 3, 3)),
+        jax_plan.spconv_up_table(pad, valid, grid, want[0], want[1], want[3],
+                                 (2, 2, 2), (1, 1, 1), (3, 3, 3)))
+    assert sparse_plan.plan_final_grid((41, 1600, 1408)) == \
+        jax_plan.plan_final_grid((41, 1600, 1408)) == (2, 200, 176)
