@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --phase3 ROOT   # phases 1-3 of another checkout
+    python3 chip_smoke.py --jitter-study  # what sets phase 26's baseline
+    python3 chip_smoke.py --fault-check   # phases 26, 36 refuse bad grads
 
 Phases, in order; any failure raises and the exit code is not 0:
 
@@ -50,7 +52,8 @@ Phases, in order; any failure raises and the exit code is not 0:
 8. one train step on one scene on the card and on the CPU from the same
    weights: seeded D-FPS picks identical, loss terms within the tolerance
    stated below, gradients and updated parameters within a stated factor
-   of what a 1e-6 jitter of the weights does to the CPU's own step;
+   of what a 1e-6 jitter of the weights does to the CPU's own step and
+   within fixed ceilings;
 9. a CUDA-kernel breakdown of one train step and the card's busy share;
 10. the SPSNet serving path: ``tools/cfgs/kitti_models/SPSNet.yaml`` at
     full width (the frozen stability model, the deletion of 500 points a
@@ -146,7 +149,8 @@ Phases, in order; any failure raises and the exit code is not 0:
     query of the CPU's points within that rounding, then replayed; the
     proposal NMS as phase 21 holds it; the RoIs' max IoUs, replayed where
     they lie within 1e-5 of a sampling threshold; sampled RoI indices
-    identical; loss terms, gradients and parameters as phase 8 holds them;
+    identical; loss terms, gradients and parameters as phase 8 holds them,
+    each module three names deep within TRAIN_MODULE_CEIL;
 27. ``proposal_target_layer`` and ``pointrcnn_head_loss`` card vs CPU on
     RoIs made by jittering gt boxes, so that the regression and corner
     terms are not zero (random-weight proposals seldom reach IoU 0.55),
@@ -189,7 +193,54 @@ Phases, in order; any failure raises and the exit code is not 0:
     share of the device time; the BEV backbone's time at B = 2 and 8 with
     cuDNN's heuristic and with its timed algorithm choice, each in a child
     process;
-34. one JSON line per kernel set, then the result line.
+34. the PV-RCNN train path: pv_rcnn.yaml at full width with seeded
+    random weights (the anchor head's box layer at 1e-2, so that the
+    proposals stay near their anchors) in train mode takes a warm-up and
+    ten ``adam_onecycle`` steps through ``make_train_step`` of 2 x 16384
+    synthetic scenes, each frame turned about z by an angle in [-pi/4,
+    pi/4] (the config's ``random_world_rotation``) with its gt boxes of
+    classes 1, 2, 3 in turn, voxelized at the train limit (16 000 voxels,
+    ``voxel_batch(mode='train')`` with the gt boxes): anchor targets over
+    211 200 anchors, 2048 keypoints and their targets, the proposal NMS at
+    pre 9000 / post 512 / 0.8, 128 sampled RoIs a frame (their draws and
+    the towers' dropout masks from the step's CPU generators), the three
+    heads' losses; losses and gradients finite, every parameter moves, one
+    FPS and six ball-query launches a step and no other kernel; each
+    step's time, grad norm, positive, force-matched and ignored anchors,
+    foreground keypoints, fg / hard / easy RoIs and proposal-NMS time; each
+    frame's voxels before and after the cap;
+35. FPS and the ball query vs their plain versions at the train shapes,
+    on the inputs a step produces: FPS (2, 16384) -> 2048, the ball query
+    of each VSA source (16 000 voxel rows a level) and of the RoI grid
+    (2 x 128 x 6^3 = 55 296 centers over 2048 keypoints);
+36. one PV-RCNN train step on one frame on the card and on the CPU with
+    the same weights, RoI draws and dropout masks: anchor labels, force
+    matches and keypoint labels identical; the two runs' anchor scores
+    and direction logits within PV_SCORE_TOL and PV_DIR_LOGIT_TOL, the
+    card's 9000 proposal candidates a top 9000 of the CPU's scores within
+    PV_SCORE_TOL, direction bins equal where the CPU's two logits lie
+    farther apart than PV_DIR_LOGIT_TOL, the proposal NMS as phase 21
+    holds it, RoI max IoUs near a sampling threshold replayed, sampled
+    RoIs identical, VSA and RoI-grid picks identical or within their
+    rounding slack, then replayed; loss terms, gradients, parameters and
+    BN running stats as phases 8 and 26 hold them (5x the 1e-6 jitter
+    baseline, printed, or the fixed ceilings, the less; each module
+    within TRAIN_MODULE_CEIL); the share of ``conv_box``'s gradient that
+    comes through the RoIs;
+37. the anchor targets and ``anchor_head_loss`` card vs CPU on the train
+    gt with random predictions, and ``proposal_target_layer`` and
+    ``pointrcnn_head_loss`` at pv_rcnn.yaml's settings on RoIs made by
+    jittering gt boxes, so that the regression, corner and direction
+    terms are not zero, and which terms phase 34 itself carried;
+38. SECOND (second.yaml) at full width in train mode, a warm-up and three
+    steps of the phase-34 batches: losses and gradients finite, every
+    parameter moves, no kernel launch;
+39. a CUDA-kernel breakdown of one PV-RCNN train step: device time,
+    launches, busy share, the proposal NMS's host ms, launches and share,
+    and the shares of the sparse gathers, the BEV backbone and the
+    backward in the device time;
+40. one JSON line per kernel set, then the card's name and power limit,
+    then the result line.
 
 The K5 shapes are (8, 16384) -> 4096, (8, 15884) -> 4096 (SPSNet's layer
 0), (1, 16384) -> 4096 and (32, 4096) -> 1024. Phase 3 also holds FPS and
@@ -253,6 +304,24 @@ TRAIN_B, TRAIN_STEPS, KITTI_TRAIN_FRAMES = 4, 10, 3712
 # terms: the forward's differences summed into scalars.
 TRAIN_LOSS_RTOL = 1e-3
 WEIGHT_JITTER, TRAIN_GRAD_FACTOR, PARAM_ATOL = 1e-6, 5.0, 1e-5
+# Each limit also has a fixed ceiling, so that a baseline that rounding
+# moves far cannot pass a wrong gradient: the relative L2 of the gradients
+# at most TRAIN_GRAD_CEIL, at most TRAIN_BEYOND_CEIL of the parameters
+# beyond PARAM_ATOL, the BN running statistics' relative L2 at most
+# TRAIN_BN_CEIL. PointRCNN's step (phase 26) is such a case: its RoIs carry
+# gradient into the point head's box output layer, whose gradient is 0.97 of
+# the step's global norm at the seed weights (336 before the clip to 10;
+# 20 with the RoIs detached) and follows the RoI head's max-pool routing,
+# and the clip passes each change of that norm to every module. On the CPU
+# a jitter of 1e-8 (an ulp of a third of the weights) moves the clipped
+# gradients by 0.12 relative, 1e-6 by 0.06-0.25 by seed (0.005 and 0.014
+# with the RoIs detached), while the card is 0.016 from the CPU
+TRAIN_GRAD_CEIL, TRAIN_BEYOND_CEIL, TRAIN_BN_CEIL = 0.05, 0.02, 1e-5
+# the two-stage detectors' gradients also module by module, three names deep
+# (a layer of a backbone or a head): each module's relative L2 card vs CPU at
+# most TRAIN_MODULE_CEIL, so that a wrong gradient in a module with a small
+# share of the global norm shows
+TRAIN_MODULE_CEIL = 0.1
 # SPSNet: the scenes of a request, and the points a scene keeps after the
 # stability hook deletes DELETE_NUMBER (SPSNet.yaml)
 SPSNET_REQUESTS, DELETE_NUMBER = 5, 500
@@ -298,6 +367,20 @@ NUSCENES = ('tools/cfgs/nuscenes_models/IA-SSD.yaml', 20480, 4, 500)
 # RoI grid)
 PV_B, PV_B8, PV_REQUESTS, PV_BATCHES = 2, 8, 10, 3
 PV_LAUNCHES = {'fps': 1, 'ball_query': 6}
+# PV-RCNN training (pv_rcnn.yaml): BATCH_SIZE_PER_GPU 2 scans a step at the
+# train voxel limit (16 000), a warm-up and PV_TRAIN_STEPS timed steps, with
+# PV_LAUNCHES a step (the VSA's keypoints; its five sources and the RoI grid
+# of 128 sampled RoIs a frame); SECOND (second.yaml) on the same batches, a
+# warm-up and SECOND_TRAIN_STEPS steps
+PV_TRAIN_B, PV_TRAIN_STEPS, SECOND_TRAIN_STEPS = 2, 10, 3
+# one PV-RCNN train step card vs CPU: training's batch statistics carry the
+# voxel stacks' rounding into the anchor head, whose scores and direction
+# logits then lie at most PV_SCORE_TOL and PV_DIR_LOGIT_TOL apart (4.5e-5
+# and 3.4e-4 measured on an H100 80GB HBM3 at 700 W); the card's proposal
+# candidates must be a top 9000 of the CPU's scores within PV_SCORE_TOL,
+# and a direction bin may differ only where the CPU's two logits lie within
+# PV_DIR_LOGIT_TOL of each other
+PV_SCORE_TOL, PV_DIR_LOGIT_TOL = 2e-4, 1.5e-3
 # card vs CPU on the voxel stack, the VSA and the RoI head: within 1e-4
 # relative plus 1e-4 of each tensor's largest entry (cuBLAS and cuDNN
 # against the CPU's sums over K up to 27 x 64 and 9 x 256; the rounding of
@@ -1171,9 +1254,14 @@ def profile_phase(fn, what, ranges=()):
     for e in host:
         log(f'    {e.self_cpu_time_total / 1e3:9.3f} ms  x{e.count:<5d} '
             f'{e.key[:90]}')
+    # the backward's kernels, launched by the autograd engine's thread
+    # under its evaluate_function ranges
+    timeline = prof.events()
+    backward = sum(e.device_time_total for e in timeline
+                   if e.name.startswith('autograd::engine::evaluate_function')
+                   ) / 1e3
     spans = {}
     if ranges:
-        timeline = prof.events()
         launch_starts = [e.time_range.start for e in timeline
                          if e.name == 'cudaLaunchKernel']
         for name in ranges:
@@ -1195,6 +1283,7 @@ def profile_phase(fn, what, ranges=()):
                 f'{spans[name]["launches"]} kernel launches')
     return {'device_ms': total, 'wall_ms': wall, 'busy_share': total / wall,
             'launches': sum(e.count for e in events), 'ranges': spans,
+            'backward_device_ms': backward,
             'host_top': [[e.key[:60], e.self_cpu_time_total / 1e3, e.count]
                          for e in host]}
 
@@ -1348,6 +1437,57 @@ def _step_difference(a, b, lr):
             'two_lr': 2 * lr}
 
 
+def _require_step_within(card, base, lr):
+    """The card's step (``_step_difference`` against the CPU's) within
+    TRAIN_GRAD_FACTOR times the jitter baseline ``base`` and within the
+    fixed ceilings, no entry beyond 2 lr. Returns the two limits."""
+    grad_limit = min(TRAIN_GRAD_FACTOR * base['grad_rel_l2'],
+                     TRAIN_GRAD_CEIL)
+    beyond_limit = min(TRAIN_GRAD_FACTOR * base['param_beyond'],
+                       TRAIN_BEYOND_CEIL * card['params'])
+    note = (f'gradients\' relative L2 {card["grad_rel_l2"]:.4e} (limit '
+            f'{grad_limit:.4e}: {TRAIN_GRAD_FACTOR} x the baseline or '
+            f'{TRAIN_GRAD_CEIL}, the less), {card["param_beyond"]} '
+            f'parameters beyond {PARAM_ATOL} (limit {beyond_limit:.0f}: '
+            f'{TRAIN_GRAD_FACTOR} x the baseline or {TRAIN_BEYOND_CEIL} of '
+            f'them, the less), largest update difference '
+            f'{card["param_max"]:.4e} (2 lr {2 * lr:.4e})')
+    if card['grad_rel_l2'] > grad_limit or \
+            card['param_beyond'] > beyond_limit or \
+            card['param_max'] > 2 * lr * (1 + 1e-3):
+        raise AssertionError(f'card vs CPU train step: {note}')
+    log(f'  card vs CPU: {note}')
+    return {'grad_limit': grad_limit, 'beyond_limit': beyond_limit}
+
+
+def _require_modules_within(by_module):
+    """Each module's gradient relative L2 card vs CPU (``by_module``: name
+    -> [card, baseline]) at most TRAIN_MODULE_CEIL; logs the five largest."""
+    top = sorted(by_module, key=lambda k: -by_module[k][0])[:5]
+    log(f'  gradient relative L2 of {len(by_module)} modules three names '
+        f'deep, the largest five card vs CPU and baseline: ' +
+        ', '.join(f'{k} {by_module[k][0]:.4f} / {by_module[k][1]:.4f}'
+                  for k in top) + f' (limit {TRAIN_MODULE_CEIL})')
+    if by_module[top[0]][0] > TRAIN_MODULE_CEIL:
+        raise AssertionError(f'card vs CPU gradients of {top[0]}: relative '
+                             f'L2 {by_module[top[0]][0]:.4f} over '
+                             f'{TRAIN_MODULE_CEIL}')
+
+
+def _require_bn_within(stats):
+    """The card's BN running statistics' relative L2 against the CPU's
+    (``stats[0]``) within TRAIN_GRAD_FACTOR times the jitter baseline's
+    (``stats[1]``) and within TRAIN_BN_CEIL. Returns the limit."""
+    limit = min(TRAIN_GRAD_FACTOR * stats[1], TRAIN_BN_CEIL)
+    note = (f'card vs CPU BN running stats: relative L2 {stats[0]:.3e} '
+            f'(limit {limit:.3e}: {TRAIN_GRAD_FACTOR} x the baseline or '
+            f'{TRAIN_BN_CEIL}, the less)')
+    if stats[0] > limit:
+        raise AssertionError(note)
+    log(f'  {note}')
+    return limit
+
+
 def train_cpu_phase(build, batch, n_dfps):
     """One train step on one scene (``batch``, on the CPU) on the card and
     on the CPU from the same weights, and on the CPU from weights jittered
@@ -1400,13 +1540,7 @@ def train_cpu_phase(build, batch, n_dfps):
     base = _step_difference(jit, cpu, lr)
     log(f'  card vs CPU after the step: {card}')
     log(f'  CPU with weights x (1 + {WEIGHT_JITTER} N(0, 1)) vs CPU: {base}')
-    if card['grad_rel_l2'] > TRAIN_GRAD_FACTOR * base['grad_rel_l2'] or \
-            card['param_beyond'] > TRAIN_GRAD_FACTOR * base['param_beyond'] \
-            or card['param_max'] > 2 * lr * (1 + 1e-3):
-        raise AssertionError(f'card vs CPU train step beyond {TRAIN_GRAD_FACTOR}'
-                             f' x the weight-jitter baseline')
-    log(f'  card vs CPU gradients and parameters: within '
-        f'{TRAIN_GRAD_FACTOR} x the baseline, no entry beyond 2 lr')
+    _require_step_within(card, base, lr)
     for (name, g), c in zip(gpu.named_buffers(), cpu.buffers()):
         if name.endswith(('running_mean', 'running_var')):
             err = float((g.cpu() - c).abs().max())
@@ -1802,24 +1936,28 @@ def roi_head_outputs(model):
         handle.remove()
 
 
-def roi_stats(model, out, cfg):
-    """The sampled RoIs of a train forward's RoI-head output: how many are
+def roi_counts(targets, cfg):
+    """The sampled RoIs of a train forward's RoI targets: how many are
     foreground (IoU >= min(REG_FG_THRESH, CLS_FG_THRESH)), hard (CLS_BG_
-    THRESH_LO <= IoU < REG_FG_THRESH) and easy background, how many carry
-    regression targets (IoU > REG_FG_THRESH), and the share of them with
-    at least one pooled point."""
-    t = out['roi_head_ret']['targets']
-    iou = t.gt_iou_of_rois
+    THRESH_LO <= IoU < REG_FG_THRESH) and easy background, and how many
+    carry regression targets (IoU > REG_FG_THRESH)."""
+    iou = targets.gt_iou_of_rois
     fg_t = min(float(cfg.REG_FG_THRESH), float(cfg.CLS_FG_THRESH))
     lo = float(cfg.CLS_BG_THRESH_LO)
-    with torch.no_grad():
-        empty = model.roi_head.pool(out, out['rois'])[1]
     return {'fg': int((iou >= fg_t).sum()),
             'hard': int(((iou >= lo) & (iou < float(cfg.REG_FG_THRESH)))
                         .sum()),
             'easy': int((iou < lo).sum()),
-            'reg_valid': int(t.reg_valid_mask.sum()),
-            'pooled_share': float((~empty).float().mean())}
+            'reg_valid': int(targets.reg_valid_mask.sum())}
+
+
+def roi_stats(model, out, cfg):
+    """``roi_counts`` of a PointRCNN train forward's RoI-head output, and
+    the share of its RoIs with at least one pooled point."""
+    with torch.no_grad():
+        empty = model.roi_head.pool(out, out['rois'])[1]
+    return dict(roi_counts(out['roi_head_ret']['targets'], cfg),
+                pooled_share=float((~empty).float().mean()))
 
 
 def pointrcnn_train_path(batches, smi):
@@ -2117,6 +2255,7 @@ def prcnn_decisions(decisions):
     ``decisions`` (``PrcnnDecisions``) while open."""
     import spsnet_torch.ops as ops_pkg
     from spsnet_torch.models import sa_module
+    from spsnet_torch.models.dense_heads import anchor_head
     from spsnet_torch.models.roi_heads import roi_utils
     hooks = [(ops_pkg, 'farthest_point_sample', decisions.fps),
              (ops_pkg, 'ball_query_multi', decisions.ball),
@@ -2125,6 +2264,8 @@ def prcnn_decisions(decisions):
              (roi_utils, 'max_iou_with_same_class', decisions.max_iou),
              (roi_utils, 'roi_point_indices', decisions.pool),
              (roi_utils, 'subsample_rois', decisions.sampled)]
+    if hasattr(decisions, 'dir_bins'):
+        hooks.append((anchor_head, 'direction_bins', decisions.dir_bins))
     saved = [(owner, name, getattr(owner, name)) for owner, name, _ in hooks]
     for (owner, name, hook), (_, _, real) in zip(hooks, saved):
         setattr(owner, name,
@@ -2143,15 +2284,29 @@ def _grad_rel_l2(a, b, prefix):
                for n, p in m.named_parameters() if n.startswith(prefix)]
               for m in (a, b))
     ga, gb = torch.cat(ga), torch.cat(gb)
+    if float(gb.norm()) == 0:
+        return 0.0 if float(ga.norm()) == 0 else float('inf')
     return float((ga - gb).norm() / gb.norm())
 
 
-def _bn_stats_rel_l2(a, b):
+def _grad_by_module(models, cpu):
+    """The gradient relative L2 of each of ``models`` against ``cpu`` over
+    each module three names deep (``backbone_3d.SA_modules.0``,
+    ``roi_head.cls_layers.0``): name -> [one a model]."""
+    names = [n for n, _ in cpu.named_parameters()]
+    parts = sorted({'.'.join(n.split('.')[:3]) for n in names})
+    return {part: [_grad_rel_l2(a, cpu, part if part in names
+                                else part + '.') for a in models]
+            for part in parts}
+
+
+def _bn_stats_rel_l2(a, b, prefix=''):
     """Relative L2 of model ``a``'s BatchNorm running means and variances
-    against model ``b``'s (on the CPU)."""
+    (those under ``prefix``) against model ``b``'s (on the CPU)."""
     sa, sb = ([t.detach().cpu().double().flatten()
                for n, t in m.named_buffers()
-               if n.endswith(('running_mean', 'running_var'))]
+               if n.startswith(prefix)
+               and n.endswith(('running_mean', 'running_var'))]
               for m in (a, b))
     sa, sb = torch.cat(sa), torch.cat(sb)
     return float((sa - sb).norm() / sb.norm())
@@ -2166,9 +2321,9 @@ def pointrcnn_train_cpu_phase(batch):
     run replays the CPU's. Then the loss terms, the gradients and the
     updated parameters as ``train_cpu_phase`` holds them, and the BN
     running statistics to TRAIN_GRAD_FACTOR times the baseline's relative
-    L2 (the RoI towers normalise 128 RoIs, whose features move with the
-    RoIs' frames). Returns the card's and the baseline's differences and
-    the notes."""
+    L2 or TRAIN_BN_CEIL, the less (the RoI towers normalise 128 RoIs,
+    whose features move with the RoIs' frames). Returns the card's and
+    the baseline's differences, the limits and the notes."""
     from spsnet_torch.zoo import pointrcnn_kitti_cfg
     tcfg = pointrcnn_kitti_cfg().MODEL.ROI_HEAD.TARGET_CONFIG
     thresholds = tuple(float(tcfg[k]) for k in (
@@ -2223,45 +2378,164 @@ def pointrcnn_train_cpu_phase(batch):
     base = _step_difference(jit, cpu, lr)
     log(f'  card vs CPU after the step: {diff}')
     log(f'  CPU with weights x (1 + {WEIGHT_JITTER} N(0, 1)) vs CPU: {base}')
-    if diff['grad_rel_l2'] > TRAIN_GRAD_FACTOR * base['grad_rel_l2'] or \
-            diff['param_beyond'] > TRAIN_GRAD_FACTOR * base['param_beyond'] \
-            or diff['param_max'] > 2 * lr * (1 + 1e-3):
-        raise AssertionError(f'card vs CPU train step beyond '
-                             f'{TRAIN_GRAD_FACTOR} x the weight-jitter '
-                             'baseline')
-    log(f'  card vs CPU gradients and parameters: within '
-        f'{TRAIN_GRAD_FACTOR} x the baseline, no entry beyond 2 lr')
-    by_module = {}
-    for part in ('backbone_3d', 'point_head', 'roi_head'):
-        by_module[part] = [_grad_rel_l2(a, cpu, part) for a in (gpu, jit)]
-    log('  gradient relative L2 by module, card vs CPU and baseline: ' +
-        ', '.join(f'{k} {v[0]:.4f} / {v[1]:.4f}'
-                  for k, v in by_module.items()))
+    limits = _require_step_within(diff, base, lr)
+    by_module = _grad_by_module((gpu, jit), cpu)
+    _require_modules_within(by_module)
     stats = [_bn_stats_rel_l2(a, cpu) for a in (gpu, jit)]
     log(f'  BN running stats, relative L2: card vs CPU {stats[0]:.3e}, '
         f'baseline {stats[1]:.3e}')
-    if stats[0] > TRAIN_GRAD_FACTOR * stats[1]:
-        raise AssertionError(f'card vs CPU BN running stats beyond '
-                             f'{TRAIN_GRAD_FACTOR} x the baseline')
-    return {'card': diff, 'baseline': base, 'notes': own.notes,
-            'by_module': by_module, 'bn_stats': stats,
+    limits['bn_limit'] = _require_bn_within(stats)
+    return {'card': diff, 'baseline': base, 'limits': limits,
+            'notes': own.notes, 'by_module': by_module, 'bn_stats': stats,
             'differ': own.differ, 'loss_rel': worst}
 
 
-def roi_target_loss_phase(fg_in_step):
-    """Phase 27: ``proposal_target_layer`` and ``pointrcnn_head_loss`` on
-    the card and on the CPU, on RoIs made by jittering the gt boxes of two
-    scenes (so that the regression and corner terms are not zero) with
-    the same draws: sampled indices identical, targets within PRED_ATOL /
-    PRED_RTOL, every loss term non-zero and within TRAIN_LOSS_RTOL.
-    ``fg_in_step``: the RoIs with regression targets in the train path's
-    steps, which says whether those terms were already non-zero there."""
-    from spsnet_torch.models.roi_heads.pointrcnn_head import \
-        pointrcnn_head_loss
+def jitter_study() -> int:
+    """``--jitter-study``: what sets phase 26's weight-jitter baseline, on
+    the CPU alone (phase 26's scene and seed-0 weights, the decisions of
+    an unjittered run replayed). Prints the step's global gradient norm
+    before the clip and its largest parameter's share; the clipped
+    gradients' relative L2 after jitters of 1e-6 (three seeds), 1e-7 and
+    1e-8; the same with the RoIs detached from the first stage (so no RoI
+    loss reaches the point head); and the same jitters with the CPU
+    BatchNorm's former form, ``F.batch_norm``'s statistics."""
+    import torch.nn.functional as F
+    from spsnet_torch.models import blocks
+    from spsnet_torch.models.roi_heads import pointrcnn_head
+    batch = _scene_batch(610, 1, 'cpu')
+    state = build_pointrcnn_trainer('cpu')[0].state_dict()
+    port_bn, proposals = blocks._flax_batch_norm, pointrcnn_head.proposal_layer
+
+    def former_bn(bn, x, dims):
+        y = F.batch_norm(x, None, None, bn.weight, bn.bias, True, 0.0,
+                         bn.eps)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=dims, unbiased=False)
+            m = bn.momentum
+            bn.running_mean.copy_((1 - m) * bn.running_mean + m * mean)
+            bn.running_var.copy_((1 - m) * bn.running_var + m * var)
+            bn.num_batches_tracked += 1
+        return y
+
+    def detached(*args, **kwargs):
+        rois, *rest = proposals(*args, **kwargs)
+        return (rois.detach(), *rest)
+
+    def run(ref, jitter=0.0, seed=5):
+        model, opt, step = build_pointrcnn_trainer('cpu')
+        model.load_state_dict(state)
+        gen = torch.Generator().manual_seed(seed)
+        with torch.no_grad():
+            for p in model.parameters():
+                p.mul_(1 + jitter * torch.randn(p.shape, generator=gen))
+        dec = PrcnnDecisions('record' if ref is None else 'replay', ref)
+        with prcnn_decisions(dec):
+            step(batch)
+        return model, dec, opt
+
+    for form, bn, roi_fn in (('the port\'s CPU BatchNorm', port_bn, proposals),
+                             ('the RoIs detached', port_bn, detached),
+                             ('the former CPU BatchNorm', former_bn,
+                              proposals)):
+        blocks._flax_batch_norm, pointrcnn_head.proposal_layer = bn, roi_fn
+        try:
+            ref, dec, opt = run(None)
+            grads = {n: float(p.grad.norm()) for n, p in
+                     ref.named_parameters()}
+            top = max(grads, key=grads.get)
+            total = sum(g * g for g in grads.values()) ** 0.5
+            log(f'{form}: global gradient norm before the clip '
+                f'{float(opt.grad_norm):.4f}; largest {top} '
+                f'{grads[top] / total:.4f} of the norm')
+            for jitter, seed in ((1e-6, 5), (1e-6, 6), (1e-6, 7), (1e-7, 5),
+                                 (1e-8, 5)):
+                model, _, jopt = run(dec, jitter, seed)
+                d = _step_difference(model, ref, opt.lr_fn(0))
+                log(f'  jitter {jitter:g} seed {seed}: gradients\' relative '
+                    f'L2 {d["grad_rel_l2"]:.4e}, cosine '
+                    f'{d["grad_cos"]:.6f}, norm before the clip '
+                    f'{float(jopt.grad_norm):.4f}')
+        finally:
+            blocks._flax_batch_norm = port_bn
+            pointrcnn_head.proposal_layer = proposals
+    return 0
+
+
+# ``--fault-check``: card gradients scaled on purpose in one module (a
+# module three names deep, or a group of them by prefix), each of which
+# phase 26 or 36 must refuse
+PRCNN_FAULTS = (('backbone_3d.SA_modules.0', 1.3),
+                ('backbone_3d.FP_modules.0', 1.3),
+                ('point_head.cls_layers', 2.0),
+                ('point_head.box_layers.0', 1.3),
+                ('roi_head.SA_modules.1', 1.3), ('roi_head.cls_layers', 1.3))
+PV_FAULTS = (('backbone_3d.conv4', 1.3), ('backbone_2d.blocks.0', 1.3),
+             ('dense_head.conv_cls', 1.3), ('pfe.SA_layers.x_conv1', 1.3),
+             ('roi_head.cls_layers', 1.3), ('roi_head.reg_layers', 1.3))
+
+
+def fault_check() -> int:
+    """``--fault-check``: phases 26 and 36 as they run, then again with the
+    card's gradients of one module scaled (``PRCNN_FAULTS``,
+    ``PV_FAULTS``): every such run must fail. Returns 1 if one passed."""
+    phases = sys.modules[__name__]
+    missed = []
+
+    def faulty(build, at, prefix, factor):
+        def wrapped(device, *args):
+            out = build(device, *args)
+            if device == 'cuda':
+                for n, p in out[at].named_parameters():
+                    if n.startswith(prefix):
+                        p.register_hook(lambda g: g * factor)
+            return out
+        return wrapped
+
+    def each(name, phase, arg, faults, at):
+        log(f'== {name} as it runs')
+        phase(arg)
+        build = getattr(phases, name)
+        for prefix, factor in faults:
+            setattr(phases, name, faulty(build, at, prefix, factor))
+            real_log, phases.log = phases.log, lambda *a: None
+            try:
+                phase(arg)
+                missed.append(f'{prefix} x {factor}')
+                real_log(f'NOT REFUSED: card gradients of {prefix} x '
+                         f'{factor}')
+            except AssertionError as e:
+                real_log(f'refused: card gradients of {prefix} x {factor}: '
+                         f'{e}')
+            finally:
+                phases.log = real_log
+                setattr(phases, name, build)
+
+    each('build_pointrcnn_trainer', phases.pointrcnn_train_cpu_phase,
+         _scene_batch(610, 1, 'cpu'), PRCNN_FAULTS, 0)
+    cfg = build_voxel_detector('pv_rcnn', 'cpu')[0]
+    batch = pv_train_batches(cfg, [800, 801])[0][1]
+    each('build_pvrcnn_trainer', phases.pvrcnn_train_cpu_phase,
+         {k: v[:1].cpu() for k, v in batch.items()}, PV_FAULTS, 1)
+    log(f'{len(PRCNN_FAULTS) + len(PV_FAULTS) - len(missed)} of '
+        f'{len(PRCNN_FAULTS) + len(PV_FAULTS)} faults refused')
+    return 1 if missed else 0
+
+
+def roi_target_loss_phase(fg_in_step, cfg, model):
+    """Phases 27 and 37: ``proposal_target_layer`` and
+    ``pointrcnn_head_loss`` (``cfg.MODEL.ROI_HEAD``'s, the box coder of
+    ``model``'s RoI head) on the card and on the CPU, on RoIs made by jittering
+    the gt boxes of two scenes (so that the regression and corner terms
+    are not zero) with the same draws: sampled indices identical, targets
+    within PRED_ATOL / PRED_RTOL, every loss term non-zero and within
+    TRAIN_LOSS_RTOL. ``fg_in_step``: the RoIs with regression targets in
+    the train path's steps, which says whether those terms were already
+    non-zero there."""
+    from spsnet_torch.models.roi_heads.pointrcnn_head import (
+        decode_in_roi_frame, pointrcnn_head_loss)
     from spsnet_torch.models.roi_heads.roi_utils import (
         draw_roi_sampling, proposal_target_layer)
     from spsnet_torch.utils.synthetic import synthetic_scene_batch
-    cfg, model = build_pointrcnn('cpu')
     head, roi_head = cfg.MODEL.ROI_HEAD, model.roi_head
     tcfg = head.TARGET_CONFIG
     _, gt = synthetic_scene_batch(700, PRCNN_TRAIN_B, N)
@@ -2295,7 +2569,8 @@ def roi_target_loss_phase(fg_in_step):
                                         tcfg)
         loss, tb = pointrcnn_head_loss(
             {'targets': targets, 'rcnn_cls': t['cls'], 'rcnn_reg': t['reg'],
-             'batch_box_preds': roi_head.decode(t['reg'], targets.rois)},
+             'batch_box_preds': decode_in_roi_frame(
+                 roi_head.box_coder, t['reg'], targets.rois)},
             head.LOSS_CONFIG, roi_head.box_coder)
         res[device] = (targets, loss, tb)
     (tg, lg, tbg), (tc, lc, tbc) = res['cuda'], res['cpu']
@@ -2325,25 +2600,25 @@ def roi_target_loss_phase(fg_in_step):
             'reg_valid': int(tg.reg_valid_mask.sum())}
 
 
-def roi_gradient_share(model, batch):
-    """The share of the point head's box-layer gradient that reaches it
-    through the RoIs (|g_rcnn| / (|g_rcnn| + |g_point|), each stage's loss
-    alone) in one train forward of ``model`` (in train mode) on the
-    card."""
+def roi_gradient_share(model, batch, params, other, what):
+    """The share of ``params``' gradient that reaches them through the
+    RoIs, |g_rcnn| / (|g_rcnn| + |g_other|), each loss alone (``other``:
+    the tb keys of the first stage's loss terms that reach them), in one
+    train forward of ``model`` (in train mode) on the card."""
     from spsnet_torch.runtime.trainer import step_rngs
     out = model(dict(batch, rngs=step_rngs(0)))
     _, tb = model.loss(out)
-    params = list(model.point_head.box_layers.parameters())
+    params = list(params)
     norms = []
-    for loss in (tb['rcnn_loss'], tb['point_loss_cls'] + tb['point_loss_box']):
+    for loss in (tb['rcnn_loss'], sum(tb[k] for k in other)):
         grads = torch.autograd.grad(loss, params, retain_graph=True,
                                     allow_unused=True)
         norms.append(float(torch.sqrt(sum((g.double() ** 2).sum()
                                           for g in grads if g is not None))))
     share = norms[0] / (norms[0] + norms[1])
-    log(f'  the point head\'s box layers: |grad| through the RoIs '
-        f'{norms[0]:.4e}, from the point loss {norms[1]:.4e}; share through '
-        f'the RoIs {share:.4f}')
+    log(f'  {what}: |grad| through the RoIs {norms[0]:.4e}, from '
+        f'{" + ".join(other)} {norms[1]:.4e}; share through the RoIs '
+        f'{share:.4f}')
     return share
 
 
@@ -2505,21 +2780,24 @@ def pvrcnn_path(model, cfg, requests, what):
     return rec
 
 
-def pvrcnn_shapes_phase(model, batch, batch8):
+def pvrcnn_shapes_phase(model, batch, batch8=None):
     """K1 and K2 vs their plain versions at the PV-RCNN shapes, on the
     inputs a card forward of ``batch`` (B = 2) produces: FPS (2, 16384) ->
-    2048 and, on ``batch8``, (8, 16384) -> 2048; the fused query of each
-    VSA source around the keypoints (the raw points, N 16384; each sparse
-    level's voxel centers, N 40000 with the padded ones at 1e6) and of the
-    RoI grid (100 x 6^3 centers a frame over 2048 keypoints), with event
-    times, device time a call, bounds and launch shapes."""
+    2048 and, on ``batch8`` when given, (8, 16384) -> 2048; the fused query
+    of each VSA source around the keypoints (the raw points, N 16384; each
+    sparse level's voxel centers, N 40000 in serving and 16 000 in
+    training, the padded ones at 1e6) and of the RoI grid (6^3 centers a
+    RoI over 2048 keypoints: 100 proposals a frame in serving, 128
+    sampled RoIs in training, where ``batch`` carries the step's
+    generators), with event times, device time a call, bounds and launch
+    shapes."""
     from spsnet_torch.models.roi_heads.pvrcnn_head import roi_grid_points
     from spsnet_torch.ops import sampling as smp
     from spsnet_torch.ops.grouping import ball_query_multi_kernel
     st = pv_stages(model, batch)
     res = {'fps': [], 'ball_query': [], 'errs': {'fps': 0.0,
                                                   'ball_query': 0.0}}
-    for b in (batch, batch8):
+    for b in (batch, batch8) if batch8 is not None else (batch,):
         xyz = b['points'][..., :3].contiguous()
         npoint = model.pfe.num_keypoints
         call = fps_call('fps', smp.farthest_point_sample_kernel, xyz,
@@ -2599,10 +2877,11 @@ def _require_anchor_headings(g, c):
         f'ones')
 
 
-def _require_topk_order(card_scores, cpu_scores, k, what):
+def _require_topk_order(card_scores, cpu_scores, k, what,
+                        tol=CTR_SCORE_TOL):
     """The card's top-k (its NMS's candidates) is a top-k of the CPU's
-    scores up to CTR_SCORE_TOL: no score outside it above one inside by
-    more than that."""
+    scores up to ``tol``: no score outside it above one inside by more
+    than that."""
     from spsnet_torch.ops.boxes import topk_desc
     sel = topk_desc(card_scores, k)[1].cpu()
     inside = torch.zeros_like(cpu_scores, dtype=torch.bool).scatter_(
@@ -2610,12 +2889,12 @@ def _require_topk_order(card_scores, cpu_scores, k, what):
     lo = torch.where(inside, cpu_scores, torch.inf).amin(1)
     hi = torch.where(inside, -torch.inf, cpu_scores).amax(1)
     worst = float((hi - lo).max())
-    if worst > CTR_SCORE_TOL:
+    if worst > tol:
         raise AssertionError(f'card vs CPU {what}: the card\'s top {k} is no '
                              f'top {k} of the CPU\'s scores ({worst:.3e})')
     log(f'  card vs CPU {what}: the card\'s top {k} is a top {k} of the '
         f'CPU\'s scores (the largest score outside over the smallest '
-        f'inside: {worst:.3e}, tolerance {CTR_SCORE_TOL})')
+        f'inside: {worst:.3e}, tolerance {tol:.3e})')
 
 
 def pvrcnn_cpu_phase(model, cfg, batch):
@@ -2846,10 +3125,12 @@ def bev_algorithm_phase():
     return res
 
 
-def pvrcnn_profile(model, batch, post):
-    """A CUDA-kernel breakdown of one PV-RCNN request: the proposal NMS,
-    the sparse gathers and the BEV backbone as ranges (time, kernels,
-    launches), with their shares."""
+def pvrcnn_profile(model, fn, what, nms_label):
+    """A CUDA-kernel breakdown of one call of ``fn`` (a PV-RCNN request or
+    train step of ``model``): the proposal NMS (``nms_label``: its
+    settings), the sparse gathers and the BEV backbone as ranges (time,
+    kernels, launches), with their shares, and the backward's share of
+    the device time."""
     from spsnet_torch.models.backbones_3d import spconv_backbone
     from spsnet_torch.models.roi_heads import pvrcnn_head
     saved = (pvrcnn_head.proposal_layer, spconv_backbone.sparse_gather)
@@ -2864,10 +3145,9 @@ def pvrcnn_profile(model, batch, post):
     model.backbone_2d.forward = ranged('BEV backbone',
                                        model.backbone_2d.forward)
     try:
-        prof = profile_phase(lambda: detect(model, batch, post),
-                             'one PV-RCNN request (B=2)',
-                             ranges=('proposal NMS', 'sparse gather',
-                                     'BEV backbone'))
+        prof = profile_phase(fn, what, ranges=('proposal NMS',
+                                               'sparse gather',
+                                               'BEV backbone'))
     finally:
         pvrcnn_head.proposal_layer, spconv_backbone.sparse_gather = saved
         del model.backbone_2d.forward
@@ -2876,13 +3156,14 @@ def pvrcnn_profile(model, batch, post):
     for name in ('sparse gather', 'BEV backbone'):
         spans[name]['device_share'] = spans[name]['device_ms'] / \
             prof['device_ms']
-    log(f'  proposal NMS (pre 1024, post 100): '
+    prof['backward_share'] = prof['backward_device_ms'] / prof['device_ms']
+    log(f'  proposal NMS ({nms_label}): '
         f'{spans["proposal NMS"]["host_ms"]:.3f} of {prof["wall_ms"]:.3f} ms '
         f'({prof["nms_share"]:.3f}), {spans["proposal NMS"]["launches"]} '
         f'launches; the rest {prof["launches"] - spans["proposal NMS"]["launches"]}'
         f' launches; sparse gathers {spans["sparse gather"]["device_share"]:.3f}'
-        f' and BEV backbone {spans["BEV backbone"]["device_share"]:.3f} of '
-        f'the device time')
+        f', BEV backbone {spans["BEV backbone"]["device_share"]:.3f} and the '
+        f'backward {prof["backward_share"]:.3f} of the device time')
     return prof
 
 
@@ -2918,10 +3199,495 @@ def pvrcnn_phases():
     second = second_phase(pv_batches[0], pv_cfg)
 
     log('== 33. where the time goes: one PV-RCNN request')
-    pvrcnn['profile'] = pvrcnn_profile(pv, pv_batches[0],
-                                       pv_cfg.MODEL.POST_PROCESSING)
+    post = pv_cfg.MODEL.POST_PROCESSING
+    pvrcnn['profile'] = pvrcnn_profile(
+        pv, lambda: detect(pv, pv_batches[0], post),
+        'one PV-RCNN request (B=2)', 'pre 1024, post 100')
     pvrcnn['bev_algorithm_ms'] = bev_algorithm_phase()
     return pvrcnn, pv_shapes, second
+
+
+def train_scenes(seed, anchor_cfgs):
+    """PV_TRAIN_B synthetic scenes of N points from ``seed``, their gt boxes
+    given the classes 1, 2, 3 in turn, each the size of its class's anchor
+    (``anchor_cfgs``: ANCHOR_GENERATOR_CONFIG; a KITTI car's mean box)
+    standing on the scene's ground (z -1.65), then each frame's points and
+    boxes turned about z by an angle drawn from pv_rcnn.yaml's
+    ``random_world_rotation`` range [-pi/4, pi/4] (heading + angle)."""
+    from spsnet_torch.utils.synthetic import synthetic_scene_batch
+    pts, gt = synthetic_scene_batch(seed, PV_TRAIN_B, N)
+    cls = np.arange(gt.shape[1]) % 3
+    gt[..., 7] = cls + 1
+    gt[..., 3:6] = np.float32([a['anchor_sizes'][0]
+                               for a in anchor_cfgs])[cls]
+    gt[..., 2] = -1.65 + gt[..., 5] / 2
+    rng = np.random.default_rng(seed + 1)
+    for b, a in enumerate(rng.uniform(-np.pi / 4, np.pi / 4, PV_TRAIN_B)):
+        c, s = np.cos(a), np.sin(a)
+        for arr in (pts[b], gt[b]):
+            x, y = arr[:, 0].copy(), arr[:, 1].copy()
+            arr[:, 0], arr[:, 1] = c * x - s * y, s * x + c * y
+        gt[b, :, 6] += a
+    return pts.astype(np.float32), gt.astype(np.float32)
+
+
+def voxels_in_range(scan, data_cfg):
+    """The voxels a scan's points occupy inside the range, before the
+    voxelization's cap: the port's ``transform_points_to_voxels`` with a
+    cap of one voxel a point."""
+    from spsnet_torch.data.processor.voxelize import \
+        transform_points_to_voxels
+    step = [p for p in data_cfg.DATA_PROCESSOR
+            if p['NAME'] == 'transform_points_to_voxels'][0]
+    return int(transform_points_to_voxels(
+        scan, data_cfg.POINT_CLOUD_RANGE, step['VOXEL_SIZE'], len(scan),
+        1)['voxel_valid'].sum())
+
+
+def gt_at_proposals(model, batch):
+    """``batch`` with three more gt boxes a frame at the proposals that a
+    train-mode forward of a copy of ``model`` makes at NMS_CONFIG.TRAIN,
+    with their labels, jittered by 2%: with random weights the anchor
+    scores favour one class everywhere, whose anchors seldom reach IoU
+    0.55 with a gt of that class, and each update reorders the near-tied
+    scores, so without these boxes no RoI would have regression targets
+    (the CPU tests make their gt alike). The proposals do not depend on
+    the gt."""
+    import copy
+    from spsnet_torch.models.roi_heads.pointrcnn_head import proposal_layer
+    probe = copy.deepcopy(model).train()
+    with torch.no_grad():
+        rois, _, labels, _ = proposal_layer(
+            probe.stage_one({k: v for k, v in batch.items()
+                             if k != 'gt_boxes'}),
+            model.model_cfg.ROI_HEAD.NMS_CONFIG.TRAIN)
+    extra = rois[:, :3].cpu().numpy().copy()
+    n = extra.shape[:-1]
+    rng = np.random.default_rng(12)
+    extra[..., 0:3] += rng.normal(0, 0.02, n + (3,)) * extra[..., 3:6]
+    extra[..., 3:6] *= np.exp(rng.normal(0, 0.02, n + (3,)))
+    extra[..., 6] += rng.normal(0, 0.02, n)
+    extra = np.concatenate([extra, labels[:, :3, None].cpu().numpy()], -1)
+    gt = batch['gt_boxes']
+    return dict(batch, gt_boxes=torch.cat([gt, torch.from_numpy(
+        extra.astype(np.float32)).to(gt.device)], 1))
+
+
+def at_proposals(model, batches):
+    """The batches, each completed by ``gt_at_proposals`` with ``model``'s
+    weights when it is taken (the step before it has run)."""
+    for batch in batches:
+        yield gt_at_proposals(model, batch)
+
+
+def pv_train_batches(cfg, seeds):
+    """Train batches of ``train_scenes`` (one seed a batch), voxelized
+    and planned by the port's host code at the config's train settings
+    (``voxel_batch(mode='train')`` with the gt boxes) and copied to the
+    card. Returns (batches, host ms a frame of each, voxels a frame before
+    the cap, voxels a frame after it)."""
+    from spsnet_torch.data.processor import voxel_batch
+    from spsnet_torch.runtime.trainer import device_batch
+    batches, host_ms, before, after = [], [], [], []
+    for seed in seeds:
+        pts, gt = train_scenes(
+            seed, cfg.MODEL.DENSE_HEAD.ANCHOR_GENERATOR_CONFIG)
+        t0 = time.perf_counter()
+        host = voxel_batch(pts, cfg.DATA_CONFIG, mode='train',
+                           gt_boxes=list(gt))
+        host_ms.append((time.perf_counter() - t0) * 1e3 / PV_TRAIN_B)
+        before += [voxels_in_range(s, cfg.DATA_CONFIG) for s in pts]
+        after += host['voxel_valid'].sum(1).tolist()
+        batches.append(device_batch(host, 'cuda'))
+    torch.cuda.synchronize()
+    return batches, host_ms, before, after
+
+
+def build_pvrcnn_trainer(device, name='pv_rcnn'):
+    """``tools/cfgs/kitti_models/{name}.yaml`` in train mode as
+    ``build_voxel_detector`` makes it (seed-0 weights), the anchor head's
+    box layer at 1e-2 (so that the proposals stay near their anchors, as
+    phase 24's point boxes stay near their points), its adam_onecycle
+    optimizer over the KITTI schedule and ``make_train_step``: (cfg,
+    model, optimizer, step)."""
+    from spsnet_torch.runtime.trainer import make_train_step
+    cfg, model = build_voxel_detector(name, device)
+    with torch.no_grad():
+        for p in model.dense_head.conv_box.parameters():
+            p.mul_(1e-2)
+    model.train()
+    optimizer = _kitti_optimizer(cfg.OPTIMIZATION, model.parameters())
+    return cfg, model, optimizer, make_train_step(model, optimizer)
+
+
+def anchor_counts(model, out):
+    """Positive, force-matched (a gt's best anchors, positive whatever
+    their IoU) and ignored anchors of a train forward's output, and its
+    foreground keypoints."""
+    labels = out['anchor_head_ret']['box_cls_labels']
+    with torch.no_grad():
+        force = model.dense_head.assign_targets(out['gt_boxes'])[4]
+    return {'positive': int((labels > 0).sum()),
+            'force_matched': int(force.sum()),
+            'ignored': int((labels == -1).sum()),
+            'fg_keypoints': int((out['point_head_simple_ret']['targets']
+                                 .cls_labels > 0).sum())}
+
+
+def pvrcnn_train_path(trainer, batches, smi):
+    """Phase 34: PV-RCNN training at full width (``trainer``:
+    ``build_pvrcnn_trainer``'s), a warm-up step and the timed steps
+    (``train_path``: finite losses and gradients, one FPS and six
+    ball-query launches a step, every parameter moves), each step's grad
+    norm before the clip, anchor and keypoint labels, sampled RoIs and
+    proposal-NMS time. Returns its record."""
+    from spsnet_torch.models.roi_heads import pvrcnn_head
+    from spsnet_torch.ops import _build
+    cfg, model, opt, step = trainer
+    tcfg = cfg.MODEL.ROI_HEAD.TARGET_CONFIG
+    log('  the anchor head\'s box layer at 1e-2 of its seed-0 weights, so '
+        'that the proposals stay near their anchors; each batch\'s gt '
+        'completed by gt_at_proposals just before its step')
+    step(gt_at_proposals(model, batches[0]))
+    torch.cuda.synchronize()
+    stats, norms = [], []
+
+    def after_step():
+        out = outs.pop()
+        norms.append(float(opt.grad_norm))
+        stats.append(dict(anchor_counts(model, out),
+                          **roi_counts(out['roi_head_ret']['targets'],
+                                       tcfg)))
+        log(f'    grad norm {norms[-1]:.4f} (clip 10); {stats[-1]}')
+    with roi_head_outputs(model) as outs, \
+            timed_calls(pvrcnn_head, 'proposal_layer') as nms_calls:
+        times, launches = train_path(
+            model, step, at_proposals(model, batches[1:]),
+            {**{k: 0 for k in _build.LAUNCHES}, **PV_LAUNCHES}, after_step)
+    nms = range_ms(nms_calls)
+    ms = statistics.median(times)
+    log(f'  launches over {len(times)} train steps: {launches}')
+    log(f'  ms/train step (B={PV_TRAIN_B}, N={N}, voxel stack + anchor '
+        f'targets + VSA + point head + proposal NMS (pre 9000, post 512) + '
+        f'RoI sampling + RoI-grid head + three losses + backward + '
+        f'adam_onecycle): median {ms:.3f}, range {min(times):.3f}-'
+        f'{max(times):.3f}, all {[round(t, 3) for t in times]}; steps/s '
+        f'{1e3 / ms:.3f} on {smi}')
+    share = [host / total for (host, _), total in zip(nms, times)]
+    log(f'  proposal NMS a step: host ms {[round(h, 3) for h, _ in nms]}; '
+        f'share of the step {min(share):.3f}-{max(share):.3f}')
+    for key in ('positive', 'force_matched', 'ignored', 'fg_keypoints',
+                'fg', 'hard', 'easy', 'reg_valid'):
+        vals = [s[key] for s in stats]
+        log(f'  {key} a step: {min(vals)}-{max(vals)}')
+    return {'ms': ms, 'all_ms': times, 'launches': launches,
+            'grad_norms': norms, 'stats': stats,
+            'nms_host_ms': [h for h, _ in nms], 'nms_share': share}
+
+
+class PvDecisions(PrcnnDecisions):
+    """``PrcnnDecisions`` of a PV-RCNN train step (the anchors' direction
+    bins, FPS, ball queries, proposal NMS, max IoU, sampling). In 'check'
+    mode the two runs' direction logits lie within PV_DIR_LOGIT_TOL, and a
+    direction bin may differ only where this run's two logits lie within
+    PV_DIR_LOGIT_TOL of each other (a heading pi apart); the two runs'
+    anchor scores lie within PV_SCORE_TOL, and the proposal NMS's
+    candidates are first held to be a top-k of this run's scores within
+    PV_SCORE_TOL."""
+
+    def __init__(self, mode, ref=None, thresholds=()):
+        super().__init__(mode, ref, thresholds)
+        self.used['dir_bins'] = []
+        self.inputs['dir_bins'] = []
+
+    def dir_bins(self, real, dir_preds):
+        own = real(dir_preds)
+        if self.mode == 'record':
+            self.inputs['dir_bins'].append(dir_preds.detach().cpu())
+            return self._use('dir_bins', own)
+        want = self._ref('dir_bins').to(own.device)
+        if self.mode == 'check':
+            card = self.ref.inputs['dir_bins'][len(self.used['dir_bins'])]
+            logits = dir_preds.detach().cpu()
+            apart = float((card - logits).abs().max())
+            flipped = (own != want).cpu()
+            gap = (logits[..., 0] - logits[..., 1]).abs()[flipped]
+            self.notes.append(f'direction bins: {int(flipped.sum())} of '
+                              f'{flipped.numel()} differ, their logits at '
+                              f'most {float(gap.max()) if gap.numel() else 0:.3e}'
+                              f' apart; the runs\' logits {apart:.3e} apart')
+            if apart > PV_DIR_LOGIT_TOL or (
+                    gap.numel() and float(gap.max()) > PV_DIR_LOGIT_TOL):
+                raise AssertionError(f'{self.notes[-1]} (tolerance '
+                                     f'{PV_DIR_LOGIT_TOL})')
+        return self._use('dir_bins', want)
+
+    def nms(self, real, boxes, scores, thresh, pre_maxsize=4096,
+            post_maxsize=500, valid=None):
+        if self.mode == 'record':
+            self.inputs.setdefault('scores', []).append(
+                scores.detach().cpu())
+        elif self.mode == 'check':
+            card = self.ref.inputs['scores'][len(self.used['nms'])]
+            own = scores.detach().cpu()
+            diff = float((card - own).abs().max())
+            self.notes.append(f'anchor scores: largest card vs CPU '
+                              f'difference {diff:.3e} (tolerance '
+                              f'{PV_SCORE_TOL})')
+            if diff > PV_SCORE_TOL:
+                raise AssertionError(self.notes[-1])
+            _require_topk_order(card, own, pre_maxsize,
+                                'proposal candidates (anchor scores)',
+                                tol=PV_SCORE_TOL)
+        return super().nms(real, boxes, scores, thresh, pre_maxsize,
+                           post_maxsize, valid)
+
+
+def _targets_of(out):
+    """The anchor labels and the keypoint labels of a train forward's
+    output."""
+    return (out['anchor_head_ret']['box_cls_labels'],
+            out['point_head_simple_ret']['targets'].cls_labels)
+
+
+def pvrcnn_train_cpu_phase(batch):
+    """Phase 36: one PV-RCNN train step on one frame (``batch``, on the
+    CPU) on the card and on the CPU from the same weights, RoI draws and
+    dropout masks (the step's CPU generators), and on the CPU from weights
+    jittered by WEIGHT_JITTER. The anchor labels, force matches and
+    keypoint labels identical; every other decision of the CPU held to
+    the card's (``PvDecisions``) and the CPU going on from the card's;
+    the jittered run replays the CPU's. Then the loss terms, gradients,
+    updated parameters and BN running statistics as
+    ``pointrcnn_train_cpu_phase`` holds them, and the share of
+    ``conv_box``'s gradient that comes through the RoIs. Returns the
+    card's and the baseline's differences and the notes."""
+    import copy
+    cfg, gpu, _, gpu_step = build_pvrcnn_trainer('cuda')
+    _, cpu, cpu_opt, cpu_step = build_pvrcnn_trainer('cpu')
+    _, jit, _, jit_step = build_pvrcnn_trainer('cpu')
+    tcfg = cfg.MODEL.ROI_HEAD.TARGET_CONFIG
+    thresholds = tuple(float(tcfg[k]) for k in (
+        'CLS_BG_THRESH_LO', 'CLS_BG_THRESH', 'REG_FG_THRESH',
+        'CLS_FG_THRESH'))
+    cpu.load_state_dict(gpu.state_dict())
+    jit.load_state_dict(gpu.state_dict())
+    card_batch = gt_at_proposals(gpu, {k: v.cuda() for k, v in
+                                       batch.items()})
+    batch = dict(batch, gt_boxes=card_batch['gt_boxes'].cpu())
+    probe = copy.deepcopy(gpu)
+    share = roi_gradient_share(probe, card_batch,
+                               probe.dense_head.conv_box.parameters(),
+                               ('rpn_loss',), 'the anchor head\'s conv_box')
+    gen = torch.Generator().manual_seed(5)
+    with torch.no_grad():
+        for p in jit.parameters():
+            p.mul_(1 + WEIGHT_JITTER * torch.randn(p.shape, generator=gen))
+    card = PvDecisions('record')
+    with prcnn_decisions(card), roi_head_outputs(gpu) as gpu_out:
+        gpu_loss, gpu_tb = gpu_step(card_batch)
+    own = PvDecisions('check', card, thresholds)
+    with prcnn_decisions(own), roi_head_outputs(cpu) as cpu_out:
+        cpu_loss, cpu_tb = cpu_step(batch)
+    jittered = PvDecisions('replay', own)
+    with prcnn_decisions(jittered):
+        jit_step(batch)
+    for g, c, what in zip(_targets_of(gpu_out[0]), _targets_of(cpu_out[0]),
+                          ('anchor labels', 'keypoint labels')):
+        require_equal(g, c, f'card vs CPU train step: {what} '
+                            f'{tuple(g.shape)}')
+    with torch.no_grad():
+        require_equal(
+            gpu.dense_head.assign_targets(card_batch['gt_boxes'])[4].int(),
+            cpu.dense_head.assign_targets(batch['gt_boxes'])[4].int(),
+            'card vs CPU train step: force-matched anchors')
+    for note in own.notes + jittered.notes:
+        log(f'  {note}')
+    n_fps, n_ball = len(card.used['fps']), len(card.used['ball'])
+    log(f'  card vs CPU: {n_fps - own.differ["fps"]} of {n_fps} FPS and '
+        f'{n_ball - own.differ["ball"]} of {n_ball} ball-query calls '
+        f'identical (the others as the notes above say)')
+    if n_fps != 1 or n_ball != 6:
+        raise AssertionError('want 1 FPS and 6 ball-query calls a PV-RCNN '
+                             'train step')
+    for g, c in zip(card.used['sampled'], own.used['sampled']):
+        require_equal(g, c, f'card vs CPU train step: sampled RoI indices '
+                            f'{tuple(g.shape)}')
+    worst = {}
+    for key in ('loss', *sorted(gpu_tb)):
+        g = float(gpu_loss if key == 'loss' else gpu_tb[key])
+        c = float(cpu_loss if key == 'loss' else cpu_tb[key])
+        worst[key] = abs(g - c) / max(abs(c), 1e-12)
+        if worst[key] > TRAIN_LOSS_RTOL:
+            raise AssertionError(f'card vs CPU {key}: {g} vs {c}')
+    log(f'  card vs CPU loss terms {sorted(gpu_tb)}: largest relative '
+        f'difference {max(worst.values()):.3e} ({max(worst, key=worst.get)};'
+        f' tolerance {TRAIN_LOSS_RTOL}); card {float(gpu_loss):.6f}, CPU '
+        f'{float(cpu_loss):.6f}')
+    lr = cpu_opt.lr_fn(0)
+    diff = _step_difference(gpu, cpu, lr)
+    base = _step_difference(jit, cpu, lr)
+    log(f'  card vs CPU after the step: {diff}')
+    log(f'  CPU with weights x (1 + {WEIGHT_JITTER} N(0, 1)) vs CPU (the '
+        f'jitter baseline): {base}')
+    limits = _require_step_within(diff, base, lr)
+    by_module = _grad_by_module((gpu, jit), cpu)
+    _require_modules_within(by_module)
+    stats = [_bn_stats_rel_l2(a, cpu) for a in (gpu, jit)]
+    bn_by_module = {part: [_bn_stats_rel_l2(a, cpu, part) for a in
+                           (gpu, jit)] for part in (
+        'backbone_3d', 'backbone_2d', 'pfe', 'point_head',
+        'roi_head.roi_grid_pool_layer', 'roi_head.shared_fc_layer',
+        'roi_head.cls_layers', 'roi_head.reg_layers')}
+    bn_accuracy = batch_norm_accuracy()
+    log(f'  BN running stats, relative L2: card vs CPU {stats[0]:.3e}, '
+        f'baseline {stats[1]:.3e}; by module: ' + ', '.join(
+            f'{k} {v[0]:.3e} / {v[1]:.3e}' for k, v in bn_by_module.items()))
+    limits['bn_limit'] = _require_bn_within(stats)
+    return {'card': diff, 'baseline': base, 'limits': limits,
+            'notes': own.notes, 'by_module': by_module, 'bn_stats': stats,
+            'bn_by_module': bn_by_module, 'differ': own.differ,
+            'loss_rel': worst, 'conv_box_roi_share': share,
+            'batch_norm_accuracy': bn_accuracy}
+
+
+def batch_norm_accuracy():
+    """Relative L2 from a float64 reference of a training-mode BatchNorm of
+    (442 368, 64) rows (the RoI-grid pool's, B = 2), the channel means
+    drawn up to 9x their spread: the card's ``F.batch_norm``, the CPU's and the port's
+    ``BatchNormLast`` on the CPU (normalised with ``torch.var_mean``'s
+    statistics, since the CPU's ``F.batch_norm`` sums them in fp32 row
+    after row)."""
+    import torch.nn.functional as F
+    from spsnet_torch.models.blocks import BatchNormLast
+    gen = torch.Generator().manual_seed(7)
+    x = torch.randn(442368, 64, generator=gen) + \
+        9 * torch.rand(1, 64, generator=gen)
+    bn = BatchNormLast(64).train()
+    x64 = x.double()
+    var, mean = torch.var_mean(x64, dim=0, unbiased=False)
+    ref = (x64 - mean) / torch.sqrt(var + bn.eps)
+    with torch.no_grad():
+        runs = {'card F.batch_norm': F.batch_norm(
+                    x.cuda(), None, None, training=True, eps=bn.eps).cpu(),
+                'CPU F.batch_norm': F.batch_norm(x, None, None,
+                                                 training=True, eps=bn.eps),
+                'port CPU BatchNormLast': bn(x)}
+    rel = {k: float((v.double() - ref).norm() / ref.norm())
+           for k, v in runs.items()}
+    log('  training-mode BatchNorm of (442368, 64) rows, relative L2 from '
+        'float64: ' + ', '.join(f'{k} {v:.3e}' for k, v in rel.items()))
+    return rel
+
+
+def anchor_loss_phase(model, batch):
+    """Phase 37, first half: the anchor targets of a train batch's gt and
+    ``anchor_head_loss`` of seeded random predictions on the card and on
+    the CPU (``model``: a CPU PV-RCNN): labels identical, every term
+    non-zero and within TRAIN_LOSS_RTOL."""
+    from spsnet_torch.models.dense_heads.anchor_head import anchor_head_loss
+    head, cfg = model.dense_head, model.model_cfg.DENSE_HEAD
+    gt = batch['gt_boxes'].cpu()
+    n = head.anchors.shape[0]
+    rng = np.random.default_rng(703)
+    preds = {'cls_preds': rng.normal(size=(PV_TRAIN_B, n, head.num_class)),
+             'box_preds': rng.normal(0, 0.1, (PV_TRAIN_B, n, 7)),
+             'dir_preds': rng.normal(size=(PV_TRAIN_B, n, 2))}
+    res = {}
+    for device in ('cuda', 'cpu'):
+        h = head.to(device)
+        labels, reg, reg_w, _, _ = h.assign_targets(gt.to(device))
+        ret = {k: torch.from_numpy(v.astype(np.float32)).to(device)
+               for k, v in preds.items()}
+        ret.update(box_cls_labels=labels, box_reg_targets=reg,
+                   reg_weights=reg_w, anchors=h.anchors)
+        res[device] = (labels, anchor_head_loss(
+            ret, cfg.LOSS_CONFIG, model.num_class, h.num_dir_bins,
+            h.dir_offset)[1])
+    head.cpu()
+    (lg, tbg), (lc, tbc) = res['cuda'], res['cpu']
+    require_equal(lg, lc, 'card vs CPU anchor labels of the train gt')
+    for key in sorted(tbc):
+        g, c = float(tbg[key]), float(tbc[key])
+        if not (c > 0 and abs(g - c) <= TRAIN_LOSS_RTOL * c):
+            raise AssertionError(f'card vs CPU {key}: {g} vs {c}')
+    log(f'  anchor loss on the train gt with random predictions, card vs '
+        f'CPU: { {k: (float(tbg[k]), float(tbc[k])) for k in sorted(tbc)} }')
+    return {k: [float(tbg[k]), float(tbc[k])] for k in tbc}
+
+
+def second_train_phase(batches, pv_cfg):
+    """Phase 38: SECOND (second.yaml, full width, seed-0 weights, its box
+    layer at 1e-2) takes a warm-up and SECOND_TRAIN_STEPS steps of the
+    PV-RCNN train batches (second.yaml voxelizes alike; its plan's 16 000
+    rows a level are pv_rcnn.yaml's train voxel limit): finite losses and
+    gradients, every parameter moves, no kernel launch."""
+    from spsnet_torch.ops import _build
+    cfg, model, opt, step = build_pvrcnn_trainer('cuda', 'second')
+    steps = lambda c: [p for p in c.DATA_CONFIG.DATA_PROCESSOR
+                       if p.NAME == 'transform_points_to_voxels']
+    if steps(cfg) != steps(pv_cfg):
+        raise AssertionError('second.yaml voxelizes unlike pv_rcnn.yaml')
+    step(batches[0])
+    torch.cuda.synchronize()
+    times, launches = train_path(model, step,
+                                 batches[1:1 + SECOND_TRAIN_STEPS],
+                                 {k: 0 for k in _build.LAUNCHES})
+    ms = statistics.median(times)
+    log(f'  ms/train step (B={PV_TRAIN_B}, voxel stack + anchor targets + '
+        f'anchor loss + backward + adam_onecycle): median {ms:.3f}, all '
+        f'{[round(t, 3) for t in times]}; launches {launches}')
+    return {'ms': ms, 'all_ms': times, 'launches': launches}
+
+
+def pvrcnn_train_phases(smi):
+    """Phases 34-39; returns the PV-RCNN train record, the kernel calls at
+    its shapes and SECOND's train record."""
+    from spsnet_torch.runtime.trainer import step_rngs
+    log('== 34. PV-RCNN train path')
+    trainer = build_pvrcnn_trainer('cuda')
+    pv_cfg, model, _, step = trainer
+    batches, host_ms, before, after = pv_train_batches(
+        pv_cfg, range(800, 801 + PV_TRAIN_STEPS))
+    log(f'  host voxelization + sparse plan at the train settings: '
+        f'{statistics.median(host_ms):.3f} ms a frame (median of '
+        f'{len(host_ms)} batches); voxels a frame in range '
+        f'{min(before)}-{max(before)}, after the cap of 16000 '
+        f'{min(after)}-{max(after)}; gt boxes a frame '
+        f'{batches[0]["gt_boxes"].shape[1]} (classes 1, 2, 3 in turn)')
+    rec = pvrcnn_train_path(trainer, batches, smi)
+    rec.update(host_ms_a_frame=host_ms, voxels_before_cap=before,
+               voxels_after_cap=after)
+
+    log('== 35. kernels vs plain at the PV-RCNN train shapes')
+    shapes = pvrcnn_shapes_phase(model, dict(batches[0], rngs=step_rngs(0)))
+
+    log('== 36. PV-RCNN card vs CPU, one train step')
+    one = {k: v[:1].cpu() for k, v in batches[1].items()}
+    rec['card_vs_cpu'] = pvrcnn_train_cpu_phase(one)
+
+    log('== 37. anchor and RoI losses on the train gt and on jittered gt, '
+        'card vs CPU')
+    cpu_cfg, cpu_model = build_voxel_detector('pv_rcnn', 'cpu')
+    rec['anchor_loss'] = anchor_loss_phase(cpu_model, batches[0])
+    reg_steps = sum(s['reg_valid'] > 0 for s in rec['stats'])
+    log(f'  phase 34 carried the anchor regression and direction terms in '
+        f'every step (positives {min(s["positive"] for s in rec["stats"])} '
+        f'at least) and the RoI regression and corner terms in {reg_steps} '
+        f'of {len(rec["stats"])} steps')
+    rec['reg_corner'] = roi_target_loss_phase(reg_steps > 0, cpu_cfg,
+                                              cpu_model)
+    del cpu_model
+
+    log('== 38. SECOND train path')
+    second = second_train_phase(batches, pv_cfg)
+
+    log('== 39. where the time goes: one PV-RCNN train step')
+    profiled = gt_at_proposals(model, batches[1])
+    rec['profile'] = pvrcnn_profile(model, lambda: step(profiled),
+                                    'one PV-RCNN train step (B=2)',
+                                    'pre 9000, post 512')
+    return rec, shapes, second
 
 
 def card_and_build():
@@ -3118,10 +3884,15 @@ def main(argv=()) -> int:
         return 1
     if len(argv) == 2 and argv[0] == '--phase3':
         return phase3_of(argv[1])
-    if argv:
-        print('usage: chip_smoke.py [--phase3 ROOT]', file=sys.stderr)
-        return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent))
+    if list(argv) == ['--jitter-study']:
+        return jitter_study()
+    if list(argv) == ['--fault-check']:
+        return fault_check()
+    if argv:
+        print('usage: chip_smoke.py [--phase3 ROOT | --jitter-study | '
+              '--fault-check]', file=sys.stderr)
+        return 2
     from spsnet_torch.runtime.trainer import make_eval_step
 
     smi = card_and_build()
@@ -3330,8 +4101,11 @@ def main(argv=()) -> int:
                      for s in range(PRCNN_TRAIN_STEPS + 1)]
     # at the seed weights: after a few steps of random-weight training a
     # foreground RoI's corner loss may dominate (grad norms up to ~1e4)
-    roi_share = roi_gradient_share(build_pointrcnn_trainer('cuda')[0],
-                                   prcnn_batches[0])
+    seed_model = build_pointrcnn_trainer('cuda')[0]
+    roi_share = roi_gradient_share(
+        seed_model, prcnn_batches[0], seed_model.point_head.box_layers.
+        parameters(), ('point_loss_cls', 'point_loss_box'),
+        'the point head\'s box layers')
     prcnn_train, prcnn_model, prcnn_step = pointrcnn_train_path(
         prcnn_batches, smi)
     prcnn_train['roi_grad_share'] = roi_share
@@ -3347,7 +4121,8 @@ def main(argv=()) -> int:
 
     log('== 27. RoI targets and loss on jittered gt, card vs CPU')
     prcnn_train['reg_corner'] = roi_target_loss_phase(
-        max(st['reg_valid'] for st in prcnn_train['roi_stats']) > 0)
+        max(st['reg_valid'] for st in prcnn_train['roi_stats']) > 0,
+        *build_pointrcnn('cpu'))
 
     log('== 28. where the time goes: one PointRCNN train step')
     train_proposals = prcnn_model.roi_head.proposal_layer
@@ -3371,6 +4146,7 @@ def main(argv=()) -> int:
     del prcnn_model, prcnn_step, train_proposals
 
     pvrcnn, pv_shapes, second = pvrcnn_phases()
+    pv_train, pv_train_shapes, second_train = pvrcnn_train_phases(smi)
 
     paths = {'serve': launches, 'train': train_launches,
              'spsnet': sps_launches, 'fps_entries': entry_launches,
@@ -3379,7 +4155,9 @@ def main(argv=()) -> int:
              'waymo': waymo['launches'], 'nuscenes': nuscenes['launches'],
              'pointrcnn_train': prcnn_train['launches'],
              'pvrcnn': pvrcnn['launches'], 'pvrcnn_b8': pvrcnn['b8'][
-                 'launches'], 'second': second['launches']}
+                 'launches'], 'second': second['launches'],
+             'pvrcnn_train': pv_train['launches'],
+             'second_train': second_train['launches']}
     for entry in entries:
         entry['launches_by_path'] = {path: counts.get(entry['name'], 0)
                                      for path, counts in paths.items()}
@@ -3391,12 +4169,14 @@ def main(argv=()) -> int:
             entry['nuscenes_calls'] = nuscenes[name]
             entry['pointrcnn_train_calls'] = train_shapes[name]
             entry['pvrcnn_calls'] = pv_shapes[name]
+            entry['pvrcnn_train_calls'] = pv_train_shapes[name]
             entry['max_abs_err'] = max(entry['max_abs_err'],
                                        prcnn_shapes['errs'][name],
                                        waymo['errs'][name],
                                        nuscenes['errs'][name],
                                        train_shapes['errs'][name],
-                                       pv_shapes['errs'][name])
+                                       pv_shapes['errs'][name],
+                                       pv_train_shapes['errs'][name])
         if name == 'fps':
             entry['max_abs_err'] = max(entry['max_abs_err'],
                                        chunked.pop('err'))
@@ -3428,7 +4208,9 @@ def main(argv=()) -> int:
                     'waymo_all_ms': waymo['all_ms'],
                     'nuscenes_all_ms': nuscenes['all_ms'],
                     'pointrcnn_train': prcnn_train,
-                    'pvrcnn': pvrcnn, 'second': second, 'card': smi}))
+                    'pvrcnn': pvrcnn, 'second': second,
+                    'pvrcnn_train': pv_train, 'second_train': second_train,
+                    'card': smi}))
     log(smi)
     log(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

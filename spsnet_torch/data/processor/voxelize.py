@@ -85,14 +85,17 @@ def _by_mode(value, mode):
     return int(value[mode]) if hasattr(value, 'keys') else int(value)
 
 
-def voxel_batch(points, data_cfg, mode: str = 'test'):
+def voxel_batch(points, data_cfg, mode: str = 'test', gt_boxes=None):
     """(B, N, C) scans -> the collated numpy batch of a voxel detector:
     'points' and, stacked over the frames, the voxels of
     ``transform_points_to_voxels`` and the plan of
     ``build_sparse_conv_plan`` at the settings of ``data_cfg``'s
     ``DATA_PROCESSOR`` (``mode`` picks 'train' or 'test' limits). Range
     masking and shuffling are not applied: points outside the range get no
-    voxel and stay in 'points' (the synthetic scans lie inside it)."""
+    voxel and stay in 'points' (the synthetic scans lie inside it). With
+    ``gt_boxes``, one (T_b, 8) array a frame ([x, y, z, dx, dy, dz,
+    heading, class]), the batch also holds 'gt_boxes' (B, max T_b, 8)
+    float32, shorter frames padded with zero rows."""
     steps = {p['NAME']: p for p in data_cfg.DATA_PROCESSOR}
     vox = steps['transform_points_to_voxels']
     pcr = data_cfg.POINT_CLOUD_RANGE
@@ -109,4 +112,13 @@ def voxel_batch(points, data_cfg, mode: str = 'test'):
         frames.append(frame)
     batch = {k: np.stack([f[k] for f in frames]) for k in frames[0]}
     batch['points'] = np.asarray(points, dtype=np.float32)
+    if gt_boxes is not None:
+        if len(gt_boxes) != len(frames):
+            raise ValueError(f'{len(gt_boxes)} gt box arrays for '
+                             f'{len(frames)} frames')
+        t = max(len(g) for g in gt_boxes)
+        gt = np.zeros((len(frames), t, 8), dtype=np.float32)
+        for b, g in enumerate(gt_boxes):
+            gt[b, :len(g)] = g
+        batch['gt_boxes'] = gt
     return batch

@@ -4,7 +4,9 @@
 Submodules as the reference's: ``blocks.{i}`` is ZeroPad2d(1), Conv2d (the
 level's stride), BatchNorm, ReLU, then LAYER_NUMS[i] times Conv2d (pad 1),
 BatchNorm, ReLU; ``deblocks.{i}`` ConvTranspose2d (kernel = stride), BatchNorm,
-ReLU. BatchNorm at eps 1e-3 and momentum 0.01 (flax's 0.99). A flax
+ReLU. BatchNorm at eps 1e-3 and momentum 0.01 (flax's 0.99), its running
+variance moving toward the biased variance in training as flax's does
+(``blocks.BatchNormNCHW``; ``nn.BatchNorm2d`` takes the unbiased). A flax
 ``ConvTranspose`` (``transpose_kernel=False``) with kernel = stride puts
 input i at output s * i + r through kernel tap s - 1 - r, torch's through
 tap r: the weight bridge flips the kernel (``utils/weights.py``).
@@ -14,9 +16,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-
-def _bn(c):
-    return nn.BatchNorm2d(c, eps=1e-3, momentum=0.01)
+from ..blocks import BatchNormNCHW
 
 
 class BaseBEVBackbone(nn.Module):
@@ -38,10 +38,12 @@ class BaseBEVBackbone(nn.Module):
         for i, n_layers in enumerate(layer_nums):
             layers = [nn.ZeroPad2d(1),
                       nn.Conv2d(c, filters[i], 3, stride=strides[i],
-                                bias=False), _bn(filters[i]), nn.ReLU()]
+                                bias=False), BatchNormNCHW(filters[i]),
+                      nn.ReLU()]
             for _ in range(n_layers):
                 layers += [nn.Conv2d(filters[i], filters[i], 3, padding=1,
-                                     bias=False), _bn(filters[i]), nn.ReLU()]
+                                     bias=False), BatchNormNCHW(filters[i]),
+                           nn.ReLU()]
             self.blocks.append(nn.Sequential(*layers))
             c = filters[i]
             if i < len(up_strides):
@@ -49,7 +51,7 @@ class BaseBEVBackbone(nn.Module):
                 self.deblocks.append(nn.Sequential(
                     nn.ConvTranspose2d(c, up_filters[i], s, stride=s,
                                        bias=False),
-                    _bn(up_filters[i]), nn.ReLU()))
+                    BatchNormNCHW(up_filters[i]), nn.ReLU()))
         self.num_bev_features = sum(up_filters[:len(layer_nums)]) \
             if up_strides else c
 

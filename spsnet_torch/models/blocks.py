@@ -20,16 +20,42 @@ from torch import nn
 from ..utils.common import to_device
 
 
+def _flax_batch_norm(bn, x, dims):
+    """Training-mode BatchNorm of ``x`` over ``dims`` with the batch's
+    biased variance, as in both frameworks; the running variance moves
+    toward the biased variance too, as flax's does (torch's own update takes
+    the unbiased one, n/(n-1) larger).
+
+    On the CPU the batch is normalised with ``torch.var_mean``'s
+    statistics: ``F.batch_norm`` there sums an (N, C) batch's statistics
+    in fp32 row after row. For the 442 368 rows of PV-RCNN training's
+    RoI-grid pool (channel means up to 9x their spread) its output is 6.3e-6
+    relative off float64, an H100's ``F.batch_norm`` 3.4e-7 and this form
+    1.4e-7 (``chip_smoke.py`` phase 36)."""
+    if x.device.type == 'cpu':
+        var, mean = torch.var_mean(x, dim=dims, unbiased=False, keepdim=True)
+        y = (x - mean) * torch.rsqrt(var + bn.eps) * \
+            bn.weight.reshape(mean.shape) + bn.bias.reshape(mean.shape)
+        var, mean = var.detach().flatten(), mean.detach().flatten()
+    else:
+        y = F.batch_norm(x, None, None, bn.weight, bn.bias, True, 0.0,
+                         bn.eps)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=dims, unbiased=False)
+    with torch.no_grad():
+        m = bn.momentum
+        bn.running_mean.copy_((1 - m) * bn.running_mean + m * mean)
+        bn.running_var.copy_((1 - m) * bn.running_var + m * var)
+        bn.num_batches_tracked += 1
+    return y
+
+
 class BatchNormLast(nn.BatchNorm1d):
     """BatchNorm over the last axis of a (..., C) tensor, statistics over all
     leading dims (``BatchNorm2d`` on (B, C, M, S)). eps 1e-5 and momentum
     0.1 match flax's momentum 0.9 (``spsnet_tpu/models/blocks.py:52-54``);
     the sparse convolutions take eps 1e-3 and momentum 0.01 (flax 0.99).
-
-    In training the batch is normalised with its biased variance, as in
-    both frameworks, and the running variance moves toward the biased
-    variance too, as flax's does (torch's own update takes the unbiased
-    one, n/(n-1) larger)."""
+    Training follows flax's running-variance rule (``_flax_batch_norm``)."""
 
     def __init__(self, num_features: int, eps: float = 1e-5,
                  momentum: float = 0.1):
@@ -40,15 +66,22 @@ class BatchNormLast(nn.BatchNorm1d):
         x = x.reshape(-1, shape[-1])
         if not self.training:
             return super().forward(x).reshape(shape)
-        y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
-                         self.eps)
-        with torch.no_grad():
-            var, mean = torch.var_mean(x, dim=0, unbiased=False)
-            m = self.momentum
-            self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
-            self.running_var.copy_((1 - m) * self.running_var + m * var)
-            self.num_batches_tracked += 1
-        return y.reshape(shape)
+        return _flax_batch_norm(self, x, 0).reshape(shape)
+
+
+class BatchNormNCHW(nn.BatchNorm2d):
+    """``BatchNormLast``'s counterpart on (B, C, H, W) maps (the BEV
+    backbone), with ``BatchNorm2d``'s state-dict names: statistics over B,
+    H and W, and in training flax's running-variance rule."""
+
+    def __init__(self, num_features: int, eps: float = 1e-3,
+                 momentum: float = 0.01):
+        super().__init__(num_features, eps=eps, momentum=momentum)
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        return _flax_batch_norm(self, x, (0, 2, 3))
 
 
 class Dropout(nn.Dropout):
@@ -70,7 +103,18 @@ class Dropout(nn.Dropout):
         return torch.where(keep, x / keep_prob, 0.0)
 
 
-class SharedMLP(nn.Sequential):
+class _Stack(nn.Sequential):
+    """A Sequential whose Dropout layers draw their masks from the
+    ``generator`` passed to ``forward``."""
+
+    def forward(self, x, generator=None):
+        for layer in self:
+            x = layer(x, generator) if isinstance(layer, Dropout) \
+                else layer(x)
+        return x
+
+
+class SharedMLP(_Stack):
     """Pointwise Linear(no bias) + BN + ReLU per width in ``channels``; with
     ``use_bn=False``, biased Linear + ReLU (``spsnet_tpu/models/blocks.py:
     30-60``). ``dropout_idx`` puts a ``Dropout(dropout)`` after the ReLU of
@@ -93,7 +137,7 @@ class SharedMLP(nn.Sequential):
         self.out_channels = in_channels
 
 
-class MLPHead(nn.Sequential):
+class MLPHead(_Stack):
     """``SharedMLP`` hidden stack, then a biased output Linear
     (``point_head_template.py:36-47``)."""
 
@@ -103,13 +147,6 @@ class MLPHead(nn.Sequential):
         mlp = SharedMLP(in_channels, hidden, dropout=dropout,
                         dropout_idx=dropout_idx)
         super().__init__(*mlp, nn.Linear(mlp.out_channels, out_channels))
-
-    def forward(self, x, generator=None):
-        """``generator`` draws the masks of the Dropout layers."""
-        for layer in self:
-            x = layer(x, generator) if isinstance(layer, Dropout) \
-                else layer(x)
-        return x
 
 
 def _fan_in(layer) -> float:

@@ -1,16 +1,21 @@
-"""Anchors and the single anchor head of SECOND / PV-RCNN, forward and
-decode (``anchor_head_single.py``, ``anchor_generator.py``, as
-``spsnet_tpu/models/dense_heads/anchor_head.py:30-86, 158-239``). The
-target assignment and the loss wait for the training slice."""
+"""Anchors and the single anchor head of SECOND / PV-RCNN
+(``anchor_head_single.py``, ``anchor_generator.py``,
+``axis_aligned_target_assigner.py``, as
+``spsnet_tpu/models/dense_heads/anchor_head.py:30-296``): the forward and
+decode, and in training the anchor targets (axis-aligned nearest-BEV IoU
+with per-class matched and unmatched thresholds and the gt's force match)
+and ``anchor_head_loss``."""
 from __future__ import annotations
 
 import math
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ...utils import box_coder as box_coder_lib
+from ...utils import loss_utils
 from ...utils.common import limit_period
 
 
@@ -21,12 +26,13 @@ def generate_anchors(anchor_generator_configs, grid_size, point_cloud_range,
     head's conv channels). ``align_center`` puts the anchors at cell
     centers (stride span / n, offset half a stride); without it they span
     the range inclusively (stride span / (n - 1)). z is the bottom height
-    plus half the anchor's height. Also the class id (1-based) of each
-    slot, (A,) int32."""
+    plus half the anchor's height. Also, for each slot, (A,) the class id
+    (1-based, int32) and the class's matched and unmatched IoU thresholds
+    (float32)."""
     pcr = np.asarray(point_cloud_range, dtype=np.float32)
     nx = int(grid_size[0]) // feature_map_stride
     ny = int(grid_size[1]) // feature_map_stride
-    anchors, cls_ids = [], []
+    anchors, cls_ids, matched, unmatched = [], [], [], []
     for ci, cfg in enumerate(anchor_generator_configs):
         if cfg.get('align_center', False):
             x_stride = (pcr[3] - pcr[0]) / nx
@@ -51,14 +57,89 @@ def generate_anchors(anchor_generator_configs, grid_size, point_cloud_range,
                     a[..., 6] = rot
                     anchors.append(a)
                     cls_ids.append(ci + 1)
-    return np.stack(anchors, axis=2), np.asarray(cls_ids, np.int32)
+                    matched.append(float(cfg['matched_threshold']))
+                    unmatched.append(float(cfg['unmatched_threshold']))
+    return (np.stack(anchors, axis=2), np.asarray(cls_ids, np.int32),
+            np.asarray(matched, np.float32),
+            np.asarray(unmatched, np.float32))
+
+
+def _aligned_bev_boxes(boxes):
+    """(..., 7) boxes -> (..., 4) [x0, y0, x1, y1] axis-aligned BEV
+    envelopes: dx and dy swap when the heading, wrapped into [-pi/2,
+    pi/2), lies at or beyond pi/4 of the x axis
+    (``boxes3d_lidar_to_aligned_bev_boxes``)."""
+    rot = limit_period(boxes[..., 6], offset=0.5, period=np.pi)
+    along_x = rot.abs() < np.pi / 4
+    dx = torch.where(along_x, boxes[..., 3], boxes[..., 4])
+    dy = torch.where(along_x, boxes[..., 4], boxes[..., 3])
+    return torch.stack([boxes[..., 0] - dx / 2, boxes[..., 1] - dy / 2,
+                        boxes[..., 0] + dx / 2, boxes[..., 1] + dy / 2],
+                       dim=-1)
+
+
+def nearest_bev_iou(boxes_a, boxes_b):
+    """(..., N, 7) x (..., M, 7) -> (..., N, M) IoU of the axis-aligned BEV
+    envelopes (``boxes3d_nearest_bev_iou``), the union clamped at 1e-6."""
+    a = _aligned_bev_boxes(boxes_a)[..., :, None, :]
+    b = _aligned_bev_boxes(boxes_b)[..., None, :, :]
+    wh = (torch.minimum(a[..., 2:], b[..., 2:]) -
+          torch.maximum(a[..., :2], b[..., :2])).clamp(min=0)
+    inter = wh[..., 0] * wh[..., 1]
+    area_a = (a[..., 2] - a[..., 0]) * (a[..., 3] - a[..., 1])
+    area_b = (b[..., 2] - b[..., 0]) * (b[..., 3] - b[..., 1])
+    return inter / (area_a + area_b - inter).clamp(min=1e-6)
+
+
+def assign_anchor_targets(anchors, anchor_cls, matched, unmatched, gt_boxes,
+                          box_coder):
+    """Targets of (N, 7) anchors with their (N,) class ids and matched /
+    unmatched thresholds for (B, T, 8) gt boxes (the class last, rows with
+    dx = 0 padding): per frame, each anchor's best gt of its own class by
+    ``nearest_bev_iou`` (the first on ties), positive at or above its
+    matched threshold, background below its unmatched one, ignored (-1)
+    between; every anchor whose IoU equals a valid gt's best (when that is
+    above 0) is positive too. Returns (labels (B, N) int64: -1, 0 or the
+    gt's class; reg_targets (B, N, code_size): ``box_coder.encode`` of the
+    gt against the anchor on the foreground, 0 elsewhere; reg_weights
+    (B, N) float: 1 on the foreground; gt_idx (B, N) int64 the matched gt,
+    and force (B, N) bool, the anchors a gt's best match took)."""
+    gt_valid = gt_boxes[..., 3] > 0                           # (B, T)
+    gt_cls = gt_boxes[..., -1].long()
+    iou = nearest_bev_iou(anchors, gt_boxes[..., :7])         # (B, N, T)
+    same = anchor_cls.long()[:, None] == gt_cls[:, None, :]
+    iou = torch.where(same & gt_valid[:, None, :], iou, -1.0)
+    a2g_max = iou.amax(dim=-1)
+    # torch.max promises no index among equal maxima: the first, as argmax
+    gt_idx = (iou == a2g_max[..., None]).to(torch.uint8).argmax(dim=-1)
+    g2a_max = iou.amax(dim=1, keepdim=True)                   # (B, 1, T)
+    # a gt with no positive overlap takes a sentinel no IoU equals
+    g2a_max = torch.where(g2a_max <= 0, -2.0, g2a_max)
+    force = ((iou == g2a_max) & gt_valid[:, None, :]).any(dim=-1)
+    labels = torch.where(a2g_max < unmatched, 0, -1)
+    labels = torch.where((a2g_max >= matched) | force,
+                         gt_cls.gather(1, gt_idx), labels)
+    fg = labels > 0
+    matched_gt = gt_boxes.gather(1, gt_idx[..., None].expand(
+        -1, -1, gt_boxes.shape[-1]))
+    enc = box_coder.encode(matched_gt[..., :gt_boxes.shape[-1] - 1],
+                           anchors.expand(gt_boxes.shape[0], -1, -1))
+    reg_targets = torch.where(fg[..., None], enc, 0.0)
+    return labels, reg_targets, fg.float(), gt_idx, force
+
+
+def direction_bins(dir_preds):
+    """(..., bins) direction logits -> (...,) the bin of each anchor (the
+    first of equal logits)."""
+    return dir_preds.argmax(dim=-1)
 
 
 class AnchorHeadSingle(nn.Module):
     """1 x 1 convolutions ``conv_cls``, ``conv_box`` and ``conv_dir_cls``
     over the BEV map; the anchors (a buffer, not in the state dict) in
-    (H * W * A) order; the boxes decoded with ``ResidualCoder`` and their
-    headings put into the direction classifier's bin."""
+    (H * W * A) order with each one's class and thresholds; the boxes
+    decoded with ``ResidualCoder`` and their headings put into the
+    direction classifier's bin."""
 
     def __init__(self, model_cfg, num_class: int, input_channels: int,
                  grid_size, point_cloud_range):
@@ -70,18 +151,24 @@ class AnchorHeadSingle(nn.Module):
             tac.get('BOX_CODER', 'ResidualCoder'),
             **dict(tac.get('BOX_CODER_CONFIG', None) or {}))
         agc = list(model_cfg.ANCHOR_GENERATOR_CONFIG)
-        anchors, _ = generate_anchors(
+        anchors, cls_ids, matched, unmatched = generate_anchors(
             agc, grid_size, point_cloud_range,
             int(agc[0].get('feature_map_stride', 2)))
-        A = anchors.shape[2]
+        ny, nx, A, _ = anchors.shape
         self.register_buffer('anchors',
                              torch.from_numpy(anchors.reshape(-1, 7)),
                              persistent=False)
+        for name, per_slot in (('anchor_cls', cls_ids),
+                               ('anchor_matched', matched),
+                               ('anchor_unmatched', unmatched)):
+            self.register_buffer(name, torch.from_numpy(
+                np.tile(per_slot, ny * nx)), persistent=False)
         self.conv_cls = nn.Conv2d(input_channels, A * num_class, 1)
         self.conv_box = nn.Conv2d(input_channels,
                                   A * self.box_coder.code_size, 1)
         self.use_dir = bool(model_cfg.get('USE_DIRECTION_CLASSIFIER', True))
         self.num_dir_bins = int(model_cfg.get('NUM_DIR_BINS', 2))
+        self.dir_offset = float(model_cfg.get('DIR_OFFSET', 0.78539))
         if self.use_dir:
             self.conv_dir_cls = nn.Conv2d(input_channels,
                                           A * self.num_dir_bins, 1)
@@ -91,11 +178,20 @@ class AnchorHeadSingle(nn.Module):
         """(B, A * width, H, W) -> (B, H * W * A, width)."""
         return x.permute(0, 2, 3, 1).reshape(x.shape[0], -1, width)
 
+    def assign_targets(self, gt_boxes):
+        """``assign_anchor_targets`` of this head's anchors for (B, T, 8)
+        gt boxes."""
+        return assign_anchor_targets(
+            self.anchors, self.anchor_cls, self.anchor_matched,
+            self.anchor_unmatched, gt_boxes, self.box_coder)
+
     def forward(self, batch):
         """'spatial_features_2d' (B, C, H, W) -> adds 'batch_cls_preds'
         (B, H * W * A, num_class) logits, 'batch_box_preds' (B, H * W * A,
         7) decoded boxes, 'cls_preds_normalized' False and
-        'anchor_head_ret' (the raw predictions and the anchors)."""
+        'anchor_head_ret' (the raw predictions and the anchors; in training
+        with 'gt_boxes' (B, T, 8) also 'box_cls_labels', 'box_reg_targets'
+        and 'reg_weights')."""
         x = batch['spatial_features_2d']
         cls_preds = self._flat(self.conv_cls(x), self.num_class)
         box_preds = self._flat(self.conv_box(x), self.box_coder.code_size)
@@ -103,17 +199,74 @@ class AnchorHeadSingle(nn.Module):
             if self.use_dir else None
         decoded = self.box_coder.decode(box_preds, self.anchors[None])
         if dir_preds is not None:
-            dir_offset = float(self.model_cfg.get('DIR_OFFSET', 0.78539))
             limit_offset = float(self.model_cfg.get('DIR_LIMIT_OFFSET', 0.0))
             period = 2 * math.pi / self.num_dir_bins
-            rot = limit_period(decoded[..., 6] - dir_offset, limit_offset,
-                               period)
-            heading = rot + dir_offset + period * \
-                dir_preds.argmax(dim=-1).to(decoded.dtype)
+            rot = limit_period(decoded[..., 6] - self.dir_offset,
+                               limit_offset, period)
+            heading = rot + self.dir_offset + period * \
+                direction_bins(dir_preds).to(decoded.dtype)
             decoded = torch.cat([decoded[..., :6], heading[..., None],
                                  decoded[..., 7:]], dim=-1)
         ret = {'cls_preds': cls_preds, 'box_preds': box_preds,
                'dir_preds': dir_preds, 'anchors': self.anchors}
+        if self.training and 'gt_boxes' in batch:
+            labels, reg_targets, reg_weights, _, _ = self.assign_targets(
+                batch['gt_boxes'])
+            ret.update(box_cls_labels=labels, box_reg_targets=reg_targets,
+                       reg_weights=reg_weights)
         return dict(batch, batch_cls_preds=cls_preds,
                     batch_box_preds=decoded, cls_preds_normalized=False,
                     anchor_head_ret=ret)
+
+
+def anchor_head_loss(ret, loss_cfg, num_class: int, num_dir_bins: int,
+                     dir_offset: float):
+    """The anchor head's loss (``spsnet_tpu/models/dense_heads/
+    anchor_head.py:242-296``; ``anchor_head_template.py``): the focal loss
+    of every cared-for anchor (label >= 0) weighted by neg_cls_weight /
+    pos_cls_weight; the smooth-L1 of the foreground's residuals with the
+    heading compared as sin(p - t) = sin p cos t - cos p sin t and
+    ``code_weights``; with direction logits, the softmax cross entropy
+    against the bin of the gt heading, floor(limit_period(heading -
+    dir_offset, 0, 2 pi) / (2 pi / bins)). Each weight is divided by its
+    frame's positives (at least 1) and each term by B. Returns (loss, tb)
+    with 'rpn_loss_cls', 'rpn_loss_loc', 'rpn_loss_dir' and 'rpn_loss'."""
+    lw = loss_cfg.LOSS_WEIGHTS
+    labels = ret['box_cls_labels']                               # (B, N)
+    B = labels.shape[0]
+    positives = labels > 0
+    pos_norm = positives.sum(dim=1, keepdim=True).float().clamp(min=1.0)
+    cls_w = (float(lw.get('neg_cls_weight', 1.0)) * (labels == 0).float() +
+             float(lw.get('pos_cls_weight', 1.0)) * positives.float())
+    one_hot = F.one_hot(labels.clamp(min=0), num_class + 1)[..., 1:].float()
+    cls_loss = loss_utils.sigmoid_focal_loss(
+        ret['cls_preds'], one_hot, cls_w / pos_norm).sum() / B * \
+        float(lw['cls_weight'])
+    tb = {'rpn_loss_cls': cls_loss}
+
+    reg_w = ret['reg_weights'] / pos_norm
+    preds, targets = ret['box_preds'], ret['box_reg_targets']
+    sin_p = torch.sin(preds[..., 6:7]) * torch.cos(targets[..., 6:7])
+    sin_t = torch.cos(preds[..., 6:7]) * torch.sin(targets[..., 6:7])
+    preds = torch.cat([preds[..., :6], sin_p, preds[..., 7:]], dim=-1)
+    targets = torch.cat([targets[..., :6], sin_t, targets[..., 7:]], dim=-1)
+    loc_loss = loss_utils.weighted_smooth_l1(
+        preds, targets, weights=reg_w,
+        code_weights=lw.get('code_weights', None)).sum() / B * \
+        float(lw['loc_weight'])
+    tb['rpn_loss_loc'] = loc_loss
+    total = cls_loss + loc_loss
+
+    if ret.get('dir_preds', None) is not None:
+        gt_rot = ret['box_reg_targets'][..., 6] + ret['anchors'][None, :, 6]
+        dir_t = torch.floor(limit_period(gt_rot - dir_offset, 0.0,
+                                         2 * np.pi) /
+                            (2 * np.pi / num_dir_bins)).long()
+        dir_t = dir_t.clamp(0, num_dir_bins - 1)
+        dir_loss = loss_utils.weighted_softmax_ce(
+            ret['dir_preds'], F.one_hot(dir_t, num_dir_bins).float(),
+            reg_w).sum() / B * float(lw['dir_weight'])
+        tb['rpn_loss_dir'] = dir_loss
+        total = total + dir_loss
+    tb['rpn_loss'] = total
+    return total, tb

@@ -79,9 +79,9 @@ def build_detector(model_cfg, num_class: int, device='cuda',
     if name not in _DETECTORS or missing:
         raise NotImplementedError(
             f'detector {name} ({", ".join(missing) or "no such detector"}): '
-            f'the port has {sorted(_DETECTORS)} over the modules of '
-            'ROADMAP Queue 1 items C, E and F (PV-RCNN, SECOND); the rest '
-            'of the voxel, pillar and two-stage zoo is item F')
+            f'the port serves and trains {sorted(_DETECTORS)}; the rest of '
+            'the voxel, pillar and two-stage zoo is ROADMAP Queue 1 item F, '
+            'the rest of the point family item E')
     cls = _DETECTORS[name]
     if cls in _VOXEL_DETECTORS:
         if cls is PVRCNN:

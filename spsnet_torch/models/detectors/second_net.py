@@ -1,9 +1,10 @@
-"""SECOND, forward only (``detectors/second_net.py``, as
+"""SECOND (``detectors/second_net.py``, as
 ``spsnet_tpu/models/detectors/second_net.py``): MeanVFE, VoxelBackBone8x
 over the host plan, HeightCompression, BaseBEVBackbone, AnchorHeadSingle.
 The batch is ``data.processor.voxel_batch``'s, on the model's device; the
-caller runs ``detector3d.post_processing``. Training raises: its targets
-and losses wait for their slice.
+caller runs ``detector3d.post_processing``. In training with 'gt_boxes'
+the anchor head assigns its targets, and ``loss`` is
+``anchor_head_loss``.
 """
 from __future__ import annotations
 
@@ -12,7 +13,7 @@ from torch import nn
 
 from ..backbones_2d.base_bev_backbone import BaseBEVBackbone
 from ..backbones_3d.spconv_backbone import HeightCompression, VoxelBackBone8x
-from ..dense_heads.anchor_head import AnchorHeadSingle
+from ..dense_heads.anchor_head import AnchorHeadSingle, anchor_head_loss
 from ..vfe import MeanVFE
 
 
@@ -38,12 +39,8 @@ class SECONDNet(nn.Module):
             self.backbone_2d.num_bev_features, self.grid_size, pcr)
 
     def stage_one(self, batch):
-        """The voxel stack up to the anchor head's decoded boxes."""
-        if self.training:
-            raise NotImplementedError(
-                f'{self.model_cfg.NAME} training (anchor targets and '
-                'losses): the port serves the voxel detectors; their '
-                'training is on the ROADMAP')
+        """The voxel stack up to the anchor head's decoded boxes (and, in
+        training with 'gt_boxes', its targets)."""
         for module in (self.vfe, self.backbone_3d, self.map_to_bev_module,
                        self.backbone_2d, self.dense_head):
             batch = module(batch)
@@ -54,3 +51,14 @@ class SECONDNet(nn.Module):
         'batch_box_preds' (B, H * W * A, 7) and 'batch_cls_preds'
         (B, H * W * A, num_class) are the anchor head's."""
         return self.stage_one(batch)
+
+    def loss(self, batch):
+        """(loss, tb) of a forward's output in training mode: the anchor
+        head's ``anchor_head_loss`` (``spsnet_tpu/models/detectors/
+        second_net.py:63-69``), tb holding 'rpn_loss_cls', 'rpn_loss_loc',
+        'rpn_loss_dir' and 'rpn_loss'."""
+        head = self.dense_head
+        return anchor_head_loss(batch['anchor_head_ret'],
+                                self.model_cfg.DENSE_HEAD.LOSS_CONFIG,
+                                self.num_class, head.num_dir_bins,
+                                head.dir_offset)

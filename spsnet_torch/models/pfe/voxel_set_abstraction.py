@@ -8,7 +8,9 @@ the BEV map bilinearly interpolated at their xy, and for the raw points and
 each sparse level (its voxel centers, padded voxels at ``_FAR``) an MSG
 group: one fused ball query for the source's radii (K2 on the card), the
 stack grouping's empty balls zeroed, a SharedMLP and a max over the ball.
-The concatenation is fused to NUM_OUTPUT_FEATURES by a SharedMLP.
+The concatenation is fused to NUM_OUTPUT_FEATURES by a SharedMLP. In
+training every SharedMLP's BatchNorm takes the batch's statistics; the
+keypoints' indices carry no gradient, the gathers and interpolation do.
 """
 from __future__ import annotations
 

@@ -58,6 +58,21 @@ def proposal_layer(batch, nms_cfg):
     return dets['boxes'], dets['scores'], dets['labels'], valid
 
 
+def sample_roi_targets(batch, rois, roi_scores, roi_labels, roi_valid,
+                       target_cfg):
+    """In training with 'gt_boxes': ``proposal_target_layer`` over the
+    proposals with the draws of the step's 'roi_sampling' generator
+    (``batch['rngs']``). Returns the targets and the sampled RoIs, labels,
+    scores and valid mask (B, ROI_PER_IMAGE)."""
+    B, R, _ = rois.shape
+    draws = draw_roi_sampling(batch['rngs']['roi_sampling'], B, R,
+                              int(target_cfg.ROI_PER_IMAGE), rois.device)
+    targets = proposal_target_layer(draws, rois, roi_scores, roi_labels,
+                                    roi_valid, batch['gt_boxes'], target_cfg)
+    return (targets, targets.rois, targets.roi_labels, targets.roi_scores,
+            roi_valid.gather(1, targets.sampled))
+
+
 def decode_in_roi_frame(box_coder, rcnn_reg, rois):
     """Refined boxes: the residuals decoded against each RoI moved to the
     origin with zero heading, then rotated by the RoI's heading and moved
@@ -178,16 +193,9 @@ class PointRCNNHead(nn.Module):
         rngs = batch.get('rngs', {}) if self.training else {}
         targets = None
         if self.training and 'gt_boxes' in batch:
-            B, R, _ = rois.shape
-            draws = draw_roi_sampling(
-                rngs['roi_sampling'], B, R,
-                int(self.model_cfg.TARGET_CONFIG.ROI_PER_IMAGE), rois.device)
-            targets = proposal_target_layer(
-                draws, rois, roi_scores, roi_labels, roi_valid,
-                batch['gt_boxes'], self.model_cfg.TARGET_CONFIG)
-            rois, roi_labels = targets.rois, targets.roi_labels
-            roi_scores = targets.roi_scores
-            roi_valid = roi_valid.gather(1, targets.sampled)
+            targets, rois, roi_labels, roi_scores, roi_valid = \
+                sample_roi_targets(batch, rois, roi_scores, roi_labels,
+                                   roi_valid, self.model_cfg.TARGET_CONFIG)
         rcnn_cls, rcnn_reg, picks = self.refine(self.roipool(batch, rois),
                                                 rngs.get('dropout'))
         decoded = self.decode(rcnn_reg, rois)

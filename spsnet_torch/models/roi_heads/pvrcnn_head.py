@@ -1,8 +1,11 @@
-"""PV-RCNN's RoI-grid head, eval (``roi_heads/pvrcnn_head.py``, as
+"""PV-RCNN's RoI-grid head (``roi_heads/pvrcnn_head.py``, as
 ``spsnet_tpu/models/roi_heads/pvrcnn_head.py:26-200``).
 
 The proposals are the anchor head's boxes after class-agnostic NMS at
-NMS_CONFIG.TEST. Each RoI carries a GRID_SIZE^3 lattice of points (cell
+NMS_CONFIG.TRAIN in training, TEST in eval; in training with gt the RoI
+target sampling (``roi_utils.proposal_target_layer``, its draws from the
+step's 'roi_sampling' generator) replaces them with ROI_PER_IMAGE RoIs a
+frame (``pointrcnn_head.sample_roi_targets``). Each RoI carries a GRID_SIZE^3 lattice of points (cell
 centers of the box in its frame, rotated and moved to the world); each
 grid point groups the keypoints, their features weighted by the detached
 point scores, by MSG ball query (one fused K2 launch for both radii on the
@@ -10,8 +13,11 @@ card) with the stack grouping's empty balls zeroed, a SharedMLP and a max.
 The pooled (R, G^3, C) features are flattened channel-major, the layout
 ``shared_fc``'s first weight is laid out for, then the shared FC stack
 (a Dropout after each layer but the last) and the cls and reg towers (a
-Dropout after their first block) refine each RoI, decoded in its frame.
-Training (the RoI targets at NMS_CONFIG.TRAIN) waits for its slice.
+Dropout after their first block, masks from the step's 'dropout'
+generator) refine each RoI, decoded in its frame. As in the JAX package
+the RoIs keep their gradient (into the grid points, the regression targets
+and the corner loss's decode); only the point scores are detached. The
+loss is PointRCNN's ``pointrcnn_head_loss``.
 """
 from __future__ import annotations
 
@@ -23,7 +29,8 @@ from ...utils import box_coder as box_coder_lib
 from ...utils.common import rotate_points_along_z
 from ..blocks import MLPHead, SharedMLP
 from ..pfe.voxel_set_abstraction import StackSAGroup
-from .pointrcnn_head import decode_in_roi_frame, proposal_layer
+from .pointrcnn_head import (decode_in_roi_frame, proposal_layer,
+                             sample_roi_targets)
 
 
 def grid_template(grid_size: int):
@@ -87,27 +94,40 @@ class PVRCNNHead(nn.Module):
         return pooled.reshape(B, R, G3, -1).transpose(2, 3).reshape(B, R, -1)
 
     def forward(self, batch):
-        """Eval: the proposals, their refinement and the decoded boxes.
-        Adds 'rois', 'roi_valid', 'roi_head_ret' and, for
+        """The proposals, in training with 'gt_boxes' the sampled RoIs and
+        their targets, their refinement and the decoded boxes. Adds 'rois',
+        'roi_valid' and 'roi_head_ret' (rcnn_cls, rcnn_reg, rois, targets
+        or None, the refined 'batch_box_preds'); in eval, for
         ``post_processing``, 'batch_box_preds' (B, R, 7), 'batch_cls_preds'
         (B, R, num_class) logits, 'batch_roi_labels' and
         'has_class_labels' (the anchor head had more than one class
-        channel, ``roi_head_template.py:102``)."""
-        if self.training:
-            raise NotImplementedError(
-                'PV-RCNN training (RoI targets, the losses of its heads): the '
-                'port serves PV-RCNN; its training is on the ROADMAP')
+        channel, ``roi_head_template.py:102``). Training reads the step's
+        generators from ``batch['rngs']`` (``runtime.trainer.step_rngs``):
+        'roi_sampling' for the RoI draws and 'dropout' for the FC
+        stacks."""
         has_class_labels = batch['batch_cls_preds'].shape[-1] > 1
-        rois, _, roi_labels, roi_valid = proposal_layer(
-            batch, self.model_cfg.NMS_CONFIG.TEST)
-        shared = self.shared_fc_layer(self.roi_grid_pool(batch, rois))
-        rcnn_cls = self.cls_layers(shared)
-        rcnn_reg = self.reg_layers(shared)
+        nms = self.model_cfg.NMS_CONFIG
+        rois, roi_scores, roi_labels, roi_valid = proposal_layer(
+            batch, nms.TRAIN if self.training else nms.TEST)
+        rngs = batch.get('rngs', {}) if self.training else {}
+        targets = None
+        if self.training and 'gt_boxes' in batch:
+            targets, rois, roi_labels, _, roi_valid = sample_roi_targets(
+                batch, rois, roi_scores, roi_labels, roi_valid,
+                self.model_cfg.TARGET_CONFIG)
+        dropout = rngs.get('dropout')
+        shared = self.shared_fc_layer(self.roi_grid_pool(batch, rois),
+                                      dropout)
+        rcnn_cls = self.cls_layers(shared, dropout)
+        rcnn_reg = self.reg_layers(shared, dropout)
         decoded = decode_in_roi_frame(self.box_coder, rcnn_reg, rois)
-        return dict(batch, rois=rois, roi_valid=roi_valid,
-                    roi_head_ret={'rcnn_cls': rcnn_cls, 'rcnn_reg': rcnn_reg,
-                                  'rois': rois, 'batch_box_preds': decoded},
-                    batch_box_preds=decoded, batch_cls_preds=rcnn_cls,
-                    batch_roi_labels=roi_labels,
-                    has_class_labels=has_class_labels,
-                    cls_preds_normalized=False)
+        batch = dict(batch, rois=rois, roi_valid=roi_valid,
+                     roi_head_ret={'rcnn_cls': rcnn_cls, 'rcnn_reg': rcnn_reg,
+                                   'rois': rois, 'targets': targets,
+                                   'batch_box_preds': decoded})
+        if not self.training:
+            batch.update(batch_box_preds=decoded, batch_cls_preds=rcnn_cls,
+                         batch_roi_labels=roi_labels,
+                         has_class_labels=has_class_labels,
+                         cls_preds_normalized=False)
+        return batch

@@ -41,7 +41,8 @@ def step_rngs(step: int) -> dict:
 
 def make_train_step(model, optimizer, preprocess=None):
     """``step(batch) -> (loss, tb)``: one update of ``model`` from a batch
-    dict ('points' (B, N, 3 + C), 'gt_boxes' (B, T, 8)) on its device. The
+    dict ('points' (B, N, 3 + C), 'gt_boxes' (B, T, 8); a voxel detector's
+    ``voxel_batch(mode='train')`` with the gt boxes) on its device. The
     optional ``preprocess`` (``make_stability_preprocess``) runs first,
     without gradients, its noise from a CPU ``torch.Generator`` seeded with
     the optimizer's update count (the JAX step's ``fold_in(PRNGKey(0),

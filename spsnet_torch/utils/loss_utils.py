@@ -1,4 +1,4 @@
-"""The losses of the IA-SSD head (``spsnet_tpu/utils/loss_utils.py:19-136``;
+"""The losses of the heads (``spsnet_tpu/utils/loss_utils.py:19-136``;
 reference ``pcdet/utils/loss_utils.py``): elementwise, no reduction unless
 stated. ``WeightedCrossEntropy`` names the reference's sigmoid CE
 (``WeightedClassificationLoss``, :232)."""
@@ -21,6 +21,15 @@ def weighted_sigmoid_ce(logits, one_hot_targets, weights=None):
     loss = sigmoid_cross_entropy_with_logits(logits, one_hot_targets)
     if weights is not None:
         loss = loss * weights[..., None]
+    return loss
+
+
+def weighted_softmax_ce(logits, one_hot_targets, weights=None):
+    """``WeightedCrossEntropyLoss`` (:422): the softmax cross entropy of
+    (..., C) logits against (..., C) one-hot targets -> (...,)."""
+    loss = -(one_hot_targets * torch.log_softmax(logits, dim=-1)).sum(-1)
+    if weights is not None:
+        loss = loss * weights
     return loss
 
 

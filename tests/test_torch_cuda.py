@@ -779,3 +779,103 @@ def test_voxel_forward_on_the_card_matches_the_cpu(cuda):
         close(g[key], c[key], key)
     for key in ('cls_preds', 'box_preds', 'dir_preds'):
         close(g['anchor_head_ret'][key], c['anchor_head_ret'][key], key)
+
+
+def test_anchor_targets_on_the_card_match_the_cpu(cuda):
+    """pv_rcnn.yaml's 211 200 anchors against two frames of 24 synthetic
+    gt boxes turned by up to pi/4, classes 1, 2, 3 in turn: the labels,
+    the matched gt and the force matches identical (the same elementwise
+    fp32 ops, each rounded alike), the regression targets within 1e-5
+    (log and sqrt of two libraries)."""
+    from spsnet_torch.models import build_detector_from_cfg
+    from spsnet_torch.utils.synthetic import synthetic_scene_batch
+    from spsnet_torch.zoo import pv_rcnn_kitti_cfg
+    head = build_detector_from_cfg(pv_rcnn_kitti_cfg(),
+                                   device='cpu').dense_head
+    _, gt = synthetic_scene_batch(19, 2, 1024)
+    gt[..., 6] = np.random.default_rng(20).uniform(-np.pi / 4, np.pi / 4,
+                                                   gt.shape[:2])
+    gt[..., 7] = np.arange(gt.shape[1]) % 3 + 1
+    gt = torch.from_numpy(gt)
+    cpu = head.assign_targets(gt)
+    card = head.to(cuda).assign_targets(gt.to(cuda))
+    torch.cuda.synchronize()
+    for k in (0, 2, 3, 4):
+        assert torch.equal(card[k].cpu(), cpu[k]), k
+    assert torch.allclose(card[1].cpu(), cpu[1], rtol=0, atol=1e-5)
+    labels = cpu[0]
+    assert set(labels.unique().tolist()) == {-1, 0, 1, 2, 3}
+    assert (cpu[4] & (labels > 0)).any()
+
+
+def test_tiny_pvrcnn_train_step_on_the_card_matches_the_cpu(cuda):
+    """One ``make_train_step`` step of a tiny PV-RCNN (``tiny_pvrcnn_cfg``
+    on a 12.8 x 12.8 m range of 0.8 m voxels, 96 a frame) on a
+    ``voxel_batch(mode='train')`` of two synthetic scenes with gt boxes,
+    on the card and on the CPU from the same weights and step
+    generators (two of the gt boxes on anchors): one FPS and four
+    ball-query launches (the VSA's three grouped sources, the RoI grid),
+    the anchor and keypoint labels identical, every loss term within 1e-3
+    relative, every gradient finite and every parameter moved."""
+    import copy
+    from spsnet_torch.config import EDict
+    from spsnet_torch.data.processor import voxel_batch
+    from spsnet_torch.data.processor.sparse_plan import plan_final_grid
+    from spsnet_torch.data.processor.voxelize import sparse_grid_zyx
+    from spsnet_torch.models import build_detector_from_cfg
+    from spsnet_torch.runtime import optimization
+    from spsnet_torch.runtime.trainer import make_train_step
+    from spsnet_torch.utils.synthetic import synthetic_scene_batch
+    from spsnet_torch.zoo import tiny_pvrcnn_cfg
+    pcr, vs = (0, -6.4, -3, 12.8, 6.4, 1), (0.8, 0.8, 0.0625)
+    optim = EDict({'OPTIMIZER': 'adam_onecycle', 'LR': 0.01,
+                   'WEIGHT_DECAY': 0.01, 'MOMS': [0.95, 0.85],
+                   'PCT_START': 0.4, 'DIV_FACTOR': 10,
+                   'GRAD_NORM_CLIP': 10})
+    cfg = EDict({
+        'CLASS_NAMES': ['Car'], 'OPTIMIZATION': optim,
+        'MODEL': tiny_pvrcnn_cfg(plan_final_grid(sparse_grid_zyx(pcr, vs))),
+        'DATA_CONFIG': {
+            'POINT_CLOUD_RANGE': list(pcr), 'DATA_PROCESSOR': [
+                {'NAME': 'transform_points_to_voxels',
+                 'VOXEL_SIZE': list(vs), 'MAX_POINTS_PER_VOXEL': 5,
+                 'MAX_NUMBER_OF_VOXELS': {'train': 96, 'test': 160}},
+                {'NAME': 'build_sparse_conv_plan'}]}})
+    pts, gt = synthetic_scene_batch(22, 2, 512, pc_range=pcr, n_clusters=6)
+    # two cars on anchors of each frame, whose proposals stay near them
+    # with the anchor head's box layer at 1e-2: foreground RoIs, so that
+    # the RoI head's regression tower takes a gradient
+    cars = np.float32([[0.1, -6.3, -1.0, 3.9, 1.6, 1.56, 0.05, 1],
+                       [12.7, 6.3, -1.0, 3.8, 1.7, 1.5, 1.6, 1]])
+    gt = np.concatenate([gt, np.broadcast_to(cars, (2, 2, 8))], 1)
+    batch = {k: torch.from_numpy(v) for k, v in voxel_batch(
+        pts, cfg.DATA_CONFIG, mode='train', gt_boxes=list(gt)).items()}
+    cpu = build_detector_from_cfg(cfg, device='cpu').train()
+    with torch.no_grad():
+        for p in cpu.dense_head.conv_box.parameters():
+            p.mul_(1e-2)
+    gpu = copy.deepcopy(cpu).to(cuda)
+    outs = {}
+    for name, model in (('cpu', cpu), ('gpu', gpu)):
+        model.register_forward_hook(
+            lambda m, a, out, name=name: outs.__setitem__(name, out))
+    results = {}
+    for name, model, device in (('cpu', cpu, 'cpu'), ('gpu', gpu, cuda)):
+        before = {k: p.detach().clone() for k, p in model.named_parameters()}
+        opt = optimization.build_optimizer(optim, model.parameters(), 10, 2)
+        _build.reset_launches()
+        loss, tb = make_train_step(model, opt)(
+            {k: v.to(device) for k, v in batch.items()})
+        if device == cuda:
+            torch.cuda.synchronize()
+            assert _build.LAUNCHES['fps'] == 1
+            assert _build.LAUNCHES['ball_query'] == 4
+        for k, p in model.named_parameters():
+            assert torch.isfinite(p.grad).all(), k
+            assert not torch.equal(p.detach(), before[k]), k
+        results[name] = {k: float(v) for k, v in dict(tb, loss=loss).items()}
+    for key, c in results['cpu'].items():
+        assert abs(results['gpu'][key] - c) <= 1e-3 * abs(c), key
+    for get in (lambda o: o['anchor_head_ret']['box_cls_labels'],
+                lambda o: o['point_head_simple_ret']['targets'].cls_labels):
+        assert torch.equal(get(outs['gpu']).cpu(), get(outs['cpu']))

@@ -251,8 +251,8 @@ def test_anchors_are_identical_to_jax(align_center):
            ANCHOR_GENERATOR_CONFIG]
     for c in agc:
         c['align_center'] = align_center
-    got, cls = generate_anchors(agc, (1408, 1600, 40), (0, -40, -3, 70.4,
-                                                        40, 1), 8)
+    got, cls, _, _ = generate_anchors(agc, (1408, 1600, 40),
+                                      (0, -40, -3, 70.4, 40, 1), 8)
     want = jax_anchor_head.generate_anchors(agc, (1408, 1600, 40),
                                             (0, -40, -3, 70.4, 40, 1), 8)
     assert got.shape == (200, 176, 6, 7)
@@ -523,12 +523,6 @@ def test_vsa_of_pv_rcnn_plusplus_raises_naming_item_f(where):
     with pytest.raises(NotImplementedError, match='item F'):
         VoxelSetAbstraction(cfg, (0.05, 0.05, 0.1), (0, -40, -3, 70.4, 40, 1),
                             256, 1)
-
-
-def test_training_mode_raises(tiny):
-    model = copy.deepcopy(tiny['model']).train()
-    with pytest.raises(NotImplementedError, match='training'):
-        model(_torch_batch(tiny['batch']))
 
 
 def test_flax_to_torch_maps_every_pvrcnn_key(tiny):
