@@ -4,7 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --phase3 ROOT   # phases 1-3 of another checkout
     python3 chip_smoke.py --jitter-study  # what sets phase 26's baseline
-    python3 chip_smoke.py --fault-check   # phases 26, 36 refuse bad grads
+    python3 chip_smoke.py --fault-check   # phases 26, 36, 44 refuse bad grads
 
 Phases, in order; any failure raises and the exit code is not 0:
 
@@ -239,7 +239,57 @@ Phases, in order; any failure raises and the exit code is not 0:
     launches, busy share, the proposal NMS's host ms, launches and share,
     and the shares of the sparse gathers, the BEV backbone and the
     backward in the device time;
-40. one JSON line per kernel set, then the card's name and power limit,
+40. the Voxel R-CNN serving path: ``kitti_models/voxel_rcnn_car.yaml``
+    through ``build_detector_from_cfg`` at full width with seeded random
+    weights on batches of 2 synthetic scans of 16384 points voxelized at
+    the test limit (40 000 voxels; each frame's voxels before and after
+    the cap printed): a warm-up and ten requests through forward ->
+    ``post_processing`` (the anchor head, the proposal NMS at pre 2048 /
+    post 100, the voxel RoI-grid pool of 100 x 6^3 grid points over the
+    voxel centers of x_conv2-4, the RoI head, the final NMS); outputs
+    finite, three ball-query launches a request and no other kernel; ms
+    and range, the proposal NMS's share, the grid points' voxel hits, a
+    profile (busy share);
+41. the ball query vs its plain version at the Voxel R-CNN serving
+    shapes: 43 200 grid centers over each 40 000-row level;
+42. one Voxel R-CNN request card vs CPU, stage by stage from the card's
+    inputs as phase 31 holds PV-RCNN's: the voxel stack, the anchor head
+    and the proposal NMS, the RoI-grid picks equal or within the rounding
+    slack of their grid points, then replayed, the pooled features, the
+    refinement and the final NMS;
+43. the Voxel R-CNN train path: voxel_rcnn_car.yaml at full width (the
+    anchor box layer at 1e-2) takes a warm-up and ten ``adam_onecycle``
+    steps of 2 x 16384 scenes at the train limit (16 000 voxels): anchor
+    targets, the proposal NMS at pre 9000 / post 512, 128 sampled RoIs a
+    frame (55 296 grid centers), dropout, both heads' losses; three
+    ball-query launches a step; a profile; the ball query vs plain at the
+    train shapes;
+44. one Voxel R-CNN train step card vs CPU as phase 36 holds PV-RCNN's
+    (``--fault-check`` also scales a Voxel R-CNN module's gradients);
+45. the CenterPoint serving path: ``waymo_models/centerpoint.yaml`` at
+    full width (VoxelResBackBone8x, every level padded to 150 000 rows,
+    the 188 x 188 BEV map, the CenterHead decode: the top 500 of 106 032
+    (pixel, class) pairs, agnostic NMS at 0.7) on 2 Waymo scans of 65 536
+    points with 5 channels, a warm-up and five requests; no kernel of the
+    port; ms, peak memory, the host plan's ms a frame, each frame's voxels
+    before and after the cap, a profile with the sparse and BEV
+    backbones' shares;
+46. one CenterPoint request (B = 1) card vs CPU stage by stage: the
+    sparse levels, the BEV map and backbone, the head's maps within
+    tolerance, the card's top-500 candidates a top 500 of the CPU's
+    scores within CP_SCORE_TOL and replayed, the NMS as phase 21 holds it,
+    the detections;
+47. the CenterPoint train path: a warm-up and ten steps over three planned
+    batches of 2 Waymo scenes (heatmap targets, focal and L1 losses,
+    backward, ``adam_onecycle``); ms and range, peak memory, a profile;
+48. one CenterPoint train step card vs CPU: the heatmap targets, centre
+    pixels and masks bit for bit, loss terms, gradients, parameters and
+    BN statistics as phase 36 holds them;
+49. ``waymo_models/voxel_rcnn_with_centerhead_dyn_voxel.yaml``: one
+    request of B = 1 after a warm-up, the CenterHead RPN's detections as
+    proposals, three ball queries over the 150 000-row levels, each held
+    to its plain version;
+50. one JSON line per kernel set, then the card's name and power limit,
     then the result line.
 
 The K5 shapes are (8, 16384) -> 4096, (8, 15884) -> 4096 (SPSNet's layer
@@ -381,6 +431,29 @@ PV_TRAIN_B, PV_TRAIN_STEPS, SECOND_TRAIN_STEPS = 2, 10, 3
 # and a direction bin may differ only where the CPU's two logits lie within
 # PV_DIR_LOGIT_TOL of each other
 PV_SCORE_TOL, PV_DIR_LOGIT_TOL = 2e-4, 1.5e-3
+# Voxel R-CNN (voxel_rcnn_car.yaml): serving B = VR_B scans of N points at
+# the test voxel limit (40 000), a warm-up and VR_REQUESTS requests cycling
+# over VR_BATCHES host batches, three fused ball queries a request (the RoI
+# grid of 100 proposals x 6^3 points over the voxel centers of x_conv2-4);
+# training at the train limit (16 000), a warm-up and VR_TRAIN_STEPS steps
+# of 128 sampled RoIs a frame, the same three launches a step
+VR_B, VR_REQUESTS, VR_BATCHES, VR_TRAIN_STEPS = 2, 10, 3, 10
+VR_LAUNCHES = {'ball_query': 3}
+# CenterPoint (waymo_models/centerpoint.yaml): B = CP_B Waymo scans of
+# CP_N points with 5 channels, every sparse level padded to 150 000 rows,
+# CP_REQUESTS requests after a warm-up; training a warm-up and
+# CP_TRAIN_STEPS steps cycling over CP_TRAIN_BATCHES planned batches (the
+# host plan takes seconds a frame at 150 000 rows); no kernel of the port
+# runs. The gt of its three classes take the anchor sizes of
+# waymo_models/pv_rcnn.yaml (Vehicle, Pedestrian, Cyclist)
+CP_B, CP_N, CP_REQUESTS = 2, 65536, 5
+CP_TRAIN_STEPS, CP_TRAIN_BATCHES = 10, 3
+WAYMO_SIZES = [[4.7, 2.1, 1.7], [0.91, 0.86, 1.73], [1.78, 0.84, 1.78]]
+# card vs CPU, one CenterPoint request: the heatmap scores of the two runs
+# (sigmoids after the residual backbone over 150 000 rows, the 5-layer BEV
+# backbone and the head's convs) may lie CP_SCORE_TOL apart; the card's
+# top 500 candidates must be a top 500 of the CPU's scores within it
+CP_SCORE_TOL = 1e-4
 # card vs CPU on the voxel stack, the VSA and the RoI head: within 1e-4
 # relative plus 1e-4 of each tensor's largest entry (cuBLAS and cuDNN
 # against the CPU's sums over K up to 27 x 64 and 9 x 256; the rounding of
@@ -2257,6 +2330,7 @@ def prcnn_decisions(decisions):
     from spsnet_torch.models import sa_module
     from spsnet_torch.models.dense_heads import anchor_head
     from spsnet_torch.models.roi_heads import roi_utils
+    from spsnet_torch.models.dense_heads import center_head_iou
     hooks = [(ops_pkg, 'farthest_point_sample', decisions.fps),
              (ops_pkg, 'ball_query_multi', decisions.ball),
              (sa_module, 'three_nn', decisions.three_nn),
@@ -2266,6 +2340,8 @@ def prcnn_decisions(decisions):
              (roi_utils, 'subsample_rois', decisions.sampled)]
     if hasattr(decisions, 'dir_bins'):
         hooks.append((anchor_head, 'direction_bins', decisions.dir_bins))
+    if hasattr(decisions, 'topk'):
+        hooks.append((center_head_iou, 'topk_desc', decisions.topk))
     saved = [(owner, name, getattr(owner, name)) for owner, name, _ in hooks]
     for (owner, name, hook), (_, _, real) in zip(hooks, saved):
         setattr(owner, name,
@@ -2472,12 +2548,17 @@ PRCNN_FAULTS = (('backbone_3d.SA_modules.0', 1.3),
 PV_FAULTS = (('backbone_3d.conv4', 1.3), ('backbone_2d.blocks.0', 1.3),
              ('dense_head.conv_cls', 1.3), ('pfe.SA_layers.x_conv1', 1.3),
              ('roi_head.cls_layers', 1.3), ('roi_head.reg_layers', 1.3))
+VR_FAULTS = (('backbone_3d.conv3', 1.3),
+             ('roi_head.roi_grid_pool_layers.x_conv2', 1.3),
+             ('roi_head.roi_grid_pool_layers.x_conv4', 1.3),
+             ('roi_head.shared_fc_layer', 1.3), ('roi_head.cls_layers', 1.3))
 
 
 def fault_check() -> int:
-    """``--fault-check``: phases 26 and 36 as they run, then again with the
-    card's gradients of one module scaled (``PRCNN_FAULTS``,
-    ``PV_FAULTS``): every such run must fail. Returns 1 if one passed."""
+    """``--fault-check``: phases 26, 36 and 44 as they run, then again with
+    the card's gradients of one module scaled (``PRCNN_FAULTS``,
+    ``PV_FAULTS``, ``VR_FAULTS``): every such run must fail. Returns 1 if
+    one passed."""
     phases = sys.modules[__name__]
     missed = []
 
@@ -2516,8 +2597,13 @@ def fault_check() -> int:
     batch = pv_train_batches(cfg, [800, 801])[0][1]
     each('build_pvrcnn_trainer', phases.pvrcnn_train_cpu_phase,
          {k: v[:1].cpu() for k, v in batch.items()}, PV_FAULTS, 1)
-    log(f'{len(PRCNN_FAULTS) + len(PV_FAULTS) - len(missed)} of '
-        f'{len(PRCNN_FAULTS) + len(PV_FAULTS)} faults refused')
+    cfg = build_voxel_detector('voxel_rcnn_car', 'cpu')[0]
+    batch = pv_train_batches(cfg, [900, 901])[0][1]
+    each('build_pvrcnn_trainer',
+         lambda b: phases.pvrcnn_train_cpu_phase(b, 'voxel_rcnn_car'),
+         {k: v[:1].cpu() for k, v in batch.items()}, VR_FAULTS, 1)
+    n = len(PRCNN_FAULTS) + len(PV_FAULTS) + len(VR_FAULTS)
+    log(f'{n - len(missed)} of {n} faults refused')
     return 1 if missed else 0
 
 
@@ -2686,36 +2772,16 @@ def other_iassd_path(path, n, channels, seed):
 
 
 def build_voxel_detector(name, device):
-    """``tools/cfgs/kitti_models/{name}.yaml`` through
-    ``build_detector_from_cfg`` on ``device`` (weights from
-    ``torch.Generator`` seed 0): its config and the detector."""
+    """``tools/cfgs/kitti_models/{name}.yaml`` (``tools/cfgs/{name}.yaml``
+    for a name with its folder) through ``build_detector_from_cfg`` on
+    ``device`` (weights from ``torch.Generator`` seed 0): its config and
+    the detector."""
     from spsnet_torch.models import build_detector_from_cfg
     from spsnet_torch.zoo import load_yaml_cfg
-    cfg = load_yaml_cfg(f'tools/cfgs/kitti_models/{name}.yaml')
+    path = name if '/' in name else f'kitti_models/{name}'
+    cfg = load_yaml_cfg(f'tools/cfgs/{path}.yaml')
     return cfg, build_detector_from_cfg(
         cfg, device=device, generator=torch.Generator().manual_seed(0))
-
-
-def pv_host_batches(cfg, seeds, b):
-    """Voxel batches of ``b`` synthetic scans of N points each (one seed a
-    batch), made by the port's host code (``data.processor.voxel_batch``:
-    the voxelization and the sparse plan at the config's test settings)
-    and copied to the card. Returns (batches, host ms a frame of each,
-    copy ms of each)."""
-    from spsnet_torch.data.processor import voxel_batch
-    from spsnet_torch.runtime.trainer import device_batch
-    from spsnet_torch.utils.synthetic import synthetic_scan_batch
-    batches, host_ms, copy_ms = [], [], []
-    for seed in seeds:
-        scans = synthetic_scan_batch(seed, b, N)
-        t0 = time.perf_counter()
-        host = voxel_batch(scans, cfg.DATA_CONFIG)
-        host_ms.append((time.perf_counter() - t0) * 1e3 / b)
-        t0 = time.perf_counter()
-        batches.append(device_batch(host, 'cuda'))
-        torch.cuda.synchronize()
-        copy_ms.append((time.perf_counter() - t0) * 1e3)
-    return batches, host_ms, copy_ms
 
 
 def pv_stages(model, batch):
@@ -2897,30 +2963,21 @@ def _require_topk_order(card_scores, cpu_scores, k, what,
         f'inside: {worst:.3e}, tolerance {tol:.3e})')
 
 
-def pvrcnn_cpu_phase(model, cfg, batch):
-    """One PV-RCNN request (B = 2) on the card and on the CPU with the same
-    weights and host tables, stage by stage, each CPU stage from the
-    card's input to it: voxel features, every sparse level, the BEV map
-    (the scatter bit for bit), the BEV backbone and the anchor head within
-    VOXEL_RTOL / VOXEL_ATOL; the card's 1024 proposal candidates a top
-    1024 of the CPU's scores; the proposal NMS (``nms_agrees``); the VSA's
-    FPS keypoints and every source's ball-query indices identical, its
-    features and the point head within tolerance; the RoI-grid picks
-    (the grid points of the card's RoIs, rotated on each device) equal or
-    within the rounding slack of their inputs, then replayed
-    (``PrcnnDecisions``); the pooled features, the refinement, the decoded
-    boxes and the final NMS."""
-    from spsnet_torch.models.detectors.detector3d import (
-        class_agnostic_nms_batch, post_processing)
-    from spsnet_torch.models.roi_heads.pointrcnn_head import \
-        decode_in_roi_frame
-    from spsnet_torch.ops.grouping import ball_query_multi
-    _, cpu = build_voxel_detector('pv_rcnn', 'cpu')
-    cpu.load_state_dict(model.state_dict())
-    host = _cpu_tree(batch)
-    st = pv_stages(model, batch)
+def _stage_one_vs_cpu(model, cpu, batch, host, nms, rpn=None):
+    """The voxel stack and the anchor head of one request on the card
+    (``model``) and on the CPU (``cpu``, the same weights), each CPU stage
+    from the card's input to it: voxel features, every sparse level, the
+    BEV map (the scatter bit for bit), the BEV backbone and the anchor
+    head within VOXEL_RTOL / VOXEL_ATOL; the card's proposal candidates a
+    top NMS_PRE_MAXSIZE of the CPU's scores; the proposal NMS at ``nms``
+    (``nms_agrees``). ``rpn``: the card's stage-one output, when already
+    made. Returns (scaled errors, the card's stage-one batch)."""
+    from spsnet_torch.models.detectors.detector3d import \
+        class_agnostic_nms_batch
     errs = []
     with torch.no_grad():
+        if rpn is None:
+            rpn = model.stage_one(batch)
         g = model.vfe(batch)
         c = cpu.vfe(host)
         errs.append(_require_scaled(g['voxel_features'], c['voxel_features'],
@@ -2956,8 +3013,6 @@ def pvrcnn_cpu_phase(model, cfg, batch):
                                     c['batch_box_preds'][..., :6],
                                     'anchor boxes, centers and sizes'))
         _require_anchor_headings(g, c)
-        rpn = st['rpn']
-        nms = cfg.MODEL.ROI_HEAD.NMS_CONFIG.TEST
         kw = dict(thresh=float(nms.NMS_THRESH), pre=int(nms.NMS_PRE_MAXSIZE),
                   post=int(nms.NMS_POST_MAXSIZE))
         card_scores = torch.sigmoid(rpn['batch_cls_preds']).amax(-1)
@@ -2972,6 +3027,89 @@ def pvrcnn_cpu_phase(model, cfg, batch):
             nms_agrees(card_idx[b:b + 1], rpn['batch_box_preds'][b:b + 1]
                        .cpu(), scores, scores > -1e9,
                        what=f'proposal NMS indices, frame {b}', **kw)
+    return errs, rpn
+
+
+def _roi_stage_vs_cpu(model, cpu, roi_in, out, post):
+    """The RoI head of one request from the card's input ``roi_in`` to it
+    and the card's RoIs (``out``: the card's RoI-head output): the
+    RoI-grid picks (the grid points rotated on each device) equal or
+    within the rounding slack of their inputs, then replayed
+    (``PrcnnDecisions``); the pooled features, the refinement, the decoded
+    boxes and the final NMS (``post``) within VOXEL_RTOL / VOXEL_ATOL.
+    Returns (scaled errors, the replay's notes, differing ball lists, the
+    card's detections)."""
+    from spsnet_torch.models.detectors.detector3d import post_processing
+    from spsnet_torch.models.roi_heads.pointrcnn_head import \
+        decode_in_roi_frame
+    errs = []
+    with torch.no_grad():
+        rois = out['rois']
+        rec = PrcnnDecisions('record')
+        with prcnn_decisions(rec):
+            pooled_g = model.roi_head.roi_grid_pool(roi_in, rois)
+        chk = PrcnnDecisions('check', ref=rec)
+        with prcnn_decisions(chk):
+            pooled_c = cpu.roi_head.roi_grid_pool(_cpu_tree(roi_in),
+                                                  rois.cpu())
+        for note in chk.notes or ['RoI-grid ball query: identical']:
+            log(f'  card vs CPU {note}')
+        errs.append(_require_scaled(pooled_g, pooled_c,
+                                    'RoI-grid pooled features'))
+        head = cpu.roi_head
+        shared = head.shared_fc_layer(pooled_c)
+        ret = out['roi_head_ret']
+        errs.append(_require_scaled(ret['rcnn_cls'], head.cls_layers(shared),
+                                    'rcnn_cls'))
+        errs.append(_require_scaled(ret['rcnn_reg'], head.reg_layers(shared),
+                                    'rcnn_reg'))
+        errs.append(_require_scaled(
+            out['batch_box_preds'],
+            decode_in_roi_frame(head.box_coder, ret['rcnn_reg'].cpu(),
+                                rois.cpu()), 'refined boxes'))
+        dets_g = post_processing(out, post)
+        final = _cpu_tree({k: out[k] for k in (
+            'batch_box_preds', 'batch_cls_preds', 'batch_roi_labels')})
+        final['has_class_labels'] = out['has_class_labels']
+        dets_c = post_processing(final, post)
+        scores = torch.sigmoid(final['batch_cls_preds']).amax(-1)
+        for b in range(scores.shape[0]):
+            nms_agrees(dets_g['indices'][b:b + 1],
+                       final['batch_box_preds'][b:b + 1], scores[b:b + 1],
+                       scores[b:b + 1] > float(post.SCORE_THRESH),
+                       float(post.NMS_CONFIG.NMS_THRESH),
+                       int(post.NMS_CONFIG.NMS_PRE_MAXSIZE),
+                       int(post.NMS_CONFIG.NMS_POST_MAXSIZE),
+                       f'final NMS indices, frame {b}')
+        if torch.equal(dets_c['indices'], dets_g['indices'].cpu()):
+            for key in ('count', 'labels'):
+                require_equal(dets_g[key], dets_c[key],
+                              f'card vs CPU final NMS {key}')
+            errs.append(_require_scaled(dets_g['boxes'], dets_c['boxes'],
+                                        'final boxes'))
+            errs.append(_require_scaled(dets_g['scores'], dets_c['scores'],
+                                        'final scores'))
+    log(f'  {dets_g["count"].tolist()} detections, labels '
+        f'{sorted(set(dets_g["labels"].flatten().tolist()))}')
+    return errs, chk.notes, chk.differ['ball'], dets_g
+
+
+def pvrcnn_cpu_phase(model, cfg, batch):
+    """One PV-RCNN request (B = 2) on the card and on the CPU with the same
+    weights and host tables, stage by stage, each CPU stage from the
+    card's input to it: the voxel stack and the anchor head with the
+    proposal NMS (``_stage_one_vs_cpu``); the VSA's FPS keypoints and
+    every source's ball-query indices identical, its features and the
+    point head within tolerance; the RoI head (``_roi_stage_vs_cpu``)."""
+    from spsnet_torch.ops.grouping import ball_query_multi
+    _, cpu = build_voxel_detector('pv_rcnn', 'cpu')
+    cpu.load_state_dict(model.state_dict())
+    host = _cpu_tree(batch)
+    st = pv_stages(model, batch)
+    errs, rpn = _stage_one_vs_cpu(model, cpu, batch, host,
+                                  cfg.MODEL.ROI_HEAD.NMS_CONFIG.TEST,
+                                  st['rpn'])
+    with torch.no_grad():
         # the VSA from the card's stage-one outputs
         pg = st['pfe']
         pc = cpu.pfe(_cpu_tree(rpn))
@@ -3001,57 +3139,10 @@ def pvrcnn_cpu_phase(model, cfg, batch):
             st['point']['point_head_simple_ret']['point_cls_preds'],
             ph['point_head_simple_ret']['point_cls_preds'],
             'point head cls preds'))
-        out = st['out']
-        rois = out['rois']
-        rec = PrcnnDecisions('record')
-        with prcnn_decisions(rec):
-            pooled_g = model.roi_head.roi_grid_pool(st['point'], rois)
-        chk = PrcnnDecisions('check', ref=rec)
-        with prcnn_decisions(chk):
-            pooled_c = cpu.roi_head.roi_grid_pool(_cpu_tree(st['point']),
-                                                  rois.cpu())
-        for note in chk.notes or ['RoI-grid ball query: identical']:
-            log(f'  card vs CPU {note}')
-        errs.append(_require_scaled(pooled_g, pooled_c,
-                                    'RoI-grid pooled features'))
-        head = cpu.roi_head
-        shared = head.shared_fc_layer(pooled_c)
-        ret = out['roi_head_ret']
-        errs.append(_require_scaled(ret['rcnn_cls'], head.cls_layers(shared),
-                                    'rcnn_cls'))
-        errs.append(_require_scaled(ret['rcnn_reg'], head.reg_layers(shared),
-                                    'rcnn_reg'))
-        errs.append(_require_scaled(
-            out['batch_box_preds'],
-            decode_in_roi_frame(head.box_coder, ret['rcnn_reg'].cpu(),
-                                rois.cpu()), 'refined boxes'))
-        post = cfg.MODEL.POST_PROCESSING
-        dets_g = post_processing(out, post)
-        final = _cpu_tree({k: out[k] for k in (
-            'batch_box_preds', 'batch_cls_preds', 'batch_roi_labels')})
-        final['has_class_labels'] = True
-        dets_c = post_processing(final, post)
-        scores = torch.sigmoid(final['batch_cls_preds']).amax(-1)
-        for b in range(scores.shape[0]):
-            nms_agrees(dets_g['indices'][b:b + 1],
-                       final['batch_box_preds'][b:b + 1], scores[b:b + 1],
-                       scores[b:b + 1] > float(post.SCORE_THRESH),
-                       float(post.NMS_CONFIG.NMS_THRESH),
-                       int(post.NMS_CONFIG.NMS_PRE_MAXSIZE),
-                       int(post.NMS_CONFIG.NMS_POST_MAXSIZE),
-                       f'final NMS indices, frame {b}')
-        if torch.equal(dets_c['indices'], dets_g['indices'].cpu()):
-            for key in ('count', 'labels'):
-                require_equal(dets_g[key], dets_c[key],
-                              f'card vs CPU final NMS {key}')
-            errs.append(_require_scaled(dets_g['boxes'], dets_c['boxes'],
-                                        'final boxes'))
-            errs.append(_require_scaled(dets_g['scores'], dets_c['scores'],
-                                        'final scores'))
-    log(f'  {dets_g["count"].tolist()} detections, labels '
-        f'{sorted(set(dets_g["labels"].flatten().tolist()))}')
-    return {'max_scaled_err': max(errs), 'roi_grid_notes': chk.notes,
-            'ball_lists_differ': chk.differ['ball']}
+    roi_errs, notes, differ, _ = _roi_stage_vs_cpu(
+        model, cpu, st['point'], st['out'], cfg.MODEL.POST_PROCESSING)
+    return {'max_scaled_err': max(errs + roi_errs), 'roi_grid_notes': notes,
+            'ball_lists_differ': differ}
 
 
 def second_phase(batch, pv_cfg):
@@ -3125,22 +3216,24 @@ def bev_algorithm_phase():
     return res
 
 
-def pvrcnn_profile(model, fn, what, nms_label):
-    """A CUDA-kernel breakdown of one call of ``fn`` (a PV-RCNN request or
-    train step of ``model``): the proposal NMS (``nms_label``: its
-    settings), the sparse gathers and the BEV backbone as ranges (time,
-    kernels, launches), with their shares, and the backward's share of
-    the device time."""
+def pvrcnn_profile(model, fn, what, nms_label, head_module=None):
+    """A CUDA-kernel breakdown of one call of ``fn`` (a PV-RCNN or Voxel
+    R-CNN request or train step of ``model``): the proposal NMS
+    (``nms_label``: its settings; ``head_module``'s ``proposal_layer``,
+    PV-RCNN's RoI head's by default), the sparse gathers and the BEV
+    backbone as ranges (time, kernels, launches), with their shares, and
+    the backward's share of the device time."""
     from spsnet_torch.models.backbones_3d import spconv_backbone
     from spsnet_torch.models.roi_heads import pvrcnn_head
-    saved = (pvrcnn_head.proposal_layer, spconv_backbone.sparse_gather)
+    head_module = head_module or pvrcnn_head
+    saved = (head_module.proposal_layer, spconv_backbone.sparse_gather)
 
     def ranged(name, fn):
         def call(*args, **kwargs):
             with torch.profiler.record_function(name):
                 return fn(*args, **kwargs)
         return call
-    pvrcnn_head.proposal_layer = ranged('proposal NMS', saved[0])
+    head_module.proposal_layer = ranged('proposal NMS', saved[0])
     spconv_backbone.sparse_gather = ranged('sparse gather', saved[1])
     model.backbone_2d.forward = ranged('BEV backbone',
                                        model.backbone_2d.forward)
@@ -3149,7 +3242,7 @@ def pvrcnn_profile(model, fn, what, nms_label):
                                                'sparse gather',
                                                'BEV backbone'))
     finally:
-        pvrcnn_head.proposal_layer, spconv_backbone.sparse_gather = saved
+        head_module.proposal_layer, spconv_backbone.sparse_gather = saved
         del model.backbone_2d.forward
     spans = prof['ranges']
     prof['nms_share'] = spans['proposal NMS']['host_ms'] / prof['wall_ms']
@@ -3172,22 +3265,18 @@ def pvrcnn_phases():
     shapes and SECOND's record."""
     log('== 29. PV-RCNN serving path')
     pv_cfg, pv = build_voxel_detector('pv_rcnn', 'cuda')
-    pv_batches, pv_host_ms, pv_copy_ms = pv_host_batches(
-        pv_cfg, range(700, 700 + PV_BATCHES), PV_B)
-    pv8_batches, pv8_host_ms, pv8_copy_ms = pv_host_batches(
-        pv_cfg, [710], PV_B8)
-    host_ms = pv_host_ms + pv8_host_ms
-    log(f'  host voxelization + sparse plan (port, numpy): '
-        f'{statistics.median(host_ms):.3f} ms a frame (median of '
-        f'{len(host_ms)} batches, {[round(t, 3) for t in host_ms]}); copy '
-        f'to the card {[round(t, 3) for t in pv_copy_ms + pv8_copy_ms]} ms a '
-        f'batch of {PV_B} / {PV_B8}')
+    host = pv_host_batches(pv_cfg, range(700, 700 + PV_BATCHES), PV_B)
+    host8 = pv_host_batches(pv_cfg, [710], PV_B8)
+    pv_batches, pv8_batches = host['batches'], host8['batches']
+    host_ms = host['host_ms'] + host8['host_ms']
     pvrcnn = pvrcnn_path(pv, pv_cfg, [pv_batches[k % PV_BATCHES]
                                       for k in range(PV_REQUESTS)],
                          'PV-RCNN requests (B=2)')
     pvrcnn['b8'] = pvrcnn_path(pv, pv_cfg, pv8_batches * PV_REQUESTS,
                                'PV-RCNN requests (B=8)')
-    pvrcnn.update(host_ms_a_frame=host_ms, copy_ms=pv_copy_ms + pv8_copy_ms)
+    pvrcnn.update(host_ms_a_frame=host_ms,
+                  copy_ms=host['copy_ms'] + host8['copy_ms'],
+                  voxels_before_cap=host['before'] + host8['before'])
 
     log('== 30. kernels vs plain at the PV-RCNN shapes')
     pv_shapes = pvrcnn_shapes_phase(pv, pv_batches[0], pv8_batches[0])
@@ -3207,27 +3296,33 @@ def pvrcnn_phases():
     return pvrcnn, pv_shapes, second
 
 
-def train_scenes(seed, anchor_cfgs):
-    """PV_TRAIN_B synthetic scenes of N points from ``seed``, their gt boxes
-    given the classes 1, 2, 3 in turn, each the size of its class's anchor
-    (``anchor_cfgs``: ANCHOR_GENERATOR_CONFIG; a KITTI car's mean box)
-    standing on the scene's ground (z -1.65), then each frame's points and
-    boxes turned about z by an angle drawn from pv_rcnn.yaml's
-    ``random_world_rotation`` range [-pi/4, pi/4] (heading + angle)."""
-    from spsnet_torch.utils.synthetic import synthetic_scene_batch
-    pts, gt = synthetic_scene_batch(seed, PV_TRAIN_B, N)
-    cls = np.arange(gt.shape[1]) % 3
+def train_scenes(seed, sizes, b=PV_TRAIN_B, n=N, pc_range=None,
+                 channels=4):
+    """``b`` synthetic scenes of ``n`` points from ``seed`` in ``pc_range``
+    (KITTI's by default), their gt boxes given the classes 1, 2, ... in
+    turn, each the size of its class in ``sizes`` (the anchor sizes of a
+    config; a KITTI car's mean box) standing on the scene's ground (z
+    -1.65), then each frame's points and boxes turned about z by an angle
+    drawn from pv_rcnn.yaml's ``random_world_rotation`` range [-pi/4,
+    pi/4] (heading + angle); point channels past the fourth uniform in
+    [0, 1)."""
+    from spsnet_torch.utils.synthetic import (KITTI_RANGE,
+                                              synthetic_scene_batch)
+    pts, gt = synthetic_scene_batch(seed, b, n, pc_range or KITTI_RANGE)
+    cls = np.arange(gt.shape[1]) % len(sizes)
     gt[..., 7] = cls + 1
-    gt[..., 3:6] = np.float32([a['anchor_sizes'][0]
-                               for a in anchor_cfgs])[cls]
+    gt[..., 3:6] = np.float32(sizes)[cls]
     gt[..., 2] = -1.65 + gt[..., 5] / 2
     rng = np.random.default_rng(seed + 1)
-    for b, a in enumerate(rng.uniform(-np.pi / 4, np.pi / 4, PV_TRAIN_B)):
+    for k, a in enumerate(rng.uniform(-np.pi / 4, np.pi / 4, b)):
         c, s = np.cos(a), np.sin(a)
-        for arr in (pts[b], gt[b]):
+        for arr in (pts[k], gt[k]):
             x, y = arr[:, 0].copy(), arr[:, 1].copy()
             arr[:, 0], arr[:, 1] = c * x - s * y, s * x + c * y
-        gt[b, :, 6] += a
+        gt[k, :, 6] += a
+    if channels > 4:
+        pts = np.concatenate([pts, rng.uniform(0, 1, pts.shape[:2] + (
+            channels - 4,))], axis=-1)
     return pts.astype(np.float32), gt.astype(np.float32)
 
 
@@ -3280,18 +3375,24 @@ def at_proposals(model, batches):
         yield gt_at_proposals(model, batch)
 
 
-def pv_train_batches(cfg, seeds):
-    """Train batches of ``train_scenes`` (one seed a batch), voxelized
-    and planned by the port's host code at the config's train settings
-    (``voxel_batch(mode='train')`` with the gt boxes) and copied to the
-    card. Returns (batches, host ms a frame of each, voxels a frame before
-    the cap, voxels a frame after it)."""
+def pv_train_batches(cfg, seeds, sizes=None, n=N, channels=4):
+    """Train batches of PV_TRAIN_B ``train_scenes`` of ``n`` points in the
+    config's range (one seed a batch; the gt sizes those of the config's
+    anchors unless ``sizes``), voxelized and planned by the port's host
+    code at the config's train settings (``voxel_batch(mode='train')``
+    with the gt boxes) and copied to the card. Returns (batches, host ms a
+    frame of each, voxels a frame before the cap, voxels a frame after
+    it)."""
     from spsnet_torch.data.processor import voxel_batch
     from spsnet_torch.runtime.trainer import device_batch
+    if sizes is None:
+        sizes = [a['anchor_sizes'][0]
+                 for a in cfg.MODEL.DENSE_HEAD.ANCHOR_GENERATOR_CONFIG]
     batches, host_ms, before, after = [], [], [], []
     for seed in seeds:
-        pts, gt = train_scenes(
-            seed, cfg.MODEL.DENSE_HEAD.ANCHOR_GENERATOR_CONFIG)
+        pts, gt = train_scenes(seed, sizes, n=n,
+                               pc_range=cfg.DATA_CONFIG.POINT_CLOUD_RANGE,
+                               channels=channels)
         t0 = time.perf_counter()
         host = voxel_batch(pts, cfg.DATA_CONFIG, mode='train',
                            gt_boxes=list(gt))
@@ -3323,26 +3424,34 @@ def build_pvrcnn_trainer(device, name='pv_rcnn'):
 def anchor_counts(model, out):
     """Positive, force-matched (a gt's best anchors, positive whatever
     their IoU) and ignored anchors of a train forward's output, and its
-    foreground keypoints."""
+    foreground keypoints (PV-RCNN)."""
     labels = out['anchor_head_ret']['box_cls_labels']
     with torch.no_grad():
         force = model.dense_head.assign_targets(out['gt_boxes'])[4]
-    return {'positive': int((labels > 0).sum()),
-            'force_matched': int(force.sum()),
-            'ignored': int((labels == -1).sum()),
-            'fg_keypoints': int((out['point_head_simple_ret']['targets']
-                                 .cls_labels > 0).sum())}
+    counts = {'positive': int((labels > 0).sum()),
+              'force_matched': int(force.sum()),
+              'ignored': int((labels == -1).sum())}
+    if 'point_head_simple_ret' in out:
+        counts['fg_keypoints'] = int((out['point_head_simple_ret'][
+            'targets'].cls_labels > 0).sum())
+    return counts
 
 
-def pvrcnn_train_path(trainer, batches, smi):
-    """Phase 34: PV-RCNN training at full width (``trainer``:
-    ``build_pvrcnn_trainer``'s), a warm-up step and the timed steps
-    (``train_path``: finite losses and gradients, one FPS and six
-    ball-query launches a step, every parameter moves), each step's grad
-    norm before the clip, anchor and keypoint labels, sampled RoIs and
-    proposal-NMS time. Returns its record."""
+def pvrcnn_train_path(trainer, batches, smi, launches=PV_LAUNCHES,
+                      head_module=None,
+                      stages='voxel stack + anchor targets + VSA + point '
+                             'head + proposal NMS (pre 9000, post 512) + '
+                             'RoI sampling + RoI-grid head + three losses'):
+    """Phases 34 and 43: PV-RCNN or Voxel R-CNN training at full width
+    (``trainer``: ``build_pvrcnn_trainer``'s), a warm-up step and the
+    timed steps (``train_path``: finite losses and gradients,
+    ``launches`` a step, every parameter moves), each step's grad norm
+    before the clip, anchor (and keypoint) labels, sampled RoIs and
+    proposal-NMS time (``head_module``'s ``proposal_layer``, PV-RCNN's
+    RoI head's by default). Returns its record."""
     from spsnet_torch.models.roi_heads import pvrcnn_head
     from spsnet_torch.ops import _build
+    head_module = head_module or pvrcnn_head
     cfg, model, opt, step = trainer
     tcfg = cfg.MODEL.ROI_HEAD.TARGET_CONFIG
     log('  the anchor head\'s box layer at 1e-2 of its seed-0 weights, so '
@@ -3360,27 +3469,24 @@ def pvrcnn_train_path(trainer, batches, smi):
                                        tcfg)))
         log(f'    grad norm {norms[-1]:.4f} (clip 10); {stats[-1]}')
     with roi_head_outputs(model) as outs, \
-            timed_calls(pvrcnn_head, 'proposal_layer') as nms_calls:
-        times, launches = train_path(
+            timed_calls(head_module, 'proposal_layer') as nms_calls:
+        times, counts = train_path(
             model, step, at_proposals(model, batches[1:]),
-            {**{k: 0 for k in _build.LAUNCHES}, **PV_LAUNCHES}, after_step)
+            {**{k: 0 for k in _build.LAUNCHES}, **launches}, after_step)
     nms = range_ms(nms_calls)
     ms = statistics.median(times)
-    log(f'  launches over {len(times)} train steps: {launches}')
-    log(f'  ms/train step (B={PV_TRAIN_B}, N={N}, voxel stack + anchor '
-        f'targets + VSA + point head + proposal NMS (pre 9000, post 512) + '
-        f'RoI sampling + RoI-grid head + three losses + backward + '
+    log(f'  launches over {len(times)} train steps: {counts}')
+    log(f'  ms/train step (B={PV_TRAIN_B}, N={N}, {stages} + backward + '
         f'adam_onecycle): median {ms:.3f}, range {min(times):.3f}-'
         f'{max(times):.3f}, all {[round(t, 3) for t in times]}; steps/s '
         f'{1e3 / ms:.3f} on {smi}')
     share = [host / total for (host, _), total in zip(nms, times)]
     log(f'  proposal NMS a step: host ms {[round(h, 3) for h, _ in nms]}; '
         f'share of the step {min(share):.3f}-{max(share):.3f}')
-    for key in ('positive', 'force_matched', 'ignored', 'fg_keypoints',
-                'fg', 'hard', 'easy', 'reg_valid'):
+    for key in stats[0]:
         vals = [s[key] for s in stats]
         log(f'  {key} a step: {min(vals)}-{max(vals)}')
-    return {'ms': ms, 'all_ms': times, 'launches': launches,
+    return {'ms': ms, 'all_ms': times, 'launches': counts,
             'grad_norms': norms, 'stats': stats,
             'nms_host_ms': [h for h, _ in nms], 'nms_share': share}
 
@@ -3444,28 +3550,33 @@ class PvDecisions(PrcnnDecisions):
 
 
 def _targets_of(out):
-    """The anchor labels and the keypoint labels of a train forward's
-    output."""
-    return (out['anchor_head_ret']['box_cls_labels'],
-            out['point_head_simple_ret']['targets'].cls_labels)
+    """The anchor labels and the keypoint labels (PV-RCNN) of a train
+    forward's output."""
+    labels = {'anchor labels': out['anchor_head_ret']['box_cls_labels']}
+    if 'point_head_simple_ret' in out:
+        labels['keypoint labels'] = out['point_head_simple_ret'][
+            'targets'].cls_labels
+    return labels
 
 
-def pvrcnn_train_cpu_phase(batch):
-    """Phase 36: one PV-RCNN train step on one frame (``batch``, on the
-    CPU) on the card and on the CPU from the same weights, RoI draws and
-    dropout masks (the step's CPU generators), and on the CPU from weights
-    jittered by WEIGHT_JITTER. The anchor labels, force matches and
-    keypoint labels identical; every other decision of the CPU held to
-    the card's (``PvDecisions``) and the CPU going on from the card's;
-    the jittered run replays the CPU's. Then the loss terms, gradients,
-    updated parameters and BN running statistics as
-    ``pointrcnn_train_cpu_phase`` holds them, and the share of
-    ``conv_box``'s gradient that comes through the RoIs. Returns the
-    card's and the baseline's differences and the notes."""
+def pvrcnn_train_cpu_phase(batch, name='pv_rcnn'):
+    """Phases 36 and 44: one PV-RCNN (or, ``name`` 'voxel_rcnn_car',
+    Voxel R-CNN) train step on one frame (``batch``, on the CPU) on the
+    card and on the CPU from the same weights, RoI draws and dropout masks
+    (the step's CPU generators), and on the CPU from weights jittered by
+    WEIGHT_JITTER. The anchor labels, force matches and keypoint labels
+    identical; every other decision of the CPU held to the card's
+    (``PvDecisions``) and the CPU going on from the card's; the jittered
+    run replays the CPU's. Then the loss terms, gradients, updated
+    parameters and BN running statistics as ``pointrcnn_train_cpu_phase``
+    holds them, and the share of ``conv_box``'s gradient that comes
+    through the RoIs. Returns the card's and the baseline's differences
+    and the notes."""
     import copy
-    cfg, gpu, _, gpu_step = build_pvrcnn_trainer('cuda')
-    _, cpu, cpu_opt, cpu_step = build_pvrcnn_trainer('cpu')
-    _, jit, _, jit_step = build_pvrcnn_trainer('cpu')
+    cfg, gpu, _, gpu_step = build_pvrcnn_trainer('cuda', name)
+    _, cpu, cpu_opt, cpu_step = build_pvrcnn_trainer('cpu', name)
+    _, jit, _, jit_step = build_pvrcnn_trainer('cpu', name)
+    want = PV_LAUNCHES if name == 'pv_rcnn' else VR_LAUNCHES
     tcfg = cfg.MODEL.ROI_HEAD.TARGET_CONFIG
     thresholds = tuple(float(tcfg[k]) for k in (
         'CLS_BG_THRESH_LO', 'CLS_BG_THRESH', 'REG_FG_THRESH',
@@ -3492,10 +3603,11 @@ def pvrcnn_train_cpu_phase(batch):
     jittered = PvDecisions('replay', own)
     with prcnn_decisions(jittered):
         jit_step(batch)
-    for g, c, what in zip(_targets_of(gpu_out[0]), _targets_of(cpu_out[0]),
-                          ('anchor labels', 'keypoint labels')):
-        require_equal(g, c, f'card vs CPU train step: {what} '
-                            f'{tuple(g.shape)}')
+    card_targets, cpu_targets = (_targets_of(o[0]) for o in (gpu_out,
+                                                               cpu_out))
+    for what, g in card_targets.items():
+        require_equal(g, cpu_targets[what], f'card vs CPU train step: '
+                                            f'{what} {tuple(g.shape)}')
     with torch.no_grad():
         require_equal(
             gpu.dense_head.assign_targets(card_batch['gt_boxes'])[4].int(),
@@ -3507,9 +3619,8 @@ def pvrcnn_train_cpu_phase(batch):
     log(f'  card vs CPU: {n_fps - own.differ["fps"]} of {n_fps} FPS and '
         f'{n_ball - own.differ["ball"]} of {n_ball} ball-query calls '
         f'identical (the others as the notes above say)')
-    if n_fps != 1 or n_ball != 6:
-        raise AssertionError('want 1 FPS and 6 ball-query calls a PV-RCNN '
-                             'train step')
+    if n_fps != want.get('fps', 0) or n_ball != want['ball_query']:
+        raise AssertionError(f'want {want} calls a {name} train step')
     for g, c in zip(card.used['sampled'], own.used['sampled']):
         require_equal(g, c, f'card vs CPU train step: sampled RoI indices '
                             f'{tuple(g.shape)}')
@@ -3534,11 +3645,11 @@ def pvrcnn_train_cpu_phase(batch):
     by_module = _grad_by_module((gpu, jit), cpu)
     _require_modules_within(by_module)
     stats = [_bn_stats_rel_l2(a, cpu) for a in (gpu, jit)]
+    parts = sorted({'.'.join(n.split('.')[:1 + n.startswith('roi_head')])
+                    for n, _ in cpu.named_buffers()
+                    if n.endswith('running_mean')})
     bn_by_module = {part: [_bn_stats_rel_l2(a, cpu, part) for a in
-                           (gpu, jit)] for part in (
-        'backbone_3d', 'backbone_2d', 'pfe', 'point_head',
-        'roi_head.roi_grid_pool_layer', 'roi_head.shared_fc_layer',
-        'roi_head.cls_layers', 'roi_head.reg_layers')}
+                           (gpu, jit)] for part in parts}
     bn_accuracy = batch_norm_accuracy()
     log(f'  BN running stats, relative L2: card vs CPU {stats[0]:.3e}, '
         f'baseline {stats[1]:.3e}; by module: ' + ', '.join(
@@ -3688,6 +3799,557 @@ def pvrcnn_train_phases(smi):
                                     'one PV-RCNN train step (B=2)',
                                     'pre 9000, post 512')
     return rec, shapes, second
+
+
+# ------------------------------------------------- Voxel R-CNN, CenterPoint
+
+def pv_host_batches(cfg, seeds, b, n=N, channels=4):
+    """Test-mode voxel batches of ``b`` synthetic scans of ``n`` points in
+    the config's range (channels past the fourth uniform in [0, 1)), one
+    seed a batch, made by the port's host code (``voxel_batch``: the
+    voxelization and the sparse plan) and copied to the card: {'batches',
+    'host_ms' (a frame), 'copy_ms' (a batch), 'before' and 'after' (each
+    frame's voxels before and after the cap)}."""
+    from spsnet_torch.data.processor import voxel_batch
+    from spsnet_torch.runtime.trainer import device_batch
+    from spsnet_torch.utils.synthetic import synthetic_scan_batch
+    rec = {'batches': [], 'host_ms': [], 'copy_ms': [], 'before': [],
+           'after': []}
+    for seed in seeds:
+        scans = synthetic_scan_batch(
+            seed, b, n, pc_range=cfg.DATA_CONFIG.POINT_CLOUD_RANGE)
+        if channels > 4:
+            scans = np.concatenate([scans, np.random.default_rng(
+                seed).uniform(0, 1, scans.shape[:2] + (channels - 4,))
+                .astype(np.float32)], axis=-1)
+        t0 = time.perf_counter()
+        host = voxel_batch(scans, cfg.DATA_CONFIG)
+        rec['host_ms'].append((time.perf_counter() - t0) * 1e3 / b)
+        rec['before'] += [voxels_in_range(x, cfg.DATA_CONFIG) for x in scans]
+        rec['after'] += host['voxel_valid'].sum(1).tolist()
+        t0 = time.perf_counter()
+        rec['batches'].append(device_batch(host, 'cuda'))
+        torch.cuda.synchronize()
+        rec['copy_ms'].append((time.perf_counter() - t0) * 1e3)
+    first = rec['batches'][0]
+    log(f'  host voxelization + sparse plan (port, numpy): '
+        f'{statistics.median(rec["host_ms"]):.3f} ms a frame (median of '
+        f'{len(seeds)} batches of {b}, {[round(t, 3) for t in rec["host_ms"]]}'
+        f'); copy to the card {[round(t, 3) for t in rec["copy_ms"]]} ms a '
+        f'batch; voxels a frame in range {rec["before"]}, after the cap '
+        f'{rec["after"]}; rows a level {first["voxel_valid"].shape[1]} ... '
+        f'{first["down4_valid"].shape[1]}')
+    return rec
+
+
+def vr_grid_hits(model, out):
+    """Share of the valid RoIs' grid points with a voxel center within
+    each source level's pool radius (the plain ball query on the card: no
+    kernel launch)."""
+    from spsnet_torch.models.roi_heads.pvrcnn_head import roi_grid_points
+    from spsnet_torch.ops.grouping import (ball_query_multi_plain,
+                                           squared_radius)
+    head = model.roi_head
+    grid = roi_grid_points(out['rois'][..., :7], head.template)
+    B, R, G3, _ = grid.shape
+    flat = grid.reshape(B, R * G3, 3).contiguous()
+    valid = out['roi_valid'][:, :, None].expand(-1, -1, G3).reshape(B, -1)
+    shares = {}
+    with torch.no_grad():
+        for name, layer in head.roi_grid_pool_layers.items():
+            centers = head.level_centers(out, name)
+            r = layer.radii[0]
+            idx = ball_query_multi_plain((r,), (1,), centers, flat)[0]
+            d2 = ((centers.gather(1, idx[..., 0, None].expand(-1, -1, 3)) -
+                   flat) ** 2).sum(-1)
+            shares[name] = float((d2 < squared_radius(r))[valid].float()
+                                 .mean())
+    return shares
+
+
+def voxelrcnn_path(model, cfg, requests, what):
+    """A warm-up and the timed requests (forward + ``post_processing``)
+    with the launch counters zeroed just before: three ball queries a
+    request (the RoI grid over x_conv2-4) and no other kernel. Returns
+    its record: ms and range, launches, the proposal NMS's host ms and
+    share of each request, the kept boxes and the grid points' voxel hits
+    of the first request."""
+    from spsnet_torch.models.roi_heads import voxelrcnn_head
+    post = cfg.MODEL.POST_PROCESSING
+    with timed_calls(voxelrcnn_head, 'proposal_layer') as nms_calls:
+        times, launches = main_path(model, requests, post, VR_LAUNCHES, what)
+    torch.cuda.synchronize()
+    nms = range_ms(nms_calls)[1:]          # the first is main_path's warm-up
+    out, dets = detect(model, requests[0], post)
+    hits = vr_grid_hits(model, out)
+    ms = statistics.median(times)
+    share = [host / total for (host, _), total in zip(nms, times)]
+    b = requests[0]['points'].shape[0]
+    rec = {'B': b, 'ms_per_batch': ms, 'all_ms': times,
+           'range_ms': [min(times), max(times)], 'launches': launches,
+           'nms_host_ms': [h for h, _ in nms], 'nms_share': share,
+           'kept_boxes': dets['count'].tolist(),
+           'valid_rois': out['roi_valid'].sum(1).tolist(),
+           'grid_points_with_a_voxel': hits}
+    log(f'  launches over {len(requests)} requests: {launches}')
+    log(f'  ms/batch ({what}: voxel stack + first-stage head + proposal '
+        f'NMS + voxel RoI-grid pool + RoI head + NMS): median {ms:.3f}, '
+        f'range {min(times):.3f}-{max(times):.3f}, all '
+        f'{[round(t, 3) for t in times]}; scenes/s {b / ms * 1e3:.2f}')
+    log(f'  proposal NMS a request: host ms {[round(h, 3) for h, _ in nms]}; '
+        f'share {min(share):.3f}-{max(share):.3f}')
+    log(f'  first request: {rec["kept_boxes"]} boxes kept, '
+        f'{rec["valid_rois"]} RoIs; share of their grid points with a voxel '
+        f'within the pool radius: {hits}')
+    return rec
+
+
+def voxelrcnn_shapes_phase(model, batch, what):
+    """K2 vs its plain version at Voxel R-CNN's shapes, on the inputs a
+    forward of ``batch`` makes (in train mode with the step's generators:
+    the sampled RoIs): the RoI grid (6^3 points a RoI) over each source
+    level's voxel centers, the padded ones at 1e6; index for index, with
+    event times, device time a call, bound and launch shape. The plain
+    query takes its (B, 1024, N) distances a block of centers at a time."""
+    from spsnet_torch.models.roi_heads.pvrcnn_head import roi_grid_points
+    from spsnet_torch.ops.grouping import ball_query_multi_kernel
+    with torch.no_grad():
+        out = model(batch)
+    head = model.roi_head
+    grid = roi_grid_points(out['rois'][..., :7], head.template)
+    grid = grid.reshape(grid.shape[0], -1, 3).contiguous()
+    res = {'ball_query': [], 'errs': {'ball_query': 0.0}}
+    for name, layer in head.roi_grid_pool_layers.items():
+        centers = head.level_centers(out, name)
+        radii, ns = layer.radii, layer.nsamples
+        call = ball_query_call(radii, ns, centers, grid, f'{what} {name}')
+        res['errs']['ball_query'] = max(res['errs']['ball_query'],
+                                        call.pop('err'))
+        call['device_ms'] = device_ms(
+            lambda r=radii, n=ns, p=centers, c=grid:
+            ball_query_multi_kernel(r, n, p, c), reps=5)
+        log(f'    device time {call["device_ms"]:.4f} ms a call')
+        res['ball_query'].append(call)
+    return res
+
+
+def voxelrcnn_cpu_phase(model, cfg, batch):
+    """One Voxel R-CNN request on the card and on the CPU with the same
+    weights and host tables, stage by stage from the card's inputs: the
+    voxel stack, the anchor head and the proposal NMS
+    (``_stage_one_vs_cpu``), each source level's voxel centers bit for
+    bit, then the RoI head (``_roi_stage_vs_cpu``: the RoI-grid picks
+    equal or within the rounding slack of their grid points, then
+    replayed; the pooled features, the refinement and the final NMS)."""
+    _, cpu = build_voxel_detector('voxel_rcnn_car', 'cpu')
+    cpu.load_state_dict(model.state_dict())
+    errs, rpn = _stage_one_vs_cpu(model, cpu, batch, _cpu_tree(batch),
+                                  cfg.MODEL.ROI_HEAD.NMS_CONFIG.TEST)
+    with torch.no_grad():
+        for name in model.roi_head.sources:
+            require_equal(model.roi_head.level_centers(rpn, name),
+                          cpu.roi_head.level_centers(_cpu_tree(rpn), name),
+                          f'card vs CPU: {name} voxel centers')
+        out = model.roi_head(rpn)
+    roi_errs, notes, differ, _ = _roi_stage_vs_cpu(
+        model, cpu, rpn, out, cfg.MODEL.POST_PROCESSING)
+    return {'max_scaled_err': max(errs + roi_errs), 'roi_grid_notes': notes,
+            'ball_lists_differ': differ}
+
+
+def voxelrcnn_phases(smi):
+    """Phases 40-44; returns the Voxel R-CNN serving record, its kernel
+    calls, its train record and the kernel calls at the train shapes."""
+    from spsnet_torch.models.roi_heads import voxelrcnn_head
+    from spsnet_torch.runtime.trainer import step_rngs
+    log('== 40. Voxel R-CNN serving path')
+    cfg, model = build_voxel_detector('voxel_rcnn_car', 'cuda')
+    host = pv_host_batches(cfg, range(1100, 1100 + VR_BATCHES), VR_B)
+    batches = host['batches']
+    rec = voxelrcnn_path(model, cfg, [batches[k % VR_BATCHES]
+                                      for k in range(VR_REQUESTS)],
+                         'Voxel R-CNN requests (B=2)')
+    rec.update(host_ms_a_frame=host['host_ms'],
+               voxels_before_cap=host['before'],
+               voxels_after_cap=host['after'])
+    post = cfg.MODEL.POST_PROCESSING
+    rec['profile'] = pvrcnn_profile(
+        model, lambda: detect(model, batches[0], post),
+        'one Voxel R-CNN request (B=2)', 'pre 2048, post 100',
+        voxelrcnn_head)
+
+    log('== 41. kernels vs plain at the Voxel R-CNN serving shapes')
+    shapes = voxelrcnn_shapes_phase(model, batches[0], 'serving')
+
+    log('== 42. Voxel R-CNN card vs CPU, one request (B=2)')
+    rec['card_vs_cpu'] = voxelrcnn_cpu_phase(model, cfg, batches[0])
+    del model
+
+    log('== 43. Voxel R-CNN train path; kernels vs plain at its shapes')
+    trainer = build_pvrcnn_trainer('cuda', 'voxel_rcnn_car')
+    cfg, model, _, step = trainer
+    train_batches, host_ms, before, after = pv_train_batches(
+        cfg, range(1200, 1201 + VR_TRAIN_STEPS))
+    log(f'  host voxelization + sparse plan at the train settings: '
+        f'{statistics.median(host_ms):.3f} ms a frame (median of '
+        f'{len(host_ms)} batches); voxels a frame in range {before}, after '
+        f'the cap of 16000 {after}; gt boxes a frame '
+        f'{train_batches[0]["gt_boxes"].shape[1]} (cars)')
+    train = pvrcnn_train_path(
+        trainer, train_batches, smi, VR_LAUNCHES, voxelrcnn_head,
+        'voxel stack + anchor targets + proposal NMS (pre 9000, post 512) '
+        '+ RoI sampling + voxel RoI-grid pool + RoI head + two losses')
+    train.update(host_ms_a_frame=host_ms, voxels_before_cap=before,
+                 voxels_after_cap=after)
+    profiled = gt_at_proposals(model, train_batches[1])
+    train['profile'] = pvrcnn_profile(
+        model, lambda: step(profiled), 'one Voxel R-CNN train step (B=2)',
+        'pre 9000, post 512', voxelrcnn_head)
+    train_shapes = voxelrcnn_shapes_phase(
+        model, dict(profiled, rngs=step_rngs(0)), 'train')
+
+    log('== 44. Voxel R-CNN card vs CPU, one train step')
+    one = {k: v[:1].cpu() for k, v in train_batches[1].items()}
+    train['card_vs_cpu'] = pvrcnn_train_cpu_phase(one, 'voxel_rcnn_car')
+    return rec, shapes, train, train_shapes
+
+
+def centerpoint_path(model, requests, what):
+    """A warm-up and the timed requests (a forward: the head decodes its
+    own detections, no NMS after it) with the launch counters zeroed just
+    before: no kernel of the port; detections finite, each frame's count
+    within the head's slots. Returns (ms a request, launch counts, the
+    last request's detections)."""
+    from spsnet_torch.models.detectors.detector3d import head_detections
+    from spsnet_torch.ops import _build
+
+    def serve(batch):
+        with torch.no_grad():
+            return head_detections(model(batch))
+    serve(requests[0])
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    times = []
+    for batch in requests:
+        t0 = time.perf_counter()
+        dets = serve(batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        if not (torch.isfinite(dets['boxes']).all() and
+                torch.isfinite(dets['scores']).all()):
+            raise AssertionError(f'{what}: non-finite detections')
+        if dets['count'].min() < 1 or \
+                dets['count'].max() > dets['valid'].shape[1]:
+            raise AssertionError(f'{what}: counts {dets["count"]}')
+    launches = dict(_build.LAUNCHES)
+    _require_per_call(launches, {}, len(requests), what)
+    return times, launches, dets
+
+
+def centerpoint_profile(model, fn, what):
+    """A CUDA-kernel breakdown of one call of ``fn`` (a CenterPoint
+    request or train step of ``model``) with the sparse backbone, the BEV
+    backbone and the head's decode as ranges, and their shares of the
+    device time."""
+    names = {'backbone_3d': 'sparse backbone', 'backbone_2d': 'BEV backbone'}
+
+    def ranged(name, fn):
+        def call(*args, **kwargs):
+            with torch.profiler.record_function(name):
+                return fn(*args, **kwargs)
+        return call
+    for attr, name in names.items():
+        module = getattr(model, attr)
+        module.forward = ranged(name, module.forward)
+    model.dense_head.decode = ranged('head decode', model.dense_head.decode)
+    try:
+        prof = profile_phase(fn, what, ranges=(*names.values(),
+                                               'head decode'))
+    finally:
+        for attr in names:
+            del getattr(model, attr).forward
+        del model.dense_head.decode
+    for span in prof['ranges'].values():
+        span['device_share'] = span['device_ms'] / prof['device_ms']
+    prof['backward_share'] = prof['backward_device_ms'] / prof['device_ms']
+    log('  device shares: ' + ', '.join(
+        f'{k} {v["device_share"]:.3f}' for k, v in prof['ranges'].items()) +
+        f', backward {prof["backward_share"]:.3f}')
+    return prof
+
+
+class CpDecisions(PrcnnDecisions):
+    """``PrcnnDecisions`` of the CenterHead's decode: its top-k candidates
+    and its NMS. In 'check' mode the two runs' scores lie within
+    CP_SCORE_TOL, the card's top k is a top k of this run's scores within
+    it, and this run goes on from the card's picks (its own scores at
+    them); the NMS as ``PrcnnDecisions.nms`` holds it."""
+
+    def __init__(self, mode, ref=None):
+        super().__init__(mode, ref)
+        self.used['topk'] = []
+        self.inputs['topk'] = []
+
+    def topk(self, real, scores, k):
+        own = real(scores, k)
+        if self.mode == 'record':
+            self.inputs['topk'].append(scores.detach().cpu())
+            return self._use('topk', own)
+        card = self.ref.inputs['topk'][len(self.used['topk'])]
+        diff = float((card - scores.detach().cpu()).abs().max())
+        self.notes.append(f'CenterHead top-{k} scores: largest card vs CPU '
+                          f'difference {diff:.3e} (tolerance '
+                          f'{CP_SCORE_TOL})')
+        if diff > CP_SCORE_TOL:
+            raise AssertionError(self.notes[-1])
+        _require_topk_order(card, scores.detach().cpu(), k,
+                            f'CenterHead top-{k} candidates',
+                            tol=CP_SCORE_TOL)
+        idx = self._ref('topk')[1].to(scores.device)
+        return self._use('topk', (scores.gather(-1, idx), idx))
+
+
+def centerpoint_cpu_phase(model, cfg, batch):
+    """One CenterPoint request (B = 1) on the card and on the CPU with the
+    same weights and host tables, stage by stage from the card's inputs:
+    voxel features, every sparse level, the BEV map (the scatter bit for
+    bit), the BEV backbone and the head's maps within VOXEL_RTOL /
+    VOXEL_ATOL; the decode's top-500 candidates and NMS held to the
+    card's and replayed (``CpDecisions``); the detections' valid masks
+    and labels identical, boxes and scores within tolerance."""
+    _, cpu = build_voxel_detector('waymo_models/centerpoint', 'cpu')
+    cpu.load_state_dict(model.state_dict())
+    host = _cpu_tree(batch)
+    errs = []
+    with torch.no_grad():
+        g = model.vfe(batch)
+        c = cpu.vfe(host)
+        errs.append(_require_scaled(g['voxel_features'], c['voxel_features'],
+                                    'voxel features'))
+        g = model.backbone_3d(g)
+        c = cpu.backbone_3d(dict(host, voxel_features=g[
+            'voxel_features'].cpu()))
+        for name, t in c['multi_scale_3d_features'].items():
+            errs.append(_require_scaled(
+                g['multi_scale_3d_features'][name], t, f'sparse level {name}'))
+        g = model.map_to_bev_module(g)
+        c = cpu.map_to_bev_module(_cpu_tree(dict(
+            host, **{k: g[k] for k in ('encoded_voxel_features',
+                                       'encoded_voxel_coords',
+                                       'encoded_voxel_valid')})))
+        require_equal(g['spatial_features'], c['spatial_features'],
+                      'card vs CPU: the BEV scatter (HeightCompression)')
+        g = model.backbone_2d(g)
+        c = cpu.backbone_2d({'spatial_features': g['spatial_features'].cpu()})
+        errs.append(_require_scaled(g['spatial_features_2d'],
+                                    c['spatial_features_2d'],
+                                    'BEV backbone'))
+        card = CpDecisions('record')
+        with prcnn_decisions(card):
+            gh = model.dense_head({'spatial_features_2d':
+                                   g['spatial_features_2d']})
+        own = CpDecisions('check', card)
+        with prcnn_decisions(own):
+            ch = cpu.dense_head({'spatial_features_2d':
+                                 g['spatial_features_2d'].cpu()})
+        for note in own.notes:
+            log(f'  card vs CPU {note}')
+        for pg, pc in zip(gh['center_head_iou_ret']['pred_dicts'],
+                          ch['center_head_iou_ret']['pred_dicts']):
+            for key in pg:
+                errs.append(_require_scaled(pg[key], pc[key],
+                                            f'head map {key}'))
+        for key in ('final_valid', 'final_labels'):
+            require_equal(gh[key].long(), ch[key].long(),
+                          f'card vs CPU detections {key}')
+        for key in ('final_boxes', 'final_scores'):
+            errs.append(_require_scaled(gh[key], ch[key],
+                                        f'detections {key}'))
+    log(f'  {int(gh["final_valid"].sum())} detections, labels '
+        f'{sorted(set(gh["final_labels"][gh["final_valid"]].tolist()))}')
+    return {'max_scaled_err': max(errs), 'notes': own.notes}
+
+
+def build_centerpoint_trainer(device):
+    """waymo_models/centerpoint.yaml as ``build_voxel_detector`` makes it
+    (seed-0 weights) in train mode, its adam_onecycle optimizer and
+    ``make_train_step``: (cfg, model, optimizer, step)."""
+    from spsnet_torch.runtime.trainer import make_train_step
+    cfg, model = build_voxel_detector('waymo_models/centerpoint', device)
+    model.train()
+    optimizer = _kitti_optimizer(cfg.OPTIMIZATION, model.parameters())
+    return cfg, model, optimizer, make_train_step(model, optimizer)
+
+
+def head_targets(model):
+    """The CenterHead's output batch of each forward while open (a
+    forward hook)."""
+    outs = []
+    handle = model.dense_head.register_forward_hook(
+        lambda module, args, out: outs.append(out['center_head_iou_ret']))
+    return outs, handle
+
+
+def centerpoint_train_cpu_phase(batch):
+    """Phase 48: one CenterPoint train step on one frame (``batch``, on
+    the CPU) on the card and on the CPU from the same weights, and on the
+    CPU from weights jittered by WEIGHT_JITTER: every group's heatmap
+    targets, centre pixels and masks identical bit for bit; loss terms
+    within TRAIN_LOSS_RTOL; gradients, updated parameters and BN running
+    statistics as ``pvrcnn_train_cpu_phase`` holds them."""
+    _, gpu, _, gpu_step = build_centerpoint_trainer('cuda')
+    _, cpu, cpu_opt, cpu_step = build_centerpoint_trainer('cpu')
+    _, jit, _, jit_step = build_centerpoint_trainer('cpu')
+    cpu.load_state_dict(gpu.state_dict())
+    jit.load_state_dict(gpu.state_dict())
+    gen = torch.Generator().manual_seed(5)
+    with torch.no_grad():
+        for p in jit.parameters():
+            p.mul_(1 + WEIGHT_JITTER * torch.randn(p.shape, generator=gen))
+    rets = []
+    for model, step, b in ((gpu, gpu_step, {k: v.cuda() for k, v in
+                                            batch.items()}),
+                           (cpu, cpu_step, batch)):
+        outs, handle = head_targets(model)
+        try:
+            rets.append((step(b), outs[0]))
+        finally:
+            handle.remove()
+    jit_step(batch)
+    ((gpu_loss, gpu_tb), gret), ((cpu_loss, cpu_tb), cret) = rets
+    for g, (tg, tc) in enumerate(zip(gret['target_dicts'],
+                                     cret['target_dicts'])):
+        for key in ('heatmap', 'inds', 'mask', 'gt7'):
+            require_equal(tg[key], tc[key], f'card vs CPU train step: group '
+                                            f'{g} {key} targets')
+        log(f'  group {g}: {int(tc["mask"].sum())} gt centres, heatmap '
+            f'peaks {int((tc["heatmap"] == 1).sum())}: targets identical')
+    worst = {}
+    for key in ('loss', *sorted(gpu_tb)):
+        g = float(gpu_loss if key == 'loss' else gpu_tb[key])
+        c = float(cpu_loss if key == 'loss' else cpu_tb[key])
+        worst[key] = abs(g - c) / max(abs(c), 1e-12)
+        if worst[key] > TRAIN_LOSS_RTOL:
+            raise AssertionError(f'card vs CPU {key}: {g} vs {c}')
+    log(f'  card vs CPU loss terms {sorted(gpu_tb)}: largest relative '
+        f'difference {max(worst.values()):.3e} (tolerance '
+        f'{TRAIN_LOSS_RTOL}); card {float(gpu_loss):.6f}, CPU '
+        f'{float(cpu_loss):.6f}')
+    lr = cpu_opt.lr_fn(0)
+    diff = _step_difference(gpu, cpu, lr)
+    base = _step_difference(jit, cpu, lr)
+    log(f'  card vs CPU after the step: {diff}')
+    log(f'  CPU with weights x (1 + {WEIGHT_JITTER} N(0, 1)) vs CPU (the '
+        f'jitter baseline): {base}')
+    limits = _require_step_within(diff, base, lr)
+    by_module = _grad_by_module((gpu, jit), cpu)
+    _require_modules_within(by_module)
+    stats = [_bn_stats_rel_l2(a, cpu) for a in (gpu, jit)]
+    limits['bn_limit'] = _require_bn_within(stats)
+    return {'card': diff, 'baseline': base, 'limits': limits,
+            'by_module': by_module, 'bn_stats': stats, 'loss_rel': worst}
+
+
+def centerpoint_phases(smi):
+    """Phases 45-48; returns the CenterPoint serving and train records."""
+    from spsnet_torch.models.detectors.detector3d import head_detections
+    log('== 45. CenterPoint serving path (waymo_models/centerpoint.yaml)')
+    cfg, model = build_voxel_detector('waymo_models/centerpoint', 'cuda')
+    host = pv_host_batches(cfg, range(1300, 1302), CP_B, CP_N, 5)
+    torch.cuda.reset_peak_memory_stats()
+    times, launches, dets = centerpoint_path(
+        model, [host['batches'][k % 2] for k in range(CP_REQUESTS)],
+        'CenterPoint requests (B=2)')
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ms = statistics.median(times)
+    head = model.dense_head
+    log(f'  launches over {CP_REQUESTS} requests: {launches}')
+    log(f'  ms/batch (B={CP_B}, N={CP_N}, 5 channels: residual sparse '
+        f'backbone over {host["batches"][0]["down4_valid"].shape[1]}-row '
+        f'levels + BEV backbone + CenterHead: the top '
+        f'{int(head.model_cfg.POST_PROCESSING.MAX_OBJ_PER_SAMPLE)} of '
+        f'{head.heads_list[0].hm[-1].out_channels} classes x the map\'s '
+        f'pixels, NMS): median {ms:.3f}, range {min(times):.3f}-'
+        f'{max(times):.3f}, all {[round(t, 3) for t in times]}; peak '
+        f'memory {peak:.3f} GiB; detections a frame '
+        f'{dets["count"].tolist()} on {smi}')
+    rec = {'ms_per_batch': ms, 'all_ms': times, 'launches': launches,
+           'range_ms': [min(times), max(times)], 'peak_gib': peak,
+           'host_ms_a_frame': host['host_ms'],
+           'voxels_before_cap': host['before'],
+           'voxels_after_cap': host['after'],
+           'detections': dets['count'].tolist()}
+    def request():
+        with torch.no_grad():
+            return head_detections(model(host['batches'][0]))
+    rec['profile'] = centerpoint_profile(model, request,
+                                         'one CenterPoint request (B=2)')
+
+    log('== 46. CenterPoint card vs CPU, one request (B=1)')
+    one = {k: v[:1] for k, v in host['batches'][0].items()}
+    rec['card_vs_cpu'] = centerpoint_cpu_phase(model, cfg, one)
+    del model, host
+
+    log('== 47. CenterPoint train path')
+    cfg, model, opt, step = build_centerpoint_trainer('cuda')
+    batches, host_ms, before, after = pv_train_batches(
+        cfg, range(1400, 1400 + CP_TRAIN_BATCHES), sizes=WAYMO_SIZES,
+        n=CP_N, channels=5)
+    log(f'  host voxelization + sparse plan at the train settings: '
+        f'{statistics.median(host_ms):.3f} ms a frame; voxels a frame in '
+        f'range {before}, after the cap of 150000 {after}; gt boxes a frame '
+        f'{batches[0]["gt_boxes"].shape[1]} (Vehicle, Pedestrian, Cyclist '
+        f'in turn)')
+    from spsnet_torch.ops import _build
+    step(batches[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    norms = []
+    times, launches = train_path(
+        model, step, [batches[k % CP_TRAIN_BATCHES]
+                      for k in range(1, 1 + CP_TRAIN_STEPS)],
+        {k: 0 for k in _build.LAUNCHES},
+        lambda: norms.append(float(opt.grad_norm)))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ms = statistics.median(times)
+    log(f'  ms/train step (B={PV_TRAIN_B}, N={CP_N}: residual sparse '
+        f'backbone + BEV backbone + CenterHead, heatmap targets, focal and '
+        f'L1 losses, backward, adam_onecycle): median {ms:.3f}, range '
+        f'{min(times):.3f}-{max(times):.3f}, all '
+        f'{[round(t, 3) for t in times]}; grad norms '
+        f'{[round(n, 4) for n in norms]}; peak memory {peak:.3f} GiB on '
+        f'{smi}')
+    train = {'ms': ms, 'all_ms': times, 'launches': launches,
+             'range_ms': [min(times), max(times)], 'peak_gib': peak,
+             'grad_norms': norms, 'host_ms_a_frame': host_ms,
+             'voxels_before_cap': before, 'voxels_after_cap': after}
+    train['profile'] = centerpoint_profile(
+        model, lambda: step(batches[1]), 'one CenterPoint train step (B=2)')
+    del model, step
+
+    log('== 48. CenterPoint card vs CPU, one train step')
+    train['card_vs_cpu'] = centerpoint_train_cpu_phase(
+        {k: v[:1].cpu() for k, v in batches[1].items()})
+    return rec, train
+
+
+def voxelrcnn_waymo_phase(smi):
+    """Phase 49: waymo_models/voxel_rcnn_with_centerhead_dyn_voxel.yaml at
+    full width, one request of B = 1 (65 536 points, 5 channels) after a
+    warm-up: the CenterHead RPN's detections are the proposals, three ball
+    queries over the 150 000-row levels of x_conv2-4, each held to its
+    plain version. Returns the request's record and the kernel calls."""
+    log('== 49. Waymo Voxel R-CNN with a CenterHead RPN, one request (B=1)')
+    cfg, model = build_voxel_detector(
+        'waymo_models/voxel_rcnn_with_centerhead_dyn_voxel', 'cuda')
+    host = pv_host_batches(cfg, [1500], 1, CP_N, 5)
+    rec = voxelrcnn_path(model, cfg, host['batches'],
+                         'Waymo Voxel R-CNN request (B=1)')
+    rec.update(host_ms_a_frame=host['host_ms'],
+               voxels_before_cap=host['before'],
+               voxels_after_cap=host['after'])
+    shapes = voxelrcnn_shapes_phase(model, host['batches'][0], 'Waymo')
+    return rec, shapes
 
 
 def card_and_build():
@@ -4147,6 +4809,9 @@ def main(argv=()) -> int:
 
     pvrcnn, pv_shapes, second = pvrcnn_phases()
     pv_train, pv_train_shapes, second_train = pvrcnn_train_phases(smi)
+    vrcnn, vr_shapes, vr_train, vr_train_shapes = voxelrcnn_phases(smi)
+    centerpoint, cp_train = centerpoint_phases(smi)
+    vr_waymo, vr_waymo_shapes = voxelrcnn_waymo_phase(smi)
 
     paths = {'serve': launches, 'train': train_launches,
              'spsnet': sps_launches, 'fps_entries': entry_launches,
@@ -4157,7 +4822,12 @@ def main(argv=()) -> int:
              'pvrcnn': pvrcnn['launches'], 'pvrcnn_b8': pvrcnn['b8'][
                  'launches'], 'second': second['launches'],
              'pvrcnn_train': pv_train['launches'],
-             'second_train': second_train['launches']}
+             'second_train': second_train['launches'],
+             'voxelrcnn': vrcnn['launches'],
+             'voxelrcnn_train': vr_train['launches'],
+             'centerpoint': centerpoint['launches'],
+             'centerpoint_train': cp_train['launches'],
+             'voxelrcnn_waymo': vr_waymo['launches']}
     for entry in entries:
         entry['launches_by_path'] = {path: counts.get(entry['name'], 0)
                                      for path, counts in paths.items()}
@@ -4177,6 +4847,13 @@ def main(argv=()) -> int:
                                        train_shapes['errs'][name],
                                        pv_shapes['errs'][name],
                                        pv_train_shapes['errs'][name])
+        if name == 'ball_query':
+            for key, calls in (('voxelrcnn_calls', vr_shapes),
+                               ('voxelrcnn_train_calls', vr_train_shapes),
+                               ('voxelrcnn_waymo_calls', vr_waymo_shapes)):
+                entry[key] = calls['ball_query']
+                entry['max_abs_err'] = max(entry['max_abs_err'],
+                                           calls['errs']['ball_query'])
         if name == 'fps':
             entry['max_abs_err'] = max(entry['max_abs_err'],
                                        chunked.pop('err'))
@@ -4210,7 +4887,10 @@ def main(argv=()) -> int:
                     'pointrcnn_train': prcnn_train,
                     'pvrcnn': pvrcnn, 'second': second,
                     'pvrcnn_train': pv_train, 'second_train': second_train,
-                    'card': smi}))
+                    'voxelrcnn': vrcnn, 'voxelrcnn_train': vr_train,
+                    'centerpoint': centerpoint,
+                    'centerpoint_train': cp_train,
+                    'voxelrcnn_waymo': vr_waymo, 'card': smi}))
     log(smi)
     log(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -93,8 +93,9 @@ def voxel_batch(points, data_cfg, mode: str = 'test', gt_boxes=None):
     ``DATA_PROCESSOR`` (``mode`` picks 'train' or 'test' limits). Range
     masking and shuffling are not applied: points outside the range get no
     voxel and stay in 'points' (the synthetic scans lie inside it). With
-    ``gt_boxes``, one (T_b, 8) array a frame ([x, y, z, dx, dy, dz,
-    heading, class]), the batch also holds 'gt_boxes' (B, max T_b, 8)
+    ``gt_boxes``, one (T_b, W) array a frame, W = 8 ([x, y, z, dx, dy, dz,
+    heading, class]) or 10 (nuScenes: the velocity (vx, vy) before the
+    class) for all frames, the batch also holds 'gt_boxes' (B, max T_b, W)
     float32, shorter frames padded with zero rows."""
     steps = {p['NAME']: p for p in data_cfg.DATA_PROCESSOR}
     vox = steps['transform_points_to_voxels']
@@ -116,8 +117,12 @@ def voxel_batch(points, data_cfg, mode: str = 'test', gt_boxes=None):
         if len(gt_boxes) != len(frames):
             raise ValueError(f'{len(gt_boxes)} gt box arrays for '
                              f'{len(frames)} frames')
+        widths = {np.shape(g)[-1] for g in gt_boxes}
+        if len(widths) != 1 or not widths <= {8, 10}:
+            raise ValueError(f'gt box widths {sorted(widths)}: the frames '
+                             'share one width, 8 or 10')
         t = max(len(g) for g in gt_boxes)
-        gt = np.zeros((len(frames), t, 8), dtype=np.float32)
+        gt = np.zeros((len(frames), t, widths.pop()), dtype=np.float32)
         for b, g in enumerate(gt_boxes):
             gt[b, :len(g)] = g
         batch['gt_boxes'] = gt

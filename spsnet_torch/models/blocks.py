@@ -170,7 +170,9 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     sqrt(2 / fan_in)), which keeps activations at unit scale through ReLU; an
     output layer gets std sqrt(1 / fan_in); every bias is N(0, 0.1).
     BatchNorm keeps its identity statistics. Draws happen on the CPU in
-    module order, so a seed gives the same weights on every device.
+    module order, so a seed gives the same weights on every device. Then
+    each submodule with a ``fixed_init`` method sets its fixed starting
+    values (CenterPoint's heatmap bias).
     """
     kinds = (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)
     layers = [m for m in module.modules() if isinstance(m, kinds)]
@@ -189,3 +191,6 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
         if layer.bias is not None:
             layer.bias.copy_(torch.randn(layer.bias.shape,
                                          generator=generator) * 0.1)
+    for m in module.modules():
+        if hasattr(m, 'fixed_init'):
+            m.fixed_init()

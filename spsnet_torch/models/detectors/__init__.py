@@ -6,31 +6,34 @@ import numpy as np
 import torch
 
 from ..blocks import init_weights
+from .centerpoint import CenterPoint
 from .iassd import IASSD
 from .point_rcnn import PointRCNN
 from .pv_rcnn import PVRCNN
 from .second_net import SECONDNet
+from .voxel_rcnn import VoxelRCNN
 
 # PAGNet and SPSNet-IA are IASSD with the PAGNet backbone and the MLT head,
 # both picked by the config; SPSNet's batch carries the stability hook's
 # 'stds' (``runtime.trainer.make_stability_preprocess``)
 _DETECTORS = {'IASSD': IASSD, 'PAGNet': IASSD, 'SPSNet': IASSD,
               'PointRCNN': PointRCNN, 'SECONDNet': SECONDNet,
-              'PVRCNN': PVRCNN}
-_VOXEL_DETECTORS = (SECONDNet, PVRCNN)
+              'PVRCNN': PVRCNN, 'VoxelRCNN': VoxelRCNN,
+              'CenterPoint': CenterPoint}
+_VOXEL_DETECTORS = (SECONDNet, PVRCNN, VoxelRCNN, CenterPoint)
 # the modules the port has, by config block: a block naming another one
-# (a pillar VFE, UNetV2, AnchorHeadMulti, CenterHead, ...) is not ported
+# (a pillar VFE, UNetV2, AnchorHeadMulti, ...) is not ported
 _PORTED = {
     'VFE': {'MeanVFE'},
     'BACKBONE_3D': {'IASSD_Backbone', 'PAGNet_Backbone', 'PointNet2MSG',
-                    'VoxelBackBone8x'},
+                    'VoxelBackBone8x', 'VoxelResBackBone8x'},
     'MAP_TO_BEV': {'HeightCompression'},
     'BACKBONE_2D': {'BaseBEVBackbone'},
-    'DENSE_HEAD': {'AnchorHeadSingle'},
+    'DENSE_HEAD': {'AnchorHeadSingle', 'CenterHead', 'CenterHeadIoU'},
     'PFE': {'VoxelSetAbstraction'},
     'POINT_HEAD': {'IASSD_Head', 'MLT_SSD_Head', 'PointHeadBox',
                    'PointHeadSimple'},
-    'ROI_HEAD': {'PointRCNNHead', 'PVRCNNHead'},
+    'ROI_HEAD': {'PointRCNNHead', 'PVRCNNHead', 'VoxelRCNNHead'},
 }
 
 
@@ -63,7 +66,8 @@ def resolve_device(device) -> torch.device:
 
 def build_detector(model_cfg, num_class: int, device='cuda',
                    generator: torch.Generator | None = None,
-                   input_channels: int = 4, fps_seeding=None, **geometry):
+                   input_channels: int = 4, fps_seeding=None,
+                   class_names=None, **geometry):
     """Build the detector named by ``model_cfg.NAME`` on ``device`` in eval
     mode, with seeded random weights drawn from ``generator`` (a CPU
     ``torch.Generator``; seed 0 when None). Load trained weights with
@@ -72,7 +76,9 @@ def build_detector(model_cfg, num_class: int, device='cuda',
     (``ops.FpsSeeding``) turns on seeded D-FPS in the SA layers and the
     VSA; None, the default, keeps exact FPS. The voxel detectors take their
     ``voxel_size``, ``point_cloud_range`` and ``final_grid_zyx`` from
-    ``geometry``, which ``build_detector_from_cfg`` derives."""
+    ``geometry``, which ``build_detector_from_cfg`` derives, and
+    ``class_names`` (the config's CLASS_NAMES), through which a CenterHead
+    maps CLASS_NAMES_EACH_HEAD to class ids ('1', '2', ... when None)."""
     device = resolve_device(device)
     name = model_cfg.NAME
     missing = unported_modules(model_cfg)
@@ -86,7 +92,8 @@ def build_detector(model_cfg, num_class: int, device='cuda',
     if cls in _VOXEL_DETECTORS:
         if cls is PVRCNN:
             geometry['fps_seeding'] = fps_seeding
-        model = cls(model_cfg, num_class, input_channels, **geometry)
+        model = cls(model_cfg, num_class, input_channels,
+                    class_names=class_names, **geometry)
     else:
         model = cls(model_cfg, num_class, input_channels, fps_seeding)
     if generator is None:
@@ -99,11 +106,12 @@ def build_detector_from_cfg(cfg, device='cuda',
                             generator: torch.Generator | None = None,
                             fps_seeding=None):
     """Build from a full experiment config, as ``spsnet_tpu/models/
-    detectors/__init__.py:66-105`` does: the point channels from
-    DATA_CONFIG's POINT_FEATURE_ENCODING, and for the voxel detectors the
-    point-cloud range, the voxel size of its voxelization step and the
-    sparse backbone's final grid (``data.processor.sparse_plan.
-    plan_final_grid`` over the grid with z padded by one slice)."""
+    detectors/__init__.py:66-105`` does: the class names, the point
+    channels from DATA_CONFIG's POINT_FEATURE_ENCODING, and for the voxel
+    detectors the point-cloud range, the voxel size of its voxelization
+    step and the sparse backbone's final grid (``data.processor.
+    sparse_plan.plan_final_grid`` over the grid with z padded by one
+    slice)."""
     from ...data.processor.sparse_plan import plan_final_grid
     geometry, channels = {}, 4
     data_cfg = cfg.get('DATA_CONFIG', None)
@@ -129,4 +137,5 @@ def build_detector_from_cfg(cfg, device='cuda',
         geometry = {}
     return build_detector(cfg.MODEL, len(cfg.CLASS_NAMES), device=device,
                           generator=generator, input_channels=channels,
-                          fps_seeding=fps_seeding, **geometry)
+                          fps_seeding=fps_seeding,
+                          class_names=list(cfg.CLASS_NAMES), **geometry)

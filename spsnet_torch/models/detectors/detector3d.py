@@ -57,7 +57,8 @@ def post_processing(batch, post_cfg):
     (PointRCNN). Returns ``class_agnostic_nms_batch``'s dict."""
     nms_cfg = post_cfg.NMS_CONFIG
     if nms_cfg.get('MULTI_CLASSES_NMS', False):
-        raise NotImplementedError('MULTI_CLASSES_NMS (ROADMAP Queue 1 item 9)')
+        raise NotImplementedError(
+            'MULTI_CLASSES_NMS (ROADMAP Queue 1 item F6)')
     return class_agnostic_nms_batch(
         batch['batch_box_preds'], batch['batch_cls_preds'],
         score_thresh=float(post_cfg.SCORE_THRESH),
@@ -67,3 +68,15 @@ def post_processing(batch, post_cfg):
         cls_preds_normalized=bool(batch.get('cls_preds_normalized', False)),
         batch_label_preds=batch['batch_roi_labels']
         if batch.get('has_class_labels', False) else None)
+
+
+def head_detections(batch):
+    """The detections a head decodes itself (``CenterHeadIoU``:
+    CenterPoint's request ends there, its POST_PROCESSING holding no NMS)
+    in ``class_agnostic_nms_batch``'s layout: boxes (B, P, 7+), scores
+    (B, P), labels (B, P) (1-based, 0 where invalid), valid (B, P) and
+    count (B,)."""
+    valid = batch['final_valid']
+    return {'boxes': batch['final_boxes'], 'scores': batch['final_scores'],
+            'labels': batch['final_labels'], 'valid': valid,
+            'count': valid.sum(dim=1)}

@@ -1,7 +1,9 @@
 """PV-RCNN (``detectors/pv_rcnn.py``, as
 ``spsnet_tpu/models/detectors/pv_rcnn.py:27-117``): SECOND's voxel stack
-for the proposals, then VoxelSetAbstraction (keypoints), PointHeadSimple
-(their scores) and PVRCNNHead (the RoI-grid refinement). The caller runs
+for the proposals (its dense head AnchorHeadSingle, or CenterHeadIoU where
+DENSE_HEAD names CenterHead, as ``pv_rcnn_with_centerhead_rpn.yaml``), then
+VoxelSetAbstraction (keypoints), PointHeadSimple (their scores) and
+PVRCNNHead (the RoI-grid refinement). The caller runs
 ``detector3d.post_processing``, whose labels then come from the RoIs. In
 training with 'gt_boxes' (and the step's generators in 'rngs'), each head
 assigns its targets, and ``loss`` sums the three heads' losses.
@@ -20,13 +22,14 @@ class PVRCNN(SECONDNet):
 
     def __init__(self, model_cfg, num_class: int, input_channels: int,
                  voxel_size, point_cloud_range, final_grid_zyx,
-                 fps_seeding=None):
+                 class_names=None, fps_seeding=None):
         super().__init__(model_cfg, num_class, input_channels, voxel_size,
-                         point_cloud_range, final_grid_zyx)
+                         point_cloud_range, final_grid_zyx, class_names)
         self.pfe = VoxelSetAbstraction(
             model_cfg.PFE, voxel_size, point_cloud_range,
             self.num_bev_features, input_channels - 3, bev_stride=8,
-            fps_seeding=fps_seeding)
+            fps_seeding=fps_seeding,
+            level_channels=self.backbone_3d.level_channels)
         use_before = model_cfg.POINT_HEAD.get(
             'USE_POINT_FEATURES_BEFORE_FUSION', False)
         self.point_head = PointHeadSimple(
@@ -46,11 +49,10 @@ class PVRCNN(SECONDNet):
         return self.roi_head(self.point_head(self.pfe(batch)))
 
     def loss(self, batch):
-        """(loss, tb) of a forward's output in training mode: the anchor
-        head's, the point head's and the RoI head's losses, tb holding
-        'rpn_loss_cls', 'rpn_loss_loc', 'rpn_loss_dir', 'rpn_loss',
-        'point_loss_cls', 'rcnn_loss_cls', 'rcnn_loss_reg',
-        'rcnn_loss_corner' and 'rcnn_loss'."""
+        """(loss, tb) of a forward's output in training mode: the dense
+        head's (tb as ``SECONDNet.loss``), the point head's and the RoI
+        head's losses, tb also holding 'point_loss_cls', 'rcnn_loss_cls',
+        'rcnn_loss_reg', 'rcnn_loss_corner' and 'rcnn_loss'."""
         l_rpn, tb = super().loss(batch)
         l_point, tb_point = point_head_simple_loss(
             batch['point_head_simple_ret'],

@@ -1,10 +1,12 @@
 """SECOND (``detectors/second_net.py``, as
-``spsnet_tpu/models/detectors/second_net.py``): MeanVFE, VoxelBackBone8x
-over the host plan, HeightCompression, BaseBEVBackbone, AnchorHeadSingle.
-The batch is ``data.processor.voxel_batch``'s, on the model's device; the
-caller runs ``detector3d.post_processing``. In training with 'gt_boxes'
-the anchor head assigns its targets, and ``loss`` is
-``anchor_head_loss``.
+``spsnet_tpu/models/detectors/second_net.py``): MeanVFE, the sparse
+backbone over the host plan (VoxelBackBone8x, or VoxelResBackBone8x as the
+config names it), HeightCompression, BaseBEVBackbone, and the first
+stage's dense head. The batch is ``data.processor.voxel_batch``'s, on the
+model's device; the caller runs ``detector3d.post_processing``. In
+training with 'gt_boxes' the dense head assigns its targets, and ``loss``
+is its loss. The two-stage voxel detectors (PV-RCNN, Voxel R-CNN) and
+CenterPoint build on this stage.
 """
 from __future__ import annotations
 
@@ -12,15 +14,41 @@ import numpy as np
 from torch import nn
 
 from ..backbones_2d.base_bev_backbone import BaseBEVBackbone
-from ..backbones_3d.spconv_backbone import HeightCompression, VoxelBackBone8x
+from ..backbones_3d.spconv_backbone import BACKBONES_3D, HeightCompression
 from ..dense_heads.anchor_head import AnchorHeadSingle, anchor_head_loss
+from ..dense_heads.center_head_iou import CenterHeadIoU, center_head_iou_loss
 from ..vfe import MeanVFE
 
 
+def build_dense_head(head_cfg, num_class: int, input_channels: int,
+                     grid_size, voxel_size, point_cloud_range,
+                     class_names=None, train_decode: bool = True):
+    """AnchorHeadSingle, or ``CenterHeadIoU`` for a DENSE_HEAD named
+    CenterHead or CenterHeadIoU with CLASS_NAMES_EACH_HEAD (as
+    ``spsnet_tpu/models/detectors/{centerpoint,pv_rcnn,voxel_rcnn}.py``
+    pick it). The plain CenterHead, without head groups, is PV-RCNN++'s
+    and not ported."""
+    if head_cfg.NAME in ('CenterHead', 'CenterHeadIoU'):
+        if head_cfg.get('CLASS_NAMES_EACH_HEAD', None) is None:
+            raise NotImplementedError(
+                'the plain CenterHead (no CLASS_NAMES_EACH_HEAD): ROADMAP '
+                'Queue 1 item F4')
+        return CenterHeadIoU(head_cfg, num_class, input_channels,
+                             voxel_size, point_cloud_range, class_names,
+                             train_decode)
+    return AnchorHeadSingle(head_cfg, num_class, input_channels, grid_size,
+                            point_cloud_range)
+
+
 class SECONDNet(nn.Module):
+    """``train_decode``: whether a CenterHead decodes its boxes in
+    training (the two-stage detectors take them as proposals)."""
+
+    train_decode = True
 
     def __init__(self, model_cfg, num_class: int, input_channels: int,
-                 voxel_size, point_cloud_range, final_grid_zyx):
+                 voxel_size, point_cloud_range, final_grid_zyx,
+                 class_names=None):
         super().__init__()
         self.model_cfg = model_cfg
         self.num_class = num_class
@@ -29,17 +57,19 @@ class SECONDNet(nn.Module):
         self.grid_size = tuple(int(x) for x in
                                np.round((pcr[3:6] - pcr[0:3]) / vs))
         self.vfe = MeanVFE()
-        self.backbone_3d = VoxelBackBone8x(input_channels)
+        self.backbone_3d = BACKBONES_3D[model_cfg.BACKBONE_3D.NAME](
+            input_channels)
         self.map_to_bev_module = HeightCompression(final_grid_zyx)
         self.num_bev_features = int(model_cfg.MAP_TO_BEV.NUM_BEV_FEATURES)
         self.backbone_2d = BaseBEVBackbone(model_cfg.BACKBONE_2D,
                                            self.num_bev_features)
-        self.dense_head = AnchorHeadSingle(
+        self.dense_head = build_dense_head(
             model_cfg.DENSE_HEAD, num_class,
-            self.backbone_2d.num_bev_features, self.grid_size, pcr)
+            self.backbone_2d.num_bev_features, self.grid_size, vs, pcr,
+            class_names, self.train_decode)
 
     def stage_one(self, batch):
-        """The voxel stack up to the anchor head's decoded boxes (and, in
+        """The voxel stack up to the dense head's decoded boxes (and, in
         training with 'gt_boxes', its targets)."""
         for module in (self.vfe, self.backbone_3d, self.map_to_bev_module,
                        self.backbone_2d, self.dense_head):
@@ -53,12 +83,16 @@ class SECONDNet(nn.Module):
         return self.stage_one(batch)
 
     def loss(self, batch):
-        """(loss, tb) of a forward's output in training mode: the anchor
-        head's ``anchor_head_loss`` (``spsnet_tpu/models/detectors/
-        second_net.py:63-69``), tb holding 'rpn_loss_cls', 'rpn_loss_loc',
-        'rpn_loss_dir' and 'rpn_loss'."""
+        """(loss, tb) of a forward's output in training mode: the dense
+        head's loss, ``anchor_head_loss`` (``spsnet_tpu/models/detectors/
+        second_net.py:63-69``; tb 'rpn_loss_cls', 'rpn_loss_loc',
+        'rpn_loss_dir', 'rpn_loss') or ``center_head_iou_loss`` (tb
+        'hm_loss_head_{g}', 'loc_loss_head_{g}', 'rpn_loss')."""
         head = self.dense_head
-        return anchor_head_loss(batch['anchor_head_ret'],
-                                self.model_cfg.DENSE_HEAD.LOSS_CONFIG,
+        loss_cfg = self.model_cfg.DENSE_HEAD.LOSS_CONFIG
+        if isinstance(head, CenterHeadIoU):
+            return center_head_iou_loss(batch['center_head_iou_ret'],
+                                        loss_cfg, head.head_order)
+        return anchor_head_loss(batch['anchor_head_ret'], loss_cfg,
                                 self.num_class, head.num_dir_bins,
                                 head.dir_offset)

@@ -22,19 +22,49 @@ from ... import ops
 from ..blocks import SharedMLP
 
 _FAR = 1e6
-# source -> (coordinate key, valid key, downsample factor, channels) of the
-# VoxelBackBone8x levels
-LEVELS = {'x_conv1': ('voxel_coords', 'voxel_valid', 1, 16),
-          'x_conv2': ('down2_coords', 'down2_valid', 2, 32),
-          'x_conv3': ('down3_coords', 'down3_valid', 4, 64),
-          'x_conv4': ('down4_coords', 'down4_valid', 8, 64)}
+# source -> (coordinate key, valid key, downsample factor) of the sparse
+# backbone's levels
+LEVELS = {'x_conv1': ('voxel_coords', 'voxel_valid', 1),
+          'x_conv2': ('down2_coords', 'down2_valid', 2),
+          'x_conv3': ('down3_coords', 'down3_valid', 4),
+          'x_conv4': ('down4_coords', 'down4_valid', 8)}
+# the levels' channels of VoxelBackBone8x, the sparse backbone of PV-RCNN
+BACKBONE8X_CHANNELS = {'x_conv1': 16, 'x_conv2': 32, 'x_conv3': 64,
+                       'x_conv4': 64}
+
+
+class LevelCenters(nn.Module):
+    """The xyz centers of a sparse level's voxels, (coordinate + 0.5) times
+    the level's voxel size plus the range's minimum, in fp32 as the JAX
+    package computes them; padded voxels at ``_FAR``, where no ball
+    reaches them. Holds only non-persistent buffers."""
+
+    def __init__(self, voxel_size, point_cloud_range):
+        super().__init__()
+        for name, (_, _, ds) in LEVELS.items():
+            vs = np.float32(voxel_size) * ds
+            self.register_buffer(f'{name}_voxel',
+                                 torch.from_numpy(vs), persistent=False)
+            self.register_buffer(f'{name}_half', torch.from_numpy(vs / 2),
+                                 persistent=False)
+        self.register_buffer('pcr_min', torch.from_numpy(
+            np.float32(point_cloud_range)[:3]), persistent=False)
+
+    def forward(self, batch, name):
+        """(B, V, 3) centers of level ``name``'s voxels."""
+        coord_key, valid_key, _ = LEVELS[name]
+        xyz = batch[coord_key].flip(-1).float()
+        centers = xyz * getattr(self, f'{name}_voxel') + self.pcr_min + \
+            getattr(self, f'{name}_half')
+        return torch.where(batch[valid_key][..., None], centers,
+                           _FAR).contiguous()
 
 
 def _vector_pool(sa_cfg):
     if str(sa_cfg.get('NAME', '')) == 'VectorPoolAggregationModuleMSG':
         raise NotImplementedError(
             'VectorPoolAggregationModuleMSG (PV-RCNN++): ROADMAP Queue 1 '
-            'item F')
+            'item F4')
 
 
 class StackSAGroup(nn.Module):
@@ -65,16 +95,19 @@ class StackSAGroup(nn.Module):
 class VoxelSetAbstraction(nn.Module):
     """Submodules ``SA_rawpoints``, ``SA_layers.{x_convN}`` and
     ``vsa_point_feature_fusion``. ``num_bev_features``: channels of
-    'spatial_features'; ``num_raw_features``: point channels after xyz."""
+    'spatial_features'; ``num_raw_features``: point channels after xyz;
+    ``level_channels``: the sparse levels' channels (VoxelBackBone8x's by
+    default)."""
 
     def __init__(self, model_cfg, voxel_size, point_cloud_range,
                  num_bev_features: int, num_raw_features: int,
-                 bev_stride: int = 8, fps_seeding=None):
+                 bev_stride: int = 8, fps_seeding=None,
+                 level_channels=None):
         super().__init__()
         if str(model_cfg.get('SAMPLE_METHOD', 'FPS')) != 'FPS':
             raise NotImplementedError(
                 f'VSA SAMPLE_METHOD {model_cfg.SAMPLE_METHOD} (PV-RCNN++ '
-                'sector FPS): ROADMAP Queue 1 item F')
+                'sector FPS): ROADMAP Queue 1 item F4')
         self.model_cfg = model_cfg
         self.num_keypoints = int(model_cfg.NUM_KEYPOINTS)
         self.sources = list(model_cfg.FEATURES_SOURCE)
@@ -82,24 +115,18 @@ class VoxelSetAbstraction(nn.Module):
         self.fps_seeding = fps_seeding
         self.voxel_size = [float(v) for v in np.float32(voxel_size)]
         self.pcr = [float(v) for v in np.float32(point_cloud_range)]
-        for name, (_, _, ds, _) in LEVELS.items():
-            vs = np.float32(voxel_size) * ds
-            self.register_buffer(f'{name}_voxel',
-                                 torch.from_numpy(vs), persistent=False)
-            self.register_buffer(f'{name}_half', torch.from_numpy(vs / 2),
-                                 persistent=False)
-        self.register_buffer('pcr_min', torch.from_numpy(
-            np.float32(point_cloud_range)[:3]), persistent=False)
+        self.level_centers = LevelCenters(voxel_size, point_cloud_range)
         c = num_bev_features if 'bev' in self.sources else 0
         if 'raw_points' in self.sources:
             self.SA_rawpoints = StackSAGroup(model_cfg.SA_LAYER.raw_points,
                                              num_raw_features)
             c += self.SA_rawpoints.out_channels
         self.SA_layers = nn.ModuleDict()
-        for name, (_, _, _, channels) in LEVELS.items():
+        for name in LEVELS:
             if name in self.sources:
                 self.SA_layers[name] = StackSAGroup(
-                    model_cfg.SA_LAYER[name], channels)
+                    model_cfg.SA_LAYER[name],
+                    (level_channels or BACKBONE8X_CHANNELS)[name])
                 c += self.SA_layers[name].out_channels
         self.num_point_features_before_fusion = c
         self.num_point_features = int(model_cfg.NUM_OUTPUT_FEATURES)
@@ -107,14 +134,8 @@ class VoxelSetAbstraction(nn.Module):
             c, [self.num_point_features])
 
     def voxel_centers(self, batch, name):
-        """(B, V, 3) xyz centers of a level's voxels; padded ones at
-        ``_FAR``, where no ball reaches them."""
-        coord_key, valid_key, _, _ = LEVELS[name]
-        xyz = batch[coord_key].flip(-1).float()
-        centers = xyz * getattr(self, f'{name}_voxel') + self.pcr_min + \
-            getattr(self, f'{name}_half')
-        return torch.where(batch[valid_key][..., None], centers,
-                           _FAR).contiguous()
+        """(B, V, 3) xyz centers of a level's voxels (``LevelCenters``)."""
+        return self.level_centers(batch, name)
 
     def bev_interpolate(self, keypoints, bev):
         """Bilinear features of (B, C, H, W) ``bev`` at the keypoints' xy

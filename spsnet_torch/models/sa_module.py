@@ -35,7 +35,7 @@ def _sampler_kind(stype: str) -> str:
         return 'dfps'
     raise NotImplementedError(
         f'sampler {stype}: F-FPS, FS, Rand, ds-FPS and ry-FPS are ROADMAP '
-        'Queue 1 item 8')
+        'Queue 1 item E')
 
 
 class SAModuleMSGWithSampling(nn.Module):
@@ -60,7 +60,7 @@ class SAModuleMSGWithSampling(nn.Module):
         super().__init__()
         if dilated_group:
             raise NotImplementedError(
-                'DILATED_GROUP (ROADMAP Queue 1 item 8)')
+                'DILATED_GROUP (ROADMAP Queue 1 item E)')
         if pool_method not in ('max_pool', 'avg_pool'):
             raise NotImplementedError(pool_method)
         self.npoint_list = list(npoint_list)

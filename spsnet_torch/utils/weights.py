@@ -48,6 +48,17 @@ The voxel detectors (SECOND, PV-RCNN) add:
     roi_head/shared_fc/{Dense_k,BatchNorm_k}       roi_head.shared_fc_layer.{4k,4k+1} (a Dropout
                                                      after each layer but the last)
 
+Voxel R-CNN and CenterPoint add:
+
+    backbone_3d/res{i}_{a,b}/conv{j}/...           backbone_3d.res{i}_{a,b}.conv{j}.{0,1} (residual block)
+    roi_head/x_conv{n}_{in,pos,out}_{s}/...        roi_head.roi_grid_pool_layers.x_conv{n}.mlps_{in,pos,out}.{s}.{0,1}
+    roi_head/{cls_layers,reg_layers}/...           as PV-RCNN's, but a Dropout after each hidden
+                                                     layer but the last (the Voxel R-CNN tree is the
+                                                     one whose roi_head holds x_conv{n}_in_{s})
+    dense_head/shared_conv, shared_bn              dense_head.shared_conv.{0,1}
+    dense_head/head_{g}/{name}_conv{k}, _bn{k}     dense_head.heads_list.{g}.{name}.{k}.{0,1}
+    dense_head/head_{g}/{name}_out                 dense_head.heads_list.{g}.{name}.{K} (K convs before it)
+
 A Dense kernel (in, out) becomes a Linear weight (out, in); a Conv kernel
 (kh, kw, in, out) a Conv2d weight (out, in, kh, kw). A flax ConvTranspose
 kernel (kh, kw, in, out) becomes a ConvTranspose2d weight (in, out, kh, kw)
@@ -82,27 +93,31 @@ def _leaves(tree, prefix=()):
             yield prefix + (k,), v
 
 
-def _seq_index(layer: str, bn: bool = True, shift: int = 0) -> int:
+def _seq_index(layer: str, bn: bool = True, shift: int = 0,
+               each: bool = False) -> int:
     """Sequential index of a SharedMLP layer: Dense_k -> 3k, BatchNorm_k
     -> 3k+1 (ReLU at 3k+2 holds no weights); Dense_k -> 2k without
-    BatchNorm; plus ``shift`` from layer 1 on (a Dropout after layer 0)."""
+    BatchNorm; plus ``shift`` from layer 1 on (a Dropout after layer 0), or
+    with ``each`` plus k (a Dropout after each layer before k)."""
     m = re.fullmatch(r'(Dense|BatchNorm)_(\d+)', layer)
     if m is None:
         raise KeyError(layer)
     k = int(m.group(2))
     return (3 if bn else 2) * k + (m.group(1) == 'BatchNorm') + \
-        (shift if k >= 1 else 0)
+        (k if each else shift if k >= 1 else 0)
 
 
 def _head_index(head, rest, hidden, shift: int = 0) -> int:
     """Index in an MLPHead: its SharedMLP_0 layers, then the output Dense_0
     at 3h for h hidden layers (plus ``shift`` after a Dropout behind the
-    first)."""
+    first, or h - 1 for a Dropout behind each hidden layer but the last,
+    the heads of ``hidden.dropout_each``)."""
     h = hidden.get(head, 0)
+    each = head in hidden.dropout_each
     if len(rest) == 2 and rest[0] == 'SharedMLP_0':
-        return _seq_index(rest[1], shift=shift)
+        return _seq_index(rest[1], shift=shift, each=each)
     if rest == ('Dense_0',):
-        return 3 * h + (shift if h >= 1 else 0)
+        return 3 * h + (max(h - 1, 0) if each else shift if h >= 1 else 0)
     raise KeyError(rest)
 
 
@@ -168,6 +183,10 @@ def _roi_head_name(module, hidden, bn_paths) -> str:
     if m and len(rest) == 2:
         return (f'roi_head.roi_grid_pool_layer.mlps.{m.group(1)}.'
                 f'{_seq_index(rest[1])}')
+    m = _VOXEL_POOL.fullmatch(rest[0])
+    if m and len(rest) == 2 and rest[1] in ('Dense_0', 'BatchNorm_0'):
+        return (f'roi_head.roi_grid_pool_layers.{m.group(1)}.'
+                f'mlps_{m.group(2)}.{m.group(3)}.{_seq_index(rest[1])}')
     if rest[0] == 'shared_fc' and len(rest) == 2:
         k = int(rest[1].split('_')[-1])
         return f'roi_head.shared_fc_layer.{_seq_index(rest[1]) + k}'
@@ -185,6 +204,9 @@ def _roi_head_name(module, hidden, bn_paths) -> str:
 
 
 _SPARSE_CONV = re.compile(r'conv(_input|_out|\d(_down|_a|_b)?)')
+_RES_BLOCK = re.compile(r'res\d_[ab]')
+_VOXEL_POOL = re.compile(r'(x_conv\d)_(in|pos|out)_(\d+)')
+_CENTER_LAYER = re.compile(r'(\w+)_(conv|bn)(\d+)')
 _BEV_LAYER = re.compile(r'(de)?block(\d+)(_down|_conv(\d+))?(_bn(\d*))?')
 
 
@@ -211,18 +233,42 @@ def _bev_name(layer) -> str:
     raise KeyError(layer)
 
 
-def _voxel_name(module) -> str:
+def _center_head_name(rest, hidden) -> str:
+    """Torch name of a ``CenterHeadIoU`` layer (``rest`` below
+    dense_head)."""
+    if rest in (('shared_conv',), ('shared_bn',)):
+        return f'dense_head.shared_conv.{int(rest[0] == "shared_bn")}'
+    g = re.fullmatch(r'head_(\d+)', rest[0])
+    if g is None or len(rest) != 2:
+        raise KeyError(rest)
+    base = f'dense_head.heads_list.{g.group(1)}'
+    if rest[1].endswith('_out'):
+        name = rest[1][:-len('_out')]
+        return f'{base}.{name}.{hidden.head_convs[rest[0], name]}'
+    m = _CENTER_LAYER.fullmatch(rest[1])
+    if m is None:
+        raise KeyError(rest)
+    name, kind, k = m.groups()
+    return f'{base}.{name}.{k}.{int(kind == "bn")}'
+
+
+def _voxel_name(module, hidden) -> str:
     """Torch name prefix of a flax module of the voxel detectors' own
     blocks (raises ``KeyError`` for any other)."""
     top, rest = module[0], module[1:]
     if top == 'backbone_3d' and len(rest) == 2 and \
             _SPARSE_CONV.fullmatch(rest[0]):
         return f'backbone_3d.{rest[0]}.{_seq_index(rest[1])}'
+    if top == 'backbone_3d' and len(rest) == 3 and \
+            _RES_BLOCK.fullmatch(rest[0]) and rest[1] in ('conv1', 'conv2'):
+        return f'backbone_3d.{rest[0]}.{rest[1]}.{_seq_index(rest[2])}'
     if top == 'backbone_2d' and len(rest) == 1:
         return _bev_name(rest[0])
     if top == 'dense_head' and rest in (('conv_cls',), ('conv_box',),
                                         ('conv_dir_cls',)):
         return f'dense_head.{rest[0]}'
+    if top == 'dense_head':
+        return _center_head_name(rest, hidden)
     if top == 'pfe' and len(rest) == 2:
         m = re.fullmatch(r'(raw|x_conv\d)_mlp_(\d+)', rest[0])
         if m:
@@ -237,9 +283,10 @@ def _voxel_name(module) -> str:
 def _torch_name(module, hidden, bn_paths) -> str:
     """Torch name prefix of a flax module path of the detector."""
     if module[0] in ('backbone_2d', 'dense_head', 'pfe') or (
-            module[0] == 'backbone_3d' and len(module) == 3 and
-            _SPARSE_CONV.fullmatch(module[1])):
-        return _voxel_name(module)
+            module[0] == 'backbone_3d' and len(module) >= 3 and
+            (_SPARSE_CONV.fullmatch(module[1]) or
+             _RES_BLOCK.fullmatch(module[1]))):
+        return _voxel_name(module, hidden)
     if module[0] == 'point_head' and len(module) > 2 and module[1] in _HEADS:
         idx = _head_index(module[:2], module[2:], hidden)
         return f'point_head.{_HEADS[module[1]]}.{idx}'
@@ -265,16 +312,34 @@ def _generator_name(module, hidden, bn_paths) -> str:
     raise KeyError(module)
 
 
-def _n_hidden(params) -> dict:
-    """Hidden-layer count of every MLPHead, keyed by its module path."""
-    counts = {}
+class _Layout(dict):
+    """Hidden-layer count of every MLPHead, keyed by its module path; with
+    ``dropout_each``, the heads with a Dropout behind each hidden layer
+    but the last (Voxel R-CNN's towers), and ``head_convs``, the hidden
+    conv count of each CenterHead output, keyed by (head_{g}, name)."""
+    dropout_each = frozenset()
+
+
+def _n_hidden(params) -> _Layout:
+    counts, convs, voxel_rcnn = {}, {}, False
     for path, _ in _leaves(params):
         if 'SharedMLP_0' in path:
             head = path[:path.index('SharedMLP_0')]
             layer = path[path.index('SharedMLP_0') + 1]
             if layer.startswith('Dense_'):
                 counts.setdefault(head, set()).add(layer)
-    return {k: len(v) for k, v in counts.items()}
+        if path[0] == 'roi_head' and _VOXEL_POOL.fullmatch(path[1]):
+            voxel_rcnn = True
+        if path[0] == 'dense_head' and len(path) == 4:
+            m = _CENTER_LAYER.fullmatch(path[2])
+            if m and m.group(2) == 'conv':
+                convs.setdefault((path[1], m.group(1)), set()).add(path[2])
+    layout = _Layout({k: len(v) for k, v in counts.items()})
+    layout.head_convs = {k: len(v) for k, v in convs.items()}
+    if voxel_rcnn:
+        layout.dropout_each = frozenset({('roi_head', 'cls_layers'),
+                                         ('roi_head', 'reg_layers')})
+    return layout
 
 
 def _is_bn(module_name: str) -> bool:

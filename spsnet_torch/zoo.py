@@ -39,6 +39,19 @@ def second_kitti_cfg() -> EDict:
     return load_yaml_cfg('tools/cfgs/kitti_models/second.yaml')
 
 
+def voxel_rcnn_kitti_cfg() -> EDict:
+    """Voxel R-CNN KITTI (``tools/cfgs/kitti_models/voxel_rcnn_car.yaml``):
+    SECOND's voxel stack for the proposals and the RoI-grid pool over the
+    voxels of x_conv2-4."""
+    return load_yaml_cfg('tools/cfgs/kitti_models/voxel_rcnn_car.yaml')
+
+
+def centerpoint_waymo_cfg() -> EDict:
+    """CenterPoint Waymo (``tools/cfgs/waymo_models/centerpoint.yaml``):
+    VoxelResBackBone8x, the BEV backbone and the CenterHead decode."""
+    return load_yaml_cfg('tools/cfgs/waymo_models/centerpoint.yaml')
+
+
 def stability_cfg() -> EDict:
     """The stability model's own training config (MODEL: ``GenerateCenter``
     at npoint 16384, MSG 0.2 / 0.8; OPTIMIZATION: ``adam_onecycle`` at LR
@@ -356,4 +369,81 @@ def tiny_pvrcnn_cfg(final_zyx) -> EDict:
         'POST_PROCESSING': {'SCORE_THRESH': 0.1, 'NMS_CONFIG': {
             'MULTI_CLASSES_NMS': False, 'NMS_THRESH': 0.1,
             'NMS_PRE_MAXSIZE': 64, 'NMS_POST_MAXSIZE': 16}},
+    })
+
+
+def tiny_voxelrcnn_cfg(final_zyx) -> EDict:
+    """Tiny Voxel R-CNN (CPU-fast) with the topology of
+    ``voxel_rcnn_car.yaml``; the JAX package's tests build the same
+    (``tests/test_voxelrcnn.py``)."""
+    pv = tiny_pvrcnn_cfg(final_zyx)
+    cfg = EDict({k: pv[k] for k in ('VFE', 'BACKBONE_3D', 'MAP_TO_BEV',
+                                    'BACKBONE_2D', 'DENSE_HEAD',
+                                    'POST_PROCESSING')})
+    cfg.NAME = 'VoxelRCNN'
+    cfg.ROI_HEAD = EDict({
+        'NAME': 'VoxelRCNNHead', 'CLASS_AGNOSTIC': True,
+        'SHARED_FC': [32, 32], 'CLS_FC': [32], 'REG_FC': [32],
+        'ROI_GRID_POOL': {
+            'GRID_SIZE': 3,
+            'FEATURES_SOURCE': ['x_conv3', 'x_conv4'],
+            'POOL_LAYERS': {
+                'x_conv3': {'MLPS': [[8, 8]], 'POOL_RADIUS': [1.2],
+                            'NSAMPLE': [4]},
+                'x_conv4': {'MLPS': [[8, 8]], 'POOL_RADIUS': [2.4],
+                            'NSAMPLE': [4]},
+            },
+        },
+        'NMS_CONFIG': pv.ROI_HEAD.NMS_CONFIG,
+        'TARGET_CONFIG': pv.ROI_HEAD.TARGET_CONFIG,
+        'LOSS_CONFIG': pv.ROI_HEAD.LOSS_CONFIG})
+    return cfg
+
+
+def tiny_centerpoint_voxel_cfg(final_zyx) -> EDict:
+    """Tiny voxel CenterPoint (CPU-fast) with the topology of the
+    res3d-centerpoint configs: VoxelResBackBone8x, two head groups (Car;
+    Pedestrian and Cyclist) of the upstream CenterHead decode, the
+    velocity maps of nuScenes and the fork's IoU map with its rectifier,
+    for a sparse grid whose final (nz, ny, nx) is ``final_zyx``."""
+    return EDict({
+        'NAME': 'CenterPoint',
+        'VFE': {'NAME': 'MeanVFE'},
+        'BACKBONE_3D': {'NAME': 'VoxelResBackBone8x'},
+        'MAP_TO_BEV': {'NAME': 'HeightCompression',
+                       'NUM_BEV_FEATURES': int(final_zyx[0]) * 128},
+        'BACKBONE_2D': {'NAME': 'BaseBEVBackbone',
+                        'LAYER_NUMS': [1], 'LAYER_STRIDES': [1],
+                        'NUM_FILTERS': [32], 'UPSAMPLE_STRIDES': [1],
+                        'NUM_UPSAMPLE_FILTERS': [32]},
+        'DENSE_HEAD': {
+            'NAME': 'CenterHead', 'CLASS_AGNOSTIC': False,
+            'CLASS_NAMES_EACH_HEAD': [['Car'], ['Pedestrian', 'Cyclist']],
+            'SHARED_CONV_CHANNEL': 16, 'USE_BIAS_BEFORE_NORM': True,
+            'NUM_HM_CONV': 2,
+            'SEPARATE_HEAD_CFG': {
+                'HEAD_ORDER': ['center', 'center_z', 'dim', 'rot', 'vel'],
+                'HEAD_DICT': {
+                    'center': {'out_channels': 2, 'num_conv': 2},
+                    'center_z': {'out_channels': 1, 'num_conv': 2},
+                    'dim': {'out_channels': 3, 'num_conv': 2},
+                    'rot': {'out_channels': 2, 'num_conv': 2},
+                    'vel': {'out_channels': 2, 'num_conv': 2},
+                    'iou': {'out_channels': 1, 'num_conv': 2}}},
+            'TARGET_ASSIGNER_CONFIG': {
+                'FEATURE_MAP_STRIDE': 8, 'NUM_MAX_OBJS': 16,
+                'GAUSSIAN_OVERLAP': 0.1, 'MIN_RADIUS': 2},
+            'LOSS_CONFIG': {'LOSS_WEIGHTS': {
+                'cls_weight': 1.0, 'loc_weight': 0.25, 'iou_weight': 1.0,
+                'code_weights': [1.0] * 6 + [0.2, 0.2, 1.0, 1.0]}},
+            'POST_PROCESSING': {
+                'SCORE_THRESH': 0.1,
+                'POST_CENTER_LIMIT_RANGE': [-1.0, -8.0, -5.0, 14.0, 8.0, 3.0],
+                'MAX_OBJ_PER_SAMPLE': 48, 'RECTIFIER': [0.5, 0.6, 0.7],
+                'NMS_CONFIG': {'NMS_TYPE': 'nms_gpu', 'NMS_THRESH': 0.2,
+                               'NMS_PRE_MAXSIZE': 48,
+                               'NMS_POST_MAXSIZE': 12}},
+        },
+        'POST_PROCESSING': {'RECALL_THRESH_LIST': [0.3, 0.5, 0.7],
+                            'EVAL_METRIC': 'kitti'},
     })

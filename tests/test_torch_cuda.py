@@ -20,8 +20,11 @@ chunked FPS; FPS at Waymo's (2, 65536) -> 16384. At the shapes of
 PV-RCNN serving: FPS to 2048 keypoints, the VSA's five fused queries (up
 to 40 000 voxel centers, most padded at 1e6 on the coarse levels), the
 RoI-grid query; the sparse gather and the voxel stack card against the
-CPU. Indices must be equal, and the min distances to the seeds bit for
-bit.
+CPU. At the shapes of Voxel R-CNN: the RoI grid's query over the voxel
+centers of x_conv2-4 at 40 000 and 16 000 rows (KITTI serving and
+training) and 150 000 (Waymo); CenterPoint's heatmap targets card against
+the CPU. Indices must be equal, and the min distances to the seeds bit
+for bit.
 
 These tests need a CUDA card and skip without one. On the H100:
 
@@ -879,3 +882,94 @@ def test_tiny_pvrcnn_train_step_on_the_card_matches_the_cpu(cuda):
     for get in (lambda o: o['anchor_head_ret']['box_cls_labels'],
                 lambda o: o['point_head_simple_ret']['targets'].cls_labels):
         assert torch.equal(get(outs['gpu']).cpu(), get(outs['cpu']))
+
+
+def _voxel_rcnn_levels(cuda, path, b, n, train, seed):
+    """The port's host voxel batch of ``b`` synthetic scans of ``n``
+    points (5 channels where the config reads them) at a config's test
+    or train voxel limit, on the card, and each of its RoI head's source
+    levels as (radii, nsamples, voxel centers)."""
+    from spsnet_torch.data.processor import voxel_batch
+    from spsnet_torch.models import build_detector_from_cfg
+    from spsnet_torch.utils.synthetic import synthetic_scan_batch
+    from spsnet_torch.zoo import load_yaml_cfg
+    cfg = load_yaml_cfg(path)
+    scans = synthetic_scan_batch(seed, b, n,
+                                 pc_range=cfg.DATA_CONFIG.POINT_CLOUD_RANGE)
+    channels = len(cfg.DATA_CONFIG.POINT_FEATURE_ENCODING.used_feature_list)
+    if channels > 4:
+        scans = np.concatenate([scans, np.full_like(scans[..., :1], 0.5)],
+                               -1)
+    batch = {k: torch.from_numpy(v).to(cuda) for k, v in voxel_batch(
+        scans, cfg.DATA_CONFIG, mode='train' if train else 'test').items()}
+    head = build_detector_from_cfg(cfg, device='cpu').roi_head.to(cuda)
+    levels = [(layer.radii, layer.nsamples, head.level_centers(batch, name))
+              for name, layer in head.roi_grid_pool_layers.items()]
+    return batch, head, levels
+
+
+@pytest.mark.parametrize('path,b,n,rois,train,rows', [
+    ('kitti_models/voxel_rcnn_car.yaml', 2, 16384, 100, False, 40000),
+    ('kitti_models/voxel_rcnn_car.yaml', 2, 16384, 128, True, 16000),
+    ('waymo_models/voxel_rcnn_with_centerhead_dyn_voxel.yaml', 1, 65536,
+     100, False, 150000)])
+def test_ball_query_kernel_at_the_voxel_rcnn_shapes(cuda, path, b, n, rois,
+                                                    train, rows):
+    """Voxel R-CNN's RoI grid, ``rois`` RoIs a frame x 6^3 grid points
+    (43 200 centers in serving, 55 296 in training, 21 600 on Waymo) over
+    the voxel centers of x_conv2-4 (every level padded to ``rows`` rows,
+    the padded ones at 1e6), r 0.4 / 0.8 / 1.6 with 16 neighbours: the
+    kernel's indices equal the plain query's, which takes (B, 1024, N)
+    distances a block of centers at a time."""
+    from spsnet_torch.models.roi_heads.pvrcnn_head import roi_grid_points
+    batch, head, levels = _voxel_rcnn_levels(cuda, f'tools/cfgs/{path}', b,
+                                             n, train, 21)
+    assert batch['down4_valid'].shape[1] == rows
+    # RoIs of a car's size centred on the finest level's voxels
+    centers = levels[0][2]
+    rng = np.random.default_rng(22)
+    pick = torch.from_numpy(rng.integers(0, 2000, (b, rois))).to(cuda)
+    rois_t = torch.cat([centers.gather(1, pick[..., None].expand(-1, -1, 3)),
+                        torch.from_numpy(np.concatenate([np.broadcast_to(
+                            np.float32([3.9, 1.6, 1.56]), (b, rois, 3)),
+                            rng.uniform(-np.pi, np.pi, (b, rois, 1)).astype(
+                                np.float32)], -1)).to(cuda)], -1)
+    grid = roi_grid_points(rois_t, head.template).reshape(b, -1, 3)
+    grid = grid.contiguous()
+    assert grid.shape[1] == rois * 216
+    hits = 0
+    for radii, nsamples, support in levels:
+        got = ball_query_multi_kernel(radii, nsamples, support, grid)
+        torch.cuda.synchronize()
+        want = ball_query_multi_plain(radii, nsamples, support, grid)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        hits += int((got[0][..., 1] > got[0][..., 0]).sum())
+    assert hits > 0
+
+
+def test_center_targets_on_the_card_match_the_cpu(cuda):
+    """CenterPoint's heatmap targets of waymo_models/centerpoint.yaml's
+    map (188 x 188 at stride 8) for 2 frames of 40 boxes of the three
+    classes, with padding rows and boxes past the range: the heatmap,
+    the centre pixels, masks and raw gt bit for bit (the Gaussians' exp
+    in float64, rounded once), the regression targets within 1e-6."""
+    from spsnet_torch.models.dense_heads.center_head import \
+        assign_center_targets
+    rng = np.random.default_rng(23)
+    gt = np.zeros((2, 40, 8), np.float32)
+    gt[:, :36, 0:2] = rng.uniform(-80, 80, (2, 36, 2))
+    gt[:, :36, 2] = rng.uniform(-1, 1, (2, 36))
+    gt[:, :36, 3:6] = rng.uniform([0.5, 0.5, 1.0], [12, 3, 4], (2, 36, 3))
+    gt[:, :36, 6] = rng.uniform(-np.pi, np.pi, (2, 36))
+    gt[:, :36, 7] = np.arange(36) % 3 + 1
+    gt = torch.from_numpy(gt)
+    args = (3, (188, 188), 8, (0.1, 0.1, 0.15),
+            (-75.2, -75.2, -2, 75.2, 75.2, 4))
+    cpu = assign_center_targets(gt, *args, num_max_objs=500)
+    card = assign_center_targets(gt.to(cuda), *args, num_max_objs=500)
+    torch.cuda.synchronize()
+    for k in (0, 2, 3, 4):
+        assert torch.equal(card[k].cpu(), cpu[k]), k
+    assert torch.allclose(card[1].cpu(), cpu[1], rtol=0, atol=1e-6)
+    assert int((cpu[0] == 1).sum()) >= 30

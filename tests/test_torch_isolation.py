@@ -38,6 +38,7 @@ from spsnet_torch.utils.weights import (flax_to_torch,
 from tests.test_pvrcnn import PCR as PV_PCR
 from tests.test_pvrcnn import VS as PV_VS
 from tests.test_pvrcnn import make_pv_batch, pvrcnn_tiny_cfg
+from tests.test_voxelrcnn import voxelrcnn_tiny_cfg
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted(str(p.relative_to(ROOT))
@@ -463,11 +464,17 @@ def test_spsnet_trees_raise_on_a_port_key_left_unfilled(variables_of, kind):
     _raises_on_unfilled(kind, variables_of(kind))
 
 
+# the zoo's full configs that load a yaml of tools/cfgs
+YAML_CFGS = {'voxel_rcnn_kitti': 'tools/cfgs/kitti_models/voxel_rcnn_car.yaml',
+             'centerpoint_waymo': 'tools/cfgs/waymo_models/centerpoint.yaml'}
+
+
 @pytest.mark.parametrize('name', ['tiny', 'iassd_kitti', 'iassd_kitti_scaled',
                                   'tiny_spsnet', 'spsnet_kitti',
                                   'tiny_pointrcnn', 'pointrcnn_kitti',
                                   'pv_rcnn_kitti', 'second_kitti',
-                                  'tiny_pvrcnn'])
+                                  'tiny_pvrcnn', 'tiny_voxelrcnn',
+                                  'voxel_rcnn_kitti', 'centerpoint_waymo'])
 def test_config_copies_match_the_jax_package(name):
     """The port's own config loader and zoo give the JAX package's configs
     (``_BASE_CONFIG_`` resolution included for IA-SSD.yaml, SPSNet.yaml
@@ -478,6 +485,12 @@ def test_config_copies_match_the_jax_package(name):
         if name == 'tiny_pvrcnn':
             return z.tiny_pvrcnn_cfg(PV_FINAL) if z is zoo else \
                 pvrcnn_tiny_cfg(PV_FINAL)
+        if name == 'tiny_voxelrcnn':
+            return z.tiny_voxelrcnn_cfg(PV_FINAL) if z is zoo else \
+                voxelrcnn_tiny_cfg(PV_FINAL)
+        if name in YAML_CFGS:
+            return getattr(z, f'{name}_cfg')() if z is zoo else \
+                z.load_yaml_cfg(YAML_CFGS[name])
         if name in ('pv_rcnn_kitti', 'second_kitti'):
             return getattr(z, f'{name[:-6]}_kitti_cfg')() if z is zoo else \
                 z.load_yaml_cfg(f'tools/cfgs/kitti_models/{name[:-6]}.yaml')

@@ -500,10 +500,10 @@ def test_geometry_from_the_config_matches_jax(name):
 
 @pytest.mark.parametrize('path', [
     'kitti_models/PartA2_free.yaml', 'kitti_models/PartA2.yaml',
-    'kitti_models/voxel_rcnn_car.yaml', 'waymo_models/pv_rcnn_plusplus.yaml',
+    'kitti_models/second_iou.yaml', 'waymo_models/pv_rcnn_plusplus.yaml',
     'kitti_models/pointpillar.yaml', 'kitti_models/second_multihead.yaml',
-    'waymo_models/pv_rcnn_with_centerhead_rpn.yaml',
-    'nuscenes_models/cbgs_voxel0075_res3d_centerpoint.yaml'])
+    'kitti_models/centerpoint_iou.yaml',
+    'waymo_models/centerpoint_pillar_1x.yaml'])
 def test_unported_detectors_raise_naming_item_f(path):
     cfg = zoo.load_yaml_cfg(f'tools/cfgs/{path}')
     with pytest.raises(NotImplementedError, match='item F'):

@@ -525,7 +525,8 @@ def _variables(jm, batch):
         return v.astype(np.float32)
     variables = jax.tree_util.tree_map_with_path(fill, dict(shapes))
     params = variables['params']
-    scaled = [(params['dense_head']['conv_box'], 0.05)]
+    scaled = [(params['dense_head']['conv_box'], 0.05)] \
+        if 'conv_box' in params['dense_head'] else []
     if 'roi_head' in params:
         scaled.append((params['roi_head']['reg_layers']['Dense_0'], 1e-2))
     for layer, factor in scaled:
