@@ -4,7 +4,8 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --phase3 ROOT   # phases 1-3 of another checkout
     python3 chip_smoke.py --jitter-study  # what sets phase 26's baseline
-    python3 chip_smoke.py --fault-check   # phases 26, 36, 44 refuse bad grads
+    python3 chip_smoke.py --fault-check   # phases 26, 36, 44, 55 refuse
+                                          # a scaled card gradient
 
 Phases, in order; any failure raises and the exit code is not 0:
 
@@ -289,8 +290,36 @@ Phases, in order; any failure raises and the exit code is not 0:
     request of B = 1 after a warm-up, the CenterHead RPN's detections as
     proposals, three ball queries over the 150 000-row levels, each held
     to its plain version;
-50. one JSON line per kernel set, then the card's name and power limit,
-    then the result line.
+50. PV-RCNN++ serving: ``waymo_models/pv_rcnn_plusplus.yaml`` at full
+    width, a warm-up and five requests of 2 Waymo scans of 65 536 points
+    (150 000 rows a level): ms and range, six masked FPS launches (one a
+    sector) and six three-NN launches (K6) a request, peak memory, the
+    host plan, the valid keypoints and sector quotas a frame, a profile;
+51. the kernels at its shapes: each sector's masked FPS against the plain
+    one (indices equal; device and plain time, bound; the first sector at
+    K = 4096 picks too), each of the VSA's six K6 calls against the plain
+    three-NN bit for bit (device time, plain time, ``torch.cdist`` +
+    ``topk`` over the plain version's blocks, bound);
+52. one PV-RCNN++ request (B = 1) card vs CPU stage by stage: the voxel
+    stack, the CenterHead's maps, top-500 and boxes, the proposal NMS, the
+    SPC RoI mask and sectors (within their slack, replayed), the keypoints,
+    the VSA (its VectorPool sources on the CPU for the first 256
+    keypoints), the point head, the RoI head (the cube query within its
+    slack, replayed) and the final NMS;
+53. ``waymo_models/pv_rcnn_plusplus_resnet.yaml``: one request of B = 1
+    after a warm-up, its six K6 calls held to the plain three-NN;
+54. the PV-RCNN++ train path: a warm-up and ten steps of 2 Waymo scenes
+    over three planned batches (gt at the Waymo sizes plus boxes at the
+    proposals); ms, the proposal NMS's share, RoI counts, grad norms, peak
+    memory, a profile (the sparse backbone, the gathers' backward, K6, K1,
+    the VectorPool modules);
+55. one PV-RCNN++ train step card vs CPU on one frame of a cropped range
+    (``PP_TRAIN_CUT``): heatmap targets and keypoint labels identical,
+    every other decision within its slack and replayed, then loss terms,
+    gradients, parameters and BN statistics as phase 36 holds them;
+56. one JSON line per kernel set (K6 among the kernels, with its launches
+    on every path), then the card's name and power limit, then the result
+    line.
 
 The K5 shapes are (8, 16384) -> 4096, (8, 15884) -> 4096 (SPSNet's layer
 0), (1, 16384) -> 4096 and (32, 4096) -> 1024. Phase 3 also holds FPS and
@@ -394,8 +423,8 @@ STAB_TRAIN_LAUNCHES = {'fps': 0, 'fps_seeded': 0, 'seed_min': 0,
                        'ball_query': 1}
 # PointRCNN serving (pointrcnn.yaml) on the IA-SSD requests: per request
 # the backbone's four SA layers and the RoI head's two D-FPS layers (its
-# third groups all points)
-PRCNN_LAUNCHES = {'fps': 6, 'ball_query': 6}
+# third groups all points), and the four FP layers' three-NN
+PRCNN_LAUNCHES = {'fps': 6, 'ball_query': 6, 'three_nn': 4}
 # PointRCNN training (pointrcnn.yaml): BATCH_SIZE_PER_GPU scenes a step, a
 # warm-up and the timed steps
 PRCNN_TRAIN_B, PRCNN_TRAIN_STEPS = 2, 10
@@ -459,6 +488,27 @@ CP_SCORE_TOL = 1e-4
 # against the CPU's sums over K up to 27 x 64 and 9 x 256; the rounding of
 # a sum scales with its terms, and an entry near zero may sum large ones)
 VOXEL_RTOL, VOXEL_ATOL = 1e-4, 1e-4
+# PV-RCNN++ (waymo_models/pv_rcnn_plusplus.yaml): B = PP_B Waymo scans of
+# CP_N points, 5 channels, every level padded to 150 000 rows, PP_REQUESTS
+# requests after a warm-up; a request (and a train step) launches PP_LAUNCHES:
+# one masked FPS a sector (six) and the three-NN of the VSA's VectorPool
+# sources (two groups each of the raw points, x_conv3 and x_conv4); training
+# a warm-up and PP_TRAIN_STEPS steps over PP_TRAIN_BATCHES planned batches
+PP_B, PP_REQUESTS = 2, 5
+PP_TRAIN_STEPS, PP_TRAIN_BATCHES = 10, 3
+PP_LAUNCHES = {'fps': 6, 'three_nn': 6}
+# card vs CPU, one PV-RCNN++ request: the CPU runs the VSA's VectorPool
+# sources on the first PP_CPU_KEYPOINTS of the 4096 keypoints (in eval mode a
+# row-wise function of each keypoint, so the subset is exact; all of them
+# would be 3.8e10 three-NN pairs on the CPU)
+PP_CPU_KEYPOINTS = 128
+# card vs CPU, one PV-RCNN++ train step: BatchNorm takes the batch's
+# statistics, so no subset of keypoints is exact; one frame on a 51.2 m
+# square of Waymo's range, 20 000 voxels a level, 16 384 points (1.1e10
+# three-NN pairs on the CPU; on a 25.6 m square at 8 000 voxels the card's
+# gradients came within 0.046 of the CPU's, against the ceiling of 0.05)
+PP_TRAIN_CUT = {'range': (-25.6, -25.6, -2, 25.6, 25.6, 4), 'voxels': 20000,
+                'points': 16384}
 
 
 def seeding():
@@ -1356,6 +1406,8 @@ def profile_phase(fn, what, ranges=()):
                 f'{spans[name]["launches"]} kernel launches')
     return {'device_ms': total, 'wall_ms': wall, 'busy_share': total / wall,
             'launches': sum(e.count for e in events), 'ranges': spans,
+            'kernel_ms': {e.key[:120]: e.self_device_time_total / 1e3
+                          for e in events},
             'backward_device_ms': backward,
             'host_top': [[e.key[:60], e.self_cpu_time_total / 1e3, e.count]
                          for e in host]}
@@ -1459,7 +1511,7 @@ def train_path(model, step, batches, want, after_step=None):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         n = {k: _build.LAUNCHES[k] - seen[k] for k in _build.LAUNCHES}
-        if n != want:
+        if n != {k: want.get(k, 0) for k in n} or set(want) - set(n):
             raise AssertionError(f'launches in a train step: {n}, want {want}')
         if not torch.isfinite(loss) or not all(
                 torch.isfinite(v).all() for v in tb.values()
@@ -2178,7 +2230,7 @@ class PrcnnDecisions:
 
     def _inputs_apart(self, kind, *tensors):
         ref = self.ref.inputs[kind][len(self.used[kind])]
-        return max(float((a.cpu() - b.cpu()).abs().max())
+        return max(float((a.detach().cpu() - b.detach().cpu()).abs().max())
                    for a, b in zip(ref, tensors))
 
     def fps(self, real, xyz, npoint, *args, **kwargs):
@@ -2330,10 +2382,13 @@ def prcnn_decisions(decisions):
     from spsnet_torch.models import sa_module
     from spsnet_torch.models.dense_heads import anchor_head
     from spsnet_torch.models.roi_heads import roi_utils
-    from spsnet_torch.models.dense_heads import center_head_iou
+    from spsnet_torch.models.dense_heads import center_head, center_head_iou
+    from spsnet_torch.models.model_utils import vector_pool
+    from spsnet_torch.models.pfe import voxel_set_abstraction as vsa
     hooks = [(ops_pkg, 'farthest_point_sample', decisions.fps),
              (ops_pkg, 'ball_query_multi', decisions.ball),
              (sa_module, 'three_nn', decisions.three_nn),
+             (vector_pool, 'three_nn', decisions.three_nn),
              (ops_pkg, 'nms_bev', decisions.nms),
              (roi_utils, 'max_iou_with_same_class', decisions.max_iou),
              (roi_utils, 'roi_point_indices', decisions.pool),
@@ -2341,7 +2396,13 @@ def prcnn_decisions(decisions):
     if hasattr(decisions, 'dir_bins'):
         hooks.append((anchor_head, 'direction_bins', decisions.dir_bins))
     if hasattr(decisions, 'topk'):
-        hooks.append((center_head_iou, 'topk_desc', decisions.topk))
+        hooks += [(center_head_iou, 'topk_desc', decisions.topk),
+                  (center_head, 'topk_desc', decisions.topk)]
+    if hasattr(decisions, 'cube'):
+        hooks += [(vsa, 'sample_points_with_roi_mask', decisions.roi_mask),
+                  (vsa, 'point_sectors', decisions.sectors),
+                  (vector_pool, 'cube_query', decisions.cube),
+                  (vector_pool, 'bin_neighbours', decisions.bins)]
     saved = [(owner, name, getattr(owner, name)) for owner, name, _ in hooks]
     for (owner, name, hook), (_, _, real) in zip(hooks, saved):
         setattr(owner, name,
@@ -2552,19 +2613,22 @@ VR_FAULTS = (('backbone_3d.conv3', 1.3),
              ('roi_head.roi_grid_pool_layers.x_conv2', 1.3),
              ('roi_head.roi_grid_pool_layers.x_conv4', 1.3),
              ('roi_head.shared_fc_layer', 1.3), ('roi_head.cls_layers', 1.3))
+PP_FAULTS = (('backbone_3d.conv4', 1.3), ('dense_head.hm', 1.3),
+             ('pfe.SA_layers.x_conv3', 1.3),
+             ('roi_head.roi_grid_pool_layer', 1.3))
 
 
 def fault_check() -> int:
-    """``--fault-check``: phases 26, 36 and 44 as they run, then again with
-    the card's gradients of one module scaled (``PRCNN_FAULTS``,
-    ``PV_FAULTS``, ``VR_FAULTS``): every such run must fail. Returns 1 if
-    one passed."""
+    """``--fault-check``: phases 26, 36, 44 and 55 as they run, then again
+    with the card's gradients of one module scaled (``PRCNN_FAULTS``,
+    ``PV_FAULTS``, ``VR_FAULTS``, ``PP_FAULTS``): every such run must
+    fail. Returns 1 if one passed."""
     phases = sys.modules[__name__]
     missed = []
 
     def faulty(build, at, prefix, factor):
-        def wrapped(device, *args):
-            out = build(device, *args)
+        def wrapped(device, *args, **kwargs):
+            out = build(device, *args, **kwargs)
             if device == 'cuda':
                 for n, p in out[at].named_parameters():
                     if n.startswith(prefix):
@@ -2602,7 +2666,12 @@ def fault_check() -> int:
     each('build_pvrcnn_trainer',
          lambda b: phases.pvrcnn_train_cpu_phase(b, 'voxel_rcnn_car'),
          {k: v[:1].cpu() for k, v in batch.items()}, VR_FAULTS, 1)
-    n = len(PRCNN_FAULTS) + len(PV_FAULTS) + len(VR_FAULTS)
+    cfg = build_pvpp_trainer('cpu', cut=True)[0]
+    batch = pv_train_batches(cfg, [1900, 1901], sizes=WAYMO_SIZES,
+                             n=PP_TRAIN_CUT['points'], channels=5)[0][0]
+    each('build_pvpp_trainer', phases.pvpp_train_cpu_phase,
+         {k: v[:1].cpu() for k, v in batch.items()}, PP_FAULTS, 1)
+    n = len(PRCNN_FAULTS) + len(PV_FAULTS) + len(VR_FAULTS) + len(PP_FAULTS)
     log(f'{n - len(missed)} of {n} faults refused')
     return 1 if missed else 0
 
@@ -2923,6 +2992,25 @@ def _require_scaled(a, b, what):
     return err / max(scale, 1e-30)
 
 
+def _require_scaled_rows(a, b, what):
+    """``_require_scaled`` row by row over the last axis: each row within
+    VOXEL_RTOL relative plus VOXEL_ATOL times that row's largest entry (a
+    few PV-RCNN++ keypoints carry features of ~1e11, ROADMAP Queue 3,
+    beside which a tensor-wide scale would hold the others to nothing).
+    Returns the largest scaled difference."""
+    a, b = a.detach().cpu(), b.detach().cpu()
+    scale = b.abs().amax(-1, keepdim=True).clamp(min=1e-30)
+    bad = (a - b).abs() > VOXEL_RTOL * b.abs() + VOXEL_ATOL * scale
+    worst = float(((a - b).abs() / scale).max())
+    if bad.any():
+        raise AssertionError(f'card vs CPU {what}: {int(bad.any(-1).sum())} '
+                             f'rows beyond rtol {VOXEL_RTOL} + {VOXEL_ATOL} x '
+                             f'their largest entry')
+    log(f'  card vs CPU {what}: largest difference {worst:.3e} of its row\'s '
+        f'largest entry (rows up to {float(scale.max()):.3e})')
+    return worst
+
+
 def _require_anchor_headings(g, c):
     """Card vs CPU headings of the anchor boxes: the direction bin may
     flip where the CPU's two direction logits lie within the tolerance of
@@ -3030,25 +3118,27 @@ def _stage_one_vs_cpu(model, cpu, batch, host, nms, rpn=None):
     return errs, rpn
 
 
-def _roi_stage_vs_cpu(model, cpu, roi_in, out, post):
+def _roi_stage_vs_cpu(model, cpu, roi_in, out, post,
+                      decisions=PrcnnDecisions):
     """The RoI head of one request from the card's input ``roi_in`` to it
     and the card's RoIs (``out``: the card's RoI-head output): the
     RoI-grid picks (the grid points rotated on each device) equal or
     within the rounding slack of their inputs, then replayed
     (``PrcnnDecisions``); the pooled features, the refinement, the decoded
     boxes and the final NMS (``post``) within VOXEL_RTOL / VOXEL_ATOL.
-    Returns (scaled errors, the replay's notes, differing ball lists, the
-    card's detections)."""
+    ``decisions``: the class that holds the pool's picks. Returns (scaled
+    errors, the replay's notes, differing ball lists, the card's
+    detections)."""
     from spsnet_torch.models.detectors.detector3d import post_processing
     from spsnet_torch.models.roi_heads.pointrcnn_head import \
         decode_in_roi_frame
     errs = []
     with torch.no_grad():
         rois = out['rois']
-        rec = PrcnnDecisions('record')
+        rec = decisions('record')
         with prcnn_decisions(rec):
             pooled_g = model.roi_head.roi_grid_pool(roi_in, rois)
-        chk = PrcnnDecisions('check', ref=rec)
+        chk = decisions('check', ref=rec)
         with prcnn_decisions(chk):
             pooled_c = cpu.roi_head.roi_grid_pool(_cpu_tree(roi_in),
                                                   rois.cpu())
@@ -4352,6 +4442,742 @@ def voxelrcnn_waymo_phase(smi):
     return rec, shapes
 
 
+# ------------------------------------------------------------ PV-RCNN++
+
+@contextlib.contextmanager
+def calls_of(owner, attr):
+    """Record each call of ``owner.attr`` while open: a list of (args,
+    kwargs, output)."""
+    fn = getattr(owner, attr)
+    seen = []
+
+    def recorded(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        seen.append((args, kwargs, out))
+        return out
+    setattr(owner, attr, recorded)
+    try:
+        yield seen
+    finally:
+        setattr(owner, attr, fn)
+
+
+def pvpp_keypoints(model, batch):
+    """The sectors' quotas (B, S) and the valid keypoints a frame of one
+    PV-RCNN++ request of ``batch``."""
+    from spsnet_torch.models.pfe import voxel_set_abstraction as vsa
+    with calls_of(vsa, 'sector_fps_dense') as seen, torch.no_grad():
+        out = model(batch)
+    return seen[0][2][2].tolist(), out['point_valid'].sum(1).tolist()
+
+
+def pvpp_profile(model, fn, what):
+    """A CUDA-kernel breakdown of one call of ``fn`` (a PV-RCNN++ request
+    or train step of ``model``): the sparse and BEV backbones, the VSA,
+    every VectorPool module (its three-NN included) and the RoI head as
+    ranges; the device shares of K6 (``three_nn_kernel``), K1
+    (``fps_kernel``) and the sparse gathers' backward (the scatter-add
+    ``_scatter_gather_elementwise_kernel``), and of the backward."""
+    from spsnet_torch.models.model_utils.vector_pool import \
+        VectorPoolAggregationMSG
+    names = {'backbone_3d': 'sparse backbone', 'backbone_2d': 'BEV backbone',
+             'pfe': 'VSA', 'roi_head': 'RoI head'}
+    modules = [(getattr(model, a), n) for a, n in names.items()] + [
+        (m, 'VectorPool') for m in model.modules()
+        if isinstance(m, VectorPoolAggregationMSG)]
+
+    def ranged(name, fn):
+        def call(*args, **kwargs):
+            with torch.profiler.record_function(name):
+                return fn(*args, **kwargs)
+        return call
+    for module, name in modules:
+        module.forward = ranged(name, module.forward)
+    try:
+        prof = profile_phase(fn, what, ranges=(*names.values(),
+                                               'VectorPool'))
+    finally:
+        for module, _ in modules:
+            del module.forward
+    for span in prof['ranges'].values():
+        span['device_share'] = span['device_ms'] / prof['device_ms']
+    prof['backward_share'] = prof['backward_device_ms'] / prof['device_ms']
+    for key, pattern in (('k6', 'three_nn_kernel'), ('k1', 'fps_kernel'),
+                         ('gathers_backward', 'scatter_gather')):
+        ms = sum(v for k, v in prof['kernel_ms'].items() if pattern in k)
+        prof[f'{key}_device_ms'] = ms
+        prof[f'{key}_share'] = ms / prof['device_ms']
+    log('  device shares: ' + ', '.join(
+        f'{k} {v["device_share"]:.3f}' for k, v in prof['ranges'].items()) +
+        f', K6 {prof["k6_share"]:.3f} ({prof["k6_device_ms"]:.3f} ms), K1 '
+        f'{prof["k1_share"]:.3f} ({prof["k1_device_ms"]:.3f} ms), the '
+        f'gathers\' backward {prof["gathers_backward_share"]:.3f}, backward '
+        f'{prof["backward_share"]:.3f}')
+    return prof
+
+
+def three_nn_library(unknown, known):
+    """The library yardstick of a three-NN call: ``torch.cdist`` and
+    ``topk(3, largest=False)`` over the plain version's blocks of unknown
+    points (not bit-identical: cdist takes its own form)."""
+    from spsnet_torch.ops.interpolate import _BLOCK_ENTRIES
+    B, N, _ = unknown.shape
+    chunk = max(1, _BLOCK_ENTRIES // max(1, B * known.shape[1]))
+    return [torch.cdist(unknown[:, n0:n0 + chunk], known).topk(
+        3, largest=False) for n0 in range(0, N, chunk)]
+
+
+def three_nn_bound(b, n, m):
+    """Bound of a three-NN over (b, n) queries and (b, m) known points:
+    both read once, (b, n, 3) distances and indices written; 9 operations
+    a pair (3 mul and 2 add for the cross product, the norms' sum, the
+    doubling, the subtraction, a compare)."""
+    return bound_ms(b * (n + m) * 12 + b * n * 3 * 12, b * n * m * 9)
+
+
+def events_ms(fn):
+    """(output, milliseconds) of one call of ``fn`` between CUDA events
+    (a call long enough that the host's issue time does not count)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def three_nn_call(unknown, known, what):
+    """K6 against the plain three-NN at one shape, bit for bit; device time
+    of the kernel, event times of one call of the plain version and of the
+    library yardstick (after K6's calls, so warm), and the bound. Returns
+    the call's record."""
+    from spsnet_torch.ops.interpolate import three_nn_kernel, three_nn_plain
+    b, n, _ = unknown.shape
+    m = known.shape[1]
+    got = three_nn_kernel(unknown, known)
+    torch.cuda.synchronize()
+    want, plain_ms = events_ms(lambda: three_nn_plain(unknown, known))
+    require_equal(got[0].view(torch.int32), want[0].view(torch.int32),
+                  f'K6 vs plain {what}: squared distances (bits)')
+    require_equal(got[1], want[1], f'K6 vs plain {what}: indices')
+    del want
+    rec = {'B': b, 'N': n, 'M': m, 'pairs': b * n * m, 'plain_ms': plain_ms,
+           'ms': device_ms(lambda: three_nn_kernel(unknown, known), reps=3),
+           'library_ms': events_ms(lambda: three_nn_library(unknown,
+                                                            known))[1]}
+    rec['bound_ms'], rec['bound_by'] = three_nn_bound(b, n, m)
+    log(f'  K6 {what} ({b}, {n}) over ({b}, {m}): kernel {rec["ms"]:.4f} '
+        f'ms (device), plain {rec["plain_ms"]:.3f} ms, cdist + topk '
+        f'{rec["library_ms"]:.3f} ms (events), bound {rec["bound_ms"]:.4f} ms '
+        f'({rec["bound_by"]}, {b * n * m:.3e} pairs)')
+    return rec
+
+
+def pvpp_shapes_phase(model, batch):
+    """Phase 51: the kernels of one PV-RCNN++ request at its shapes: each
+    sector's masked K1 call (its quota prefix) against the plain FPS,
+    indices equal, with device time, plain time and bound, and the first
+    sector also at K picks (the prefix's saving); each of the VSA's six K6
+    calls against the plain three-NN bit for bit (``three_nn_call``).
+    Returns {'fps': [records], 'three_nn': [records], 'fps_at_k': record,
+    'errs'}."""
+    import spsnet_torch.ops as ops_pkg
+    from spsnet_torch.models.model_utils import vector_pool
+    from spsnet_torch.ops.sampling import (farthest_point_sample_kernel,
+                                           farthest_point_sample_plain)
+    with calls_of(ops_pkg, 'farthest_point_sample') as fps, \
+            calls_of(vector_pool, 'three_nn') as nn3, torch.no_grad():
+        model(batch)
+    rec = {'fps': [], 'three_nn': [], 'errs': {'fps': 0.0, 'three_nn': 0.0}}
+    k = model.pfe.num_keypoints
+    for s, (args, kwargs, out) in enumerate(fps):
+        xyz, npoint = args[0], args[1]
+        mask = kwargs['valid_mask']
+        b, n, _ = xyz.shape
+        require_equal(out, farthest_point_sample_plain(xyz, npoint, mask),
+                      f'K1 vs plain, sector {s} ({b}, {n}) -> {npoint}, '
+                      f'{int(mask.sum())} points in the mask')
+        r = {'sector': s, 'B': b, 'N': n, 'npoint': npoint,
+             'masked_points': mask.sum(1).tolist(),
+             'ms': device_ms(lambda: farthest_point_sample_kernel(
+                 xyz, npoint, mask), reps=3),
+             'plain_ms': cuda_ms(lambda: farthest_point_sample_plain(
+                 xyz, npoint, mask), reps=1)}
+        r['bound_ms'], r['bound_by'] = fps_bound(b, n, npoint)
+        log(f'  K1 sector {s} -> {npoint}: kernel {r["ms"]:.4f} ms '
+            f'(device), plain {r["plain_ms"]:.3f} ms, bound '
+            f'{r["bound_ms"]:.4f} ms')
+        rec['fps'].append(r)
+    s = max(range(len(fps)), key=lambda i: fps[i][0][1])
+    (xyz, npoint), mask = fps[s][0][:2], fps[s][1]['valid_mask']
+    full = farthest_point_sample_kernel(xyz, k, mask)
+    require_equal(full[:, :npoint], fps[s][2],
+                  f'K1 at {k} picks, its prefix vs the quota prefix call')
+    rec['fps_at_k'] = {'sector': s, 'npoint': k, 'ms': device_ms(
+        lambda: farthest_point_sample_kernel(xyz, k, mask), reps=3)}
+    rec['fps_at_k']['bound_ms'] = fps_bound(*xyz.shape[:2], k)[0]
+    log(f'  K1 sector {s} at K = {k} picks: {rec["fps_at_k"]["ms"]:.4f} ms '
+        f'(device) against {rec["fps"][s]["ms"]:.4f} ms at its quota '
+        f'prefix of {npoint}')
+    for i, (args, _, _) in enumerate(nn3):
+        rec['three_nn'].append(three_nn_call(
+            args[0].contiguous(), args[1].contiguous(), f'VSA call {i}'))
+    return rec
+
+
+def pvpp_path(model, requests, what):
+    """A warm-up and the timed PV-RCNN++ requests (forward +
+    ``post_processing``) with the launch counters zeroed just before:
+    PP_LAUNCHES a request. Returns its record."""
+    post = model.model_cfg.POST_PROCESSING
+    detect(model, requests[0], post)   # cuDNN's timed choice, apart
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, launches = main_path(model, requests, post, PP_LAUNCHES, what)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    out, dets = detect(model, requests[0], post)
+    quotas, valid = pvpp_keypoints(model, requests[0])
+    ms = statistics.median(times)
+    rec = {'B': requests[0]['points'].shape[0], 'ms_per_batch': ms,
+           'all_ms': times, 'range_ms': [min(times), max(times)],
+           'launches': launches, 'peak_gib': peak,
+           'kept_boxes': dets['count'].tolist(),
+           'valid_rois': out['roi_valid'].sum(1).tolist(),
+           'valid_keypoints': valid, 'sector_quotas': quotas}
+    log(f'  launches over {len(requests)} requests: {launches}')
+    log(f'  ms/batch ({what}: voxel stack + CenterHead + proposal NMS + SPC '
+        f'keypoints + VectorPool VSA + point head + VectorPool RoI-grid '
+        f'head + NMS): median {ms:.3f}, range {min(times):.3f}-'
+        f'{max(times):.3f}, all {[round(t, 3) for t in times]}; peak memory '
+        f'{peak:.3f} GiB')
+    log(f'  first request: valid keypoints a frame {valid}, sector quotas '
+        f'{quotas}; {rec["kept_boxes"]} boxes kept, {rec["valid_rois"]} '
+        f'RoIs')
+    return rec
+
+
+def cube_within(xyz, ctr, radius, card, own, e):
+    """``ball_within`` for the cube query: the first point in one list and
+    not the other lies within the rounding slack of inputs ``e`` apart
+    (2 e, the centre's and the point's coordinate) of the cube's face
+    (its Chebyshev distance to the centre against the half-extent)."""
+    rows, cols = (card != own).any(-1).nonzero(as_tuple=True)
+    worst = 0.0
+    for r, c in zip(rows.tolist(), cols.tolist()):
+        p = min(set(card[r, c].tolist()) ^ set(own[r, c].tolist()))
+        d = float((xyz[r, p].double() - ctr[r, c].double()).abs().max())
+        worst = max(worst, abs(d - radius) / (2 * e + 1e-6))
+    return worst
+
+
+class PpDecisions(CpDecisions):
+    """``CpDecisions`` of PV-RCNN++: the CenterHead's top-k, the proposal
+    NMS, and further its SPC keypoints (each point's RoI mask and sector:
+    in 'check' mode equal, or where they differ within the rounding slack
+    of the RoIs' difference from the reference's, or of atan2 at a sector
+    edge) and its RoI pool's cube query (equal, or each differing list's
+    first point within the slack of the grid points' difference from the
+    face), and its binning of the neighbours into the cells (each
+    differing cell or hit within that slack of a cell edge or of the
+    face). Then this run goes on from the reference's."""
+
+    def __init__(self, mode, ref=None, thresholds=()):
+        super().__init__(mode, ref)
+        self.thresholds = thresholds
+        for kind in ('roi_mask', 'sectors', 'cube', 'bins'):
+            self.used[kind] = []
+            self.inputs[kind] = []
+        self.differ.update(roi_mask=0, sectors=0, cube=0, bins=0)
+
+    def topk(self, real, scores, k):
+        if self.mode != 'replay':
+            return super().topk(real, scores, k)
+        idx = self._ref('topk')[1].to(scores.device)
+        return self._use('topk', (scores.gather(-1, idx), idx))
+
+    def roi_mask(self, real, xyz, rois, radius):
+        own = real(xyz, rois, radius)
+        if self.mode == 'record':
+            self.inputs['roi_mask'].append(rois.detach().cpu())
+            return self._use('roi_mask', own)
+        want = self._ref('roi_mask').to(own.device)
+        if self.mode == 'check' and not torch.equal(own, want):
+            from spsnet_torch.models.pfe.voxel_set_abstraction import _norm3
+            self.differ['roi_mask'] += int((own != want).sum())
+            ref = self.ref.inputs['roi_mask'][len(self.used['roi_mask'])]
+            e = float((rois.detach().cpu() - ref).abs().max())
+            x, r = xyz.detach().cpu().double(), rois.detach().cpu().double()
+            d = _norm3(x[:, :, None] - r[:, None, :, 0:3])
+            d = torch.where((r[..., 3] <= 0)[:, None], torch.inf, d)
+            m, nearest = d.min(-1)
+            edge = _norm3(r[..., 3:6] / 2).gather(1, nearest) + radius
+            gap = float((m - edge).abs()[(own != want).cpu()].max())
+            self.notes.append(f'SPC RoI mask: {int((own != want).sum())} '
+                              f'points differ, each {gap:.3e} m from the '
+                              f'threshold; the RoIs {e:.3e} apart')
+            if gap > 3 * e + 1e-5:
+                raise AssertionError(self.notes[-1])
+        return self._use('roi_mask', want)
+
+    def sectors(self, real, xyz, num_sectors):
+        own = real(xyz, num_sectors)
+        if self.mode == 'record':
+            return self._use('sectors', own)
+        want = self._ref('sectors').to(own.device)
+        if self.mode == 'check' and not torch.equal(own, want):
+            diff = (own != want).cpu()
+            self.differ['sectors'] += int(diff.sum())
+            x = xyz.detach().cpu().double()
+            pos = (torch.atan2(x[..., 1], x[..., 0]) + np.pi) / \
+                (2 * np.pi / num_sectors)
+            gap = float((pos - pos.round()).abs()[diff].max())
+            self.notes.append(f'sectors: {int(diff.sum())} points differ, '
+                              f'each {gap:.3e} sectors from an edge')
+            if gap > 1e-5:
+                raise AssertionError(self.notes[-1])
+        return self._use('sectors', want)
+
+    def bins(self, real, local, radius, grid_dims, ball):
+        own = real(local, radius, grid_dims, ball)
+        if self.mode == 'record':
+            self.inputs['bins'].append((local.detach().cpu(),))
+            return self._use('bins', own)
+        want = tuple(w.to(o.device) for w, o in zip(self._ref('bins'), own))
+        differ = (own[0] != want[0]) | (own[1] != want[1])
+        if self.mode == 'check' and differ.any():
+            self.differ['bins'] += int(differ.sum())
+            e = self._inputs_apart('bins', local)
+            x = local.detach().cpu().double()[differ.cpu()]
+            g = grid_dims.cpu().double()
+            u = (x + radius) / (2 * radius) * g
+            edge = ((u - u.round()).abs() * 2 * radius / g).amin(-1)
+            face = (x.norm(dim=-1) if ball else x.abs().amax(-1)) - radius
+            gap = float(torch.minimum(edge, face.abs()).max())
+            self.notes.append(f'cell binning: {int(differ.sum())} '
+                              f'neighbours differ, each {gap:.3e} from a '
+                              f'cell edge or the face; inputs {e:.3e} apart')
+            if gap > 2 * e + 1e-6:
+                raise AssertionError(self.notes[-1])
+        return self._use('bins', want)
+
+    def cube(self, real, radius, nsample, xyz, new_xyz):
+        own = real(radius, nsample, xyz, new_xyz)
+        if self.mode == 'record':
+            self.inputs['cube'].append((xyz.detach().cpu(),
+                                        new_xyz.detach().cpu()))
+            return self._use('cube', own)
+        want = self._ref('cube').to(own.device)
+        if self.mode == 'check' and not torch.equal(own, want):
+            self.differ['cube'] += 1
+            e = self._inputs_apart('cube', xyz, new_xyz)
+            ratio = cube_within(xyz.detach().cpu(), new_xyz.detach().cpu(),
+                                radius, want.cpu(), own.cpu(), e)
+            self.notes.append(f'cube query call {len(self.used["cube"])}: '
+                              f'{int((own != want).any(-1).sum())} '
+                              f'lists differ; inputs {e:.3e} apart; each '
+                              f'within {ratio:.3f} of the rounding slack')
+            if ratio > 1:
+                raise AssertionError(self.notes[-1])
+        return self._use('cube', want)
+
+
+def pvpp_stages(model, batch):
+    """A PV-RCNN++ forward of ``batch`` stage by stage, without gradients:
+    {'rpn': the voxel stack's batch up to the CenterHead, 'pre': the
+    proposals, 'pfe', 'point', 'out': the RoI head's}."""
+    with torch.no_grad():
+        rpn = model.stage_one(batch)
+        pre = model.roi_head.propose_and_assign(rpn)
+        pfe = model.pfe(dict(rpn, rois=pre['rois'],
+                             roi_labels=pre['roi_labels']))
+        point = model.point_head(pfe)
+        return {'rpn': rpn, 'pre': pre, 'pfe': pfe, 'point': point,
+                'out': model.roi_head(point, pre)}
+
+
+def _voxel_stack_vs_cpu(model, cpu, batch, host):
+    """The voxel stack of one request on the card and on the CPU, each CPU
+    stage from the card's input: voxel features, the sparse levels, the
+    BEV scatter (bit for bit) and the BEV backbone. Returns (scaled
+    errors, the card's BEV backbone output)."""
+    errs = []
+    with torch.no_grad():
+        g = model.vfe(batch)
+        c = cpu.vfe(host)
+        errs.append(_require_scaled(g['voxel_features'], c['voxel_features'],
+                                    'voxel features'))
+        g = model.backbone_3d(g)
+        c = cpu.backbone_3d(dict(host, voxel_features=g[
+            'voxel_features'].cpu()))
+        for name, t in c['multi_scale_3d_features'].items():
+            errs.append(_require_scaled(
+                g['multi_scale_3d_features'][name], t, f'sparse level {name}'))
+        g = model.map_to_bev_module(g)
+        c = cpu.map_to_bev_module(_cpu_tree(dict(
+            host, **{k: g[k] for k in ('encoded_voxel_features',
+                                       'encoded_voxel_coords',
+                                       'encoded_voxel_valid')})))
+        require_equal(g['spatial_features'], c['spatial_features'],
+                      'card vs CPU: the BEV scatter (HeightCompression)')
+        g = model.backbone_2d(g)
+        c = cpu.backbone_2d({'spatial_features': g['spatial_features'].cpu()})
+        errs.append(_require_scaled(g['spatial_features_2d'],
+                                    c['spatial_features_2d'],
+                                    'BEV backbone'))
+    return errs, g
+
+
+def pvpp_cpu_phase(model, cfg_name, batch):
+    """Phase 52: one PV-RCNN++ request (B = 1) on the card and on the CPU
+    with the same weights and host tables, stage by stage from the card's
+    inputs: the voxel stack (``_voxel_stack_vs_cpu``); the CenterHead's
+    maps, its top-500 candidates (a top 500 of the CPU's scores within
+    CP_SCORE_TOL, then replayed) and boxes; the proposal NMS
+    (``nms_agrees``); the SPC RoI mask and sectors (within their slack,
+    replayed), the keypoints (K1 vs plain: equal); the VSA's BEV features
+    and each VectorPool source on the first PP_CPU_KEYPOINTS keypoints (in
+    eval mode a row-wise function of each keypoint, so the subset is
+    exact: the CPU's three-NN over all of them is 3.8e10 pairs), its
+    fusion and the point head from the card's features; the RoI head
+    (``_roi_stage_vs_cpu`` with ``PpDecisions``: the cube query within its
+    slack, replayed)."""
+    _, cpu = build_voxel_detector(cfg_name, 'cpu')
+    cpu.load_state_dict(model.state_dict())
+    host = _cpu_tree(batch)
+    card = PpDecisions('record')
+    with prcnn_decisions(card):
+        st = pvpp_stages(model, batch)
+    errs, g = _voxel_stack_vs_cpu(model, cpu, batch, host)
+    own = PpDecisions('check', card)
+    with torch.no_grad(), prcnn_decisions(own):
+        ch = cpu.dense_head({'spatial_features_2d':
+                             g['spatial_features_2d'].cpu()})
+        for key in ('heatmap', 'center', 'center_z', 'dim', 'rot'):
+            errs.append(_require_scaled(st['rpn']['center_head_ret'][key],
+                                        ch['center_head_ret'][key],
+                                        f'CenterHead {key}'))
+        errs.append(_require_scaled(st['rpn']['batch_box_preds'],
+                                    ch['batch_box_preds'],
+                                    'CenterHead top-500 boxes'))
+        pre = cpu.roi_head.propose_and_assign(dict(
+            ch, cls_preds_normalized=True))
+        errs.append(_require_scaled(st['pre']['rois'], pre['rois'], 'RoIs'))
+        # the VSA from the card's stage-one outputs and RoIs
+        rpn = _cpu_tree(dict(st['rpn'], rois=st['pre']['rois'],
+                             roi_labels=st['pre']['roi_labels']))
+        xyz = rpn['points'][..., :3].contiguous()
+        kp_idx, kp_valid = cpu.pfe.sample_keypoints(rpn, xyz)
+    for note in own.notes:
+        log(f'  card vs CPU {note}')
+    pg = st['pfe']
+    require_equal(pg['keypoint_idx'], kp_idx,
+                  'card vs CPU: SPC keypoints (masked K1 vs plain FPS)')
+    require_equal(pg['point_valid'].int(), kp_valid.int(),
+                  'card vs CPU: valid keypoints')
+    sub = slice(0, PP_CPU_KEYPOINTS)
+    pfe = cpu.pfe
+    with torch.no_grad():
+        kp, valid = pg['point_coords'].cpu(), kp_valid
+        feats = [torch.where(valid[..., None], pfe.bev_interpolate(
+            kp, rpn['spatial_features']), 0.0)]
+        sources = [(pfe.SA_rawpoints, xyz, rpn['points'][..., 3:])] + [
+            (group, pfe.voxel_centers(rpn, name),
+             rpn['multi_scale_3d_features'][name])
+            for name, group in pfe.SA_layers.items()]
+        t0 = time.perf_counter()
+        for group, support, sf in sources:
+            feats.append(group(support, sf, kp[:, sub].contiguous(),
+                               valid[:, sub]))
+        cpu_s = time.perf_counter() - t0
+        width = [f.shape[-1] for f in feats]
+        card_feats = pg['point_features_before_fusion']
+        errs.append(_require_scaled(card_feats[..., :width[0]], feats[0],
+                                    'VSA BEV features'))
+        start = width[0]
+        for (group, _, _), f, w in zip(sources, feats[1:], width[1:]):
+            errs.append(_require_scaled_rows(
+                card_feats[:, sub, start:start + w], f,
+                f'VSA VectorPool source at {start}, the first '
+                f'{PP_CPU_KEYPOINTS} keypoints'))
+            start += w
+        fused = pfe.vsa_point_feature_fusion(card_feats.cpu())
+        errs.append(_require_scaled_rows(pg['point_features'], fused,
+                                         'VSA fusion'))
+        ph = cpu.point_head(_cpu_tree(pg))
+        errs.append(_require_scaled_rows(
+            st['point']['point_head_simple_ret']['point_cls_preds'],
+            ph['point_head_simple_ret']['point_cls_preds'],
+            'point head cls preds'))
+        huge = int((card_feats.abs().amax(-1) > 1e3).sum())
+    log(f'  keypoints whose features exceed 1e3 (a clipped negative norm of '
+        f'the raw points\' interpolation weights, ROADMAP Queue 3): {huge} '
+        f'of {card_feats.shape[1]}')
+    log(f'  the CPU\'s VectorPool sources over the first {PP_CPU_KEYPOINTS} '
+        f'of {kp.shape[1]} keypoints: {cpu_s:.1f} s')
+    roi_errs, notes, _, _ = _roi_stage_vs_cpu(
+        model, cpu, st['point'], st['out'], model.model_cfg.POST_PROCESSING,
+        PpDecisions)
+    return {'max_scaled_err': max(errs + roi_errs), 'notes': own.notes,
+            'roi_notes': notes, 'differ': own.differ, 'huge_keypoints': huge,
+            'cpu_keypoints': PP_CPU_KEYPOINTS, 'cpu_vector_pool_s': cpu_s}
+
+
+def build_pvpp_trainer(device, cut=False):
+    """waymo_models/pv_rcnn_plusplus.yaml as ``build_voxel_detector``
+    makes it (seed-0 weights; with ``cut``, on PP_TRAIN_CUT's range and
+    voxel caps) in train mode, its adam_onecycle optimizer and
+    ``make_train_step``: (cfg, model, optimizer, step)."""
+    from spsnet_torch.models import build_detector_from_cfg
+    from spsnet_torch.runtime.trainer import make_train_step
+    from spsnet_torch.zoo import pv_rcnn_plusplus_waymo_cfg
+    cfg = pv_rcnn_plusplus_waymo_cfg()
+    if cut:
+        cfg.DATA_CONFIG.POINT_CLOUD_RANGE = list(PP_TRAIN_CUT['range'])
+        for step in cfg.DATA_CONFIG.DATA_PROCESSOR:
+            if step.NAME == 'transform_points_to_voxels':
+                step.MAX_NUMBER_OF_VOXELS = {
+                    'train': PP_TRAIN_CUT['voxels'],
+                    'test': PP_TRAIN_CUT['voxels']}
+            if step.NAME == 'build_sparse_conv_plan':
+                step.MAX_VOXELS_PER_LEVEL = PP_TRAIN_CUT['voxels']
+    model = build_detector_from_cfg(
+        cfg, device=device, generator=torch.Generator().manual_seed(0))
+    model.train()
+    optimizer = _kitti_optimizer(cfg.OPTIMIZATION, model.parameters())
+    return cfg, model, optimizer, make_train_step(model, optimizer)
+
+
+def pvpp_train_path(smi):
+    """Phase 54: PV-RCNN++ training at full width (PP_TRAIN_STEPS steps of
+    PV_TRAIN_B Waymo scenes over PP_TRAIN_BATCHES planned batches, a
+    warm-up first, gt at the Waymo sizes plus ``gt_at_proposals``' boxes):
+    ms, the proposal NMS's share, the RoI counts, grad norms, peak memory
+    and a profile. Returns its record."""
+    from spsnet_torch.models.roi_heads import pvrcnn_head
+    from spsnet_torch.ops import _build
+    cfg, model, opt, step = build_pvpp_trainer('cuda')
+    batches, host_ms, before, after = pv_train_batches(
+        cfg, range(1600, 1600 + PP_TRAIN_BATCHES), sizes=WAYMO_SIZES,
+        n=CP_N, channels=5)
+    log(f'  host voxelization + sparse plan at the train settings: '
+        f'{statistics.median(host_ms):.3f} ms a frame; voxels a frame in '
+        f'range {before}, after the cap of 150000 {after}')
+    tcfg = cfg.MODEL.ROI_HEAD.TARGET_CONFIG
+    step(gt_at_proposals(model, batches[0]))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    norms, stats = [], []
+    with roi_head_outputs(model) as outs, \
+            timed_calls(pvrcnn_head, 'proposal_layer') as nms_calls:
+        def after_step():
+            out = outs.pop()
+            norms.append(float(opt.grad_norm))
+            stats.append(dict(roi_counts(out['roi_head_ret']['targets'],
+                                         tcfg),
+                              valid_keypoints=out['point_valid'].sum(1)
+                              .tolist()))
+            log(f'    grad norm {norms[-1]:.4f} (clip 10); {stats[-1]}')
+        times, launches = train_path(
+            model, step, at_proposals(model, [
+                batches[k % PP_TRAIN_BATCHES]
+                for k in range(1, 1 + PP_TRAIN_STEPS)]),
+            {**{k: 0 for k in _build.LAUNCHES}, **PP_LAUNCHES}, after_step)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    torch.cuda.synchronize()
+    nms = [h for h, _ in range_ms(nms_calls)]
+    ms = statistics.median(times)
+    shares = [n / t for n, t in zip(nms[-len(times):], times)]
+    log(f'  ms/train step (B={PV_TRAIN_B}, N={CP_N}: voxel stack + '
+        f'CenterHead targets + proposal NMS (pre 9000, post 512) + RoI '
+        f'sampling + SPC keypoints + VectorPool VSA + point head + '
+        f'VectorPool RoI-grid head + three losses + backward + '
+        f'adam_onecycle): median {ms:.3f}, range {min(times):.3f}-'
+        f'{max(times):.3f}, all {[round(t, 3) for t in times]}; proposal '
+        f'NMS share {min(shares):.3f}-{max(shares):.3f}; grad norms '
+        f'{[round(n, 4) for n in norms]}; peak memory {peak:.3f} GiB on '
+        f'{smi}')
+    rec = {'ms': ms, 'all_ms': times, 'range_ms': [min(times), max(times)],
+           'launches': launches, 'peak_gib': peak, 'grad_norms': norms,
+           'roi_stats': stats, 'nms_share': [min(shares), max(shares)],
+           'host_ms_a_frame': host_ms, 'voxels_before_cap': before,
+           'voxels_after_cap': after}
+    rec['profile'] = pvpp_profile(
+        model, lambda: step(gt_at_proposals(model, batches[1])),
+        'one PV-RCNN++ train step (B=2)')
+    return rec
+
+
+def pvpp_train_cpu_phase(batch):
+    """Phase 55: one PV-RCNN++ train step on one frame (``batch``, on the
+    CPU; PP_TRAIN_CUT) on the card and on the CPU from the same weights,
+    RoI draws and dropout masks, and on the CPU from weights jittered by
+    WEIGHT_JITTER. The heatmap targets and keypoint labels identical;
+    every other decision of the CPU (the CenterHead's top-k, the proposal
+    NMS, the max IoUs, the SPC mask and sectors, FPS, the cube query and
+    the cell binning) held
+    to the card's (``PpDecisions``), the CPU going on from the card's; the
+    jittered run replays the CPU's. Then the loss terms, gradients,
+    updated parameters and BN running statistics as
+    ``pvrcnn_train_cpu_phase`` holds them."""
+    cfg, gpu, _, gpu_step = build_pvpp_trainer('cuda', cut=True)
+    _, cpu, cpu_opt, cpu_step = build_pvpp_trainer('cpu', cut=True)
+    _, jit, _, jit_step = build_pvpp_trainer('cpu', cut=True)
+    tcfg = cfg.MODEL.ROI_HEAD.TARGET_CONFIG
+    thresholds = tuple(float(tcfg[k]) for k in (
+        'CLS_BG_THRESH_LO', 'CLS_BG_THRESH', 'REG_FG_THRESH',
+        'CLS_FG_THRESH'))
+    cpu.load_state_dict(gpu.state_dict())
+    jit.load_state_dict(gpu.state_dict())
+    card_batch = gt_at_proposals(gpu, {k: v.cuda() for k, v in
+                                       batch.items()})
+    batch = dict(batch, gt_boxes=card_batch['gt_boxes'].cpu())
+    gen = torch.Generator().manual_seed(5)
+    with torch.no_grad():
+        for p in jit.parameters():
+            p.mul_(1 + WEIGHT_JITTER * torch.randn(p.shape, generator=gen))
+    card = PpDecisions('record')
+    with prcnn_decisions(card), roi_head_outputs(gpu) as gpu_out:
+        gpu_loss, gpu_tb = gpu_step(card_batch)
+    own = PpDecisions('check', card, thresholds)
+    t0 = time.perf_counter()
+    with prcnn_decisions(own), roi_head_outputs(cpu) as cpu_out:
+        cpu_loss, cpu_tb = cpu_step(batch)
+    cpu_s = time.perf_counter() - t0
+    jittered = PpDecisions('replay', own)
+    with prcnn_decisions(jittered):
+        jit_step(batch)
+    g_out, c_out = gpu_out[0], cpu_out[0]
+    for key in ('heatmap_target', 'inds', 'masks'):
+        require_equal(g_out['center_head_ret'][key],
+                      c_out['center_head_ret'][key],
+                      f'card vs CPU train step: CenterHead {key}')
+    require_equal(g_out['point_head_simple_ret']['targets'].cls_labels,
+                  c_out['point_head_simple_ret']['targets'].cls_labels,
+                  'card vs CPU train step: keypoint labels')
+    for note in own.notes + jittered.notes:
+        log(f'  {note}')
+    log(f'  card vs CPU decisions that differed (then replayed): '
+        f'{own.differ}; the CPU step took {cpu_s:.1f} s')
+    for g, c in zip(card.used['sampled'], own.used['sampled']):
+        require_equal(g, c, f'card vs CPU train step: sampled RoI indices '
+                            f'{tuple(g.shape)}')
+    worst, terms = {}, {}
+    for key in ('loss', *sorted(gpu_tb)):
+        g = float(gpu_loss if key == 'loss' else gpu_tb[key])
+        c = float(cpu_loss if key == 'loss' else cpu_tb[key])
+        worst[key] = abs(g - c) / max(abs(c), 1e-12)
+        terms[key] = (g, c)
+    log('  card vs CPU loss terms: ' + ', '.join(
+        f'{k} {g:.6f} / {c:.6f}' for k, (g, c) in terms.items()))
+    if max(worst.values()) > TRAIN_LOSS_RTOL:
+        raise AssertionError(f'card vs CPU loss terms beyond '
+                             f'{TRAIN_LOSS_RTOL}: ' + ', '.join(
+                                 k for k, v in worst.items()
+                                 if v > TRAIN_LOSS_RTOL))
+    log(f'  card vs CPU loss terms {sorted(gpu_tb)}: largest relative '
+        f'difference {max(worst.values()):.3e} ({max(worst, key=worst.get)};'
+        f' tolerance {TRAIN_LOSS_RTOL}); card {float(gpu_loss):.6f}, CPU '
+        f'{float(cpu_loss):.6f}')
+    lr = cpu_opt.lr_fn(0)
+    diff = _step_difference(gpu, cpu, lr)
+    base = _step_difference(jit, cpu, lr)
+    log(f'  card vs CPU after the step: {diff}')
+    log(f'  CPU with weights x (1 + {WEIGHT_JITTER} N(0, 1)) vs CPU (the '
+        f'jitter baseline): {base}')
+    limits = _require_step_within(diff, base, lr)
+    by_module = _grad_by_module((gpu, jit), cpu)
+    _require_modules_within(by_module)
+    stats = [_bn_stats_rel_l2(a, cpu) for a in (gpu, jit)]
+    limits['bn_limit'] = _require_bn_within(stats)
+    return {'card': diff, 'baseline': base, 'limits': limits,
+            'notes': own.notes, 'by_module': by_module, 'bn_stats': stats,
+            'differ': own.differ, 'loss_rel': worst, 'cut': PP_TRAIN_CUT,
+            'cpu_step_s': cpu_s}
+
+
+def pvpp_resnet_phase():
+    """Phase 53: waymo_models/pv_rcnn_plusplus_resnet.yaml, one request of
+    B = 1 after a warm-up, and its six K6 calls against the plain
+    three-NN bit for bit. Returns the request's record."""
+    import spsnet_torch.ops as ops_pkg  # noqa: F401  (the kernels' package)
+    from spsnet_torch.models.model_utils import vector_pool
+    from spsnet_torch.ops.interpolate import three_nn_plain
+    cfg, model = build_voxel_detector('waymo_models/pv_rcnn_plusplus_resnet',
+                                      'cuda')
+    host = pv_host_batches(cfg, [1700], 1, CP_N, 5)
+    rec = pvpp_path(model, host['batches'], 'PV-RCNN++ ResNet (B=1)')
+    with calls_of(vector_pool, 'three_nn') as nn3, torch.no_grad():
+        model(host['batches'][0])
+    for i, (args, _, out) in enumerate(nn3):
+        want = three_nn_plain(*args)
+        require_equal(out[0].view(torch.int32), want[0].view(torch.int32),
+                      f'K6 vs plain, ResNet call {i}: squared distances')
+        require_equal(out[1], want[1], f'K6 vs plain, ResNet call {i}: '
+                                       'indices')
+    rec['host_ms_a_frame'] = host['host_ms']
+    return rec
+
+
+def pvpp_phases(smi):
+    """Phases 50-55; returns the PV-RCNN++ records and the K6 entry of the
+    JSON line's ``kernels`` (its launches added by ``main``)."""
+    log('== 50. PV-RCNN++ serving path (waymo_models/pv_rcnn_plusplus.yaml)')
+    cfg, model = build_voxel_detector('waymo_models/pv_rcnn_plusplus',
+                                      'cuda')
+    host = pv_host_batches(cfg, range(1800, 1802), PP_B, CP_N, 5)
+    rec = pvpp_path(model, [host['batches'][k % 2]
+                            for k in range(PP_REQUESTS)],
+                    f'PV-RCNN++ requests (B={PP_B}, N={CP_N})')
+    rec.update(host_ms_a_frame=host['host_ms'],
+               voxels_before_cap=host['before'],
+               voxels_after_cap=host['after'])
+    rec['profile'] = pvpp_profile(
+        model, lambda: detect(model, host['batches'][0],
+                              cfg.MODEL.POST_PROCESSING),
+        'one PV-RCNN++ request (B=2)')
+
+    log('== 51. kernels vs plain at the PV-RCNN++ shapes')
+    shapes = pvpp_shapes_phase(model, host['batches'][0])
+    calls = shapes['three_nn']
+    k6 = {'name': 'three_nn', 'route': 'cuda',
+          'source': 'spsnet_torch/csrc/three_nn.cu',
+          'replaces': 'spsnet_tpu/ops/interpolate.py:15 three_nn (XLA, not '
+                      'a Pallas kernel)',
+          'max_abs_err': 0.0,
+          'ms': sum(c['ms'] for c in calls),
+          'plain_ms': sum(c['plain_ms'] for c in calls),
+          'bound_ms': sum(c['bound_ms'] for c in calls),
+          'bound_by': 'operations',
+          'library_ms': sum(c['library_ms'] for c in calls),
+          'note': 'sums over the six calls of one PV-RCNN++ request (B=2)',
+          'pvrcnnpp_calls': calls}
+    log(f'  K6 over the request\'s six calls: {k6["ms"]:.3f} ms (device), '
+        f'plain {k6["plain_ms"]:.3f} ms, cdist + topk {k6["library_ms"]:.3f}'
+        f' ms, bound {k6["bound_ms"]:.3f} ms')
+
+    log('== 52. PV-RCNN++ card vs CPU, one request (B=1)')
+    one = {k: v[:1] for k, v in host['batches'][0].items()}
+    rec['card_vs_cpu'] = pvpp_cpu_phase(model, 'waymo_models/pv_rcnn_plusplus',
+                                        one)
+    del model, host
+
+    log('== 53. PV-RCNN++ ResNet (waymo_models/pv_rcnn_plusplus_resnet.yaml)')
+    resnet = pvpp_resnet_phase()
+
+    log('== 54. PV-RCNN++ train path')
+    train = pvpp_train_path(smi)
+
+    log('== 55. PV-RCNN++ card vs CPU, one train step '
+        f'(cut: {PP_TRAIN_CUT})')
+    cfg = build_pvpp_trainer('cpu', cut=True)[0]
+    batch = pv_train_batches(cfg, [1900, 1901], sizes=WAYMO_SIZES,
+                             n=PP_TRAIN_CUT['points'], channels=5)[0][0]
+    train['card_vs_cpu'] = pvpp_train_cpu_phase(
+        {k: v[:1].cpu() for k, v in batch.items()})
+    return rec, shapes, resnet, train, k6
+
+
 def card_and_build():
     """Phases 1 and 2; returns the card's nvidia-smi line."""
     from spsnet_torch.ops import _build
@@ -4367,7 +5193,7 @@ def card_and_build():
     log('== 2. build')
     log(f'  kernels built in {_build.build_all():.2f} s '
         f'({_build.build_dir()})')
-    for name in ('fps', 'ball_query', 'seed_min'):
+    for name in ('fps', 'ball_query', 'seed_min', 'three_nn'):
         if hasattr(_build, 'ptxas_report'):
             for line in _build.ptxas_report(name):
                 log(f'  ptxas {name}: {line}')
@@ -4812,6 +5638,9 @@ def main(argv=()) -> int:
     vrcnn, vr_shapes, vr_train, vr_train_shapes = voxelrcnn_phases(smi)
     centerpoint, cp_train = centerpoint_phases(smi)
     vr_waymo, vr_waymo_shapes = voxelrcnn_waymo_phase(smi)
+    pvpp, pvpp_shapes, pvpp_resnet, pvpp_train, k6 = pvpp_phases(smi)
+    log('== 56. the kernels line, K6 with K1-K4')
+    entries.append(k6)
 
     paths = {'serve': launches, 'train': train_launches,
              'spsnet': sps_launches, 'fps_entries': entry_launches,
@@ -4827,7 +5656,10 @@ def main(argv=()) -> int:
              'voxelrcnn_train': vr_train['launches'],
              'centerpoint': centerpoint['launches'],
              'centerpoint_train': cp_train['launches'],
-             'voxelrcnn_waymo': vr_waymo['launches']}
+             'voxelrcnn_waymo': vr_waymo['launches'],
+             'pvrcnnpp': pvpp['launches'],
+             'pvrcnnpp_resnet': pvpp_resnet['launches'],
+             'pvrcnnpp_train': pvpp_train['launches']}
     for entry in entries:
         entry['launches_by_path'] = {path: counts.get(entry['name'], 0)
                                      for path, counts in paths.items()}
@@ -4858,6 +5690,8 @@ def main(argv=()) -> int:
             entry['max_abs_err'] = max(entry['max_abs_err'],
                                        chunked.pop('err'))
             entry['chunked_call'] = chunked
+            entry['pvrcnnpp_sector_calls'] = pvpp_shapes['fps']
+            entry['pvrcnnpp_sector_at_k'] = pvpp_shapes['fps_at_k']
     log(json.dumps({'kernels': entries, 'kernel_device_ms': kernel_dev,
                     'ms_per_batch': ms,
                     'scenes_per_s': B / ms * 1e3,
@@ -4890,7 +5724,9 @@ def main(argv=()) -> int:
                     'voxelrcnn': vrcnn, 'voxelrcnn_train': vr_train,
                     'centerpoint': centerpoint,
                     'centerpoint_train': cp_train,
-                    'voxelrcnn_waymo': vr_waymo, 'card': smi}))
+                    'voxelrcnn_waymo': vr_waymo, 'pvrcnnpp': pvpp,
+                    'pvrcnnpp_resnet': pvpp_resnet,
+                    'pvrcnnpp_train': pvpp_train, 'card': smi}))
     log(smi)
     log(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

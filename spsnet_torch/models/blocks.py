@@ -119,16 +119,19 @@ class SharedMLP(_Stack):
     ``use_bn=False``, biased Linear + ReLU (``spsnet_tpu/models/blocks.py:
     30-60``). ``dropout_idx`` puts a ``Dropout(dropout)`` after the ReLU of
     those layers, as the reference's RoI heads do
-    (``roi_head_template.py:36-44``); it is the identity in eval mode."""
+    (``roi_head_template.py:36-44``); it is the identity in eval mode.
+    ``bn_eps`` and ``bn_momentum``: the BatchNorm's (torch's momentum, 1
+    minus flax's)."""
 
     def __init__(self, in_channels: int, channels: Sequence[int],
                  use_bn: bool = True, dropout: float = 0.0,
-                 dropout_idx: Sequence[int] = ()):
+                 dropout_idx: Sequence[int] = (), bn_eps: float = 1e-5,
+                 bn_momentum: float = 0.1):
         layers = []
         for k, c in enumerate(channels):
             layers.append(nn.Linear(in_channels, c, bias=not use_bn))
             if use_bn:
-                layers.append(BatchNormLast(c))
+                layers.append(BatchNormLast(c, bn_eps, bn_momentum))
             layers.append(nn.ReLU())
             if k in tuple(dropout_idx):
                 layers.append(Dropout(dropout))
@@ -171,8 +174,10 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     output layer gets std sqrt(1 / fan_in); every bias is N(0, 0.1).
     BatchNorm keeps its identity statistics. Draws happen on the CPU in
     module order, so a seed gives the same weights on every device. Then
-    each submodule with a ``fixed_init`` method sets its fixed starting
-    values (CenterPoint's heatmap bias).
+    each submodule with a ``draw_init(generator)`` method draws its own
+    weights (the VectorPool's per-cell kernels), in module order, and each
+    with a ``fixed_init`` method sets its fixed starting values
+    (CenterPoint's heatmap bias).
     """
     kinds = (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)
     layers = [m for m in module.modules() if isinstance(m, kinds)]
@@ -191,6 +196,9 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
         if layer.bias is not None:
             layer.bias.copy_(torch.randn(layer.bias.shape,
                                          generator=generator) * 0.1)
+    for m in module.modules():
+        if hasattr(m, 'draw_init'):
+            m.draw_init(generator)
     for m in module.modules():
         if hasattr(m, 'fixed_init'):
             m.fixed_init()

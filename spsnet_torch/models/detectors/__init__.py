@@ -10,6 +10,7 @@ from .centerpoint import CenterPoint
 from .iassd import IASSD
 from .point_rcnn import PointRCNN
 from .pv_rcnn import PVRCNN
+from .pv_rcnn_plusplus import PVRCNNPlusPlus
 from .second_net import SECONDNet
 from .voxel_rcnn import VoxelRCNN
 
@@ -19,8 +20,9 @@ from .voxel_rcnn import VoxelRCNN
 _DETECTORS = {'IASSD': IASSD, 'PAGNet': IASSD, 'SPSNet': IASSD,
               'PointRCNN': PointRCNN, 'SECONDNet': SECONDNet,
               'PVRCNN': PVRCNN, 'VoxelRCNN': VoxelRCNN,
-              'CenterPoint': CenterPoint}
-_VOXEL_DETECTORS = (SECONDNet, PVRCNN, VoxelRCNN, CenterPoint)
+              'CenterPoint': CenterPoint, 'PVRCNNPlusPlus': PVRCNNPlusPlus}
+_VOXEL_DETECTORS = (SECONDNet, PVRCNN, VoxelRCNN, CenterPoint,
+                    PVRCNNPlusPlus)
 # the modules the port has, by config block: a block naming another one
 # (a pillar VFE, UNetV2, AnchorHeadMulti, ...) is not ported
 _PORTED = {

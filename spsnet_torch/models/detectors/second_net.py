@@ -16,23 +16,28 @@ from torch import nn
 from ..backbones_2d.base_bev_backbone import BaseBEVBackbone
 from ..backbones_3d.spconv_backbone import BACKBONES_3D, HeightCompression
 from ..dense_heads.anchor_head import AnchorHeadSingle, anchor_head_loss
+from ..dense_heads.center_head import CenterHead, center_head_loss
 from ..dense_heads.center_head_iou import CenterHeadIoU, center_head_iou_loss
 from ..vfe import MeanVFE
 
 
 def build_dense_head(head_cfg, num_class: int, input_channels: int,
                      grid_size, voxel_size, point_cloud_range,
-                     class_names=None, train_decode: bool = True):
-    """AnchorHeadSingle, or ``CenterHeadIoU`` for a DENSE_HEAD named
-    CenterHead or CenterHeadIoU with CLASS_NAMES_EACH_HEAD (as
-    ``spsnet_tpu/models/detectors/{centerpoint,pv_rcnn,voxel_rcnn}.py``
-    pick it). The plain CenterHead, without head groups, is PV-RCNN++'s
-    and not ported."""
+                     class_names=None, train_decode: bool = True,
+                     plain_center: bool = False):
+    """AnchorHeadSingle, or for a DENSE_HEAD named CenterHead or
+    CenterHeadIoU the plain ``CenterHead`` where ``plain_center``, else
+    ``CenterHeadIoU``, which needs CLASS_NAMES_EACH_HEAD (as
+    ``spsnet_tpu/models/detectors/{centerpoint,pv_rcnn,voxel_rcnn,
+    pv_rcnn_plusplus}.py`` pick them)."""
     if head_cfg.NAME in ('CenterHead', 'CenterHeadIoU'):
+        if plain_center:
+            return CenterHead(head_cfg, num_class, input_channels,
+                              voxel_size, point_cloud_range)
         if head_cfg.get('CLASS_NAMES_EACH_HEAD', None) is None:
-            raise NotImplementedError(
-                'the plain CenterHead (no CLASS_NAMES_EACH_HEAD): ROADMAP '
-                'Queue 1 item F4')
+            raise ValueError(
+                'CenterHeadIoU, the CenterHead of this detector (as the JAX '
+                'package builds it), needs CLASS_NAMES_EACH_HEAD')
         return CenterHeadIoU(head_cfg, num_class, input_channels,
                              voxel_size, point_cloud_range, class_names,
                              train_decode)
@@ -41,10 +46,16 @@ def build_dense_head(head_cfg, num_class: int, input_channels: int,
 
 
 class SECONDNet(nn.Module):
-    """``train_decode``: whether a CenterHead decodes its boxes in
+    """``train_decode``: whether a CenterHeadIoU decodes its boxes in
     training (the two-stage detectors take them as proposals)."""
 
     train_decode = True
+
+    @staticmethod
+    def plain_center_head(head_cfg) -> bool:
+        """Whether a CenterHead DENSE_HEAD is the plain ``CenterHead``
+        (PV-RCNN and Voxel R-CNN build ``CenterHeadIoU``)."""
+        return False
 
     def __init__(self, model_cfg, num_class: int, input_channels: int,
                  voxel_size, point_cloud_range, final_grid_zyx,
@@ -66,7 +77,8 @@ class SECONDNet(nn.Module):
         self.dense_head = build_dense_head(
             model_cfg.DENSE_HEAD, num_class,
             self.backbone_2d.num_bev_features, self.grid_size, vs, pcr,
-            class_names, self.train_decode)
+            class_names, self.train_decode,
+            self.plain_center_head(model_cfg.DENSE_HEAD))
 
     def stage_one(self, batch):
         """The voxel stack up to the dense head's decoded boxes (and, in
@@ -86,10 +98,13 @@ class SECONDNet(nn.Module):
         """(loss, tb) of a forward's output in training mode: the dense
         head's loss, ``anchor_head_loss`` (``spsnet_tpu/models/detectors/
         second_net.py:63-69``; tb 'rpn_loss_cls', 'rpn_loss_loc',
-        'rpn_loss_dir', 'rpn_loss') or ``center_head_iou_loss`` (tb
-        'hm_loss_head_{g}', 'loc_loss_head_{g}', 'rpn_loss')."""
+        'rpn_loss_dir', 'rpn_loss'), ``center_head_iou_loss`` (tb
+        'hm_loss_head_{g}', 'loc_loss_head_{g}', 'rpn_loss') or
+        ``center_head_loss`` (tb 'hm_loss', 'loc_loss', 'center_loss')."""
         head = self.dense_head
         loss_cfg = self.model_cfg.DENSE_HEAD.LOSS_CONFIG
+        if isinstance(head, CenterHead):
+            return center_head_loss(batch['center_head_ret'], loss_cfg)
         if isinstance(head, CenterHeadIoU):
             return center_head_iou_loss(batch['center_head_iou_ret'],
                                         loss_cfg, head.head_order)

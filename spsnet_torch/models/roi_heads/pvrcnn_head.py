@@ -14,10 +14,15 @@ The pooled (R, G^3, C) features are flattened channel-major, the layout
 ``shared_fc``'s first weight is laid out for, then the shared FC stack
 (a Dropout after each layer but the last) and the cls and reg towers (a
 Dropout after their first block, masks from the step's 'dropout'
-generator) refine each RoI, decoded in its frame. As in the JAX package
-the RoIs keep their gradient (into the grid points, the regression targets
-and the corner loss's decode); only the point scores are detached. The
-loss is PointRCNN's ``pointrcnn_head_loss``.
+generator) refine each RoI, decoded in its frame. Where ROI_GRID_POOL
+names VectorPoolAggregationModuleMSG (PV-RCNN++) the grid points pool the
+keypoints by VectorPool aggregation instead, the invalid keypoints moved
+to 1e6 first (``pvrcnn_head.py:51-56, 104-111``). PV-RCNN++ calls
+``propose_and_assign`` before its keypoints (their sampling needs the
+RoIs) and hands its result to ``forward(batch, precomputed)``. As in the
+JAX package the RoIs keep their gradient (into the grid points, the
+regression targets and the corner loss's decode); only the point scores
+are detached. The loss is PointRCNN's ``pointrcnn_head_loss``.
 """
 from __future__ import annotations
 
@@ -28,7 +33,7 @@ from torch import nn
 from ...utils import box_coder as box_coder_lib
 from ...utils.common import rotate_points_along_z
 from ..blocks import MLPHead, SharedMLP
-from ..pfe.voxel_set_abstraction import StackSAGroup
+from ..pfe.voxel_set_abstraction import source_group
 from .pointrcnn_head import (decode_in_roi_frame, proposal_layer,
                              sample_roi_targets)
 
@@ -52,9 +57,10 @@ def roi_grid_points(rois, template):
 
 
 class PVRCNNHead(nn.Module):
-    """Submodules ``roi_grid_pool_layer`` (``mlps.{i}``),
-    ``shared_fc_layer``, ``cls_layers`` and ``reg_layers``, as the
-    reference's; ``input_channels``: the keypoint features'."""
+    """Submodules ``roi_grid_pool_layer`` (``mlps.{i}``, or PV-RCNN++'s
+    VectorPool groups), ``shared_fc_layer``, ``cls_layers`` and
+    ``reg_layers``, as the reference's; ``input_channels``: the keypoint
+    features'."""
 
     def __init__(self, model_cfg, num_class: int, input_channels: int):
         super().__init__()
@@ -66,7 +72,11 @@ class PVRCNNHead(nn.Module):
         self.grid_size = int(pool.GRID_SIZE)
         self.register_buffer('template', torch.from_numpy(
             grid_template(self.grid_size)), persistent=False)
-        self.roi_grid_pool_layer = StackSAGroup(pool, input_channels)
+        self.use_vector_pool = \
+            str(pool.get('NAME', '')) == 'VectorPoolAggregationModuleMSG'
+        self.roi_grid_pool_layer = source_group(
+            pool, int(pool.get('IN_CHANNEL', 90)) if self.use_vector_pool
+            else input_channels)
         dp = float(model_cfg.get('DP_RATIO', 0.0))
         shared = list(model_cfg.SHARED_FC)
         self.shared_fc_layer = SharedMLP(
@@ -87,34 +97,49 @@ class PVRCNNHead(nn.Module):
             kp_feats = kp_feats * batch['point_cls_scores'].detach()[..., None]
         B, R, _ = rois.shape
         grid = roi_grid_points(rois[..., :7], self.template)
-        pooled = self.roi_grid_pool_layer(
-            batch['point_coords'], kp_feats,
-            grid.reshape(B, -1, 3).contiguous())
+        kp = batch['point_coords']
+        if self.use_vector_pool and 'point_valid' in batch:
+            kp = torch.where(batch['point_valid'][..., None], kp, 1e6)
+        pooled = self.roi_grid_pool_layer(kp, kp_feats,
+                                          grid.reshape(B, -1, 3).contiguous())
         G3 = grid.shape[2]
         return pooled.reshape(B, R, G3, -1).transpose(2, 3).reshape(B, R, -1)
 
-    def forward(self, batch):
-        """The proposals, in training with 'gt_boxes' the sampled RoIs and
-        their targets, their refinement and the decoded boxes. Adds 'rois',
-        'roi_valid' and 'roi_head_ret' (rcnn_cls, rcnn_reg, rois, targets
-        or None, the refined 'batch_box_preds'); in eval, for
-        ``post_processing``, 'batch_box_preds' (B, R, 7), 'batch_cls_preds'
-        (B, R, num_class) logits, 'batch_roi_labels' and
-        'has_class_labels' (the anchor head had more than one class
-        channel, ``roi_head_template.py:102``). Training reads the step's
-        generators from ``batch['rngs']`` (``runtime.trainer.step_rngs``):
-        'roi_sampling' for the RoI draws and 'dropout' for the FC
-        stacks."""
-        has_class_labels = batch['batch_cls_preds'].shape[-1] > 1
+    def propose_and_assign(self, batch):
+        """The proposals by class-agnostic NMS (NMS_CONFIG.TRAIN in
+        training, TEST in eval) and, in training with 'gt_boxes', the
+        sampled RoIs and their targets (the draws of the step's
+        'roi_sampling' generator): {'rois', 'roi_labels', 'roi_valid',
+        'targets' (None in eval)}."""
         nms = self.model_cfg.NMS_CONFIG
         rois, roi_scores, roi_labels, roi_valid = proposal_layer(
             batch, nms.TRAIN if self.training else nms.TEST)
-        rngs = batch.get('rngs', {}) if self.training else {}
         targets = None
         if self.training and 'gt_boxes' in batch:
             targets, rois, roi_labels, _, roi_valid = sample_roi_targets(
                 batch, rois, roi_scores, roi_labels, roi_valid,
                 self.model_cfg.TARGET_CONFIG)
+        return {'rois': rois, 'roi_labels': roi_labels,
+                'roi_valid': roi_valid, 'targets': targets}
+
+    def forward(self, batch, precomputed=None):
+        """The proposals (``propose_and_assign``'s, or ``precomputed``),
+        their refinement and the decoded boxes. Adds 'rois',
+        'roi_valid' and 'roi_head_ret' (rcnn_cls, rcnn_reg, rois, targets
+        or None, the refined 'batch_box_preds'); in eval, for
+        ``post_processing``, 'batch_box_preds' (B, R, 7), 'batch_cls_preds'
+        (B, R, num_class) logits, 'batch_roi_labels' and
+        'has_class_labels' (the dense head had more than one class
+        channel, ``roi_head_template.py:102``). Training reads the step's
+        generators from ``batch['rngs']`` (``runtime.trainer.step_rngs``):
+        'roi_sampling' for the RoI draws and 'dropout' for the FC
+        stacks."""
+        has_class_labels = batch['batch_cls_preds'].shape[-1] > 1
+        pre = precomputed if precomputed is not None else \
+            self.propose_and_assign(batch)
+        rois, roi_labels = pre['rois'], pre['roi_labels']
+        roi_valid, targets = pre['roi_valid'], pre['targets']
+        rngs = batch.get('rngs', {}) if self.training else {}
         dropout = rngs.get('dropout')
         shared = self.shared_fc_layer(self.roi_grid_pool(batch, rois),
                                       dropout)

@@ -50,8 +50,9 @@ SIGNATURES = {
                    'spsnet_ball_query_warp_centers': [_I, _I]},
     'seed_min': {'spsnet_seed_min': [_P, _P, _P, _I, _I, _I, _P],
                  'spsnet_seed_min_shape': [_I, _I, _I, _IP]},
+    'three_nn': {'spsnet_three_nn': [_P, _P, _P, _P, _I, _I, _I, _P]},
 }
-KERNELS = ('fps', 'fps_seeded', 'ball_query', 'seed_min')
+KERNELS = ('fps', 'fps_seeded', 'ball_query', 'seed_min', 'three_nn')
 
 LAUNCHES = {name: 0 for name in KERNELS}
 _LIBS: dict = {}

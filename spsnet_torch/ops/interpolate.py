@@ -7,12 +7,16 @@ index first among equal distances (the ``jax.lax.top_k`` order). Every sum
 here is written out term by term, each product and sum its own rounded
 elementwise op, so a CUDA tensor and a CPU tensor give the same bits; the
 distance matrix is built in blocks of unknown points, which changes no
-value. Plain PyTorch on every device: the JAX package computes these
-outside any Pallas kernel.
+value. ``three_nn`` runs that plain version for a CPU tensor and the CUDA
+kernel ``csrc/three_nn.cu`` (K6), which computes the same bits, for a CUDA
+tensor; the JAX package computes it outside any Pallas kernel, in XLA, so
+K6 ports no TPU kernel. The interpolation is plain PyTorch on every device.
 """
 from __future__ import annotations
 
 import torch
+
+from . import _build
 
 # (B, chunk, M) fp32 distance blocks of at most 2**27 entries (512 MB):
 # FP layer 0 of PointRCNN, (8, 16384, 4096), takes 4 blocks
@@ -41,25 +45,69 @@ def _three_nn_block(unknown, known, known_sq):
     return torch.cat(dists, dim=-1), torch.cat(idx, dim=-1)
 
 
-def three_nn(unknown, known):
-    """The 3 nearest ``known`` points of each ``unknown`` point.
+def _check(unknown, known):
+    if unknown.dim() != 3 or known.dim() != 3 or unknown.shape[-1] != 3 or \
+            known.shape[-1] != 3 or unknown.shape[0] != known.shape[0] or \
+            unknown.dtype != torch.float32 or known.dtype != torch.float32 \
+            or unknown.device != known.device:
+        raise ValueError(f'three_nn takes (B, N, 3) and (B, M, 3) float32 on '
+                         f'one device, got {tuple(unknown.shape)} '
+                         f'{unknown.dtype} {unknown.device} and '
+                         f'{tuple(known.shape)} {known.dtype} {known.device}')
+    if known.shape[1] < 3:
+        raise ValueError(f'three_nn needs at least 3 known points, got '
+                         f'{known.shape[1]}')
 
-    Args:
-        unknown: (B, N, 3); known: (B, M, 3) with M >= 3.
-    Returns:
-        dist2: (B, N, 3) squared distances, ascending;
-        idx: (B, N, 3) int64 indices into M.
-    """
+
+def three_nn_plain(unknown, known):
+    """Plain PyTorch ``three_nn``, in blocks of unknown points."""
+    _check(unknown, known)
     B, N, _ = unknown.shape
     M = known.shape[1]
-    if M < 3:
-        raise ValueError(f'three_nn needs at least 3 known points, got {M}')
     known_sq = _sq_norm(known)
     chunk = max(1, _BLOCK_ENTRIES // max(1, B * M))
     parts = [_three_nn_block(unknown[:, n0:n0 + chunk], known, known_sq)
              for n0 in range(0, N, chunk)]
     return (torch.cat([p[0] for p in parts], dim=1),
             torch.cat([p[1] for p in parts], dim=1))
+
+
+def three_nn_kernel(unknown, known):
+    """``three_nn`` through the CUDA kernel ``csrc/three_nn.cu``: one
+    thread a query, the known points staged through shared memory."""
+    _check(unknown, known)
+    for t in (unknown, known):
+        if t.device.type != 'cuda' or not t.is_contiguous():
+            raise ValueError('the three_nn kernel needs contiguous CUDA '
+                             f'tensors, got {t.device}')
+    B, N, _ = unknown.shape
+    dist = torch.empty((B, N, 3), dtype=torch.float32, device=unknown.device)
+    idx = torch.empty((B, N, 3), dtype=torch.int64, device=unknown.device)
+    lib = _build.library('three_nn')
+    with torch.cuda.device(unknown.device):
+        err = lib.spsnet_three_nn(unknown.data_ptr(), known.data_ptr(),
+                                  dist.data_ptr(), idx.data_ptr(), B, N,
+                                  known.shape[1],
+                                  _build.stream_ptr(unknown.device))
+    _build.check(err, 'three_nn')
+    _build.LAUNCHES['three_nn'] += 1
+    return dist, idx
+
+
+def three_nn(unknown, known):
+    """The 3 nearest ``known`` points of each ``unknown`` point: the plain
+    version for a CPU tensor, the kernel for a CUDA tensor.
+
+    Args:
+        unknown: (B, N, 3); known: (B, M, 3) with M >= 3, float32.
+    Returns:
+        dist2: (B, N, 3) squared distances, ascending;
+        idx: (B, N, 3) int64 indices into M, the lowest first among equal
+        distances.
+    """
+    if unknown.device.type == 'cpu':
+        return three_nn_plain(unknown, known)
+    return three_nn_kernel(unknown.contiguous(), known.contiguous())
 
 
 def three_interpolate(features, idx, weight):

@@ -22,6 +22,15 @@ def rotate_points_along_z(points, angle):
     return torch.cat([xyz, points[..., 3:]], dim=-1)
 
 
+def true_div(a, b: float):
+    """``a / b`` with ``b`` a tensor on ``a``'s device: a CUDA kernel takes a
+    host scalar divisor as a product with its reciprocal, which rounds
+    otherwise than the true quotient of the CPU and the JAX package (the
+    card and the CPU must agree bit for bit where a quotient is floored or
+    compared)."""
+    return a / torch.full((), b, dtype=a.dtype, device=a.device)
+
+
 def limit_period(val, offset: float = 0.5, period: float = 2 * math.pi):
     """``val`` wrapped into ``[-offset * period, (1 - offset) * period)``
     (``spsnet_tpu/utils/common.py:39-41``)."""

@@ -59,6 +59,17 @@ Voxel R-CNN and CenterPoint add:
     dense_head/head_{g}/{name}_conv{k}, _bn{k}     dense_head.heads_list.{g}.{name}.{k}.{0,1}
     dense_head/head_{g}/{name}_out                 dense_head.heads_list.{g}.{name}.{K} (K convs before it)
 
+PV-RCNN++ adds (the plain CenterHead; VectorPool aggregation, ``src`` one
+of raw_vp, x_conv{n}_vp and roi_head's vp_pool):
+
+    dense_head/{shared,hm,center,center_z,dim,rot} dense_head.{same name}
+    pfe/raw_vp/..., pfe/x_conv{n}_vp/...           pfe.SA_rawpoints.*, pfe.SA_layers.x_conv{n}.*
+    roi_head/vp_pool/...                           roi_head.roi_grid_pool_layer.*
+    {src}/layer_{k}/grouped_kernel                 ....layers.{k}.grouped_kernel (G, C_in, co) as is
+    {src}/layer_{k}/agg_bn                         ....layers.{k}.agg_bn
+    {src}/layer_{k}/{post_i, post_bn_i}            ....layers.{k}.post_mlps.{3i, 3i+1}
+    {src}/{msg_post_i, msg_post_bn_i}              ....msg_post_mlps.{3i, 3i+1}
+
 A Dense kernel (in, out) becomes a Linear weight (out, in); a Conv kernel
 (kh, kw, in, out) a Conv2d weight (out, in, kh, kw). A flax ConvTranspose
 kernel (kh, kw, in, out) becomes a ConvTranspose2d weight (in, out, kh, kw)
@@ -79,7 +90,8 @@ _HEADS = {'cls_center': 'cls_center_layers', 'box_center': 'box_center_layers',
           'box_iou3d': 'box_iou3d_layers', 'cls_layers': 'cls_layers',
           'box_layers': 'box_layers'}
 # (collection, leaf) -> torch leaf, for a Dense and a BatchNorm module
-_DENSE_LEAF = {('params', 'kernel'): 'weight', ('params', 'bias'): 'bias'}
+_DENSE_LEAF = {('params', 'kernel'): 'weight', ('params', 'bias'): 'bias',
+               ('params', 'grouped_kernel'): 'grouped_kernel'}
 _BN_LEAF = {('params', 'scale'): 'weight', ('params', 'bias'): 'bias',
             ('batch_stats', 'mean'): 'running_mean',
             ('batch_stats', 'var'): 'running_var'}
@@ -183,6 +195,8 @@ def _roi_head_name(module, hidden, bn_paths) -> str:
     if m and len(rest) == 2:
         return (f'roi_head.roi_grid_pool_layer.mlps.{m.group(1)}.'
                 f'{_seq_index(rest[1])}')
+    if rest[0] == 'vp_pool':
+        return _vector_pool_name('roi_head.roi_grid_pool_layer', rest[1:])
     m = _VOXEL_POOL.fullmatch(rest[0])
     if m and len(rest) == 2 and rest[1] in ('Dense_0', 'BatchNorm_0'):
         return (f'roi_head.roi_grid_pool_layers.{m.group(1)}.'
@@ -233,9 +247,33 @@ def _bev_name(layer) -> str:
     raise KeyError(layer)
 
 
+_VP_LAYER = re.compile(r'(msg_post|post)(_bn)?_(\d+)')
+_PLAIN_CENTER = ('shared', 'hm', 'center', 'center_z', 'dim', 'rot')
+
+
+def _vector_pool_name(base, rest) -> str:
+    """Torch name of a ``VectorPoolAggregationMSG`` layer (``rest`` below
+    its flax module, torch module ``base``)."""
+    g = re.fullmatch(r'layer_(\d+)', rest[0]) if rest else None
+    if g and len(rest) == 1:
+        return f'{base}.layers.{g.group(1)}'
+    if g and rest[1:] == ('agg_bn',):
+        return f'{base}.layers.{g.group(1)}.agg_bn'
+    m = _VP_LAYER.fullmatch(rest[-1]) if rest else None
+    if m is None or (m.group(1) == 'post') != bool(g) or \
+            len(rest) != (2 if g else 1):
+        raise KeyError(rest)
+    seq = 3 * int(m.group(3)) + bool(m.group(2))
+    if g:
+        return f'{base}.layers.{g.group(1)}.post_mlps.{seq}'
+    return f'{base}.msg_post_mlps.{seq}'
+
+
 def _center_head_name(rest, hidden) -> str:
-    """Torch name of a ``CenterHeadIoU`` layer (``rest`` below
-    dense_head)."""
+    """Torch name of a ``CenterHeadIoU`` or plain ``CenterHead`` layer
+    (``rest`` below dense_head)."""
+    if len(rest) == 1 and rest[0] in _PLAIN_CENTER:
+        return f'dense_head.{rest[0]}'
     if rest in (('shared_conv',), ('shared_bn',)):
         return f'dense_head.shared_conv.{int(rest[0] == "shared_bn")}'
     g = re.fullmatch(r'head_(\d+)', rest[0])
@@ -269,6 +307,11 @@ def _voxel_name(module, hidden) -> str:
         return f'dense_head.{rest[0]}'
     if top == 'dense_head':
         return _center_head_name(rest, hidden)
+    m = re.fullmatch(r'(raw|x_conv\d)_vp', rest[0]) if top == 'pfe' else None
+    if m:
+        group = 'SA_rawpoints' if m.group(1) == 'raw' else \
+            f'SA_layers.{m.group(1)}'
+        return _vector_pool_name(f'pfe.{group}', rest[1:])
     if top == 'pfe' and len(rest) == 2:
         m = re.fullmatch(r'(raw|x_conv\d)_mlp_(\d+)', rest[0])
         if m:
@@ -344,9 +387,10 @@ def _n_hidden(params) -> _Layout:
 
 def _is_bn(module_name: str) -> bool:
     """A flax BatchNorm: ``BatchNorm_k`` in a SharedMLP or a sparse conv,
-    ``..._bn`` / ``block{i}_bn{j}`` in the BEV backbone."""
+    ``..._bn`` / ``block{i}_bn{j}`` in the BEV backbone, ``agg_bn`` and
+    ``(msg_)post_bn_{i}`` in VectorPool aggregation."""
     return module_name.startswith('BatchNorm') or \
-        re.fullmatch(r'\w+_bn\d*', module_name) is not None
+        re.fullmatch(r'\w+_bn(\d*|_\d+)', module_name) is not None
 
 
 def _kernel_to_torch(arr, name):

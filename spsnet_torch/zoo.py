@@ -52,6 +52,14 @@ def centerpoint_waymo_cfg() -> EDict:
     return load_yaml_cfg('tools/cfgs/waymo_models/centerpoint.yaml')
 
 
+def pv_rcnn_plusplus_waymo_cfg(resnet: bool = False) -> EDict:
+    """PV-RCNN++ Waymo (``tools/cfgs/waymo_models/pv_rcnn_plusplus.yaml``,
+    or ``pv_rcnn_plusplus_resnet.yaml`` with ``resnet``): the plain
+    CenterHead, SPC keypoints and VectorPool aggregation."""
+    name = 'pv_rcnn_plusplus_resnet' if resnet else 'pv_rcnn_plusplus'
+    return load_yaml_cfg(f'tools/cfgs/waymo_models/{name}.yaml')
+
+
 def stability_cfg() -> EDict:
     """The stability model's own training config (MODEL: ``GenerateCenter``
     at npoint 16384, MSG 0.2 / 0.8; OPTIMIZATION: ``adam_onecycle`` at LR
@@ -446,4 +454,105 @@ def tiny_centerpoint_voxel_cfg(final_zyx) -> EDict:
         },
         'POST_PROCESSING': {'RECALL_THRESH_LIST': [0.3, 0.5, 0.7],
                             'EVAL_METRIC': 'kitti'},
+    })
+
+
+def _vector_pool_cfg(agg_type, reduced, groups) -> dict:
+    cfg = {'NAME': 'VectorPoolAggregationModuleMSG',
+           'NUM_GROUPS': len(groups),
+           'LOCAL_AGGREGATION_TYPE': agg_type,
+           'NUM_REDUCED_CHANNELS': reduced,
+           'NUM_CHANNELS_OF_LOCAL_AGGREGATION': 8,
+           'MSG_POST_MLPS': [16]}
+    for k, (nv, r, ns) in enumerate(groups):
+        cfg[f'GROUP_CFG_{k}'] = {'NUM_LOCAL_VOXEL': nv,
+                                 'MAX_NEIGHBOR_DISTANCE': r,
+                                 'NEIGHBOR_NSAMPLE': ns,
+                                 'POST_MLPS': [8, 8]}
+    return cfg
+
+
+def tiny_pvrcnnpp_cfg(final_zyx) -> EDict:
+    """Tiny PV-RCNN++ (CPU-fast) with the topology of
+    ``waymo_models/pv_rcnn_plusplus.yaml``, for a sparse grid whose final
+    (nz, ny, nx) is ``final_zyx``; the JAX package's tests build the same
+    (``tests/test_pvrcnn_plusplus.py``)."""
+    return EDict({
+        'NAME': 'PVRCNNPlusPlus',
+        'VFE': {'NAME': 'MeanVFE'},
+        'BACKBONE_3D': {'NAME': 'VoxelBackBone8x'},
+        'MAP_TO_BEV': {'NAME': 'HeightCompression',
+                       'NUM_BEV_FEATURES': int(final_zyx[0]) * 128},
+        'BACKBONE_2D': {'NAME': 'BaseBEVBackbone',
+                        'LAYER_NUMS': [1], 'LAYER_STRIDES': [1],
+                        'NUM_FILTERS': [32], 'UPSAMPLE_STRIDES': [1],
+                        'NUM_UPSAMPLE_FILTERS': [32]},
+        'DENSE_HEAD': {
+            'NAME': 'CenterHead', 'CLASS_AGNOSTIC': False,
+            'SHARED_CONV_CHANNEL': 16,
+            'TARGET_ASSIGNER_CONFIG': {
+                'FEATURE_MAP_STRIDE': 8, 'NUM_MAX_OBJS': 16,
+                'GAUSSIAN_OVERLAP': 0.1, 'MIN_RADIUS': 2},
+            'POST_CONFIG': {'MAX_OBJ_PER_SAMPLE': 32},
+            'LOSS_CONFIG': {'LOSS_WEIGHTS': {
+                'cls_weight': 1.0, 'loc_weight': 2.0,
+                'code_weights': [1.0] * 8}},
+        },
+        'PFE': {
+            'NAME': 'VoxelSetAbstraction',
+            'NUM_KEYPOINTS': 64,
+            'NUM_OUTPUT_FEATURES': 32,
+            'SAMPLE_METHOD': 'SPC',
+            'SPC_SAMPLING': {'NUM_SECTORS': 4,
+                             'SAMPLE_RADIUS_WITH_ROI': 1.6},
+            'FEATURES_SOURCE': ['bev', 'x_conv3', 'x_conv4', 'raw_points'],
+            'SA_LAYER': {
+                'raw_points': _vector_pool_cfg(
+                    'local_interpolation', 1,
+                    [([2, 2, 2], 0.4, -1), ([3, 3, 3], 0.8, -1)]),
+                'x_conv3': _vector_pool_cfg('local_interpolation', 32,
+                                            [([3, 3, 3], 1.2, -1)]),
+                'x_conv4': _vector_pool_cfg('local_interpolation', 32,
+                                            [([3, 3, 3], 2.4, -1)]),
+            },
+        },
+        'POINT_HEAD': {
+            'NAME': 'PointHeadSimple',
+            'CLS_FC': [16],
+            'CLASS_AGNOSTIC': True,
+            'USE_POINT_FEATURES_BEFORE_FUSION': False,
+            'TARGET_CONFIG': {'GT_EXTRA_WIDTH': [0.2, 0.2, 0.2]},
+            'LOSS_CONFIG': {'LOSS_WEIGHTS': {'point_cls_weight': 1.0}},
+        },
+        'ROI_HEAD': {
+            'NAME': 'PVRCNNHead', 'CLASS_AGNOSTIC': True,
+            'SHARED_FC': [32, 32], 'CLS_FC': [32], 'REG_FC': [32],
+            'ROI_GRID_POOL': dict(
+                _vector_pool_cfg('voxel_random_choice', 16,
+                                 [([2, 2, 2], 0.8, 8), ([2, 2, 2], 1.6, 8)]),
+                GRID_SIZE=3, IN_CHANNEL=32),
+            'NMS_CONFIG': {
+                'TRAIN': {'NMS_PRE_MAXSIZE': 32, 'NMS_POST_MAXSIZE': 16,
+                          'NMS_THRESH': 0.8},
+                'TEST': {'NMS_PRE_MAXSIZE': 32, 'NMS_POST_MAXSIZE': 8,
+                         'NMS_THRESH': 0.85}},
+            'TARGET_CONFIG': {
+                'BOX_CODER': 'ResidualCoder',
+                'ROI_PER_IMAGE': 16, 'FG_RATIO': 0.5,
+                'SAMPLE_ROI_BY_EACH_CLASS': True,
+                'CLS_SCORE_TYPE': 'roi_iou',
+                'CLS_FG_THRESH': 0.75, 'CLS_BG_THRESH': 0.25,
+                'CLS_BG_THRESH_LO': 0.1, 'HARD_BG_RATIO': 0.8,
+                'REG_FG_THRESH': 0.55},
+            'LOSS_CONFIG': {
+                'CLS_LOSS': 'BinaryCrossEntropy', 'REG_LOSS': 'smooth-l1',
+                'CORNER_LOSS_REGULARIZATION': True,
+                'LOSS_WEIGHTS': {'rcnn_cls_weight': 1.0,
+                                 'rcnn_reg_weight': 1.0,
+                                 'rcnn_corner_weight': 1.0,
+                                 'code_weights': [1.0] * 7}},
+        },
+        'POST_PROCESSING': {'SCORE_THRESH': 0.1, 'NMS_CONFIG': {
+            'MULTI_CLASSES_NMS': False, 'NMS_THRESH': 0.1,
+            'NMS_PRE_MAXSIZE': 64, 'NMS_POST_MAXSIZE': 16}},
     })

@@ -30,6 +30,8 @@ from spsnet_tpu.models.backbones_3d.spconv_backbone import \
 from spsnet_tpu.models import vfe as jax_vfe
 from spsnet_tpu.models.dense_heads import center_head as jax_center
 from spsnet_tpu.models.detectors import centerpoint as jax_centerpoint
+from spsnet_tpu.models.detectors.detector3d import \
+    post_processing as jax_post_processing
 from spsnet_torch import zoo
 from spsnet_torch.config import EDict
 from spsnet_torch.data.processor import voxel_batch
@@ -39,7 +41,8 @@ from spsnet_torch.models import build_detector
 from spsnet_torch.models.backbones_3d.spconv_backbone import \
     VoxelResBackBone8x
 from spsnet_torch.models.dense_heads import center_head
-from spsnet_torch.models.detectors.detector3d import head_detections
+from spsnet_torch.models.detectors.detector3d import (head_detections,
+                                                      post_processing)
 from spsnet_torch.utils.synthetic import synthetic_scene_batch
 from spsnet_torch.utils.weights import flax_to_torch, load_flax
 from tests.test_torch_pvrcnn import _Holder
@@ -424,19 +427,75 @@ def test_centerpoint_tree_raises_on_unmapped_flax_keys(serve_batch, where):
         flax_to_torch(variables)
 
 
-@pytest.mark.parametrize('missing', ['CLASS_NAMES_EACH_HEAD',
-                                     'BACKBONE_3D'])
+@pytest.mark.parametrize('missing', ['BACKBONE_3D'])
 def test_centerpoint_without_head_groups_or_voxel_trunk_raises(missing):
-    """A CenterHead without head groups is the plain CenterHead of
-    PV-RCNN++ (item F4); a CenterPoint without BACKBONE_3D is the pillar
-    one (item F5)."""
+    """A CenterPoint without BACKBONE_3D is the pillar one (item F5). (A
+    CenterHead without head groups is the plain CenterHead:
+    ``test_centerpoint_with_the_plain_center_head_serves_as_jax``.)"""
     cfg = zoo.tiny_centerpoint_voxel_cfg(FINAL)
-    (cfg.DENSE_HEAD if missing.startswith('CLASS') else cfg).pop(missing)
-    item = 'item F4' if missing.startswith('CLASS') else 'item F5'
-    with pytest.raises(NotImplementedError, match=item):
+    cfg.pop(missing)
+    with pytest.raises(NotImplementedError, match='item F5'):
         build_detector(cfg, 3, device='cpu', voxel_size=VS,
                        point_cloud_range=PCR, final_grid_zyx=FINAL,
                        class_names=CLASSES)
+
+
+def _plain_head_cfg():
+    """The tiny CenterPoint with a DENSE_HEAD without head groups: the
+    JAX package builds the plain CenterHead (its top 48 (pixel, class)
+    pairs), whose boxes go through POST_PROCESSING's NMS."""
+    cfg = zoo.tiny_centerpoint_voxel_cfg(FINAL)
+    head = cfg.DENSE_HEAD
+    for key in ('CLASS_NAMES_EACH_HEAD', 'SEPARATE_HEAD_CFG', 'NUM_HM_CONV',
+                'USE_BIAS_BEFORE_NORM', 'POST_PROCESSING'):
+        head.pop(key)
+    head.POST_CONFIG = EDict({'MAX_OBJ_PER_SAMPLE': 48})
+    head.LOSS_CONFIG.LOSS_WEIGHTS.code_weights = [1.0] * 8
+    cfg.POST_PROCESSING = EDict({
+        'SCORE_THRESH': 0.1, 'NMS_CONFIG': {
+            'MULTI_CLASSES_NMS': False, 'NMS_THRESH': 0.2,
+            'NMS_PRE_MAXSIZE': 48, 'NMS_POST_MAXSIZE': 12}})
+    return cfg
+
+
+def test_centerpoint_with_the_plain_center_head_serves_as_jax(serve_batch):
+    """A CenterPoint without CLASS_NAMES_EACH_HEAD builds the plain
+    CenterHead, as the JAX package does (``spsnet_tpu/models/detectors/
+    centerpoint.py:70-81``): its maps, top-48 boxes and one-hot scores
+    within tolerance, and ``post_processing``'s indices, counts and labels
+    identical; every leaf of its tree maps onto a port key."""
+    from spsnet_torch.models.dense_heads.center_head import CenterHead
+    cfg = _plain_head_cfg()
+    jm = jax_build_detector(JaxEDict(copy.deepcopy(cfg)), num_class=3,
+                            voxel_size=VS, point_cloud_range=PCR,
+                            final_grid_zyx=FINAL, class_names=CLASSES)
+    variables = _variables(jm, serve_batch)
+    for name in ('center', 'dim'):
+        layer = variables['params']['dense_head'][name]
+        layer['kernel'] = layer['kernel'] * np.float32(0.1)
+    model = build_detector(cfg, 3, device='cpu', voxel_size=VS,
+                           point_cloud_range=PCR, final_grid_zyx=FINAL,
+                           class_names=CLASSES)
+    assert isinstance(model.dense_head, CenterHead)
+    assert set(flax_to_torch(variables)) == set(model.state_dict())
+    load_flax(model, variables)
+    post = StaticConfig(cfg.POST_PROCESSING)
+    jout, jdets = jax.jit(lambda v, b: (lambda o: (
+        o, jax_post_processing(o, post)))(jm.apply(v, b, train=False)))(
+            variables, serve_batch)
+    with torch.no_grad():
+        out = model({k: _t(v) for k, v in serve_batch.items()})
+    for k in ('heatmap', 'center', 'center_z', 'dim', 'rot'):
+        _close(out['center_head_ret'][k], np.asarray(
+            jout['center_head_ret'][k]).transpose(0, 3, 1, 2), k)
+    for k in ('batch_box_preds', 'batch_cls_preds'):
+        _close(out[k], jout[k], k)
+    dets = post_processing(out, cfg.POST_PROCESSING)
+    for key in ('indices', 'count', 'labels'):
+        np.testing.assert_array_equal(dets[key].numpy(), jdets[key],
+                                      err_msg=key)
+    _close(dets['boxes'], jdets['boxes'], 'boxes')
+    assert int(dets['count'].min()) > 0
 
 
 def test_heatmap_bias_starts_at_the_heads_value():

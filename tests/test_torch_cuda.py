@@ -23,8 +23,12 @@ RoI-grid query; the sparse gather and the voxel stack card against the
 CPU. At the shapes of Voxel R-CNN: the RoI grid's query over the voxel
 centers of x_conv2-4 at 40 000 and 16 000 rows (KITTI serving and
 training) and 150 000 (Waymo); CenterPoint's heatmap targets card against
-the CPU. Indices must be equal, and the min distances to the seeds bit
-for bit.
+the CPU. For the three-NN kernel: ties and duplicate points, M = 3, M off
+its tile, one query, padded rows at 1e6 past the valid prefix,
+coordinates at 70 m, B from 1 to 8 and PV-RCNN++'s three VectorPool
+shapes; the masked FPS at the sector masks of a Waymo scan. Indices must
+be equal, and the min distances to the seeds and the three-NN distances
+bit for bit.
 
 These tests need a CUDA card and skip without one. On the H100:
 
@@ -973,3 +977,109 @@ def test_center_targets_on_the_card_match_the_cpu(cuda):
         assert torch.equal(card[k].cpu(), cpu[k]), k
     assert torch.allclose(card[1].cpu(), cpu[1], rtol=0, atol=1e-6)
     assert int((cpu[0] == 1).sum()) >= 30
+
+
+def _three_nn_both(unknown, known):
+    from spsnet_torch.ops.interpolate import three_nn_kernel, three_nn_plain
+    got = three_nn_kernel(unknown, known)
+    torch.cuda.synchronize()
+    want = three_nn_plain(unknown, known)
+    assert torch.equal(got[1], want[1])
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+    return got
+
+
+@pytest.mark.parametrize('case', ['ties', 'duplicates', 'm3', 'off_tile',
+                                  'one_query', 'far_rows', 'at_70m'])
+def test_three_nn_kernel_matches_plain(cuda, case):
+    """K6 against the plain three-NN, distances bit for bit: a lattice
+    (equal distances all along the row), every known point twice (tied
+    pairs far apart in index order), M = 3, M one past the kernel's tile
+    of 2048, one query, a valid prefix with the rows past it at 1e6 (a
+    padded sparse level), coordinates out to 70 m."""
+    rng = np.random.default_rng(len(case))
+    n, m = 1000, 5000
+    known = rng.normal(size=(2, m, 3)) * 5
+    unknown = rng.normal(size=(2, n, 3)) * 5
+    if case == 'ties':
+        g = np.arange(18, dtype=np.float64) * 0.5
+        lat = np.stack(np.meshgrid(g, g, g, indexing='ij'), -1).reshape(-1, 3)
+        known = np.stack([np.roll(lat, 7 * b, 0) for b in range(2)])
+        unknown = known[:, ::5] + 0.25
+    elif case == 'duplicates':
+        known = np.concatenate([known[:, :m // 2]] * 2, axis=1)
+    elif case == 'm3':
+        known = known[:, :3]
+    elif case == 'off_tile':
+        known = known[:, :2049]
+    elif case == 'one_query':
+        unknown = unknown[:, :1]
+    elif case == 'far_rows':
+        known[:, 3000:] = 1e6
+    else:
+        known = rng.uniform([0, -40, -3], [70.4, 40, 1], (2, m, 3))
+        unknown = known[:, :n] + rng.normal(size=(2, n, 3)) * 0.3
+    _three_nn_both(torch.from_numpy(unknown.astype(np.float32)).to(cuda),
+                   torch.from_numpy(known.astype(np.float32)).to(cuda))
+
+
+@pytest.mark.parametrize('B', [1, 2, 3, 5, 8])
+def test_three_nn_kernel_every_batch_size(cuda, B):
+    rng = np.random.default_rng(B)
+    known = torch.from_numpy((rng.normal(size=(B, 3001, 3)) * 20).astype(
+        np.float32)).to(cuda)
+    unknown = torch.from_numpy((rng.normal(size=(B, 777, 3)) * 20).astype(
+        np.float32)).to(cuda)
+    _three_nn_both(unknown, known)
+
+
+def _waymo_scan(seed, b, n=65536):
+    from spsnet_torch.utils.synthetic import synthetic_scan_batch
+    return synthetic_scan_batch(seed, b, n, pc_range=(-75.2, -75.2, -2, 75.2,
+                                                      75.2, 4))[..., :3]
+
+
+@pytest.mark.parametrize('source,groups,rows', [
+    ('raw_points', 8, 65536), ('x_conv3', 27, 150000),
+    ('x_conv4', 27, 150000)])
+def test_three_nn_kernel_at_the_vector_pool_shapes(cuda, source, groups,
+                                                   rows):
+    """PV-RCNN++'s VSA: the cell centres of 4096 keypoints (grids of 2^3
+    or 3^3 cells) over a Waymo scan's 65 536 points, or over a level's
+    150 000 rows (50 000 voxel centres, the rest padded at 1e6)."""
+    from spsnet_torch.models.model_utils.vector_pool import grid_offsets
+    scan = _waymo_scan(31, 1)
+    if rows == 65536:
+        known = scan
+    else:
+        known = np.full((1, rows, 3), 1e6, np.float32)
+        known[:, :50000] = np.round(scan[:, :50000] / 0.4) * 0.4 + 0.2
+    kp = scan[:, ::16]
+    side = 2 if groups == 8 else 3
+    offs = grid_offsets([side] * 3, 0.2 if groups == 8 else 1.2)
+    centers = (kp[:, :, None] + offs).reshape(1, -1, 3)
+    d2, _ = _three_nn_both(torch.from_numpy(centers).to(cuda),
+                           torch.from_numpy(known.astype(np.float32)).to(
+                               cuda))
+    assert float(d2[..., 2].max()) < 1e6, source
+
+
+def test_masked_fps_kernel_at_the_sector_masks(cuda):
+    """PV-RCNN++'s sector FPS: one masked FPS a sector of a 65 536-point
+    Waymo scan's points near RoIs (a random half here), six sectors, the
+    quota prefix and K = 4096 picks; one sector with fewer points than K
+    (the points of a thin wedge)."""
+    from spsnet_torch.models.pfe.voxel_set_abstraction import point_sectors
+    xyz = torch.from_numpy(_waymo_scan(32, 2)).to(cuda)
+    rng = np.random.default_rng(33)
+    near = torch.from_numpy(rng.uniform(size=(2, 65536)) < 0.5).to(cuda)
+    sector = point_sectors(xyz, 6)
+    ang = torch.atan2(xyz[..., 1], xyz[..., 0])
+    near[1] &= (sector[1] != 2) | (ang[1].abs() < 0.02)  # a thin sector 2
+    for s in range(6):
+        m = (near & (sector == s)).contiguous()
+        for k in (4096, 700):
+            got = farthest_point_sample_kernel(xyz, k, m)
+            torch.cuda.synchronize()
+            assert torch.equal(got, farthest_point_sample_plain(xyz, k, m))
+    assert int((near[1] & (sector[1] == 2)).sum()) < 4096

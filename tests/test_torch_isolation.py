@@ -38,6 +38,7 @@ from spsnet_torch.utils.weights import (flax_to_torch,
 from tests.test_pvrcnn import PCR as PV_PCR
 from tests.test_pvrcnn import VS as PV_VS
 from tests.test_pvrcnn import make_pv_batch, pvrcnn_tiny_cfg
+from tests.test_pvrcnn_plusplus import pvrcnnpp_tiny_cfg
 from tests.test_voxelrcnn import voxelrcnn_tiny_cfg
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -466,7 +467,9 @@ def test_spsnet_trees_raise_on_a_port_key_left_unfilled(variables_of, kind):
 
 # the zoo's full configs that load a yaml of tools/cfgs
 YAML_CFGS = {'voxel_rcnn_kitti': 'tools/cfgs/kitti_models/voxel_rcnn_car.yaml',
-             'centerpoint_waymo': 'tools/cfgs/waymo_models/centerpoint.yaml'}
+             'centerpoint_waymo': 'tools/cfgs/waymo_models/centerpoint.yaml',
+             'pv_rcnn_plusplus_waymo':
+             'tools/cfgs/waymo_models/pv_rcnn_plusplus.yaml'}
 
 
 @pytest.mark.parametrize('name', ['tiny', 'iassd_kitti', 'iassd_kitti_scaled',
@@ -474,7 +477,9 @@ YAML_CFGS = {'voxel_rcnn_kitti': 'tools/cfgs/kitti_models/voxel_rcnn_car.yaml',
                                   'tiny_pointrcnn', 'pointrcnn_kitti',
                                   'pv_rcnn_kitti', 'second_kitti',
                                   'tiny_pvrcnn', 'tiny_voxelrcnn',
-                                  'voxel_rcnn_kitti', 'centerpoint_waymo'])
+                                  'voxel_rcnn_kitti', 'centerpoint_waymo',
+                                  'tiny_pvrcnnpp', 'pv_rcnn_plusplus_waymo',
+                                  'pv_rcnn_plusplus_resnet'])
 def test_config_copies_match_the_jax_package(name):
     """The port's own config loader and zoo give the JAX package's configs
     (``_BASE_CONFIG_`` resolution included for IA-SSD.yaml, SPSNet.yaml
@@ -485,6 +490,13 @@ def test_config_copies_match_the_jax_package(name):
         if name == 'tiny_pvrcnn':
             return z.tiny_pvrcnn_cfg(PV_FINAL) if z is zoo else \
                 pvrcnn_tiny_cfg(PV_FINAL)
+        if name == 'tiny_pvrcnnpp':
+            return z.tiny_pvrcnnpp_cfg(PV_FINAL) if z is zoo else \
+                pvrcnnpp_tiny_cfg(PV_FINAL)
+        if name == 'pv_rcnn_plusplus_resnet':
+            return zoo.pv_rcnn_plusplus_waymo_cfg(resnet=True) if z is zoo \
+                else z.load_yaml_cfg('tools/cfgs/waymo_models/'
+                                     'pv_rcnn_plusplus_resnet.yaml')
         if name == 'tiny_voxelrcnn':
             return z.tiny_voxelrcnn_cfg(PV_FINAL) if z is zoo else \
                 voxelrcnn_tiny_cfg(PV_FINAL)

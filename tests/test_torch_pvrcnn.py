@@ -500,29 +500,13 @@ def test_geometry_from_the_config_matches_jax(name):
 
 @pytest.mark.parametrize('path', [
     'kitti_models/PartA2_free.yaml', 'kitti_models/PartA2.yaml',
-    'kitti_models/second_iou.yaml', 'waymo_models/pv_rcnn_plusplus.yaml',
-    'kitti_models/pointpillar.yaml', 'kitti_models/second_multihead.yaml',
+    'kitti_models/second_iou.yaml', 'kitti_models/pointpillar.yaml', 'kitti_models/second_multihead.yaml',
     'kitti_models/centerpoint_iou.yaml',
     'waymo_models/centerpoint_pillar_1x.yaml'])
 def test_unported_detectors_raise_naming_item_f(path):
     cfg = zoo.load_yaml_cfg(f'tools/cfgs/{path}')
     with pytest.raises(NotImplementedError, match='item F'):
         build_detector_from_cfg(cfg, device='cpu')
-
-
-@pytest.mark.parametrize('where', ['SPC', 'vector_pool'])
-def test_vsa_of_pv_rcnn_plusplus_raises_naming_item_f(where):
-    """The VSA's sector-FPS sampling and VectorPool aggregation are
-    PV-RCNN++'s, not ported."""
-    from spsnet_torch.models.pfe import VoxelSetAbstraction
-    cfg = zoo.pv_rcnn_kitti_cfg().MODEL.PFE
-    if where == 'SPC':
-        cfg.SAMPLE_METHOD = 'SPC'
-    else:
-        cfg.SA_LAYER.x_conv3.NAME = 'VectorPoolAggregationModuleMSG'
-    with pytest.raises(NotImplementedError, match='item F'):
-        VoxelSetAbstraction(cfg, (0.05, 0.05, 0.1), (0, -40, -3, 70.4, 40, 1),
-                            256, 1)
 
 
 def test_flax_to_torch_maps_every_pvrcnn_key(tiny):
