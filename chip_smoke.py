@@ -6,6 +6,10 @@
     python3 chip_smoke.py --jitter-study  # what sets phase 26's baseline
     python3 chip_smoke.py --fault-check   # phases 26, 36, 44, 55 refuse
                                           # a scaled card gradient
+    python3 chip_smoke.py --fault-check pvrcnnpp  # phase 55 alone (or any
+                                          # of pointrcnn,pvrcnn,voxel_rcnn)
+    python3 chip_smoke.py --pvpp-train-repeat N  # phase 54's steps N times
+                                          # under each gt at the proposals
 
 Phases, in order; any failure raises and the exit code is not 0:
 
@@ -112,8 +116,9 @@ Phases, in order; any failure raises and the exit code is not 0:
     shapes, on the inputs a request produces: FPS at (8, 4096) -> 1024,
     (8, 1024) -> 256, (8, 256) -> 64 and over the 800 RoI rows, (800, 512)
     -> 128 and (800, 128) -> 32, with empty (all-zero) and padded rows; the
-    ball query at the four MSG layers and the two RoI layers; and chunked
-    FPS, 4 slices of (8, 16384) -> 4096, one launch;
+    ball query at the four MSG layers and the two RoI layers; the four FP
+    layers' three-NN calls (K6) bit for bit (``three_nn_call``); and
+    chunked FPS, 4 slices of (8, 16384) -> 4096, one launch;
 21. one PointRCNN scene on the card and on the CPU, stage by stage from the
     card's inputs: FPS, ball-query and three-NN indices identical, point
     features and predictions within the tolerance stated below, proposal
@@ -143,6 +148,7 @@ Phases, in order; any failure raises and the exit code is not 0:
 25. FPS and the ball query vs their plain versions at the train step's
     shapes: the backbone at (2, 16384) -> 4096 -> 1024 -> 256 -> 64 and
     the RoI layers over 256 rows, (256, 512) -> 128 and (256, 128) -> 32;
+    the four FP layers' K6 calls as in phase 20;
 26. one PointRCNN train step on one scene on the card and on the CPU with
     the same weights and RoI draws: the backbone's FPS, ball-query and
     three-NN indices identical; the RoI layers' picks identical or, where
@@ -283,7 +289,8 @@ Phases, in order; any failure raises and the exit code is not 0:
 47. the CenterPoint train path: a warm-up and ten steps over three planned
     batches of 2 Waymo scenes (heatmap targets, focal and L1 losses,
     backward, ``adam_onecycle``); ms and range, peak memory, a profile;
-48. one CenterPoint train step card vs CPU: the heatmap targets, centre
+48. one CenterPoint train step card vs CPU on one frame of a cropped range
+    (``CP_TRAIN_CUT``): the heatmap targets, centre
     pixels and masks bit for bit, loss terms, gradients, parameters and
     BN statistics as phase 36 holds them;
 49. ``waymo_models/voxel_rcnn_with_centerhead_dyn_voxel.yaml``: one
@@ -293,13 +300,18 @@ Phases, in order; any failure raises and the exit code is not 0:
 50. PV-RCNN++ serving: ``waymo_models/pv_rcnn_plusplus.yaml`` at full
     width, a warm-up and five requests of 2 Waymo scans of 65 536 points
     (150 000 rows a level): ms and range, six masked FPS launches (one a
-    sector) and six three-NN launches (K6) a request, peak memory, the
+    sector) and six three-NN calls (K6, two launches each: the pre-pass
+    and the scan) a request, peak memory, the
     host plan, the valid keypoints and sector quotas a frame, a profile;
 51. the kernels at its shapes: each sector's masked FPS against the plain
     one (indices equal; device and plain time, bound; the first sector at
     K = 4096 picks too), each of the VSA's six K6 calls against the plain
-    three-NN bit for bit (device time, plain time, ``torch.cdist`` +
-    ``topk`` over the plain version's blocks, bound);
+    three-NN bit for bit (``three_nn_call``: device time of the pre-pass
+    and the scan, the pairs scanned of all pairs from the kernel's
+    counter, the rows scanned a batch row, plain time, ``torch.cdist`` +
+    ``topk`` over the plain version's blocks, the function's bound, the
+    bound over the pairs scanned and over all pairs), their sum, logged
+    beside the previous design's recorded 89.335 ms;
 52. one PV-RCNN++ request (B = 1) card vs CPU stage by stage: the voxel
     stack, the CenterHead's maps, top-500 and boxes, the proposal NMS, the
     SPC RoI mask and sectors (within their slack, replayed), the keypoints,
@@ -309,8 +321,8 @@ Phases, in order; any failure raises and the exit code is not 0:
 53. ``waymo_models/pv_rcnn_plusplus_resnet.yaml``: one request of B = 1
     after a warm-up, its six K6 calls held to the plain three-NN;
 54. the PV-RCNN++ train path: a warm-up and ten steps of 2 Waymo scenes
-    over three planned batches (gt at the Waymo sizes plus boxes at the
-    proposals); ms, the proposal NMS's share, RoI counts, grad norms, peak
+    over three planned batches (gt at the Waymo sizes plus boxes of those
+    sizes at the proposals); ms, the proposal NMS's share, RoI counts, grad norms, peak
     memory, a profile (the sparse backbone, the gathers' backward, K6, K1,
     the VectorPool modules);
 55. one PV-RCNN++ train step card vs CPU on one frame of a cropped range
@@ -343,6 +355,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -423,8 +436,9 @@ STAB_TRAIN_LAUNCHES = {'fps': 0, 'fps_seeded': 0, 'seed_min': 0,
                        'ball_query': 1}
 # PointRCNN serving (pointrcnn.yaml) on the IA-SSD requests: per request
 # the backbone's four SA layers and the RoI head's two D-FPS layers (its
-# third groups all points), and the four FP layers' three-NN
-PRCNN_LAUNCHES = {'fps': 6, 'ball_query': 6, 'three_nn': 4}
+# third groups all points), and the four FP layers' three-NN (two launches
+# each: K6's pre-pass and scan)
+PRCNN_LAUNCHES = {'fps': 6, 'ball_query': 6, 'three_nn': 8}
 # PointRCNN training (pointrcnn.yaml): BATCH_SIZE_PER_GPU scenes a step, a
 # warm-up and the timed steps
 PRCNN_TRAIN_B, PRCNN_TRAIN_STEPS = 2, 10
@@ -478,6 +492,9 @@ VR_LAUNCHES = {'ball_query': 3}
 CP_B, CP_N, CP_REQUESTS = 2, 65536, 5
 CP_TRAIN_STEPS, CP_TRAIN_BATCHES = 10, 3
 WAYMO_SIZES = [[4.7, 2.1, 1.7], [0.91, 0.86, 1.73], [1.78, 0.84, 1.78]]
+# ``gt_at_proposals``' boxes at the proposals keep the proposal's sizes
+# within this factor of their class's size
+GT_SIZE_SPAN = 4.0
 # card vs CPU, one CenterPoint request: the heatmap scores of the two runs
 # (sigmoids after the residual backbone over 150 000 rows, the 5-layer BEV
 # backbone and the head's convs) may lie CP_SCORE_TOL apart; the card's
@@ -492,11 +509,17 @@ VOXEL_RTOL, VOXEL_ATOL = 1e-4, 1e-4
 # CP_N points, 5 channels, every level padded to 150 000 rows, PP_REQUESTS
 # requests after a warm-up; a request (and a train step) launches PP_LAUNCHES:
 # one masked FPS a sector (six) and the three-NN of the VSA's VectorPool
-# sources (two groups each of the raw points, x_conv3 and x_conv4); training
-# a warm-up and PP_TRAIN_STEPS steps over PP_TRAIN_BATCHES planned batches
+# sources (two groups each of the raw points, x_conv3 and x_conv4; two K6
+# launches a call); training a warm-up and PP_TRAIN_STEPS steps over
+# PP_TRAIN_BATCHES planned batches
 PP_B, PP_REQUESTS = 2, 5
 PP_TRAIN_STEPS, PP_TRAIN_BATCHES = 10, 3
-PP_LAUNCHES = {'fps': 6, 'three_nn': 6}
+PP_LAUNCHES = {'fps': 6, 'three_nn': 12}
+# K6's device time over the six VSA calls of a PV-RCNN++ request in its
+# previous design (one thread a query over every row), as an earlier run
+# of this script measured it on an H100 80GB HBM3 at 700.00 W; a recorded
+# figure for the log, never put in the JSON lines
+K6_BEFORE_MS = 89.335
 # card vs CPU, one PV-RCNN++ request: the CPU runs the VSA's VectorPool
 # sources on the first PP_CPU_KEYPOINTS of the 4096 keypoints (in eval mode a
 # row-wise function of each keypoint, so the subset is exact; all of them
@@ -504,10 +527,18 @@ PP_LAUNCHES = {'fps': 6, 'three_nn': 6}
 PP_CPU_KEYPOINTS = 128
 # card vs CPU, one PV-RCNN++ train step: BatchNorm takes the batch's
 # statistics, so no subset of keypoints is exact; one frame on a 51.2 m
-# square of Waymo's range, 20 000 voxels a level, 16 384 points (1.1e10
-# three-NN pairs on the CPU; on a 25.6 m square at 8 000 voxels the card's
-# gradients came within 0.046 of the CPU's, against the ceiling of 0.05)
-PP_TRAIN_CUT = {'range': (-25.6, -25.6, -2, 25.6, 25.6, 4), 'voxels': 20000,
+# square of Waymo's range, 10 000 voxels a level, 8 192 points and 1 024
+# keypoints (at 20 000 voxels, 16 384 points and 4 096 keypoints its two
+# CPU steps took 208 s of the phase's 226 s on the H100 host, and the
+# card's gradients came within 0.009 of the CPU's; on a 25.6 m square at
+# 8 000 voxels within 0.046, against the ceiling of 0.05)
+PP_TRAIN_CUT = {'range': (-25.6, -25.6, -2, 25.6, 25.6, 4), 'voxels': 10000,
+                'points': 8192, 'keypoints': 1024}
+# card vs CPU, one CenterPoint train step (phase 48): one frame on the same
+# square at 20 000 voxels and 16 384 points (at the full range, 150 000
+# rows a level, its two CPU steps took most of the phase's 64 s on the H100
+# host; on this crop the phase takes 15 s)
+CP_TRAIN_CUT = {'range': (-25.6, -25.6, -2, 25.6, 25.6, 4), 'voxels': 20000,
                 'points': 16384}
 
 
@@ -1722,11 +1753,13 @@ def pointrcnn_shapes_phase(model, batch, first_layer=1):
     rows, with empty and padded RoIs ((800, 512) -> 128 and (800, 128) ->
     32 serving); the fused MSG ball query at the four backbone layers and
     the RoI head's two, with event times, device time a call, bounds and
-    launch shapes. Returns {'fps': [...], 'ball_query': [...], 'errs':
-    {...}}."""
+    launch shapes; the four FP layers' K6 calls (``three_nn_call``).
+    Returns {'fps': [...], 'ball_query': [...], 'three_nn': [...],
+    'errs': {...}}."""
+    from spsnet_torch.models import sa_module
     from spsnet_torch.ops import sampling as smp
     from spsnet_torch.ops.grouping import ball_query_multi_kernel
-    with torch.no_grad():
+    with calls_of(sa_module, 'three_nn') as nn3, torch.no_grad():
         out = model(batch if isinstance(batch, dict) else {'points': batch})
     res = {'fps': [], 'ball_query': [], 'errs': {'fps': 0.0,
                                                   'ball_query': 0.0}}
@@ -1767,6 +1800,13 @@ def pointrcnn_shapes_phase(model, batch, first_layer=1):
             ball_query_multi_kernel(r, n, p, c), reps=5)
         log(f'    device time {call["device_ms"]:.4f} ms a call')
         res['ball_query'].append(call)
+    res['three_nn'] = [three_nn_call(args[0].contiguous(),
+                                     args[1].contiguous(), f'FP call {i}')
+                       for i, (args, _, _) in enumerate(nn3)]
+    if len(res['three_nn']) != 4:
+        raise AssertionError(f'{len(res["three_nn"])} FP three-NN calls, '
+                             'want 4')
+    res['k6'] = k6_summary(res['three_nn'], 'the four FP calls')
     return res
 
 
@@ -2618,13 +2658,18 @@ PP_FAULTS = (('backbone_3d.conv4', 1.3), ('dense_head.hm', 1.3),
              ('roi_head.roi_grid_pool_layer', 1.3))
 
 
-def fault_check() -> int:
-    """``--fault-check``: phases 26, 36, 44 and 55 as they run, then again
-    with the card's gradients of one module scaled (``PRCNN_FAULTS``,
-    ``PV_FAULTS``, ``VR_FAULTS``, ``PP_FAULTS``): every such run must
-    fail. Returns 1 if one passed."""
+def fault_check(models=('pointrcnn', 'pvrcnn', 'voxel_rcnn',
+                         'pvrcnnpp')) -> int:
+    """``--fault-check``: phases 26, 36, 44 and 55 (those of ``models``) as
+    they run, then again with the card's gradients of one module scaled
+    (``PRCNN_FAULTS``, ``PV_FAULTS``, ``VR_FAULTS``, ``PP_FAULTS``): every
+    such run must fail. Returns 1 if one passed."""
     phases = sys.modules[__name__]
-    missed = []
+    unknown = set(models) - {'pointrcnn', 'pvrcnn', 'voxel_rcnn',
+                             'pvrcnnpp'}
+    if unknown:
+        raise ValueError(f'--fault-check: no such model {sorted(unknown)}')
+    missed, n = [], 0
 
     def faulty(build, at, prefix, factor):
         def wrapped(device, *args, **kwargs):
@@ -2655,23 +2700,30 @@ def fault_check() -> int:
                 phases.log = real_log
                 setattr(phases, name, build)
 
-    each('build_pointrcnn_trainer', phases.pointrcnn_train_cpu_phase,
-         _scene_batch(610, 1, 'cpu'), PRCNN_FAULTS, 0)
-    cfg = build_voxel_detector('pv_rcnn', 'cpu')[0]
-    batch = pv_train_batches(cfg, [800, 801])[0][1]
-    each('build_pvrcnn_trainer', phases.pvrcnn_train_cpu_phase,
-         {k: v[:1].cpu() for k, v in batch.items()}, PV_FAULTS, 1)
-    cfg = build_voxel_detector('voxel_rcnn_car', 'cpu')[0]
-    batch = pv_train_batches(cfg, [900, 901])[0][1]
-    each('build_pvrcnn_trainer',
-         lambda b: phases.pvrcnn_train_cpu_phase(b, 'voxel_rcnn_car'),
-         {k: v[:1].cpu() for k, v in batch.items()}, VR_FAULTS, 1)
-    cfg = build_pvpp_trainer('cpu', cut=True)[0]
-    batch = pv_train_batches(cfg, [1900, 1901], sizes=WAYMO_SIZES,
-                             n=PP_TRAIN_CUT['points'], channels=5)[0][0]
-    each('build_pvpp_trainer', phases.pvpp_train_cpu_phase,
-         {k: v[:1].cpu() for k, v in batch.items()}, PP_FAULTS, 1)
-    n = len(PRCNN_FAULTS) + len(PV_FAULTS) + len(VR_FAULTS) + len(PP_FAULTS)
+    if 'pointrcnn' in models:
+        each('build_pointrcnn_trainer', phases.pointrcnn_train_cpu_phase,
+             _scene_batch(610, 1, 'cpu'), PRCNN_FAULTS, 0)
+        n += len(PRCNN_FAULTS)
+    if 'pvrcnn' in models:
+        cfg = build_voxel_detector('pv_rcnn', 'cpu')[0]
+        batch = pv_train_batches(cfg, [800, 801])[0][1]
+        each('build_pvrcnn_trainer', phases.pvrcnn_train_cpu_phase,
+             {k: v[:1].cpu() for k, v in batch.items()}, PV_FAULTS, 1)
+        n += len(PV_FAULTS)
+    if 'voxel_rcnn' in models:
+        cfg = build_voxel_detector('voxel_rcnn_car', 'cpu')[0]
+        batch = pv_train_batches(cfg, [900, 901])[0][1]
+        each('build_pvrcnn_trainer',
+             lambda b: phases.pvrcnn_train_cpu_phase(b, 'voxel_rcnn_car'),
+             {k: v[:1].cpu() for k, v in batch.items()}, VR_FAULTS, 1)
+        n += len(VR_FAULTS)
+    if 'pvrcnnpp' in models:
+        cfg = build_pvpp_trainer('cpu', cut=True)[0]
+        batch = pv_train_batches(cfg, [1900, 1901], sizes=WAYMO_SIZES,
+                                 n=PP_TRAIN_CUT['points'], channels=5)[0][0]
+        each('build_pvpp_trainer', phases.pvpp_train_cpu_phase,
+             {k: v[:1].cpu() for k, v in batch.items()}, PP_FAULTS, 1)
+        n += len(PP_FAULTS)
     log(f'{n - len(missed)} of {n} faults refused')
     return 1 if missed else 0
 
@@ -3429,7 +3481,7 @@ def voxels_in_range(scan, data_cfg):
         1)['voxel_valid'].sum())
 
 
-def gt_at_proposals(model, batch):
+def gt_at_proposals(model, batch, sizes=None):
     """``batch`` with three more gt boxes a frame at the proposals that a
     train-mode forward of a copy of ``model`` makes at NMS_CONFIG.TRAIN,
     with their labels, jittered by 2%: with random weights the anchor
@@ -3437,7 +3489,11 @@ def gt_at_proposals(model, batch):
     0.55 with a gt of that class, and each update reorders the near-tied
     scores, so without these boxes no RoI would have regression targets
     (the CPU tests make their gt alike). The proposals do not depend on
-    the gt."""
+    the gt. With ``sizes`` (a size a class, as WAYMO_SIZES) the boxes'
+    sizes are the proposal's held within a factor GT_SIZE_SPAN of their
+    class's size: a CenterHead's decoded sizes are an exp of its size
+    logits, which one update at random weights can take to ~1e13 m, and a
+    gt box of that size takes the loss to ~1e13."""
     import copy
     from spsnet_torch.models.roi_heads.pointrcnn_head import proposal_layer
     probe = copy.deepcopy(model).train()
@@ -3448,6 +3504,12 @@ def gt_at_proposals(model, batch):
             model.model_cfg.ROI_HEAD.NMS_CONFIG.TRAIN)
     extra = rois[:, :3].cpu().numpy().copy()
     n = extra.shape[:-1]
+    if sizes is not None:
+        size = np.asarray(sizes, np.float32)[np.clip(
+            labels[:, :3].cpu().numpy().astype(np.int64) - 1, 0,
+            len(sizes) - 1)]
+        extra[..., 3:6] = np.clip(extra[..., 3:6], size / GT_SIZE_SPAN,
+                                  size * GT_SIZE_SPAN)
     rng = np.random.default_rng(12)
     extra[..., 0:3] += rng.normal(0, 0.02, n + (3,)) * extra[..., 3:6]
     extra[..., 3:6] *= np.exp(rng.normal(0, 0.02, n + (3,)))
@@ -3458,11 +3520,11 @@ def gt_at_proposals(model, batch):
         extra.astype(np.float32)).to(gt.device)], 1))
 
 
-def at_proposals(model, batches):
+def at_proposals(model, batches, sizes=None):
     """The batches, each completed by ``gt_at_proposals`` with ``model``'s
     weights when it is taken (the step before it has run)."""
     for batch in batches:
-        yield gt_at_proposals(model, batch)
+        yield gt_at_proposals(model, batch, sizes)
 
 
 def pv_train_batches(cfg, seeds, sizes=None, n=N, channels=4):
@@ -4260,12 +4322,19 @@ def centerpoint_cpu_phase(model, cfg, batch):
     return {'max_scaled_err': max(errs), 'notes': own.notes}
 
 
-def build_centerpoint_trainer(device):
+def build_centerpoint_trainer(device, cut=False):
     """waymo_models/centerpoint.yaml as ``build_voxel_detector`` makes it
-    (seed-0 weights) in train mode, its adam_onecycle optimizer and
-    ``make_train_step``: (cfg, model, optimizer, step)."""
+    (seed-0 weights; with ``cut``, on CP_TRAIN_CUT's range and voxel caps)
+    in train mode, its adam_onecycle optimizer and ``make_train_step``:
+    (cfg, model, optimizer, step)."""
+    from spsnet_torch.models import build_detector_from_cfg
     from spsnet_torch.runtime.trainer import make_train_step
-    cfg, model = build_voxel_detector('waymo_models/centerpoint', device)
+    from spsnet_torch.zoo import load_yaml_cfg
+    cfg = load_yaml_cfg('tools/cfgs/waymo_models/centerpoint.yaml')
+    if cut:
+        cut_to(cfg, CP_TRAIN_CUT)
+    model = build_detector_from_cfg(
+        cfg, device=device, generator=torch.Generator().manual_seed(0))
     model.train()
     optimizer = _kitti_optimizer(cfg.OPTIMIZATION, model.parameters())
     return cfg, model, optimizer, make_train_step(model, optimizer)
@@ -4282,14 +4351,15 @@ def head_targets(model):
 
 def centerpoint_train_cpu_phase(batch):
     """Phase 48: one CenterPoint train step on one frame (``batch``, on
-    the CPU) on the card and on the CPU from the same weights, and on the
+    the CPU; CP_TRAIN_CUT) on the card and on the CPU from the same
+    weights, and on the
     CPU from weights jittered by WEIGHT_JITTER: every group's heatmap
     targets, centre pixels and masks identical bit for bit; loss terms
     within TRAIN_LOSS_RTOL; gradients, updated parameters and BN running
     statistics as ``pvrcnn_train_cpu_phase`` holds them."""
-    _, gpu, _, gpu_step = build_centerpoint_trainer('cuda')
-    _, cpu, cpu_opt, cpu_step = build_centerpoint_trainer('cpu')
-    _, jit, _, jit_step = build_centerpoint_trainer('cpu')
+    _, gpu, _, gpu_step = build_centerpoint_trainer('cuda', cut=True)
+    _, cpu, cpu_opt, cpu_step = build_centerpoint_trainer('cpu', cut=True)
+    _, jit, _, jit_step = build_centerpoint_trainer('cpu', cut=True)
     cpu.load_state_dict(gpu.state_dict())
     jit.load_state_dict(gpu.state_dict())
     gen = torch.Generator().manual_seed(5)
@@ -4417,9 +4487,13 @@ def centerpoint_phases(smi):
         model, lambda: step(batches[1]), 'one CenterPoint train step (B=2)')
     del model, step
 
-    log('== 48. CenterPoint card vs CPU, one train step')
+    log(f'== 48. CenterPoint card vs CPU, one train step (cut: '
+        f'{CP_TRAIN_CUT})')
+    cfg = build_centerpoint_trainer('cpu', cut=True)[0]
+    batch = pv_train_batches(cfg, [1450, 1451], sizes=WAYMO_SIZES,
+                             n=CP_TRAIN_CUT['points'], channels=5)[0][0]
     train['card_vs_cpu'] = centerpoint_train_cpu_phase(
-        {k: v[:1].cpu() for k, v in batches[1].items()})
+        {k: v[:1].cpu() for k, v in batch.items()})
     return rec, train
 
 
@@ -4475,7 +4549,8 @@ def pvpp_profile(model, fn, what):
     """A CUDA-kernel breakdown of one call of ``fn`` (a PV-RCNN++ request
     or train step of ``model``): the sparse and BEV backbones, the VSA,
     every VectorPool module (its three-NN included) and the RoI head as
-    ranges; the device shares of K6 (``three_nn_kernel``), K1
+    ranges; the device shares of K6 (``three_nn_prepass_kernel`` and
+    ``three_nn_scan_kernel``), K1
     (``fps_kernel``) and the sparse gathers' backward (the scatter-add
     ``_scatter_gather_elementwise_kernel``), and of the backward."""
     from spsnet_torch.models.model_utils.vector_pool import \
@@ -4502,7 +4577,7 @@ def pvpp_profile(model, fn, what):
     for span in prof['ranges'].values():
         span['device_share'] = span['device_ms'] / prof['device_ms']
     prof['backward_share'] = prof['backward_device_ms'] / prof['device_ms']
-    for key, pattern in (('k6', 'three_nn_kernel'), ('k1', 'fps_kernel'),
+    for key, pattern in (('k6', 'three_nn_'), ('k1', 'fps_kernel'),
                          ('gathers_backward', 'scatter_gather')):
         ms = sum(v for k, v in prof['kernel_ms'].items() if pattern in k)
         prof[f'{key}_device_ms'] = ms
@@ -4527,12 +4602,15 @@ def three_nn_library(unknown, known):
         3, largest=False) for n0 in range(0, N, chunk)]
 
 
-def three_nn_bound(b, n, m):
-    """Bound of a three-NN over (b, n) queries and (b, m) known points:
-    both read once, (b, n, 3) distances and indices written; 9 operations
-    a pair (3 mul and 2 add for the cross product, the norms' sum, the
-    doubling, the subtraction, a compare)."""
-    return bound_ms(b * (n + m) * 12 + b * n * 3 * 12, b * n * m * 9)
+def three_nn_bound(b, n, m, pairs):
+    """Bound of a three-NN over (b, n) queries and (b, m) known points that
+    evaluates ``pairs`` pairs: both read once, (b, n, 3) distances and
+    indices written; 9 operations a pair (3 mul and 2 add for the cross
+    product, the norms' sum, the doubling, the subtraction, a compare) at
+    the fp32 peak, which counts an FMA as two operations: K6's separately
+    rounded operations issue at half that rate. The function's bound takes
+    3 pairs a query, the least any method evaluates."""
+    return bound_ms(b * (n + m) * 12 + b * n * 3 * 12, pairs * 9)
 
 
 def events_ms(fn):
@@ -4548,30 +4626,78 @@ def events_ms(fn):
 
 
 def three_nn_call(unknown, known, what):
-    """K6 against the plain three-NN at one shape, bit for bit; device time
-    of the kernel, event times of one call of the plain version and of the
-    library yardstick (after K6's calls, so warm), and the bound. Returns
-    the call's record."""
-    from spsnet_torch.ops.interpolate import three_nn_kernel, three_nn_plain
+    """K6 against the plain three-NN at one shape, bit for bit; the pairs
+    the scan evaluated (the kernel's counter) against all pairs, the rows
+    it scans a batch row (three past the padded run's start,
+    ``three_nn_run_start``), the device time of a
+    call (its pre-pass and scan, ``device_ms_by_kernel``), event times of
+    one call of the plain version and of the library yardstick (after
+    K6's calls, so warm), and ``three_nn_bound`` three ways: the
+    function's (``bound_ms``, 3 pairs a query), over the pairs this call
+    scanned (``scanned_pairs_bound_ms``; over the call's time, the pair
+    loop's share of its peak, ``pair_loop_share``) and over all pairs
+    (``all_pairs_bound_ms``, a scan of every row). Returns the call's
+    record."""
+    from spsnet_torch.ops.interpolate import (three_nn_kernel,
+                                              three_nn_plain,
+                                              three_nn_run_start)
     b, n, _ = unknown.shape
     m = known.shape[1]
-    got = three_nn_kernel(unknown, known)
+    counter = torch.zeros(b, dtype=torch.int64, device=unknown.device)
+    got = three_nn_kernel(unknown, known, counter)
     torch.cuda.synchronize()
     want, plain_ms = events_ms(lambda: three_nn_plain(unknown, known))
     require_equal(got[0].view(torch.int32), want[0].view(torch.int32),
                   f'K6 vs plain {what}: squared distances (bits)')
     require_equal(got[1], want[1], f'K6 vs plain {what}: indices')
     del want
-    rec = {'B': b, 'N': n, 'M': m, 'pairs': b * n * m, 'plain_ms': plain_ms,
-           'ms': device_ms(lambda: three_nn_kernel(unknown, known), reps=3),
+    start = three_nn_run_start(known).tolist()
+    rows = [min(m, r + 3) for r in start]
+    scanned = counter.tolist()
+    ms, by_kernel = device_ms_by_kernel(
+        lambda: three_nn_kernel(unknown, known), reps=3)
+    rec = {'B': b, 'N': n, 'M': m, 'pairs': b * n * m,
+           'pairs_scanned': sum(scanned), 'pairs_scanned_a_row': scanned,
+           'run_start': start, 'rows_scanned': rows, 'ms': ms,
+           'ms_by_kernel': by_kernel,
+           'plain_ms': plain_ms,
            'library_ms': events_ms(lambda: three_nn_library(unknown,
                                                             known))[1]}
-    rec['bound_ms'], rec['bound_by'] = three_nn_bound(b, n, m)
-    log(f'  K6 {what} ({b}, {n}) over ({b}, {m}): kernel {rec["ms"]:.4f} '
-        f'ms (device), plain {rec["plain_ms"]:.3f} ms, cdist + topk '
-        f'{rec["library_ms"]:.3f} ms (events), bound {rec["bound_ms"]:.4f} ms '
-        f'({rec["bound_by"]}, {b * n * m:.3e} pairs)')
+    rec['bound_ms'], rec['bound_by'] = three_nn_bound(b, n, m, b * n * 3)
+    rec['scanned_pairs_bound_ms'] = three_nn_bound(
+        b, n, m, rec['pairs_scanned'])[0]
+    rec['all_pairs_bound_ms'] = three_nn_bound(b, n, m, b * n * m)[0]
+    rec['pair_loop_share'] = rec['scanned_pairs_bound_ms'] / ms
+    log(f'  K6 {what} ({b}, {n}) over ({b}, {m}): kernel {ms:.4f} ms '
+        f'(device: ' + ', '.join(f'{k} {v:.4f}' for k, v in
+                                 by_kernel.items()) +
+        f'); pairs scanned {rec["pairs_scanned"]:.4e} of {b * n * m:.4e} '
+        f'({rec["pairs_scanned"] / (b * n * m):.4f}), padded run from row '
+        f'{start}, rows scanned {rows} of {m}; plain {plain_ms:.3f} ms, '
+        f'cdist + topk '
+        f'{rec["library_ms"]:.3f} ms (events); bound '
+        f'{rec["bound_ms"]:.4f} ms ({rec["bound_by"]}), '
+        f'{rec["scanned_pairs_bound_ms"]:.4f} ms over the pairs scanned '
+        f'(pair loop at {rec["pair_loop_share"]:.3f} of its peak), '
+        f'{rec["all_pairs_bound_ms"]:.4f} ms over all pairs')
     return rec
+
+
+def k6_summary(calls, what):
+    """The sums over K6's ``calls`` (``three_nn_call`` records), logged."""
+    keys = ('ms', 'plain_ms', 'library_ms', 'bound_ms',
+            'scanned_pairs_bound_ms', 'all_pairs_bound_ms', 'pairs',
+            'pairs_scanned')
+    out = {k: sum(c[k] for c in calls) for k in keys}
+    out['pair_loop_share'] = out['scanned_pairs_bound_ms'] / out['ms']
+    log(f'  K6 over {what}: {out["ms"]:.3f} ms (device), pairs scanned '
+        f'{out["pairs_scanned"]:.4e} of {out["pairs"]:.4e}, plain '
+        f'{out["plain_ms"]:.3f} ms, cdist + topk {out["library_ms"]:.3f} ms, '
+        f'bound {out["bound_ms"]:.4f} ms ({out["bound_ms"] / out["ms"]:.4f} '
+        f'of the time), {out["scanned_pairs_bound_ms"]:.3f} ms over the '
+        f'pairs scanned (pair loop at {out["pair_loop_share"]:.3f} of its '
+        f'peak), {out["all_pairs_bound_ms"]:.3f} ms over all pairs')
+    return out
 
 
 def pvpp_shapes_phase(model, batch):
@@ -4923,24 +5049,32 @@ def pvpp_cpu_phase(model, cfg_name, batch):
             'cpu_keypoints': PP_CPU_KEYPOINTS, 'cpu_vector_pool_s': cpu_s}
 
 
+def cut_to(cfg, cut):
+    """``cfg`` with the range, the voxel caps and (where ``cut`` names
+    them) the keypoints of ``cut`` (a PP_TRAIN_CUT-like dict)."""
+    cfg.DATA_CONFIG.POINT_CLOUD_RANGE = list(cut['range'])
+    if 'keypoints' in cut:
+        cfg.MODEL.PFE.NUM_KEYPOINTS = cut['keypoints']
+    for step in cfg.DATA_CONFIG.DATA_PROCESSOR:
+        if step.NAME == 'transform_points_to_voxels':
+            step.MAX_NUMBER_OF_VOXELS = {'train': cut['voxels'],
+                                         'test': cut['voxels']}
+        if step.NAME == 'build_sparse_conv_plan':
+            step.MAX_VOXELS_PER_LEVEL = cut['voxels']
+    return cfg
+
+
 def build_pvpp_trainer(device, cut=False):
     """waymo_models/pv_rcnn_plusplus.yaml as ``build_voxel_detector``
-    makes it (seed-0 weights; with ``cut``, on PP_TRAIN_CUT's range and
-    voxel caps) in train mode, its adam_onecycle optimizer and
+    makes it (seed-0 weights; with ``cut``, on PP_TRAIN_CUT's range, voxel
+    caps and keypoints) in train mode, its adam_onecycle optimizer and
     ``make_train_step``: (cfg, model, optimizer, step)."""
     from spsnet_torch.models import build_detector_from_cfg
     from spsnet_torch.runtime.trainer import make_train_step
     from spsnet_torch.zoo import pv_rcnn_plusplus_waymo_cfg
     cfg = pv_rcnn_plusplus_waymo_cfg()
     if cut:
-        cfg.DATA_CONFIG.POINT_CLOUD_RANGE = list(PP_TRAIN_CUT['range'])
-        for step in cfg.DATA_CONFIG.DATA_PROCESSOR:
-            if step.NAME == 'transform_points_to_voxels':
-                step.MAX_NUMBER_OF_VOXELS = {
-                    'train': PP_TRAIN_CUT['voxels'],
-                    'test': PP_TRAIN_CUT['voxels']}
-            if step.NAME == 'build_sparse_conv_plan':
-                step.MAX_VOXELS_PER_LEVEL = PP_TRAIN_CUT['voxels']
+        cut_to(cfg, PP_TRAIN_CUT)
     model = build_detector_from_cfg(
         cfg, device=device, generator=torch.Generator().manual_seed(0))
     model.train()
@@ -4951,9 +5085,9 @@ def build_pvpp_trainer(device, cut=False):
 def pvpp_train_path(smi):
     """Phase 54: PV-RCNN++ training at full width (PP_TRAIN_STEPS steps of
     PV_TRAIN_B Waymo scenes over PP_TRAIN_BATCHES planned batches, a
-    warm-up first, gt at the Waymo sizes plus ``gt_at_proposals``' boxes):
-    ms, the proposal NMS's share, the RoI counts, grad norms, peak memory
-    and a profile. Returns its record."""
+    warm-up first, gt at the Waymo sizes plus ``gt_at_proposals``' boxes,
+    at the Waymo sizes too): ms, the proposal NMS's share, the RoI counts,
+    grad norms, peak memory and a profile. Returns its record."""
     from spsnet_torch.models.roi_heads import pvrcnn_head
     from spsnet_torch.ops import _build
     cfg, model, opt, step = build_pvpp_trainer('cuda')
@@ -4964,7 +5098,7 @@ def pvpp_train_path(smi):
         f'{statistics.median(host_ms):.3f} ms a frame; voxels a frame in '
         f'range {before}, after the cap of 150000 {after}')
     tcfg = cfg.MODEL.ROI_HEAD.TARGET_CONFIG
-    step(gt_at_proposals(model, batches[0]))
+    step(gt_at_proposals(model, batches[0], WAYMO_SIZES))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     norms, stats = [], []
@@ -4981,7 +5115,7 @@ def pvpp_train_path(smi):
         times, launches = train_path(
             model, step, at_proposals(model, [
                 batches[k % PP_TRAIN_BATCHES]
-                for k in range(1, 1 + PP_TRAIN_STEPS)]),
+                for k in range(1, 1 + PP_TRAIN_STEPS)], WAYMO_SIZES),
             {**{k: 0 for k in _build.LAUNCHES}, **PP_LAUNCHES}, after_step)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     torch.cuda.synchronize()
@@ -5003,9 +5137,57 @@ def pvpp_train_path(smi):
            'host_ms_a_frame': host_ms, 'voxels_before_cap': before,
            'voxels_after_cap': after}
     rec['profile'] = pvpp_profile(
-        model, lambda: step(gt_at_proposals(model, batches[1])),
+        model, lambda: step(gt_at_proposals(model, batches[1],
+                                            WAYMO_SIZES)),
         'one PV-RCNN++ train step (B=2)')
     return rec
+
+
+def pvpp_train_repeat(runs):
+    """``--pvpp-train-repeat N``: phase 54's warm-up and steps (seed-0
+    weights built anew, its batches, its checks) N times with
+    ``gt_at_proposals``' boxes at the proposals' decoded sizes and N times
+    held within GT_SIZE_SPAN of the Waymo sizes (phase 54's), then once
+    each with the CenterHead's size bias raised by 29 after the warm-up
+    (decoded sizes ~4e12 m, as a non-finite run of phase 54 had them); logs
+    each run's failure. Returns 0."""
+    from spsnet_torch.ops import _build
+    cfg = build_pvpp_trainer('cuda')[0]
+    batches = pv_train_batches(
+        cfg, range(1600, 1600 + PP_TRAIN_BATCHES), sizes=WAYMO_SIZES,
+        n=CP_N, channels=5)[0]
+    want = {**{k: 0 for k in _build.LAUNCHES}, **PP_LAUNCHES}
+    out = {}
+    for what, sizes, jump, n in (
+            ('decoded sizes', None, 0.0, runs),
+            ('sizes held to the Waymo sizes', WAYMO_SIZES, 0.0, runs),
+            ('decoded sizes, size bias + 29', None, 29.0, 1),
+            ('sizes held, size bias + 29', WAYMO_SIZES, 29.0, 1)):
+        failed = []
+        for run in range(n):
+            log(f'== gt at the proposals: {what}, run {run + 1} of {n}')
+            _, model, _, step = build_pvpp_trainer('cuda')
+            bias = [p for k, p in model.dense_head.named_parameters()
+                    if k.endswith('dim.bias')]
+            if not bias:
+                raise ValueError('the CenterHead has no size bias')
+            try:
+                step(gt_at_proposals(model, batches[0], sizes))
+                with torch.no_grad():
+                    for p in bias:
+                        p += jump
+                train_path(model, step, at_proposals(model, [
+                    batches[k % PP_TRAIN_BATCHES]
+                    for k in range(1, 1 + PP_TRAIN_STEPS)], sizes), want)
+            except AssertionError as e:
+                failed.append(f'run {run + 1}: {e}')
+                log(f'  failed: {e}')
+            del model, step
+        out[what] = failed
+        log(f'gt at the proposals, {what}: {len(failed)} of {n} runs '
+            f'failed {failed}')
+    log(json.dumps({'pvpp_train_repeat': runs, 'failed': out}))
+    return 0
 
 
 def pvpp_train_cpu_phase(batch):
@@ -5144,17 +5326,18 @@ def pvpp_phases(smi):
           'source': 'spsnet_torch/csrc/three_nn.cu',
           'replaces': 'spsnet_tpu/ops/interpolate.py:15 three_nn (XLA, not '
                       'a Pallas kernel)',
-          'max_abs_err': 0.0,
-          'ms': sum(c['ms'] for c in calls),
-          'plain_ms': sum(c['plain_ms'] for c in calls),
-          'bound_ms': sum(c['bound_ms'] for c in calls),
-          'bound_by': 'operations',
-          'library_ms': sum(c['library_ms'] for c in calls),
-          'note': 'sums over the six calls of one PV-RCNN++ request (B=2)',
+          'max_abs_err': 0.0, 'bound_by': 'operations' if any(
+              c['bound_by'] == 'operations' for c in calls) else 'bytes',
+          **k6_summary(calls, 'the request\'s six calls'),
+          'note': 'sums over the six calls of one PV-RCNN++ request (B=2); '
+                  'bound_ms is the function\'s (3 pairs a query), '
+                  'scanned_pairs_bound_ms over the pairs the scan '
+                  'evaluated, all_pairs_bound_ms over every pair',
           'pvrcnnpp_calls': calls}
-    log(f'  K6 over the request\'s six calls: {k6["ms"]:.3f} ms (device), '
-        f'plain {k6["plain_ms"]:.3f} ms, cdist + topk {k6["library_ms"]:.3f}'
-        f' ms, bound {k6["bound_ms"]:.3f} ms')
+    log(f'  K6 a PV-RCNN++ request: {k6["ms"]:.3f} ms (device, measured '
+        f'now); recorded for the previous design, not measured in this run '
+        f'(one thread a query over every row; H100 80GB HBM3 at 700.00 W): '
+        f'{K6_BEFORE_MS} ms')
 
     log('== 52. PV-RCNN++ card vs CPU, one request (B=1)')
     one = {k: v[:1] for k, v in host['batches'][0].items()}
@@ -5258,18 +5441,18 @@ def kernel_phase(phases, inp):
     return entries, kernel_device_ms(inp)
 
 
-def device_ms(fn, reps=10):
-    """Device time of one call of ``fn``, whose calls launch one kernel
-    each: the median kernel duration over ``reps`` traced calls
-    (``torch.profiler``, a warm-up step before each window). CUDA events
-    around a call also count the host's time to issue it, which is most of
-    a small kernel's event time. The trace may drop records of short
-    kernels, and once lost every record of a 20 ms kernel in four windows
-    (the Waymo layer-0 FPS, phase 23), so windows repeat (at most eight)
-    until ``reps`` are in, each keeping its events past the end of its
-    cycle (``acc_events``)."""
+def traced_ms(fn, reps, enough):
+    """The kernel durations (us) of ``fn``'s calls by kernel name (up to
+    its argument list), ``torch.profiler``'s CUDA records over windows of
+    ``reps`` calls, a warm-up step before each. CUDA events around a call
+    also count the host's time to issue it, which is most of a small
+    kernel's event time. The trace may drop records of short kernels, and
+    once lost every record of a 20 ms kernel in four windows (the Waymo
+    layer-0 FPS, phase 23), so windows repeat (at most eight) until
+    ``enough(by_name)``, each keeping its events past the end of its cycle
+    (``acc_events``)."""
     from torch.profiler import ProfilerActivity, profile, schedule
-    kernels = []
+    by_name = {}
     for _ in range(8):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA],
@@ -5280,15 +5463,37 @@ def device_ms(fn, reps=10):
                     fn()
                 torch.cuda.synchronize()
                 prof.step()
-        kernels += [e.self_device_time_total for e in prof.events()
-                    if str(getattr(e, 'device_type', '')).endswith('CUDA')
-                    and not getattr(e, 'is_user_annotation', False)
-                    and e.self_device_time_total > 0]
-        if len(kernels) >= reps:
+        for e in prof.events():
+            if str(getattr(e, 'device_type', '')).endswith('CUDA') and \
+                    not getattr(e, 'is_user_annotation', False) and \
+                    e.self_device_time_total > 0:
+                name = re.sub(r'\([^()]*\)$', '', e.name).split('::')[-1]
+                by_name.setdefault(name.strip(), []).append(
+                    e.self_device_time_total)
+        if by_name and enough(by_name):
             break
-    if not kernels:
+    if not by_name:
         raise AssertionError('no kernel traced')
-    return statistics.median(kernels) / 1e3
+    return by_name
+
+
+def device_ms(fn, reps=10):
+    """Device time of one call of ``fn``, whose calls launch one kernel
+    each: the median kernel duration over ``reps`` traced calls
+    (``traced_ms``)."""
+    by_name = traced_ms(fn, reps, lambda d: sum(map(len, d.values())) >= reps)
+    return statistics.median(sum(by_name.values(), [])) / 1e3
+
+
+def device_ms_by_kernel(fn, reps=5):
+    """Device time of one call of ``fn``, whose calls launch a few kernels
+    (and memsets) each: the sum over the kernel names of each name's
+    median duration over ``reps`` traced calls (``traced_ms``, until every
+    name has ``reps`` records), and those medians by name."""
+    by_name = traced_ms(fn, reps,
+                        lambda d: min(map(len, d.values())) >= reps)
+    med = {k: statistics.median(v) / 1e3 for k, v in by_name.items()}
+    return sum(med.values()), med
 
 
 def kernel_device_ms(inp):
@@ -5377,9 +5582,14 @@ def main(argv=()) -> int:
         return jitter_study()
     if list(argv) == ['--fault-check']:
         return fault_check()
+    if len(argv) == 2 and argv[0] == '--fault-check':
+        return fault_check(argv[1].split(','))
+    if len(argv) == 2 and argv[0] == '--pvpp-train-repeat':
+        return pvpp_train_repeat(int(argv[1]))
     if argv:
         print('usage: chip_smoke.py [--phase3 ROOT | --jitter-study | '
-              '--fault-check]', file=sys.stderr)
+              '--fault-check [MODELS] | --pvpp-train-repeat N]',
+              file=sys.stderr)
         return 2
     from spsnet_torch.runtime.trainer import make_eval_step
 
@@ -5665,7 +5875,10 @@ def main(argv=()) -> int:
                                      for path, counts in paths.items()}
         entry['launches'] = sum(entry['launches_by_path'].values())
         name = entry['name']
-        if name in prcnn_shapes:
+        if name == 'three_nn':
+            entry['pointrcnn_calls'] = prcnn_shapes['three_nn']
+            entry['pointrcnn_train_calls'] = train_shapes['three_nn']
+        if name in ('fps', 'ball_query'):
             entry['pointrcnn_calls'] = prcnn_shapes[name]
             entry['waymo_calls'] = waymo[name]
             entry['nuscenes_calls'] = nuscenes[name]

@@ -20,7 +20,18 @@ one call, ``chip_smoke.device_ms``):
    distance loop taken out (the fixed cost of launch, staging and
    reduction);
 2. K1, exact FPS (``csrc/fps.cu``), at batch sizes past 8 and at the K5
-   shapes, against the cluster size C.
+   shapes, against the cluster size C;
+3. K6, the three-NN (``csrc/three_nn.cu``), at the six calls of a
+   PV-RCNN++ request's VSA and the four FP calls of a PointRCNN request:
+   4 warps a CTA against the kept 8, groups of 4, 16 or 32 queries in the
+   warp-wide test against 8, chunks of 2 or 8 sub-tiles against 4, the
+   scan without its culling, without its suffix rule, and (``--parent
+   ROOT``) the
+   ``three_nn.cu`` of another checkout, e.g. the parent commit's, unpacked
+   under ``build/``; device time of a call (pre-pass and scan,
+   ``chip_smoke.device_ms_by_kernel``) and the pairs scanned.
+
+    python3 launch_sweep.py [--k6-only] [--parent ROOT]
 
 Prints one line per variant and shape, then one JSON line with every
 number and the card's name and power limit. Exits non-zero without a card.
@@ -86,6 +97,27 @@ def fps_variant(src):
     text = _sub(text, 'template <bool kSeeded>\ncudaError_t dispatch(',
                 'int g_c = 0;\ntemplate <bool kSeeded>\ncudaError_t dispatch(')
     return text + '\nextern "C" void set_c(int c) { g_c = c; }\n'
+
+
+def three_nn_variant(src, warps=8, lanes=8, chunk=4, cull=True,
+                     suffix=True):
+    """csrc/three_nn.cu with another CTA width, group of the warp-wide
+    test or chunk of sub-tiles where none is culled, or a rule taken out
+    (``cull=False``: every batch scanned whole)."""
+    text = _sub(src, 'constexpr int kWarps = 8;',
+                f'constexpr int kWarps = {warps};')
+    text = _sub(text, 'constexpr int kLanes = 8;',
+                f'constexpr int kLanes = {lanes};')
+    text = _sub(text, 'constexpr int kChunk = 4;',
+                f'constexpr int kChunk = {chunk};')
+    if not cull:
+        text = _sub(text, 'unsigned marked = __ballot_sync(kFull, may);',
+                    'unsigned marked = __ballot_sync(kFull, may);\n'
+                    '    marked = nb == kTile ? kFull : (1u << nb) - 1;')
+    if not suffix:
+        text = _sub(text, 'const int limit = min(M, run[b] + 3);',
+                    'const int limit = M;')
+    return text
 
 
 def build(variants):
@@ -206,21 +238,120 @@ def sweep_fps(results):
         lib.set_c(0)
 
 
-def main() -> int:
+def three_nn_inputs():
+    """The (unknown, known) of K6's calls on the main paths: the six of a
+    PV-RCNN++ request (B = 2 Waymo scans) and the four of a PointRCNN one
+    (B = 8 x 16384), with chip_smoke's seeds."""
+    import chip_smoke as cs
+    from spsnet_torch.models import sa_module
+    from spsnet_torch.models.model_utils import vector_pool
+    from spsnet_torch.utils.synthetic import synthetic_scan_batch
+    cfg, model = cs.build_voxel_detector('waymo_models/pv_rcnn_plusplus',
+                                         'cuda')
+    batch = cs.pv_host_batches(cfg, range(1800, 1802), cs.PP_B, cs.CP_N,
+                               5)['batches'][0]
+    with cs.calls_of(vector_pool, 'three_nn') as pp, torch.no_grad():
+        model(batch)
+    del model
+    _, prcnn = cs.build_pointrcnn('cuda')
+    points = torch.from_numpy(synthetic_scan_batch(0, cs.B, cs.N)).cuda()
+    with cs.calls_of(sa_module, 'three_nn') as fp, torch.no_grad():
+        prcnn({'points': points})
+    return [(f'PV-RCNN++ VSA call {i}', a[0].contiguous(), a[1].contiguous())
+            for i, (a, _, _) in enumerate(pp)] + \
+        [(f'PointRCNN FP call {i}', a[0].contiguous(), a[1].contiguous())
+         for i, (a, _, _) in enumerate(fp)]
+
+
+def sweep_three_nn(results, parent=None):
+    import chip_smoke as cs
+    from spsnet_torch.ops.interpolate import three_nn_plain
+    src = (ROOT / 'spsnet_torch/csrc/three_nn.cu').read_text()
+    variants = {'kept': three_nn_variant(src),
+                'warps4': three_nn_variant(src, warps=4),
+                'lanes4': three_nn_variant(src, lanes=4),
+                'lanes16': three_nn_variant(src, lanes=16),
+                'lanes32': three_nn_variant(src, lanes=32),
+                'chunk2': three_nn_variant(src, chunk=2),
+                'chunk8': three_nn_variant(src, chunk=8),
+                'no_cull': three_nn_variant(src, cull=False),
+                'no_suffix': three_nn_variant(src, suffix=False)}
+    if parent:
+        variants['parent'] = (Path(parent) / 'spsnet_torch/csrc/three_nn.cu'
+                              ).read_text()
+    libs = build(variants)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    stream = torch.cuda.current_stream().cuda_stream
+    cases = three_nn_inputs()
+    wants = [three_nn_plain(u, k) for _, u, k in cases]
+    totals = {}
+    for name, lib in libs.items():
+        old = name == 'parent'
+        fn = lib.spsnet_three_nn
+        fn.argtypes = [P] * 4 + [I] * 3 + [P] if old else \
+            [P] * 6 + [I] * 3 + [P]
+        if not old:
+            lib.spsnet_three_nn_workspace.argtypes = [I, I]
+        for (label, u, k), want in zip(cases, wants):
+            b, n, m = u.shape[0], u.shape[1], k.shape[1]
+            dist = torch.empty(b, n, 3, device='cuda')
+            idx = torch.empty(b, n, 3, dtype=torch.int64, device='cuda')
+            pairs = torch.zeros(b, dtype=torch.int64, device='cuda')
+            work = None if old else torch.empty(
+                lib.spsnet_three_nn_workspace(b, m) * 16, dtype=torch.uint8,
+                device='cuda')
+
+            def call(count=None, u=u, k=k, d=dist, i=idx, w=work, b=b, n=n,
+                     m=m):
+                if old:
+                    err = fn(u.data_ptr(), k.data_ptr(), d.data_ptr(),
+                             i.data_ptr(), b, n, m, stream)
+                else:
+                    err = fn(u.data_ptr(), k.data_ptr(), d.data_ptr(),
+                             i.data_ptr(), w.data_ptr(),
+                             None if count is None else count.data_ptr(), b,
+                             n, m, stream)
+                if err:
+                    raise RuntimeError(f'three_nn {name}: CUDA error {err}')
+            call(pairs)
+            torch.cuda.synchronize()
+            if not (torch.equal(idx, want[1]) and torch.equal(
+                    dist.view(torch.int32), want[0].view(torch.int32))):
+                raise AssertionError(f'three_nn {name} {label}: != plain')
+            ms = [cs.device_ms_by_kernel(call, reps=3)[0] for _ in range(2)]
+            scanned = b * n * m if old else int(pairs.sum())
+            key = f'three_nn {name} {label} ({b}, {n}) x ({b}, {m})'
+            results[key] = {'ms': ms, 'pairs_scanned': scanned,
+                            'pairs': b * n * m}
+            group = label.split(' call')[0]
+            totals.setdefault(f'three_nn {name} {group}', []).append(ms)
+            print(f'{key}: {ms[0]:.4f} {ms[1]:.4f} ms, pairs scanned '
+                  f'{scanned:.4e} of {b * n * m:.4e}', flush=True)
+    for key, ms in totals.items():
+        results[key + ' (sum)'] = [sum(t[0] for t in ms),
+                                   sum(t[1] for t in ms)]
+        print(f'{key} (sum): {results[key + " (sum)"][0]:.3f} '
+              f'{results[key + " (sum)"][1]:.3f} ms', flush=True)
+
+
+def main(argv=()) -> int:
     if not torch.cuda.is_available():
         print('launch_sweep: no CUDA device', file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
+    parent = argv[argv.index('--parent') + 1] if '--parent' in argv else None
     card = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                            '--format=csv,noheader'], capture_output=True,
                           text=True, check=True).stdout.strip()
     print(card, flush=True)
     results = {}
-    sweep_seed_min(results)
-    sweep_fps(results)
+    if '--k6-only' not in argv:
+        sweep_seed_min(results)
+        sweep_fps(results)
+    sweep_three_nn(results, parent)
     print(json.dumps({'launch_sweep': results, 'card': card}))
     return 0
 
 
 if __name__ == '__main__':
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

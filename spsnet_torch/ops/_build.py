@@ -50,7 +50,9 @@ SIGNATURES = {
                    'spsnet_ball_query_warp_centers': [_I, _I]},
     'seed_min': {'spsnet_seed_min': [_P, _P, _P, _I, _I, _I, _P],
                  'spsnet_seed_min_shape': [_I, _I, _I, _IP]},
-    'three_nn': {'spsnet_three_nn': [_P, _P, _P, _P, _I, _I, _I, _P]},
+    'three_nn': {'spsnet_three_nn': [_P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                     _P],
+                 'spsnet_three_nn_workspace': [_I, _I]},
 }
 KERNELS = ('fps', 'fps_seeded', 'ball_query', 'seed_min', 'three_nn')
 

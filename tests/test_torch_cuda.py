@@ -24,11 +24,15 @@ CPU. At the shapes of Voxel R-CNN: the RoI grid's query over the voxel
 centers of x_conv2-4 at 40 000 and 16 000 rows (KITTI serving and
 training) and 150 000 (Waymo); CenterPoint's heatmap targets card against
 the CPU. For the three-NN kernel: ties and duplicate points, M = 3, M off
-its tile, one query, padded rows at 1e6 past the valid prefix,
-coordinates at 70 m, B from 1 to 8 and PV-RCNN++'s three VectorPool
-shapes; the masked FPS at the sector masks of a Waymo scan. Indices must
-be equal, and the min distances to the seeds and the three-NN distances
-bit for bit.
+2048, one query, padded rows at 1e6 past the valid prefix, coordinates
+at 70 m, the scan rules' edge cases of ``tests/three_nn_cases.py``
+(padded suffixes of 0-3 and M - 3 rows, all rows equal, an equal run in
+the middle, voxel centres in z-major order, queries at 1e6, NaN and inf,
++-0 and 1e-20, M no multiple of 32), B from 1 to 8 and PV-RCNN++'s three
+VectorPool shapes; its pairs counter against the plain tiled scan's, and
+at x_conv3's shape below the pairs of the unculled prefix; the masked FPS
+at the sector masks of a Waymo scan. Indices must be equal, and the min
+distances to the seeds and the three-NN distances bit for bit.
 
 These tests need a CUDA card and skip without one. On the H100:
 
@@ -48,6 +52,7 @@ from spsnet_torch.ops import sampling
 from spsnet_torch.ops.sampling import (FpsSeeding,
                                        farthest_point_sample_kernel,
                                        farthest_point_sample_plain)
+from three_nn_cases import CASES as NN_CASES, three_nn_case
 
 pytestmark = pytest.mark.cuda
 
@@ -990,13 +995,20 @@ def _three_nn_both(unknown, known):
 
 
 @pytest.mark.parametrize('case', ['ties', 'duplicates', 'm3', 'off_tile',
-                                  'one_query', 'far_rows', 'at_70m'])
+                                  'one_query', 'far_rows', 'at_70m',
+                                  *NN_CASES])
 def test_three_nn_kernel_matches_plain(cuda, case):
     """K6 against the plain three-NN, distances bit for bit: a lattice
     (equal distances all along the row), every known point twice (tied
-    pairs far apart in index order), M = 3, M one past the kernel's tile
-    of 2048, one query, a valid prefix with the rows past it at 1e6 (a
-    padded sparse level), coordinates out to 70 m."""
+    pairs far apart in index order), M = 3, M = 2049, one query, a valid
+    prefix with the rows past it at 1e6 (a padded sparse level),
+    coordinates out to 70 m, and the scan rules' edge cases
+    (``three_nn_case``)."""
+    if case in NN_CASES:
+        unknown, known = three_nn_case(case, 2, 1000, 5000)
+        _three_nn_both(torch.from_numpy(unknown).to(cuda),
+                       torch.from_numpy(known).to(cuda))
+        return
     rng = np.random.default_rng(len(case))
     n, m = 1000, 5000
     known = rng.normal(size=(2, m, 3)) * 5
@@ -1062,6 +1074,59 @@ def test_three_nn_kernel_at_the_vector_pool_shapes(cuda, source, groups,
                            torch.from_numpy(known.astype(np.float32)).to(
                                cuda))
     assert float(d2[..., 2].max()) < 1e6, source
+
+
+@pytest.mark.parametrize('case', ['voxel_order', 'queries_at_1e6',
+                                  'suffix_m3', 'run_in_middle', 'nan_inf',
+                                  'm_off_32'])
+def test_three_nn_kernel_counts_the_pairs_of_the_tiled_scan(cuda, case):
+    """K6's pairs counter reads what the plain tiled scan (the same rules:
+    rows to three past the padded run's start, sub-tiles culled by warps
+    of 32 queries) evaluates, batch row by batch row; both give the plain
+    three-NN's bits. The counter adds to what it holds."""
+    from spsnet_torch.ops.interpolate import (three_nn_kernel,
+                                              three_nn_tiled_plain)
+    unknown, known = (torch.from_numpy(a).to(cuda) for a in three_nn_case(
+        case, 2, 300, 3000))
+    pairs = torch.full((2,), 5, dtype=torch.int64, device=cuda)
+    got = three_nn_kernel(unknown, known, pairs)
+    torch.cuda.synchronize()
+    dist, idx, want = three_nn_tiled_plain(unknown, known)
+    assert torch.equal(got[1], idx)
+    assert torch.equal(got[0].view(torch.int32), dist.view(torch.int32))
+    assert pairs.cpu().tolist() == (want + 5).tolist()
+    _three_nn_both(unknown, known)
+
+
+def test_three_nn_kernel_scans_fewer_pairs_at_x_conv3(cuda):
+    """At the x_conv3 shape of PV-RCNN++'s VSA (4096 keypoints x 27 cells
+    against a level of 150 000 rows: a Waymo scan's 0.4 m voxel centres in
+    z-major key order, the rest padded at 1e6), the suffix rule leaves
+    the occupied prefix and three rows, and the culling scans fewer pairs
+    than that prefix holds; the answer is the plain three-NN's."""
+    from spsnet_torch.models.model_utils.vector_pool import grid_offsets
+    from spsnet_torch.ops.interpolate import (three_nn_kernel,
+                                              three_nn_scan_rows)
+    scan = _waymo_scan(31, 1)
+    keys = np.unique(np.floor((scan + [75.2, 75.2, 2]) / 0.4).astype(
+        np.int64) @ [1, 376, 376 * 376])
+    z, rem = np.divmod(keys, 376 * 376)
+    y, x = np.divmod(rem, 376)
+    known = np.full((1, 150000, 3), 1e6, np.float32)
+    known[0, :len(keys)] = np.stack([x, y, z], -1) * 0.4 + 0.2 - \
+        [75.2, 75.2, 2]
+    centers = (scan[:, ::16, None] + grid_offsets([3] * 3, 1.2)).reshape(
+        1, -1, 3)
+    unknown = torch.from_numpy(centers.astype(np.float32)).to(cuda)
+    known = torch.from_numpy(known).to(cuda)
+    pairs = torch.zeros(1, dtype=torch.int64, device=cuda)
+    three_nn_kernel(unknown, known, pairs)
+    torch.cuda.synchronize()
+    rows = int(three_nn_scan_rows(known)[0])
+    n = unknown.shape[1]
+    assert rows == len(keys) + 3 < 150000
+    assert 0 < int(pairs[0]) < n * rows
+    _three_nn_both(unknown, known)
 
 
 def test_masked_fps_kernel_at_the_sector_masks(cuda):

@@ -188,3 +188,220 @@ def test_plain_ball_query_matches_jax_on_repeated_points(radii, nsamples):
                                jnp.asarray(ctr))
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+# ------------------------------------------------------------- three-NN (K6)
+#
+# K6 scans only the rows up to a padded suffix's first three and the
+# sub-tiles of 32 rows whose lower bound on the rounded d2 does not exceed a
+# warp's thresholds. Its plain twins in ``ops.interpolate`` (the same
+# directed roundings as ``csrc/three_nn.cu``) are held here to the rule that
+# makes the skips exact: no rounded d2 of a sub-tile's point lies below its
+# bound, and the tiled scan gives ``three_nn_plain``'s bits.
+
+from hypothesis import given, settings, strategies as st  # noqa: E402
+
+from spsnet_torch.ops import _build  # noqa: E402
+from spsnet_torch.ops import interpolate as ti  # noqa: E402
+from three_nn_cases import CASES as NN_CASES, three_nn_case  # noqa
+
+# (offsets, scales) of a drawn cloud: squares in the subnormals, metres
+# near and far from the origin, the padded rows' 1e6, squares that overflow
+_REGIMES = {'subnormal': ((0.0,), (1e-20,)),
+            'metres': ((0.0, 70.0, -75.2), (1e-3, 1.0, 70.0)),
+            'far': ((1e6,), (1e-3, 1.0, 1e6)),
+            'huge': ((0.0,), (1e18,))}
+_SPECIALS = (0.0, -0.0, np.nan, np.inf, -np.inf, 1e-20, 1e19, 3e38)
+
+
+@st.composite
+def _nn_inputs(draw, max_n=8, max_m=96):
+    """(unknown (1, n, 3), known (1, m, 3)) float32: a cloud at a drawn
+    offset and scale (``_REGIMES``), its queries
+    random, its own points, points a thousandth of the scale off or nudged
+    by an ulp, or on a sphere around a query (near-ties); duplicated rows;
+    a few coordinates set to zeros, tiny, huge, NaN or inf."""
+    rng = np.random.default_rng(draw(st.integers(0, 2 ** 32 - 1)))
+    n, m = draw(st.integers(1, max_n)), draw(st.integers(3, max_m))
+    off, scales = _REGIMES[draw(st.sampled_from(sorted(_REGIMES)))]
+    off = draw(st.sampled_from(off))
+    scale = draw(st.sampled_from(scales)) * 10 ** rng.uniform(-1, 1)
+    known = (off + scale * rng.normal(size=(1, m, 3))).astype(np.float32)
+    kind = draw(st.sampled_from(('random', 'points', 'near', 'ulp',
+                                 'sphere')))
+    if kind == 'random':
+        unknown = off + scale * rng.normal(size=(1, n, 3))
+    else:
+        unknown = known[:, rng.integers(0, m, n)].astype(np.float64)
+        if kind == 'near':
+            unknown += scale * 1e-3 * rng.normal(size=unknown.shape)
+        if kind == 'ulp':
+            unknown = np.nextafter(unknown.astype(np.float32), np.float32(
+                np.inf) * rng.choice([-1, 1], unknown.shape))
+        if kind == 'sphere':
+            v = rng.normal(size=(1, m, 3))
+            known = (unknown[:, :1] + scale * v / np.linalg.norm(
+                v, axis=-1, keepdims=True)).astype(np.float32)
+    if draw(st.booleans()):
+        known[:, rng.integers(0, m, m // 2)] = known[:, rng.integers(0, m)]
+    unknown = np.asarray(unknown, np.float32)
+    for arr in (known, unknown):
+        for _ in range(draw(st.integers(0, 3))):
+            arr[0, rng.integers(0, arr.shape[1]), rng.integers(0, 3)] = \
+                draw(st.sampled_from(_SPECIALS))
+    return torch.from_numpy(unknown.copy()), torch.from_numpy(known.copy())
+
+
+def _pair_d2(unknown, known):
+    """(B, N, M): every rounded d2 in the plain version's form."""
+    u, k = unknown[:, :, None, :], known[:, None, :, :]
+    cross = (u[..., 0] * k[..., 0] + u[..., 1] * k[..., 1]) + \
+        u[..., 2] * k[..., 2]
+    return (ti._sq_norm(unknown)[..., None] + ti._sq_norm(known)[:, None]) \
+        - 2.0 * cross
+
+
+@settings(max_examples=300, deadline=None, database=None, derandomize=True)
+@given(_nn_inputs())
+def test_k6_cull_bound_lies_below_every_rounded_d2_of_its_subtile(inputs):
+    """For every query and sub-tile, and for the box of the drawn queries
+    together (a group of a warp) and every sub-tile, the bound is -inf (no
+    skip) or no rounded d2 of the sub-tile's points lies below it or is
+    NaN: a sub-tile whose bound exceeds a query's third best, or every
+    third best of a group, holds no point that could enter."""
+    unknown, known = inputs
+    lo, hi = ti.three_nn_boxes(known)
+    d2 = _pair_d2(unknown, known)
+    lane = ti.three_nn_lower_bound(unknown, unknown, ti._sq_norm(unknown),
+                                   lo, hi)
+    glo, ghi, gsq = ti.three_nn_group_boxes(unknown)
+    group = ti.three_nn_lower_bound(glo, ghi, gsq, lo, hi)[:, :1]
+    for lb in (lane, group):
+        assert not torch.isnan(lb).any()
+        lb = lb.repeat_interleave(ti.TILE, -1)[..., :known.shape[1]]
+        bad = (lb > -np.inf) & ~(d2 >= lb)
+        assert not bad.any(), (lb.expand_as(d2)[bad][:4], d2[bad][:4])
+
+
+def test_k6_directed_roundings_bracket_the_exact_result():
+    """The twins of ``__fmul_rd`` / ``__fadd_rd`` and their round-up
+    mirrors: the result at or below (above) the exact value (rational
+    arithmetic) and one ulp from the other where it is inexact, at
+    overflow, in the subnormals, with zeros and with far apart
+    exponents."""
+    from fractions import Fraction
+    rng = np.random.default_rng(1)
+    a = np.concatenate([rng.normal(size=600) * 10.0 ** rng.integers(
+        -45, 38, 600), [3e38, -3e38, 1e-45, -1e-45, 0.0, -0.0, 1.0, 1e30]])
+    b = np.concatenate([rng.normal(size=600) * 10.0 ** rng.integers(
+        -45, 38, 600), [3e38, -3e38, 1e-45, 1e-45, -0.0, 0.0, -1.0, -1e-30]])
+    a, b = (torch.from_numpy(x.astype(np.float32)) for x in (a, b))
+
+    def frac(x):
+        return Fraction(x) if np.isfinite(x) else x
+    for op, exact in ((ti._mul_rd, lambda x, y: Fraction(x) * Fraction(y)),
+                      (ti._add_rd, lambda x, y: Fraction(x) + Fraction(y))):
+        lo = op(a, b)
+        hi = -op(-a, b) if op is ti._mul_rd else -op(-a, -b)
+        for x, y, low, high in zip(a.tolist(), b.tolist(), lo.tolist(),
+                                   hi.tolist()):
+            e = exact(x, y)
+            assert frac(low) <= e <= frac(high), (x, y, low, high)
+            with np.errstate(over='ignore'):
+                up = np.nextafter(np.float32(low), np.float32(np.inf))
+            assert high == low if frac(low) == e else high == up, (x, y)
+
+
+@pytest.mark.parametrize('pad', [0, 1, 2, 3, 40, 97])
+def test_k6_scan_rows_stop_three_rows_into_the_padded_run(pad):
+    """The run of rows bitwise equal to the last: it starts M - pad with
+    ``pad`` rows padded at +0 (at the last row when none is, the rows
+    being distinct), one row earlier where the row before is equal too,
+    and not earlier for -0 against +0 or for an equal run in the middle;
+    the scan keeps its first three rows."""
+    m = 100
+    known = np.random.default_rng(pad).normal(size=(2, m, 3)).astype(
+        np.float32)
+    known[:, 20:60] = known[:, 20:21]
+    if pad:
+        known[:, m - pad:] = 0.0
+        known[0, m - pad - 1] = -0.0
+    p1 = max(pad, 1)
+    known[1, m - p1 - 1] = known[1, m - 1]
+    start = ti.three_nn_run_start(torch.from_numpy(known)).tolist()
+    assert start == [m - p1, m - p1 - 1]
+    assert ti.three_nn_scan_rows(torch.from_numpy(known)).tolist() == [
+        min(m, s + 3) for s in start]
+
+
+@pytest.mark.parametrize('case', NN_CASES)
+def test_k6_tiled_scan_is_the_plain_three_nn(case):
+    """The kernel's scan in plain PyTorch (suffix rule, culled sub-tiles,
+    warps of 32 queries) gives ``three_nn_plain``'s distances bit for bit
+    and its indices, on the scan rules' edge cases; where rows are
+    padded it evaluates fewer pairs than B x N x M."""
+    unknown, known = (torch.from_numpy(a) for a in three_nn_case(
+        case, 2, 70, 360))
+    dist, idx, pairs = ti.three_nn_tiled_plain(unknown, known)
+    want = ti.three_nn_plain(unknown, known)
+    assert torch.equal(idx, want[1])
+    assert torch.equal(dist.view(torch.int32), want[0].view(torch.int32))
+    rows = ti.three_nn_scan_rows(known)
+    assert (pairs <= unknown.shape[1] * rows).all()
+    if case in ('suffix_m3', 'all_equal', 'voxel_order', 'queries_at_1e6'):
+        assert (pairs < unknown.shape[1] * known.shape[1]).all()
+
+
+@settings(max_examples=25, deadline=None, database=None, derandomize=True)
+@given(_nn_inputs(max_n=70, max_m=200))
+def test_k6_tiled_scan_is_the_plain_three_nn_on_drawn_inputs(inputs):
+    unknown, known = inputs
+    dist, idx, _ = ti.three_nn_tiled_plain(unknown, known)
+    want = ti.three_nn_plain(unknown, known)
+    assert torch.equal(idx, want[1])
+    assert torch.equal(dist.view(torch.int32), want[0].view(torch.int32))
+
+
+def _c_entries(source):
+    """{name: [parameter types]} of the ``extern "C"`` functions of a
+    ``csrc`` source."""
+    text = source.split('extern "C" {', 1)[1]
+    import re
+    out = {}
+    for name, params in re.findall(r'^int (spsnet_\w+)\(([^)]*)\)', text,
+                                   re.M):
+        out[name] = [' '.join(p.split()[:-1]) for p in params.split(',')
+                     if p.strip()]
+    return out
+
+
+def test_kernel_c_signatures_match_their_ctypes_table():
+    """Every C entry of every source under ``csrc/`` has the ctypes
+    argument types ``_build.SIGNATURES`` gives it (a pointer as c_void_p,
+    an int array written by the library as POINTER(c_int), int, float),
+    and the table names no entry that the sources lack."""
+    kinds = {'const void*': _build._P, 'void*': _build._P,
+             'int*': _build._IP, 'int': _build._I, 'float': _build._F}
+    for name, table in _build.SIGNATURES.items():
+        entries = _c_entries((_build.CSRC / f'{name}.cu').read_text())
+        assert sorted(entries) == sorted(table), name
+        for fn, params in entries.items():
+            assert [kinds[p] for p in params] == table[fn], fn
+    assert sorted(_build.SIGNATURES) == sorted(
+        p.stem for p in _build.CSRC.glob('*.cu'))
+
+
+def test_k6_wrapper_refuses_what_the_kernel_does_not_take():
+    """``three_nn_kernel`` launches on contiguous CUDA tensors or raises:
+    CPU tensors, M < 3, other dtypes; ``three_nn`` takes the plain version
+    only for CPU tensors."""
+    u, k = torch.zeros(1, 4, 3), torch.zeros(1, 5, 3)
+    with pytest.raises(ValueError, match='CUDA'):
+        ti.three_nn_kernel(u, k)
+    with pytest.raises(ValueError, match='CUDA'):
+        ti.three_nn_kernel(u, k, torch.zeros(1, dtype=torch.int64))
+    with pytest.raises(ValueError, match='at least 3'):
+        ti.three_nn_kernel(u, k[:, :2])
+    with pytest.raises(ValueError, match='float32'):
+        ti.three_nn_kernel(u.double(), k)
+    assert torch.equal(ti.three_nn(u, k)[1], ti.three_nn_plain(u, k)[1])
