@@ -4,10 +4,12 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --phase3 ROOT   # phases 1-3 of another checkout
     python3 chip_smoke.py --jitter-study  # what sets phase 26's baseline
-    python3 chip_smoke.py --fault-check   # phases 26, 36, 44, 55 refuse
-                                          # a scaled card gradient
+    python3 chip_smoke.py --fault-check   # phases 26, 36, 44, 55, 61, 64
+                                          # refuse a scaled card gradient
     python3 chip_smoke.py --fault-check pvrcnnpp  # phase 55 alone (or any
-                                          # of pointrcnn,pvrcnn,voxel_rcnn)
+                                          # of pointrcnn,pvrcnn,voxel_rcnn,
+                                          # centerpoint_pillar,
+                                          # centerpoint_dyn_pillar)
     python3 chip_smoke.py --pvpp-train-repeat N  # phase 54's steps N times
                                           # under each gt at the proposals
 
@@ -329,9 +331,35 @@ Phases, in order; any failure raises and the exit code is not 0:
     (``PP_TRAIN_CUT``): heatmap targets and keypoint labels identical,
     every other decision within its slack and replayed, then loss terms,
     gradients, parameters and BN statistics as phase 36 holds them;
-56. one JSON line per kernel set (K6 among the kernels, with its launches
-    on every path), then the card's name and power limit, then the result
-    line.
+56. the kernels line: K6 joins K1-K4's entries; after phases 57-65, one
+    JSON line per kernel set (K6 among the kernels, with its launches on
+    every path, the pillar paths' none included), then the card's name
+    and power limit, then the result line;
+57. the PointPillar serving path: ``kitti_models/pointpillar.yaml`` at
+    full width on 2 scans of 16384 points (40 000 pillars of 32 slots, the
+    496 x 432 map, 321 408 anchors, NMS at pre 4096 / 0.01), the host
+    pillars' ms a frame (no sparse plan), a warm-up and ten requests; no
+    kernel of the port; ms, peak memory, a profile with the VFE's, the
+    scatter's, the BEV backbone's, the head's and the NMS's shares;
+58. the PointPillar train path: a warm-up and ten steps over three
+    batches of 2 x 16384 at 16 000 pillars (gt as phase 34 makes it:
+    anchor targets, ``anchor_head_loss``, backward, ``adam_onecycle``); ms,
+    grad norms, peak memory, a profile;
+59. CenterPoint over pillars (``waymo_models/centerpoint_pillar_1x.yaml``)
+    serving on 2 Waymo scans of 65 536 points (150 000 pillars of 20 slots,
+    the 468 x 468 map): five requests, ms, peak memory, a profile;
+60. one of its requests (B = 1) card vs CPU stage by stage: PillarVFE's
+    features, the scatter of the card's features bit for bit, the BEV
+    backbone, the head's maps, top 500 and NMS as phase 46 holds them;
+61. its train path (ten steps over three batches of 2 Waymo scenes), then
+    one train step card vs CPU on CP_TRAIN_CUT as phase 48 holds it;
+62-64. the same for ``centerpoint_dyn_pillar_1x.yaml`` (DynamicPillarVFE
+    on the points ``sample_points`` keeps: 65 536): in phase 63 the pillar
+    ids, masks and occupied cells identical, the canvas within tolerance
+    and the spread of two card calls logged;
+65. one request each of ``waymo_models/pointpillar_1x.yaml`` (1 314 144
+    anchors at stride 1) and ``nuscenes_models/cbgs_dyn_pp_centerpoint.yaml``
+    (B = 1, 65 536 points): finite detections.
 
 The K5 shapes are (8, 16384) -> 4096, (8, 15884) -> 4096 (SPSNet's layer
 0), (1, 16384) -> 4096 and (32, 4096) -> 1024. Phase 3 also holds FPS and
@@ -542,6 +570,19 @@ CP_TRAIN_CUT = {'range': (-25.6, -25.6, -2, 25.6, 25.6, 4), 'voxels': 20000,
                 'points': 16384}
 
 
+# the pillar detectors: kitti_models/pointpillar.yaml on PILLAR_B scans
+# of N points at 40 000 pillars of 32 slots (16 000 in training),
+# PILLAR_REQUESTS requests and PILLAR_TRAIN_STEPS steps over
+# PILLAR_TRAIN_BATCHES batches after a warm-up; Waymo's CenterPoint over
+# pillars (150 000 of 20 slots) and over dynamic pillars on the CenterPoint
+# scans (CP_B of CP_N points), CPP_REQUESTS requests and CPP_TRAIN_STEPS
+# steps over CP_TRAIN_BATCHES batches; their card-vs-CPU train steps on
+# CP_TRAIN_CUT. No kernel of the port runs on these paths
+PILLAR_B, PILLAR_REQUESTS = 2, 10
+PILLAR_TRAIN_STEPS, PILLAR_TRAIN_BATCHES = 10, 3
+CPP_REQUESTS, CPP_TRAIN_STEPS = 5, 10
+
+
 def seeding():
     """The train path's D-FPS: grid-seeded at f = 0.75, the JAX package's
     default on its accelerator."""
@@ -590,7 +631,7 @@ def require_equal(a, b, what):
         diff = (a != b).sum().item() if a.shape == b.shape else 'shape'
         raise AssertionError(f'{what}: kernel != plain ({diff} differ)')
     log(f'  {what}: identical')
-    return float((a - b).abs().max()) if a.numel() else 0.0
+    return 0.0
 
 
 def fps_bound(b, n, npoint, steps=None):
@@ -2656,17 +2697,20 @@ VR_FAULTS = (('backbone_3d.conv3', 1.3),
 PP_FAULTS = (('backbone_3d.conv4', 1.3), ('dense_head.hm', 1.3),
              ('pfe.SA_layers.x_conv3', 1.3),
              ('roi_head.roi_grid_pool_layer', 1.3))
+CPP_FAULTS = (('vfe.pfn_layers.0', 1.3), ('backbone_2d.blocks.0', 1.3),
+              ('dense_head.heads_list.0.hm', 1.3))
+_FAULT_MODELS = ('pointrcnn', 'pvrcnn', 'voxel_rcnn', 'pvrcnnpp',
+                 'centerpoint_pillar', 'centerpoint_dyn_pillar')
 
 
-def fault_check(models=('pointrcnn', 'pvrcnn', 'voxel_rcnn',
-                         'pvrcnnpp')) -> int:
-    """``--fault-check``: phases 26, 36, 44 and 55 (those of ``models``) as
-    they run, then again with the card's gradients of one module scaled
-    (``PRCNN_FAULTS``, ``PV_FAULTS``, ``VR_FAULTS``, ``PP_FAULTS``): every
+def fault_check(models=_FAULT_MODELS) -> int:
+    """``--fault-check``: phases 26, 36, 44, 55, 61 and 64 (those of
+    ``models``) as they run, then again with the card's gradients of one
+    module scaled (``PRCNN_FAULTS``, ``PV_FAULTS``, ``VR_FAULTS``,
+    ``PP_FAULTS``, ``CPP_FAULTS`` for both pillar CenterPoints): every
     such run must fail. Returns 1 if one passed."""
     phases = sys.modules[__name__]
-    unknown = set(models) - {'pointrcnn', 'pvrcnn', 'voxel_rcnn',
-                             'pvrcnnpp'}
+    unknown = set(models) - set(_FAULT_MODELS)
     if unknown:
         raise ValueError(f'--fault-check: no such model {sorted(unknown)}')
     missed, n = [], 0
@@ -2724,6 +2768,18 @@ def fault_check(models=('pointrcnn', 'pvrcnn', 'voxel_rcnn',
         each('build_pvpp_trainer', phases.pvpp_train_cpu_phase,
              {k: v[:1].cpu() for k, v in batch.items()}, PP_FAULTS, 1)
         n += len(PP_FAULTS)
+    for kind in ('centerpoint_pillar', 'centerpoint_dyn_pillar'):
+        if kind not in models:
+            continue
+        name = f'waymo_models/{kind}_1x'
+        cfg = build_centerpoint_trainer('cpu', cut=True, name=name)[0]
+        batch = pv_train_batches(cfg, [2500, 2501], sizes=WAYMO_SIZES,
+                                 n=CP_TRAIN_CUT['points'], channels=5)[0][0]
+        each('build_centerpoint_trainer',
+             lambda b, name=name: phases.centerpoint_train_cpu_phase(
+                 b, name), {k: v[:1].cpu() for k, v in batch.items()},
+             CPP_FAULTS, 1)
+        n += len(CPP_FAULTS)
     log(f'{n - len(missed)} of {n} faults refused')
     return 1 if missed else 0
 
@@ -3469,13 +3525,14 @@ def train_scenes(seed, sizes, b=PV_TRAIN_B, n=N, pc_range=None,
 
 
 def voxels_in_range(scan, data_cfg):
-    """The voxels a scan's points occupy inside the range, before the
-    voxelization's cap: the port's ``transform_points_to_voxels`` with a
-    cap of one voxel a point."""
+    """The voxels (pillars) a scan's points occupy inside the range, before
+    the voxelization's cap: the port's ``transform_points_to_voxels`` with
+    a cap of one voxel a point (at the placeholder step's size for the
+    dynamic pillar configs)."""
     from spsnet_torch.data.processor.voxelize import \
         transform_points_to_voxels
     step = [p for p in data_cfg.DATA_PROCESSOR
-            if p['NAME'] == 'transform_points_to_voxels'][0]
+            if p['NAME'].startswith('transform_points_to_voxels')][0]
     return int(transform_points_to_voxels(
         scan, data_cfg.POINT_CLOUD_RANGE, step['VOXEL_SIZE'], len(scan),
         1)['voxel_valid'].sum())
@@ -3532,9 +3589,10 @@ def pv_train_batches(cfg, seeds, sizes=None, n=N, channels=4):
     config's range (one seed a batch; the gt sizes those of the config's
     anchors unless ``sizes``), voxelized and planned by the port's host
     code at the config's train settings (``voxel_batch(mode='train')``
-    with the gt boxes) and copied to the card. Returns (batches, host ms a
-    frame of each, voxels a frame before the cap, voxels a frame after
-    it)."""
+    with the gt boxes; a config that samples points draws from
+    ``RandomState(seed)``) and copied to the card. Returns (batches, host
+    ms a frame of each, voxels a frame before the cap, voxels a frame after
+    it; the dynamic pillar configs have no cap)."""
     from spsnet_torch.data.processor import voxel_batch
     from spsnet_torch.runtime.trainer import device_batch
     if sizes is None:
@@ -3547,10 +3605,12 @@ def pv_train_batches(cfg, seeds, sizes=None, n=N, channels=4):
                                channels=channels)
         t0 = time.perf_counter()
         host = voxel_batch(pts, cfg.DATA_CONFIG, mode='train',
-                           gt_boxes=list(gt))
+                           gt_boxes=list(gt),
+                           rng=np.random.RandomState(seed))
         host_ms.append((time.perf_counter() - t0) * 1e3 / PV_TRAIN_B)
         before += [voxels_in_range(s, cfg.DATA_CONFIG) for s in pts]
-        after += host['voxel_valid'].sum(1).tolist()
+        after += host['voxel_valid'].sum(1).tolist() \
+            if 'voxel_valid' in host else before[-PV_TRAIN_B:]
         batches.append(device_batch(host, 'cuda'))
     torch.cuda.synchronize()
     return batches, host_ms, before, after
@@ -3959,9 +4019,11 @@ def pv_host_batches(cfg, seeds, b, n=N, channels=4):
     """Test-mode voxel batches of ``b`` synthetic scans of ``n`` points in
     the config's range (channels past the fourth uniform in [0, 1)), one
     seed a batch, made by the port's host code (``voxel_batch``: the
-    voxelization and the sparse plan) and copied to the card: {'batches',
-    'host_ms' (a frame), 'copy_ms' (a batch), 'before' and 'after' (each
-    frame's voxels before and after the cap)}."""
+    voxelization and the sparse plan, or the pillars, or the sampled
+    points of a dynamic pillar config, drawn from ``RandomState(seed)``)
+    and copied to the card: {'batches', 'host_ms' (a frame), 'copy_ms' (a
+    batch), 'before' and 'after' (each frame's voxels before and after the
+    cap)}."""
     from spsnet_torch.data.processor import voxel_batch
     from spsnet_torch.runtime.trainer import device_batch
     from spsnet_torch.utils.synthetic import synthetic_scan_batch
@@ -3975,22 +4037,26 @@ def pv_host_batches(cfg, seeds, b, n=N, channels=4):
                 seed).uniform(0, 1, scans.shape[:2] + (channels - 4,))
                 .astype(np.float32)], axis=-1)
         t0 = time.perf_counter()
-        host = voxel_batch(scans, cfg.DATA_CONFIG)
+        host = voxel_batch(scans, cfg.DATA_CONFIG,
+                           rng=np.random.RandomState(seed))
         rec['host_ms'].append((time.perf_counter() - t0) * 1e3 / b)
         rec['before'] += [voxels_in_range(x, cfg.DATA_CONFIG) for x in scans]
-        rec['after'] += host['voxel_valid'].sum(1).tolist()
+        rec['after'] += host['voxel_valid'].sum(1).tolist() \
+            if 'voxel_valid' in host else rec['before'][-b:]
         t0 = time.perf_counter()
         rec['batches'].append(device_batch(host, 'cuda'))
         torch.cuda.synchronize()
         rec['copy_ms'].append((time.perf_counter() - t0) * 1e3)
     first = rec['batches'][0]
-    log(f'  host voxelization + sparse plan (port, numpy): '
+    rows = f'; rows a level {first["voxel_valid"].shape[1]} ... ' \
+        f'{first["down4_valid"].shape[1]}' if 'down4_valid' in first else ''
+    log(f'  host steps ({", ".join(p.NAME for p in cfg.DATA_CONFIG.DATA_PROCESSOR)};'
+        f' port, numpy): '
         f'{statistics.median(rec["host_ms"]):.3f} ms a frame (median of '
         f'{len(seeds)} batches of {b}, {[round(t, 3) for t in rec["host_ms"]]}'
         f'); copy to the card {[round(t, 3) for t in rec["copy_ms"]]} ms a '
         f'batch; voxels a frame in range {rec["before"]}, after the cap '
-        f'{rec["after"]}; rows a level {first["voxel_valid"].shape[1]} ... '
-        f'{first["down4_valid"].shape[1]}')
+        f'{rec["after"]}{rows}')
     return rec
 
 
@@ -4296,41 +4362,54 @@ def centerpoint_cpu_phase(model, cfg, batch):
         errs.append(_require_scaled(g['spatial_features_2d'],
                                     c['spatial_features_2d'],
                                     'BEV backbone'))
-        card = CpDecisions('record')
-        with prcnn_decisions(card):
-            gh = model.dense_head({'spatial_features_2d':
-                                   g['spatial_features_2d']})
-        own = CpDecisions('check', card)
-        with prcnn_decisions(own):
-            ch = cpu.dense_head({'spatial_features_2d':
-                                 g['spatial_features_2d'].cpu()})
-        for note in own.notes:
-            log(f'  card vs CPU {note}')
-        for pg, pc in zip(gh['center_head_iou_ret']['pred_dicts'],
-                          ch['center_head_iou_ret']['pred_dicts']):
-            for key in pg:
-                errs.append(_require_scaled(pg[key], pc[key],
-                                            f'head map {key}'))
-        for key in ('final_valid', 'final_labels'):
-            require_equal(gh[key].long(), ch[key].long(),
-                          f'card vs CPU detections {key}')
-        for key in ('final_boxes', 'final_scores'):
-            errs.append(_require_scaled(gh[key], ch[key],
-                                        f'detections {key}'))
+        notes = _center_head_vs_cpu(model, cpu, g, errs)
+    return {'max_scaled_err': max(errs), 'notes': notes}
+
+
+def _center_head_vs_cpu(model, cpu, g, errs):
+    """The CenterHeadIoU of ``model`` (the card) and ``cpu`` on the card's
+    BEV features ``g['spatial_features_2d']``: the top-K candidates and
+    NMS held and replayed (``CpDecisions``), every group's maps and the
+    detections' boxes and scores within tolerance (their scaled errors
+    appended to ``errs``), valid masks and labels identical. Returns the
+    decisions' notes."""
+    card = CpDecisions('record')
+    with prcnn_decisions(card):
+        gh = model.dense_head({'spatial_features_2d':
+                               g['spatial_features_2d']})
+    own = CpDecisions('check', card)
+    with prcnn_decisions(own):
+        ch = cpu.dense_head({'spatial_features_2d':
+                             g['spatial_features_2d'].cpu()})
+    for note in own.notes:
+        log(f'  card vs CPU {note}')
+    for pg, pc in zip(gh['center_head_iou_ret']['pred_dicts'],
+                      ch['center_head_iou_ret']['pred_dicts']):
+        for key in pg:
+            errs.append(_require_scaled(pg[key], pc[key],
+                                        f'head map {key}'))
+    for key in ('final_valid', 'final_labels'):
+        require_equal(gh[key].long(), ch[key].long(),
+                      f'card vs CPU detections {key}')
+    for key in ('final_boxes', 'final_scores'):
+        errs.append(_require_scaled(gh[key], ch[key],
+                                    f'detections {key}'))
     log(f'  {int(gh["final_valid"].sum())} detections, labels '
         f'{sorted(set(gh["final_labels"][gh["final_valid"]].tolist()))}')
-    return {'max_scaled_err': max(errs), 'notes': own.notes}
+    return own.notes
 
 
-def build_centerpoint_trainer(device, cut=False):
-    """waymo_models/centerpoint.yaml as ``build_voxel_detector`` makes it
-    (seed-0 weights; with ``cut``, on CP_TRAIN_CUT's range and voxel caps)
-    in train mode, its adam_onecycle optimizer and ``make_train_step``:
-    (cfg, model, optimizer, step)."""
+def build_centerpoint_trainer(device, cut=False,
+                              name='waymo_models/centerpoint'):
+    """``tools/cfgs/{name}.yaml`` (waymo_models/centerpoint.yaml, or a
+    pillar CenterPoint) as ``build_voxel_detector`` makes it (seed-0
+    weights; with ``cut``, on CP_TRAIN_CUT's range, voxel caps and sampled
+    points) in train mode, its adam_onecycle optimizer and
+    ``make_train_step``: (cfg, model, optimizer, step)."""
     from spsnet_torch.models import build_detector_from_cfg
     from spsnet_torch.runtime.trainer import make_train_step
     from spsnet_torch.zoo import load_yaml_cfg
-    cfg = load_yaml_cfg('tools/cfgs/waymo_models/centerpoint.yaml')
+    cfg = load_yaml_cfg(f'tools/cfgs/{name}.yaml')
     if cut:
         cut_to(cfg, CP_TRAIN_CUT)
     model = build_detector_from_cfg(
@@ -4349,17 +4428,17 @@ def head_targets(model):
     return outs, handle
 
 
-def centerpoint_train_cpu_phase(batch):
-    """Phase 48: one CenterPoint train step on one frame (``batch``, on
-    the CPU; CP_TRAIN_CUT) on the card and on the CPU from the same
-    weights, and on the
-    CPU from weights jittered by WEIGHT_JITTER: every group's heatmap
-    targets, centre pixels and masks identical bit for bit; loss terms
-    within TRAIN_LOSS_RTOL; gradients, updated parameters and BN running
-    statistics as ``pvrcnn_train_cpu_phase`` holds them."""
-    _, gpu, _, gpu_step = build_centerpoint_trainer('cuda', cut=True)
-    _, cpu, cpu_opt, cpu_step = build_centerpoint_trainer('cpu', cut=True)
-    _, jit, _, jit_step = build_centerpoint_trainer('cpu', cut=True)
+def centerpoint_train_cpu_phase(batch, name='waymo_models/centerpoint'):
+    """Phases 48, 61 and 64: one train step of ``name``'s CenterPoint on
+    one frame (``batch``, on the CPU; CP_TRAIN_CUT) on the card and on the
+    CPU from the same weights, and on the CPU from weights jittered by
+    WEIGHT_JITTER: every group's heatmap targets, centre pixels and masks
+    identical bit for bit; loss terms within TRAIN_LOSS_RTOL; gradients,
+    updated parameters and BN running statistics as
+    ``pvrcnn_train_cpu_phase`` holds them."""
+    _, gpu, _, gpu_step = build_centerpoint_trainer('cuda', True, name)
+    _, cpu, cpu_opt, cpu_step = build_centerpoint_trainer('cpu', True, name)
+    _, jit, _, jit_step = build_centerpoint_trainer('cpu', True, name)
     cpu.load_state_dict(gpu.state_dict())
     jit.load_state_dict(gpu.state_dict())
     gen = torch.Generator().manual_seed(5)
@@ -5050,8 +5129,9 @@ def pvpp_cpu_phase(model, cfg_name, batch):
 
 
 def cut_to(cfg, cut):
-    """``cfg`` with the range, the voxel caps and (where ``cut`` names
-    them) the keypoints of ``cut`` (a PP_TRAIN_CUT-like dict)."""
+    """``cfg`` with the range, the voxel caps, the sampled points and
+    (where ``cut`` names them) the keypoints of ``cut`` (a
+    PP_TRAIN_CUT-like dict)."""
     cfg.DATA_CONFIG.POINT_CLOUD_RANGE = list(cut['range'])
     if 'keypoints' in cut:
         cfg.MODEL.PFE.NUM_KEYPOINTS = cut['keypoints']
@@ -5061,6 +5141,8 @@ def cut_to(cfg, cut):
                                          'test': cut['voxels']}
         if step.NAME == 'build_sparse_conv_plan':
             step.MAX_VOXELS_PER_LEVEL = cut['voxels']
+        if step.NAME == 'sample_points':
+            step.NUM_POINTS = {'train': cut['points'], 'test': cut['points']}
     return cfg
 
 
@@ -5359,6 +5441,335 @@ def pvpp_phases(smi):
     train['card_vs_cpu'] = pvpp_train_cpu_phase(
         {k: v[:1].cpu() for k, v in batch.items()})
     return rec, shapes, resnet, train, k6
+
+
+# ------------------------------------------------------------- pillars
+
+def pillar_profile(model, fn, what):
+    """``centerpoint_profile`` for a pillar detector: the VFE, the scatter,
+    the BEV backbone and the head as ranges (and the NMS, where ``fn``
+    opens an 'NMS' range; a CenterHead's decode and NMS as 'head
+    decode'), with their shares of the device time."""
+    names = {'vfe': 'VFE', 'map_to_bev_module': 'scatter',
+             'backbone_2d': 'BEV backbone', 'dense_head': 'head'}
+
+    def ranged(name, fn):
+        def call(*args, **kwargs):
+            with torch.profiler.record_function(name):
+                return fn(*args, **kwargs)
+        return call
+    for attr, name in names.items():
+        module = getattr(model, attr)
+        module.forward = ranged(name, module.forward)
+    decode = hasattr(model.dense_head, 'decode')
+    if decode:
+        model.dense_head.decode = ranged('head decode',
+                                         model.dense_head.decode)
+    try:
+        prof = profile_phase(fn, what, ranges=(
+            *names.values(), 'head decode' if decode else 'NMS'))
+    finally:
+        for attr in names:
+            del getattr(model, attr).forward
+        if decode:
+            del model.dense_head.decode
+    for span in prof['ranges'].values():
+        span['device_share'] = span['device_ms'] / prof['device_ms']
+    prof['backward_share'] = prof['backward_device_ms'] / prof['device_ms']
+    log('  device shares: ' + ', '.join(
+        f'{k} {v["device_share"]:.3f}' for k, v in prof['ranges'].items()) +
+        f', backward {prof["backward_share"]:.3f}')
+    return prof
+
+
+def anchor_request(model, batch, post):
+    """One request of an anchor-head pillar detector with the NMS in an
+    'NMS' range: forward + ``post_processing``."""
+    from spsnet_torch.models.detectors.detector3d import post_processing
+    with torch.no_grad():
+        out = model(batch)
+        with torch.profiler.record_function('NMS'):
+            return post_processing(out, post)
+
+
+def pillar_train_path(model, step, opt, batches, steps, what, smi):
+    """A warm-up step, then ``steps`` steps cycling over ``batches`` with
+    the launch counters zeroed just before (no kernel of the port; finite
+    losses and gradients, every parameter moves); ms a step, grad norms
+    and peak memory."""
+    from spsnet_torch.ops import _build
+    step(batches[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    norms = []
+    times, launches = train_path(
+        model, step, [batches[k % len(batches)]
+                      for k in range(1, 1 + steps)],
+        {k: 0 for k in _build.LAUNCHES},
+        lambda: norms.append(float(opt.grad_norm)))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ms = statistics.median(times)
+    log(f'  ms/train step ({what}): median {ms:.3f}, range '
+        f'{min(times):.3f}-{max(times):.3f}, all '
+        f'{[round(t, 3) for t in times]}; grad norms '
+        f'{[round(n, 4) for n in norms]}; peak memory {peak:.3f} GiB on '
+        f'{smi}')
+    return {'ms': ms, 'all_ms': times, 'launches': launches,
+            'range_ms': [min(times), max(times)], 'peak_gib': peak,
+            'grad_norms': norms}
+
+
+def pillar_cpu_phase(model, name, batch):
+    """One request of the pillar CenterPoint ``name`` (B = 1) on the card
+    and on the CPU with the same weights, stage by stage from the card's
+    inputs: PillarVFE's features within VOXEL_RTOL / VOXEL_ATOL and the
+    scatter's canvas of the card's features bit for bit, or the dynamic
+    VFE's pillar ids, masks and occupied cells identical and its canvas
+    within tolerance (its pillar means sum in another order; the spread of
+    two card calls is logged); then the BEV backbone and the head as
+    ``centerpoint_cpu_phase`` holds them."""
+    _, cpu = build_voxel_detector(name, 'cpu')
+    cpu.load_state_dict(model.state_dict())
+    host = _cpu_tree(batch)
+    errs, rec = [], {}
+    with torch.no_grad():
+        if 'voxels' not in batch:
+            ids = model.vfe.pillar_index(batch)
+            for what, a, b in zip(('x index', 'y index', 'pillar id',
+                                   'mask'), ids,
+                                  cpu.vfe.pillar_index(host)):
+                require_equal(a, b, f'card vs CPU dynamic pillar {what}')
+            cells = [torch.zeros(f.shape[0], model.vfe.ny * model.vfe.nx + 1,
+                                 dtype=torch.bool, device=f.device).scatter_(
+                1, f, True)[:, :-1] for f in (ids[2], ids[2].cpu())]
+            require_equal(cells[0], cells[1],
+                          'card vs CPU occupied pillars')
+            g = model.vfe(batch)
+            again = model.vfe(batch)['spatial_features']
+            rec['card_spread'] = float((again - g['spatial_features'])
+                                       .abs().max())
+            rec['occupied'] = int(cells[1].sum())
+            log(f'  {rec["occupied"]} occupied pillars; two card calls on '
+                f'this batch: largest canvas difference '
+                f'{rec["card_spread"]:.3e} (largest entry '
+                f'{float(g["spatial_features"].abs().max()):.3e}; the '
+                f'pillar means\' atomics)')
+            c = cpu.vfe(host)
+            errs.append(_require_scaled(g['spatial_features'],
+                                        c['spatial_features'],
+                                        'dynamic pillar canvas'))
+        else:
+            g = model.vfe(batch)
+            c = cpu.vfe(host)
+            errs.append(_require_scaled(g['pillar_features'],
+                                        c['pillar_features'],
+                                        'pillar features'))
+            g = model.map_to_bev_module(g)
+            c = cpu.map_to_bev_module(dict(
+                host, pillar_features=g['pillar_features'].cpu()))
+            require_equal(g['spatial_features'], c['spatial_features'],
+                          'card vs CPU: the pillar scatter')
+        g = model.backbone_2d(g)
+        c = cpu.backbone_2d({'spatial_features': g['spatial_features'].cpu()})
+        errs.append(_require_scaled(g['spatial_features_2d'],
+                                    c['spatial_features_2d'],
+                                    'BEV backbone'))
+        rec['notes'] = _center_head_vs_cpu(model, cpu, g, errs)
+    rec['max_scaled_err'] = max(errs)
+    return rec
+
+
+def pointpillar_phases(smi):
+    """Phases 57-58: kitti_models/pointpillar.yaml serving and training."""
+    log('== 57. PointPillar serving path (kitti_models/pointpillar.yaml)')
+    cfg, model = build_voxel_detector('pointpillar', 'cuda')
+    post = cfg.MODEL.POST_PROCESSING
+    host = pv_host_batches(cfg, range(2000, 2002), PILLAR_B, N)
+    # the peak after the first call, whose cuDNN algorithm search takes
+    # workspaces of its own
+    anchor_request(model, host['batches'][0], post)
+    torch.cuda.reset_peak_memory_stats()
+    times, launches = main_path(
+        model, [host['batches'][k % 2] for k in range(PILLAR_REQUESTS)],
+        post, {}, 'PointPillar requests')
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ms = statistics.median(times)
+    dets = anchor_request(model, host['batches'][0], post)
+    log(f'  launches over {PILLAR_REQUESTS} requests: {launches}')
+    log(f'  ms/batch (B={PILLAR_B}, N={N}: PillarVFE over '
+        f'{host["batches"][0]["voxel_valid"].shape[1]} pillars of 32 slots, '
+        f'scatter, BEV backbone, {model.dense_head.anchors.shape[0]} anchors,'
+        f' NMS): median {ms:.3f}, range {min(times):.3f}-{max(times):.3f}, '
+        f'all {[round(t, 3) for t in times]}; peak memory {peak:.3f} GiB; '
+        f'detections a frame {dets["count"].tolist()} on {smi}')
+    rec = {'ms_per_batch': ms, 'all_ms': times, 'launches': launches,
+           'range_ms': [min(times), max(times)], 'peak_gib': peak,
+           'host_ms_a_frame': host['host_ms'],
+           'pillars_before_cap': host['before'],
+           'pillars_after_cap': host['after'],
+           'detections': dets['count'].tolist()}
+    rec['profile'] = pillar_profile(
+        model, lambda: anchor_request(model, host['batches'][0], post),
+        'one PointPillar request (B=2)')
+    del model, host
+
+    log('== 58. PointPillar train path')
+    cfg, model, opt, step = build_centerpoint_trainer(
+        'cuda', name='kitti_models/pointpillar')
+    batches, host_ms, before, after = pv_train_batches(
+        cfg, range(2100, 2100 + PILLAR_TRAIN_BATCHES))
+    log(f'  host pillars at the train settings: '
+        f'{statistics.median(host_ms):.3f} ms a frame; pillars a frame in '
+        f'range {before}, after the cap of 16000 {after}; gt boxes a frame '
+        f'{batches[0]["gt_boxes"].shape[1]}')
+    train = pillar_train_path(
+        model, step, opt, batches, PILLAR_TRAIN_STEPS,
+        f'B={PV_TRAIN_B}, N={N}: PillarVFE, BEV backbone, anchor targets '
+        f'and loss, backward, adam_onecycle', smi)
+    train.update(host_ms_a_frame=host_ms, pillars_before_cap=before,
+                 pillars_after_cap=after)
+    train['profile'] = pillar_profile(
+        model, lambda: step(batches[1]), 'one PointPillar train step (B=2)')
+    return rec, train
+
+
+def waymo_pillar_phases(smi, dynamic):
+    """Phases 59-61 (PillarVFE, centerpoint_pillar_1x.yaml) or 62-64
+    (DynamicPillarVFE, centerpoint_dyn_pillar_1x.yaml): serving, card vs
+    CPU one request, training, card vs CPU one train step."""
+    name = 'waymo_models/centerpoint_dyn_pillar_1x' if dynamic else \
+        'waymo_models/centerpoint_pillar_1x'
+    first, kind = (62, 'dynamic pillar') if dynamic else (59, 'pillar')
+    seed = 2300 if dynamic else 2200
+    log(f'== {first}. CenterPoint over {kind}s, serving ({name}.yaml)')
+    cfg, model = build_voxel_detector(name, 'cuda')
+    host = pv_host_batches(cfg, range(seed, seed + 2), CP_B, CP_N, 5)
+    from spsnet_torch.models.detectors.detector3d import head_detections
+
+    def request():
+        with torch.no_grad():
+            return head_detections(model(host['batches'][0]))
+    request()
+    torch.cuda.reset_peak_memory_stats()
+    times, launches, dets = centerpoint_path(
+        model, [host['batches'][k % 2] for k in range(CPP_REQUESTS)],
+        f'CenterPoint {kind} requests (B={CP_B})')
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ms = statistics.median(times)
+    log(f'  launches over {CPP_REQUESTS} requests: {launches}')
+    log(f'  ms/batch (B={CP_B}, N={CP_N}, 5 channels: '
+        f'{type(model.vfe).__name__}, the {model.vfe.num_pillar_features}-'
+        f'channel {model.grid_size[1]} x {model.grid_size[0]} map, BEV '
+        f'backbone, CenterHead top 500, NMS): median {ms:.3f}, range '
+        f'{min(times):.3f}-{max(times):.3f}, all '
+        f'{[round(t, 3) for t in times]}; peak memory {peak:.3f} GiB; '
+        f'detections a frame {dets["count"].tolist()} on {smi}')
+    rec = {'ms_per_batch': ms, 'all_ms': times, 'launches': launches,
+           'range_ms': [min(times), max(times)], 'peak_gib': peak,
+           'host_ms_a_frame': host['host_ms'],
+           'pillars_before_cap': host['before'],
+           'pillars_after_cap': host['after'],
+           'detections': dets['count'].tolist()}
+    rec['profile'] = pillar_profile(model, request,
+                                    f'one CenterPoint {kind} request (B=2)')
+
+    log(f'== {first + 1}. CenterPoint over {kind}s card vs CPU, one request '
+        f'(B=1)')
+    one = {k: v[:1] for k, v in host['batches'][0].items()}
+    torch.cuda.reset_peak_memory_stats()
+    rec['card_vs_cpu'] = pillar_cpu_phase(model, name, one)
+    rec['card_vs_cpu']['peak_gib'] = \
+        torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f'  peak memory {rec["card_vs_cpu"]["peak_gib"]:.3f} GiB')
+    del model, host
+
+    log(f'== {first + 2}. CenterPoint over {kind}s, train path; card vs CPU '
+        f'one train step (cut: {CP_TRAIN_CUT})')
+    cfg, model, opt, step = build_centerpoint_trainer('cuda', name=name)
+    batches, host_ms, before, after = pv_train_batches(
+        cfg, range(seed + 50, seed + 50 + CP_TRAIN_BATCHES),
+        sizes=WAYMO_SIZES, n=CP_N, channels=5)
+    log(f'  host steps at the train settings: '
+        f'{statistics.median(host_ms):.3f} ms a frame; pillars a frame '
+        f'{before}, after the cap {after}')
+    train = pillar_train_path(
+        model, step, opt, batches, CPP_TRAIN_STEPS,
+        f'B={PV_TRAIN_B}, N={CP_N}: {type(model.vfe).__name__}, BEV '
+        f'backbone, CenterHead targets and losses, backward, '
+        f'adam_onecycle', smi)
+    train.update(host_ms_a_frame=host_ms, pillars_before_cap=before,
+                 pillars_after_cap=after)
+    train['profile'] = pillar_profile(
+        model, lambda: step(batches[1]),
+        f'one CenterPoint {kind} train step (B=2)')
+    del model, step, batches
+    cfg = build_centerpoint_trainer('cpu', cut=True, name=name)[0]
+    batch = pv_train_batches(cfg, [seed + 90, seed + 91], sizes=WAYMO_SIZES,
+                             n=CP_TRAIN_CUT['points'], channels=5)[0][0]
+    torch.cuda.reset_peak_memory_stats()
+    train['card_vs_cpu'] = centerpoint_train_cpu_phase(
+        {k: v[:1].cpu() for k, v in batch.items()}, name)
+    train['card_vs_cpu']['peak_gib'] = \
+        torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f'  peak memory {train["card_vs_cpu"]["peak_gib"]:.3f} GiB')
+    return rec, train
+
+
+def pillar_request_phase(name, seed, smi):
+    """Phase 65: one request (B = 1, 65 536 points of 5 channels) of
+    ``name`` after a warm-up, the launch counters zeroed just before: no
+    kernel launch, finite detections in the frame."""
+    from spsnet_torch.models.detectors.detector3d import head_detections
+    from spsnet_torch.ops import _build
+    cfg, model = build_voxel_detector(name, 'cuda')
+    batch = pv_host_batches(cfg, [seed], 1, CP_N, 5)['batches'][0]
+    anchor = cfg.MODEL.DENSE_HEAD.NAME == 'AnchorHeadSingle'
+
+    def request():
+        if anchor:
+            return anchor_request(model, batch, cfg.MODEL.POST_PROCESSING)
+        with torch.no_grad():
+            return head_detections(model(batch))
+    request()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    dets = request()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(_build.LAUNCHES)
+    _require_per_call(launches, {}, 1, f'{name} request')
+    if not (torch.isfinite(dets['boxes']).all() and
+            torch.isfinite(dets['scores']).all()) or dets['count'].min() < 1:
+        raise AssertionError(f'{name}: detections {dets["count"]}, finite '
+                             f'{bool(torch.isfinite(dets["boxes"]).all())}')
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    extra = f'{model.dense_head.anchors.shape[0]} anchors' if anchor else \
+        f'{len(model.dense_head.heads_list)} head groups'
+    log(f'  {name}: {ms:.3f} ms a request (B=1, {extra}, a '
+        f'{model.grid_size[1]} x {model.grid_size[0]} map), detections '
+        f'{dets["count"].tolist()}, launches {launches}, peak memory '
+        f'{peak:.3f} GiB on {smi}')
+    return {'ms': ms, 'launches': launches, 'peak_gib': peak,
+            'detections': dets['count'].tolist()}
+
+
+def pillar_phases(smi):
+    """Phases 57-65; returns the pillar paths' records."""
+    pp, pp_train = pointpillar_phases(smi)
+    cpp, cpp_train = waymo_pillar_phases(smi, dynamic=False)
+    dyn, dyn_train = waymo_pillar_phases(smi, dynamic=True)
+    log('== 65. one request each of waymo_models/pointpillar_1x.yaml and '
+        'nuscenes_models/cbgs_dyn_pp_centerpoint.yaml')
+    waymo = pillar_request_phase('waymo_models/pointpillar_1x', 2400, smi)
+    nus = pillar_request_phase('nuscenes_models/cbgs_dyn_pp_centerpoint',
+                               2401, smi)
+    return {'pointpillar': pp, 'pointpillar_train': pp_train,
+            'centerpoint_pillar': cpp, 'centerpoint_pillar_train': cpp_train,
+            'centerpoint_dyn_pillar': dyn,
+            'centerpoint_dyn_pillar_train': dyn_train,
+            'pointpillar_waymo': waymo, 'centerpoint_dyn_pp_nuscenes': nus}
 
 
 def card_and_build():
@@ -5851,6 +6262,7 @@ def main(argv=()) -> int:
     pvpp, pvpp_shapes, pvpp_resnet, pvpp_train, k6 = pvpp_phases(smi)
     log('== 56. the kernels line, K6 with K1-K4')
     entries.append(k6)
+    pillars = pillar_phases(smi)
 
     paths = {'serve': launches, 'train': train_launches,
              'spsnet': sps_launches, 'fps_entries': entry_launches,
@@ -5869,7 +6281,8 @@ def main(argv=()) -> int:
              'voxelrcnn_waymo': vr_waymo['launches'],
              'pvrcnnpp': pvpp['launches'],
              'pvrcnnpp_resnet': pvpp_resnet['launches'],
-             'pvrcnnpp_train': pvpp_train['launches']}
+             'pvrcnnpp_train': pvpp_train['launches'],
+             **{name: rec['launches'] for name, rec in pillars.items()}}
     for entry in entries:
         entry['launches_by_path'] = {path: counts.get(entry['name'], 0)
                                      for path, counts in paths.items()}
@@ -5939,7 +6352,8 @@ def main(argv=()) -> int:
                     'centerpoint_train': cp_train,
                     'voxelrcnn_waymo': vr_waymo, 'pvrcnnpp': pvpp,
                     'pvrcnnpp_resnet': pvpp_resnet,
-                    'pvrcnnpp_train': pvpp_train, 'card': smi}))
+                    'pvrcnnpp_train': pvpp_train, 'pillars': pillars,
+                    'card': smi}))
     log(smi)
     log(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

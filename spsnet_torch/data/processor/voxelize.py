@@ -1,18 +1,57 @@
-"""Host voxelization and the sparse-conv plan of the voxel detectors.
+"""Host steps of the voxel and pillar detectors' data processor.
 
-Plain numpy copies of two steps of the JAX package's ``DataProcessor``
-(``spsnet_tpu/data/processor/data_processor.py:233-283``
-``transform_points_to_voxels`` and ``:315-335`` ``build_sparse_conv_plan``),
-which the port may not import (its module imports JAX); the rest of the
-processor queue waits for ROADMAP item G. ``voxel_batch`` runs both over a
-batch of scans as a config's test-mode ``DATA_PROCESSOR`` sets them and
-collates the result: what the voxel detectors' forward reads.
+Plain numpy copies of four steps of the JAX package's ``DataProcessor``
+(``spsnet_tpu/data/processor/data_processor.py:150-189``
+``sample_points``, ``:191-202`` ``transform_points_to_voxels_placeholder``,
+``:233-283`` ``transform_points_to_voxels`` and ``:315-335``
+``build_sparse_conv_plan``), which the port may not import (its module
+imports JAX); the rest of the processor queue (range masking, shuffling)
+waits for ROADMAP item G. ``voxel_batch`` runs the steps a config's
+``DATA_PROCESSOR`` names over a batch of scans and collates the result:
+what the voxel and pillar detectors' forward reads.
 """
 from __future__ import annotations
 
 import numpy as np
 
 from .sparse_plan import build_sparse_plan
+
+
+def sample_points(points, num_points: int, rng: np.random.RandomState):
+    """The near/far fixed-N rule of one (N, C) scan (JAX's
+    ``sample_points``): with more than ``num_points`` points, keep every
+    point at 40 m or farther (its norm over x, y, z) and draw the rest from
+    the near ones without replacement, or draw all of them when the far
+    ones alone reach ``num_points``; with fewer, keep every point and
+    draw the missing ones with replacement; then shuffle. The draws come
+    from ``rng`` in JAX's order, so ``RandomState(s)`` here draws what
+    JAX draws after ``np.random.seed(s)``. ``num_points`` -1 keeps the
+    scan."""
+    if num_points == -1:
+        return points
+    if num_points < len(points):
+        near_mask = np.linalg.norm(points[:, 0:3], axis=1) < 40.0
+        far_idxs = np.where(~near_mask)[0]
+        near_idxs = np.where(near_mask)[0]
+        if num_points > len(far_idxs):
+            near_choice = rng.choice(near_idxs, num_points - len(far_idxs),
+                                     replace=False)
+            choice = np.concatenate((near_choice, far_idxs)) \
+                if len(far_idxs) > 0 else near_choice
+        else:
+            choice = rng.choice(np.arange(len(points), dtype=np.int64),
+                                num_points, replace=False)
+        rng.shuffle(choice)
+    else:
+        choice = np.arange(0, len(points), dtype=np.int64)
+        if num_points > len(points):
+            extra = rng.choice(choice, num_points - len(points),
+                               replace=True) if len(points) > 0 \
+                else np.zeros(num_points, dtype=np.int64)
+            choice = np.concatenate((choice, extra))
+        rng.shuffle(choice)
+    return points[choice] if len(points) > 0 \
+        else np.zeros((num_points, points.shape[1]), dtype=points.dtype)
 
 
 def transform_points_to_voxels(points, point_cloud_range, voxel_size,
@@ -54,6 +93,15 @@ def transform_points_to_voxels(points, point_cloud_range, voxel_size,
             'voxel_valid': np.arange(max_voxels) < n_voxels}
 
 
+def transform_points_to_voxels_placeholder(point_cloud_range, voxel_size):
+    """The grid bookkeeping of JAX's placeholder step, which voxelizes
+    nothing (the dynamic pillar VFE does it on the device): the (nx, ny,
+    nz) grid of ``voxel_size`` over the range, int64."""
+    pcr = np.asarray(point_cloud_range, dtype=np.float32)
+    return np.round((pcr[3:6] - pcr[0:3]) /
+                    np.asarray(voxel_size)).astype(np.int64)
+
+
 def sparse_grid_zyx(point_cloud_range, voxel_size):
     """The sparse backbone's (nz + 1, ny, nx): the voxel grid with z padded
     by one empty slice, as the reference's ``sparse_shape = grid[::-1] +
@@ -85,44 +133,61 @@ def _by_mode(value, mode):
     return int(value[mode]) if hasattr(value, 'keys') else int(value)
 
 
-def voxel_batch(points, data_cfg, mode: str = 'test', gt_boxes=None):
-    """(B, N, C) scans -> the collated numpy batch of a voxel detector:
-    'points' and, stacked over the frames, the voxels of
-    ``transform_points_to_voxels`` and the plan of
-    ``build_sparse_conv_plan`` at the settings of ``data_cfg``'s
-    ``DATA_PROCESSOR`` (``mode`` picks 'train' or 'test' limits). Range
-    masking and shuffling are not applied: points outside the range get no
-    voxel and stay in 'points' (the synthetic scans lie inside it). With
-    ``gt_boxes``, one (T_b, W) array a frame, W = 8 ([x, y, z, dx, dy, dz,
-    heading, class]) or 10 (nuScenes: the velocity (vx, vy) before the
-    class) for all frames, the batch also holds 'gt_boxes' (B, max T_b, W)
-    float32, shorter frames padded with zero rows."""
+def voxel_batch(points, data_cfg, mode: str = 'test', gt_boxes=None,
+                rng: np.random.RandomState | None = None):
+    """(B, N, C) scans -> the collated numpy batch of a voxel or pillar
+    detector, by the steps of ``data_cfg``'s ``DATA_PROCESSOR`` (``mode``
+    picks 'train' or 'test' limits): ``sample_points`` where the config
+    names it (its draws from ``rng``, which it then needs), then, stacked
+    over the frames, the voxels of ``transform_points_to_voxels`` ('voxels',
+    'voxel_coords', 'voxel_num_points', 'voxel_valid') and, where the
+    config names ``build_sparse_conv_plan`` (the sparse backbones), the
+    plan's tables. With ``transform_points_to_voxels_placeholder`` (the
+    dynamic pillar VFE voxelizes on the device) the batch holds the
+    points alone. 'points' holds the (sampled) scans. Range masking and
+    shuffling are not applied: points outside the range get no voxel and
+    stay in 'points' (the synthetic scans lie inside it). With
+    ``gt_boxes``, one (T_b, W) array a frame, W = 8 ([x, y, z, dx, dy,
+    dz, heading, class]) or 10 (nuScenes: the velocity (vx, vy) before the
+    class) for all frames, the batch also holds 'gt_boxes' (B, max T_b,
+    W) float32, shorter frames padded with zero rows."""
     steps = {p['NAME']: p for p in data_cfg.DATA_PROCESSOR}
-    vox = steps['transform_points_to_voxels']
     pcr = data_cfg.POINT_CLOUD_RANGE
-    plan_cfg = steps['build_sparse_conv_plan']
-    frames = []
-    for scan in points:
-        frame = transform_points_to_voxels(
-            scan, pcr, vox['VOXEL_SIZE'],
-            _by_mode(vox['MAX_NUMBER_OF_VOXELS'], mode),
-            int(vox['MAX_POINTS_PER_VOXEL']))
-        frame.update(build_sparse_conv_plan(
-            frame['voxel_coords'], frame['voxel_valid'], pcr,
-            vox['VOXEL_SIZE'], plan_cfg.get('MAX_VOXELS_PER_LEVEL', None)))
-        frames.append(frame)
-    batch = {k: np.stack([f[k] for f in frames]) for k in frames[0]}
+    if 'sample_points' in steps:
+        if rng is None:
+            raise ValueError('the config samples points: pass rng, a '
+                             'numpy RandomState')
+        num = _by_mode(steps['sample_points']['NUM_POINTS'], mode)
+        points = np.stack([sample_points(np.asarray(scan), num, rng)
+                           for scan in points])
+    batch = {}
+    vox = steps.get('transform_points_to_voxels', None)
+    if vox is not None:
+        plan_cfg = steps.get('build_sparse_conv_plan', None)
+        frames = []
+        for scan in points:
+            frame = transform_points_to_voxels(
+                scan, pcr, vox['VOXEL_SIZE'],
+                _by_mode(vox['MAX_NUMBER_OF_VOXELS'], mode),
+                int(vox['MAX_POINTS_PER_VOXEL']))
+            if plan_cfg is not None:
+                frame.update(build_sparse_conv_plan(
+                    frame['voxel_coords'], frame['voxel_valid'], pcr,
+                    vox['VOXEL_SIZE'],
+                    plan_cfg.get('MAX_VOXELS_PER_LEVEL', None)))
+            frames.append(frame)
+        batch = {k: np.stack([f[k] for f in frames]) for k in frames[0]}
     batch['points'] = np.asarray(points, dtype=np.float32)
     if gt_boxes is not None:
-        if len(gt_boxes) != len(frames):
+        if len(gt_boxes) != len(points):
             raise ValueError(f'{len(gt_boxes)} gt box arrays for '
-                             f'{len(frames)} frames')
+                             f'{len(points)} frames')
         widths = {np.shape(g)[-1] for g in gt_boxes}
         if len(widths) != 1 or not widths <= {8, 10}:
             raise ValueError(f'gt box widths {sorted(widths)}: the frames '
                              'share one width, 8 or 10')
         t = max(len(g) for g in gt_boxes)
-        gt = np.zeros((len(frames), t, widths.pop()), dtype=np.float32)
+        gt = np.zeros((len(points), t, widths.pop()), dtype=np.float32)
         for b, g in enumerate(gt_boxes):
             gt[b, :len(g)] = g
         batch['gt_boxes'] = gt

@@ -9,6 +9,7 @@ from ..blocks import init_weights
 from .centerpoint import CenterPoint
 from .iassd import IASSD
 from .point_rcnn import PointRCNN
+from .pointpillar import PointPillar
 from .pv_rcnn import PVRCNN
 from .pv_rcnn_plusplus import PVRCNNPlusPlus
 from .second_net import SECONDNet
@@ -20,16 +21,17 @@ from .voxel_rcnn import VoxelRCNN
 _DETECTORS = {'IASSD': IASSD, 'PAGNet': IASSD, 'SPSNet': IASSD,
               'PointRCNN': PointRCNN, 'SECONDNet': SECONDNet,
               'PVRCNN': PVRCNN, 'VoxelRCNN': VoxelRCNN,
-              'CenterPoint': CenterPoint, 'PVRCNNPlusPlus': PVRCNNPlusPlus}
+              'CenterPoint': CenterPoint, 'PVRCNNPlusPlus': PVRCNNPlusPlus,
+              'PointPillar': PointPillar}
 _VOXEL_DETECTORS = (SECONDNet, PVRCNN, VoxelRCNN, CenterPoint,
-                    PVRCNNPlusPlus)
+                    PVRCNNPlusPlus, PointPillar)
 # the modules the port has, by config block: a block naming another one
-# (a pillar VFE, UNetV2, AnchorHeadMulti, ...) is not ported
+# (UNetV2, AnchorHeadMulti, ...) is not ported
 _PORTED = {
-    'VFE': {'MeanVFE'},
+    'VFE': {'MeanVFE', 'PillarVFE', 'DynamicPillarVFE', 'DynPillarVFE'},
     'BACKBONE_3D': {'IASSD_Backbone', 'PAGNet_Backbone', 'PointNet2MSG',
                     'VoxelBackBone8x', 'VoxelResBackBone8x'},
-    'MAP_TO_BEV': {'HeightCompression'},
+    'MAP_TO_BEV': {'HeightCompression', 'PointPillarScatter'},
     'BACKBONE_2D': {'BaseBEVBackbone'},
     'DENSE_HEAD': {'AnchorHeadSingle', 'CenterHead', 'CenterHeadIoU'},
     'PFE': {'VoxelSetAbstraction'},
@@ -37,6 +39,14 @@ _PORTED = {
                    'PointHeadSimple'},
     'ROI_HEAD': {'PointRCNNHead', 'PVRCNNHead', 'VoxelRCNNHead'},
 }
+
+
+# the ROADMAP Queue 1 item of each module that the configs of tools/cfgs
+# name and the port lacks
+_ITEMS = {'AnchorHeadMulti': 'F6', 'SECONDHead': 'F7', 'UNetV2': 'F8',
+          'PointIntraPartOffsetHead': 'F8', 'PartA2FCHead': 'F8',
+          'AL_3D': 'F9', 'Sparse2BEV': 'F9', 'RB_Fusion': 'F9',
+          'ImageVFE': 'F10', 'Conv2DCollapse': 'F10'}
 
 
 def unported_modules(model_cfg) -> list:
@@ -85,11 +95,15 @@ def build_detector(model_cfg, num_class: int, device='cuda',
     name = model_cfg.NAME
     missing = unported_modules(model_cfg)
     if name not in _DETECTORS or missing:
-        raise NotImplementedError(
+        items = [f'{m} item {_ITEMS[m.split()[-1]]}' for m in missing
+                 if m.split()[-1] in _ITEMS]
+        raise NotImplementedError('; '.join([
             f'detector {name} ({", ".join(missing) or "no such detector"}): '
-            f'the port serves and trains {sorted(_DETECTORS)}; the rest of '
-            'the voxel, pillar and two-stage zoo is ROADMAP Queue 1 item F, '
-            'the rest of the point family item E')
+            f'the port serves and trains {sorted(_DETECTORS)}', *items,
+            'the rest of the voxel and two-stage zoo is ROADMAP Queue 1 '
+            'item F6-F10 (F6 AnchorHeadMulti and multi-class NMS, F7 '
+            'SECOND-IoU, F8 PartA2, F9 the AL_3D stack, F10 CaDDN), the rest '
+            'of the point family item E']))
     cls = _DETECTORS[name]
     if cls in _VOXEL_DETECTORS:
         if cls is PVRCNN:
@@ -129,7 +143,8 @@ def build_detector_from_cfg(cfg, device='cuda',
         pfe = data_cfg.get('POINT_FEATURE_ENCODING', None)
         if pfe is not None:
             channels = len(pfe['used_feature_list'])
-        if 'voxel_size' in geometry and pcr is not None:
+        if 'voxel_size' in geometry and pcr is not None and \
+                cfg.MODEL.get('BACKBONE_3D', None) is not None:
             span = np.asarray(pcr[3:6]) - np.asarray(pcr[0:3])
             grid_zyx = np.round(span / np.asarray(
                 geometry['voxel_size'])).astype(np.int64)[::-1].copy()

@@ -1,7 +1,10 @@
-"""CenterPoint with the voxel trunk (``detectors/centerpoint.py``, as
-``spsnet_tpu/models/detectors/centerpoint.py`` builds it when the config
-has BACKBONE_3D): MeanVFE, VoxelBackBone8x or VoxelResBackBone8x over the
-host plan, HeightCompression, BaseBEVBackbone and ``CenterHeadIoU`` (with
+"""CenterPoint (``detectors/centerpoint.py``, as
+``spsnet_tpu/models/detectors/centerpoint.py`` builds it): with
+BACKBONE_3D the voxel trunk, MeanVFE, VoxelBackBone8x or
+VoxelResBackBone8x over the host plan and HeightCompression; without it
+the pillar trunk, PillarVFE over the host's pillars or DynamicPillarVFE
+over the raw points, and PointPillarScatter. Then BaseBEVBackbone and
+``CenterHeadIoU`` (with
 CLASS_NAMES_EACH_HEAD, or a DENSE_HEAD named CenterHeadIoU) or else the
 plain ``CenterHead``. With CenterHeadIoU a request ends at the head: its
 'final_boxes', 'final_scores', 'final_labels' and 'final_valid' are the
@@ -23,13 +26,3 @@ class CenterPoint(SECONDNet):
     def plain_center_head(head_cfg) -> bool:
         return head_cfg.NAME != 'CenterHeadIoU' and \
             head_cfg.get('CLASS_NAMES_EACH_HEAD', None) is None
-
-    def __init__(self, model_cfg, num_class: int, input_channels: int,
-                 voxel_size, point_cloud_range, final_grid_zyx,
-                 class_names=None):
-        if model_cfg.get('BACKBONE_3D', None) is None:
-            raise NotImplementedError(
-                'CenterPoint over pillars (no BACKBONE_3D): ROADMAP Queue 1 '
-                'item F5')
-        super().__init__(model_cfg, num_class, input_channels, voxel_size,
-                         point_cloud_range, final_grid_zyx, class_names)

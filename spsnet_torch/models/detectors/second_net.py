@@ -5,8 +5,10 @@ config names it), HeightCompression, BaseBEVBackbone, and the first
 stage's dense head. The batch is ``data.processor.voxel_batch``'s, on the
 model's device; the caller runs ``detector3d.post_processing``. In
 training with 'gt_boxes' the dense head assigns its targets, and ``loss``
-is its loss. The two-stage voxel detectors (PV-RCNN, Voxel R-CNN) and
-CenterPoint build on this stage.
+is its loss. The two-stage voxel detectors (PV-RCNN, Voxel R-CNN),
+CenterPoint and PointPillar build on this stage; a config without
+BACKBONE_3D gets the pillar trunk (a pillar VFE and
+``PointPillarScatter``) in place of the voxel one.
 """
 from __future__ import annotations
 
@@ -18,7 +20,8 @@ from ..backbones_3d.spconv_backbone import BACKBONES_3D, HeightCompression
 from ..dense_heads.anchor_head import AnchorHeadSingle, anchor_head_loss
 from ..dense_heads.center_head import CenterHead, center_head_loss
 from ..dense_heads.center_head_iou import CenterHeadIoU, center_head_iou_loss
-from ..vfe import MeanVFE
+from ..map_to_bev import PointPillarScatter
+from ..vfe import PILLAR_VFES, MeanVFE
 
 
 def build_dense_head(head_cfg, num_class: int, input_channels: int,
@@ -45,6 +48,24 @@ def build_dense_head(head_cfg, num_class: int, input_channels: int,
                             point_cloud_range)
 
 
+def pillar_trunk(model_cfg, input_channels: int, voxel_size,
+                 point_cloud_range, grid_size):
+    """The pillar trunk of a config without BACKBONE_3D (as
+    ``spsnet_tpu/models/detectors/{pointpillar,centerpoint}.py`` build
+    it): (the VFE, PillarVFE or DynamicPillarVFE; ``PointPillarScatter``)
+    on a grid one pillar high."""
+    vfe, bev = model_cfg.VFE.NAME, model_cfg.MAP_TO_BEV.NAME
+    if vfe not in PILLAR_VFES or bev != 'PointPillarScatter':
+        raise ValueError(f'a trunk without BACKBONE_3D is the pillar one: '
+                         f'VFE {vfe} and MAP_TO_BEV {bev} are not '
+                         f'{sorted(PILLAR_VFES)} and PointPillarScatter')
+    if grid_size[2] != 1:
+        raise ValueError(f'pillars are one voxel high: grid {grid_size}')
+    return (PILLAR_VFES[vfe](model_cfg.VFE, input_channels, voxel_size,
+                             point_cloud_range),
+            PointPillarScatter(grid_size))
+
+
 class SECONDNet(nn.Module):
     """``train_decode``: whether a CenterHeadIoU decodes its boxes in
     training (the two-stage detectors take them as proposals)."""
@@ -58,7 +79,7 @@ class SECONDNet(nn.Module):
         return False
 
     def __init__(self, model_cfg, num_class: int, input_channels: int,
-                 voxel_size, point_cloud_range, final_grid_zyx,
+                 voxel_size, point_cloud_range, final_grid_zyx=None,
                  class_names=None):
         super().__init__()
         self.model_cfg = model_cfg
@@ -67,10 +88,15 @@ class SECONDNet(nn.Module):
         vs = np.asarray(voxel_size, dtype=np.float32)
         self.grid_size = tuple(int(x) for x in
                                np.round((pcr[3:6] - pcr[0:3]) / vs))
-        self.vfe = MeanVFE()
-        self.backbone_3d = BACKBONES_3D[model_cfg.BACKBONE_3D.NAME](
-            input_channels)
-        self.map_to_bev_module = HeightCompression(final_grid_zyx)
+        if model_cfg.get('BACKBONE_3D', None) is not None:
+            self.vfe = MeanVFE()
+            self.backbone_3d = BACKBONES_3D[model_cfg.BACKBONE_3D.NAME](
+                input_channels)
+            self.map_to_bev_module = HeightCompression(final_grid_zyx)
+        else:
+            self.vfe, self.map_to_bev_module = pillar_trunk(
+                model_cfg, input_channels, vs, pcr, self.grid_size)
+            self.backbone_3d = None
         self.num_bev_features = int(model_cfg.MAP_TO_BEV.NUM_BEV_FEATURES)
         self.backbone_2d = BaseBEVBackbone(model_cfg.BACKBONE_2D,
                                            self.num_bev_features)
@@ -85,7 +111,8 @@ class SECONDNet(nn.Module):
         training with 'gt_boxes', its targets)."""
         for module in (self.vfe, self.backbone_3d, self.map_to_bev_module,
                        self.backbone_2d, self.dense_head):
-            batch = module(batch)
+            if module is not None:
+                batch = module(batch)
         return batch
 
     def forward(self, batch):

@@ -59,6 +59,11 @@ Voxel R-CNN and CenterPoint add:
     dense_head/head_{g}/{name}_conv{k}, _bn{k}     dense_head.heads_list.{g}.{name}.{k}.{0,1}
     dense_head/head_{g}/{name}_out                 dense_head.heads_list.{g}.{name}.{K} (K convs before it)
 
+The pillar detectors (PointPillar, CenterPoint over pillars) add:
+
+    vfe/pfn_{i}/Dense_0, vfe/pfn_{i}/BatchNorm_0   vfe.pfn_layers.{i}.{linear,norm} (PillarVFE)
+    vfe/pfn{i}_fc, vfe/pfn{i}_bn                   vfe.pfn_layers.{i}.{linear,norm} (DynamicPillarVFE)
+
 PV-RCNN++ adds (the plain CenterHead; VectorPool aggregation, ``src`` one
 of raw_vp, x_conv{n}_vp and roi_head's vp_pool):
 
@@ -74,9 +79,10 @@ A Dense kernel (in, out) becomes a Linear weight (out, in); a Conv kernel
 (kh, kw, in, out) a Conv2d weight (out, in, kh, kw). A flax ConvTranspose
 kernel (kh, kw, in, out) becomes a ConvTranspose2d weight (in, out, kh, kw)
 flipped in both spatial axes: with kernel = stride, flax sends input i to
-output s * i + r through tap s - 1 - r, torch through tap r. A SharedMLP
-without BatchNorm (no ``BatchNorm_k`` beside its ``Dense_k``) has its
-Linear at 2k.
+output s * i + r through tap s - 1 - r, torch through tap r; a deblock
+that is a strided Conv (an UPSAMPLE_STRIDE below 1) maps as a Conv. A
+SharedMLP without BatchNorm (no ``BatchNorm_k`` beside its ``Dense_k``)
+has its Linear at 2k.
 """
 from __future__ import annotations
 
@@ -221,6 +227,7 @@ _SPARSE_CONV = re.compile(r'conv(_input|_out|\d(_down|_a|_b)?)')
 _RES_BLOCK = re.compile(r'res\d_[ab]')
 _VOXEL_POOL = re.compile(r'(x_conv\d)_(in|pos|out)_(\d+)')
 _CENTER_LAYER = re.compile(r'(\w+)_(conv|bn)(\d+)')
+_PFN = re.compile(r'pfn_(\d+)|pfn(\d+)_(fc|bn)')
 _BEV_LAYER = re.compile(r'(de)?block(\d+)(_down|_conv(\d+))?(_bn(\d*))?')
 
 
@@ -323,8 +330,27 @@ def _voxel_name(module, hidden) -> str:
     raise KeyError(module)
 
 
+def _vfe_name(module) -> str:
+    """Torch name prefix of a pillar VFE's layer: PillarVFE's
+    ``pfn_{i}/{Dense_0,BatchNorm_0}``, DynamicPillarVFE's ``pfn{i}_{fc,bn}``."""
+    m = _PFN.fullmatch(module[1]) if len(module) >= 2 else None
+    if m is None:
+        raise KeyError(module)
+    if m.group(1) is not None:
+        if module[2:] not in (('Dense_0',), ('BatchNorm_0',)):
+            raise KeyError(module)
+        i, bn = m.group(1), module[2] == 'BatchNorm_0'
+    else:
+        if len(module) != 2:
+            raise KeyError(module)
+        i, bn = m.group(2), m.group(3) == 'bn'
+    return f'vfe.pfn_layers.{i}.{"norm" if bn else "linear"}'
+
+
 def _torch_name(module, hidden, bn_paths) -> str:
     """Torch name prefix of a flax module path of the detector."""
+    if module[0] == 'vfe':
+        return _vfe_name(module)
     if module[0] in ('backbone_2d', 'dense_head', 'pfe') or (
             module[0] == 'backbone_3d' and len(module) >= 3 and
             (_SPARSE_CONV.fullmatch(module[1]) or
@@ -393,16 +419,19 @@ def _is_bn(module_name: str) -> bool:
         re.fullmatch(r'\w+_bn(\d*|_\d+)', module_name) is not None
 
 
-def _kernel_to_torch(arr, name):
-    """A Dense, Conv or ConvTranspose kernel in torch's layout."""
+def _kernel_to_torch(arr, name, conv_deblocks=()):
+    """A Dense, Conv or ConvTranspose kernel in torch's layout (a deblock
+    is a ConvTranspose unless its index is in ``conv_deblocks``)."""
     if arr.ndim == 2:
         return arr.T
-    if '.deblocks.' in name:
+    m = re.search(r'\.deblocks\.(\d+)\.', name)
+    if m and int(m.group(1)) not in conv_deblocks:
         return arr[::-1, ::-1].transpose(2, 3, 0, 1).copy()
     return arr.transpose(3, 2, 0, 1).copy()
 
 
-def _convert(variables, name_of) -> "OrderedDict[str, torch.Tensor]":
+def _convert(variables, name_of,
+             conv_deblocks=()) -> "OrderedDict[str, torch.Tensor]":
     unknown = set(variables) - {'params', 'batch_stats'}
     if unknown:
         raise KeyError(f'unmapped flax collections: {sorted(unknown)}')
@@ -427,7 +456,7 @@ def _convert(variables, name_of) -> "OrderedDict[str, torch.Tensor]":
                 raise KeyError(f'flax leaf {where} maps onto {name} twice')
             arr = np.asarray(value, dtype=np.float32)
             if leaf == 'kernel':
-                arr = _kernel_to_torch(arr, name)
+                arr = _kernel_to_torch(arr, name, conv_deblocks)
             sd[name] = torch.tensor(arr)
             if is_bn and leaf == 'scale':
                 sd[name.replace('.weight', '.num_batches_tracked')] = \
@@ -435,12 +464,24 @@ def _convert(variables, name_of) -> "OrderedDict[str, torch.Tensor]":
     return sd
 
 
-def flax_to_torch(variables) -> "OrderedDict[str, torch.Tensor]":
+def flax_to_torch(variables,
+                  conv_deblocks=()) -> "OrderedDict[str, torch.Tensor]":
     """A detector's ``{'params', 'batch_stats'}`` flax trees
     (numpy-convertible leaves) -> the port's state dict, with
-    ``num_batches_tracked`` = 0 for every BatchNorm. Raises ``KeyError`` on
-    a flax leaf it cannot map."""
-    return _convert(variables, _torch_name)
+    ``num_batches_tracked`` = 0 for every BatchNorm. ``conv_deblocks``:
+    the indices of the BEV backbone's deblocks that are strided Convs
+    (``base_bev_backbone.StridedDeblock``), the others ConvTransposes.
+    Raises ``KeyError`` on a flax leaf it cannot map."""
+    return _convert(variables, _torch_name, conv_deblocks)
+
+
+def conv_deblocks_of(model: torch.nn.Module) -> frozenset:
+    """The indices of ``model``'s BEV deblocks whose first layer is a
+    Conv2d and not a ConvTranspose2d."""
+    return frozenset(
+        int(name.split('.')[-2]) for name, m in model.named_modules()
+        if name.startswith('backbone_2d.deblocks.') and name.endswith('.0')
+        and isinstance(m, torch.nn.Conv2d))
 
 
 def generator_flax_to_torch(variables) -> "OrderedDict[str, torch.Tensor]":
@@ -454,5 +495,7 @@ def load_flax(model: torch.nn.Module, variables,
     """Load flax variables into ``model`` (a detector; pass ``convert=
     generator_flax_to_torch`` for a ``GenerateCenter``); raises on any key
     left unmapped on either side or on a shape mismatch (``strict`` load)."""
-    model.load_state_dict(convert(variables), strict=True)
+    sd = convert(variables, conv_deblocks_of(model)) \
+        if convert is flax_to_torch else convert(variables)
+    model.load_state_dict(sd, strict=True)
     return model

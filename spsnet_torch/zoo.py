@@ -60,6 +60,29 @@ def pv_rcnn_plusplus_waymo_cfg(resnet: bool = False) -> EDict:
     return load_yaml_cfg(f'tools/cfgs/waymo_models/{name}.yaml')
 
 
+def pointpillar_kitti_cfg() -> EDict:
+    """PointPillars KITTI (``tools/cfgs/kitti_models/pointpillar.yaml``):
+    PillarVFE over 0.16 m pillars, the scatter, the BEV backbone and
+    AnchorHeadSingle."""
+    return load_yaml_cfg('tools/cfgs/kitti_models/pointpillar.yaml')
+
+
+def pointpillar_waymo_cfg() -> EDict:
+    """PointPillars Waymo (``tools/cfgs/waymo_models/pointpillar_1x.yaml``):
+    0.32 m pillars, a 468 x 468 map, the anchors at stride 1."""
+    return load_yaml_cfg('tools/cfgs/waymo_models/pointpillar_1x.yaml')
+
+
+def centerpoint_pillar_waymo_cfg(dynamic: bool = False) -> EDict:
+    """CenterPoint over pillars on Waymo
+    (``tools/cfgs/waymo_models/centerpoint_pillar_1x.yaml``, or with
+    ``dynamic`` ``centerpoint_dyn_pillar_1x.yaml``: DynamicPillarVFE over
+    65 536 sampled points)."""
+    name = 'centerpoint_dyn_pillar_1x' if dynamic else \
+        'centerpoint_pillar_1x'
+    return load_yaml_cfg(f'tools/cfgs/waymo_models/{name}.yaml')
+
+
 def stability_cfg() -> EDict:
     """The stability model's own training config (MODEL: ``GenerateCenter``
     at npoint 16384, MSG 0.2 / 0.8; OPTIMIZATION: ``adam_onecycle`` at LR
@@ -556,3 +579,84 @@ def tiny_pvrcnnpp_cfg(final_zyx) -> EDict:
             'MULTI_CLASSES_NMS': False, 'NMS_THRESH': 0.1,
             'NMS_PRE_MAXSIZE': 64, 'NMS_POST_MAXSIZE': 16}},
     })
+
+
+def tiny_pointpillar_cfg() -> EDict:
+    """Tiny PointPillars over a small BEV grid (CPU-fast)."""
+    return EDict({
+        'NAME': 'PointPillar',
+        'VFE': {'NAME': 'PillarVFE', 'WITH_DISTANCE': False,
+                'USE_ABSOLUTE_XYZ': True, 'USE_NORM': True,
+                'NUM_FILTERS': [32]},
+        'MAP_TO_BEV': {'NAME': 'PointPillarScatter', 'NUM_BEV_FEATURES': 32},
+        'BACKBONE_2D': {'NAME': 'BaseBEVBackbone',
+                        'LAYER_NUMS': [2, 2], 'LAYER_STRIDES': [2, 2],
+                        'NUM_FILTERS': [32, 64],
+                        'UPSAMPLE_STRIDES': [1, 2],
+                        'NUM_UPSAMPLE_FILTERS': [64, 64]},
+        'DENSE_HEAD': {
+            'NAME': 'AnchorHeadSingle',
+            'CLASS_AGNOSTIC': False,
+            'USE_DIRECTION_CLASSIFIER': True,
+            'DIR_OFFSET': 0.78539, 'DIR_LIMIT_OFFSET': 0.0,
+            'NUM_DIR_BINS': 2,
+            'ANCHOR_GENERATOR_CONFIG': [
+                {'class_name': 'Car', 'anchor_sizes': [[3.9, 1.6, 1.56]],
+                 'anchor_rotations': [0, 1.57],
+                 'anchor_bottom_heights': [-1.78],
+                 'align_center': False, 'feature_map_stride': 2,
+                 'matched_threshold': 0.6, 'unmatched_threshold': 0.45},
+                {'class_name': 'Pedestrian', 'anchor_sizes': [[0.8, 0.6, 1.73]],
+                 'anchor_rotations': [0, 1.57],
+                 'anchor_bottom_heights': [-0.6],
+                 'align_center': False, 'feature_map_stride': 2,
+                 'matched_threshold': 0.5, 'unmatched_threshold': 0.35},
+                {'class_name': 'Cyclist', 'anchor_sizes': [[1.76, 0.6, 1.73]],
+                 'anchor_rotations': [0, 1.57],
+                 'anchor_bottom_heights': [-0.6],
+                 'align_center': False, 'feature_map_stride': 2,
+                 'matched_threshold': 0.5, 'unmatched_threshold': 0.35},
+            ],
+            'TARGET_ASSIGNER_CONFIG': {
+                'NAME': 'AxisAlignedTargetAssigner',
+                'POS_FRACTION': -1.0, 'SAMPLE_SIZE': 512,
+                'NORM_BY_NUM_EXAMPLES': False,
+                'MATCH_HEIGHT': False, 'BOX_CODER': 'ResidualCoder',
+            },
+            'LOSS_CONFIG': {
+                'LOSS_WEIGHTS': {'cls_weight': 1.0, 'loc_weight': 2.0,
+                                 'dir_weight': 0.2,
+                                 'code_weights': [1.0] * 7},
+            },
+        },
+        'POST_PROCESSING': {
+            'RECALL_THRESH_LIST': [0.3, 0.5, 0.7],
+            'SCORE_THRESH': 0.1,
+            'NMS_CONFIG': {'MULTI_CLASSES_NMS': False, 'NMS_TYPE': 'nms_gpu',
+                           'NMS_THRESH': 0.01, 'NMS_PRE_MAXSIZE': 256,
+                           'NMS_POST_MAXSIZE': 32},
+        },
+    })
+
+
+def tiny_centerpoint_cfg() -> EDict:
+    """Tiny CenterPoint-pillar (CPU-fast)."""
+    cfg = tiny_pointpillar_cfg()
+    cfg.NAME = 'CenterPoint'
+    cfg.DENSE_HEAD = EDict({
+        'NAME': 'CenterHead',
+        'CLASS_AGNOSTIC': False,
+        'SHARED_CONV_CHANNEL': 32,
+        'TARGET_ASSIGNER_CONFIG': {
+            'FEATURE_MAP_STRIDE': 2,
+            'NUM_MAX_OBJS': 32,
+            'GAUSSIAN_OVERLAP': 0.1,
+            'MIN_RADIUS': 2,
+        },
+        'POST_CONFIG': {'MAX_OBJ_PER_SAMPLE': 32},
+        'LOSS_CONFIG': {
+            'LOSS_WEIGHTS': {'cls_weight': 1.0, 'loc_weight': 2.0,
+                             'code_weights': [1.0] * 8},
+        },
+    })
+    return cfg

@@ -1148,3 +1148,148 @@ def test_masked_fps_kernel_at_the_sector_masks(cuda):
             torch.cuda.synchronize()
             assert torch.equal(got, farthest_point_sample_plain(xyz, k, m))
     assert int((near[1] & (sector[1] == 2)).sum()) < 4096
+
+
+# ---------------------------------------------------------------- pillars
+
+def _pillar_frames(seed, b, dynamic=False, n=16384):
+    """``b`` synthetic scans of ``n`` points (5 channels for Waymo) and the
+    port's host batch of them: kitti_models/pointpillar.yaml's pillars, or
+    with ``dynamic`` waymo_models/centerpoint_dyn_pillar_1x.yaml's sampled
+    points; the config."""
+    from spsnet_torch.data.processor import voxel_batch
+    from spsnet_torch.utils.synthetic import synthetic_scan_batch
+    from spsnet_torch.zoo import centerpoint_pillar_waymo_cfg, \
+        pointpillar_kitti_cfg
+    cfg = centerpoint_pillar_waymo_cfg(dynamic=True) if dynamic else \
+        pointpillar_kitti_cfg()
+    pcr = tuple(cfg.DATA_CONFIG.POINT_CLOUD_RANGE)
+    scans = synthetic_scan_batch(seed, b, n, pc_range=pcr)
+    if dynamic:
+        scans = np.concatenate([scans, np.random.default_rng(seed).uniform(
+            0, 1, (b, n, 1)).astype(np.float32)], axis=-1)
+    batch = voxel_batch(scans, cfg.DATA_CONFIG,
+                        rng=np.random.RandomState(seed))
+    return cfg, {k: torch.from_numpy(v) for k, v in batch.items()}
+
+
+def _close_scaled(a, b, what):
+    scale = float(b.abs().max())
+    assert scale > 0, what
+    assert torch.allclose(a.cpu(), b, rtol=1e-4, atol=1e-4 * scale), what
+
+
+def test_pillar_scatter_on_the_card_matches_the_cpu(cuda):
+    """pointpillar.yaml's scatter of (2, 40000, 64) pillar features with
+    the padded pillars dropped: bit for bit the CPU's canvas."""
+    from spsnet_torch.models.map_to_bev import PointPillarScatter
+    _, batch = _pillar_frames(40, 2)
+    feats = torch.from_numpy(np.random.default_rng(41).normal(
+        size=(2, 40000, 64)).astype(np.float32))
+    scatter = PointPillarScatter((432, 496, 1))
+    host = dict(batch, pillar_features=feats)
+    got = scatter({k: v.to(cuda) for k, v in host.items()})
+    assert torch.equal(got['spatial_features'].cpu(),
+                       scatter(host)['spatial_features'])
+
+
+@pytest.mark.parametrize('train', [False, True])
+def test_pillar_vfe_on_the_card_matches_the_cpu(cuda, train):
+    """pointpillar.yaml's PillarVFE at full width on one scan (40 000
+    pillars of 32 slots), seeded weights: the features within 1e-4
+    relative plus 1e-4 of the largest entry; in training the BatchNorm's
+    running statistics over all 1.28 M rows alike, and the gradient at the
+    pillars' points (the max's split among tied slots)."""
+    from spsnet_torch.models import build_detector_from_cfg
+    cfg, batch = _pillar_frames(42, 1)
+    models = [build_detector_from_cfg(cfg, device=d).vfe.train(train)
+              for d in ('cuda', 'cpu')]
+    models[1].load_state_dict(models[0].state_dict())
+    outs, grads = [], []
+    for vfe, dev in zip(models, (cuda, 'cpu')):
+        voxels = batch['voxels'].to(dev).requires_grad_()
+        out = vfe(dict({k: v.to(dev) for k, v in batch.items()},
+                       voxels=voxels))['pillar_features']
+        w = torch.from_numpy(np.random.default_rng(43).normal(
+            size=out.shape).astype(np.float32)).to(dev)
+        (out * w).sum().backward()
+        outs.append(out.detach())
+        grads.append(voxels.grad)
+    _close_scaled(outs[0], outs[1], 'pillar features')
+    _close_scaled(grads[0], grads[1], 'gradient at the points')
+    if train:
+        for name, t in models[1].state_dict().items():
+            if name.endswith(('running_mean', 'running_var')):
+                _close_scaled(models[0].state_dict()[name], t, name)
+
+
+def test_dynamic_pillar_ids_on_the_card_match_the_cpu(cuda):
+    """centerpoint_dyn_pillar_1x.yaml's DynamicPillarVFE on two sampled
+    Waymo scans of 65 536 points with points on and an ulp from pillar
+    boundaries: every point's pillar ids and mask identical (true
+    quotients on both), the occupied cells identical, the canvas within
+    1e-4 relative plus 1e-4 of its largest entry (the pillar means sum in
+    another order)."""
+    from spsnet_torch.models import build_detector_from_cfg
+    cfg, batch = _pillar_frames(44, 2, dynamic=True, n=70000)
+    pts = batch['points']
+    k = torch.from_numpy(np.random.default_rng(45).integers(1, 468, 2000))
+    edge = np.float32(-74.88) + k.float() * np.float32(0.32)
+    pts[:, :2000, 0] = edge
+    pts[:, 2000:4000, 1] = torch.nextafter(edge, torch.tensor(-1e9))
+    gpu = build_detector_from_cfg(cfg, device='cuda').vfe
+    cpu = build_detector_from_cfg(cfg, device='cpu').vfe
+    cpu.load_state_dict(gpu.state_dict())
+    with torch.no_grad():
+        g_ids = gpu.pillar_index({'points': pts.to(cuda)})
+        c_ids = cpu.pillar_index({'points': pts})
+        for a, b in zip(g_ids, c_ids):
+            assert torch.equal(a.cpu(), b)
+        g = gpu({'points': pts.to(cuda)})['spatial_features']
+        c = cpu({'points': pts})['spatial_features']
+    assert torch.equal((g != 0).any(1).cpu(), (c != 0).any(1))
+    _close_scaled(g, c, 'canvas')
+
+
+def test_dynamic_pillar_vfe_run_to_run_spread_on_the_card(cuda):
+    """Two card calls of the dynamic VFE on the same batch: the pillar
+    means' segment sums take their atomics in another order, so the
+    canvases may differ in the last bits; they stay within 1e-5 of the
+    largest entry (the spread is printed)."""
+    from spsnet_torch.models import build_detector_from_cfg
+    cfg, batch = _pillar_frames(46, 2, dynamic=True, n=70000)
+    vfe = build_detector_from_cfg(cfg, device='cuda').vfe
+    pts = batch['points'].to(cuda)
+    with torch.no_grad():
+        a, b = (vfe({'points': pts})['spatial_features'] for _ in range(2))
+    spread = float((a - b).abs().max())
+    print(f'dynamic pillar canvas, two card calls: largest difference '
+          f'{spread:.3e} of {float(a.abs().max()):.3e}')
+    assert spread <= 1e-5 * float(a.abs().max())
+
+
+@pytest.mark.parametrize('name', ['pointpillar', 'centerpoint_dyn'])
+def test_pillar_forward_on_the_card_matches_the_cpu(cuda, name):
+    """pointpillar.yaml and centerpoint_dyn_pillar_1x.yaml at full width
+    on one scan, seeded weights: the BEV map, the BEV backbone's output
+    and the head's maps card vs CPU within 1e-4 relative plus 1e-4 of
+    each tensor's largest entry."""
+    from spsnet_torch.models import build_detector_from_cfg
+    cfg, batch = _pillar_frames(47, 1, dynamic=name != 'pointpillar',
+                                n=65536 if name != 'pointpillar' else 16384)
+    gpu = build_detector_from_cfg(cfg, device='cuda')
+    cpu = build_detector_from_cfg(cfg, device='cpu')
+    with torch.no_grad():
+        g = gpu.stage_one({k: v.to(cuda) for k, v in batch.items()})
+        c = cpu.stage_one(dict(batch))
+    for key in ('spatial_features', 'spatial_features_2d'):
+        _close_scaled(g[key], c[key], key)
+    if name == 'pointpillar':
+        for key in ('cls_preds', 'box_preds', 'dir_preds'):
+            _close_scaled(g['anchor_head_ret'][key],
+                          c['anchor_head_ret'][key], key)
+    else:
+        for pg, pc in zip(g['center_head_iou_ret']['pred_dicts'],
+                          c['center_head_iou_ret']['pred_dicts']):
+            for key in pg:
+                _close_scaled(pg[key], pc[key], key)

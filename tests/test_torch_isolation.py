@@ -469,7 +469,12 @@ def test_spsnet_trees_raise_on_a_port_key_left_unfilled(variables_of, kind):
 YAML_CFGS = {'voxel_rcnn_kitti': 'tools/cfgs/kitti_models/voxel_rcnn_car.yaml',
              'centerpoint_waymo': 'tools/cfgs/waymo_models/centerpoint.yaml',
              'pv_rcnn_plusplus_waymo':
-             'tools/cfgs/waymo_models/pv_rcnn_plusplus.yaml'}
+             'tools/cfgs/waymo_models/pv_rcnn_plusplus.yaml',
+             'pointpillar_kitti': 'tools/cfgs/kitti_models/pointpillar.yaml',
+             'pointpillar_waymo':
+             'tools/cfgs/waymo_models/pointpillar_1x.yaml',
+             'centerpoint_pillar_waymo':
+             'tools/cfgs/waymo_models/centerpoint_pillar_1x.yaml'}
 
 
 @pytest.mark.parametrize('name', ['tiny', 'iassd_kitti', 'iassd_kitti_scaled',
@@ -479,7 +484,11 @@ YAML_CFGS = {'voxel_rcnn_kitti': 'tools/cfgs/kitti_models/voxel_rcnn_car.yaml',
                                   'tiny_pvrcnn', 'tiny_voxelrcnn',
                                   'voxel_rcnn_kitti', 'centerpoint_waymo',
                                   'tiny_pvrcnnpp', 'pv_rcnn_plusplus_waymo',
-                                  'pv_rcnn_plusplus_resnet'])
+                                  'pv_rcnn_plusplus_resnet',
+                                  'tiny_pointpillar', 'tiny_centerpoint',
+                                  'pointpillar_kitti', 'pointpillar_waymo',
+                                  'centerpoint_pillar_waymo',
+                                  'centerpoint_dyn_pillar_waymo'])
 def test_config_copies_match_the_jax_package(name):
     """The port's own config loader and zoo give the JAX package's configs
     (``_BASE_CONFIG_`` resolution included for IA-SSD.yaml, SPSNet.yaml
@@ -497,6 +506,12 @@ def test_config_copies_match_the_jax_package(name):
             return zoo.pv_rcnn_plusplus_waymo_cfg(resnet=True) if z is zoo \
                 else z.load_yaml_cfg('tools/cfgs/waymo_models/'
                                      'pv_rcnn_plusplus_resnet.yaml')
+        if name in ('tiny_pointpillar', 'tiny_centerpoint'):
+            return getattr(z, f'{name}_cfg')()
+        if name == 'centerpoint_dyn_pillar_waymo':
+            return zoo.centerpoint_pillar_waymo_cfg(dynamic=True) \
+                if z is zoo else z.load_yaml_cfg(
+                    'tools/cfgs/waymo_models/centerpoint_dyn_pillar_1x.yaml')
         if name == 'tiny_voxelrcnn':
             return z.tiny_voxelrcnn_cfg(PV_FINAL) if z is zoo else \
                 voxelrcnn_tiny_cfg(PV_FINAL)

@@ -500,9 +500,9 @@ def test_geometry_from_the_config_matches_jax(name):
 
 @pytest.mark.parametrize('path', [
     'kitti_models/PartA2_free.yaml', 'kitti_models/PartA2.yaml',
-    'kitti_models/second_iou.yaml', 'kitti_models/pointpillar.yaml', 'kitti_models/second_multihead.yaml',
-    'kitti_models/centerpoint_iou.yaml',
-    'waymo_models/centerpoint_pillar_1x.yaml'])
+    'kitti_models/second_iou.yaml', 'kitti_models/AL.yaml',
+    'kitti_models/second_multihead.yaml', 'kitti_models/centerpoint_iou.yaml',
+    'nuscenes_models/cbgs_pp_multihead.yaml'])
 def test_unported_detectors_raise_naming_item_f(path):
     cfg = zoo.load_yaml_cfg(f'tools/cfgs/{path}')
     with pytest.raises(NotImplementedError, match='item F'):
