@@ -4,12 +4,16 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --phase3 ROOT   # phases 1-3 of another checkout
     python3 chip_smoke.py --jitter-study  # what sets phase 26's baseline
-    python3 chip_smoke.py --fault-check   # phases 26, 36, 44, 55, 61, 64
-                                          # refuse a scaled card gradient
+    python3 chip_smoke.py --fault-check   # phases 26, 36, 44, 55, 61, 64,
+                                          # 68, 71, 74, 77 refuse a scaled
+                                          # card gradient
     python3 chip_smoke.py --fault-check pvrcnnpp  # phase 55 alone (or any
                                           # of pointrcnn,pvrcnn,voxel_rcnn,
                                           # centerpoint_pillar,
-                                          # centerpoint_dyn_pillar)
+                                          # centerpoint_dyn_pillar,
+                                          # second_multihead,second_iou,
+                                          # cbgs_pp_multihead,
+                                          # cbgs_second_multihead)
     python3 chip_smoke.py --pvpp-train-repeat N  # phase 54's steps N times
                                           # under each gt at the proposals
 
@@ -222,9 +226,10 @@ Phases, in order; any failure raises and the exit code is not 0:
     on the inputs a step produces: FPS (2, 16384) -> 2048, the ball query
     of each VSA source (16 000 voxel rows a level) and of the RoI grid
     (2 x 128 x 6^3 = 55 296 centers over 2048 keypoints);
-36. one PV-RCNN train step on one frame on the card and on the CPU with
-    the same weights, RoI draws and dropout masks: anchor labels, force
-    matches and keypoint labels identical; the two runs' anchor scores
+36. one PV-RCNN train step on one frame of a 51.2 m crop at 8 000 voxels
+    (VOXEL_TRAIN_CUT) on the card and on the CPU with the same weights,
+    RoI draws and dropout masks: anchor labels, force matches and
+    keypoint labels identical; the two runs' anchor scores
     and direction logits within PV_SCORE_TOL and PV_DIR_LOGIT_TOL, the
     card's 9000 proposal candidates a top 9000 of the CPU's scores within
     PV_SCORE_TOL, direction bins equal where the CPU's two logits lie
@@ -261,8 +266,8 @@ Phases, in order; any failure raises and the exit code is not 0:
     profile (busy share);
 41. the ball query vs its plain version at the Voxel R-CNN serving
     shapes: 43 200 grid centers over each 40 000-row level;
-42. one Voxel R-CNN request card vs CPU, stage by stage from the card's
-    inputs as phase 31 holds PV-RCNN's: the voxel stack, the anchor head
+42. one Voxel R-CNN request (B = 1) card vs CPU, stage by stage from
+    the card's inputs as phase 31 holds PV-RCNN's: the voxel stack, the anchor head
     and the proposal NMS, the RoI-grid picks equal or within the rounding
     slack of their grid points, then replayed, the pooled features, the
     refinement and the final NMS;
@@ -331,10 +336,10 @@ Phases, in order; any failure raises and the exit code is not 0:
     (``PP_TRAIN_CUT``): heatmap targets and keypoint labels identical,
     every other decision within its slack and replayed, then loss terms,
     gradients, parameters and BN statistics as phase 36 holds them;
-56. the kernels line: K6 joins K1-K4's entries; after phases 57-65, one
+56. the kernels line: K6 joins K1-K4's entries; after phases 57-77, one
     JSON line per kernel set (K6 among the kernels, with its launches on
-    every path, the pillar paths' none included), then the card's name
-    and power limit, then the result line;
+    every path, the pillar and multi-head paths' none included), then the
+    card's name and power limit, then the result line;
 57. the PointPillar serving path: ``kitti_models/pointpillar.yaml`` at
     full width on 2 scans of 16384 points (40 000 pillars of 32 slots, the
     496 x 432 map, 321 408 anchors, NMS at pre 4096 / 0.01), the host
@@ -359,7 +364,20 @@ Phases, in order; any failure raises and the exit code is not 0:
     and the spread of two card calls logged;
 65. one request each of ``waymo_models/pointpillar_1x.yaml`` (1 314 144
     anchors at stride 1) and ``nuscenes_models/cbgs_dyn_pp_centerpoint.yaml``
-    (B = 1, 65 536 points): finite detections.
+    (B = 1, 65 536 points): finite detections;
+66-77. three phases each for ``kitti_models/second_multihead.yaml``,
+    ``kitti_models/second_iou.yaml``, ``nuscenes_models/cbgs_pp_multihead
+    .yaml`` and ``nuscenes_models/cbgs_second_multihead.yaml`` (the
+    grouped multi-head RPN with multi-class NMS, SECOND-IoU): five
+    requests of 2 scans (KITTI's 16 384 points at 40 000 voxels, nuScenes'
+    65 536 points of 5 channels) with no kernel launch, their profile and
+    the greedy NMS loop's share; one request card vs CPU (the BEV map and
+    head outputs within tolerance, the -1e9 logits identical, the NMS keep
+    lists identical or within the IoUs' rounding slack, SECOND-IoU's IoU
+    logits on the card's RoIs); three train steps (16 000 voxels for
+    KITTI, gt with velocities for nuScenes); one train step card vs CPU on
+    a cropped range (MH_TRAIN_CUT) held to the weight-jitter baseline and
+    the fixed ceilings.
 
 The K5 shapes are (8, 16384) -> 4096, (8, 15884) -> 4096 (SPSNet's layer
 0), (1, 16384) -> 4096 and (32, 4096) -> 1024. Phase 3 also holds FPS and
@@ -568,6 +586,14 @@ PP_TRAIN_CUT = {'range': (-25.6, -25.6, -2, 25.6, 25.6, 4), 'voxels': 10000,
 # host; on this crop the phase takes 15 s)
 CP_TRAIN_CUT = {'range': (-25.6, -25.6, -2, 25.6, 25.6, 4), 'voxels': 20000,
                 'points': 16384}
+# card vs CPU, one KITTI voxel-detector train step (phases 36, 68, 71):
+# one frame on a 51.2 m square at 8 000 voxels (phase 36 took 40 s on the
+# H100 host at the full range; Voxel R-CNN's phase 44 stays there: on this
+# crop its seed-1210 frame failed the RoI max-IoU check, a gt index
+# differing or an IoU near a sampling threshold moving more than
+# NMS_IOU_TOL, not diagnosed)
+VOXEL_TRAIN_CUT = {'range': (0, -25.6, -3, 51.2, 25.6, 1), 'voxels': 8000,
+                   'points': 8192}
 
 
 # the pillar detectors: kitti_models/pointpillar.yaml on PILLAR_B scans
@@ -581,6 +607,24 @@ CP_TRAIN_CUT = {'range': (-25.6, -25.6, -2, 25.6, 25.6, 4), 'voxels': 20000,
 PILLAR_B, PILLAR_REQUESTS = 2, 10
 PILLAR_TRAIN_STEPS, PILLAR_TRAIN_BATCHES = 10, 3
 CPP_REQUESTS, CPP_TRAIN_STEPS = 5, 10
+
+# the grouped multi-head RPN and SECOND-IoU (phases 66-77): each config
+# of MH_CONFIGS (its host seed) serves MH_REQUESTS requests of MH_B scans
+# (KITTI's N points at its test cap, 40 000 voxels; nuScenes' CP_N points
+# of 5 channels at 60 000 voxels or 30 000 pillars) and takes
+# MH_TRAIN_STEPS train steps of PV_TRAIN_B scans at the train caps (KITTI
+# 16 000 voxels); the card-vs-CPU train step on one frame of
+# MH_TRAIN_CUT. No kernel of the port runs on these paths
+MH_CONFIGS = {'kitti_models/second_multihead': 2500,
+              'kitti_models/second_iou': 2600,
+              'nuscenes_models/cbgs_pp_multihead': 2700,
+              'nuscenes_models/cbgs_second_multihead': 2800}
+MH_B, MH_REQUESTS, MH_TRAIN_STEPS = 2, 5, 3
+# the multi-head RPNs' class-logit bias in the serving phases
+MH_CLS_BIAS = -2.0
+MH_TRAIN_CUT = {'kitti': VOXEL_TRAIN_CUT,
+                'nuscenes': {'range': (-25.6, -25.6, -5, 25.6, 25.6, 3),
+                             'voxels': 10000, 'points': 16384}}
 
 
 def seeding():
@@ -2699,16 +2743,33 @@ PP_FAULTS = (('backbone_3d.conv4', 1.3), ('dense_head.hm', 1.3),
              ('roi_head.roi_grid_pool_layer', 1.3))
 CPP_FAULTS = (('vfe.pfn_layers.0', 1.3), ('backbone_2d.blocks.0', 1.3),
               ('dense_head.heads_list.0.hm', 1.3))
+# the new heads of MH_CONFIGS: the shared conv, a group's class and box
+# branches, SECOND-IoU's IoU head
+MH_FAULTS = {
+    'second_multihead': (('dense_head.shared_conv', 1.3),
+                         ('dense_head.rpn_heads.1', 1.3),
+                         ('dense_head.rpn_heads.2.conv_box', 2.0)),
+    'second_iou': (('roi_head.shared_fc_layer', 1.3),
+                   ('roi_head.iou_layers', 1.3),
+                   ('dense_head.conv_cls', 1.3)),
+    'cbgs_pp_multihead': (('dense_head.shared_conv', 1.3),
+                          ('dense_head.rpn_heads.0.conv_cls', 1.3),
+                          ('dense_head.rpn_heads.5', 1.3)),
+    'cbgs_second_multihead': (('dense_head.shared_conv', 1.3),
+                              ('dense_head.rpn_heads.1.conv_box', 1.3),
+                              ('dense_head.rpn_heads.4', 1.3))}
 _FAULT_MODELS = ('pointrcnn', 'pvrcnn', 'voxel_rcnn', 'pvrcnnpp',
-                 'centerpoint_pillar', 'centerpoint_dyn_pillar')
+                 'centerpoint_pillar', 'centerpoint_dyn_pillar',
+                 *MH_FAULTS)
 
 
 def fault_check(models=_FAULT_MODELS) -> int:
-    """``--fault-check``: phases 26, 36, 44, 55, 61 and 64 (those of
+    """``--fault-check``: phases 26, 36, 44, 55, 61 and 64 and the
+    card-vs-CPU train steps of phases 68, 71, 74 and 77 (those of
     ``models``) as they run, then again with the card's gradients of one
     module scaled (``PRCNN_FAULTS``, ``PV_FAULTS``, ``VR_FAULTS``,
-    ``PP_FAULTS``, ``CPP_FAULTS`` for both pillar CenterPoints): every
-    such run must fail. Returns 1 if one passed."""
+    ``PP_FAULTS``, ``CPP_FAULTS`` for both pillar CenterPoints,
+    ``MH_FAULTS``): every such run must fail. Returns 1 if one passed."""
     phases = sys.modules[__name__]
     unknown = set(models) - set(_FAULT_MODELS)
     if unknown:
@@ -2749,10 +2810,9 @@ def fault_check(models=_FAULT_MODELS) -> int:
              _scene_batch(610, 1, 'cpu'), PRCNN_FAULTS, 0)
         n += len(PRCNN_FAULTS)
     if 'pvrcnn' in models:
-        cfg = build_voxel_detector('pv_rcnn', 'cpu')[0]
-        batch = pv_train_batches(cfg, [800, 801])[0][1]
-        each('build_pvrcnn_trainer', phases.pvrcnn_train_cpu_phase,
-             {k: v[:1].cpu() for k, v in batch.items()}, PV_FAULTS, 1)
+        each('build_pvrcnn_trainer',
+             lambda b: phases.pvrcnn_train_cpu_phase(b, cut=VOXEL_TRAIN_CUT),
+             cut_batch('pv_rcnn', VOXEL_TRAIN_CUT, 800), PV_FAULTS, 1)
         n += len(PV_FAULTS)
     if 'voxel_rcnn' in models:
         cfg = build_voxel_detector('voxel_rcnn_car', 'cpu')[0]
@@ -2780,6 +2840,17 @@ def fault_check(models=_FAULT_MODELS) -> int:
                  b, name), {k: v[:1].cpu() for k, v in batch.items()},
              CPP_FAULTS, 1)
         n += len(CPP_FAULTS)
+    for name in MH_CONFIGS:
+        short = name.split('/')[-1]
+        if short not in models:
+            continue
+        _, channels, velocity, cut = _mh_setting(name)
+        each('build_pvrcnn_trainer',
+             lambda b, name=name, cut=cut: phases.mh_train_cpu_phase(
+                 b, name, cut),
+             cut_batch(name, cut, 2900, channels, velocity),
+             MH_FAULTS[short], 1)
+        n += len(MH_FAULTS[short])
     log(f'{n - len(missed)} of {n} faults refused')
     return 1 if missed else 0
 
@@ -2948,15 +3019,22 @@ def other_iassd_path(path, n, channels, seed):
             'fps': fps, 'ball_query': calls, 'errs': err}
 
 
-def build_voxel_detector(name, device):
+def voxel_cfg(name, cut=None):
     """``tools/cfgs/kitti_models/{name}.yaml`` (``tools/cfgs/{name}.yaml``
-    for a name with its folder) through ``build_detector_from_cfg`` on
-    ``device`` (weights from ``torch.Generator`` seed 0): its config and
-    the detector."""
-    from spsnet_torch.models import build_detector_from_cfg
+    for a name with its folder), on ``cut``'s range and caps where given
+    (``cut_to``)."""
     from spsnet_torch.zoo import load_yaml_cfg
     path = name if '/' in name else f'kitti_models/{name}'
     cfg = load_yaml_cfg(f'tools/cfgs/{path}.yaml')
+    return cfg if cut is None else cut_to(cfg, cut)
+
+
+def build_voxel_detector(name, device, cut=None):
+    """``voxel_cfg(name, cut)`` through ``build_detector_from_cfg`` on
+    ``device`` (weights from ``torch.Generator`` seed 0): its config and
+    the detector."""
+    from spsnet_torch.models import build_detector_from_cfg
+    cfg = voxel_cfg(name, cut)
     return cfg, build_detector_from_cfg(
         cfg, device=device, generator=torch.Generator().manual_seed(0))
 
@@ -3584,10 +3662,13 @@ def at_proposals(model, batches, sizes=None):
         yield gt_at_proposals(model, batch, sizes)
 
 
-def pv_train_batches(cfg, seeds, sizes=None, n=N, channels=4):
+def pv_train_batches(cfg, seeds, sizes=None, n=N, channels=4,
+                     velocity=False):
     """Train batches of PV_TRAIN_B ``train_scenes`` of ``n`` points in the
     config's range (one seed a batch; the gt sizes those of the config's
-    anchors unless ``sizes``), voxelized and planned by the port's host
+    anchors unless ``sizes``; with ``velocity`` each gt box carries a
+    velocity (vx, vy), N(0, 2) m/s, before its class: nuScenes' 10
+    columns), voxelized and planned by the port's host
     code at the config's train settings (``voxel_batch(mode='train')``
     with the gt boxes; a config that samples points draws from
     ``RandomState(seed)``) and copied to the card. Returns (batches, host
@@ -3603,6 +3684,10 @@ def pv_train_batches(cfg, seeds, sizes=None, n=N, channels=4):
         pts, gt = train_scenes(seed, sizes, n=n,
                                pc_range=cfg.DATA_CONFIG.POINT_CLOUD_RANGE,
                                channels=channels)
+        if velocity:
+            vel = np.random.default_rng(seed + 2).normal(
+                0, 2, gt.shape[:2] + (2,)).astype(np.float32)
+            gt = np.concatenate([gt[..., :7], vel, gt[..., 7:]], axis=-1)
         t0 = time.perf_counter()
         host = voxel_batch(pts, cfg.DATA_CONFIG, mode='train',
                            gt_boxes=list(gt),
@@ -3616,18 +3701,28 @@ def pv_train_batches(cfg, seeds, sizes=None, n=N, channels=4):
     return batches, host_ms, before, after
 
 
-def build_pvrcnn_trainer(device, name='pv_rcnn'):
-    """``tools/cfgs/kitti_models/{name}.yaml`` in train mode as
-    ``build_voxel_detector`` makes it (seed-0 weights), the anchor head's
+def cut_batch(name, cut, seed, channels=4, velocity=False):
+    """One train frame (on the CPU) of ``name`` on ``cut``: the first of
+    ``pv_train_batches`` at ``seed``, of ``cut['points']`` points."""
+    batch = pv_train_batches(voxel_cfg(name, cut), [seed],
+                             n=cut['points'], channels=channels,
+                             velocity=velocity)[0][0]
+    return {k: v[:1].cpu() for k, v in batch.items()}
+
+
+def build_pvrcnn_trainer(device, name='pv_rcnn', cut=None):
+    """``name``'s detector in train mode as ``build_voxel_detector`` makes
+    it (seed-0 weights; on ``cut`` where given), the single anchor head's
     box layer at 1e-2 (so that the proposals stay near their anchors, as
     phase 24's point boxes stay near their points), its adam_onecycle
     optimizer over the KITTI schedule and ``make_train_step``: (cfg,
     model, optimizer, step)."""
     from spsnet_torch.runtime.trainer import make_train_step
-    cfg, model = build_voxel_detector(name, device)
-    with torch.no_grad():
-        for p in model.dense_head.conv_box.parameters():
-            p.mul_(1e-2)
+    cfg, model = build_voxel_detector(name, device, cut)
+    if hasattr(model.dense_head, 'conv_box'):
+        with torch.no_grad():
+            for p in model.dense_head.conv_box.parameters():
+                p.mul_(1e-2)
     model.train()
     optimizer = _kitti_optimizer(cfg.OPTIMIZATION, model.parameters())
     return cfg, model, optimizer, make_train_step(model, optimizer)
@@ -3771,7 +3866,7 @@ def _targets_of(out):
     return labels
 
 
-def pvrcnn_train_cpu_phase(batch, name='pv_rcnn'):
+def pvrcnn_train_cpu_phase(batch, name='pv_rcnn', cut=None):
     """Phases 36 and 44: one PV-RCNN (or, ``name`` 'voxel_rcnn_car',
     Voxel R-CNN) train step on one frame (``batch``, on the CPU) on the
     card and on the CPU from the same weights, RoI draws and dropout masks
@@ -3785,9 +3880,9 @@ def pvrcnn_train_cpu_phase(batch, name='pv_rcnn'):
     through the RoIs. Returns the card's and the baseline's differences
     and the notes."""
     import copy
-    cfg, gpu, _, gpu_step = build_pvrcnn_trainer('cuda', name)
-    _, cpu, cpu_opt, cpu_step = build_pvrcnn_trainer('cpu', name)
-    _, jit, _, jit_step = build_pvrcnn_trainer('cpu', name)
+    cfg, gpu, _, gpu_step = build_pvrcnn_trainer('cuda', name, cut)
+    _, cpu, cpu_opt, cpu_step = build_pvrcnn_trainer('cpu', name, cut)
+    _, jit, _, jit_step = build_pvrcnn_trainer('cpu', name, cut)
     want = PV_LAUNCHES if name == 'pv_rcnn' else VR_LAUNCHES
     tcfg = cfg.MODEL.ROI_HEAD.TARGET_CONFIG
     thresholds = tuple(float(tcfg[k]) for k in (
@@ -3985,9 +4080,10 @@ def pvrcnn_train_phases(smi):
     log('== 35. kernels vs plain at the PV-RCNN train shapes')
     shapes = pvrcnn_shapes_phase(model, dict(batches[0], rngs=step_rngs(0)))
 
-    log('== 36. PV-RCNN card vs CPU, one train step')
-    one = {k: v[:1].cpu() for k, v in batches[1].items()}
-    rec['card_vs_cpu'] = pvrcnn_train_cpu_phase(one)
+    log(f'== 36. PV-RCNN card vs CPU, one train step (cut: '
+        f'{VOXEL_TRAIN_CUT})')
+    rec['card_vs_cpu'] = pvrcnn_train_cpu_phase(
+        cut_batch('pv_rcnn', VOXEL_TRAIN_CUT, 810), cut=VOXEL_TRAIN_CUT)
 
     log('== 37. anchor and RoI losses on the train gt and on jittered gt, '
         'card vs CPU')
@@ -4199,8 +4295,9 @@ def voxelrcnn_phases(smi):
     log('== 41. kernels vs plain at the Voxel R-CNN serving shapes')
     shapes = voxelrcnn_shapes_phase(model, batches[0], 'serving')
 
-    log('== 42. Voxel R-CNN card vs CPU, one request (B=2)')
-    rec['card_vs_cpu'] = voxelrcnn_cpu_phase(model, cfg, batches[0])
+    log('== 42. Voxel R-CNN card vs CPU, one request (B=1)')
+    rec['card_vs_cpu'] = voxelrcnn_cpu_phase(
+        model, cfg, {k: v[:1] for k, v in batches[0].items()})
     del model
 
     log('== 43. Voxel R-CNN train path; kernels vs plain at its shapes')
@@ -4428,6 +4525,40 @@ def head_targets(model):
     return outs, handle
 
 
+def _hold_step(models, card, own, lr):
+    """The card's train step against the CPU's (``models``: the card's,
+    the CPU's and the jittered CPU's model after their step; ``card`` and
+    ``own``: the card's and the CPU's (loss, tb)): loss terms within
+    TRAIN_LOSS_RTOL, then the gradients, updated parameters, each module's
+    gradients and the BN running statistics within the jitter baseline's
+    limits and the fixed ceilings. Returns the differences and limits."""
+    gpu, cpu, jit = models
+    (gpu_loss, gpu_tb), (cpu_loss, cpu_tb) = card, own
+    worst = {}
+    for key in ('loss', *sorted(gpu_tb)):
+        g = float(gpu_loss if key == 'loss' else gpu_tb[key])
+        c = float(cpu_loss if key == 'loss' else cpu_tb[key])
+        worst[key] = abs(g - c) / max(abs(c), 1e-12)
+        if worst[key] > TRAIN_LOSS_RTOL:
+            raise AssertionError(f'card vs CPU {key}: {g} vs {c}')
+    log(f'  card vs CPU loss terms {sorted(gpu_tb)}: largest relative '
+        f'difference {max(worst.values()):.3e} (tolerance '
+        f'{TRAIN_LOSS_RTOL}); card {float(gpu_loss):.6f}, CPU '
+        f'{float(cpu_loss):.6f}')
+    diff = _step_difference(gpu, cpu, lr)
+    base = _step_difference(jit, cpu, lr)
+    log(f'  card vs CPU after the step: {diff}')
+    log(f'  CPU with weights x (1 + {WEIGHT_JITTER} N(0, 1)) vs CPU (the '
+        f'jitter baseline): {base}')
+    limits = _require_step_within(diff, base, lr)
+    by_module = _grad_by_module((gpu, jit), cpu)
+    _require_modules_within(by_module)
+    stats = [_bn_stats_rel_l2(a, cpu) for a in (gpu, jit)]
+    limits['bn_limit'] = _require_bn_within(stats)
+    return {'card': diff, 'baseline': base, 'limits': limits,
+            'by_module': by_module, 'bn_stats': stats, 'loss_rel': worst}
+
+
 def centerpoint_train_cpu_phase(batch, name='waymo_models/centerpoint'):
     """Phases 48, 61 and 64: one train step of ``name``'s CenterPoint on
     one frame (``batch``, on the CPU; CP_TRAIN_CUT) on the card and on the
@@ -4463,30 +4594,8 @@ def centerpoint_train_cpu_phase(batch, name='waymo_models/centerpoint'):
                                             f'{g} {key} targets')
         log(f'  group {g}: {int(tc["mask"].sum())} gt centres, heatmap '
             f'peaks {int((tc["heatmap"] == 1).sum())}: targets identical')
-    worst = {}
-    for key in ('loss', *sorted(gpu_tb)):
-        g = float(gpu_loss if key == 'loss' else gpu_tb[key])
-        c = float(cpu_loss if key == 'loss' else cpu_tb[key])
-        worst[key] = abs(g - c) / max(abs(c), 1e-12)
-        if worst[key] > TRAIN_LOSS_RTOL:
-            raise AssertionError(f'card vs CPU {key}: {g} vs {c}')
-    log(f'  card vs CPU loss terms {sorted(gpu_tb)}: largest relative '
-        f'difference {max(worst.values()):.3e} (tolerance '
-        f'{TRAIN_LOSS_RTOL}); card {float(gpu_loss):.6f}, CPU '
-        f'{float(cpu_loss):.6f}')
-    lr = cpu_opt.lr_fn(0)
-    diff = _step_difference(gpu, cpu, lr)
-    base = _step_difference(jit, cpu, lr)
-    log(f'  card vs CPU after the step: {diff}')
-    log(f'  CPU with weights x (1 + {WEIGHT_JITTER} N(0, 1)) vs CPU (the '
-        f'jitter baseline): {base}')
-    limits = _require_step_within(diff, base, lr)
-    by_module = _grad_by_module((gpu, jit), cpu)
-    _require_modules_within(by_module)
-    stats = [_bn_stats_rel_l2(a, cpu) for a in (gpu, jit)]
-    limits['bn_limit'] = _require_bn_within(stats)
-    return {'card': diff, 'baseline': base, 'limits': limits,
-            'by_module': by_module, 'bn_stats': stats, 'loss_rel': worst}
+    return _hold_step((gpu, cpu, jit), (gpu_loss, gpu_tb),
+                      (cpu_loss, cpu_tb), cpu_opt.lr_fn(0))
 
 
 def centerpoint_phases(smi):
@@ -5445,43 +5554,6 @@ def pvpp_phases(smi):
 
 # ------------------------------------------------------------- pillars
 
-def pillar_profile(model, fn, what):
-    """``centerpoint_profile`` for a pillar detector: the VFE, the scatter,
-    the BEV backbone and the head as ranges (and the NMS, where ``fn``
-    opens an 'NMS' range; a CenterHead's decode and NMS as 'head
-    decode'), with their shares of the device time."""
-    names = {'vfe': 'VFE', 'map_to_bev_module': 'scatter',
-             'backbone_2d': 'BEV backbone', 'dense_head': 'head'}
-
-    def ranged(name, fn):
-        def call(*args, **kwargs):
-            with torch.profiler.record_function(name):
-                return fn(*args, **kwargs)
-        return call
-    for attr, name in names.items():
-        module = getattr(model, attr)
-        module.forward = ranged(name, module.forward)
-    decode = hasattr(model.dense_head, 'decode')
-    if decode:
-        model.dense_head.decode = ranged('head decode',
-                                         model.dense_head.decode)
-    try:
-        prof = profile_phase(fn, what, ranges=(
-            *names.values(), 'head decode' if decode else 'NMS'))
-    finally:
-        for attr in names:
-            del getattr(model, attr).forward
-        if decode:
-            del model.dense_head.decode
-    for span in prof['ranges'].values():
-        span['device_share'] = span['device_ms'] / prof['device_ms']
-    prof['backward_share'] = prof['backward_device_ms'] / prof['device_ms']
-    log('  device shares: ' + ', '.join(
-        f'{k} {v["device_share"]:.3f}' for k, v in prof['ranges'].items()) +
-        f', backward {prof["backward_share"]:.3f}')
-    return prof
-
-
 def anchor_request(model, batch, post):
     """One request of an anchor-head pillar detector with the NMS in an
     'NMS' range: forward + ``post_processing``."""
@@ -5608,7 +5680,7 @@ def pointpillar_phases(smi):
            'pillars_before_cap': host['before'],
            'pillars_after_cap': host['after'],
            'detections': dets['count'].tolist()}
-    rec['profile'] = pillar_profile(
+    rec['profile'] = stage_profile(
         model, lambda: anchor_request(model, host['batches'][0], post),
         'one PointPillar request (B=2)')
     del model, host
@@ -5628,7 +5700,7 @@ def pointpillar_phases(smi):
         f'and loss, backward, adam_onecycle', smi)
     train.update(host_ms_a_frame=host_ms, pillars_before_cap=before,
                  pillars_after_cap=after)
-    train['profile'] = pillar_profile(
+    train['profile'] = stage_profile(
         model, lambda: step(batches[1]), 'one PointPillar train step (B=2)')
     return rec, train
 
@@ -5670,8 +5742,8 @@ def waymo_pillar_phases(smi, dynamic):
            'pillars_before_cap': host['before'],
            'pillars_after_cap': host['after'],
            'detections': dets['count'].tolist()}
-    rec['profile'] = pillar_profile(model, request,
-                                    f'one CenterPoint {kind} request (B=2)')
+    rec['profile'] = stage_profile(model, request,
+                                   f'one CenterPoint {kind} request (B=2)')
 
     log(f'== {first + 1}. CenterPoint over {kind}s card vs CPU, one request '
         f'(B=1)')
@@ -5699,7 +5771,7 @@ def waymo_pillar_phases(smi, dynamic):
         f'adam_onecycle', smi)
     train.update(host_ms_a_frame=host_ms, pillars_before_cap=before,
                  pillars_after_cap=after)
-    train['profile'] = pillar_profile(
+    train['profile'] = stage_profile(
         model, lambda: step(batches[1]),
         f'one CenterPoint {kind} train step (B=2)')
     del model, step, batches
@@ -5770,6 +5842,377 @@ def pillar_phases(smi):
             'centerpoint_dyn_pillar': dyn,
             'centerpoint_dyn_pillar_train': dyn_train,
             'pointpillar_waymo': waymo, 'centerpoint_dyn_pp_nuscenes': nus}
+
+
+# ----------------------------------- the grouped RPN and SECOND-IoU
+
+def stage_profile(model, fn, what):
+    """``profile_phase`` of a voxel or pillar detector's request or train
+    step with its stages as ranges (the VFE, the sparse backbone, the map
+    to BEV, the BEV backbone, the dense head, the IoU head where there is
+    one; a CenterHead's decode and NMS as 'head decode'), the NMS of
+    ``post_processing`` where ``fn`` opens an 'NMS' range, and 'NMS
+    loop', the greedy suppression loop of every NMS
+    (``ops.boxes._greedy_suppress``); each range's share of the device
+    time, and the loop's share of the wall time."""
+    from spsnet_torch.ops import boxes as boxes_ops
+    names = {'vfe': 'VFE', 'backbone_3d': 'sparse backbone',
+             'map_to_bev_module': 'map to BEV', 'backbone_2d': 'BEV backbone',
+             'dense_head': 'dense head', 'roi_head': 'IoU head'}
+    names = {k: v for k, v in names.items()
+             if getattr(model, k, None) is not None}
+
+    def ranged(name, fn):
+        def call(*args, **kwargs):
+            with torch.profiler.record_function(name):
+                return fn(*args, **kwargs)
+        return call
+    for attr, name in names.items():
+        module = getattr(model, attr)
+        module.forward = ranged(name, module.forward)
+    decode = hasattr(model.dense_head, 'decode')
+    if decode:
+        model.dense_head.decode = ranged('head decode',
+                                         model.dense_head.decode)
+    loop = boxes_ops._greedy_suppress
+    boxes_ops._greedy_suppress = ranged('NMS loop', loop)
+    try:
+        prof = profile_phase(fn, what, ranges=(
+            *names.values(), 'head decode' if decode else 'NMS',
+            'NMS loop'))
+    finally:
+        boxes_ops._greedy_suppress = loop
+        for attr in names:
+            del getattr(model, attr).forward
+        if decode:
+            del model.dense_head.decode
+    for span in prof['ranges'].values():
+        span['device_share'] = span['device_ms'] / prof['device_ms']
+    span = prof['ranges']['NMS loop']
+    prof['backward_share'] = prof['backward_device_ms'] / prof['device_ms']
+    prof['nms_loop_share'] = span['host_ms'] / prof['wall_ms']
+    log('  device shares: ' + ', '.join(
+        f'{k} {v["device_share"]:.3f}' for k, v in prof['ranges'].items()) +
+        f', backward {prof["backward_share"]:.3f}; the NMS loop '
+        f'{span["host_ms"]:.3f} of {prof["wall_ms"]:.3f} ms '
+        f'({prof["nms_loop_share"]:.3f}), {span["launches"]} of '
+        f'{prof["launches"]} kernel launches')
+    return prof
+
+
+def _require_class_logits(g, c, what):
+    """Card vs CPU dense class logits of ``AnchorHeadMulti``: the -1e9
+    entries (another group's classes) identical, the others within
+    VOXEL_RTOL relative plus VOXEL_ATOL times their largest entry."""
+    g, c = g.cpu(), c.cpu()
+    masked = c == -1e9
+    require_equal(g == -1e9, masked, f'card vs CPU {what}: the -1e9 '
+                                     f'entries ({int(masked.sum())})')
+    return _require_scaled(g[~masked], c[~masked], what)
+
+
+def multi_nms_vs_cpu(out, dets, post):
+    """``multi_classes_nms_batch`` of the card's outputs on the card
+    (``dets``) against the CPU on the same boxes and logits: identical, or
+    each (frame, class) row's keep list on the card a greedy NMS of the
+    CPU's IoUs within NMS_IOU_TOL (``nms_agrees``), the card's sigmoid
+    scores within 1e-6 of the CPU's, and the merge of the card's rows
+    replayed on the CPU (its scores, its keep lists) giving the card's
+    indices, labels and counts. Returns the rows that differed."""
+    from spsnet_torch.models.detectors.detector3d import \
+        multi_classes_nms_batch
+    from spsnet_torch.ops import nms_bev
+    from spsnet_torch.ops.boxes import topk_desc
+    nms = post.NMS_CONFIG
+    args = (float(post.SCORE_THRESH), float(nms.NMS_THRESH),
+            int(nms.NMS_PRE_MAXSIZE), int(nms.NMS_POST_MAXSIZE))
+    boxes, logits = out['batch_box_preds'], out['batch_cls_preds']
+    cpu = multi_classes_nms_batch(boxes.cpu(), logits.cpu(), *args)
+    if all(torch.equal(dets[k].cpu(), cpu[k])
+           for k in ('indices', 'labels', 'count')):
+        log(f'  card vs CPU multi-class NMS: identical ({dets["count"]} '
+            f'kept)')
+        return 0
+    thresh, nms_t, pre, post_n = args
+    scores = torch.sigmoid(logits)
+    B, M, C = scores.shape
+    rows = scores.transpose(1, 2).reshape(B * C, M)
+    frame = torch.arange(B, device=rows.device).repeat_interleave(C)
+    keep, _ = nms_bev(boxes[frame][..., :7], rows, nms_t, pre, post_n,
+                      valid=rows > thresh)
+    cpu_rows = torch.sigmoid(logits.cpu()).transpose(1, 2).reshape(B * C, M)
+    apart = float((rows.cpu() - cpu_rows).abs().max())
+    if apart > 1e-6:
+        raise AssertionError(f'card vs CPU class scores {apart:.3e} apart')
+    differ = 0
+    for r in range(B * C):
+        own, _ = nms_bev(boxes[frame[r]][None, :, :7].cpu(),
+                         rows[r:r + 1].cpu(), nms_t, pre, post_n,
+                         valid=rows[r:r + 1].cpu() > thresh)
+        if not torch.equal(own, keep[r:r + 1].cpu()):
+            differ += 1
+            nms_agrees(keep[r:r + 1], boxes[frame[r]][None, :, :7].cpu(),
+                       rows[r:r + 1].cpu(), rows[r:r + 1].cpu() > thresh,
+                       nms_t, pre, post_n,
+                       f'multi-class NMS frame {r // C} class {r % C + 1}')
+    keep, rows = keep.cpu(), rows.cpu()
+    ok = keep >= 0
+    sc = torch.where(ok, rows.gather(1, keep.clamp(min=0)), -1.0)
+    top, order = topk_desc(sc.reshape(B, -1), post_n)
+    index = torch.where(ok, keep, -1).reshape(B, -1).gather(1, order)
+    kept = top > -1
+    labels = torch.where(ok, torch.arange(1, C + 1).repeat(B)[:, None],
+                         0).reshape(B, -1).gather(1, order)
+    require_equal(torch.where(kept, index, -1), dets['indices'],
+                  'card vs CPU multi-class NMS: the merge of the card\'s '
+                  'rows replayed on the CPU, indices')
+    require_equal(torch.where(kept, labels, 0), dets['labels'],
+                  'card vs CPU multi-class NMS: its labels')
+    log(f'  card vs CPU multi-class NMS: {differ} of {B * C} rows differ, '
+        f'each within the rounding slack')
+    return differ
+
+
+def mh_cpu_phase(model, name, batch, post):
+    """One request (B = 1) of ``name`` on the card and on the CPU from the
+    same weights and host batch: the BEV map and the anchor head's
+    predictions within VOXEL_RTOL / VOXEL_ATOL (the dense class matrix's
+    -1e9 entries identical); then the detections from the card's outputs:
+    multi-class NMS as ``multi_nms_vs_cpu`` holds it, or SECOND-IoU's
+    proposal NMS (``nms_agrees``), its IoU logits within tolerance on the
+    card's RoIs and its rescoring NMS (``nms_agrees``)."""
+    from spsnet_torch.models.detectors.detector3d import (
+        class_agnostic_nms_batch, post_processing)
+    _, cpu = build_voxel_detector(name, 'cpu')
+    cpu.load_state_dict(model.state_dict())
+    host = _cpu_tree(batch)
+    errs = []
+    with torch.no_grad():
+        g = model.stage_one(dict(batch))
+        c = cpu.stage_one(dict(host))
+        errs.append(_require_scaled(g['spatial_features_2d'],
+                                    c['spatial_features_2d'], 'BEV map'))
+        ret, cret = g['anchor_head_ret'], c['anchor_head_ret']
+        errs.append(_require_class_logits(ret['cls_preds'],
+                                          cret['cls_preds'],
+                                          'anchor class logits'))
+        for key in ('box_preds', 'dir_preds'):
+            errs.append(_require_scaled(ret[key], cret[key],
+                                        f'anchor {key}'))
+        rec = {}
+        if not hasattr(model, 'roi_head'):
+            dets = post_processing(g, post)
+            rec['rows_differ'] = multi_nms_vs_cpu(g, dets, post)
+            rec['detections'] = dets['count'].tolist()
+        else:
+            nms = model.model_cfg.ROI_HEAD.NMS_CONFIG.TEST
+            props = class_agnostic_nms_batch(
+                g['batch_box_preds'], g['batch_cls_preds'], -1e9,
+                float(nms.NMS_THRESH), int(nms.NMS_PRE_MAXSIZE),
+                int(nms.NMS_POST_MAXSIZE), cls_preds_normalized=True)
+            scores = g['batch_cls_preds'].amax(-1).cpu()
+            nms_agrees(props['indices'], g['batch_box_preds'][..., :7].cpu(),
+                       scores, torch.ones_like(scores, dtype=torch.bool),
+                       float(nms.NMS_THRESH), int(nms.NMS_PRE_MAXSIZE),
+                       int(nms.NMS_POST_MAXSIZE), 'proposal NMS indices')
+            gr = model.roi_head(g)
+            # the CPU's head on the card's RoIs (held above)
+            card_rois = tuple(t.cpu() for t in model.roi_head.proposals(g))
+            cpu.roi_head.proposals = lambda b: card_rois
+            cr = cpu.roi_head(_cpu_tree(g))
+            del cpu.roi_head.proposals
+            errs.append(_require_scaled(gr['batch_cls_preds'],
+                                        cr['batch_cls_preds'],
+                                        'IoU logits on the card\'s RoIs'))
+            dets = post_processing(gr, post)
+            iou = torch.sigmoid(gr['batch_cls_preds'][..., 0]).cpu()
+            pn = post.NMS_CONFIG
+            nms_agrees(dets['indices'], gr['batch_box_preds'].cpu(), iou,
+                       iou > float(post.SCORE_THRESH), float(pn.NMS_THRESH),
+                       int(pn.NMS_PRE_MAXSIZE), int(pn.NMS_POST_MAXSIZE),
+                       'IoU-rescored NMS indices')
+            rec['detections'] = dets['count'].tolist()
+    rec['max_scaled_err'] = max(errs)
+    return rec
+
+
+def mh_train_cpu_phase(batch, name, cut):
+    """One train step of ``name`` on one frame (``batch``, on the CPU; on
+    ``cut``) on the card and on the CPU from the same weights, RoI draws
+    and dropout masks (the step's CPU generators), and on the CPU from
+    weights jittered by WEIGHT_JITTER: the anchor labels identical; the
+    direction bins and, for SECOND-IoU, the proposal NMS, the RoIs' max
+    IoUs and the sampled RoIs held as ``PvDecisions`` holds them, the CPU
+    going on from the card's; then the loss terms, gradients, updated
+    parameters and BN statistics as ``pvrcnn_train_cpu_phase`` holds
+    them."""
+    cfg, gpu, _, gpu_step = build_pvrcnn_trainer('cuda', name, cut)
+    _, cpu, cpu_opt, cpu_step = build_pvrcnn_trainer('cpu', name, cut)
+    _, jit, _, jit_step = build_pvrcnn_trainer('cpu', name, cut)
+    cpu.load_state_dict(gpu.state_dict())
+    jit.load_state_dict(gpu.state_dict())
+    thresholds = ()
+    card_batch = {k: v.cuda() for k, v in batch.items()}
+    if hasattr(gpu, 'roi_head'):
+        tcfg = cfg.MODEL.ROI_HEAD.TARGET_CONFIG
+        thresholds = tuple(float(tcfg[k]) for k in (
+            'CLS_BG_THRESH_LO', 'CLS_BG_THRESH', 'REG_FG_THRESH',
+            'CLS_FG_THRESH'))
+        card_batch = gt_at_proposals(gpu, card_batch)
+        batch = dict(batch, gt_boxes=card_batch['gt_boxes'].cpu())
+    gen = torch.Generator().manual_seed(5)
+    with torch.no_grad():
+        for p in jit.parameters():
+            p.mul_(1 + WEIGHT_JITTER * torch.randn(p.shape, generator=gen))
+    outs = []
+    card = PvDecisions('record')
+    hook = gpu.dense_head.register_forward_hook(
+        lambda m, a, o: outs.append(o['anchor_head_ret']['box_cls_labels']))
+    with prcnn_decisions(card):
+        gpu_loss, gpu_tb = gpu_step(card_batch)
+    hook.remove()
+    own = PvDecisions('check', card, thresholds)
+    hook = cpu.dense_head.register_forward_hook(
+        lambda m, a, o: outs.append(o['anchor_head_ret']['box_cls_labels']))
+    with prcnn_decisions(own):
+        cpu_loss, cpu_tb = cpu_step(batch)
+    hook.remove()
+    with prcnn_decisions(PvDecisions('replay', own)):
+        jit_step(batch)
+    require_equal(outs[0], outs[1], f'card vs CPU train step: anchor labels '
+                                    f'{tuple(outs[1].shape)} ('
+                                    f'{int((outs[1] > 0).sum())} positive)')
+    for note in own.notes:
+        log(f'  {note}')
+    for g, c in zip(card.used['sampled'], own.used['sampled']):
+        require_equal(g, c, f'card vs CPU train step: sampled RoI indices '
+                            f'{tuple(g.shape)}')
+    rec = _hold_step((gpu, cpu, jit), (gpu_loss, gpu_tb),
+                     (cpu_loss, cpu_tb), cpu_opt.lr_fn(0))
+    rec['notes'] = own.notes
+    return rec
+
+
+def _loop_share(loops, times):
+    """The greedy NMS loops' share of the wall time of calls timed in
+    ``times`` (ms), from ``timed_calls``' record of the loop over a
+    warm-up call and those calls (each call the same number of loops)."""
+    torch.cuda.synchronize()
+    per = len(loops) // (len(times) + 1)
+    return sum(h for h, _ in range_ms(loops)[per:]) / sum(times)
+
+
+def _mh_setting(name):
+    """(points a scan, point channels, gt with velocities, train cut) of a
+    config of MH_CONFIGS."""
+    if name.startswith('nuscenes'):
+        return CP_N, 5, True, MH_TRAIN_CUT['nuscenes']
+    return N, 4, False, MH_TRAIN_CUT['kitti']
+
+
+def mh_phases_of(name, seed, first, smi):
+    """Phases ``first`` to ``first`` + 2 of ``name``: serving (MH_B scans,
+    MH_REQUESTS requests after a warm-up, no kernel launch, the NMS loops'
+    share of their wall time, a profile), card vs CPU one request (B = 1),
+    training (MH_TRAIN_STEPS steps after a warm-up, the loop's share, a
+    profile but of SECOND-IoU's step) and card vs CPU one train step on the
+    config's MH_TRAIN_CUT."""
+    from spsnet_torch.ops import boxes as boxes_ops
+    n, channels, velocity, cut = _mh_setting(name)
+    log(f'== {first}. {name}.yaml serving')
+    cfg, model = build_voxel_detector(name, 'cuda')
+    if not hasattr(model, 'roi_head'):
+        # the class logits' biases start at -log 99: no anchor of a random
+        # model would reach SCORE_THRESH 0.1, and the NMS would keep none
+        with torch.no_grad():
+            for head in model.dense_head.rpn_heads:
+                conv = head.conv_cls if isinstance(
+                    head.conv_cls, torch.nn.Conv2d) else head.conv_cls[-1]
+                conv.bias.fill_(MH_CLS_BIAS)
+    post = cfg.MODEL.POST_PROCESSING
+    host = pv_host_batches(cfg, [seed], MH_B, n, channels)
+    anchor_request(model, host['batches'][0], post)
+    torch.cuda.reset_peak_memory_stats()
+    with timed_calls(boxes_ops, '_greedy_suppress') as loops:
+        times, launches = main_path(model, host['batches'] * MH_REQUESTS,
+                                    post, {}, f'{name} requests')
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ms = statistics.median(times)
+    loop_share = _loop_share(loops, times)
+    dets = anchor_request(model, host['batches'][0], post)
+    log(f'  launches over {MH_REQUESTS} requests: {launches}; the NMS '
+        f'loops {loop_share:.3f} of the requests\' wall time')
+    log(f'  ms/batch (B={MH_B}, N={n}, {channels} channels, '
+        f'{model.dense_head.anchors.shape[0]} anchors, '
+        f'{cfg.MODEL.DENSE_HEAD.NAME}'
+        f'{", SECONDHead" if hasattr(model, "roi_head") else ""}, NMS): '
+        f'median {ms:.3f}, range {min(times):.3f}-{max(times):.3f}, all '
+        f'{[round(t, 3) for t in times]}; peak memory {peak:.3f} GiB; '
+        f'detections a frame {dets["count"].tolist()} on {smi}')
+    rec = {'ms_per_batch': ms, 'all_ms': times, 'launches': launches,
+           'range_ms': [min(times), max(times)], 'peak_gib': peak,
+           'nms_loop_share': loop_share, 'host_ms_a_frame': host['host_ms'],
+           'voxels_before_cap': host['before'],
+           'voxels_after_cap': host['after'],
+           'detections': dets['count'].tolist()}
+    rec['profile'] = stage_profile(
+        model, lambda: anchor_request(model, host['batches'][0], post),
+        f'one {name} request (B={MH_B})')
+
+    log(f'== {first + 1}. {name} card vs CPU, one request (B=1)')
+    torch.cuda.reset_peak_memory_stats()
+    rec['card_vs_cpu'] = mh_cpu_phase(
+        model, name, {k: v[:1] for k, v in host['batches'][0].items()}, post)
+    del model, host
+
+    log(f'== {first + 2}. {name} train path; card vs CPU one train step '
+        f'(cut: {cut})')
+    cfg, model, opt, step = build_pvrcnn_trainer('cuda', name)
+    batches, host_ms, before, after = pv_train_batches(
+        cfg, range(seed + 50, seed + 52), n=n, channels=channels,
+        velocity=velocity)
+    if hasattr(model, 'roi_head'):
+        batches = list(at_proposals(model, batches))
+    log(f'  host steps at the train settings: '
+        f'{statistics.median(host_ms):.3f} ms a frame; voxels a frame '
+        f'{before}, after the cap {after}; gt boxes '
+        f'{tuple(batches[0]["gt_boxes"].shape)}')
+    iou = hasattr(model, 'roi_head')
+    with timed_calls(boxes_ops, '_greedy_suppress') as loops:
+        train = pillar_train_path(
+            model, step, opt, batches, MH_TRAIN_STEPS,
+            f'B={PV_TRAIN_B}, N={n}: {name}, anchor targets and losses'
+            f'{", proposal NMS (pre 9000, post 512), RoI sampling, IoU head" if iou else ""}'
+            f', backward, adam_onecycle', smi)
+    train.update(host_ms_a_frame=host_ms, voxels_before_cap=before,
+                 voxels_after_cap=after,
+                 nms_loop_share=_loop_share(loops, train['all_ms']))
+    log(f'  the NMS loop: {train["nms_loop_share"]:.3f} of the steps\' wall '
+        f'time')
+    if not iou:
+        # the trace of SECOND-IoU's step (~30 000 launches, 27 000 of them
+        # its proposal NMS loop's) takes the profiler ~25 s to read: its
+        # loop's share is the one above
+        train['profile'] = stage_profile(model, lambda: step(batches[1]),
+                                         f'one {name} train step (B=2)')
+    del model, step, batches
+    torch.cuda.reset_peak_memory_stats()
+    train['card_vs_cpu'] = mh_train_cpu_phase(
+        cut_batch(name, cut, seed + 90, channels, velocity), name, cut)
+    train['card_vs_cpu']['peak_gib'] = \
+        torch.cuda.max_memory_allocated() / 2 ** 30
+    return rec, train
+
+
+def multihead_phases(smi):
+    """Phases 66-77: the four configs of MH_CONFIGS, three phases each;
+    returns their records by path."""
+    recs = {}
+    for k, (name, seed) in enumerate(MH_CONFIGS.items()):
+        short = name.split('/')[-1]
+        recs[short], recs[f'{short}_train'] = mh_phases_of(
+            name, seed, 66 + 3 * k, smi)
+    return recs
 
 
 def card_and_build():
@@ -6263,6 +6706,7 @@ def main(argv=()) -> int:
     log('== 56. the kernels line, K6 with K1-K4')
     entries.append(k6)
     pillars = pillar_phases(smi)
+    multihead = multihead_phases(smi)
 
     paths = {'serve': launches, 'train': train_launches,
              'spsnet': sps_launches, 'fps_entries': entry_launches,
@@ -6282,7 +6726,8 @@ def main(argv=()) -> int:
              'pvrcnnpp': pvpp['launches'],
              'pvrcnnpp_resnet': pvpp_resnet['launches'],
              'pvrcnnpp_train': pvpp_train['launches'],
-             **{name: rec['launches'] for name, rec in pillars.items()}}
+             **{name: rec['launches'] for name, rec in pillars.items()},
+             **{name: rec['launches'] for name, rec in multihead.items()}}
     for entry in entries:
         entry['launches_by_path'] = {path: counts.get(entry['name'], 0)
                                      for path, counts in paths.items()}
@@ -6353,6 +6798,7 @@ def main(argv=()) -> int:
                     'voxelrcnn_waymo': vr_waymo, 'pvrcnnpp': pvpp,
                     'pvrcnnpp_resnet': pvpp_resnet,
                     'pvrcnnpp_train': pvpp_train, 'pillars': pillars,
+                    'multihead': multihead,
                     'card': smi}))
     log(smi)
     log(json.dumps({'ok': True, 'device': {

@@ -13,6 +13,7 @@ from .pointpillar import PointPillar
 from .pv_rcnn import PVRCNN
 from .pv_rcnn_plusplus import PVRCNNPlusPlus
 from .second_net import SECONDNet
+from .second_net_iou import SECONDNetIoU
 from .voxel_rcnn import VoxelRCNN
 
 # PAGNet and SPSNet-IA are IASSD with the PAGNet backbone and the MLT head,
@@ -22,29 +23,31 @@ _DETECTORS = {'IASSD': IASSD, 'PAGNet': IASSD, 'SPSNet': IASSD,
               'PointRCNN': PointRCNN, 'SECONDNet': SECONDNet,
               'PVRCNN': PVRCNN, 'VoxelRCNN': VoxelRCNN,
               'CenterPoint': CenterPoint, 'PVRCNNPlusPlus': PVRCNNPlusPlus,
-              'PointPillar': PointPillar}
+              'PointPillar': PointPillar, 'SECONDNetIoU': SECONDNetIoU}
 _VOXEL_DETECTORS = (SECONDNet, PVRCNN, VoxelRCNN, CenterPoint,
-                    PVRCNNPlusPlus, PointPillar)
+                    PVRCNNPlusPlus, PointPillar, SECONDNetIoU)
 # the modules the port has, by config block: a block naming another one
-# (UNetV2, AnchorHeadMulti, ...) is not ported
+# (UNetV2, PartA2FCHead, ...) is not ported
 _PORTED = {
     'VFE': {'MeanVFE', 'PillarVFE', 'DynamicPillarVFE', 'DynPillarVFE'},
     'BACKBONE_3D': {'IASSD_Backbone', 'PAGNet_Backbone', 'PointNet2MSG',
                     'VoxelBackBone8x', 'VoxelResBackBone8x'},
     'MAP_TO_BEV': {'HeightCompression', 'PointPillarScatter'},
     'BACKBONE_2D': {'BaseBEVBackbone'},
-    'DENSE_HEAD': {'AnchorHeadSingle', 'CenterHead', 'CenterHeadIoU'},
+    'DENSE_HEAD': {'AnchorHeadSingle', 'AnchorHeadMulti', 'CenterHead',
+                   'CenterHeadIoU'},
     'PFE': {'VoxelSetAbstraction'},
     'POINT_HEAD': {'IASSD_Head', 'MLT_SSD_Head', 'PointHeadBox',
                    'PointHeadSimple'},
-    'ROI_HEAD': {'PointRCNNHead', 'PVRCNNHead', 'VoxelRCNNHead'},
+    'ROI_HEAD': {'PointRCNNHead', 'PVRCNNHead', 'VoxelRCNNHead',
+                 'SECONDHead'},
 }
 
 
 # the ROADMAP Queue 1 item of each module that the configs of tools/cfgs
 # name and the port lacks
-_ITEMS = {'AnchorHeadMulti': 'F6', 'SECONDHead': 'F7', 'UNetV2': 'F8',
-          'PointIntraPartOffsetHead': 'F8', 'PartA2FCHead': 'F8',
+_ITEMS = {'UNetV2': 'F8', 'PointIntraPartOffsetHead': 'F8',
+          'PartA2FCHead': 'F8',
           'AL_3D': 'F9', 'Sparse2BEV': 'F9', 'RB_Fusion': 'F9',
           'ImageVFE': 'F10', 'Conv2DCollapse': 'F10'}
 
@@ -101,9 +104,8 @@ def build_detector(model_cfg, num_class: int, device='cuda',
             f'detector {name} ({", ".join(missing) or "no such detector"}): '
             f'the port serves and trains {sorted(_DETECTORS)}', *items,
             'the rest of the voxel and two-stage zoo is ROADMAP Queue 1 '
-            'item F6-F10 (F6 AnchorHeadMulti and multi-class NMS, F7 '
-            'SECOND-IoU, F8 PartA2, F9 the AL_3D stack, F10 CaDDN), the rest '
-            'of the point family item E']))
+            'item F8-F10 (F8 PartA2, F9 the AL_3D stack, F10 CaDDN), the '
+            'rest of the point family item E']))
     cls = _DETECTORS[name]
     if cls in _VOXEL_DETECTORS:
         if cls is PVRCNN:

@@ -17,7 +17,8 @@ from torch import nn
 
 from ..backbones_2d.base_bev_backbone import BaseBEVBackbone
 from ..backbones_3d.spconv_backbone import BACKBONES_3D, HeightCompression
-from ..dense_heads.anchor_head import AnchorHeadSingle, anchor_head_loss
+from ..dense_heads.anchor_head import (AnchorHeadMulti, AnchorHeadSingle,
+                                       anchor_head_loss)
 from ..dense_heads.center_head import CenterHead, center_head_loss
 from ..dense_heads.center_head_iou import CenterHeadIoU, center_head_iou_loss
 from ..map_to_bev import PointPillarScatter
@@ -28,11 +29,12 @@ def build_dense_head(head_cfg, num_class: int, input_channels: int,
                      grid_size, voxel_size, point_cloud_range,
                      class_names=None, train_decode: bool = True,
                      plain_center: bool = False):
-    """AnchorHeadSingle, or for a DENSE_HEAD named CenterHead or
-    CenterHeadIoU the plain ``CenterHead`` where ``plain_center``, else
-    ``CenterHeadIoU``, which needs CLASS_NAMES_EACH_HEAD (as
-    ``spsnet_tpu/models/detectors/{centerpoint,pv_rcnn,voxel_rcnn,
-    pv_rcnn_plusplus}.py`` pick them)."""
+    """AnchorHeadSingle; ``AnchorHeadMulti`` for a DENSE_HEAD so named (as
+    ``spsnet_tpu/models/detectors/{second_net,pointpillar}.py`` pick it);
+    for a DENSE_HEAD named CenterHead or CenterHeadIoU the plain
+    ``CenterHead`` where ``plain_center``, else ``CenterHeadIoU``, which
+    needs CLASS_NAMES_EACH_HEAD (as ``spsnet_tpu/models/detectors/
+    {centerpoint,pv_rcnn,voxel_rcnn,pv_rcnn_plusplus}.py`` pick them)."""
     if head_cfg.NAME in ('CenterHead', 'CenterHeadIoU'):
         if plain_center:
             return CenterHead(head_cfg, num_class, input_channels,
@@ -44,8 +46,10 @@ def build_dense_head(head_cfg, num_class: int, input_channels: int,
         return CenterHeadIoU(head_cfg, num_class, input_channels,
                              voxel_size, point_cloud_range, class_names,
                              train_decode)
-    return AnchorHeadSingle(head_cfg, num_class, input_channels, grid_size,
-                            point_cloud_range)
+    head = AnchorHeadMulti if head_cfg.NAME == 'AnchorHeadMulti' else \
+        AnchorHeadSingle
+    return head(head_cfg, num_class, input_channels, grid_size,
+                point_cloud_range)
 
 
 def pillar_trunk(model_cfg, input_channels: int, voxel_size,
@@ -117,8 +121,8 @@ class SECONDNet(nn.Module):
 
     def forward(self, batch):
         """The voxel batch -> the batch with every stage's outputs;
-        'batch_box_preds' (B, H * W * A, 7) and 'batch_cls_preds'
-        (B, H * W * A, num_class) are the anchor head's."""
+        'batch_box_preds' (B, N, 7+) and 'batch_cls_preds' (B, N,
+        num_class) are the anchor head's (N = H * W * A)."""
         return self.stage_one(batch)
 
     def loss(self, batch):

@@ -66,12 +66,13 @@ def make_train_step(model, optimizer, preprocess=None):
     return train_step
 
 
-def make_eval_step(model, post_cfg, preprocess=None):
+def make_eval_step(model, post_cfg, preprocess=None, class_names=None):
     """``step(batch, generator=None) -> (dets, batch_box_preds)``: the
     optional ``preprocess`` (``make_stability_preprocess``; the noise of its
     ``random`` method from ``generator``, a seed-0 ``torch.Generator`` when
     None, as the JAX eval step uses ``PRNGKey(0)``), the forward in eval mode without gradients
-    and the configured NMS (``post_processing``)."""
+    and the configured NMS (``post_processing``; ``class_names``, the
+    config's CLASS_NAMES, for SECOND-IoU's score_by_class)."""
     def eval_step(batch, generator: torch.Generator | None = None):
         model.eval()
         with torch.no_grad():
@@ -80,7 +81,8 @@ def make_eval_step(model, post_cfg, preprocess=None):
                     generator = torch.Generator().manual_seed(0)
                 batch = preprocess(batch, generator)
             out = model(batch)
-            return post_processing(out, post_cfg), out['batch_box_preds']
+            return post_processing(out, post_cfg, class_names), \
+                out['batch_box_preds']
     return eval_step
 
 

@@ -59,6 +59,17 @@ Voxel R-CNN and CenterPoint add:
     dense_head/head_{g}/{name}_conv{k}, _bn{k}     dense_head.heads_list.{g}.{name}.{k}.{0,1}
     dense_head/head_{g}/{name}_out                 dense_head.heads_list.{g}.{name}.{K} (K convs before it)
 
+AnchorHeadMulti (the grouped RPN) and SECOND-IoU's head add:
+
+    dense_head/shared_conv, shared_bn              dense_head.shared_conv.{0,1}
+    dense_head/head{i}_{cls,box,dir}               dense_head.rpn_heads.{i}.conv_{cls,box,dir_cls}
+    dense_head/head{i}_cls_mid{k}, _mid{k}_bn      dense_head.rpn_heads.{i}.conv_cls.{3k,3k+1}
+    dense_head/head{i}_cls                         ....conv_cls.{3K} (K middle convs before it)
+    dense_head/head{i}_{reg}_mid{k}, _mid{k}_bn    ....conv_box.conv_{reg}.{3k,3k+1} (SEPARATE_REG_CONFIG)
+    dense_head/head{i}_{reg}                       ....conv_box.conv_{reg}.{3K}
+    roi_head/shared_fc/...                         roi_head.shared_fc_layer.* (as PV-RCNN's)
+    roi_head/iou_layers/...                        roi_head.iou_layers.* (a Dropout after the first block)
+
 The pillar detectors (PointPillar, CenterPoint over pillars) add:
 
     vfe/pfn_{i}/Dense_0, vfe/pfn_{i}/BatchNorm_0   vfe.pfn_layers.{i}.{linear,norm} (PillarVFE)
@@ -217,7 +228,7 @@ def _roi_head_name(module, hidden, bn_paths) -> str:
     m = re.fullmatch(r'sa_(\d+)', rest[0])
     if m and len(rest) == 3 and rest[1] == 'mlp_0':
         return f'roi_head.SA_modules.{m.group(1)}.mlps.0.{_seq_index(rest[2])}'
-    if rest[0] in ('cls_layers', 'reg_layers'):
+    if rest[0] in ('cls_layers', 'reg_layers', 'iou_layers'):
         idx = _head_index(module[:2], rest[1:], hidden, shift=1)
         return f'roi_head.{rest[0]}.{idx}'
     raise KeyError(module)
@@ -228,6 +239,7 @@ _RES_BLOCK = re.compile(r'res\d_[ab]')
 _VOXEL_POOL = re.compile(r'(x_conv\d)_(in|pos|out)_(\d+)')
 _CENTER_LAYER = re.compile(r'(\w+)_(conv|bn)(\d+)')
 _PFN = re.compile(r'pfn_(\d+)|pfn(\d+)_(fc|bn)')
+_MULTI_HEAD = re.compile(r'head(\d+)_([a-z]+)(_mid(\d+)(_bn)?)?')
 _BEV_LAYER = re.compile(r'(de)?block(\d+)(_down|_conv(\d+))?(_bn(\d*))?')
 
 
@@ -297,6 +309,31 @@ def _center_head_name(rest, hidden) -> str:
     return f'{base}.{name}.{k}.{int(kind == "bn")}'
 
 
+def _multi_head_name(layer, hidden) -> str:
+    """Torch name of an ``AnchorHeadMulti`` group's layer (below
+    dense_head): ``head{i}_{cls,box,dir}`` of a 1 x 1 group; in a group
+    with SEPARATE_REG_CONFIG ``head{i}_{branch}_mid{k}`` (and ``_bn``) at
+    3k (3k + 1) of the branch's Sequential (``conv_cls``, or
+    ``conv_box.conv_{branch}``) and ``head{i}_{branch}`` after its middle
+    convs."""
+    m = _MULTI_HEAD.fullmatch(layer)
+    if m is None:
+        raise KeyError(layer)
+    i, branch, mid, k, bn = m.groups()
+    base = f'dense_head.rpn_heads.{i}'
+    if branch == 'dir' and mid is None:
+        return f'{base}.conv_dir_cls'
+    if i not in hidden.separate_heads:
+        if mid is not None or branch not in ('cls', 'box'):
+            raise KeyError(layer)
+        return f'{base}.conv_{branch}'
+    seq = f'{base}.conv_cls' if branch == 'cls' else \
+        f'{base}.conv_box.conv_{branch}'
+    if mid is None:
+        return f'{seq}.{3 * hidden.mid_convs.get((i, branch), 0)}'
+    return f'{seq}.{3 * int(k) + bool(bn)}'
+
+
 def _voxel_name(module, hidden) -> str:
     """Torch name prefix of a flax module of the voxel detectors' own
     blocks (raises ``KeyError`` for any other)."""
@@ -312,6 +349,9 @@ def _voxel_name(module, hidden) -> str:
     if top == 'dense_head' and rest in (('conv_cls',), ('conv_box',),
                                         ('conv_dir_cls',)):
         return f'dense_head.{rest[0]}'
+    if top == 'dense_head' and len(rest) == 1 and \
+            _MULTI_HEAD.fullmatch(rest[0]):
+        return _multi_head_name(rest[0], hidden)
     if top == 'dense_head':
         return _center_head_name(rest, hidden)
     m = re.fullmatch(r'(raw|x_conv\d)_vp', rest[0]) if top == 'pfe' else None
@@ -384,9 +424,13 @@ def _generator_name(module, hidden, bn_paths) -> str:
 class _Layout(dict):
     """Hidden-layer count of every MLPHead, keyed by its module path; with
     ``dropout_each``, the heads with a Dropout behind each hidden layer
-    but the last (Voxel R-CNN's towers), and ``head_convs``, the hidden
-    conv count of each CenterHead output, keyed by (head_{g}, name)."""
+    but the last (Voxel R-CNN's towers), ``head_convs``, the hidden
+    conv count of each CenterHead output, keyed by (head_{g}, name),
+    ``mid_convs``, the middle conv count of each AnchorHeadMulti branch,
+    keyed by (group index, branch), and ``separate_heads``, the groups
+    (index strings) with SEPARATE_REG_CONFIG branches."""
     dropout_each = frozenset()
+    separate_heads = frozenset()
 
 
 def _n_hidden(params) -> _Layout:
@@ -405,6 +449,17 @@ def _n_hidden(params) -> _Layout:
                 convs.setdefault((path[1], m.group(1)), set()).add(path[2])
     layout = _Layout({k: len(v) for k, v in counts.items()})
     layout.head_convs = {k: len(v) for k, v in convs.items()}
+    heads = [m.groups() for m in (
+        _MULTI_HEAD.fullmatch(path[1]) for path, _ in _leaves(params)
+        if path[0] == 'dense_head' and len(path) == 3) if m]
+    layout.mid_convs = {}
+    for i, branch, mid, k, bn in heads:
+        if mid is not None and not bn:
+            layout.mid_convs[i, branch] = layout.mid_convs.get(
+                (i, branch), 0) + 1
+    layout.separate_heads = frozenset(
+        i for i, _, _, _, _ in heads) - frozenset(
+        i for i, branch, _, _, _ in heads if branch == 'box')
     if voxel_rcnn:
         layout.dropout_each = frozenset({('roi_head', 'cls_layers'),
                                          ('roi_head', 'reg_layers')})

@@ -83,6 +83,36 @@ def centerpoint_pillar_waymo_cfg(dynamic: bool = False) -> EDict:
     return load_yaml_cfg(f'tools/cfgs/waymo_models/{name}.yaml')
 
 
+def second_multihead_kitti_cfg() -> EDict:
+    """SECOND with the grouped multi-head RPN on KITTI
+    (``tools/cfgs/kitti_models/second_multihead.yaml``): a shared 3 x 3
+    conv, one 1 x 1 head a class, multi-class NMS."""
+    return load_yaml_cfg('tools/cfgs/kitti_models/second_multihead.yaml')
+
+
+def second_iou_kitti_cfg() -> EDict:
+    """SECOND-IoU on KITTI (``tools/cfgs/kitti_models/second_iou.yaml``):
+    SECOND's stage, the BEV RoI-grid IoU head and the IoU rescoring."""
+    return load_yaml_cfg('tools/cfgs/kitti_models/second_iou.yaml')
+
+
+def second_multihead_nuscenes_cfg() -> EDict:
+    """SECOND with the grouped multi-head RPN on nuScenes
+    (``tools/cfgs/nuscenes_models/cbgs_second_multihead.yaml``):
+    VoxelResBackBone8x, six head groups over ten classes with separate
+    regression branches, (sin, cos) headings and velocities."""
+    return load_yaml_cfg(
+        'tools/cfgs/nuscenes_models/cbgs_second_multihead.yaml')
+
+
+def pointpillar_multihead_nuscenes_cfg() -> EDict:
+    """PointPillars with the grouped multi-head RPN on nuScenes
+    (``tools/cfgs/nuscenes_models/cbgs_pp_multihead.yaml``): 0.2 m
+    pillars, a strided-conv deblock, a shared conv and the six head
+    groups of ``cbgs_second_multihead.yaml``."""
+    return load_yaml_cfg('tools/cfgs/nuscenes_models/cbgs_pp_multihead.yaml')
+
+
 def stability_cfg() -> EDict:
     """The stability model's own training config (MODEL: ``GenerateCenter``
     at npoint 16384, MSG 0.2 / 0.8; OPTIMIZATION: ``adam_onecycle`` at LR
@@ -659,4 +689,113 @@ def tiny_centerpoint_cfg() -> EDict:
                              'code_weights': [1.0] * 8},
         },
     })
+    return cfg
+
+
+def _kitti_anchors(stride: int) -> list:
+    """The three KITTI classes' anchor generator entries (the heights of
+    ``second_multihead.yaml``) at ``stride``."""
+    return [{'class_name': name, 'anchor_sizes': [size],
+             'anchor_rotations': [0, 1.57], 'anchor_bottom_heights': [-1.6],
+             'align_center': False, 'feature_map_stride': stride,
+             'matched_threshold': m, 'unmatched_threshold': u}
+            for name, size, m, u in (('Car', [3.9, 1.6, 1.56], 0.6, 0.45),
+                                     ('Pedestrian', [0.8, 0.6, 1.73], 0.5,
+                                      0.35),
+                                     ('Cyclist', [1.76, 0.6, 1.73], 0.5,
+                                      0.35))]
+
+
+def tiny_second_multihead_cfg(final_zyx) -> EDict:
+    """Tiny SECOND with the grouped multi-head RPN (CPU-fast) with the
+    topology of ``second_multihead.yaml`` (a shared conv, one 1 x 1 head
+    a KITTI class, multi-class NMS), for a sparse grid whose final
+    (nz, ny, nx) is ``final_zyx``; the JAX package's tests build the same
+    (``tests/test_sparse_conv.py``)."""
+    pv = tiny_pvrcnn_cfg(final_zyx)
+    cfg = EDict({k: pv[k] for k in ('VFE', 'BACKBONE_3D', 'MAP_TO_BEV',
+                                    'BACKBONE_2D')})
+    cfg.NAME = 'SECONDNet'
+    cfg.DENSE_HEAD = EDict({
+        'NAME': 'AnchorHeadMulti', 'CLASS_AGNOSTIC': False,
+        'USE_DIRECTION_CLASSIFIER': True,
+        'DIR_OFFSET': 0.78539, 'DIR_LIMIT_OFFSET': 0.0, 'NUM_DIR_BINS': 2,
+        'USE_MULTIHEAD': True, 'SEPARATE_MULTIHEAD': True,
+        'SHARED_CONV_NUM_FILTER': 16,
+        'ANCHOR_GENERATOR_CONFIG': _kitti_anchors(8),
+        'RPN_HEAD_CFGS': [{'HEAD_CLS_NAME': ['Car']},
+                          {'HEAD_CLS_NAME': ['Pedestrian']},
+                          {'HEAD_CLS_NAME': ['Cyclist']}],
+        'TARGET_ASSIGNER_CONFIG': {'BOX_CODER': 'ResidualCoder'},
+        'LOSS_CONFIG': {'LOSS_WEIGHTS': {
+            'cls_weight': 1.0, 'loc_weight': 2.0, 'dir_weight': 0.2,
+            'code_weights': [1.0] * 7}},
+    })
+    cfg.POST_PROCESSING = EDict({'SCORE_THRESH': 0.1, 'NMS_CONFIG': {
+        'MULTI_CLASSES_NMS': True, 'NMS_THRESH': 0.1,
+        'NMS_PRE_MAXSIZE': 64, 'NMS_POST_MAXSIZE': 16}})
+    return cfg
+
+
+def tiny_pointpillar_multihead_cfg() -> EDict:
+    """Tiny PointPillars with the grouped multi-head RPN (CPU-fast) with the
+    topology of ``cbgs_pp_multihead.yaml`` on ``tiny_pointpillar_cfg``'s
+    trunk: a shared conv, two head groups (Car; Pedestrian and Cyclist)
+    with SEPARATE_REG_CONFIG branches (one middle conv), the code of size 9
+    with (sin, cos) headings (velocities: gt of 10 columns), the focal
+    loss's pos / neg weights and multi-class NMS."""
+    cfg = tiny_pointpillar_cfg()
+    anchors = _kitti_anchors(2)
+    for a, z in zip(anchors, (-1.78, -0.6, -0.6)):
+        a['anchor_bottom_heights'] = [z]
+    cfg.DENSE_HEAD = EDict({
+        'NAME': 'AnchorHeadMulti', 'CLASS_AGNOSTIC': False,
+        'DIR_OFFSET': 0.78539, 'DIR_LIMIT_OFFSET': 0.0, 'NUM_DIR_BINS': 2,
+        'USE_MULTIHEAD': True, 'SEPARATE_MULTIHEAD': True,
+        'ANCHOR_GENERATOR_CONFIG': anchors,
+        'SHARED_CONV_NUM_FILTER': 32,
+        'RPN_HEAD_CFGS': [{'HEAD_CLS_NAME': ['Car']},
+                          {'HEAD_CLS_NAME': ['Pedestrian', 'Cyclist']}],
+        'SEPARATE_REG_CONFIG': {
+            'NUM_MIDDLE_CONV': 1, 'NUM_MIDDLE_FILTER': 16,
+            'REG_LIST': ['reg:2', 'height:1', 'size:3', 'angle:2',
+                         'velo:2']},
+        'TARGET_ASSIGNER_CONFIG': {
+            'NAME': 'AxisAlignedTargetAssigner', 'BOX_CODER': 'ResidualCoder',
+            'BOX_CODER_CONFIG': {'code_size': 9,
+                                 'encode_angle_by_sincos': True}},
+        'LOSS_CONFIG': {'LOSS_WEIGHTS': {
+            'pos_cls_weight': 1.0, 'neg_cls_weight': 2.0,
+            'cls_weight': 1.0, 'loc_weight': 0.25, 'dir_weight': 0.2,
+            'code_weights': [1.0] * 8 + [0.2, 0.2]}},
+    })
+    cfg.POST_PROCESSING = EDict({'SCORE_THRESH': 0.1, 'NMS_CONFIG': {
+        'MULTI_CLASSES_NMS': True, 'NMS_THRESH': 0.2,
+        'NMS_PRE_MAXSIZE': 128, 'NMS_POST_MAXSIZE': 24}})
+    return cfg
+
+
+def tiny_secondiou_cfg(final_zyx) -> EDict:
+    """Tiny SECOND-IoU (CPU-fast) with the topology of ``second_iou.yaml``
+    (DP_RATIO included) on ``tiny_pvrcnn_cfg``'s SECOND stage, for a
+    sparse grid whose final (nz, ny, nx) is ``final_zyx``; the JAX
+    package's tests build a SECONDHead of these widths
+    (``tests/test_voxelrcnn.py``)."""
+    pv = tiny_pvrcnn_cfg(final_zyx)
+    cfg = EDict({k: pv[k] for k in ('VFE', 'BACKBONE_3D', 'MAP_TO_BEV',
+                                    'BACKBONE_2D', 'DENSE_HEAD')})
+    cfg.NAME = 'SECONDNetIoU'
+    cfg.ROI_HEAD = EDict({
+        'NAME': 'SECONDHead', 'CLASS_AGNOSTIC': True,
+        'SHARED_FC': [32, 32], 'IOU_FC': [32, 32], 'DP_RATIO': 0.3,
+        'ROI_GRID_POOL': {'GRID_SIZE': 4, 'IN_CHANNEL': 32,
+                          'DOWNSAMPLE_RATIO': 8},
+        'NMS_CONFIG': pv.ROI_HEAD.NMS_CONFIG,
+        'TARGET_CONFIG': pv.ROI_HEAD.TARGET_CONFIG,
+        'LOSS_CONFIG': {'IOU_LOSS': 'BinaryCrossEntropy',
+                        'LOSS_WEIGHTS': {'rcnn_iou_weight': 1.0}},
+    })
+    cfg.POST_PROCESSING = EDict({'SCORE_THRESH': 0.1, 'NMS_CONFIG': {
+        'MULTI_CLASSES_NMS': False, 'NMS_THRESH': 0.1,
+        'NMS_PRE_MAXSIZE': 64, 'NMS_POST_MAXSIZE': 8}})
     return cfg

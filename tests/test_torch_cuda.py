@@ -1293,3 +1293,187 @@ def test_pillar_forward_on_the_card_matches_the_cpu(cuda, name):
                           c['center_head_iou_ret']['pred_dicts']):
             for key in pg:
                 _close_scaled(pg[key], pc[key], key)
+
+
+# ------------------------------------------- multi-head RPN, SECOND-IoU
+
+def _lattice_boxes(seed, b, m, extra=0):
+    """(b, m, 7 + extra) boxes whose BEV IoUs take few values, none near
+    an NMS threshold of the configs (0.01, 0.1, 0.2, 0.7): centres on a
+    0.5 m lattice of an 80 x 80 m square, 4 x 2 or 2 x 1 m, headings 0 or
+    pi / 2; extra columns (velocities) normal."""
+    rng = np.random.default_rng(seed)
+    boxes = np.zeros((b, m, 7 + extra), np.float32)
+    boxes[..., 0] = rng.integers(0, 160, (b, m)) * 0.5
+    boxes[..., 1] = rng.integers(-80, 80, (b, m)) * 0.5
+    boxes[..., 2] = -1.0
+    boxes[..., 3:6] = np.float32([[4, 2, 1.5], [2, 1, 1.5]])[
+        rng.integers(0, 2, (b, m))]
+    boxes[..., 6] = rng.choice(np.float32([0, np.pi / 2]), (b, m))
+    boxes[..., 7:] = rng.normal(size=(b, m, extra))
+    return torch.from_numpy(boxes)
+
+
+def _iou_margin(boxes, thresh):
+    """The smallest distance of a pair's BEV IoU (the CPU's) from
+    ``thresh``."""
+    from spsnet_torch.ops.boxes import boxes_iou_bev_fast
+    return min(float((boxes_iou_bev_fast(f[:, :7], f[:, :7]) - thresh)
+                     .abs().min()) for f in boxes)
+
+
+def _per_class_nms(boxes, logits, thresh, nms_thresh, pre, post):
+    """A per-class loop of ``ops.nms_bev`` merged as the reference merges:
+    (indices, labels, count)."""
+    from spsnet_torch import ops
+    scores = torch.sigmoid(logits)
+    idx, sc, lab = [], [], []
+    for c in range(scores.shape[-1]):
+        s = scores[..., c]
+        keep, _ = ops.nms_bev(boxes[..., :7], s, nms_thresh, pre, post,
+                              valid=s > thresh)
+        ok = keep >= 0
+        idx.append(keep)
+        sc.append(torch.where(ok, s.gather(1, keep.clamp(min=0)), -1.0))
+        lab.append(torch.where(ok, c + 1, 0))
+    idx, sc, lab = (torch.cat(t, 1) for t in (idx, sc, lab))
+    top, order = ops.boxes.topk_desc(sc, post)
+    kept = top > -1
+    return (torch.where(kept, idx.gather(1, order), -1),
+            torch.where(kept, lab.gather(1, order), 0), kept.sum(1))
+
+
+@pytest.mark.parametrize('B,M,C,pre,post,thresh', [
+    (2, 20480, 10, 1000, 83, 0.2),       # cbgs_*_multihead.yaml's NMS
+    (2, 12000, 3, 4096, 500, 0.1),       # second_multihead.yaml's
+])
+def test_multi_classes_nms_on_the_card(cuda, B, M, C, pre, post, thresh):
+    """``multi_classes_nms_batch`` on the card (one ``nms_bev`` call over
+    B x C rows) equal to the card's own per-class loop index for index
+    and to the CPU's (lattice boxes: no pair within 1e-4 of the
+    threshold), logits quantised to 1/8 so that equal scores are common;
+    boxes of 9 columns gathered whole."""
+    from spsnet_torch.models.detectors.detector3d import \
+        multi_classes_nms_batch
+    boxes = _lattice_boxes(50, B, M, extra=2)
+    logits = torch.from_numpy(np.round(np.random.default_rng(51).normal(
+        -2.5, 1.5, (B, M, C)) * 8).astype(np.float32) / 8)
+    assert _iou_margin(boxes[:, :3000], thresh) > 1e-4
+    g = multi_classes_nms_batch(boxes.to(cuda), logits.to(cuda), 0.1,
+                                thresh, pre, post)
+    c = multi_classes_nms_batch(boxes, logits, 0.1, thresh, pre, post)
+    loop = _per_class_nms(boxes.to(cuda), logits.to(cuda), 0.1, thresh,
+                          pre, post)
+    for key, want in zip(('indices', 'labels', 'count'), loop):
+        assert torch.equal(g[key], want), key
+    for key in ('indices', 'labels', 'count', 'boxes'):
+        assert torch.equal(g[key].cpu(), c[key]), key
+    # the two devices' sigmoids may round an ulp apart
+    assert torch.allclose(g['scores'].cpu(), c['scores'], rtol=1e-6, atol=0)
+    assert g['boxes'].shape == (B, post, 9) and (g['count'] > 0).all()
+
+
+@pytest.mark.parametrize('R', [100, 128])
+def test_bev_roi_grid_pool_on_the_card_matches_the_cpu(cuda, R):
+    """second_iou.yaml's pool: R RoIs a frame (serving's 100, training's
+    128, some past the map) over the (2, 512, 200, 176) BEV map at G = 7:
+    within 1e-4 relative plus 1e-4 of the CPU's largest entry (the
+    devices' cos and sin round an ulp apart, which moves a sample position
+    of up to 200 map cells by ~1e-5 of a cell; bilinear weights move it
+    continuously, a floor an ulp apart included; the largest difference is
+    printed)."""
+    from spsnet_torch.models.roi_heads.second_head import bev_roi_grid_pool
+    rng = np.random.default_rng(52)
+    rois = np.zeros((2, R, 7), np.float32)
+    rois[..., 0] = rng.uniform(-2, 72, (2, R))
+    rois[..., 1] = rng.uniform(-42, 42, (2, R))
+    rois[..., 3:6] = rng.uniform([0.6, 0.5, 1.4], [4.5, 2.0, 1.8], (2, R, 3))
+    rois[..., 6] = rng.uniform(-np.pi, np.pi, (2, R))
+    bev = torch.from_numpy(rng.normal(size=(2, 512, 200, 176)).astype(
+        np.float32))
+    args = (7, (0.05, 0.05, 0.1), (0, -40, -3, 70.4, 40, 1), 8)
+    g = bev_roi_grid_pool(torch.from_numpy(rois).to(cuda), bev.to(cuda),
+                          *args)
+    c = bev_roi_grid_pool(torch.from_numpy(rois), bev, *args)
+    assert g.shape == (2, R, 512 * 49)
+    print(f'grid pool card vs CPU: largest difference '
+          f'{float((g.cpu() - c).abs().max()):.3e} of '
+          f'{float(c.abs().max()):.3e}')
+    _close_scaled(g, c, 'grid pool')
+
+
+@pytest.mark.parametrize('kind', ['iou', 'cls', 'weighted_iou_cls',
+                                  'num_pts_iou_cls', 'score_by_class'])
+def test_iou_rescoring_on_the_card_matches_the_cpu(cuda, kind):
+    """``iou_rescore_post_processing`` of 100 lattice RoIs a frame (two
+    padded), 16 384 points a frame, under each SCORE_TYPE at
+    second_iou.yaml's NMS (0.01, pre 4096, post 500): indices, labels and
+    counts identical to the CPU's, scores within 1e-6."""
+    from spsnet_torch.config import EDict
+    from spsnet_torch.models.detectors.detector3d import post_processing
+    rng = np.random.default_rng(53)
+    rois = _lattice_boxes(54, 2, 100)
+    rois[0, -2:] = 0
+    labels = torch.from_numpy(rng.integers(1, 4, (2, 100)))
+    labels[0, -2:] = 0
+    pts = rois[:, :40, :3].repeat_interleave(400, 1) + torch.from_numpy(
+        rng.normal(0, 0.6, (2, 16000, 3)).astype(np.float32))
+    pts = torch.cat([pts, torch.zeros(2, 384, 3)], 1)
+    assert _iou_margin(rois, 0.01) > 1e-4
+    batch = {'batch_box_preds': rois,
+             'batch_cls_preds': torch.from_numpy(rng.normal(
+                 size=(2, 100, 1)).astype(np.float32)),
+             'batch_roi_scores': torch.from_numpy(rng.normal(
+                 size=(2, 100)).astype(np.float32)),
+             'batch_roi_labels': labels, 'points': pts,
+             'has_class_labels': True, 'cls_preds_normalized': False,
+             'iou_rescoring': True}
+    nms = {'NMS_THRESH': 0.01, 'NMS_PRE_MAXSIZE': 4096,
+           'NMS_POST_MAXSIZE': 500, 'SCORE_TYPE': kind,
+           'SCORE_WEIGHTS': {'iou': 0.7, 'cls': 0.3},
+           'SCORE_BY_CLASS': {'Car': 'iou', 'Pedestrian': 'cls',
+                              'Cyclist': 'iou'}}
+    if kind == 'num_pts_iou_cls':
+        nms['SCORE_THRESH'] = {'cls': 50, 'iou': 250}
+    post = EDict({'SCORE_THRESH': 0.1, 'NMS_CONFIG': nms})
+    names = ['Car', 'Pedestrian', 'Cyclist']
+    g = post_processing({k: v.to(cuda) if torch.is_tensor(v) else v
+                         for k, v in batch.items()}, post, names)
+    c = post_processing(batch, post, names)
+    for key in ('indices', 'labels', 'count'):
+        assert torch.equal(g[key].cpu(), c[key]), key
+    for key in ('scores', 'cls_scores', 'iou_scores'):
+        assert torch.allclose(g[key].cpu(), c[key], rtol=1e-6, atol=1e-7)
+    assert (c['count'] > 0).all()
+
+
+def test_pointpillar_multihead_forward_on_the_card_matches_the_cpu(cuda):
+    """cbgs_pp_multihead.yaml at full width on one nuScenes-range scan of
+    34 720 points, seeded weights: the BEV map, the BEV backbone's output
+    and the multi-head RPN's predictions (the dense class matrix, the
+    boxes of its SEPARATE_REG_CONFIG branches) card vs CPU within 1e-4
+    relative plus 1e-4 of each tensor's largest entry; the -1e9 entries
+    identical."""
+    from spsnet_torch.data.processor import voxel_batch
+    from spsnet_torch.models import build_detector_from_cfg
+    from spsnet_torch.utils.synthetic import synthetic_scan_batch
+    from spsnet_torch.zoo import pointpillar_multihead_nuscenes_cfg
+    cfg = pointpillar_multihead_nuscenes_cfg()
+    pcr = tuple(cfg.DATA_CONFIG.POINT_CLOUD_RANGE)
+    scans = synthetic_scan_batch(55, 1, 34720, pc_range=pcr)
+    scans = np.concatenate([scans, np.zeros((1, 34720, 1), np.float32)], -1)
+    batch = {k: torch.from_numpy(v) for k, v in voxel_batch(
+        scans, cfg.DATA_CONFIG).items()}
+    gpu = build_detector_from_cfg(cfg, device='cuda')
+    cpu = build_detector_from_cfg(cfg, device='cpu')
+    with torch.no_grad():
+        g = gpu({k: v.to(cuda) for k, v in batch.items()})
+        c = cpu(dict(batch))
+    for key in ('spatial_features', 'spatial_features_2d'):
+        _close_scaled(g[key], c[key], key)
+    for key in ('cls_preds', 'box_preds', 'dir_preds'):
+        _close_scaled(g['anchor_head_ret'][key], c['anchor_head_ret'][key],
+                      key)
+    masked = c['anchor_head_ret']['cls_preds'] == -1e9
+    assert torch.equal(g['anchor_head_ret']['cls_preds'].cpu() == -1e9,
+                       masked) and masked.any()

@@ -474,7 +474,14 @@ YAML_CFGS = {'voxel_rcnn_kitti': 'tools/cfgs/kitti_models/voxel_rcnn_car.yaml',
              'pointpillar_waymo':
              'tools/cfgs/waymo_models/pointpillar_1x.yaml',
              'centerpoint_pillar_waymo':
-             'tools/cfgs/waymo_models/centerpoint_pillar_1x.yaml'}
+             'tools/cfgs/waymo_models/centerpoint_pillar_1x.yaml',
+             'second_multihead_kitti':
+             'tools/cfgs/kitti_models/second_multihead.yaml',
+             'second_iou_kitti': 'tools/cfgs/kitti_models/second_iou.yaml',
+             'second_multihead_nuscenes':
+             'tools/cfgs/nuscenes_models/cbgs_second_multihead.yaml',
+             'pointpillar_multihead_nuscenes':
+             'tools/cfgs/nuscenes_models/cbgs_pp_multihead.yaml'}
 
 
 @pytest.mark.parametrize('name', ['tiny', 'iassd_kitti', 'iassd_kitti_scaled',
@@ -488,7 +495,11 @@ YAML_CFGS = {'voxel_rcnn_kitti': 'tools/cfgs/kitti_models/voxel_rcnn_car.yaml',
                                   'tiny_pointpillar', 'tiny_centerpoint',
                                   'pointpillar_kitti', 'pointpillar_waymo',
                                   'centerpoint_pillar_waymo',
-                                  'centerpoint_dyn_pillar_waymo'])
+                                  'centerpoint_dyn_pillar_waymo',
+                                  'second_multihead_kitti',
+                                  'second_iou_kitti',
+                                  'second_multihead_nuscenes',
+                                  'pointpillar_multihead_nuscenes'])
 def test_config_copies_match_the_jax_package(name):
     """The port's own config loader and zoo give the JAX package's configs
     (``_BASE_CONFIG_`` resolution included for IA-SSD.yaml, SPSNet.yaml

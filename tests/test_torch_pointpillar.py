@@ -49,7 +49,7 @@ from spsnet_torch import zoo
 from spsnet_torch.config import EDict
 from spsnet_torch.data.processor import (
     sample_points, transform_points_to_voxels_placeholder, voxel_batch)
-from spsnet_torch.models import build_detector, build_detector_from_cfg
+from spsnet_torch.models import build_detector
 from spsnet_torch.models.detectors.detector3d import post_processing
 from spsnet_torch.models.map_to_bev import PointPillarScatter
 from spsnet_torch.models.vfe import DynamicPillarVFE, PillarVFE
@@ -637,12 +637,3 @@ def test_flax_to_torch_maps_every_pillar_key(which):
     with pytest.raises(KeyError, match='unmapped'):
         flax_to_torch(variables)
 
-
-def test_anchor_head_multi_names_item_f6():
-    """A pillar detector with AnchorHeadMulti (nuScenes'
-    cbgs_pp_multihead.yaml) is not ported: building it names item F6."""
-    cfg = zoo.load_yaml_cfg('tools/cfgs/nuscenes_models/cbgs_pp_multihead'
-                            '.yaml')
-    with pytest.raises(NotImplementedError,
-                       match='DENSE_HEAD AnchorHeadMulti item F6'):
-        build_detector_from_cfg(cfg, device='cpu')

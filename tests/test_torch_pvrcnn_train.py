@@ -16,6 +16,7 @@ outputs must be identical; floats stay within the tolerances stated
 below. Then the entry a user calls: ``voxel_batch(mode='train')`` with gt
 boxes, ``build_detector_from_cfg`` and a ``Trainer`` that resumes.
 """
+import contextlib
 import copy
 
 import numpy as np
@@ -526,8 +527,8 @@ def _variables(jm, batch):
     variables = jax.tree_util.tree_map_with_path(fill, dict(shapes))
     params = variables['params']
     scaled = [(params['dense_head']['conv_box'], 0.05)] \
-        if 'conv_box' in params['dense_head'] else []
-    if 'roi_head' in params:
+        if 'conv_box' in params.get('dense_head', {}) else []
+    if 'reg_layers' in params.get('roi_head', {}):
         scaled.append((params['roi_head']['reg_layers']['Dense_0'], 1e-2))
     for layer, factor in scaled:
         for leaf in ('kernel', 'bias'):
@@ -706,24 +707,33 @@ def test_roi_loss_gradient_at_conv_box_matches_jax(forward):
 
 # ------------------------------------------------------ one train step
 
-def _one_step(jm, variables, model, batch, draws=None):
+def _one_step(jm, variables, model, batch, draws=None, jax_float64=False):
     """One train step of each package from the same variables and batch
     (and, with ``draws``, the RoI draws of step 0 for the port). The JAX
     optimizer is chained behind a transform that keeps the raw gradients as
     its state; the port's gradients come from a forward and backward of
-    its own, its update from ``make_train_step`` on a second copy."""
-    keep = optax.GradientTransformation(
-        lambda p: jax.tree_util.tree_map(jnp.zeros_like, p),
-        lambda updates, state, params=None: (updates, updates))
-    tx = optax.chain(keep, jax_optim.build_optimizer(EDict(OPTIM), 10, 2))
-    params = jax.tree_util.tree_map(jnp.asarray, variables['params'])
-    state = TrainState(
-        params=params,
-        batch_stats=jax.tree_util.tree_map(jnp.asarray,
-                                           variables['batch_stats']),
-        opt_state=tx.init(params), step=jnp.zeros((), jnp.int32))
-    new_state, metrics = jax_make_train_step(jm, tx)(
-        state, {k: jnp.asarray(v.numpy()) for k, v in batch.items()})
+    its own, its update from ``make_train_step`` on a second copy. With
+    ``jax_float64`` the JAX step runs on float64 copies of the variables
+    and the batch (``jax.enable_x64``): the reference where JAX's fp32
+    backward departs from the float64 gradient."""
+    def cast(a):
+        a = np.asarray(a)
+        return jnp.asarray(a.astype(np.float64) if jax_float64 and
+                           a.dtype == np.float32 else a)
+    with jax.enable_x64(True) if jax_float64 else contextlib.nullcontext():
+        keep = optax.GradientTransformation(
+            lambda p: jax.tree_util.tree_map(jnp.zeros_like, p),
+            lambda updates, state, params=None: (updates, updates))
+        tx = optax.chain(keep, jax_optim.build_optimizer(EDict(OPTIM), 10,
+                                                         2))
+        params = jax.tree_util.tree_map(cast, variables['params'])
+        state = TrainState(
+            params=params,
+            batch_stats=jax.tree_util.tree_map(cast,
+                                               variables['batch_stats']),
+            opt_state=tx.init(params), step=jnp.zeros((), jnp.int32))
+        new_state, metrics = jax_make_train_step(jm, tx)(
+            state, {k: cast(v.numpy()) for k, v in batch.items()})
 
     own = pointrcnn_head.draw_roi_sampling
     if draws is not None:

@@ -28,7 +28,6 @@ from spsnet_tpu import ops as jops
 from spsnet_tpu.config import EDict as JaxEDict
 from spsnet_tpu.models import build_detector as jax_build_detector
 from spsnet_torch import ops, zoo
-from spsnet_torch.config import EDict
 from spsnet_torch.models import build_detector
 from spsnet_torch.models.detectors.detector3d import post_processing
 from spsnet_torch.utils.weights import flax_to_torch, load_flax
@@ -297,11 +296,3 @@ def test_unported_samplers_and_dilated_groups_name_item_e():
         SAModuleMSGWithSampling(1, [16], [-1], ['D-FPS'], [[0.2]], [[4]],
                                 [[[8]]], 3, dilated_group=True)
 
-
-def test_multi_class_nms_names_item_f6():
-    post = EDict({'SCORE_THRESH': 0.1, 'NMS_CONFIG': {
-        'MULTI_CLASSES_NMS': True, 'NMS_THRESH': 0.1,
-        'NMS_PRE_MAXSIZE': 8, 'NMS_POST_MAXSIZE': 4}})
-    with pytest.raises(NotImplementedError, match='item F6'):
-        post_processing({'batch_box_preds': torch.zeros(1, 4, 7),
-                         'batch_cls_preds': torch.zeros(1, 4, 3)}, post)
