@@ -2,4 +2,5 @@
 sampling, voxelization and the sparse-conv plan."""
 from .voxelize import (build_sparse_conv_plan, sample_points,
                        sparse_grid_zyx, transform_points_to_voxels,
-                       transform_points_to_voxels_placeholder, voxel_batch)
+                       transform_points_to_voxels_placeholder,
+                       uses_up_tables, voxel_batch)

@@ -115,18 +115,31 @@ def sparse_grid_zyx(point_cloud_range, voxel_size):
 
 
 def build_sparse_conv_plan(voxel_coords, voxel_valid, point_cloud_range,
-                           voxel_size, max_voxels_per_level=None):
+                           voxel_size, max_voxels_per_level=None,
+                           up_tables: bool = False):
     """``VoxelBackBone8x``'s neighbour tables, coordinates and valid masks
     of one frame (``sparse_plan.build_sparse_plan`` over
     ``sparse_grid_zyx``), each level padded to ``max_voxels_per_level``
-    rows (the frame's voxel count by default)."""
+    rows (the frame's voxel count by default); with ``up_tables`` also the
+    UNet decoder's inverse-conv tables ('down{2,3,4}_up_table',
+    'out_up_table': each finer level's rows gathering from the coarser
+    one)."""
     plan = build_sparse_plan(
         voxel_coords, voxel_valid,
         sparse_grid_zyx(point_cloud_range, voxel_size),
         max_voxels_per_level=int(max_voxels_per_level
-                                 or voxel_coords.shape[0]))
+                                 or voxel_coords.shape[0]),
+        with_up_tables=up_tables)
     plan.pop('final_grid')
     return plan
+
+
+def uses_up_tables(model_cfg) -> bool:
+    """Whether a model config's sparse backbone is the UNet (``UNetV2``,
+    PartA2's), whose decoder reads the plan's up tables: the
+    ``up_tables`` argument of ``voxel_batch`` for it."""
+    backbone = model_cfg.get('BACKBONE_3D', None)
+    return backbone is not None and backbone.get('NAME') == 'UNetV2'
 
 
 def _by_mode(value, mode):
@@ -134,7 +147,8 @@ def _by_mode(value, mode):
 
 
 def voxel_batch(points, data_cfg, mode: str = 'test', gt_boxes=None,
-                rng: np.random.RandomState | None = None):
+                rng: np.random.RandomState | None = None,
+                up_tables: bool = False):
     """(B, N, C) scans -> the collated numpy batch of a voxel or pillar
     detector, by the steps of ``data_cfg``'s ``DATA_PROCESSOR`` (``mode``
     picks 'train' or 'test' limits): ``sample_points`` where the config
@@ -142,7 +156,9 @@ def voxel_batch(points, data_cfg, mode: str = 'test', gt_boxes=None,
     over the frames, the voxels of ``transform_points_to_voxels`` ('voxels',
     'voxel_coords', 'voxel_num_points', 'voxel_valid') and, where the
     config names ``build_sparse_conv_plan`` (the sparse backbones), the
-    plan's tables. With ``transform_points_to_voxels_placeholder`` (the
+    plan's tables, and with ``up_tables`` (a UNetV2 model:
+    ``uses_up_tables(cfg.MODEL)``) the decoder's up tables too. With
+    ``transform_points_to_voxels_placeholder`` (the
     dynamic pillar VFE voxelizes on the device) the batch holds the
     points alone. 'points' holds the (sampled) scans. Range masking and
     shuffling are not applied: points outside the range get no voxel and
@@ -174,7 +190,7 @@ def voxel_batch(points, data_cfg, mode: str = 'test', gt_boxes=None,
                 frame.update(build_sparse_conv_plan(
                     frame['voxel_coords'], frame['voxel_valid'], pcr,
                     vox['VOXEL_SIZE'],
-                    plan_cfg.get('MAX_VOXELS_PER_LEVEL', None)))
+                    plan_cfg.get('MAX_VOXELS_PER_LEVEL', None), up_tables))
             frames.append(frame)
         batch = {k: np.stack([f[k] for f in frames]) for k in frames[0]}
     batch['points'] = np.asarray(points, dtype=np.float32)

@@ -179,14 +179,15 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     with a ``fixed_init`` method sets its fixed starting values
     (CenterPoint's heatmap bias).
     """
-    kinds = (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)
+    kinds = (nn.Linear, nn.Conv2d, nn.ConvTranspose2d, nn.Conv3d)
     layers = [m for m in module.modules() if isinstance(m, kinds)]
     hidden = set()
     for seq in module.modules():
         if isinstance(seq, nn.Sequential):
             for a, b in zip(seq, list(seq)[1:]):
                 if isinstance(a, kinds) and isinstance(
-                        b, (BatchNormLast, nn.BatchNorm2d, nn.ReLU)):
+                        b, (BatchNormLast, nn.BatchNorm2d,
+                            nn.BatchNorm3d, nn.ReLU)):
                     hidden.add(id(a))
     for layer in layers:
         gain = 2.0 if id(layer) in hidden else 1.0

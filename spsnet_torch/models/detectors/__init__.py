@@ -8,6 +8,7 @@ import torch
 from ..blocks import init_weights
 from .centerpoint import CenterPoint
 from .iassd import IASSD
+from .part_a2 import PartA2FreeNet, PartA2Net
 from .point_rcnn import PointRCNN
 from .pointpillar import PointPillar
 from .pv_rcnn import PVRCNN
@@ -23,32 +24,32 @@ _DETECTORS = {'IASSD': IASSD, 'PAGNet': IASSD, 'SPSNet': IASSD,
               'PointRCNN': PointRCNN, 'SECONDNet': SECONDNet,
               'PVRCNN': PVRCNN, 'VoxelRCNN': VoxelRCNN,
               'CenterPoint': CenterPoint, 'PVRCNNPlusPlus': PVRCNNPlusPlus,
-              'PointPillar': PointPillar, 'SECONDNetIoU': SECONDNetIoU}
+              'PointPillar': PointPillar, 'SECONDNetIoU': SECONDNetIoU,
+              'PartA2Net': PartA2Net}
 _VOXEL_DETECTORS = (SECONDNet, PVRCNN, VoxelRCNN, CenterPoint,
-                    PVRCNNPlusPlus, PointPillar, SECONDNetIoU)
+                    PVRCNNPlusPlus, PointPillar, SECONDNetIoU, PartA2Net,
+                    PartA2FreeNet)
 # the modules the port has, by config block: a block naming another one
-# (UNetV2, PartA2FCHead, ...) is not ported
+# (AL_3D, ImageVFE, ...) is not ported
 _PORTED = {
     'VFE': {'MeanVFE', 'PillarVFE', 'DynamicPillarVFE', 'DynPillarVFE'},
     'BACKBONE_3D': {'IASSD_Backbone', 'PAGNet_Backbone', 'PointNet2MSG',
-                    'VoxelBackBone8x', 'VoxelResBackBone8x'},
-    'MAP_TO_BEV': {'HeightCompression', 'PointPillarScatter'},
+                    'VoxelBackBone8x', 'VoxelResBackBone8x', 'UNetV2'},
+    'MAP_TO_BEV': {'HeightCompression', 'PointPillarScatter', 'Sparse2BEV'},
     'BACKBONE_2D': {'BaseBEVBackbone'},
     'DENSE_HEAD': {'AnchorHeadSingle', 'AnchorHeadMulti', 'CenterHead',
                    'CenterHeadIoU'},
     'PFE': {'VoxelSetAbstraction'},
     'POINT_HEAD': {'IASSD_Head', 'MLT_SSD_Head', 'PointHeadBox',
-                   'PointHeadSimple'},
+                   'PointHeadSimple', 'PointIntraPartOffsetHead'},
     'ROI_HEAD': {'PointRCNNHead', 'PVRCNNHead', 'VoxelRCNNHead',
-                 'SECONDHead'},
+                 'SECONDHead', 'PartA2FCHead'},
 }
 
 
 # the ROADMAP Queue 1 item of each module that the configs of tools/cfgs
 # name and the port lacks
-_ITEMS = {'UNetV2': 'F8', 'PointIntraPartOffsetHead': 'F8',
-          'PartA2FCHead': 'F8',
-          'AL_3D': 'F9', 'Sparse2BEV': 'F9', 'RB_Fusion': 'F9',
+_ITEMS = {'AL_3D': 'F9', 'RB_Fusion': 'F9',
           'ImageVFE': 'F10', 'Conv2DCollapse': 'F10'}
 
 
@@ -57,6 +58,18 @@ def unported_modules(model_cfg) -> list:
     return [f'{key} {block.NAME}' for key, block in model_cfg.items()
             if hasattr(block, 'get') and block.get('NAME') is not None
             and block.NAME not in _PORTED.get(key, ())]
+
+
+def detector_class(model_cfg):
+    """The class that serves ``model_cfg``: ``_DETECTORS[NAME]``, but a
+    PointRCNN over the UNetV2 voxel backbone is PartA2_free's
+    ``PartA2FreeNet`` (as ``spsnet_tpu/models/detectors/__init__.py:53-57``
+    routes it); None for a name the port lacks."""
+    backbone = model_cfg.get('BACKBONE_3D', None)
+    if model_cfg.NAME == 'PointRCNN' and backbone is not None and \
+            backbone.get('NAME') == 'UNetV2':
+        return PartA2FreeNet
+    return _DETECTORS.get(model_cfg.NAME)
 
 
 def resolve_device(device) -> torch.device:
@@ -104,9 +117,9 @@ def build_detector(model_cfg, num_class: int, device='cuda',
             f'detector {name} ({", ".join(missing) or "no such detector"}): '
             f'the port serves and trains {sorted(_DETECTORS)}', *items,
             'the rest of the voxel and two-stage zoo is ROADMAP Queue 1 '
-            'item F8-F10 (F8 PartA2, F9 the AL_3D stack, F10 CaDDN), the '
-            'rest of the point family item E']))
-    cls = _DETECTORS[name]
+            'item F9-F10 (F9 the AL_3D stack, F10 CaDDN), the rest of the '
+            'point family item E']))
+    cls = detector_class(model_cfg)
     if cls in _VOXEL_DETECTORS:
         if cls is PVRCNN:
             geometry['fps_seeding'] = fps_seeding
@@ -152,7 +165,7 @@ def build_detector_from_cfg(cfg, device='cuda',
                 geometry['voxel_size'])).astype(np.int64)[::-1].copy()
             grid_zyx[0] += 1
             geometry['final_grid_zyx'] = plan_final_grid(grid_zyx)
-    if _DETECTORS.get(cfg.MODEL.NAME) not in _VOXEL_DETECTORS:
+    if detector_class(cfg.MODEL) not in _VOXEL_DETECTORS:
         geometry = {}
     return build_detector(cfg.MODEL, len(cfg.CLASS_NAMES), device=device,
                           generator=generator, input_channels=channels,

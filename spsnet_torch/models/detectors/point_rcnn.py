@@ -20,9 +20,9 @@ class PointRCNN(nn.Module):
         name = model_cfg.BACKBONE_3D.NAME
         if name != 'PointNet2MSG':
             raise NotImplementedError(
-                f'PointRCNN over BACKBONE_3D {name}: the port has the '
-                'PointNet2MSG one (the voxel zoo, PartA2_free among it, is '
-                'ROADMAP Queue 1 item F)')
+                f'PointRCNN over BACKBONE_3D {name}: this class has the '
+                'PointNet2MSG one (``build_detector`` serves a UNetV2 one '
+                'as PartA2FreeNet)')
         self.model_cfg = model_cfg
         self.num_class = num_class
         self.backbone_3d = PointNet2MSG(model_cfg.BACKBONE_3D, num_class,

@@ -24,6 +24,11 @@ from ..dense_heads.center_head_iou import CenterHeadIoU, center_head_iou_loss
 from ..map_to_bev import PointPillarScatter
 from ..vfe import PILLAR_VFES, MeanVFE
 
+# the MAP_TO_BEV names of the pillar scatter: the reference's Sparse2BEV
+# (``pointpillar_scatter.py:99``) is the same dense scatter by (y, x), as
+# ``spsnet_tpu/models/map_to_bev/__init__.py:5-7`` registers it
+PILLAR_SCATTERS = ('PointPillarScatter', 'Sparse2BEV')
+
 
 def build_dense_head(head_cfg, num_class: int, input_channels: int,
                      grid_size, voxel_size, point_cloud_range,
@@ -56,13 +61,14 @@ def pillar_trunk(model_cfg, input_channels: int, voxel_size,
                  point_cloud_range, grid_size):
     """The pillar trunk of a config without BACKBONE_3D (as
     ``spsnet_tpu/models/detectors/{pointpillar,centerpoint}.py`` build
-    it): (the VFE, PillarVFE or DynamicPillarVFE; ``PointPillarScatter``)
-    on a grid one pillar high."""
+    it): (the VFE, PillarVFE or DynamicPillarVFE; ``PointPillarScatter``,
+    also named Sparse2BEV) on a grid one pillar high."""
     vfe, bev = model_cfg.VFE.NAME, model_cfg.MAP_TO_BEV.NAME
-    if vfe not in PILLAR_VFES or bev != 'PointPillarScatter':
+    if vfe not in PILLAR_VFES or bev not in PILLAR_SCATTERS:
         raise ValueError(f'a trunk without BACKBONE_3D is the pillar one: '
                          f'VFE {vfe} and MAP_TO_BEV {bev} are not '
-                         f'{sorted(PILLAR_VFES)} and PointPillarScatter')
+                         f'{sorted(PILLAR_VFES)} and '
+                         f'{sorted(PILLAR_SCATTERS)}')
     if grid_size[2] != 1:
         raise ValueError(f'pillars are one voxel high: grid {grid_size}')
     return (PILLAR_VFES[vfe](model_cfg.VFE, input_channels, voxel_size,
@@ -82,6 +88,12 @@ class SECONDNet(nn.Module):
         (PV-RCNN and Voxel R-CNN build ``CenterHeadIoU``)."""
         return False
 
+    @staticmethod
+    def build_backbone_3d(backbone_cfg, input_channels: int):
+        """The sparse backbone BACKBONE_3D names (VoxelBackBone8x or
+        VoxelResBackBone8x)."""
+        return BACKBONES_3D[backbone_cfg.NAME](input_channels)
+
     def __init__(self, model_cfg, num_class: int, input_channels: int,
                  voxel_size, point_cloud_range, final_grid_zyx=None,
                  class_names=None):
@@ -94,8 +106,8 @@ class SECONDNet(nn.Module):
                                np.round((pcr[3:6] - pcr[0:3]) / vs))
         if model_cfg.get('BACKBONE_3D', None) is not None:
             self.vfe = MeanVFE()
-            self.backbone_3d = BACKBONES_3D[model_cfg.BACKBONE_3D.NAME](
-                input_channels)
+            self.backbone_3d = self.build_backbone_3d(model_cfg.BACKBONE_3D,
+                                                      input_channels)
             self.map_to_bev_module = HeightCompression(final_grid_zyx)
         else:
             self.vfe, self.map_to_bev_module = pillar_trunk(

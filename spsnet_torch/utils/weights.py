@@ -86,8 +86,19 @@ of raw_vp, x_conv{n}_vp and roi_head's vp_pool):
     {src}/layer_{k}/{post_i, post_bn_i}            ....layers.{k}.post_mlps.{3i, 3i+1}
     {src}/{msg_post_i, msg_post_bn_i}              ....msg_post_mlps.{3i, 3i+1}
 
+PartA2 adds (UNetV2's decoder, the part head, the RoI head's dense grid
+convolutions with their masked BatchNorm):
+
+    backbone_3d/{conv_up_m{n},inv_conv{n},conv5}/... backbone_3d.{name}.{0,1} (sparse conv)
+    backbone_3d/conv_up_t{n}/conv{j}/...           backbone_3d.conv_up_t{n}.conv{j}.{0,1} (residual block)
+    point_head/{cls_layers,part_reg_layers,box_layers}/...
+                                                   point_head.{same name}.* (an MLPHead each)
+    roi_head/conv_{part,rpn}_{i}/{conv,bn}         roi_head.conv_{part,rpn}.{i}.{0,1}
+    roi_head/{shared_fc,cls_layers,reg_layers}     as PV-RCNN's
+
 A Dense kernel (in, out) becomes a Linear weight (out, in); a Conv kernel
-(kh, kw, in, out) a Conv2d weight (out, in, kh, kw). A flax ConvTranspose
+(kh, kw, in, out) a Conv2d weight (out, in, kh, kw), a 3D one (kx, ky, kz,
+in, out) a Conv3d weight (out, in, kx, ky, kz). A flax ConvTranspose
 kernel (kh, kw, in, out) becomes a ConvTranspose2d weight (in, out, kh, kw)
 flipped in both spatial axes: with kernel = stride, flax sends input i to
 output s * i + r through tap s - 1 - r, torch through tap r; a deblock
@@ -105,7 +116,7 @@ import torch
 
 _HEADS = {'cls_center': 'cls_center_layers', 'box_center': 'box_center_layers',
           'box_iou3d': 'box_iou3d_layers', 'cls_layers': 'cls_layers',
-          'box_layers': 'box_layers'}
+          'box_layers': 'box_layers', 'part_reg_layers': 'part_reg_layers'}
 # (collection, leaf) -> torch leaf, for a Dense and a BatchNorm module
 _DENSE_LEAF = {('params', 'kernel'): 'weight', ('params', 'bias'): 'bias',
                ('params', 'grouped_kernel'): 'grouped_kernel'}
@@ -231,11 +242,17 @@ def _roi_head_name(module, hidden, bn_paths) -> str:
     if rest[0] in ('cls_layers', 'reg_layers', 'iou_layers'):
         idx = _head_index(module[:2], rest[1:], hidden, shift=1)
         return f'roi_head.{rest[0]}.{idx}'
+    m = _ROI_CONV.fullmatch(rest[0])
+    if m and len(rest) == 2 and rest[1] in ('conv', 'bn'):
+        return (f'roi_head.conv_{m.group(1)}.{m.group(2)}.'
+                f'{int(rest[1] == "bn")}')
     raise KeyError(module)
 
 
-_SPARSE_CONV = re.compile(r'conv(_input|_out|\d(_down|_a|_b)?)')
-_RES_BLOCK = re.compile(r'res\d_[ab]')
+_SPARSE_CONV = re.compile(r'conv(_input|_out|\d(_down|_a|_b)?|_up_m\d)|'
+                          r'inv_conv\d')
+_RES_BLOCK = re.compile(r'res\d_[ab]|conv_up_t\d')
+_ROI_CONV = re.compile(r'conv_(part|rpn)_(\d)')
 _VOXEL_POOL = re.compile(r'(x_conv\d)_(in|pos|out)_(\d+)')
 _CENTER_LAYER = re.compile(r'(\w+)_(conv|bn)(\d+)')
 _PFN = re.compile(r'pfn_(\d+)|pfn(\d+)_(fc|bn)')
@@ -470,15 +487,18 @@ def _is_bn(module_name: str) -> bool:
     """A flax BatchNorm: ``BatchNorm_k`` in a SharedMLP or a sparse conv,
     ``..._bn`` / ``block{i}_bn{j}`` in the BEV backbone, ``agg_bn`` and
     ``(msg_)post_bn_{i}`` in VectorPool aggregation."""
-    return module_name.startswith('BatchNorm') or \
+    return module_name.startswith('BatchNorm') or module_name == 'bn' or \
         re.fullmatch(r'\w+_bn(\d*|_\d+)', module_name) is not None
 
 
 def _kernel_to_torch(arr, name, conv_deblocks=()):
-    """A Dense, Conv or ConvTranspose kernel in torch's layout (a deblock
-    is a ConvTranspose unless its index is in ``conv_deblocks``)."""
+    """A Dense, Conv (2D or 3D) or ConvTranspose kernel in torch's layout
+    (a deblock is a ConvTranspose unless its index is in
+    ``conv_deblocks``)."""
     if arr.ndim == 2:
         return arr.T
+    if arr.ndim == 5:
+        return arr.transpose(4, 3, 0, 1, 2).copy()
     m = re.search(r'\.deblocks\.(\d+)\.', name)
     if m and int(m.group(1)) not in conv_deblocks:
         return arr[::-1, ::-1].transpose(2, 3, 0, 1).copy()

@@ -799,3 +799,120 @@ def tiny_secondiou_cfg(final_zyx) -> EDict:
         'MULTI_CLASSES_NMS': False, 'NMS_THRESH': 0.1,
         'NMS_PRE_MAXSIZE': 64, 'NMS_POST_MAXSIZE': 8}})
     return cfg
+
+
+def parta2_kitti_cfg() -> EDict:
+    """PartA2 on KITTI (``tools/cfgs/kitti_models/PartA2.yaml``): UNetV2,
+    the anchor RPN, the intra-part head and the RoI-aware refinement."""
+    return load_yaml_cfg('tools/cfgs/kitti_models/PartA2.yaml')
+
+
+def parta2_free_kitti_cfg() -> EDict:
+    """The anchor-free PartA2 (``tools/cfgs/kitti_models/
+    PartA2_free.yaml``): a PointRCNN config over UNetV2, whose part head's
+    boxes a voxel are the proposals."""
+    return load_yaml_cfg('tools/cfgs/kitti_models/PartA2_free.yaml')
+
+
+def parta2_waymo_cfg() -> EDict:
+    """PartA2 on Waymo (``tools/cfgs/waymo_models/PartA2.yaml``): 150 000
+    voxels a level, post 300 RoIs in eval."""
+    return load_yaml_cfg('tools/cfgs/waymo_models/PartA2.yaml')
+
+
+def tiny_parta2_cfg(final_zyx) -> EDict:
+    """Tiny PartA2 (CPU-fast) with the topology of ``PartA2.yaml`` for a
+    sparse grid whose final (nz, ny, nx) is ``final_zyx``: the JAX
+    package's ``tests/test_parta2.py`` ``parta2_tiny_cfg``."""
+    return EDict({
+        'NAME': 'PartA2Net',
+        'VFE': {'NAME': 'MeanVFE'},
+        'BACKBONE_3D': {'NAME': 'UNetV2'},
+        'MAP_TO_BEV': {'NAME': 'HeightCompression',
+                       'NUM_BEV_FEATURES': int(final_zyx[0]) * 128},
+        'BACKBONE_2D': {'NAME': 'BaseBEVBackbone',
+                        'LAYER_NUMS': [1], 'LAYER_STRIDES': [1],
+                        'NUM_FILTERS': [32], 'UPSAMPLE_STRIDES': [1],
+                        'NUM_UPSAMPLE_FILTERS': [32]},
+        'DENSE_HEAD': {
+            'NAME': 'AnchorHeadSingle', 'CLASS_AGNOSTIC': False,
+            'USE_DIRECTION_CLASSIFIER': True,
+            'DIR_OFFSET': 0.78539, 'DIR_LIMIT_OFFSET': 0.0, 'NUM_DIR_BINS': 2,
+            'ANCHOR_GENERATOR_CONFIG': [
+                {'class_name': 'Car', 'anchor_sizes': [[3.9, 1.6, 1.56]],
+                 'anchor_rotations': [0, 1.57],
+                 'anchor_bottom_heights': [-1.78],
+                 'align_center': False, 'feature_map_stride': 8,
+                 'matched_threshold': 0.6, 'unmatched_threshold': 0.45}],
+            'TARGET_ASSIGNER_CONFIG': {'BOX_CODER': 'ResidualCoder'},
+            'LOSS_CONFIG': {'LOSS_WEIGHTS': {
+                'cls_weight': 1.0, 'loc_weight': 2.0, 'dir_weight': 0.2,
+                'code_weights': [1.0] * 7}},
+        },
+        'POINT_HEAD': {
+            'NAME': 'PointIntraPartOffsetHead',
+            'CLS_FC': [16], 'PART_FC': [16],
+            'TARGET_CONFIG': {'GT_EXTRA_WIDTH': [0.2, 0.2, 0.2]},
+            'LOSS_CONFIG': {'LOSS_WEIGHTS': {'point_cls_weight': 1.0,
+                                             'point_part_weight': 1.0}},
+        },
+        'ROI_HEAD': {
+            'NAME': 'PartA2FCHead', 'CLASS_AGNOSTIC': True,
+            'SHARED_FC': [32, 32], 'CLS_FC': [32], 'REG_FC': [32],
+            'ROI_AWARE_POOL': {'POOL_SIZE': 4, 'NUM_FEATURES': 32},
+            'NMS_CONFIG': {
+                'TRAIN': {'NMS_PRE_MAXSIZE': 64, 'NMS_POST_MAXSIZE': 16,
+                          'NMS_THRESH': 0.8},
+                'TEST': {'NMS_PRE_MAXSIZE': 64, 'NMS_POST_MAXSIZE': 8,
+                         'NMS_THRESH': 0.85}},
+            'TARGET_CONFIG': {
+                'BOX_CODER': 'ResidualCoder',
+                'ROI_PER_IMAGE': 16, 'FG_RATIO': 0.5,
+                'SAMPLE_ROI_BY_EACH_CLASS': True,
+                'CLS_SCORE_TYPE': 'roi_iou',
+                'CLS_FG_THRESH': 0.75, 'CLS_BG_THRESH': 0.25,
+                'CLS_BG_THRESH_LO': 0.1, 'HARD_BG_RATIO': 0.8,
+                'REG_FG_THRESH': 0.55},
+            'LOSS_CONFIG': {
+                'CLS_LOSS': 'BinaryCrossEntropy', 'REG_LOSS': 'smooth-l1',
+                'CORNER_LOSS_REGULARIZATION': True,
+                'LOSS_WEIGHTS': {'rcnn_cls_weight': 1.0,
+                                 'rcnn_reg_weight': 1.0,
+                                 'rcnn_corner_weight': 1.0,
+                                 'code_weights': [1.0] * 7}},
+        },
+        'POST_PROCESSING': {'SCORE_THRESH': 0.1, 'NMS_CONFIG': {
+            'MULTI_CLASSES_NMS': False, 'NMS_THRESH': 0.1,
+            'NMS_PRE_MAXSIZE': 64, 'NMS_POST_MAXSIZE': 16}},
+    })
+
+
+def tiny_parta2_free_cfg() -> EDict:
+    """Tiny anchor-free PartA2 (the topology of ``PartA2_free.yaml``): the
+    JAX package's ``tests/test_parta2.py`` ``parta2_free_tiny_cfg``, with
+    ``tiny_parta2_cfg``'s RoI head at DISABLE_PART and
+    SEG_MASK_SCORE_THRESH 0."""
+    base = tiny_parta2_cfg((2,))
+    return EDict({
+        'NAME': 'PointRCNN',
+        'VFE': {'NAME': 'MeanVFE'},
+        'BACKBONE_3D': {'NAME': 'UNetV2', 'RETURN_ENCODED_TENSOR': False},
+        'POINT_HEAD': {
+            'NAME': 'PointIntraPartOffsetHead',
+            'CLS_FC': [16], 'PART_FC': [16], 'REG_FC': [16],
+            'CLASS_AGNOSTIC': False,
+            'TARGET_CONFIG': {
+                'GT_EXTRA_WIDTH': [0.2, 0.2, 0.2],
+                'BOX_CODER': 'PointResidualCoder',
+                'BOX_CODER_CONFIG': {
+                    'use_mean_size': True,
+                    'mean_size': [[3.9, 1.6, 1.56], [0.8, 0.6, 1.73],
+                                  [1.76, 0.6, 1.73]]}},
+            'LOSS_CONFIG': {'LOSS_WEIGHTS': {
+                'point_cls_weight': 1.0, 'point_box_weight': 1.0,
+                'point_part_weight': 1.0, 'code_weights': [1.0] * 8}},
+        },
+        'ROI_HEAD': dict(base.ROI_HEAD, DISABLE_PART=True,
+                         SEG_MASK_SCORE_THRESH=0.0),
+        'POST_PROCESSING': base.POST_PROCESSING,
+    })

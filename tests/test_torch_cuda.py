@@ -1477,3 +1477,109 @@ def test_pointpillar_multihead_forward_on_the_card_matches_the_cpu(cuda):
     masked = c['anchor_head_ret']['cls_preds'] == -1e9
     assert torch.equal(g['anchor_head_ret']['cls_preds'].cpu() == -1e9,
                        masked) and masked.any()
+
+
+def _parta2_frame(seed, n=16384, mode='test'):
+    """kitti_models/PartA2.yaml and the port's host batch (the plan with
+    the UNet's up tables) of one synthetic scan of ``n`` points."""
+    from spsnet_torch.data.processor import voxel_batch
+    from spsnet_torch.utils.synthetic import synthetic_scan_batch
+    from spsnet_torch.zoo import parta2_kitti_cfg
+    cfg = parta2_kitti_cfg()
+    scans = synthetic_scan_batch(seed, 1, n,
+                                 pc_range=tuple(cfg.DATA_CONFIG.
+                                                POINT_CLOUD_RANGE))
+    return cfg, {k: torch.from_numpy(v) for k, v in voxel_batch(
+        scans, cfg.DATA_CONFIG, mode=mode, up_tables=True).items()}
+
+
+@pytest.mark.parametrize('method,channels', [('max', 16), ('avg', 4)])
+def test_roiaware_pool_on_the_card_matches_the_cpu(cuda, method, channels):
+    """PartA2's RoI-aware pool at its serving shapes: the 40 000 voxel
+    centres of one KITTI scan (padded rows at 1e6) into 100 RoIs around
+    them at G = 12: the (voxel, cell) pairs identical, the max bit for bit
+    and its gradient within 1e-6 of its largest entry (ties split evenly
+    on both), the mean within 1e-6 of its largest entry (atomics sum in
+    another order)."""
+    from spsnet_torch.models.detectors.part_a2 import VoxelCenters
+    from spsnet_torch.models.roi_heads.parta2_head import (roi_cells,
+                                                           roiaware_pool)
+    cfg, batch = _parta2_frame(60)
+    pcr = cfg.DATA_CONFIG.POINT_CLOUD_RANGE
+    centers = VoxelCenters([0.05, 0.05, 0.1], pcr)(batch['voxel_coords'])
+    centers = torch.where(batch['voxel_valid'][..., None], centers, 1e6)
+    rng = np.random.default_rng(61)
+    pick = rng.choice(int(batch['voxel_valid'].sum()), 100)
+    rois = np.zeros((1, 100, 7), np.float32)
+    rois[0, :, :3] = centers[0, pick].numpy() + rng.normal(0, 0.5, (100, 3))
+    rois[0, :, 3:6] = rng.uniform([1, 0.5, 1], [5, 2, 2], (100, 3))
+    rois[0, :, 6] = rng.uniform(-np.pi, np.pi, 100)
+    rois = torch.from_numpy(rois)
+    feats = torch.relu(torch.from_numpy(rng.normal(size=(
+        1, centers.shape[1], channels)).astype(np.float32)))
+    outs, grads, pairs = [], [], []
+    for dev in (cuda, 'cpu'):
+        f = feats.to(dev).requires_grad_()
+        out = roiaware_pool(centers.to(dev), f, rois.to(dev), 12, method)
+        (out * torch.arange(channels, device=dev)).sum().backward()
+        outs.append(out.detach().cpu())
+        grads.append(f.grad.cpu())
+        row, slot = roi_cells(centers.to(dev), rois.to(dev), 12)
+        pairs.append(torch.sort((slot * centers.shape[1] + row).cpu()).values)
+    assert torch.equal(pairs[0], pairs[1]) and len(pairs[1]) > 10000
+    if method == 'max':
+        assert torch.equal(outs[0], outs[1])
+        scale = float(grads[1].abs().max())
+        assert torch.allclose(grads[0], grads[1], rtol=0, atol=1e-6 * scale)
+    else:
+        scale = float(outs[1].abs().max())
+        assert torch.allclose(outs[0], outs[1], rtol=0, atol=1e-6 * scale)
+
+
+def test_masked_batch_norm_on_the_card_matches_the_cpu(cuda):
+    """PartA2's masked BatchNorm in training over (256, 64, 12, 12, 12)
+    grids with a fifth of the cells active: the output, the gradients at
+    the input, weight and bias, and the running statistics (the unbiased
+    variance) within 1e-4 relative plus 1e-4 of each tensor's largest
+    entry."""
+    from spsnet_torch.models.roi_heads.parta2_head import MaskedBatchNorm
+    rng = np.random.default_rng(62)
+    mask = torch.from_numpy((rng.uniform(size=(256, 1, 12, 12, 12)) < 0.2)
+                            .astype(np.float32))
+    x = torch.from_numpy(rng.normal(0.5, 2.0, (256, 64, 12, 12, 12)).astype(
+        np.float32)) * mask
+    w = torch.from_numpy(rng.normal(size=(256, 64, 12, 12, 12)).astype(
+        np.float32))
+    bns, outs = [MaskedBatchNorm(64).train() for _ in range(2)], []
+    for bn, dev in zip(bns, (cuda, 'cpu')):
+        bn.to(dev)
+        xd = x.to(dev).requires_grad_()
+        y = bn(xd, mask.to(dev))
+        (y * w.to(dev)).sum().backward()
+        outs.append((y.detach(), xd.grad, bn.weight.grad, bn.bias.grad,
+                     bn.running_mean, bn.running_var))
+    for g, c, what in zip(outs[0], outs[1], ('output', 'input gradient',
+                                              'weight gradient',
+                                              'bias gradient',
+                                              'running mean',
+                                              'running var')):
+        _close_scaled(g, c, what)
+
+
+def test_unetv2_forward_on_the_card_matches_the_cpu(cuda):
+    """kitti_models/PartA2.yaml's UNetV2 at full width on one scan (40 000
+    voxel rows a level), seeded weights, eval: the four encoder levels,
+    the encoded tensor and the decoder's point features card vs CPU within
+    1e-4 relative plus 1e-4 of each tensor's largest entry."""
+    from spsnet_torch.models import build_detector_from_cfg
+    cfg, batch = _parta2_frame(63)
+    nets = [build_detector_from_cfg(cfg, device=d) for d in (cuda, 'cpu')]
+    with torch.no_grad():
+        g = nets[0].backbone_3d(nets[0].vfe({k: v.to(cuda)
+                                             for k, v in batch.items()}))
+        c = nets[1].backbone_3d(nets[1].vfe(dict(batch)))
+    for level, t in c['multi_scale_3d_features'].items():
+        _close_scaled(g['multi_scale_3d_features'][level], t, level)
+    for key in ('encoded_voxel_features', 'point_features'):
+        _close_scaled(g[key], c[key], key)
+    assert g['point_features'].shape == (1, 40000, 16)

@@ -35,6 +35,7 @@ from spsnet_torch.stability.model import GenerateCenter
 from spsnet_torch.utils.synthetic import synthetic_scan_batch
 from spsnet_torch.utils.weights import (flax_to_torch,
                                         generator_flax_to_torch, load_flax)
+from tests.test_parta2 import parta2_free_tiny_cfg, parta2_tiny_cfg
 from tests.test_pvrcnn import PCR as PV_PCR
 from tests.test_pvrcnn import VS as PV_VS
 from tests.test_pvrcnn import make_pv_batch, pvrcnn_tiny_cfg
@@ -481,7 +482,10 @@ YAML_CFGS = {'voxel_rcnn_kitti': 'tools/cfgs/kitti_models/voxel_rcnn_car.yaml',
              'second_multihead_nuscenes':
              'tools/cfgs/nuscenes_models/cbgs_second_multihead.yaml',
              'pointpillar_multihead_nuscenes':
-             'tools/cfgs/nuscenes_models/cbgs_pp_multihead.yaml'}
+             'tools/cfgs/nuscenes_models/cbgs_pp_multihead.yaml',
+             'parta2_kitti': 'tools/cfgs/kitti_models/PartA2.yaml',
+             'parta2_free_kitti': 'tools/cfgs/kitti_models/PartA2_free.yaml',
+             'parta2_waymo': 'tools/cfgs/waymo_models/PartA2.yaml'}
 
 
 @pytest.mark.parametrize('name', ['tiny', 'iassd_kitti', 'iassd_kitti_scaled',
@@ -499,7 +503,10 @@ YAML_CFGS = {'voxel_rcnn_kitti': 'tools/cfgs/kitti_models/voxel_rcnn_car.yaml',
                                   'second_multihead_kitti',
                                   'second_iou_kitti',
                                   'second_multihead_nuscenes',
-                                  'pointpillar_multihead_nuscenes'])
+                                  'pointpillar_multihead_nuscenes',
+                                  'parta2_kitti', 'parta2_free_kitti',
+                                  'parta2_waymo', 'tiny_parta2',
+                                  'tiny_parta2_free'])
 def test_config_copies_match_the_jax_package(name):
     """The port's own config loader and zoo give the JAX package's configs
     (``_BASE_CONFIG_`` resolution included for IA-SSD.yaml, SPSNet.yaml
@@ -523,6 +530,12 @@ def test_config_copies_match_the_jax_package(name):
             return zoo.centerpoint_pillar_waymo_cfg(dynamic=True) \
                 if z is zoo else z.load_yaml_cfg(
                     'tools/cfgs/waymo_models/centerpoint_dyn_pillar_1x.yaml')
+        if name == 'tiny_parta2':
+            return z.tiny_parta2_cfg(PV_FINAL) if z is zoo else \
+                parta2_tiny_cfg(PV_FINAL)
+        if name == 'tiny_parta2_free':
+            return z.tiny_parta2_free_cfg() if z is zoo else \
+                parta2_free_tiny_cfg()
         if name == 'tiny_voxelrcnn':
             return z.tiny_voxelrcnn_cfg(PV_FINAL) if z is zoo else \
                 voxelrcnn_tiny_cfg(PV_FINAL)

@@ -1,8 +1,9 @@
-"""The seven pillar configs of ``tools/cfgs`` in the port against the JAX
+"""The eight pillar configs of ``tools/cfgs`` in the port against the JAX
 package on the CPU, at full model width: KITTI's
-``pointpillar{,_newaugs,_pyramid_aug}.yaml`` (identical MODEL blocks),
-Waymo's ``pointpillar_1x.yaml``, ``centerpoint_pillar_1x.yaml`` and
-``centerpoint_dyn_pillar_1x.yaml``, and nuScenes'
+``pointpillar{,_newaugs,_pyramid_aug}.yaml`` (identical MODEL blocks) and
+``centerpoint_iou.yaml`` (its MAP_TO_BEV named Sparse2BEV, the same
+scatter), Waymo's ``pointpillar_1x.yaml``, ``centerpoint_pillar_1x.yaml``
+and ``centerpoint_dyn_pillar_1x.yaml``, and nuScenes'
 ``cbgs_dyn_pp_centerpoint.yaml`` (its strided-conv deblock included).
 
 Each config goes through both packages' ``build_detector_from_cfg`` (the
@@ -66,6 +67,7 @@ CONFIGS = {
                                                     True),
     'nuscenes_models/cbgs_dyn_pp_centerpoint.yaml': (NUSCENES_CROP, 74, 6, 5,
                                                      True),
+    'kitti_models/centerpoint_iou.yaml': (KITTI_CROP, 75, 3, 4, False),
 }
 _RUNS = {}
 

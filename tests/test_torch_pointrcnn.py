@@ -431,20 +431,6 @@ def test_chunked_fps_matches_the_jax_wrapper(B_, N_, npoint, chunks):
         FpsChunks(1)
 
 
-@pytest.mark.parametrize('source', ['partA2_free', 'unetv2_backbone'])
-def test_voxel_pointrcnn_configs_raise(source):
-    """PartA2_free (a PointRCNN over a UNetV2 voxel backbone) is not on
-    this path: building it says so and names its ROADMAP item."""
-    if source == 'partA2_free':
-        cfg = zoo.load_yaml_cfg('tools/cfgs/kitti_models/PartA2_free.yaml')
-        cfg = cfg.MODEL
-    else:
-        cfg = zoo.tiny_pointrcnn_cfg()
-        cfg.BACKBONE_3D.NAME = 'UNetV2'
-    with pytest.raises(NotImplementedError, match='item F'):
-        build_detector(cfg, 3, device='cpu')
-
-
 def test_pointrcnn_train_mode_without_gt_matches_jax(tiny):
     """Train mode without 'gt_boxes', as in the JAX package: neither head
     makes targets, the RoI head refines the proposals of NMS_CONFIG.TRAIN

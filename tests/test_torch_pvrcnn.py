@@ -498,9 +498,7 @@ def test_geometry_from_the_config_matches_jax(name):
         assert model.roi_head.shared_fc_layer[0].in_features == 216 * 128
 
 
-@pytest.mark.parametrize('path', [
-    'kitti_models/PartA2_free.yaml', 'kitti_models/PartA2.yaml',
-    'kitti_models/AL.yaml', 'kitti_models/centerpoint_iou.yaml'])
+@pytest.mark.parametrize('path', ['kitti_models/AL.yaml'])
 def test_unported_detectors_raise_naming_item_f(path):
     cfg = zoo.load_yaml_cfg(f'tools/cfgs/{path}')
     with pytest.raises(NotImplementedError, match='item F'):
