@@ -5,8 +5,8 @@
     python3 chip_smoke.py --phase3 ROOT   # phases 1-3 of another checkout
     python3 chip_smoke.py --jitter-study  # what sets phase 26's baseline
     python3 chip_smoke.py --fault-check   # phases 26, 36, 44, 55, 61, 64,
-                                          # 68, 71, 74, 77, 80, 83 refuse a
-                                          # scaled card gradient
+                                          # 68, 71, 74, 77, 80, 83, 87
+                                          # refuse a scaled card gradient
     python3 chip_smoke.py --fault-check pvrcnnpp  # phase 55 alone (or any
                                           # of pointrcnn,pvrcnn,voxel_rcnn,
                                           # centerpoint_pillar,
@@ -14,7 +14,7 @@
                                           # second_multihead,second_iou,
                                           # cbgs_pp_multihead,
                                           # cbgs_second_multihead,PartA2,
-                                          # PartA2_free)
+                                          # PartA2_free,AL)
     python3 chip_smoke.py --pvpp-train-repeat N  # phase 54's steps N times
                                           # under each gt at the proposals
 
@@ -406,7 +406,22 @@ Phases, in order; any failure raises and the exit code is not 0:
     CPU on VOXEL_TRAIN_CUT held as phase 36 holds its step;
 84. one request (B = 1) of ``waymo_models/PartA2.yaml`` on a Waymo scan
     of 65 536 points at 150 000 rows a level (post 300 RoIs): ms, the
-    pools' device time and the peak memory.
+    pools' device time and the peak memory;
+85-87. ``kitti_models/AL.yaml`` (pillars, the BEV and range-view CP-UNets
+    and their fusion, RB_Fusion, CenterHeadIoU): five requests of 2 scans
+    of 16 384 points at 16 000 pillars with no kernel launch, the NMS
+    loops' share, a profile with the stages' shares (the VFE, the scatter,
+    both U-Nets, the fusion, RB_Fusion, the head, its decode and NMS
+    loop) and the peak memory; one request card vs CPU (B = 1) stage by
+    stage from the card's inputs, the projections' cells identical but
+    within their rounding slack of an edge and the card's replayed; three
+    train steps of 2 scans at 16 000 pillars with a profile; one train
+    step card vs CPU on AL_TRAIN_CUT held as phase 36 holds its step;
+88-89. ``kitti_models/MLT_SSD.yaml``: the same requests and three train
+    steps;
+90-91. ``nuscenes_models/MLT_SSD.yaml`` on scans of 65 536 points of 5
+    channels: five requests of 2 scans at 160 000 pillars and three train
+    steps at 120 000 (gt boxes with velocities).
 
 The K5 shapes are (8, 16384) -> 4096, (8, 15884) -> 4096 (SPSNet's layer
 0), (1, 16384) -> 4096 and (32, 4096) -> 1024. Phase 3 also holds FPS and
@@ -429,6 +444,7 @@ Exits non-zero without printing a result when no CUDA device is present.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import re
 import statistics
@@ -661,6 +677,37 @@ MH_CLS_BIAS = -2.0
 PA_CONFIGS = {'kitti_models/PartA2': 3000, 'kitti_models/PartA2_free': 3100}
 PA_B, PA_REQUESTS, PA_TRAIN_STEPS = 2, 5, 3
 PA_WAYMO = ('waymo_models/PartA2', 3200)
+# the AL_3D stack (phases 85-91): each config of AL_CONFIGS (its host
+# seed, points a scan, point channels) serves AL_REQUESTS requests of AL_B
+# scans at its test cap (KITTI 16 000 pillars, nuScenes 160 000) and takes
+# AL_TRAIN_STEPS train steps of PV_TRAIN_B scans at its train cap (16 000,
+# 120 000); KITTI AL's card-vs-CPU train step on one frame of
+# AL_TRAIN_CUT (a 25.6 m square: 160 x 160 pillars, the BEV_SHAPE and the
+# AL_3D range recomputed from it). No kernel of the port runs on these
+# paths
+AL_CONFIGS = {'kitti_models/AL': (3300, 16384, 4),
+              'kitti_models/MLT_SSD': (3400, 16384, 4),
+              'nuscenes_models/MLT_SSD': (3500, 65536, 5)}
+AL_B, AL_REQUESTS, AL_TRAIN_STEPS = 2, 5, 3
+AL_TRAIN_CUT = {'range': (0, -12.8, -3, 25.6, 12.8, 1), 'voxels': 4000,
+                'points': 8192}
+# the gt sizes of the AL train batches: KITTI's three classes, nuScenes' ten
+AL_SIZES = {'kitti': [[3.9, 1.6, 1.56], [0.8, 0.6, 1.73], [1.76, 0.6, 1.73]],
+            'nuscenes': [[4.63, 1.97, 1.74], [6.93, 2.51, 2.84],
+                         [6.37, 2.85, 3.19], [10.5, 2.94, 3.47],
+                         [12.29, 2.90, 3.87], [0.50, 2.53, 0.98],
+                         [2.11, 0.77, 1.47], [1.70, 0.60, 1.28],
+                         [0.73, 0.67, 1.77], [0.41, 0.41, 1.07]]}
+# card vs CPU on the AL projections: arcsin and arctan2 round differently
+# on the card and the CPU; a coordinate within AL_COORD_ULPS fp32 ulps of
+# its grid side, its cell the same but within that slack of an edge, the
+# field-of-view mask the same but within AL_FOV_SLACK rad of an edge
+AL_COORD_ULPS, AL_FOV_SLACK = 16, 1e-6
+# the AL layers that only the semantic logits read (the semantic branch,
+# the range U-Net's decoder, the BEV U-Net's after d0): the detection loss
+# of a train step without 'sem_labels' does not reach them, in JAX either
+AL_SEMANTIC_ONLY = re.compile(r'backbone_3d\.(cls_|range_unet\.(dec|basic|'
+                              r'out)|bev_unet\.(dec[12]|basic[12]|out))')
 MH_TRAIN_CUT = {'kitti': VOXEL_TRAIN_CUT,
                 'nuscenes': {'range': (-25.6, -25.6, -5, 25.6, 25.6, 3),
                              'voxels': 10000, 'points': 16384}}
@@ -1683,11 +1730,13 @@ def _finite_grads(model):
                              for p in model.parameters()]).all())
 
 
-def train_path(model, step, batches, want, after_step=None):
+def train_path(model, step, batches, want, after_step=None, idle=None):
     """Train steps over ``batches``, each checked: finite loss terms and
     gradients, ``want`` launches of each kernel a step, and
-    ``after_step()`` when given. Returns (ms per step, launch counts of the
-    run)."""
+    ``after_step()`` when given; after them every parameter moved, but
+    those whose names ``idle`` (a compiled pattern) matches, which the
+    loss does not reach and whose gradients must be zero. Returns (ms per
+    step, launch counts of the run)."""
     from spsnet_torch.ops import _build
     before = {k: p.detach().clone() for k, p in model.named_parameters()}
     torch.cuda.synchronize()
@@ -1710,7 +1759,11 @@ def train_path(model, step, batches, want, after_step=None):
             after_step()
         log(f'  step {len(times)}: {times[-1]:.3f} ms, loss {float(loss):.4f}')
     for name, p in model.named_parameters():
-        if torch.equal(p.detach(), before[name]):
+        if idle is not None and idle.match(name):
+            if p.grad is not None and p.grad.any():
+                raise AssertionError(f'{name}: a gradient where the loss '
+                                     'does not reach')
+        elif torch.equal(p.detach(), before[name]):
             raise AssertionError(f'{name} did not move in {len(times)} steps')
     return times, dict(_build.LAUNCHES)
 
@@ -2888,19 +2941,23 @@ PA_FAULTS = {
     'PartA2_free': (('backbone_3d.inv_conv3', 1.3),
                     ('point_head.box_layers', 1.3),
                     ('roi_head.conv_part', 1.3), ('roi_head.cls_layers', 1.3))}
+# AL's: the BEV U-Net, the range branch's fusion, RB_Fusion and a head
+# group
+AL_FAULTS = (('backbone_3d.bev_unet', 1.3), ('backbone_3d.fusion', 1.3),
+             ('backbone_2d', 1.3), ('dense_head.heads_list.1', 1.3))
 _FAULT_MODELS = ('pointrcnn', 'pvrcnn', 'voxel_rcnn', 'pvrcnnpp',
                  'centerpoint_pillar', 'centerpoint_dyn_pillar',
-                 *MH_FAULTS, *PA_FAULTS)
+                 *MH_FAULTS, *PA_FAULTS, 'AL')
 
 
 def fault_check(models=_FAULT_MODELS) -> int:
     """``--fault-check``: phases 26, 36, 44, 55, 61 and 64 and the
-    card-vs-CPU train steps of phases 68, 71, 74, 77, 80 and 83 (those of
-    ``models``) as they run, then again with the card's gradients of one
-    module scaled (``PRCNN_FAULTS``, ``PV_FAULTS``, ``VR_FAULTS``,
+    card-vs-CPU train steps of phases 68, 71, 74, 77, 80, 83 and 87 (those
+    of ``models``) as they run, then again with the card's gradients of
+    one module scaled (``PRCNN_FAULTS``, ``PV_FAULTS``, ``VR_FAULTS``,
     ``PP_FAULTS``, ``CPP_FAULTS`` for both pillar CenterPoints,
-    ``MH_FAULTS``, ``PA_FAULTS``): every such run must fail. Returns 1 if
-    one passed."""
+    ``MH_FAULTS``, ``PA_FAULTS``, ``AL_FAULTS``): every such run must
+    fail. Returns 1 if one passed."""
     phases = sys.modules[__name__]
     unknown = set(models) - set(_FAULT_MODELS)
     if unknown:
@@ -2991,6 +3048,13 @@ def fault_check(models=_FAULT_MODELS) -> int:
              cut_batch(name, VOXEL_TRAIN_CUT, seed + 95),
              PA_FAULTS[short], 1)
         n += len(PA_FAULTS[short])
+    if 'AL' in models:
+        each('build_al_trainer',
+             lambda b: phases.al_train_cpu_phase(b, 'kitti_models/AL',
+                                                 AL_TRAIN_CUT),
+             al_cut_batch('kitti_models/AL', AL_TRAIN_CUT, 3395), AL_FAULTS,
+             1)
+        n += len(AL_FAULTS)
     log(f'{n - len(missed)} of {n} faults refused')
     return 1 if missed else 0
 
@@ -3816,6 +3880,25 @@ def at_proposals(model, batches, sizes=None):
         yield gt_at_proposals(model, batch, sizes)
 
 
+def _train_host(cfg, sizes, n, channels, velocity, seed):
+    """``pv_train_batches``' host steps of one batch: (the numpy batch,
+    host ms a frame, each frame's voxels before the cap)."""
+    from spsnet_torch.data.processor import uses_up_tables, voxel_batch
+    pts, gt = train_scenes(seed, sizes, n=n,
+                           pc_range=cfg.DATA_CONFIG.POINT_CLOUD_RANGE,
+                           channels=channels)
+    if velocity:
+        vel = np.random.default_rng(seed + 2).normal(
+            0, 2, gt.shape[:2] + (2,)).astype(np.float32)
+        gt = np.concatenate([gt[..., :7], vel, gt[..., 7:]], axis=-1)
+    t0 = time.perf_counter()
+    host = voxel_batch(pts, cfg.DATA_CONFIG, mode='train', gt_boxes=list(gt),
+                       rng=np.random.RandomState(seed),
+                       up_tables=uses_up_tables(cfg.MODEL))
+    host_ms = (time.perf_counter() - t0) * 1e3 / PV_TRAIN_B
+    return host, host_ms, [voxels_in_range(x, cfg.DATA_CONFIG) for x in pts]
+
+
 def pv_train_batches(cfg, seeds, sizes=None, n=N, channels=4,
                      velocity=False):
     """Train batches of PV_TRAIN_B ``train_scenes`` of ``n`` points in the
@@ -3826,10 +3909,10 @@ def pv_train_batches(cfg, seeds, sizes=None, n=N, channels=4,
     port's host
     code at the config's train settings (``voxel_batch(mode='train')``
     with the gt boxes; a config that samples points draws from
-    ``RandomState(seed)``) and copied to the card. Returns (batches, host
+    ``RandomState(seed)``; each batch in a process of its own,
+    ``forked``) and copied to the card. Returns (batches, host
     ms a frame of each, voxels a frame before the cap, voxels a frame after
     it; the dynamic pillar configs have no cap)."""
-    from spsnet_torch.data.processor import uses_up_tables, voxel_batch
     from spsnet_torch.runtime.trainer import device_batch
     if sizes is None and cfg.MODEL.get('DENSE_HEAD', None) is None:
         sizes = cfg.MODEL.POINT_HEAD.TARGET_CONFIG.BOX_CODER_CONFIG.mean_size
@@ -3837,23 +3920,12 @@ def pv_train_batches(cfg, seeds, sizes=None, n=N, channels=4,
         sizes = [a['anchor_sizes'][0]
                  for a in cfg.MODEL.DENSE_HEAD.ANCHOR_GENERATOR_CONFIG]
     batches, host_ms, before, after = [], [], [], []
-    for seed in seeds:
-        pts, gt = train_scenes(seed, sizes, n=n,
-                               pc_range=cfg.DATA_CONFIG.POINT_CLOUD_RANGE,
-                               channels=channels)
-        if velocity:
-            vel = np.random.default_rng(seed + 2).normal(
-                0, 2, gt.shape[:2] + (2,)).astype(np.float32)
-            gt = np.concatenate([gt[..., :7], vel, gt[..., 7:]], axis=-1)
-        t0 = time.perf_counter()
-        host = voxel_batch(pts, cfg.DATA_CONFIG, mode='train',
-                           gt_boxes=list(gt),
-                           rng=np.random.RandomState(seed),
-                           up_tables=uses_up_tables(cfg.MODEL))
-        host_ms.append((time.perf_counter() - t0) * 1e3 / PV_TRAIN_B)
-        before += [voxels_in_range(s, cfg.DATA_CONFIG) for s in pts]
+    for host, ms, frames in forked(functools.partial(
+            _train_host, cfg, sizes, n, channels, velocity), seeds):
+        host_ms.append(ms)
+        before += frames
         after += host['voxel_valid'].sum(1).tolist() \
-            if 'voxel_valid' in host else before[-PV_TRAIN_B:]
+            if 'voxel_valid' in host else frames
         batches.append(device_batch(host, 'cuda'))
     torch.cuda.synchronize()
     return batches, host_ms, before, after
@@ -4277,36 +4349,59 @@ def pvrcnn_train_phases(smi):
 
 # ------------------------------------------------- Voxel R-CNN, CenterPoint
 
+def forked(fn, items):
+    """``[fn(item) for item in items]``, each call in a process of its own
+    forked from this one (at most 8 at once), where there are several:
+    the host steps of a phase's batches (numpy, one core each) run side
+    by side on the card's host. ``fn`` touches no CUDA state."""
+    import multiprocessing
+    items = list(items)
+    if len(items) < 2:
+        return [fn(item) for item in items]
+    with multiprocessing.get_context('fork').Pool(min(len(items), 8)) as pool:
+        return pool.map(fn, items)
+
+
+def _serve_host(cfg, b, n, channels, seed):
+    """``pv_host_batches``' host steps of one batch: (the numpy batch, host
+    ms a frame, each frame's voxels before the cap)."""
+    from spsnet_torch.data.processor import uses_up_tables, voxel_batch
+    from spsnet_torch.utils.synthetic import synthetic_scan_batch
+    scans = synthetic_scan_batch(seed, b, n,
+                                 pc_range=cfg.DATA_CONFIG.POINT_CLOUD_RANGE)
+    if channels > 4:
+        scans = np.concatenate([scans, np.random.default_rng(seed).uniform(
+            0, 1, scans.shape[:2] + (channels - 4,)).astype(np.float32)],
+            axis=-1)
+    t0 = time.perf_counter()
+    host = voxel_batch(scans, cfg.DATA_CONFIG,
+                       rng=np.random.RandomState(seed),
+                       up_tables=uses_up_tables(cfg.MODEL))
+    host_ms = (time.perf_counter() - t0) * 1e3 / b
+    return host, host_ms, [voxels_in_range(x, cfg.DATA_CONFIG)
+                           for x in scans]
+
+
 def pv_host_batches(cfg, seeds, b, n=N, channels=4):
     """Test-mode voxel batches of ``b`` synthetic scans of ``n`` points in
     the config's range (channels past the fourth uniform in [0, 1)), one
     seed a batch, made by the port's host code (``voxel_batch``: the
     voxelization and the sparse plan, with the UNet's up tables for a
     UNetV2 config, or the pillars, or the sampled
-    points of a dynamic pillar config, drawn from ``RandomState(seed)``)
-    and copied to the card: {'batches', 'host_ms' (a frame), 'copy_ms' (a
+    points of a dynamic pillar config, drawn from ``RandomState(seed)``;
+    each batch in a process of its own, ``forked``) and copied to the
+    card: {'batches', 'host_ms' (a frame), 'copy_ms' (a
     batch), 'before' and 'after' (each frame's voxels before and after the
     cap)}."""
-    from spsnet_torch.data.processor import uses_up_tables, voxel_batch
     from spsnet_torch.runtime.trainer import device_batch
-    from spsnet_torch.utils.synthetic import synthetic_scan_batch
     rec = {'batches': [], 'host_ms': [], 'copy_ms': [], 'before': [],
            'after': []}
-    for seed in seeds:
-        scans = synthetic_scan_batch(
-            seed, b, n, pc_range=cfg.DATA_CONFIG.POINT_CLOUD_RANGE)
-        if channels > 4:
-            scans = np.concatenate([scans, np.random.default_rng(
-                seed).uniform(0, 1, scans.shape[:2] + (channels - 4,))
-                .astype(np.float32)], axis=-1)
-        t0 = time.perf_counter()
-        host = voxel_batch(scans, cfg.DATA_CONFIG,
-                           rng=np.random.RandomState(seed),
-                           up_tables=uses_up_tables(cfg.MODEL))
-        rec['host_ms'].append((time.perf_counter() - t0) * 1e3 / b)
-        rec['before'] += [voxels_in_range(x, cfg.DATA_CONFIG) for x in scans]
+    for host, host_ms, before in forked(functools.partial(
+            _serve_host, cfg, b, n, channels), seeds):
+        rec['host_ms'].append(host_ms)
+        rec['before'] += before
         rec['after'] += host['voxel_valid'].sum(1).tolist() \
-            if 'voxel_valid' in host else rec['before'][-b:]
+            if 'voxel_valid' in host else before
         t0 = time.perf_counter()
         rec['batches'].append(device_batch(host, 'cuda'))
         torch.cuda.synchronize()
@@ -5737,11 +5832,12 @@ def anchor_request(model, batch, post):
             return post_processing(out, post)
 
 
-def pillar_train_path(model, step, opt, batches, steps, what, smi):
+def pillar_train_path(model, step, opt, batches, steps, what, smi,
+                      idle=None):
     """A warm-up step, then ``steps`` steps cycling over ``batches`` with
     the launch counters zeroed just before (no kernel of the port; finite
-    losses and gradients, every parameter moves); ms a step, grad norms
-    and peak memory."""
+    losses and gradients, every parameter moves but the ``idle`` ones of
+    ``train_path``); ms a step, grad norms and peak memory."""
     from spsnet_torch.ops import _build
     step(batches[0])
     torch.cuda.synchronize()
@@ -5751,7 +5847,7 @@ def pillar_train_path(model, step, opt, batches, steps, what, smi):
         model, step, [batches[k % len(batches)]
                       for k in range(1, 1 + steps)],
         {k: 0 for k in _build.LAUNCHES},
-        lambda: norms.append(float(opt.grad_norm)))
+        lambda: norms.append(float(opt.grad_norm)), idle)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     ms = statistics.median(times)
     log(f'  ms/train step ({what}): median {ms:.3f}, range '
@@ -6910,6 +7006,395 @@ def parta2_phases(smi):
     return recs
 
 
+# ------------------------------------------------------ the AL_3D stack
+
+def al_cfg(name, cut=None):
+    """``voxel_cfg(name, cut)``; on ``cut`` AL_3D's range is the cut's and
+    its BEV_SHAPE the pillar grid over it."""
+    cfg = voxel_cfg(name, cut)
+    if cut is not None:
+        vs = [p for p in cfg.DATA_CONFIG.DATA_PROCESSOR
+              if p.NAME == 'transform_points_to_voxels'][0].VOXEL_SIZE
+        r = cut['range']
+        cfg.MODEL.BACKBONE_3D.POINT_CLOUD_RANGE = list(r)
+        cfg.MODEL.BACKBONE_3D.BEV_SHAPE = [
+            int(round((r[4] - r[1]) / vs[1])),
+            int(round((r[3] - r[0]) / vs[0]))]
+    return cfg
+
+
+def build_al_detector(name, device, cut=None):
+    """``al_cfg(name, cut)`` through ``build_detector_from_cfg`` on
+    ``device`` (weights from ``torch.Generator`` seed 0)."""
+    from spsnet_torch.models import build_detector_from_cfg
+    cfg = al_cfg(name, cut)
+    return cfg, build_detector_from_cfg(
+        cfg, device=device, generator=torch.Generator().manual_seed(0))
+
+
+def build_al_trainer(device, name='kitti_models/AL', cut=None):
+    """``build_al_detector`` in train mode, its adam_onecycle optimizer
+    and ``make_train_step``: (cfg, model, optimizer, step)."""
+    from spsnet_torch.runtime.trainer import make_train_step
+    cfg, model = build_al_detector(name, device, cut)
+    model.train()
+    optimizer = _kitti_optimizer(cfg.OPTIMIZATION, model.parameters())
+    return cfg, model, optimizer, make_train_step(model, optimizer)
+
+
+def _al_sizes(name):
+    return AL_SIZES['nuscenes' if name.startswith('nuscenes') else 'kitti']
+
+
+def al_cut_batch(name, cut, seed):
+    """One train frame (on the CPU) of ``name`` on ``cut``."""
+    _, n, channels = AL_CONFIGS[name]
+    batch = pv_train_batches(
+        al_cfg(name, cut), [seed], sizes=_al_sizes(name), n=cut['points'],
+        channels=channels, velocity=name.startswith('nuscenes'))[0][0]
+    return {k: v[:1].cpu() for k, v in batch.items()}
+
+
+def al_coords_within(card, own, al3d, points):
+    """The card's projections ``card`` of ``points`` ((bu, bv, bkeep),
+    (ru, rv, rkeep), ``AL3D.coords``) against this run's ``own``: each
+    coordinate within AL_COORD_ULPS ulps of its grid side, its cell the
+    same but where it lies within that slack of an integer; the BEV masks
+    identical, the field-of-view masks identical but where the elevation
+    lies within AL_FOV_SLACK of an edge. Returns the cells and masks that
+    differ."""
+    differ = 0
+    p = points.detach().cpu().double()
+    theta = torch.asin(p[..., 2] / torch.sqrt((p[..., :3] ** 2).sum(-1) +
+                                              1e-8))
+    for g, c, shape, fov in ((card[0], own[0], al3d.bev_shape, None),
+                             (card[1], own[1], al3d.range_shape,
+                              al3d.v_fov)):
+        for a, b, side in ((g[0], c[0], shape[1]), (g[1], c[1], shape[0])):
+            a, b = a.detach().cpu().double(), b.detach().cpu().double()
+            slack = AL_COORD_ULPS * 2.0 ** -23 * side
+            err = float((a - b).abs().max())
+            cell = a.floor() != b.floor()
+            if err > slack or ((a - a.round()).abs()[cell] > slack).any():
+                k = int((a - b).abs().flatten().argmax())
+                raise AssertionError(
+                    f'card vs CPU projection coordinates: {err:.3e} apart '
+                    f'(slack {slack:.3e}), {int(cell.sum())} cells differ; '
+                    f'the farthest at point {k} '
+                    f'{p.reshape(-1, p.shape[-1])[k, :3].tolist()}: card '
+                    f'{float(a.flatten()[k])!r}, this run '
+                    f'{float(b.flatten()[k])!r}')
+            differ += int(cell.sum())
+        odd = g[2].cpu() != c[2].cpu()
+        if odd.any():
+            edge = torch.minimum((theta - fov[0]).abs(),
+                                 (theta - fov[1]).abs()) if fov else None
+            if edge is None or (edge[odd] > AL_FOV_SLACK).any():
+                raise AssertionError(f'card vs CPU projection masks: '
+                                     f'{int(odd.sum())} differ')
+            differ += int(odd.sum())
+    return differ
+
+
+@contextlib.contextmanager
+def al_coords_recorded(al3d):
+    """While open, ``al3d.coords`` keeps each call's projections (on the
+    CPU) in the yielded list."""
+    own, kept = al3d.coords, []
+
+    def coords(batch):
+        out = own(batch)
+        kept.append(tuple(tuple(t.detach().cpu() for t in part)
+                          for part in out))
+        return out
+    al3d.coords = coords
+    try:
+        yield kept
+    finally:
+        del al3d.coords
+
+
+@contextlib.contextmanager
+def al_coords_replayed(al3d, card):
+    """While open, ``al3d.coords`` (a CPU model's) holds its own
+    projections to the card's of the same call (``card``, in call order)
+    by ``al_coords_within`` and returns the card's; yields the cells and
+    masks that differed, a call."""
+    own, calls, differ = al3d.coords, iter(card), []
+
+    def coords(batch):
+        ref = next(calls)
+        differ.append(al_coords_within(ref, own(batch), al3d,
+                                       batch['points']))
+        return ref
+    al3d.coords = coords
+    try:
+        yield differ
+    finally:
+        del al3d.coords
+
+
+def al_profile(model, fn, what):
+    """``profile_phase`` of an AL request or train step with its stages as
+    ranges (the VFE, the scatter, the BEV and range U-Nets, the fusion,
+    RB_Fusion, the dense head, its decode); each range's share of the
+    device time. The NMS loops' keep masks are replayed
+    (``replayed_loops``: a nuScenes request's loops take ~30 000 launches):
+    the ranges hold all but the loops, whose share the unprofiled requests
+    give."""
+    al3d = model.backbone_3d
+    parts = {'VFE': model.vfe, 'map to BEV': model.map_to_bev_module,
+             'BEV U-Net': al3d.bev_unet, 'range U-Net': al3d.range_unet,
+             'fusion': al3d.fusion, 'RB_Fusion': model.backbone_2d,
+             'dense head': model.dense_head}
+
+    def ranged(name, fn):
+        def call(*args, **kwargs):
+            with torch.profiler.record_function(name):
+                return fn(*args, **kwargs)
+        return call
+    for name, module in parts.items():
+        module.forward = ranged(name, module.forward)
+    head = model.dense_head
+    head.decode = ranged('head decode', head.decode)
+    try:
+        with replayed_loops(fn) as untraced:
+            prof = profile_phase(fn, what, ranges=(*parts, 'head decode'))
+    finally:
+        for module in parts.values():
+            del module.forward
+        del head.decode
+    prof['loop_launches_replayed'] = untraced
+    for span in prof['ranges'].values():
+        span['device_share'] = span['device_ms'] / prof['device_ms']
+    prof['backward_share'] = prof['backward_device_ms'] / prof['device_ms']
+    log('  device shares: ' + ', '.join(
+        f'{k} {v["device_share"]:.3f}' for k, v in prof['ranges'].items()) +
+        f', backward {prof["backward_share"]:.3f}; the NMS loops replayed '
+        f'({untraced} launches a call not traced)')
+    return prof
+
+
+def al_cpu_phase(model, name, batch):
+    """One request of ``name`` (B = 1) on the card and on the CPU with the
+    same weights, stage by stage from the card's inputs: the pillar
+    features within VOXEL_RTOL / VOXEL_ATOL and the scatter bit for bit;
+    the projections held by ``al_coords_within``, the card's replayed; the
+    range image (the scatter-max of the card's embedded points) bit for
+    bit; the BEV U-Net, the range U-Net, the fusion and the semantic
+    branch from the card's inputs, the card's forward against its stages,
+    RB_Fusion and the head as ``centerpoint_cpu_phase`` holds them."""
+    from spsnet_torch.models.backbones_2d import projection
+    _, cpu = build_al_detector(name, 'cpu')
+    cpu.load_state_dict(model.state_dict())
+    host = _cpu_tree(batch)
+    errs = []
+    with torch.no_grad():
+        g = model.vfe(batch)
+        c = cpu.vfe(host)
+        errs.append(_require_scaled(g['pillar_features'],
+                                    c['pillar_features'], 'pillar features'))
+        g = model.map_to_bev_module(g)
+        c = cpu.map_to_bev_module(dict(
+            host, pillar_features=g['pillar_features'].cpu()))
+        require_equal(g['spatial_features'], c['spatial_features'],
+                      'card vs CPU: the pillar scatter')
+        al_g, al_c = model.backbone_3d, cpu.backbone_3d
+        card = al_g.coords(g)
+        card_cpu = [[t.cpu() for t in part] for part in card]
+        differ = al_coords_within(card, al_c.coords(host), al_c,
+                                  host['points'])
+        log(f'  card vs CPU projections: {differ} cells or masks differ '
+            f'(within the slack of an edge; the card\'s replayed)')
+        emb = al_g.range_embed(batch['points'][..., :4])
+        errs.append(_require_scaled(emb, al_c.range_embed(
+            host['points'][..., :4]), 'range embedding'))
+        img = projection.p2g_max(emb, *card[1], al_g.range_shape)
+        require_equal(img, projection.p2g_max(emb.cpu(), *card_cpu[1],
+                                              al_g.range_shape),
+                      'card vs CPU: the range image (scatter-max)')
+        card_out = {}
+        for what, net, x in (('BEV U-Net', 'bev_unet',
+                              g['spatial_features']),
+                             ('range U-Net', 'range_unet', img)):
+            og, dg = getattr(al_g, net)(x)
+            oc, dc = getattr(al_c, net)(x.cpu())
+            errs.append(_require_scaled(og, oc, f'{what} output'))
+            for key in dc:
+                errs.append(_require_scaled(dg[key], dc[key],
+                                            f'{what} {key}'))
+            card_out[net] = og, dg
+        pyramid = card_out['range_unet'][1]
+        fg = al_g.fusion(pyramid, *card[1:], card[0])
+        fc = al_c.fusion(_cpu_tree(pyramid), *card_cpu[1:], card_cpu[0])
+        errs.append(_require_scaled(fg, fc, 'fusion'))
+        encodes = card_out['bev_unet'][0], card_out['range_unet'][0]
+        errs.append(_require_scaled(
+            al_g.semantic(*encodes, *card),
+            al_c.semantic(*(e.cpu() for e in encodes), *card_cpu),
+            'semantic logits'))
+        g = al_g(g)
+        errs.append(_require_scaled(g['spatial_features'], torch.cat([
+            card_out['bev_unet'][1]['d0'], fg], 1),
+            'detection features (BEV d0 | fusion), the forward against '
+            'its stages'))
+        g = model.backbone_2d(g)
+        c = cpu.backbone_2d({'spatial_features': g['spatial_features'].cpu()})
+        errs.append(_require_scaled(g['spatial_features_2d'],
+                                    c['spatial_features_2d'], 'RB_Fusion'))
+        notes = _center_head_vs_cpu(model, cpu, g, errs)
+    return {'max_scaled_err': max(errs), 'projection_differ': differ,
+            'notes': notes}
+
+
+def al_train_cpu_phase(batch, name, cut):
+    """Phase 87: one train step of ``name`` on one frame (``batch``, on
+    the CPU; on ``cut``) on the card and on the CPU from the same weights
+    and dropout masks (the step's CPU generator), and on the CPU from
+    weights jittered by WEIGHT_JITTER: the projections held by
+    ``al_coords_within`` and the card's replayed, every head group's
+    heatmap targets, centre pixels and masks identical; the loss terms,
+    gradients, updated parameters and BN statistics as phase 36 holds
+    them."""
+    _, gpu, _, gpu_step = build_al_trainer('cuda', name, cut)
+    _, cpu, cpu_opt, cpu_step = build_al_trainer('cpu', name, cut)
+    _, jit, _, jit_step = build_al_trainer('cpu', name, cut)
+    cpu.load_state_dict(gpu.state_dict())
+    jit.load_state_dict(gpu.state_dict())
+    gen = torch.Generator().manual_seed(5)
+    with torch.no_grad():
+        for p in jit.parameters():
+            p.mul_(1 + WEIGHT_JITTER * torch.randn(p.shape, generator=gen))
+    outs, handle = head_targets(gpu)
+    try:
+        with al_coords_recorded(gpu.backbone_3d) as card:
+            gpu_loss, gpu_tb = gpu_step({k: v.cuda()
+                                         for k, v in batch.items()})
+    finally:
+        handle.remove()
+    gret = outs[0]
+    outs, handle = head_targets(cpu)
+    try:
+        with al_coords_replayed(cpu.backbone_3d, card) as differ:
+            cpu_loss, cpu_tb = cpu_step(batch)
+    finally:
+        handle.remove()
+    cret = outs[0]
+    with al_coords_replayed(jit.backbone_3d, card):
+        jit_step(batch)
+    log(f'  card vs CPU projections: {differ[0]} cells or masks differ '
+        f'(within the slack of an edge; the card\'s replayed)')
+    for g, (tg, tc) in enumerate(zip(gret['target_dicts'],
+                                     cret['target_dicts'])):
+        for key in ('heatmap', 'inds', 'mask', 'gt7'):
+            require_equal(tg[key], tc[key], f'card vs CPU train step: group '
+                                            f'{g} {key} targets')
+        log(f'  group {g}: {int(tc["mask"].sum())} gt centres: targets '
+            f'identical')
+    rec = _hold_step((gpu, cpu, jit), (gpu_loss, gpu_tb),
+                     (cpu_loss, cpu_tb), cpu_opt.lr_fn(0))
+    rec['projection_differ'] = differ[0]
+    return rec
+
+
+def al_phases_of(name, first, smi):
+    """Phases ``first`` and ``first`` + 1 (+ 2 for kitti_models/AL) of
+    ``name``: serving (AL_B scans, a warm-up and AL_REQUESTS requests, no
+    kernel launch, finite detections, the NMS loops' share, a profile with
+    the stages' shares, the requests' peak memory); for AL card vs CPU one
+    request (B = 1); training (AL_TRAIN_STEPS steps after a warm-up, a
+    profile for AL) and for AL card vs CPU one train step on
+    AL_TRAIN_CUT."""
+    from spsnet_torch.models.detectors.detector3d import head_detections
+    from spsnet_torch.ops import boxes as boxes_ops
+    seed, n, channels = AL_CONFIGS[name]
+    kitti_al = name == 'kitti_models/AL'
+    log(f'== {first}. {name}.yaml serving')
+    cfg, model = build_al_detector(name, 'cuda')
+    host = pv_host_batches(cfg, [seed, seed + 1], AL_B, n, channels)
+    requests = [host['batches'][k % 2] for k in range(AL_REQUESTS)]
+
+    def request():
+        with torch.no_grad():
+            return head_detections(model(host['batches'][0]))
+    request()
+    torch.cuda.reset_peak_memory_stats()
+    with timed_calls(boxes_ops, '_greedy_suppress') as loops:
+        times, launches, dets = centerpoint_path(
+            model, requests, f'{name} requests (B={AL_B})')
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ms = statistics.median(times)
+    loop_share = _loop_share(loops, times)
+    al3d = model.backbone_3d
+    log(f'  launches over {AL_REQUESTS} requests: {launches}; the NMS loops '
+        f'{loop_share:.3f} of the requests\' wall time')
+    log(f'  ms/batch (B={AL_B}, N={n}, {channels} channels: PillarVFE over '
+        f'{host["batches"][0]["voxel_valid"].shape[1]} pillars, the '
+        f'{al3d.bev_shape[0]} x {al3d.bev_shape[1]} BEV U-Net, the '
+        f'{al3d.range_shape[0]} x {al3d.range_shape[1]} range U-Net, the '
+        f'fusion, RB_Fusion, {len(model.dense_head.heads_list)} head '
+        f'groups, class-specific NMS): median {ms:.3f}, range '
+        f'{min(times):.3f}-{max(times):.3f}, all '
+        f'{[round(t, 3) for t in times]}; peak memory {peak:.3f} GiB; '
+        f'detections a frame {dets["count"].tolist()} on {smi}')
+    rec = {'ms_per_batch': ms, 'all_ms': times, 'launches': launches,
+           'range_ms': [min(times), max(times)], 'peak_gib': peak,
+           'nms_loop_share': loop_share, 'host_ms_a_frame': host['host_ms'],
+           'pillars_before_cap': host['before'],
+           'pillars_after_cap': host['after'],
+           'detections': dets['count'].tolist()}
+    if name != 'kitti_models/MLT_SSD':
+        # KITTI MLT_SSD's stages are AL's at half the BEV width
+        rec['profile'] = al_profile(model, request,
+                                    f'one {name} request (B={AL_B})')
+    if kitti_al:
+        log(f'== {first + 1}. {name} card vs CPU, one request (B=1)')
+        rec['card_vs_cpu'] = al_cpu_phase(
+            model, name, {k: v[:1] for k, v in host['batches'][0].items()})
+        first += 1
+    del model, host, requests
+
+    log(f'== {first + 1}. {name} train path' + (
+        f'; card vs CPU one train step (cut: {AL_TRAIN_CUT})'
+        if kitti_al else ''))
+    cfg, model, opt, step = build_al_trainer('cuda', name)
+    batches, host_ms, before, after = pv_train_batches(
+        cfg, range(seed + 50, seed + 52), sizes=_al_sizes(name), n=n,
+        channels=channels, velocity=name.startswith('nuscenes'))
+    log(f'  host pillars at the train settings: '
+        f'{statistics.median(host_ms):.3f} ms a frame; pillars a frame '
+        f'{before}, after the cap {after}; gt boxes '
+        f'{tuple(batches[0]["gt_boxes"].shape)}')
+    train = pillar_train_path(
+        model, step, opt, batches, AL_TRAIN_STEPS,
+        f'B={PV_TRAIN_B}, N={n}: PillarVFE, both U-Nets, the fusion, '
+        f'RB_Fusion, CenterHeadIoU targets and losses, backward, '
+        f'adam_onecycle', smi, AL_SEMANTIC_ONLY)
+    train.update(host_ms_a_frame=host_ms, pillars_before_cap=before,
+                 pillars_after_cap=after)
+    if kitti_al:
+        train['profile'] = al_profile(model, lambda: step(batches[1]),
+                                      f'one {name} train step (B=2)')
+    del model, step, batches
+    if kitti_al:
+        torch.cuda.reset_peak_memory_stats()
+        train['card_vs_cpu'] = al_train_cpu_phase(
+            al_cut_batch(name, AL_TRAIN_CUT, seed + 95), name, AL_TRAIN_CUT)
+        train['card_vs_cpu']['peak_gib'] = \
+            torch.cuda.max_memory_allocated() / 2 ** 30
+    return rec, train
+
+
+def al_phases(smi):
+    """Phases 85-91; returns their records by path."""
+    recs, first = {}, 85
+    for name in AL_CONFIGS:
+        short = name.replace('_models/', '_')
+        recs[short], recs[f'{short}_train'] = al_phases_of(name, first, smi)
+        first += 3 if name == 'kitti_models/AL' else 2
+    return recs
+
+
 def card_and_build():
     """Phases 1 and 2; returns the card's nvidia-smi line."""
     from spsnet_torch.ops import _build
@@ -7410,6 +7895,7 @@ def main(argv=()) -> int:
     pillars = pillar_phases(smi)
     multihead = multihead_phases(smi)
     parta2 = parta2_phases(smi)
+    al = al_phases(smi)
 
     paths = {'serve': launches, 'train': train_launches,
              'spsnet': sps_launches, 'fps_entries': entry_launches,
@@ -7431,7 +7917,8 @@ def main(argv=()) -> int:
              'pvrcnnpp_train': pvpp_train['launches'],
              **{name: rec['launches'] for name, rec in pillars.items()},
              **{name: rec['launches'] for name, rec in multihead.items()},
-             **{name: rec['launches'] for name, rec in parta2.items()}}
+             **{name: rec['launches'] for name, rec in parta2.items()},
+             **{name: rec['launches'] for name, rec in al.items()}}
     for entry in entries:
         entry['launches_by_path'] = {path: counts.get(entry['name'], 0)
                                      for path, counts in paths.items()}
@@ -7502,7 +7989,7 @@ def main(argv=()) -> int:
                     'voxelrcnn_waymo': vr_waymo, 'pvrcnnpp': pvpp,
                     'pvrcnnpp_resnet': pvpp_resnet,
                     'pvrcnnpp_train': pvpp_train, 'pillars': pillars,
-                    'multihead': multihead, 'parta2': parta2,
+                    'multihead': multihead, 'parta2': parta2, 'al': al,
                     'card': smi}))
     log(smi)
     log(json.dumps({'ok': True, 'device': {

@@ -1,5 +1,6 @@
 """SECOND's BEV conv / deconv pyramid (``base_bev_backbone.py:6-112``, as
-``spsnet_tpu/models/backbones_2d/base_bev_backbone.py:12-60``), NCHW.
+``spsnet_tpu/models/backbones_2d/base_bev_backbone.py:12-60``), and the
+AL family's range / BEV attention fusion ``RBFusion`` (``:63-103``), NCHW.
 
 Submodules as the reference's: ``blocks.{i}`` is ZeroPad2d(1), Conv2d (the
 level's stride), BatchNorm, ReLU, then LAYER_NUMS[i] times Conv2d (pad 1),
@@ -20,7 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..blocks import BatchNormNCHW
+from ..blocks import BatchNormNCHW, Dropout
 
 
 class StridedDeblock(nn.Conv2d):
@@ -87,3 +88,39 @@ class BaseBEVBackbone(nn.Module):
         if ups:
             x = torch.cat(ups, dim=1) if len(ups) > 1 else ups[0]
         return dict(batch, spatial_features_2d=x)
+
+
+class RBFusion(nn.Module):
+    """Range / BEV attention fusion (``RB_Fusion``,
+    ``base_bev_backbone.py:114-177``): the [BEV | range] map
+    'spatial_features' (B, BEV_DIM + RANGE_DIM, H, W) gated by a channel
+    attention (each half's global mean and max through ``channel_fc1``,
+    ReLU, ``Dropout(0.2)`` and ``channel_fc2``) and a spatial attention
+    (``space_conv``, 3 x 3, over each half's channel mean and max), plus
+    the map itself, as 'spatial_features_2d'. The maxima are ``amax``
+    (their gradient split among ties, as JAX's); the dropout mask comes
+    from the step's generator (``batch['rngs']['dropout']``)."""
+
+    def __init__(self, model_cfg, input_channels: int = 0):
+        super().__init__()
+        self.bev_dim = int(model_cfg.BEV_DIM)
+        range_dim = int(model_cfg.RANGE_DIM)
+        c = self.bev_dim + range_dim
+        self.channel_fc1 = nn.Linear(2 * c, self.bev_dim, bias=False)
+        self.dropout = Dropout(0.2)
+        self.channel_fc2 = nn.Linear(self.bev_dim, c)
+        self.space_conv = nn.Conv2d(4, 1, 3, padding=1)
+        self.num_bev_features = c
+
+    def forward(self, batch):
+        x = batch['spatial_features']
+        bev, rng = x[:, :self.bev_dim], x[:, self.bev_dim:]
+        channel = torch.cat([bev.mean(dim=(2, 3)), rng.mean(dim=(2, 3)),
+                             bev.amax(dim=(2, 3)), rng.amax(dim=(2, 3))], 1)
+        channel = self.dropout(F.relu(self.channel_fc1(channel)),
+                               batch.get('rngs', {}).get('dropout'))
+        channel = torch.sigmoid(self.channel_fc2(channel))[..., None, None]
+        space = torch.stack([bev.mean(dim=1), rng.mean(dim=1),
+                             bev.amax(dim=1), rng.amax(dim=1)], 1)
+        space = torch.sigmoid(self.space_conv(space))
+        return dict(batch, spatial_features_2d=space * (channel * x) + x)

@@ -6,6 +6,7 @@ import numpy as np
 import torch
 
 from ..blocks import init_weights
+from .al_net import ALNet
 from .centerpoint import CenterPoint
 from .iassd import IASSD
 from .part_a2 import PartA2FreeNet, PartA2Net
@@ -19,8 +20,11 @@ from .voxel_rcnn import VoxelRCNN
 
 # PAGNet and SPSNet-IA are IASSD with the PAGNet backbone and the MLT head,
 # both picked by the config; SPSNet's batch carries the stability hook's
-# 'stds' (``runtime.trainer.make_stability_preprocess``)
-_DETECTORS = {'IASSD': IASSD, 'PAGNet': IASSD, 'SPSNet': IASSD,
+# 'stds' (``runtime.trainer.make_stability_preprocess``); the reference's
+# 3DSSD detector is the IASSD forward (``spsnet_tpu/models/detectors/
+# __init__.py:17-21``)
+_DETECTORS = {'IASSD': IASSD, '3DSSD': IASSD, 'PAGNet': IASSD,
+              'SPSNet': IASSD, 'ALNet': ALNet,
               'PointRCNN': PointRCNN, 'SECONDNet': SECONDNet,
               'PVRCNN': PVRCNN, 'VoxelRCNN': VoxelRCNN,
               'CenterPoint': CenterPoint, 'PVRCNNPlusPlus': PVRCNNPlusPlus,
@@ -28,15 +32,16 @@ _DETECTORS = {'IASSD': IASSD, 'PAGNet': IASSD, 'SPSNet': IASSD,
               'PartA2Net': PartA2Net}
 _VOXEL_DETECTORS = (SECONDNet, PVRCNN, VoxelRCNN, CenterPoint,
                     PVRCNNPlusPlus, PointPillar, SECONDNetIoU, PartA2Net,
-                    PartA2FreeNet)
+                    PartA2FreeNet, ALNet)
 # the modules the port has, by config block: a block naming another one
-# (AL_3D, ImageVFE, ...) is not ported
+# (ImageVFE, ...) is not ported
 _PORTED = {
     'VFE': {'MeanVFE', 'PillarVFE', 'DynamicPillarVFE', 'DynPillarVFE'},
     'BACKBONE_3D': {'IASSD_Backbone', 'PAGNet_Backbone', 'PointNet2MSG',
-                    'VoxelBackBone8x', 'VoxelResBackBone8x', 'UNetV2'},
+                    'VoxelBackBone8x', 'VoxelResBackBone8x', 'UNetV2',
+                    'AL_3D'},
     'MAP_TO_BEV': {'HeightCompression', 'PointPillarScatter', 'Sparse2BEV'},
-    'BACKBONE_2D': {'BaseBEVBackbone'},
+    'BACKBONE_2D': {'BaseBEVBackbone', 'RB_Fusion', 'RBFusion'},
     'DENSE_HEAD': {'AnchorHeadSingle', 'AnchorHeadMulti', 'CenterHead',
                    'CenterHeadIoU'},
     'PFE': {'VoxelSetAbstraction'},
@@ -49,8 +54,7 @@ _PORTED = {
 
 # the ROADMAP Queue 1 item of each module that the configs of tools/cfgs
 # name and the port lacks
-_ITEMS = {'AL_3D': 'F9', 'RB_Fusion': 'F9',
-          'ImageVFE': 'F10', 'Conv2DCollapse': 'F10'}
+_ITEMS = {'ImageVFE': 'F10', 'Conv2DCollapse': 'F10'}
 
 
 def unported_modules(model_cfg) -> list:
@@ -61,13 +65,18 @@ def unported_modules(model_cfg) -> list:
 
 
 def detector_class(model_cfg):
-    """The class that serves ``model_cfg``: ``_DETECTORS[NAME]``, but a
+    """The class that serves ``model_cfg``: ``_DETECTORS[NAME]``, routed
+    as ``spsnet_tpu/models/detectors/__init__.py:42-57`` routes it: a
+    PAGNet config with a VFE block (AL.yaml, MLT_SSD.yaml) and a
+    CenterPoint config over AL_3D are the AL stack's ``ALNet``, a
     PointRCNN over the UNetV2 voxel backbone is PartA2_free's
-    ``PartA2FreeNet`` (as ``spsnet_tpu/models/detectors/__init__.py:53-57``
-    routes it); None for a name the port lacks."""
+    ``PartA2FreeNet``; None for a name the port lacks."""
     backbone = model_cfg.get('BACKBONE_3D', None)
-    if model_cfg.NAME == 'PointRCNN' and backbone is not None and \
-            backbone.get('NAME') == 'UNetV2':
+    backbone = backbone.get('NAME') if backbone is not None else None
+    if (model_cfg.NAME == 'PAGNet' and 'VFE' in model_cfg) or (
+            model_cfg.NAME == 'CenterPoint' and backbone == 'AL_3D'):
+        return ALNet
+    if model_cfg.NAME == 'PointRCNN' and backbone == 'UNetV2':
         return PartA2FreeNet
     return _DETECTORS.get(model_cfg.NAME)
 
@@ -116,9 +125,8 @@ def build_detector(model_cfg, num_class: int, device='cuda',
         raise NotImplementedError('; '.join([
             f'detector {name} ({", ".join(missing) or "no such detector"}): '
             f'the port serves and trains {sorted(_DETECTORS)}', *items,
-            'the rest of the voxel and two-stage zoo is ROADMAP Queue 1 '
-            'item F9-F10 (F9 the AL_3D stack, F10 CaDDN), the rest of the '
-            'point family item E']))
+            'the rest of the zoo is ROADMAP Queue 1 item F10 (CaDDN), the '
+            'rest of the point family item E']))
     cls = detector_class(model_cfg)
     if cls in _VOXEL_DETECTORS:
         if cls is PVRCNN:

@@ -1,13 +1,16 @@
-"""The losses of the heads (``spsnet_tpu/utils/loss_utils.py:19-136``;
+"""The losses of the heads (``spsnet_tpu/utils/loss_utils.py:19-218``;
 reference ``pcdet/utils/loss_utils.py``): elementwise, no reduction unless
 stated. ``WeightedCrossEntropy`` names the reference's sigmoid CE
-(``WeightedClassificationLoss``, :232)."""
+(``WeightedClassificationLoss``, :232). The AL family's semantic loss
+(``cpgnet_criterion``, with ``lovasz_softmax``) reduces to scalars."""
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from . import box_utils
+from .common import true_div
 
 
 def sigmoid_cross_entropy_with_logits(logits, labels):
@@ -105,3 +108,99 @@ def build_cls_loss(name):
         if name.startswith(key):
             return fn
     raise NotImplementedError(name)
+
+
+def lovasz_grad(gt_sorted):
+    """Gradient of the Jaccard loss's convex extension with respect to the
+    sorted errors (Lovasz-Softmax, Berman et al.), along the last axis of
+    the sorted 0 / 1 ground truth."""
+    gts = gt_sorted.sum(-1, keepdim=True)
+    intersection = gts - gt_sorted.cumsum(-1)
+    union = gts + (1.0 - gt_sorted).cumsum(-1)
+    jaccard = 1.0 - intersection / union.clamp(min=1e-9)
+    if gt_sorted.shape[-1] > 1:
+        jaccard = torch.cat([jaccard[..., :1],
+                             jaccard[..., 1:] - jaccard[..., :-1]], -1)
+    return jaccard
+
+
+def lovasz_softmax(probs, labels, valid=None, classes='present'):
+    """Flat Lovasz-softmax of (P, C) probabilities and (P,) int labels,
+    all classes at once: an invalid point has zero error and sorts behind
+    the valid ones, where it adds nothing. Each class's errors are sorted
+    in descending order by a stable sort (``jnp.argsort(-err)``'s order):
+    tied errors keep their point order, which decides each one's share of
+    the gradient. ``classes`` 'present' averages over the classes with a
+    foreground point, anything else over all."""
+    P, C = probs.shape
+    if valid is None:
+        valid = torch.ones(P, dtype=torch.bool, device=probs.device)
+    fg = ((labels[None] == torch.arange(C, device=labels.device)[:, None])
+          & valid).to(probs.dtype)
+    err = (fg - probs.t()).abs() * valid
+    order = torch.argsort(-err, dim=1, stable=True)
+    losses = (err.gather(1, order) * lovasz_grad(fg.gather(1, order))).sum(1)
+    if classes == 'present':
+        present = (fg.sum(1) > 0).to(probs.dtype)
+        return (losses * present).sum() / present.sum().clamp(min=1.0)
+    return losses.mean()
+
+
+def cpgnet_criterion(logits, target, weight='dynamic-log', ignore=None,
+                     classes='present', with_ls=True, valid=None):
+    """The semantic-segmentation loss (``CPGNetCriterion``,
+    ``loss_utils.py:157-203``): class-weighted softmax cross entropy
+    normalised by the summed weights (as ``F.cross_entropy(weight=...)``)
+    plus 2 x Lovasz-softmax. ``weight``: 'dynamic-log' (1 / (log(count + 1)
+    / log(n + 1) + 1e-3) of each class's count among the n valid points),
+    'dynamic' (1 / (count / n + 1e-3)) or a list a class; ``ignore``, the
+    classes whose weight is 0.
+
+    Args: logits (P, C); target (P,) int (clipped to [0, C - 1]); valid
+    (P,) bool, the points that count.
+    Returns: {'loss_wce', 'loss_ls', 'loss'}.
+    """
+    P, C = logits.shape
+    if valid is None:
+        valid = torch.ones(P, dtype=torch.bool, device=logits.device)
+    tgt = target.long().clamp(0, C - 1)
+    onehot = F.one_hot(tgt, C).to(logits.dtype) * valid[:, None]
+    if isinstance(weight, str) and weight.startswith('dynamic'):
+        cnt = onehot.sum(0)
+        n = valid.sum().clamp(min=1).to(logits.dtype)
+        freq = torch.log(cnt + 1) / torch.log(n + 1) \
+            if weight == 'dynamic-log' else cnt / n
+        w = 1.0 / (freq + 1e-3)
+    else:
+        w = torch.as_tensor(weight, dtype=logits.dtype, device=logits.device)
+    if ignore:
+        w = w.clone()
+        w[list(ignore)] = 0.0
+    per_pt_w = w[tgt] * valid
+    ce = -(onehot * torch.log_softmax(logits, -1)).sum(-1)
+    loss_wce = (ce * per_pt_w).sum() / per_pt_w.sum().clamp(min=1e-9)
+    loss_ls = lovasz_softmax(torch.softmax(logits, -1), tgt, valid,
+                             classes) if with_ls else logits.new_zeros(())
+    return {'loss_wce': loss_wce, 'loss_ls': loss_ls,
+            'loss': loss_wce + 2.0 * loss_ls}
+
+
+def sem_seg_loss(sem_pred, sem_labels, loss_weights, fg_only=False):
+    """The AL family's per-point semantic loss (``ALNet.loss``, the head's
+    SEM_TASK and USE_DET_FOR_SEM branches): ``cpgnet_criterion`` of the
+    (B, N, C) logits against the (B, N) labels over the points labelled
+    >= 0 (with ``fg_only``, > 0, the loss scaled by their share of the B N
+    points), times LOSS_WEIGHTS' sem_weight (3.0); its class weights
+    sem_cs_weight ('dynamic-log'), its ignored classes sem_ignore."""
+    B, N, C = sem_pred.shape
+    flat_t = sem_labels.reshape(B * N)
+    valid = flat_t >= 0
+    ratio = 1.0
+    if fg_only:
+        valid = valid & (flat_t > 0)
+        ratio = true_div(valid.sum().to(sem_pred.dtype), float(B * N))
+    out = cpgnet_criterion(
+        sem_pred.reshape(B * N, C), flat_t,
+        weight=loss_weights.get('sem_cs_weight', 'dynamic-log'),
+        ignore=loss_weights.get('sem_ignore', None), valid=valid)
+    return out['loss'] * ratio * float(loss_weights.get('sem_weight', 3.0))

@@ -96,13 +96,29 @@ convolutions with their masked BatchNorm):
     roi_head/conv_{part,rpn}_{i}/{conv,bn}         roi_head.conv_{part,rpn}.{i}.{0,1}
     roi_head/{shared_fc,cls_layers,reg_layers}     as PV-RCNN's
 
+The AL stack (AL.yaml, MLT_SSD.yaml) names its torch modules as the flax
+tree does, so a path maps onto its dotted form:
+
+    backbone_3d/{range_embed,cls_fc1,cls_fc2,cls_out}  backbone_3d.{same name}
+    backbone_3d/{bev_unet,range_unet}/...          backbone_3d.{same path} (CPUnet: pre_conv,
+                                                     enc{i}/conv{j}/{conv,bn}, dec{i}/transconv, ...)
+    backbone_3d/fusion/...                         backbone_3d.fusion.{same path} (CBAM's ca/fc{1,2},
+                                                     sa/conv; transconv{i}; sd{i}/{compress,bn})
+    backbone_2d/{channel_fc1,channel_fc2,space_conv} backbone_2d.{same name} (RB_Fusion)
+
+(``same_name_flax_to_torch`` maps a standalone module of such names, a
+CPUnet, a FusionBlock or the U_Net slot's UNet, the same way).
+
 A Dense kernel (in, out) becomes a Linear weight (out, in); a Conv kernel
 (kh, kw, in, out) a Conv2d weight (out, in, kh, kw), a 3D one (kx, ky, kz,
 in, out) a Conv3d weight (out, in, kx, ky, kz). A flax ConvTranspose
 kernel (kh, kw, in, out) becomes a ConvTranspose2d weight (in, out, kh, kw)
 flipped in both spatial axes: with kernel = stride, flax sends input i to
 output s * i + r through tap s - 1 - r, torch through tap r; a deblock
-that is a strided Conv (an UPSAMPLE_STRIDE below 1) maps as a Conv. A
+that is a strided Conv (an UPSAMPLE_STRIDE below 1) maps as a Conv. The
+AL stack's 3 x 3 'SAME' ConvTransposes (``transconv``, ``transconv{i}``)
+flip the same way (``al_2d.SameConvTranspose2d`` keeps flax's output
+window). A
 SharedMLP without BatchNorm (no ``BatchNorm_k`` beside its ``Dense_k``)
 has its Linear at 2k.
 """
@@ -258,6 +274,9 @@ _CENTER_LAYER = re.compile(r'(\w+)_(conv|bn)(\d+)')
 _PFN = re.compile(r'pfn_(\d+)|pfn(\d+)_(fc|bn)')
 _MULTI_HEAD = re.compile(r'head(\d+)_([a-z]+)(_mid(\d+)(_bn)?)?')
 _BEV_LAYER = re.compile(r'(de)?block(\d+)(_down|_conv(\d+))?(_bn(\d*))?')
+_AL_3D = re.compile(r'range_embed|(range|bev)_unet|fusion|cls_(fc\d|out)')
+_RB_FUSION = ('channel_fc1', 'channel_fc2', 'space_conv')
+_TRANSCONV = re.compile(r'(^|\.)transconv\d*\.weight$')
 
 
 def _bev_name(layer) -> str:
@@ -355,6 +374,8 @@ def _voxel_name(module, hidden) -> str:
     """Torch name prefix of a flax module of the voxel detectors' own
     blocks (raises ``KeyError`` for any other)."""
     top, rest = module[0], module[1:]
+    if top == 'backbone_2d' and rest in tuple((n,) for n in _RB_FUSION):
+        return f'backbone_2d.{rest[0]}'
     if top == 'backbone_3d' and len(rest) == 2 and \
             _SPARSE_CONV.fullmatch(rest[0]):
         return f'backbone_3d.{rest[0]}.{_seq_index(rest[1])}'
@@ -416,6 +437,9 @@ def _torch_name(module, hidden, bn_paths) -> str:
     if module[0] == 'point_head' and len(module) > 2 and module[1] in _HEADS:
         idx = _head_index(module[:2], module[2:], hidden)
         return f'point_head.{_HEADS[module[1]]}.{idx}'
+    if module[0] == 'backbone_3d' and len(module) >= 2 and \
+            _AL_3D.fullmatch(module[1]):
+        return '.'.join(module)
     if module[0] == 'backbone_3d' and len(module) >= 3:
         return _backbone_name(module, hidden)
     if module[0] == 'roi_head' and len(module) >= 3:
@@ -487,8 +511,8 @@ def _is_bn(module_name: str) -> bool:
     """A flax BatchNorm: ``BatchNorm_k`` in a SharedMLP or a sparse conv,
     ``..._bn`` / ``block{i}_bn{j}`` in the BEV backbone, ``agg_bn`` and
     ``(msg_)post_bn_{i}`` in VectorPool aggregation."""
-    return module_name.startswith('BatchNorm') or module_name == 'bn' or \
-        re.fullmatch(r'\w+_bn(\d*|_\d+)', module_name) is not None
+    return module_name.startswith('BatchNorm') or \
+        re.fullmatch(r'bn\d*|\w+_bn(\d*|_\d+)', module_name) is not None
 
 
 def _kernel_to_torch(arr, name, conv_deblocks=()):
@@ -500,7 +524,8 @@ def _kernel_to_torch(arr, name, conv_deblocks=()):
     if arr.ndim == 5:
         return arr.transpose(4, 3, 0, 1, 2).copy()
     m = re.search(r'\.deblocks\.(\d+)\.', name)
-    if m and int(m.group(1)) not in conv_deblocks:
+    if (m and int(m.group(1)) not in conv_deblocks) or \
+            _TRANSCONV.search(name):
         return arr[::-1, ::-1].transpose(2, 3, 0, 1).copy()
     return arr.transpose(3, 2, 0, 1).copy()
 
@@ -510,8 +535,8 @@ def _convert(variables, name_of,
     unknown = set(variables) - {'params', 'batch_stats'}
     if unknown:
         raise KeyError(f'unmapped flax collections: {sorted(unknown)}')
-    hidden = _n_hidden(variables['params'])
-    bn_paths = {path[:-2] for path, _ in _leaves(variables['params'])
+    hidden = _n_hidden(variables.get('params', {}))
+    bn_paths = {path[:-2] for path, _ in _leaves(variables.get('params', {}))
                 if path[-2].startswith('BatchNorm_')}
     sd = OrderedDict()
     for coll in ('params', 'batch_stats'):
@@ -548,6 +573,14 @@ def flax_to_torch(variables,
     (``base_bev_backbone.StridedDeblock``), the others ConvTransposes.
     Raises ``KeyError`` on a flax leaf it cannot map."""
     return _convert(variables, _torch_name, conv_deblocks)
+
+
+def same_name_flax_to_torch(variables) -> "OrderedDict[str, torch.Tensor]":
+    """``flax_to_torch`` for a module whose torch names are its flax paths
+    dotted (a ``CPUnet``, a ``FusionBlock``, an ``AL3D``, ``RBFusion``,
+    the U_Net slot's ``UNet``), standalone."""
+    return _convert(variables, lambda module, hidden, bn_paths:
+                    '.'.join(module))
 
 
 def conv_deblocks_of(model: torch.nn.Module) -> frozenset:

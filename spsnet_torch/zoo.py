@@ -916,3 +916,84 @@ def tiny_parta2_free_cfg() -> EDict:
                          SEG_MASK_SCORE_THRESH=0.0),
         'POST_PROCESSING': base.POST_PROCESSING,
     })
+
+
+def al_kitti_cfg() -> EDict:
+    """AL on KITTI (``tools/cfgs/kitti_models/AL.yaml``): pillars, the
+    BEV and range-view CP-UNets and their fusion, RB_Fusion and
+    CenterHeadIoU, through the PAGNet name."""
+    return load_yaml_cfg('tools/cfgs/kitti_models/AL.yaml')
+
+
+def mlt_ssd_kitti_cfg() -> EDict:
+    """MLT-SSD on KITTI (``tools/cfgs/kitti_models/MLT_SSD.yaml``): AL's
+    stack with 32 pillar and BEV channels."""
+    return load_yaml_cfg('tools/cfgs/kitti_models/MLT_SSD.yaml')
+
+
+def mlt_ssd_nuscenes_cfg() -> EDict:
+    """MLT-SSD on nuScenes (``tools/cfgs/nuscenes_models/MLT_SSD.yaml``):
+    a 512 x 512 pillar map of 0.2 m, scans of 5 channels, six head
+    groups."""
+    return load_yaml_cfg('tools/cfgs/nuscenes_models/MLT_SSD.yaml')
+
+
+def tiny_al_cfg() -> EDict:
+    """Tiny AL (CPU-fast): the JAX package's ``tests/test_alnet.py``
+    ``alnet_tiny_cfg``, a 32 x 32 pillar map of 0.8 m over (0, -12.8, -3,
+    25.6, 12.8, 1) and an 8 x 64 range image."""
+    return EDict({
+        'NAME': 'PAGNet',
+        'VFE': {'NAME': 'PillarVFE', 'WITH_DISTANCE': False,
+                'USE_ABSLOTE_XYZ': True, 'USE_NORM': True,
+                'NUM_FILTERS': [16, 16]},
+        'MAP_TO_BEV': {'NAME': 'Sparse2BEV', 'NUM_BEV_FEATURES': 16},
+        'BACKBONE_3D': {
+            'NAME': 'AL_3D',
+            'NUM_RANGE_FEATURES': 8,
+            'NUM_BEV_FEATURES': 16,
+            'NUM_RANGE_SEG_FEATURES': 16,
+            'NUM_BEV_SEG_FEATURES': 16,
+            'NUM_FUSION_FEATURES': 64,
+            'SEM_CLS': 4,
+            'PC_FOV': [-30.0, 10.0, -180, 180],
+            'BEV_SHAPE': [32, 32],
+            'RANGE_SHAPE': [8, 64],
+            'POINT_CLOUD_RANGE': [0, -12.8, -3, 25.6, 12.8, 1],
+        },
+        'BACKBONE_2D': {'NAME': 'RB_Fusion', 'BEV_DIM': 64, 'RANGE_DIM': 32},
+        'DENSE_HEAD': {
+            'NAME': 'CenterHeadIoU', 'CLASS_AGNOSTIC': False,
+            'CLASS_NAMES_EACH_HEAD': [['Car'], ['Pedestrian'], ['Cyclist']],
+            'SHARED_CONV_CHANNEL': 16,
+            'USE_BIAS_BEFORE_NORM': True,
+            'NUM_HM_CONV': 2,
+            'SEPARATE_HEAD_CFG': {
+                'HEAD_ORDER': ['center', 'center_z', 'dim', 'rot'],
+                'HEAD_DICT': {
+                    'center': {'out_channels': 2, 'num_conv': 2},
+                    'center_z': {'out_channels': 1, 'num_conv': 2},
+                    'dim': {'out_channels': 3, 'num_conv': 2},
+                    'rot': {'out_channels': 2, 'num_conv': 2},
+                    'iou': {'out_channels': 1, 'num_conv': 2},
+                }},
+            'TARGET_ASSIGNER_CONFIG': {
+                'FEATURE_MAP_STRIDE': 4, 'NUM_MAX_OBJS': 8,
+                'GAUSSIAN_OVERLAP': 0.1, 'MIN_RADIUS': 2},
+            'LOSS_CONFIG': {'LOSS_WEIGHTS': {
+                'cls_weight': 1.0, 'loc_weight': 0.25, 'iou_weight': 1.0,
+                'code_weights': [1.0] * 8}},
+            'POST_PROCESSING': {
+                'SCORE_THRESH': 0.0,
+                'POST_CENTER_LIMIT_RANGE': [-61.2, -61.2, -10.0,
+                                            61.2, 61.2, 10.0],
+                'MAX_OBJ_PER_SAMPLE': 16,
+                'RECTIFIER': [0.7, 0.65, 0.53],
+                'NMS_CONFIG': {'NMS_NAME': 'class_specific_nms',
+                               'NMS_THRESH': 0.01,
+                               'NMS_PRE_MAXSIZE': 16,
+                               'NMS_POST_MAXSIZE': 4}},
+        },
+        'POST_PROCESSING': {'RECALL_THRESH_LIST': [0.3, 0.5, 0.7],
+                            'EVAL_METRIC': 'kitti'},
+    })

@@ -12,6 +12,10 @@ from spsnet_torch import ops
 from spsnet_torch.models.detectors.detector3d import class_agnostic_nms_batch
 from spsnet_torch.ops.boxes import topk_desc
 
+# one intra-op thread: the suite runs six xdist workers on the CPU, where
+# torch's OpenMP threads oversubscribe the cores (a file took ~3x as long)
+torch.set_num_threads(1)
+
 
 def _boxes(rng, *lead, span=10.0):
     b = np.zeros(lead + (7,), np.float32)

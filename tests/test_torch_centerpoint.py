@@ -49,6 +49,10 @@ from tests.test_torch_pvrcnn import _Holder
 from tests.test_torch_pvrcnn_train import (_clustered_frames, _np_tree,
                                            _variables)
 
+# one intra-op thread: the suite runs six xdist workers on the CPU, where
+# torch's OpenMP threads oversubscribe the cores (a file took ~3x as long)
+torch.set_num_threads(1)
+
 CLASSES = ['Car', 'Pedestrian', 'Cyclist']
 # the tiny model's geometry: a cropped KITTI range at 0.1 m voxels, sparse
 # grid (41, 128, 128), final (2, 16, 16): a 16 x 16 BEV map at stride 8
@@ -347,6 +351,17 @@ def serve_batch():
     return voxel_batch(pts, _data_cfg())
 
 
+_SERVED = {}
+
+
+def _served(protocol, batch):
+    """``_serve`` of ``_protocol(protocol)`` on ``serve_batch``, once a
+    module (a test that edits the variables takes a copy)."""
+    if protocol not in _SERVED:
+        _SERVED[protocol] = _serve(_protocol(protocol), batch)
+    return _SERVED[protocol]
+
+
 def _protocol(name):
     cfg = zoo.tiny_centerpoint_voxel_cfg(FINAL)
     head = cfg.DENSE_HEAD
@@ -366,7 +381,7 @@ def test_tiny_centerpoint_serving_matches_jax(serve_batch, protocol):
     NMS; labels, valid masks and counts identical, boxes and the
     rectified scores within tolerance; both groups and every class
     detect."""
-    model, variables, out, jout = _serve(_protocol(protocol), serve_batch)
+    model, variables, out, jout = _served(protocol, serve_batch)
     for g, (pd, jpd) in enumerate(zip(out['center_head_iou_ret'][
             'pred_dicts'], jout['center_head_iou_ret']['pred_dicts'])):
         assert set(pd) == set(jpd) == {'hm', 'center', 'center_z', 'dim',
@@ -391,7 +406,7 @@ def test_flax_to_torch_maps_every_centerpoint_key(serve_batch):
     """Every leaf of the tiny CenterPoint tree (the residual blocks, the
     shared conv, both groups' SeparateHeads in sorted order) lands on a
     port key and back; one group's heatmap stack where its rule puts it."""
-    model, variables, _, _ = _serve(_protocol('upstream'), serve_batch)
+    model, variables, _, _ = _served('upstream', serve_batch)
     sd = flax_to_torch(variables)
     assert set(sd) == set(model.state_dict())
     head = variables['params']['dense_head']['head_1']
@@ -413,7 +428,7 @@ def test_flax_to_torch_maps_every_centerpoint_key(serve_batch):
 def test_centerpoint_tree_raises_on_unmapped_flax_keys(serve_batch, where):
     """A head output without its stack, a head layer of no known kind and
     a residual block's third conv have no port key: the bridge raises."""
-    _, variables, _, _ = _serve(_protocol('upstream'), serve_batch)
+    variables = copy.deepcopy(_served('upstream', serve_batch)[1])
     params = variables['params']
     kernel = {'kernel': np.ones((3, 3, 4, 4), np.float32)}
     if where == 'head_output':

@@ -23,6 +23,10 @@ from tests.test_torch_centerpoint import \
     jax_centerpoint_builds  # noqa: F401  (the module's autouse fixture)
 from tests.test_torch_pvrcnn_train import _one_step
 
+# one intra-op thread: the suite runs six xdist workers on the CPU, where
+# torch's OpenMP threads oversubscribe the cores (a file took ~3x as long)
+torch.set_num_threads(1)
+
 
 @pytest.fixture(scope='module')
 def cp_step():

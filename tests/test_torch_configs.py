@@ -34,6 +34,10 @@ from spsnet_torch.stability.model import GenerateCenter
 from spsnet_torch.utils.synthetic import synthetic_scene_batch
 from spsnet_torch.utils.weights import generator_flax_to_torch, load_flax
 
+# one intra-op thread: the suite runs six xdist workers on the CPU, where
+# torch's OpenMP threads oversubscribe the cores (a file took ~3x as long)
+torch.set_num_threads(1)
+
 B, FACTOR = 2, 16
 RTOL, ATOL = 1e-4, 1e-4
 # largest difference of one top-k sampler score between the packages: a

@@ -1583,3 +1583,134 @@ def test_unetv2_forward_on_the_card_matches_the_cpu(cuda):
     for key in ('encoded_voxel_features', 'point_features'):
         _close_scaled(g[key], c[key], key)
     assert g['point_features'].shape == (1, 40000, 16)
+
+
+# ------------------------------------------------------ the AL_3D stack
+
+@pytest.mark.parametrize('stride,shape', [((2, 2), (2, 64, 62, 54)),
+                                          ((1, 2), (2, 128, 32, 256))])
+def test_same_conv_transpose_on_the_card_matches_the_cpu(cuda, stride,
+                                                         shape):
+    """``al_2d.SameConvTranspose2d`` (flax's 'SAME' ConvTranspose: torch's
+    at padding 0 or 1, then the first s H rows and s W columns) under
+    cuDNN at the BEV U-Net's first decoder shape and the range fusion's
+    first: the output, the input's and the weight's gradients card vs CPU
+    within 1e-4 relative plus 1e-4 of each tensor's largest entry."""
+    from spsnet_torch.models.backbones_2d.al_2d import SameConvTranspose2d
+    from spsnet_torch.models.detectors import resolve_device
+    resolve_device(cuda)
+    gen = torch.Generator().manual_seed(71)
+    x = torch.randn(shape, generator=gen)
+    w = torch.randn(shape[1], shape[1] // 2, 3, 3, generator=gen) * 0.05
+    bias = torch.randn(shape[1] // 2, generator=gen)
+    outs = []
+    for device in (cuda, 'cpu'):
+        m = SameConvTranspose2d(shape[1], shape[1] // 2, stride).to(device)
+        with torch.no_grad():
+            m.weight.copy_(w)
+            m.bias.copy_(bias)
+        xi = x.to(device).requires_grad_()
+        y = m(xi)
+        (y * y).sum().backward()
+        outs.append((y.detach(), xi.grad, m.weight.grad))
+    assert outs[0][0].shape == (shape[0], shape[1] // 2,
+                                shape[2] * stride[0], shape[3] * stride[1])
+    for g, c, what in zip(outs[0], outs[1], ('output', 'input gradient',
+                                              'weight gradient')):
+        _close_scaled(g, c, what)
+
+
+def _al_coords_held(card, own, side_bev, side_rng):
+    """The card's AL projections against the CPU's: each coordinate within
+    16 fp32 ulps of its grid side, its cell the same but within that slack
+    of an edge; the BEV masks identical, the field-of-view masks differing
+    at most at a few points. Returns the cells and masks that differ."""
+    differ = 0
+    for g, c, shape in ((card[0], own[0], side_bev),
+                        (card[1], own[1], side_rng)):
+        for a, b, side in ((g[0], c[0], shape[1]), (g[1], c[1], shape[0])):
+            a, b = a.cpu().double(), b.double()
+            slack = 16 * 2.0 ** -23 * side
+            assert float((a - b).abs().max()) <= slack
+            cell = a.floor() != b.floor()
+            assert ((a - a.round()).abs()[cell] <= slack).all()
+            differ += int(cell.sum())
+        differ += int((g[2].cpu() != c[2]).sum())
+    assert torch.equal(card[0][2].cpu(), own[0][2])
+    return differ
+
+
+def test_al_projections_on_the_card_match_the_cpu(cuda):
+    """kitti_models/AL.yaml's projections of 2 scans of 16 384 points card
+    vs CPU (arcsin and arctan2 round otherwise on the card): within the
+    slack of ``_al_coords_held``; then on the CPU's coordinates the range
+    image's scatter-max bit for bit and its gradient (the ties' split)
+    within 1e-6, the bilinear gather of a BEV map and its gradient within
+    1e-4 of each tensor's largest entry."""
+    from spsnet_torch.models import build_detector_from_cfg
+    from spsnet_torch.models.backbones_2d import projection
+    from spsnet_torch.utils.synthetic import synthetic_scan_batch
+    from spsnet_torch.zoo import al_kitti_cfg
+    cfg = al_kitti_cfg()
+    model = build_detector_from_cfg(cfg, device='cpu')
+    al3d = model.backbone_3d
+    pts = torch.from_numpy(synthetic_scan_batch(72, 2, 16384))
+    pts[:, :64] = pts[:, 64:128]                     # duplicates: ties
+    own = al3d.coords({'points': pts})
+    card = al3d.coords({'points': pts.to(cuda)})
+    print(f'AL projections card vs CPU: '
+          f'{_al_coords_held(card, own, al3d.bev_shape, al3d.range_shape)}'
+          f' cells or masks differ')
+    gen = torch.Generator().manual_seed(73)
+    feats = torch.relu(torch.randn(2, 16384, 16, generator=gen) - 0.5)
+    wts = torch.randn(2, 16, *al3d.range_shape, generator=gen)
+    grid = torch.randn(2, 64, *al3d.bev_shape, generator=gen)
+    outs = []
+    for device in (cuda, 'cpu'):
+        f = feats.to(device).requires_grad_()
+        g = grid.to(device).requires_grad_()
+        rng = [t.to(device) for t in own[1]]
+        bev = [t.to(device) for t in own[0]]
+        img = projection.p2g_max(f, *rng, al3d.range_shape)
+        back = projection.g2p_bilinear(g, *bev)
+        ((img * wts.to(device)).sum() + (back ** 2).sum()).backward()
+        outs.append((img.detach(), f.grad, back.detach(), g.grad))
+    assert torch.equal(outs[0][0].cpu(), outs[1][0])
+    assert torch.allclose(outs[0][1].cpu(), outs[1][1], rtol=1e-6,
+                          atol=1e-6)
+    for g, c, what in zip(outs[0][2:], outs[1][2:],
+                          ('gathered features', 'grid gradient')):
+        _close_scaled(g, c, what)
+
+
+def test_al_forward_on_the_card_matches_the_cpu(cuda):
+    """kitti_models/AL.yaml at full width on one scan (16 000 pillars),
+    seeded weights, eval, the CPU on the card's projections (held by
+    ``_al_coords_held``): the detection features, the semantic logits,
+    RB_Fusion's map and the head's maps card vs CPU within 1e-4 relative
+    plus 1e-4 of each tensor's largest entry."""
+    from spsnet_torch.data.processor import voxel_batch
+    from spsnet_torch.models import build_detector_from_cfg
+    from spsnet_torch.utils.synthetic import synthetic_scan_batch
+    from spsnet_torch.zoo import al_kitti_cfg
+    cfg = al_kitti_cfg()
+    scans = synthetic_scan_batch(74, 1, 16384)
+    batch = {k: torch.from_numpy(v) for k, v in voxel_batch(
+        scans, cfg.DATA_CONFIG, rng=np.random.RandomState(74)).items()}
+    gpu = build_detector_from_cfg(cfg, device=cuda)
+    cpu = build_detector_from_cfg(cfg, device='cpu')
+    al3d = gpu.backbone_3d
+    with torch.no_grad():
+        g = gpu({k: v.to(cuda) for k, v in batch.items()})
+        card = al3d.coords({'points': batch['points'].to(cuda)})
+        own = cpu.backbone_3d.coords(batch)
+        _al_coords_held(card, own, al3d.bev_shape, al3d.range_shape)
+        cpu.backbone_3d.coords = lambda b: [[t.cpu() for t in part]
+                                            for part in card]
+        c = cpu(dict(batch))
+    for key in ('spatial_features', 'sem_pred', 'spatial_features_2d'):
+        _close_scaled(g[key], c[key], key)
+    for pg, pc in zip(g['center_head_iou_ret']['pred_dicts'],
+                      c['center_head_iou_ret']['pred_dicts']):
+        for key in pg:
+            _close_scaled(pg[key], pc[key], key)

@@ -24,11 +24,19 @@ from spsnet_torch.utils.synthetic import synthetic_scan_batch
 from spsnet_torch.utils.weights import load_flax
 from spsnet_torch.zoo import iassd_kitti_cfg, scale_sa_config, tiny_iassd_cfg
 
+# one intra-op thread: the suite runs six xdist workers on the CPU, where
+# torch's OpenMP threads oversubscribe the cores (a file took ~3x as long)
+torch.set_num_threads(1)
+
 RTOL, ATOL = 1e-4, 1e-4
 # largest difference of one ctr_aware score (sigmoid of the max class logit)
 # between the packages: fp32 logits summed in another order differ by a few
 # ulps, and one ulp at 0.5 is 6e-8
 SCORE_TOL = 2.5e-7
+
+
+# the port's model of each run, by its seed
+_MODELS = {}
 
 
 def _run_both(jax_model_cfg, model_cfg, post, seed, batch, n_points):
@@ -41,6 +49,7 @@ def _run_both(jax_model_cfg, model_cfg, post, seed, batch, n_points):
         v, {'points': pts}, train=False))(variables, points)
     model = build_detector(model_cfg, 3, device='cpu')
     load_flax(model, jax.tree_util.tree_map(np.asarray, dict(variables)))
+    _MODELS[seed] = model
     with torch.no_grad():
         out = model({'points': torch.from_numpy(points)})
     kw = dict(score_thresh=float(post.SCORE_THRESH),
@@ -122,3 +131,48 @@ def test_nms_outputs_match(config, request):
     np.testing.assert_allclose(dets['boxes'].numpy(),
                                np.asarray(jax_dets['boxes']), rtol=RTOL,
                                atol=ATOL)
+
+
+def test_3dssd_name_builds_iassd_in_both_packages(tiny):
+    """A tiny IA-SSD config named '3DSSD' (the reference's 3DSSD detector
+    is the IASSD forward) builds each package's IASSD with the same
+    config but for its NAME, and the port's, from the tiny run's weights,
+    gives that run's JAX outputs: the sampled points and the NMS indices
+    identical, the predictions within tolerance (and the tiny run's port
+    predictions bit for bit)."""
+    import copy
+    from spsnet_tpu.config import EDict as JaxEDict
+    from spsnet_tpu.models.detectors.iassd import IASSD as JaxIASSD
+    from spsnet_torch.models.detectors.iassd import IASSD
+    cfg, jax_out, out, jax_dets, _ = tiny
+    renamed = copy.deepcopy(tiny_iassd_cfg())
+    renamed.NAME = '3DSSD'
+    jm = jax_build_detector(JaxEDict(copy.deepcopy(renamed)), num_class=3)
+    base = jax_build_detector(jax_tiny_iassd_cfg(), num_class=3)
+    assert type(jm) is JaxIASSD and type(base) is JaxIASSD
+    assert {k: v for k, v in jm.model_cfg.items() if k != 'NAME'} == \
+        {k: v for k, v in base.model_cfg.items() if k != 'NAME'}
+    model = build_detector(renamed, 3, device='cpu')
+    assert type(model) is IASSD
+    model.load_state_dict(_MODELS[0].state_dict())
+    points = synthetic_scan_batch(0, 2, 512)
+    with torch.no_grad():
+        got = model({'points': torch.from_numpy(points)})
+    for k, methods in enumerate(cfg.BACKBONE_3D.SA_CONFIG.SAMPLE_METHOD_LIST):
+        if methods:
+            np.testing.assert_array_equal(
+                got['encoder_xyz'][k + 1].numpy(),
+                np.asarray(jax_out['encoder_xyz'][k + 1]))
+    for key in ('batch_cls_preds', 'batch_box_preds'):
+        assert torch.equal(got[key], out[key]), key
+        np.testing.assert_allclose(got[key].numpy(), np.asarray(jax_out[key]),
+                                   rtol=RTOL, atol=ATOL, err_msg=key)
+    post = cfg.POST_PROCESSING
+    dets = class_agnostic_nms_batch(
+        got['batch_box_preds'], got['batch_cls_preds'],
+        score_thresh=float(post.SCORE_THRESH),
+        nms_thresh=float(post.NMS_CONFIG.NMS_THRESH),
+        nms_pre=int(post.NMS_CONFIG.NMS_PRE_MAXSIZE),
+        nms_post=int(post.NMS_CONFIG.NMS_POST_MAXSIZE))
+    np.testing.assert_array_equal(dets['indices'].numpy(),
+                                  np.asarray(jax_dets['indices']))

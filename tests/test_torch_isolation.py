@@ -35,12 +35,17 @@ from spsnet_torch.stability.model import GenerateCenter
 from spsnet_torch.utils.synthetic import synthetic_scan_batch
 from spsnet_torch.utils.weights import (flax_to_torch,
                                         generator_flax_to_torch, load_flax)
+from tests.test_alnet import alnet_tiny_cfg
 from tests.test_parta2 import parta2_free_tiny_cfg, parta2_tiny_cfg
 from tests.test_pvrcnn import PCR as PV_PCR
 from tests.test_pvrcnn import VS as PV_VS
 from tests.test_pvrcnn import make_pv_batch, pvrcnn_tiny_cfg
 from tests.test_pvrcnn_plusplus import pvrcnnpp_tiny_cfg
 from tests.test_voxelrcnn import voxelrcnn_tiny_cfg
+
+# one intra-op thread: the suite runs six xdist workers on the CPU, where
+# torch's OpenMP threads oversubscribe the cores (a file took ~3x as long)
+torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted(str(p.relative_to(ROOT))
@@ -485,7 +490,10 @@ YAML_CFGS = {'voxel_rcnn_kitti': 'tools/cfgs/kitti_models/voxel_rcnn_car.yaml',
              'tools/cfgs/nuscenes_models/cbgs_pp_multihead.yaml',
              'parta2_kitti': 'tools/cfgs/kitti_models/PartA2.yaml',
              'parta2_free_kitti': 'tools/cfgs/kitti_models/PartA2_free.yaml',
-             'parta2_waymo': 'tools/cfgs/waymo_models/PartA2.yaml'}
+             'parta2_waymo': 'tools/cfgs/waymo_models/PartA2.yaml',
+             'al_kitti': 'tools/cfgs/kitti_models/AL.yaml',
+             'mlt_ssd_kitti': 'tools/cfgs/kitti_models/MLT_SSD.yaml',
+             'mlt_ssd_nuscenes': 'tools/cfgs/nuscenes_models/MLT_SSD.yaml'}
 
 
 @pytest.mark.parametrize('name', ['tiny', 'iassd_kitti', 'iassd_kitti_scaled',
@@ -506,7 +514,9 @@ YAML_CFGS = {'voxel_rcnn_kitti': 'tools/cfgs/kitti_models/voxel_rcnn_car.yaml',
                                   'pointpillar_multihead_nuscenes',
                                   'parta2_kitti', 'parta2_free_kitti',
                                   'parta2_waymo', 'tiny_parta2',
-                                  'tiny_parta2_free'])
+                                  'tiny_parta2_free', 'al_kitti',
+                                  'mlt_ssd_kitti', 'mlt_ssd_nuscenes',
+                                  'tiny_al'])
 def test_config_copies_match_the_jax_package(name):
     """The port's own config loader and zoo give the JAX package's configs
     (``_BASE_CONFIG_`` resolution included for IA-SSD.yaml, SPSNet.yaml
@@ -533,6 +543,8 @@ def test_config_copies_match_the_jax_package(name):
         if name == 'tiny_parta2':
             return z.tiny_parta2_cfg(PV_FINAL) if z is zoo else \
                 parta2_tiny_cfg(PV_FINAL)
+        if name == 'tiny_al':
+            return z.tiny_al_cfg() if z is zoo else alnet_tiny_cfg()
         if name == 'tiny_parta2_free':
             return z.tiny_parta2_free_cfg() if z is zoo else \
                 parta2_free_tiny_cfg()

@@ -205,6 +205,10 @@ from spsnet_torch.ops import _build  # noqa: E402
 from spsnet_torch.ops import interpolate as ti  # noqa: E402
 from three_nn_cases import CASES as NN_CASES, three_nn_case  # noqa
 
+# one intra-op thread: the suite runs six xdist workers on the CPU, where
+# torch's OpenMP threads oversubscribe the cores (a file took ~3x as long)
+torch.set_num_threads(1)
+
 # (offsets, scales) of a drawn cloud: squares in the subnormals, metres
 # near and far from the origin, the padded rows' 1e6, squares that overflow
 _REGIMES = {'subnormal': ((0.0,), (1e-20,)),

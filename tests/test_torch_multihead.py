@@ -36,6 +36,10 @@ from tests.test_torch_pointpillar import _fill, _gt
 from tests.test_torch_pvrcnn import _Holder
 from tests.test_torch_pvrcnn_train import REG_ATOL, _assign_case
 
+# one intra-op thread: the suite runs six xdist workers on the CPU, where
+# torch's OpenMP threads oversubscribe the cores (a file took ~3x as long)
+torch.set_num_threads(1)
+
 B, C_IN, HW = 2, 16, 16
 PCR = (0, -12.8, -3, 25.6, 12.8, 1)
 GRID = (64, 64, 1)

@@ -47,6 +47,10 @@ from spsnet_torch.utils.weights import flax_to_torch, load_flax
 from tests.test_torch_multihead_train import BOX_LAYERS
 from tests.test_torch_pvrcnn_train import _variables
 
+# one intra-op thread: the suite runs six xdist workers on the CPU, where
+# torch's OpenMP threads oversubscribe the cores (a file took ~3x as long)
+torch.set_num_threads(1)
+
 B = 2
 RTOL, ATOL = 1e-4, 1e-4
 # scores of two slots this close may come out of the merge in either

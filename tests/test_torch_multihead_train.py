@@ -45,6 +45,10 @@ from tests.test_torch_pvrcnn_train import (GRAD_RTOL, LOSS_RTOL, RTOL,
                                            STEP_ATOL, _one_step, _t,
                                            _variables)
 
+# one intra-op thread: the suite runs six xdist workers on the CPU, where
+# torch's OpenMP threads oversubscribe the cores (a file took ~3x as long)
+torch.set_num_threads(1)
+
 WHICH = ['second', 'pillar']
 # the head's box convolutions' kernels: sizes are exp of their output
 BOX_LAYERS = ('_box', '_reg', '_height', '_size', '_angle', '_velo')

@@ -21,6 +21,10 @@ from spsnet_torch.ops import grouping as tg
 from spsnet_torch.ops import sampling as ts
 from spsnet_torch.utils.synthetic import synthetic_scan_batch
 
+# one intra-op thread: the suite runs six xdist workers on the CPU, where
+# torch's OpenMP threads oversubscribe the cores (a file took ~3x as long)
+torch.set_num_threads(1)
+
 
 def _t(a):
     return torch.from_numpy(np.ascontiguousarray(a))

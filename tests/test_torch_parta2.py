@@ -51,6 +51,10 @@ from tests.test_torch_pointrcnn_train import _jax_draws
 from tests.test_torch_pvrcnn import _Holder
 from tests.test_torch_secondiou import _Replay
 
+# one intra-op thread: the suite runs six xdist workers on the CPU, where
+# torch's OpenMP threads oversubscribe the cores (a file took ~3x as long)
+torch.set_num_threads(1)
+
 B = 2
 # features and predictions: fp32 sums in another order, ~1e-7 relative a
 # layer, grown by BatchNorm's 1/std in training

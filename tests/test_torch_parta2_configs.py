@@ -42,6 +42,10 @@ from tests.test_torch_pvrcnn_train import _gt_near_proposals, _variables
 from tests.test_torch_voxelrcnn import WAYMO_CROP, _t
 from tests.test_torch_voxelrcnn_configs import _crop
 
+# one intra-op thread: the suite runs six xdist workers on the CPU, where
+# torch's OpenMP threads oversubscribe the cores (a file took ~3x as long)
+torch.set_num_threads(1)
+
 
 def _serve(path, crop, scans, n_voxels, roi_nms):
     """``path`` at its full widths on ``crop`` with ``n_voxels`` voxels a

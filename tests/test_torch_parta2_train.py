@@ -49,6 +49,10 @@ from tests.test_torch_pvrcnn_train import (GRAD_RTOL, STEP_ATOL,
                                            _head_key, _one_step, _t,
                                            _variables)
 
+# one intra-op thread: the suite runs six xdist workers on the CPU, where
+# torch's OpenMP threads oversubscribe the cores (a file took ~3x as long)
+torch.set_num_threads(1)
+
 # the two tiny models: PartA2's cases here, PartA2_free's in
 # tests/test_torch_parta2_free_train.py (one file each, so that
 # --dist loadfile runs them on two workers)

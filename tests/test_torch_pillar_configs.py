@@ -47,6 +47,10 @@ from tests.test_torch_centerpoint import _cp_variables, hold_detections
 from tests.test_torch_pointpillar import (_close, _nhwc, _recip_departures,
                                           _t, hold_nms)
 
+# one intra-op thread: the suite runs six xdist workers on the CPU, where
+# torch's OpenMP threads oversubscribe the cores (a file took ~3x as long)
+torch.set_num_threads(1)
+
 B, N_POINTS, N_PILLARS, N_SAMPLED = 2, 3000, 800, 2500
 # crops of 64 x 64 pillars
 KITTI_CROP = (0, -5.12, -3, 10.24, 5.12, 1)

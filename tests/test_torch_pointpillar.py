@@ -60,6 +60,10 @@ from spsnet_torch.utils.weights import flax_to_torch, load_flax
 from tests.test_torch_pvrcnn import _Holder
 from tests.test_torch_pvrcnn_train import _np_tree, _variables
 
+# one intra-op thread: the suite runs six xdist workers on the CPU, where
+# torch's OpenMP threads oversubscribe the cores (a file took ~3x as long)
+torch.set_num_threads(1)
+
 # the tiny models' geometry (tests/test_pointpillar.py's): a 25.6 m
 # square of 0.4 m pillars, a 64 x 64 map
 PCR = (0, -12.8, -3, 25.6, 12.8, 1)

@@ -27,6 +27,10 @@ from tests.test_torch_pointpillar import (GRAD_RTOL, RTOL, STEP_ATOL, WHICH,
 from tests.test_torch_pointrcnn_train import _first_step_slack
 from tests.test_torch_pvrcnn_train import _one_step
 
+# one intra-op thread: the suite runs six xdist workers on the CPU, where
+# torch's OpenMP threads oversubscribe the cores (a file took ~3x as long)
+torch.set_num_threads(1)
+
 
 @pytest.fixture(scope='module', params=WHICH)
 def tiny_step(request):

@@ -45,6 +45,10 @@ from spsnet_torch.utils import box_coder
 from spsnet_torch.utils.synthetic import synthetic_scan_batch
 from spsnet_torch.utils.weights import load_flax
 
+# one intra-op thread: the suite runs six xdist workers on the CPU, where
+# torch's OpenMP threads oversubscribe the cores (a file took ~3x as long)
+torch.set_num_threads(1)
+
 B, N = 2, 128
 RTOL, ATOL = 1e-4, 1e-4
 # squared distances of the |a|^2 + |b|^2 - 2ab form: XLA fuses the three

@@ -48,6 +48,10 @@ from spsnet_torch.utils.synthetic import synthetic_scene_batch
 from spsnet_torch.utils.weights import flax_to_torch, load_flax
 from spsnet_torch.zoo import tiny_pointrcnn_cfg
 
+# one intra-op thread: the suite runs six xdist workers on the CPU, where
+# torch's OpenMP threads oversubscribe the cores (a file took ~3x as long)
+torch.set_num_threads(1)
+
 B, N, SEED = 2, 128, 3
 SCENE_SCALE = 0.1
 OPTIM = {'BATCH_SIZE_PER_GPU': B, 'NUM_EPOCHS': 2,

@@ -66,6 +66,10 @@ from tests.test_torch_pointrcnn_train import (_first_step_slack, _jax_draws,
                                               _np_tree)
 from tests.test_torch_pvrcnn import _Holder, _second_cfg
 
+# one intra-op thread: the suite runs six xdist workers on the CPU, where
+# torch's OpenMP threads oversubscribe the cores (a file took ~3x as long)
+torch.set_num_threads(1)
+
 B, SEED = 2, 4
 OPTIM = {'BATCH_SIZE_PER_GPU': B, 'NUM_EPOCHS': 2,
          'OPTIMIZER': 'adam_onecycle', 'LR': 0.01, 'WEIGHT_DECAY': 0.01,

@@ -53,6 +53,10 @@ from tests.test_torch_pvrcnn_train import (ATOL, GRAD_RTOL, LOSS_RTOL, RTOL,
                                            _gt_near_proposals, _head_key,
                                            _one_step)
 
+# one intra-op thread: the suite runs six xdist workers on the CPU, where
+# torch's OpenMP threads oversubscribe the cores (a file took ~3x as long)
+torch.set_num_threads(1)
+
 
 def _t(a):
     return torch.from_numpy(np.array(a))

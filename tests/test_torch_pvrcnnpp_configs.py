@@ -27,6 +27,10 @@ from tests.test_torch_pvrcnn_train import ATOL, RTOL
 from tests.test_torch_pvrcnnpp import _close, _pp_variables, _t
 from tests.test_torch_voxel_configs import WAYMO_CROP, _cut, _scans
 
+# one intra-op thread: the suite runs six xdist workers on the CPU, where
+# torch's OpenMP threads oversubscribe the cores (a file took ~3x as long)
+torch.set_num_threads(1)
+
 
 def _numpy_three_nn(unknown, known):
     """The port's three-NN form in numpy fp32 (each product and sum rounded

@@ -49,6 +49,10 @@ from tests.test_torch_multihead_train import RPN_KEYS, hold_train_step
 from tests.test_torch_pvrcnn_train import (_gt_near_proposals, _head_key,
                                            _one_step, _variables)
 
+# one intra-op thread: the suite runs six xdist workers on the CPU, where
+# torch's OpenMP threads oversubscribe the cores (a file took ~3x as long)
+torch.set_num_threads(1)
+
 B, C, HW = 2, 8, 16
 PCR = (0, -12.8, -3, 25.6, 12.8, 1)
 VS = (0.4, 0.4, 0.1)

@@ -34,6 +34,10 @@ from spsnet_torch.utils.synthetic import synthetic_scan_batch
 from spsnet_torch.utils.weights import load_flax
 from spsnet_torch.zoo import tiny_iassd_cfg
 
+# one intra-op thread: the suite runs six xdist workers on the CPU, where
+# torch's OpenMP threads oversubscribe the cores (a file took ~3x as long)
+torch.set_num_threads(1)
+
 GRID = FpsSeeding(0.75, 'grid')
 # seeding engages at both D-FPS layers: k0 = 384 of 512 and 128 of 256
 SEEDED_NPOINTS = [[512], [256], [128], [64], [-1], [64]]

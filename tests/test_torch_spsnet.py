@@ -37,6 +37,10 @@ from spsnet_torch.utils.weights import generator_flax_to_torch, load_flax
 from spsnet_torch.zoo import (tiny_iassd_cfg, tiny_spsnet_cfg,
                               tiny_stability_model_cfg)
 
+# one intra-op thread: the suite runs six xdist workers on the CPU, where
+# torch's OpenMP threads oversubscribe the cores (a file took ~3x as long)
+torch.set_num_threads(1)
+
 B, N, DELETE = 2, 256, 32
 RTOL, ATOL = 1e-4, 1e-4
 # stds: a sum of 4 exp(0.5 * logvar) after a 3-layer MLP, max-pool and three

@@ -53,6 +53,10 @@ from spsnet_torch.zoo import (stability_cfg, tiny_spsnet_cfg,
                               tiny_stability_model_cfg)
 from tools.stability_ckpt_to_torch import convert
 
+# one intra-op thread: the suite runs six xdist workers on the CPU, where
+# torch's OpenMP threads oversubscribe the cores (a file took ~3x as long)
+torch.set_num_threads(1)
+
 B, N, DELETE = 2, 256, 32
 SEED = 42
 ITERS, EPOCHS = 10, 2

@@ -46,6 +46,10 @@ from spsnet_torch.utils.synthetic import synthetic_scene_batch
 from spsnet_torch.utils.weights import flax_to_torch, load_flax
 from spsnet_torch.zoo import tiny_iassd_cfg
 
+# one intra-op thread: the suite runs six xdist workers on the CPU, where
+# torch's OpenMP threads oversubscribe the cores (a file took ~3x as long)
+torch.set_num_threads(1)
+
 SEED, B, N = 0, 2, 512
 ITERS, EPOCHS = 10, 2
 OPTIM = {'BATCH_SIZE_PER_GPU': 2, 'NUM_EPOCHS': EPOCHS,

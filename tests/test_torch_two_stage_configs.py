@@ -32,6 +32,10 @@ from tests.test_torch_pointrcnn_train import (JAX_ATOL, _jax_draws,
 from tests.test_torch_voxel_configs import (B, WAYMO_CROP, _both,
                                             _hold_head, _t)
 
+# one intra-op thread: the suite runs six xdist workers on the CPU, where
+# torch's OpenMP threads oversubscribe the cores (a file took ~3x as long)
+torch.set_num_threads(1)
+
 
 def test_waymo_pv_rcnn_with_a_center_head_serves_as_jax():
     """pv_rcnn_with_centerhead_rpn.yaml at full width: the CenterHead RPN's

@@ -36,6 +36,10 @@ from tests.test_torch_centerpoint import (_close, _cp_variables,
 from tests.test_torch_centerpoint import \
     jax_centerpoint_builds  # noqa: F401  (the module's autouse fixture)
 
+# one intra-op thread: the suite runs six xdist workers on the CPU, where
+# torch's OpenMP threads oversubscribe the cores (a file took ~3x as long)
+torch.set_num_threads(1)
+
 B = 2
 # Waymo's range cropped to a 25.6 m square at its voxel size, nuScenes'
 # alike: final grids (2, 32, 32)

@@ -41,6 +41,10 @@ from tests.test_torch_pvrcnn_train import \
 from tests.test_torch_pvrcnn_train import \
     test_train_step_updates_params_and_bn_stats_as_jax as _pv_updates
 
+# one intra-op thread: the suite runs six xdist workers on the CPU, where
+# torch's OpenMP threads oversubscribe the cores (a file took ~3x as long)
+torch.set_num_threads(1)
+
 # Waymo's range cropped to a 25.6 m square: sparse grid (41, 256, 256) at
 # Waymo's voxel size, final (2, 32, 32), so NUM_BEV_FEATURES stays 256
 WAYMO_CROP = (-12.8, -12.8, -2, 12.8, 12.8, 4)

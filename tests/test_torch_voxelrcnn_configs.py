@@ -26,6 +26,10 @@ from tests.test_torch_pvrcnn import (CROP, _close, _jax_processor, _jax_vars,
 from tests.test_torch_pvrcnn_train import _gt_near_proposals
 from tests.test_torch_voxelrcnn import VOXEL_KEYS, WAYMO_CROP, _t
 
+# one intra-op thread: the suite runs six xdist workers on the CPU, where
+# torch's OpenMP threads oversubscribe the cores (a file took ~3x as long)
+torch.set_num_threads(1)
+
 
 def _crop(cfg, crop, n_voxels, mode='test'):
     cfg.DATA_CONFIG.POINT_CLOUD_RANGE = list(crop)
