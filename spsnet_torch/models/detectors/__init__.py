@@ -7,6 +7,7 @@ import torch
 
 from ..blocks import init_weights
 from .al_net import ALNet
+from .caddn import CaDDN
 from .centerpoint import CenterPoint
 from .iassd import IASSD
 from .part_a2 import PartA2FreeNet, PartA2Net
@@ -29,18 +30,23 @@ _DETECTORS = {'IASSD': IASSD, '3DSSD': IASSD, 'PAGNet': IASSD,
               'PVRCNN': PVRCNN, 'VoxelRCNN': VoxelRCNN,
               'CenterPoint': CenterPoint, 'PVRCNNPlusPlus': PVRCNNPlusPlus,
               'PointPillar': PointPillar, 'SECONDNetIoU': SECONDNetIoU,
-              'PartA2Net': PartA2Net}
+              'PartA2Net': PartA2Net, 'CaDDN': CaDDN}
 _VOXEL_DETECTORS = (SECONDNet, PVRCNN, VoxelRCNN, CenterPoint,
                     PVRCNNPlusPlus, PointPillar, SECONDNetIoU, PartA2Net,
                     PartA2FreeNet, ALNet)
-# the modules the port has, by config block: a block naming another one
-# (ImageVFE, ...) is not ported
+# the detectors that take the config's geometry: the voxel ones and the
+# camera-only CaDDN (its voxel grid over the point-cloud range)
+_GEOMETRY_DETECTORS = (*_VOXEL_DETECTORS, CaDDN)
+# the modules the port has, by config block: a block naming another one is
+# not ported
 _PORTED = {
-    'VFE': {'MeanVFE', 'PillarVFE', 'DynamicPillarVFE', 'DynPillarVFE'},
+    'VFE': {'MeanVFE', 'PillarVFE', 'DynamicPillarVFE', 'DynPillarVFE',
+            'ImageVFE'},
     'BACKBONE_3D': {'IASSD_Backbone', 'PAGNet_Backbone', 'PointNet2MSG',
                     'VoxelBackBone8x', 'VoxelResBackBone8x', 'UNetV2',
                     'AL_3D'},
-    'MAP_TO_BEV': {'HeightCompression', 'PointPillarScatter', 'Sparse2BEV'},
+    'MAP_TO_BEV': {'HeightCompression', 'PointPillarScatter', 'Sparse2BEV',
+                   'Conv2DCollapse'},
     'BACKBONE_2D': {'BaseBEVBackbone', 'RB_Fusion', 'RBFusion'},
     'DENSE_HEAD': {'AnchorHeadSingle', 'AnchorHeadMulti', 'CenterHead',
                    'CenterHeadIoU'},
@@ -50,11 +56,6 @@ _PORTED = {
     'ROI_HEAD': {'PointRCNNHead', 'PVRCNNHead', 'VoxelRCNNHead',
                  'SECONDHead', 'PartA2FCHead'},
 }
-
-
-# the ROADMAP Queue 1 item of each module that the configs of tools/cfgs
-# name and the port lacks
-_ITEMS = {'ImageVFE': 'F10', 'Conv2DCollapse': 'F10'}
 
 
 def unported_modules(model_cfg) -> list:
@@ -113,22 +114,22 @@ def build_detector(model_cfg, num_class: int, device='cuda',
     (``ops.FpsSeeding``) turns on seeded D-FPS in the SA layers and the
     VSA; None, the default, keeps exact FPS. The voxel detectors take their
     ``voxel_size``, ``point_cloud_range`` and ``final_grid_zyx`` from
-    ``geometry``, which ``build_detector_from_cfg`` derives, and
+    ``geometry``, which ``build_detector_from_cfg`` derives (CaDDN its
+    ``voxel_size`` and ``point_cloud_range``), and
     ``class_names`` (the config's CLASS_NAMES), through which a CenterHead
     maps CLASS_NAMES_EACH_HEAD to class ids ('1', '2', ... when None)."""
     device = resolve_device(device)
     name = model_cfg.NAME
     missing = unported_modules(model_cfg)
     if name not in _DETECTORS or missing:
-        items = [f'{m} item {_ITEMS[m.split()[-1]]}' for m in missing
-                 if m.split()[-1] in _ITEMS]
-        raise NotImplementedError('; '.join([
+        raise NotImplementedError(
             f'detector {name} ({", ".join(missing) or "no such detector"}): '
-            f'the port serves and trains {sorted(_DETECTORS)}', *items,
-            'the rest of the zoo is ROADMAP Queue 1 item F10 (CaDDN), the '
-            'rest of the point family item E']))
+            f'the port serves and trains {sorted(_DETECTORS)}; the rest of '
+            f'the point family is ROADMAP Queue 1 item E')
     cls = detector_class(model_cfg)
-    if cls in _VOXEL_DETECTORS:
+    if cls is CaDDN:
+        model = cls(model_cfg, num_class, **geometry)
+    elif cls in _VOXEL_DETECTORS:
         if cls is PVRCNN:
             geometry['fps_seeding'] = fps_seeding
         model = cls(model_cfg, num_class, input_channels,
@@ -150,7 +151,8 @@ def build_detector_from_cfg(cfg, device='cuda',
     detectors the point-cloud range, the voxel size of its voxelization
     step and the sparse backbone's final grid (``data.processor.
     sparse_plan.plan_final_grid`` over the grid with z padded by one
-    slice)."""
+    slice); for CaDDN the point-cloud range alone (JAX reads no voxel size
+    from ``calculate_grid_size``: CaDDN keeps its default)."""
     from ...data.processor.sparse_plan import plan_final_grid
     geometry, channels = {}, 4
     data_cfg = cfg.get('DATA_CONFIG', None)
@@ -173,7 +175,7 @@ def build_detector_from_cfg(cfg, device='cuda',
                 geometry['voxel_size'])).astype(np.int64)[::-1].copy()
             grid_zyx[0] += 1
             geometry['final_grid_zyx'] = plan_final_grid(grid_zyx)
-    if detector_class(cfg.MODEL) not in _VOXEL_DETECTORS:
+    if detector_class(cfg.MODEL) not in _GEOMETRY_DETECTORS:
         geometry = {}
     return build_detector(cfg.MODEL, len(cfg.CLASS_NAMES), device=device,
                           generator=generator, input_channels=channels,

@@ -109,6 +109,15 @@ tree does, so a path maps onto its dotted form:
 (``same_name_flax_to_torch`` maps a standalone module of such names, a
 CPUnet, a FusionBlock or the U_Net slot's UNet, the same way).
 
+CaDDN names its camera modules as the flax tree does too:
+
+    vfe/ddn/{stem,stem_bn,aspp{i},aspp{i}_bn,classifier}  vfe.ddn.{same name}
+    vfe/ddn/layer{1a,1b,2}/{Conv_k,BatchNorm_k,proj}      vfe.ddn.layer{...}.{same name}
+    vfe/{channel_reduce,channel_reduce_bn}         vfe.{same name}
+    map_to_bev_module/{collapse,collapse_bn}       map_to_bev_module.{same name}
+
+(its backbone_2d and dense_head as the voxel detectors').
+
 A Dense kernel (in, out) becomes a Linear weight (out, in); a Conv kernel
 (kh, kw, in, out) a Conv2d weight (out, in, kh, kw), a 3D one (kx, ky, kz,
 in, out) a Conv3d weight (out, in, kx, ky, kz). A flax ConvTranspose
@@ -277,6 +286,9 @@ _BEV_LAYER = re.compile(r'(de)?block(\d+)(_down|_conv(\d+))?(_bn(\d*))?')
 _AL_3D = re.compile(r'range_embed|(range|bev)_unet|fusion|cls_(fc\d|out)')
 _RB_FUSION = ('channel_fc1', 'channel_fc2', 'space_conv')
 _TRANSCONV = re.compile(r'(^|\.)transconv\d*\.weight$')
+_CADDN = re.compile(r'vfe/(ddn/(stem(_bn)?|aspp\d(_bn)?|classifier|'
+                    r'layer(1a|1b|2)/(Conv_\d|BatchNorm_\d|proj))|'
+                    r'channel_reduce(_bn)?)|map_to_bev_module/collapse(_bn)?')
 
 
 def _bev_name(layer) -> str:
@@ -427,6 +439,8 @@ def _vfe_name(module) -> str:
 
 def _torch_name(module, hidden, bn_paths) -> str:
     """Torch name prefix of a flax module path of the detector."""
+    if _CADDN.fullmatch('/'.join(module)):
+        return '.'.join(module)
     if module[0] == 'vfe':
         return _vfe_name(module)
     if module[0] in ('backbone_2d', 'dense_head', 'pfe') or (

@@ -997,3 +997,63 @@ def tiny_al_cfg() -> EDict:
         'POST_PROCESSING': {'RECALL_THRESH_LIST': [0.3, 0.5, 0.7],
                             'EVAL_METRIC': 'kitti'},
     })
+
+
+def caddn_kitti_cfg() -> EDict:
+    """CaDDN on KITTI (``tools/cfgs/kitti_models/CaDDN.yaml``): camera
+    only, the depth distribution network over a 375 x 1242 image, 80 LID
+    bins, a 280 x 376 x 25 voxel grid of 0.16 m, Conv2DCollapse, the BEV
+    backbone and the anchor head."""
+    return load_yaml_cfg('tools/cfgs/kitti_models/CaDDN.yaml')
+
+
+def tiny_caddn_cfg() -> EDict:
+    """Tiny CaDDN (CPU-fast): the JAX package's ``tests/test_caddn.py``
+    ``caddn_tiny_cfg``, a 64 x 96 image, 16 LID bins over 2-27.6 m and a
+    32 x 32 x 8 grid on (2, -12.8, -3, 27.6, 12.8, 1) at (0.8, 0.8, 0.5)
+    m, one anchor class."""
+    return EDict({
+        'NAME': 'CaDDN',
+        'VFE': {
+            'NAME': 'ImageVFE',
+            'DOWNSAMPLE_FACTOR': 4,
+            'IMAGE_SHAPE': [64, 96],
+            'FFN': {
+                'NAME': 'DepthFFN',
+                'DDN': {'NAME': 'DDNDeepLabV3', 'FEAT_CHANNELS': 16},
+                'CHANNEL_REDUCE': {'in_channels': 16, 'out_channels': 8,
+                                   'kernel_size': 1, 'stride': 1,
+                                   'bias': False},
+                'DISCRETIZE': {'mode': 'LID', 'num_bins': 16,
+                               'depth_min': 2.0, 'depth_max': 27.6},
+                'LOSS': {'NAME': 'DDNLoss',
+                         'ARGS': {'weight': 3.0, 'alpha': 0.25, 'gamma': 2.0,
+                                  'fg_weight': 13, 'bg_weight': 1}},
+            },
+            'F2V': {'NAME': 'FrustumToVoxel'},
+        },
+        'MAP_TO_BEV': {'NAME': 'Conv2DCollapse', 'NUM_BEV_FEATURES': 16,
+                       'ARGS': {'kernel_size': 1, 'bias': False}},
+        'BACKBONE_2D': {'NAME': 'BaseBEVBackbone',
+                        'LAYER_NUMS': [2], 'LAYER_STRIDES': [1],
+                        'NUM_FILTERS': [16], 'UPSAMPLE_STRIDES': [1],
+                        'NUM_UPSAMPLE_FILTERS': [16]},
+        'DENSE_HEAD': {
+            'NAME': 'AnchorHeadSingle', 'CLASS_AGNOSTIC': False,
+            'USE_DIRECTION_CLASSIFIER': True,
+            'DIR_OFFSET': 0.78539, 'DIR_LIMIT_OFFSET': 0.0, 'NUM_DIR_BINS': 2,
+            'ANCHOR_GENERATOR_CONFIG': [
+                {'class_name': 'Car', 'anchor_sizes': [[3.9, 1.6, 1.56]],
+                 'anchor_rotations': [0, 1.57],
+                 'anchor_bottom_heights': [-1.78],
+                 'align_center': False, 'feature_map_stride': 1,
+                 'matched_threshold': 0.6, 'unmatched_threshold': 0.45}],
+            'TARGET_ASSIGNER_CONFIG': {'BOX_CODER': 'ResidualCoder'},
+            'LOSS_CONFIG': {'LOSS_WEIGHTS': {
+                'cls_weight': 1.0, 'loc_weight': 2.0, 'dir_weight': 0.2,
+                'code_weights': [1.0] * 7}},
+        },
+        'POST_PROCESSING': {'SCORE_THRESH': 0.1, 'NMS_CONFIG': {
+            'MULTI_CLASSES_NMS': False, 'NMS_THRESH': 0.1,
+            'NMS_PRE_MAXSIZE': 64, 'NMS_POST_MAXSIZE': 16}},
+    })

@@ -1714,3 +1714,112 @@ def test_al_forward_on_the_card_matches_the_cpu(cuda):
                       c['center_head_iou_ret']['pred_dicts']):
         for key in pg:
             _close_scaled(pg[key], pc[key], key)
+
+
+# ----------------------------------------------------------------- CaDDN
+
+def _caddn_grid(device, b=1):
+    """kitti_models/CaDDN.yaml's frustum grid of ``b`` frames of the
+    KITTI fixture calibration on ``device``, and the model (on the CPU)."""
+    from spsnet_torch.data.camera import calib_matrices
+    from spsnet_torch.models import build_detector_from_cfg
+    from spsnet_torch.zoo import caddn_kitti_cfg
+    model = build_detector_from_cfg(caddn_kitti_cfg(), device='cpu')
+    l2c, c2i = (torch.from_numpy(m)[None].repeat(b, 1, 1)
+                for m in calib_matrices())
+    grid = model.vfe.grid.to(device)(l2c.to(device), c2i.to(device))
+    return model, grid
+
+
+@pytest.mark.parametrize('mode', ['UD', 'LID', 'SID'])
+def test_caddn_bin_depths_on_the_card_match_the_cpu(cuda, mode):
+    """``bin_depths`` over CaDDN.yaml's 80 bins on random depths, the bin
+    edges and an ulp on each side of them, NaN, +-inf and out-of-range
+    values: the targets identical, the continuous bins (true quotients, the
+    square root and the log rounded once from float64) bit for bit for UD
+    and LID, within an ulp for SID."""
+    from spsnet_torch.models.vfe.image_vfe import bin_depths
+    rng = np.random.default_rng(90)
+    k = np.arange(81, dtype=np.float64)
+    size = 2 * 44.8 / (80 * 81)
+    edges = {'UD': 2 + k * 44.8 / 80,
+             'LID': 2 + size * ((2 * k + 1) ** 2 - 1) / 8,
+             'SID': np.exp(np.log(3) + k / 80 * (np.log(47.8) - np.log(3)))
+             - 1}[mode].astype(np.float32)
+    d = torch.from_numpy(np.concatenate([
+        rng.uniform(-3, 55, 200000).astype(np.float32), edges,
+        np.nextafter(edges, np.float32(np.inf)),
+        np.nextafter(edges, np.float32(-np.inf)),
+        np.float32([np.nan, np.inf, -np.inf, 0, -1.5])]))
+    for target in (False, True):
+        g = bin_depths(d.to(cuda), mode, 2.0, 46.8, 80, target).cpu()
+        c = bin_depths(d, mode, 2.0, 46.8, 80, target)
+        if target:
+            assert torch.equal(g, c)
+        elif mode != 'SID':
+            assert torch.equal(g.isnan(), c.isnan())
+            assert torch.equal(g.nan_to_num(), c.nan_to_num())
+        else:
+            ok = c.isfinite()
+            assert torch.equal(g.isfinite(), ok)
+            ulp = torch.nextafter(c[ok], torch.tensor(np.inf)) - c[ok]
+            assert ((g[ok] - c[ok]).abs() <= ulp).all()
+
+
+def test_caddn_frustum_grid_and_sampler_on_the_card_match_the_cpu(cuda):
+    """CaDDN.yaml's grid of the 2 632 000 voxel centres (the KITTI fixture
+    calibration) card vs CPU: its -2 entries identical, the rest within
+    1e-4 relative plus 1e-4; then ``trilinear_sample`` of a random (1, 16,
+    80, 94, 311) frustum volume (16 of the 64 channels: each channel is
+    sampled alike) at the CPU's grid, the voxels and the
+    volume's gradient (the card's backward takes atomics) within 1e-4
+    relative plus 1e-4 of each tensor's largest entry."""
+    from spsnet_torch.models.vfe.image_vfe import trilinear_sample
+    _, own = _caddn_grid('cpu')
+    _, card = _caddn_grid(cuda)
+    assert own.shape == (1, 280, 376, 25, 3)
+    assert torch.equal(card.cpu() == -2, own == -2)
+    assert torch.allclose(card.cpu(), own, rtol=1e-4, atol=1e-4)
+    gen = torch.Generator().manual_seed(91)
+    vol = torch.rand(1, 16, 80, 94, 311, generator=gen)
+    cot = torch.randn(1, 16, 280, 376, 25, generator=gen)
+    outs = []
+    for device in (cuda, 'cpu'):
+        v = vol.to(device).requires_grad_()
+        out = trilinear_sample(v, own.to(device))
+        (out * cot.to(device)).sum().backward()
+        outs.append((out.detach(), v.grad))
+    for g, c, what in zip(outs[0], outs[1], ('voxels', 'volume gradient')):
+        _close_scaled(g, c, what)
+    assert float((outs[1][0] != 0).float().mean()) > 0.5
+
+
+def test_tiny_caddn_request_on_the_card_matches_the_cpu(cuda):
+    """The tiny CaDDN (``zoo.tiny_caddn_cfg``) on two synthetic 64 x 96
+    camera frames, seeded weights: the voxels, the BEV map, the anchor
+    predictions and the depth logits card vs CPU within 1e-4 relative
+    plus 1e-4 of each tensor's largest entry, and the same detections."""
+    from spsnet_torch.data.camera import synthetic_camera_batch
+    from spsnet_torch.models import build_detector
+    from spsnet_torch.models.detectors.detector3d import post_processing
+    from spsnet_torch.zoo import tiny_caddn_cfg
+    cfg = tiny_caddn_cfg()
+    pcr = (2.0, -12.8, -3.0, 27.6, 12.8, 1.0)
+    p2 = np.float32([[40, 0, 48, 0], [0, 40, 32, 0], [0, 0, 1, 0]])
+    batch = {k: torch.from_numpy(v) for k, v in synthetic_camera_batch(
+        92, 2, image_shape=(64, 96), pc_range=pcr, p2=p2,
+        n_points=4096).items()}
+    models = [build_detector(cfg, 1, device=d, voxel_size=(0.8, 0.8, 0.5),
+                             point_cloud_range=pcr) for d in (cuda, 'cpu')]
+    with torch.no_grad():
+        g = models[0]({k: v.to(cuda) for k, v in batch.items()})
+        c = models[1](dict(batch))
+    for key in ('voxel_features_3d', 'spatial_features',
+                'spatial_features_2d', 'batch_box_preds', 'batch_cls_preds'):
+        _close_scaled(g[key], c[key], key)
+    _close_scaled(g['image_vfe_ret']['depth_logits'],
+                  c['image_vfe_ret']['depth_logits'], 'depth logits')
+    dg = post_processing(g, cfg.POST_PROCESSING)
+    dc = post_processing(c, cfg.POST_PROCESSING)
+    assert torch.equal(dg['count'].cpu(), dc['count'])
+    assert torch.equal(dg['indices'].cpu(), dc['indices'])
