@@ -18,9 +18,12 @@
                                           # cbgs_pp_multihead,
                                           # cbgs_second_multihead,PartA2,
                                           # PartA2_free,AL; CaDDN is phase
-                                          # 96)
+                                          # 96, IASSD_FS phase 110)
     python3 chip_smoke.py --pvpp-train-repeat N  # phase 54's steps N times
                                           # under each gt at the proposals
+    python3 chip_smoke.py --beside        # the card-vs-CPU checks that
+                                          # the default run puts in a
+                                          # second process
 
 Phases, in order; any failure raises and the exit code is not 0:
 
@@ -456,7 +459,42 @@ Phases, in order; any failure raises and the exit code is not 0:
     holds its step;
 96. ``--fault-check CaDDN``: phase 95 refuses the card's gradients of each
     module of CADDN_FAULTS scaled by 1.3 (a mode of its own, not in the
-    default run).
+    default run);
+97. the rest of the point family (FAMILY: IA-SSD.yaml at its widths and
+    point counts with other samplers and groupings, ``family_cfg``):
+    IASSD_FS (D-FPS, FS, F-FPS, ctr_aware; layers 0-2 grouped over annuli)
+    serves five requests of 8 x 16384 with FAMILY_LAUNCHES a forward (K1
+    twice, K7 twice, K2's annulus three times, K2 once), and a profile of
+    one request;
+98. K7 against the plain F-FPS on the matrices of that path's two F-FPS
+    calls ((8, 4096) -> 512 and (8, 1024) -> 512), with
+    ``calc_square_dist``'s device time; K2's annulus against its plain
+    version at the three dilated layers; K1 against plain FPS at FS's
+    D-FPS half ((8, 4096) -> 512) and ds-FPS's partitions ((32, 4096) ->
+    1024); events, device times, bounds;
+99. one IASSD_FS scene card vs CPU: the CPU's F-FPS picks equal the
+    card's or lie within the distances' rounding slack (``ffps_picks``),
+    then replayed; as phase 5 otherwise;
+100. IASSD_FS training: five steps of 4 scenes (seeded D-FPS at layer 0,
+    FS's D-FPS exact), a profile of one;
+101. one IASSD_FS train step card vs CPU, as phase 8;
+102-109. IASSD_rand (Rand at layer 0, from a CPU generator), IASSD_ds and
+    IASSD_ry (ds-FPS, ry-FPS at layer 0: one K1 launch over the (32,
+    4096) partitions) and IASSD_msg_shared (one query and one gather a
+    layer): one request each, ds and ry one train step each, and each
+    one scene card vs CPU (the partition sorts held and replayed,
+    ``partition_picks``);
+110. ``--fault-check IASSD_FS``: phase 101 refuses the card's gradients
+    of each module of FAMILY_FAULTS scaled by 1.3.
+
+The card-vs-CPU train steps (phases 8, 15, 17, 26, 36, 44, 48, 55, 61,
+64, 68, 71, 74, 77, 80, 83, 87, 95, 101), the card-vs-CPU requests of
+phases 5, 11, 21, 31, 42, 46, 52, 79, 82, 86 and 93 and the point
+family's (99, 103, 105, 107, 109) run in a second process
+(``--beside``, ``Beside``), started after phase 3, beside the card
+phases: their CPU work (most of a card-vs-CPU step's time) overlaps the
+card work. Their log follows the last phase, each line after 'beside| ';
+the run fails if one of them fails.
 
 The K5 shapes are (8, 16384) -> 4096, (8, 15884) -> 4096 (SPSNet's layer
 0), (1, 16384) -> 4096 and (32, 4096) -> 1024. Phase 3 also holds FPS and
@@ -766,6 +804,59 @@ CADDN_TRAIN_CUT = {'range': (2.0, -12.8, -3.0, 27.6, 12.8, 1.0),
 # floor either way (both devices compute it with true quotients and a
 # square root rounded once, so none has yet)
 CADDN_BIN_SLACK = 1e-4
+# the rest of the point family (phases 97-109): IA-SSD.yaml with IA-SSD's
+# widths and its point counts, each config changing the sampling chain
+# (SAMPLE_METHOD_LIST, also the head's), NPOINT_LIST and DILATED_GROUP
+# where given, or grouping with msg_shared; its host seed
+FAMILY = {
+    'IASSD_FS': {'methods': [['D-FPS'], ['FS'], ['F-FPS'], ['ctr_aware'],
+                             [], []],
+                 'npoints': [[4096], [512], [512], [256], [-1], [256]],
+                 'dilated': [True, True, True, False, False, False]},
+    'IASSD_rand': {'methods': [['Rand'], ['D-FPS'], ['ctr_aware'],
+                               ['ctr_aware'], [], []]},
+    'IASSD_ds': {'methods': [['ds-FPS'], ['D-FPS'], ['ctr_aware'],
+                             ['ctr_aware'], [], []]},
+    'IASSD_ry': {'methods': [['ry-FPS'], ['D-FPS'], ['ctr_aware'],
+                             ['ctr_aware'], [], []]},
+    'IASSD_msg_shared': {'msg_shared': True},
+}
+FAMILY_SEEDS = {'IASSD_FS': 3700, 'IASSD_rand': 3800, 'IASSD_ds': 3900,
+                'IASSD_ry': 4000, 'IASSD_msg_shared': 4100}
+# launches a forward: IASSD_FS's layer-0 D-FPS and FS's D-FPS half (K1),
+# FS's F-FPS and layer 2's (K7), the dilated layers 0-2 (one annulus
+# launch each) and layer 5 (K2); ds-FPS and ry-FPS one K1 launch over the
+# (4 B, N / 4) partitions, then layer 1's D-FPS (no prefix shortcut: its
+# input is no D-FPS chain); msg_shared one K2 launch a layer
+FAMILY_LAUNCHES = {
+    'IASSD_FS': {'fps': 2, 'fps_dist': 2, 'ball_query_annulus': 3,
+                 'ball_query': 1},
+    'IASSD_rand': {'fps': 1, 'ball_query': 4},
+    'IASSD_ds': {'fps': 2, 'ball_query': 4},
+    'IASSD_ry': {'fps': 2, 'ball_query': 4},
+    'IASSD_msg_shared': {'fps': 1, 'ball_query': 4}}
+# a train step with seeded D-FPS (phase 7's): IASSD_FS's layer 0 seeded
+# (k0 3072), FS's D-FPS half exact; ds / ry's partitions exact, layer 1
+# seeded (k0 768). Rand does not train: JAX's train step gives the
+# sampler no stream (ROADMAP Queue 3), nor does the port's
+FAMILY_TRAIN_LAUNCHES = {
+    'IASSD_FS': {'seed_min': 1, 'fps_seeded': 1, 'fps': 1, 'fps_dist': 2,
+                 'ball_query_annulus': 3, 'ball_query': 1},
+    'IASSD_ds': {'fps': 1, 'seed_min': 1, 'fps_seeded': 1, 'ball_query': 4},
+    'IASSD_ry': {'fps': 1, 'seed_min': 1, 'fps_seeded': 1, 'ball_query': 4}}
+FAMILY_TRAIN_STEPS = 5
+# card vs CPU F-FPS: one squared distance |a|^2 + |b|^2 - 2 a.b rounds
+# within FFPS_ROUND of the largest |a|^2 on either device (the cross term
+# summed in another order by cuBLAS and the CPU BLAS: ~8 fp32 ulps)
+FFPS_ROUND = 1e-6
+# card vs CPU partition sorts of ds-FPS and ry-FPS: keys within this many
+# fp32 ulps of the largest key of each other may sort either way
+# (arctan rounds apart on the card and the CPU)
+PART_KEY_ULPS = 16
+# the CPU threads of the second process that runs the card-vs-CPU checks
+# beside the card phases (``Beside``): the 8 cores are shared with the
+# card phases' host work
+BESIDE_THREADS = 4
 
 
 def seeding():
@@ -922,34 +1013,38 @@ def _scan_pairs(idx_list, nsamples, n):
     return int(need.sum())
 
 
-def ball_query_call(radii, ns, xyz, ctr, what):
-    """The ball-query kernel vs plain on one input: indices identical,
-    CUDA-event times, bound over the pairs the centers scanned. Returns the
-    call's record (with 'err')."""
+def ball_query_call(radii, ns, xyz, ctr, what, lows=None):
+    """The ball-query kernel vs plain on one input (the annulus form with
+    ``lows``): indices identical, CUDA-event times, bound over the pairs
+    the centers scanned. Returns the call's record (with 'err')."""
     from spsnet_torch.ops import _build
     from spsnet_torch.ops.grouping import (ball_query_multi_kernel,
                                            ball_query_multi_plain)
     radii, ns = tuple(radii), tuple(ns)
-    got = ball_query_multi_kernel(radii, ns, xyz, ctr)
-    want = ball_query_multi_plain(radii, ns, xyz, ctr)
+    got = ball_query_multi_kernel(radii, ns, xyz, ctr, min_radii=lows)
+    want = ball_query_multi_plain(radii, ns, xyz, ctr, min_radii=lows)
     err = 0.0
     for r, g, w in zip(radii, got, want):
         err = max(err, require_equal(
             g, w, f'ball query {what} r={r} '
                   f'{tuple(ctr.shape[:2])}x{xyz.shape[1]}'))
-    ms = cuda_ms(lambda: ball_query_multi_kernel(radii, ns, xyz, ctr),
-                 reps=10)
-    plain = cuda_ms(lambda: ball_query_multi_plain(radii, ns, xyz, ctr),
-                    reps=3)
+    ms = cuda_ms(lambda: ball_query_multi_kernel(radii, ns, xyz, ctr,
+                                                 min_radii=lows), reps=10)
+    plain = cuda_ms(lambda: ball_query_multi_plain(radii, ns, xyz, ctr,
+                                                   min_radii=lows), reps=3)
     pairs = _scan_pairs(got, ns, xyz.shape[1])
     n_bytes = (xyz.numel() + ctr.numel()) * 4 + \
         sum(g.numel() for g in got) * 8
-    bnd, by = bound_ms(n_bytes, pairs * 10)  # 3 sub 3 mul 2 add 2 cmp
+    # 3 sub 3 mul 2 add 2 cmp; the annulus 2 cmp more a radius
+    bnd, by = bound_ms(n_bytes, pairs * (10 if lows is None else 14))
     log(f'  ball query {what} B={xyz.shape[0]} M={ctr.shape[1]} '
-        f'N={xyz.shape[1]} r={radii} ns={ns}: kernel {ms:.3f} ms, plain '
-        f'{plain:.3f} ms, bound {bnd:.4f} ms ({by}, {pairs} pairs)')
+        f'N={xyz.shape[1]} r={radii} ns={ns}'
+        f'{"" if lows is None else f" annulus from {lows}"}: kernel '
+        f'{ms:.3f} ms, plain {plain:.3f} ms, bound {bnd:.4f} ms ({by}, '
+        f'{pairs} pairs)')
     record = {'layer': what, 'B': xyz.shape[0], 'M': ctr.shape[1],
-              'N': xyz.shape[1], 'radii': radii, 'nsamples': ns, 'ms': ms,
+              'N': xyz.shape[1], 'radii': radii, 'min_radii': lows,
+              'nsamples': ns, 'ms': ms,
               'plain_ms': plain, 'bound_ms': bnd, 'bound_by': by,
               'pairs': pairs, 'err': err}
     record['warp_centers'] = _build.library(
@@ -1332,30 +1427,32 @@ def replayed_loops(fn):
         boxes_ops._greedy_suppress = real
 
 
-def detect(model, points, post):
+def detect(model, points, post, generator=None):
     """One request as a server runs it: forward + ``post_processing``
     (class-agnostic NMS; PointRCNN's labels from its RoIs). ``points``: the
-    (B, N, C) scans, or a batch dict."""
+    (B, N, C) scans, or a batch dict; ``generator``, a CPU
+    ``torch.Generator``, feeds an IA-SSD's Rand samplers."""
     from spsnet_torch.models.detectors.detector3d import post_processing
     batch = points if isinstance(points, dict) else {'points': points}
     with torch.no_grad():
-        out = model(batch)
+        out = model(batch) if generator is None else \
+            model(batch, sampling_generator=generator)
         return out, post_processing(out, post)
 
 
-def main_path(model, requests, post, per_call, what):
+def main_path(model, requests, post, per_call, what, generator=None):
     """One warm-up request, then the requests with the launch counters
     zeroed just before; outputs finite and counts in range, ``per_call``
     launches a request and none of another kernel. Returns (ms per
     request, launch counts)."""
     from spsnet_torch.ops import _build
-    detect(model, requests[0], post)
+    detect(model, requests[0], post, generator)
     torch.cuda.synchronize()
     _build.reset_launches()
     times = []
     for points in requests:
         t0 = time.perf_counter()
-        out, dets = detect(model, points, post)
+        out, dets = detect(model, points, post, generator)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         for key, t in (('batch_box_preds', out['batch_box_preds']),
@@ -1505,9 +1602,11 @@ def compare_forwards(model, xyz, gpu_out, gpu_dets, cpu_out, cpu_dets):
         if getattr(module, 'radii', None):
             pts, ctr = enc[backbone.layer_inputs[k]].contiguous(), enc[k + 1]
             ns = tuple(module.nsamples)
+            lows = _annulus_lows(module)
             for g, c in zip(ball_query_multi(module.radii, ns, pts.cuda(),
-                                             ctr.cuda()),
-                            ball_query_multi(module.radii, ns, pts, ctr)):
+                                             ctr.cuda(), min_radii=lows),
+                            ball_query_multi(module.radii, ns, pts, ctr,
+                                             min_radii=lows)):
                 require_equal(g, c, f'card kernel vs CPU plain: ball query '
                                     f'layer {k}')
         if backbone.layer_types[k] == 'SA_Layer' and \
@@ -1518,6 +1617,14 @@ def compare_forwards(model, xyz, gpu_out, gpu_dets, cpu_out, cpu_dets):
         _require_close(gpu_out[key], cpu_out[key], key)
     for key in ('count', 'indices'):
         require_equal(gpu_dets[key], cpu_dets[key], f'card vs CPU NMS {key}')
+
+
+def _annulus_lows(module):
+    """The lower radii of a dilated SA layer's annulus query (None for a
+    ball query)."""
+    if not getattr(module, 'dilated_group', False):
+        return None
+    return (0.0, *module.radii[:-1])
 
 
 def build_spsnet(device):
@@ -1912,14 +2019,18 @@ def _require_bn_within(stats):
     return limit
 
 
-def train_cpu_phase(build, batch, n_dfps):
+def train_cpu_phase(build, batch, n_dfps, by_module=False):
     """One train step on one scene (``batch``, on the CPU) on the card and
     on the CPU from the same weights, and on the CPU from weights jittered
     by WEIGHT_JITTER; ``build(device)`` gives (model, optimizer, step),
     whose frozen parts (the stability hook's generator) are the same on
     every device. The CPU runs replay the card's top-k picks
-    (``topk_picks``) and stability-hook deletions (``deletion_picks``);
-    ``n_dfps`` D-FPS layers run a step."""
+    (``topk_picks``), stability-hook deletions (``deletion_picks``), F-FPS
+    picks (``ffps_picks``) and partition sorts (``partition_picks``), each
+    after its check; ``n_dfps`` D-FPS layers run a step. With
+    ``by_module`` each module's gradient is also held to
+    TRAIN_MODULE_CEIL (``_require_modules_within``), as the two-stage
+    detectors' are; returns (card, baseline[, by module])."""
     gpu, _, gpu_step = build('cuda')
     cpu, cpu_opt, cpu_step = build('cpu')
     jit, _, jit_step = build('cpu')
@@ -1930,12 +2041,15 @@ def train_cpu_phase(build, batch, n_dfps):
         for p in jit.parameters():
             p.mul_(1 + WEIGHT_JITTER * torch.randn(p.shape, generator=gen))
     with topk_picks() as picks, dfps_picks() as gpu_dfps, \
-            deletion_picks() as dels:
+            deletion_picks() as dels, ffps_picks() as ffps, \
+            partition_picks() as parts:
         gpu_loss, gpu_tb = gpu_step({k: v.cuda() for k, v in batch.items()})
     with topk_picks(replay=picks), dfps_picks() as cpu_dfps, \
-            deletion_picks(replay=dels) as cpu_dels:
+            deletion_picks(replay=dels) as cpu_dels, ffps_picks(ffps), \
+            partition_picks(parts):
         cpu_loss, cpu_tb = cpu_step(batch)
-    with topk_picks(replay=picks), deletion_picks(replay=dels):
+    with topk_picks(replay=picks), deletion_picks(replay=dels), \
+            ffps_picks(ffps), partition_picks(parts):
         jit_step(batch)
     for (_, g), (_, c) in zip(dels, cpu_dels):
         rel = float(((g.cpu() - c).abs() / c.abs()).max())
@@ -1972,6 +2086,10 @@ def train_cpu_phase(build, batch, n_dfps):
                 raise AssertionError(f'card vs CPU {name}: {err:.3e}')
     log('  card vs CPU BN running stats: within '
         f'atol {PRED_ATOL} + rtol {PRED_RTOL}')
+    if by_module:
+        modules = _grad_by_module((gpu, jit), cpu)
+        _require_modules_within(modules)
+        return card, base, modules
     return card, base
 
 
@@ -3005,9 +3123,15 @@ AL_FAULTS = (('backbone_3d.bev_unet', 1.3), ('backbone_3d.fusion', 1.3),
 # CaDDN's: the DDN, the collapse, the first BEV level and the anchor head
 CADDN_FAULTS = (('vfe.ddn', 1.3), ('map_to_bev_module', 1.3),
                 ('backbone_2d.blocks.0', 1.3), ('dense_head', 1.3))
+# IASSD_FS's: the FS layer's and the F-FPS layer's MLPs over their
+# annuli, the vote layer and the head's box branch
+FAMILY_FAULTS = (('backbone_3d.SA_modules.1', 1.3),
+                 ('backbone_3d.SA_modules.2', 1.3),
+                 ('backbone_3d.SA_modules.4', 1.3),
+                 ('point_head.box_center_layers', 1.3))
 _FAULT_MODELS = ('pointrcnn', 'pvrcnn', 'voxel_rcnn', 'pvrcnnpp',
                  'centerpoint_pillar', 'centerpoint_dyn_pillar',
-                 *MH_FAULTS, *PA_FAULTS, 'AL', 'CaDDN')
+                 *MH_FAULTS, *PA_FAULTS, 'AL', 'CaDDN', 'IASSD_FS')
 
 
 def fault_check(models=_FAULT_MODELS) -> int:
@@ -3017,8 +3141,9 @@ def fault_check(models=_FAULT_MODELS) -> int:
     gradients of one module scaled (``PRCNN_FAULTS``, ``PV_FAULTS``,
     ``VR_FAULTS``, ``PP_FAULTS``, ``CPP_FAULTS`` for both pillar
     CenterPoints, ``MH_FAULTS``, ``PA_FAULTS``, ``AL_FAULTS``,
-    ``CADDN_FAULTS``; for CaDDN this is phase 96): every such run must
-    fail. Returns 1 if one passed."""
+    ``CADDN_FAULTS``, ``FAMILY_FAULTS`` for phase 101; for CaDDN this is
+    phase 96, for IASSD_FS 110): every such run must fail. Returns 1 if
+    one passed."""
     phases = sys.modules[__name__]
     unknown = set(models) - set(_FAULT_MODELS)
     if unknown:
@@ -3121,6 +3246,11 @@ def fault_check(models=_FAULT_MODELS) -> int:
              caddn_frames(CADDN_SEED + 95, 1, CADDN_TRAIN_CUT)[0],
              CADDN_FAULTS, 1)
         n += len(CADDN_FAULTS)
+    if 'IASSD_FS' in models:
+        each('build_family_trainer', phases.family_train_cpu_phase,
+             _scene_batch(FAMILY_SEEDS['IASSD_FS'] + 90, 1, 'cpu'),
+             FAMILY_FAULTS, 0)
+        n += len(FAMILY_FAULTS)
     log(f'{n - len(missed)} of {n} faults refused')
     return 1 if missed else 0
 
@@ -3840,9 +3970,7 @@ def pvrcnn_phases():
     log('== 30. kernels vs plain at the PV-RCNN shapes')
     pv_shapes = pvrcnn_shapes_phase(pv, pv_batches[0], pv8_batches[0])
 
-    log('== 31. PV-RCNN card vs CPU, one request (B=1)')
-    pvrcnn['card_vs_cpu'] = pvrcnn_cpu_phase(
-        pv, pv_cfg, {k: v[:1] for k, v in pv_batches[0].items()})
+    later(pvrcnn, 'card_vs_cpu', '31')
 
     log('== 32. SECOND, one request (B=2)')
     second = second_phase(pv_batches[0], pv_cfg)
@@ -4414,10 +4542,7 @@ def pvrcnn_train_phases(smi):
     log('== 35. kernels vs plain at the PV-RCNN train shapes')
     shapes = pvrcnn_shapes_phase(model, dict(batches[0], rngs=step_rngs(0)))
 
-    log(f'== 36. PV-RCNN card vs CPU, one train step (cut: '
-        f'{VOXEL_TRAIN_CUT})')
-    rec['card_vs_cpu'] = pvrcnn_train_cpu_phase(
-        cut_batch('pv_rcnn', VOXEL_TRAIN_CUT, 810), cut=VOXEL_TRAIN_CUT)
+    later(rec, 'card_vs_cpu', '36')
 
     log('== 37. anchor and RoI losses on the train gt and on jittered gt, '
         'card vs CPU')
@@ -4661,9 +4786,7 @@ def voxelrcnn_phases(smi):
     log('== 41. kernels vs plain at the Voxel R-CNN serving shapes')
     shapes = voxelrcnn_shapes_phase(model, batches[0], 'serving')
 
-    log('== 42. Voxel R-CNN card vs CPU, one request (B=1)')
-    rec['card_vs_cpu'] = voxelrcnn_cpu_phase(
-        model, cfg, {k: v[:1] for k, v in batches[0].items()})
+    later(rec, 'card_vs_cpu', '42')
     del model
 
     log('== 43. Voxel R-CNN train path; kernels vs plain at its shapes')
@@ -4692,11 +4815,7 @@ def voxelrcnn_phases(smi):
     train_shapes = voxelrcnn_shapes_phase(
         model, dict(profiled, rngs=step_rngs(0)), 'train')
 
-    log(f'== 44. Voxel R-CNN card vs CPU, one train step (cut: '
-        f'{VOXEL_TRAIN_CUT})')
-    train['card_vs_cpu'] = pvrcnn_train_cpu_phase(
-        cut_batch('voxel_rcnn_car', VOXEL_TRAIN_CUT, 1210), 'voxel_rcnn_car',
-        cut=VOXEL_TRAIN_CUT)
+    later(train, 'card_vs_cpu', '44')
     return rec, shapes, train, train_shapes
 
 
@@ -5004,9 +5123,7 @@ def centerpoint_phases(smi):
     rec['profile'] = centerpoint_profile(model, request,
                                          'one CenterPoint request (B=2)')
 
-    log('== 46. CenterPoint card vs CPU, one request (B=1)')
-    one = {k: v[:1] for k, v in host['batches'][0].items()}
-    rec['card_vs_cpu'] = centerpoint_cpu_phase(model, cfg, one)
+    later(rec, 'card_vs_cpu', '46')
     del model, host
 
     log('== 47. CenterPoint train path')
@@ -5046,13 +5163,7 @@ def centerpoint_phases(smi):
         model, lambda: step(batches[1]), 'one CenterPoint train step (B=2)')
     del model, step
 
-    log(f'== 48. CenterPoint card vs CPU, one train step (cut: '
-        f'{CP_TRAIN_CUT})')
-    cfg = build_centerpoint_trainer('cpu', cut=True)[0]
-    batch = pv_train_batches(cfg, [1450, 1451], sizes=WAYMO_SIZES,
-                             n=CP_TRAIN_CUT['points'], channels=5)[0][0]
-    train['card_vs_cpu'] = centerpoint_train_cpu_phase(
-        {k: v[:1].cpu() for k, v in batch.items()})
+    later(train, 'card_vs_cpu', '48')
     return rec, train
 
 
@@ -5901,10 +6012,7 @@ def pvpp_phases(smi):
         f'(one thread a query over every row; H100 80GB HBM3 at 700.00 W): '
         f'{K6_BEFORE_MS} ms')
 
-    log('== 52. PV-RCNN++ card vs CPU, one request (B=1)')
-    one = {k: v[:1] for k, v in host['batches'][0].items()}
-    rec['card_vs_cpu'] = pvpp_cpu_phase(model, 'waymo_models/pv_rcnn_plusplus',
-                                        one)
+    later(rec, 'card_vs_cpu', '52')
     del model, host
 
     log('== 53. PV-RCNN++ ResNet (waymo_models/pv_rcnn_plusplus_resnet.yaml)')
@@ -5913,13 +6021,7 @@ def pvpp_phases(smi):
     log('== 54. PV-RCNN++ train path')
     train = pvpp_train_path(smi)
 
-    log('== 55. PV-RCNN++ card vs CPU, one train step '
-        f'(cut: {PP_TRAIN_CUT})')
-    cfg = build_pvpp_trainer('cpu', cut=True)[0]
-    batch = pv_train_batches(cfg, [1900, 1901], sizes=WAYMO_SIZES,
-                             n=PP_TRAIN_CUT['points'], channels=5)[0][0]
-    train['card_vs_cpu'] = pvpp_train_cpu_phase(
-        {k: v[:1].cpu() for k, v in batch.items()})
+    later(train, 'card_vs_cpu', '55')
     return rec, shapes, resnet, train, k6
 
 
@@ -6147,15 +6249,7 @@ def waymo_pillar_phases(smi, dynamic):
         model, lambda: step(batches[1]),
         f'one CenterPoint {kind} train step (B=2)')
     del model, step, batches
-    cfg = build_centerpoint_trainer('cpu', cut=True, name=name)[0]
-    batch = pv_train_batches(cfg, [seed + 90, seed + 91], sizes=WAYMO_SIZES,
-                             n=CP_TRAIN_CUT['points'], channels=5)[0][0]
-    torch.cuda.reset_peak_memory_stats()
-    train['card_vs_cpu'] = centerpoint_train_cpu_phase(
-        {k: v[:1].cpu() for k, v in batch.items()}, name)
-    train['card_vs_cpu']['peak_gib'] = \
-        torch.cuda.max_memory_allocated() / 2 ** 30
-    log(f'  peak memory {train["card_vs_cpu"]["peak_gib"]:.3f} GiB')
+    later(train, 'card_vs_cpu', str(first + 2))
     return rec, train
 
 
@@ -6561,11 +6655,7 @@ def mh_phases_of(name, seed, first, smi):
     log(f'  the NMS loop: {train["nms_loop_share"]:.3f} of the steps\' wall '
         f'time')
     del model, step, batches
-    torch.cuda.reset_peak_memory_stats()
-    train['card_vs_cpu'] = mh_train_cpu_phase(
-        cut_batch(name, cut, seed + 90, channels, velocity), name, cut)
-    train['card_vs_cpu']['peak_gib'] = \
-        torch.cuda.max_memory_allocated() / 2 ** 30
+    later(train, 'card_vs_cpu', str(first + 2))
     return rec, train
 
 
@@ -7023,9 +7113,7 @@ def parta2_phases_of(name, seed, first, smi):
     rec['pool_load'] = pool_load(model, host['batches'][0], 100,
                                  f'B={PA_B}, 40 000 rows')
 
-    log(f'== {first + 1}. {name} card vs CPU, one request (B=1)')
-    rec['card_vs_cpu'] = parta2_cpu_phase(
-        model, name, {k: v[:1] for k, v in host['batches'][0].items()}, post)
+    later(rec, 'card_vs_cpu', str(first + 1))
     del model, host
 
     log(f'== {first + 2}. {name} train path; card vs CPU one train step '
@@ -7050,11 +7138,7 @@ def parta2_phases_of(name, seed, first, smi):
     log(f'  the NMS loop: {train["nms_loop_share"]:.3f} of the steps\' wall '
         f'time')
     del model, step, batches
-    torch.cuda.reset_peak_memory_stats()
-    train['card_vs_cpu'] = parta2_train_cpu_phase(
-        cut_batch(name, VOXEL_TRAIN_CUT, seed + 90), name, VOXEL_TRAIN_CUT)
-    train['card_vs_cpu']['peak_gib'] = \
-        torch.cuda.max_memory_allocated() / 2 ** 30
+    later(train, 'card_vs_cpu', str(first + 2))
     return rec, train
 
 
@@ -7444,9 +7528,7 @@ def al_phases_of(name, first, smi):
         rec['profile'] = al_profile(model, request,
                                     f'one {name} request (B={AL_B})')
     if kitti_al:
-        log(f'== {first + 1}. {name} card vs CPU, one request (B=1)')
-        rec['card_vs_cpu'] = al_cpu_phase(
-            model, name, {k: v[:1] for k, v in host['batches'][0].items()})
+        later(rec, 'card_vs_cpu', str(first + 1))
         first += 1
     del model, host, requests
 
@@ -7473,11 +7555,7 @@ def al_phases_of(name, first, smi):
                                       f'one {name} train step (B=2)')
     del model, step, batches
     if kitti_al:
-        torch.cuda.reset_peak_memory_stats()
-        train['card_vs_cpu'] = al_train_cpu_phase(
-            al_cut_batch(name, AL_TRAIN_CUT, seed + 95), name, AL_TRAIN_CUT)
-        train['card_vs_cpu']['peak_gib'] = \
-            torch.cuda.max_memory_allocated() / 2 ** 30
+        later(train, 'card_vs_cpu', str(first + 1))
     return rec, train
 
 
@@ -7873,9 +7951,7 @@ def caddn_phases(smi):
         f'one CaDDN request (B={CADDN_B})')
     rec['alone'] = caddn_sampler_phase(model, requests[0])
 
-    log('== 93. CaDDN card vs CPU, one request (B=1)')
-    rec['card_vs_cpu'] = caddn_cpu_phase(
-        model, {k: v[:1] for k, v in requests[0].items()}, post)
+    later(rec, 'card_vs_cpu', '93')
     del model, batches, requests
 
     log(f'== 94. CaDDN train path (B={CADDN_TRAIN_B})')
@@ -7893,13 +7969,661 @@ def caddn_phases(smi):
                                      f'(B={CADDN_TRAIN_B})')
     del model, step, train_batches
 
-    log(f'== 95. CaDDN card vs CPU, one train step (cut: {CADDN_TRAIN_CUT})')
-    torch.cuda.reset_peak_memory_stats()
-    frames, _ = caddn_frames(CADDN_SEED + 95, 1, CADDN_TRAIN_CUT)
-    train['card_vs_cpu'] = caddn_train_cpu_phase(frames)
-    train['card_vs_cpu']['peak_gib'] = \
-        torch.cuda.max_memory_allocated() / 2 ** 30
+    later(train, 'card_vs_cpu', '95')
     return {'caddn': rec, 'caddn_train': train}
+
+
+# ----------------------------------------- the rest of the point family
+
+def family_cfg(name):
+    """IA-SSD.yaml (``kitti_models/IA-SSD.yaml``) as FAMILY[name] changes
+    it: its SAMPLE_METHOD_LIST (the backbone's and the head's, which the
+    yaml ties by an anchor), NPOINT_LIST and DILATED_GROUP where given;
+    IA-SSD's widths throughout. Returns (config, msg_shared)."""
+    from spsnet_torch.zoo import iassd_kitti_cfg
+    cfg, spec = iassd_kitti_cfg(), FAMILY[name]
+    sa = cfg.MODEL.BACKBONE_3D.SA_CONFIG
+    if 'methods' in spec:
+        sa.SAMPLE_METHOD_LIST = [list(m) for m in spec['methods']]
+        cfg.MODEL.POINT_HEAD.LOSS_CONFIG.SAMPLE_METHOD_LIST = \
+            [list(m) for m in spec['methods']]
+    if 'npoints' in spec:
+        sa.NPOINT_LIST = [list(p) for p in spec['npoints']]
+        sa.DILATED_GROUP = list(spec['dilated'])
+    return cfg, spec.get('msg_shared', False)
+
+
+def build_family(name, device):
+    """FAMILY[name] through ``build_detector_from_cfg`` on ``device``,
+    weights from ``torch.Generator`` seed 0."""
+    from spsnet_torch.models import build_detector_from_cfg
+    cfg, shared = family_cfg(name)
+    model = build_detector_from_cfg(cfg, device,
+                                    torch.Generator().manual_seed(0),
+                                    msg_shared=shared)
+    return cfg, model
+
+
+def build_family_trainer(device, name='IASSD_FS'):
+    """FAMILY[name] as ``build_trainer`` builds a train model (seeded
+    D-FPS where the SA layers' D-FPS engages it, weights from seed 1):
+    (model, optimizer, step)."""
+    return build_trainer(family_cfg(name)[0], device, 1)
+
+
+def family_scenes(name, b):
+    """FAMILY[name]'s first ``b`` synthetic scans of N points (its seed)."""
+    from spsnet_torch.utils.synthetic import synthetic_scan_batch
+    return torch.from_numpy(synthetic_scan_batch(FAMILY_SEEDS[name], b, N))
+
+
+def _ffps_slack(feat, other):
+    """How far apart two F-FPS distances of rows ``feat`` may order
+    against ``other``, the same rows of another run: twice the error of
+    one distance, ``FFPS_ROUND`` of the largest squared row (the |a|^2 +
+    |b|^2 - 2 a.b rounding, the cross term summed in another order) plus
+    what inputs ``e`` apart move a squared distance of at most ``d`` over
+    C channels (each difference of a channel moves by at most 2 e):
+    4 e sqrt(C d) + 4 e^2 C. Returns (slack, e)."""
+    f = feat.detach().cpu().double()
+    e = float((f - other.detach().cpu().double()).abs().max())
+    sq = float((f * f).sum(-1).max())
+    c, d = f.shape[-1], 4.0 * sq
+    return 2 * (FFPS_ROUND * sq + 4 * e * (c * d) ** 0.5 + 4 * e * e * c), e
+
+
+@contextlib.contextmanager
+def ffps_picks(replay=None):
+    """Record the F-FPS picks of a run (with their input rows), or hold a
+    run's own picks to recorded ones and replay them: equal, or each
+    recorded pick, replayed on this run's own matrix, within
+    ``_ffps_slack`` of this run's running maximum at its step (cuBLAS and
+    the CPU BLAS round the matrix's cross term apart, and a train step's
+    features differ by the BatchNorms' rounding). Yields the list of
+    (picks, rows) of the run; with ``replay`` also the picks that
+    differed a call in ``replayed``."""
+    from spsnet_torch.models import samplers
+    from spsnet_torch.ops import calc_square_dist
+    own_ffps = samplers.sample_ffps
+    record, replayed = [], []
+
+    def ffps(xyz, features, npoint):
+        got = own_ffps(xyz, features, npoint)
+        feat = torch.cat([xyz, features], -1).detach()
+        if replay is None:
+            record.append((got, feat.cpu()))
+            return got
+        want, card_feat = replay[len(record)]
+        want = want.to(got.device)
+        record.append((want, feat.cpu()))
+        if torch.equal(got, want):
+            replayed.append(0)
+            return got
+        slack, e = _ffps_slack(feat, card_feat)
+        mat = calc_square_dist(feat, feat)
+        dist = torch.full(mat.shape[:2], 1e10, device=mat.device)
+        rows = torch.arange(mat.shape[0], device=mat.device)
+        worst = 0.0
+        for s in range(1, npoint):
+            dist = torch.minimum(dist, mat[rows, want[:, s - 1]])
+            worst = max(worst, float((dist.amax(1) - dist[rows, want[:, s]])
+                                     .max()))
+        n = int((got != want).sum())
+        log(f'  F-FPS call {len(replayed)} {tuple(got.shape)}: {n} picks '
+            f'differ, inputs {e:.3e} apart; the recorded picks within '
+            f'{worst:.3e} of this run\'s running maximum (slack '
+            f'{slack:.3e}); replayed')
+        if worst > slack:
+            raise AssertionError(f'F-FPS picks {worst:.3e} below this run\'s '
+                                 f'maximum, over the slack {slack:.3e}')
+        replayed.append(n)
+        return want
+
+    samplers.sample_ffps = ffps
+    try:
+        yield record if replay is None else (record, replayed)
+    finally:
+        samplers.sample_ffps = own_ffps
+
+
+@contextlib.contextmanager
+def partition_picks(replay=None):
+    """Record the sorts of ds-FPS and ry-FPS (``samplers.partition_order``)
+    with their keys, or hold a run's own to recorded ones: equal, or the
+    recorded order an ascending order of this run's keys within
+    PART_KEY_ULPS ulps of the largest key plus how far the runs' keys lie
+    apart (XLA, torch's CPU and CUDA round arctan apart), then replayed."""
+    from spsnet_torch.models import samplers
+    own_order = samplers.partition_order
+    record = []
+
+    def order(keys):
+        got = own_order(keys)
+        if replay is None:
+            record.append((got, keys.detach().cpu()))
+            return got
+        want, card_keys = replay[len(record)]
+        want = want.to(got.device)
+        record.append((want, keys.detach().cpu()))
+        if not torch.equal(got, want):
+            k = keys.detach().cpu().double()
+            slack = PART_KEY_ULPS * float(np.spacing(
+                np.float32(k.abs().max()))) + float(
+                (k - card_keys.double()).abs().max())
+            seq = k.gather(1, want.cpu())
+            worst = float((seq.cummax(1).values - seq).max())
+            log(f'  partition sort {len(record) - 1}: '
+                f'{int((got != want).sum())} ranks differ; the recorded '
+                f'order ascends this run\'s keys within {worst:.3e} (slack '
+                f'{slack:.3e}); replayed')
+            if worst > slack:
+                raise AssertionError('the recorded partition order is no '
+                                     'ascending order of this run\'s keys')
+        return want
+
+    samplers.partition_order = order
+    try:
+        yield record
+    finally:
+        samplers.partition_order = own_order
+
+
+def family_cpu_phase(name):
+    """One scene of FAMILY[name] on the card and on the CPU with the same
+    weights (Rand from the same generator seed): the CPU holds its F-FPS
+    picks and partition sorts to the card's and replays them
+    (``ffps_picks``, ``partition_picks``), and the card's ctr_aware picks
+    (``topk_picks``); then as phase 5 (``compare_forwards``: the layer-0
+    FPS, every layer's ball query, the annulus with its lower radii,
+    kernel against plain, the sampled points, predictions within
+    tolerance, NMS identical). Returns the replayed picks a call."""
+    cfg, model = build_family(name, 'cuda')
+    _, cpu = build_family(name, 'cpu')
+    cpu.load_state_dict(model.state_dict())
+    post = cfg.MODEL.POST_PROCESSING
+    scene = family_scenes(name, 1)
+
+    def gen():
+        return torch.Generator().manual_seed(FAMILY_SEEDS[name])
+    with topk_picks() as picks, ffps_picks() as ffps, \
+            partition_picks() as parts:
+        gpu_out, gpu_dets = detect(model, scene.cuda(), post, gen())
+    with topk_picks(replay=picks), ffps_picks(ffps) as (_, replayed), \
+            partition_picks(parts):
+        cpu_out, cpu_dets = detect(cpu, scene, post, gen())
+    compare_forwards(model, scene[..., :3].contiguous().cuda(), gpu_out,
+                     gpu_dets, cpu_out, cpu_dets)
+    log(f'  {name}: {len(ffps)} F-FPS calls ({replayed} picks replayed a '
+        f'call), {len(parts)} partition sorts')
+    return {'ffps_calls': len(ffps), 'ffps_replayed': replayed,
+            'partition_sorts': len(parts)}
+
+
+def family_train_cpu_phase(batch):
+    """Phase 101: one IASSD_FS train step on one scene card vs CPU, as
+    phase 8 holds IA-SSD's (``train_cpu_phase``, which replays the card's
+    F-FPS picks after their checks; one D-FPS layer, layer 0), and each
+    module's gradient within TRAIN_MODULE_CEIL, as the two-stage
+    detectors'."""
+    card, base, modules = train_cpu_phase(
+        lambda device: build_family_trainer(device), batch, 1,
+        by_module=True)
+    return {'card': card, 'baseline': base, 'by_module': modules}
+
+
+def fps_dist_call(dmat, npoint, what):
+    """K7 against the plain F-FPS on one matrix: identical picks (tolerance
+    0), event times, the device time of a call, bound (each row read
+    once: the npoint - 1 rows the steps read, the picks written; a min and
+    a compare an entry and step). Returns the call's record (with
+    'err')."""
+    from spsnet_torch.ops import sampling as smp
+    b, n, _ = dmat.shape
+    want, plain = events_ms(
+        lambda: smp.farthest_point_sample_with_dist_plain(dmat, npoint))
+    err = require_equal(smp.farthest_point_sample_with_dist_kernel(
+        dmat, npoint), want, f'fps_dist {what} ({b}, {n}, {n}) -> {npoint}')
+    ms = cuda_ms(lambda: smp.farthest_point_sample_with_dist_kernel(
+        dmat, npoint), reps=10)
+    dev = device_ms(lambda: smp.farthest_point_sample_with_dist_kernel(
+        dmat, npoint), reps=5)
+    bnd, by = bound_ms(b * (npoint - 1) * n * 4 + b * npoint * 8,
+                       b * (npoint - 1) * n * 2)
+    log(f'  fps_dist {what} ({b}, {n}, {n}) -> {npoint}: kernel {ms:.3f} ms '
+        f'(events), {dev:.4f} ms (device), {dev * 1e3 / (npoint - 1):.3f} us '
+        f'a step; plain {plain:.3f} ms; bound {bnd:.4f} ms ({by})')
+    return {'layer': what, 'B': b, 'N': n, 'npoint': npoint, 'ms': ms,
+            'device_ms': dev, 'plain_ms': plain, 'bound_ms': bnd,
+            'bound_by': by, 'err': err}
+
+
+def family_shapes_phase(model, scans):
+    """Phase 98: K7 at IASSD_FS's two F-FPS calls (FS's at layer 1 and
+    layer 2's) on the matrices of the path's own features, with
+    ``calc_square_dist``'s device time beside; K2's annulus at the three
+    dilated layers on the path's points and centers, with device times; K1
+    at the point family's two new shapes, FS's exact D-FPS half ((8,
+    4096) -> 512, on the path's layer-1 input) and ds-FPS's partitions
+    ((32, 4096) -> 1024, on the requests' partitions). Returns the two
+    kernels' JSON entries without launches and K1's call records."""
+    from spsnet_torch.models import samplers
+    from spsnet_torch.ops import calc_square_dist
+    from spsnet_torch.ops import sampling as smp
+    from spsnet_torch.ops.grouping import ball_query_multi_kernel
+    own = samplers.sample_ffps
+    inputs = []
+
+    def keep(xyz, features, npoint):
+        inputs.append((torch.cat([xyz, features], -1).contiguous(), npoint))
+        return own(xyz, features, npoint)
+    samplers.sample_ffps = keep
+    try:
+        with torch.no_grad():
+            enc = model({'points': scans})['encoder_xyz']
+    finally:
+        samplers.sample_ffps = own
+    xyz = scans[..., :3].contiguous()
+    order = samplers.partition_order(samplers.ds_fps_keys(xyz))
+    parts = xyz.gather(1, order[..., None].expand(-1, -1, 3)).reshape(
+        4 * B, N // 4, 3).contiguous()
+    fps_calls = [fps_call('fps', smp.farthest_point_sample_kernel,
+                          enc[1].contiguous(), 512),
+                 fps_call('fps', smp.farthest_point_sample_kernel, parts,
+                          1024)]
+    calls, dist_ms = [], []
+    for k, (feat, npoint) in enumerate(inputs):
+        with torch.no_grad():
+            dmat = calc_square_dist(feat, feat)
+            dist_ms.append(device_ms_by_kernel(
+                lambda f=feat: calc_square_dist(f, f))[0])
+        log(f'  calc_square_dist ({tuple(feat.shape)}): {dist_ms[-1]:.4f} '
+            f'ms (device, its kernels)')
+        calls.append(fps_dist_call(dmat, npoint, f'layer {k + 1}'))
+        calls[-1]['calc_square_dist_device_ms'] = dist_ms[-1]
+        del dmat
+    backbone = model.backbone_3d
+    balls = []
+    for k, module in enumerate(backbone.SA_modules):
+        lows = _annulus_lows(module)
+        if lows is None:
+            continue
+        xyz = enc[backbone.layer_inputs[k]].contiguous()
+        ctr = enc[k + 1].contiguous()
+        call = ball_query_call(module.radii, module.nsamples, xyz, ctr,
+                               f'layer {k}', lows)
+        call['device_ms'] = device_ms(
+            lambda r=tuple(module.radii), s=tuple(module.nsamples), p=xyz,
+            c=ctr, lo=lows: ball_query_multi_kernel(r, s, p, c, min_radii=lo),
+            reps=11)
+        log(f'    device time {call["device_ms"]:.4f} ms a call')
+        balls.append(call)
+
+    def entry(name, source, replaces, items, shape):
+        return {'name': name, 'route': 'cuda', 'source': source,
+                'replaces': replaces, 'match': True,
+                'max_abs_err': max(c.pop('err') for c in items),
+                **{key: sum(c[key] for c in items)
+                   for key in ('ms', 'plain_ms', 'bound_ms', 'device_ms')},
+                'bound_by': 'operations' if any(
+                    c['bound_by'] == 'operations' for c in items) else
+                'bytes', 'library_ms': None, 'shape': shape, 'calls': items}
+    return [entry('fps_dist', 'spsnet_torch/csrc/fps_dist.cu',
+                  'spsnet_tpu/ops/sampling.py:201 farthest_point_sample_'
+                  'with_dist (XLA, not a Pallas kernel)', calls,
+                  'sum of the two calls of an IASSD_FS forward (B=8)'),
+            entry('ball_query_annulus', 'spsnet_torch/csrc/ball_query.cu',
+                  'spsnet_tpu/ops/pallas/d2.py:33', balls,
+                  'sum of the three dilated layers of an IASSD_FS forward '
+                  '(B=8)')], fps_calls
+
+
+def family_request(name, smi, requests, what):
+    """``requests`` requests of FAMILY[name] through ``main_path`` (Rand
+    from a generator of the config's seed): ms, launches (FAMILY_LAUNCHES
+    a forward). Returns (model, record)."""
+    from spsnet_torch.utils.synthetic import synthetic_scan_batch
+    cfg, model = build_family(name, 'cuda')
+    scans = [torch.from_numpy(synthetic_scan_batch(
+        FAMILY_SEEDS[name] + s, B, N)).cuda() for s in range(requests)]
+    gen = torch.Generator().manual_seed(FAMILY_SEEDS[name]) \
+        if 'Rand' in str(FAMILY[name].get('methods')) else None
+    times, launches = main_path(model, scans, cfg.MODEL.POST_PROCESSING,
+                                FAMILY_LAUNCHES[name], what, gen)
+    ms = statistics.median(times)
+    log(f'  launches over {len(scans)} requests: {launches}')
+    log(f'  ms/batch (B={B}, N={N}, forward + NMS): median {ms:.3f}, all '
+        f'{[round(t, 3) for t in times]} on {smi}')
+    return model, scans, {'ms_per_batch': ms, 'all_ms': times,
+                          'launches': launches}
+
+
+def family_train(name, steps, smi):
+    """``steps`` train steps of FAMILY[name] on TRAIN_B scenes each
+    (seeded D-FPS as phase 7), FAMILY_TRAIN_LAUNCHES a step. Returns the
+    record and the step."""
+    model, _, step = build_family_trainer('cuda', name)
+    batches = [_scene_batch(FAMILY_SEEDS[name] + 50 + s, TRAIN_B, 'cuda')
+               for s in range(steps)]
+    times, launches = train_path(model, step, batches,
+                                 FAMILY_TRAIN_LAUNCHES[name])
+    ms = statistics.median(times)
+    log(f'  launches over {steps} train steps: {launches}')
+    log(f'  ms/train step (B={TRAIN_B}, N={N}, forward + loss + backward + '
+        f'adam_onecycle): median {ms:.3f}, all '
+        f'{[round(t, 3) for t in times]} on {smi}')
+    return {'ms_per_step': ms, 'all_ms': times, 'launches': launches}, \
+        step, batches
+
+
+def family_phases(smi):
+    """Phases 97-109: the rest of the point family. Returns the records by
+    path, the kernels line's entries of K7 and K2's annulus and K1's calls
+    at the family's shapes."""
+    recs = {}
+    log('== 97. IASSD_FS serving path (IA-SSD.yaml with D-FPS, FS, F-FPS, '
+        'ctr_aware; dilated layers 0-2)')
+    model, scans, recs['IASSD_FS'] = family_request(
+        'IASSD_FS', smi, REQUESTS, 'IASSD_FS requests')
+    post = family_cfg('IASSD_FS')[0].MODEL.POST_PROCESSING
+    recs['IASSD_FS']['profile'] = profile_phase(
+        lambda: detect(model, scans[0], post), 'one IASSD_FS request')
+    log('== 98. kernels vs plain at the point family\'s shapes: K7, K2\'s '
+        'annulus, K1')
+    entries, fps_calls = family_shapes_phase(model, scans[0])
+    del model, scans
+    later(recs['IASSD_FS'], 'card_vs_cpu', '99')
+    log(f'== 100. IASSD_FS train path ({FAMILY_TRAIN_STEPS} steps of '
+        f'{TRAIN_B})')
+    recs['IASSD_FS_train'], step, batches = family_train(
+        'IASSD_FS', FAMILY_TRAIN_STEPS, smi)
+    recs['IASSD_FS_train']['profile'] = profile_phase(
+        lambda: step(batches[0]), 'one IASSD_FS train step')
+    del step, batches
+    later(recs['IASSD_FS_train'], 'card_vs_cpu', '101')
+    for name, first in (('IASSD_rand', 102), ('IASSD_ds', 104),
+                        ('IASSD_ry', 106), ('IASSD_msg_shared', 108)):
+        log(f'== {first}. {name}: one request'
+            f'{" and one train step" if name in FAMILY_TRAIN_LAUNCHES else ""}')
+        _, _, recs[name] = family_request(name, smi, 1, f'{name} requests')
+        if name in FAMILY_TRAIN_LAUNCHES:
+            recs[f'{name}_train'] = family_train(name, 1, smi)[0]
+        later(recs[name], 'card_vs_cpu', str(first + 1))
+    return recs, entries, fps_calls
+
+
+# -------------------------- the card-vs-CPU checks beside the card phases
+
+def beside_checks():
+    """The card-vs-CPU train steps of every path and the card-vs-CPU
+    requests but the pillar and multi-head ones: {phase: (title, run)},
+    where ``run()`` gives the phase's record. Each builds its models and
+    its inputs from seeds, as the phase did in line; ``--beside`` runs
+    them in a second process beside the card phases (``Beside``)."""
+    from spsnet_torch.zoo import iassd_kitti_cfg
+    checks = {
+        '5': ('card vs CPU, one scene', lambda: cpu_phase(
+            *build_iassd('cuda'), _scans(0, B)[:1])),
+        '8': ('card vs CPU, one train step', lambda: train_cpu_phase(
+            lambda device: build_trainer(iassd_kitti_cfg(), device, 1),
+            _scene_batch(100, 1, 'cpu'), 2)),
+        '15': ('SPSNet card vs CPU, one train step', lambda: train_cpu_phase(
+            lambda device: build_spsnet_trainer(device)[:3],
+            _scene_batch(100, 1, 'cpu'), 2)),
+        '11': ('SPSNet card vs CPU, one scene', lambda: spsnet_cpu_phase(
+            *build_spsnet('cuda'), _scene_batch(100, B, 'cuda'))),
+        '17': ('stability card vs CPU, one train step',
+               lambda: train_cpu_phase(build_stability_trainer,
+                                       _scene_batch(300, 1, 'cpu'), 0)),
+        '21': ('PointRCNN card vs CPU, one scene',
+               lambda: pointrcnn_cpu_phase(*build_pointrcnn('cuda')[::-1],
+                                           _scans(0, B)[:1].contiguous())),
+        '26': ('PointRCNN card vs CPU, one train step',
+               lambda: pointrcnn_train_cpu_phase(
+                   _scene_batch(610, 1, 'cpu'))),
+        '31': ('PV-RCNN card vs CPU, one request (B=1)',
+               lambda: pvrcnn_cpu_phase(*_voxel_request(
+                   'pv_rcnn', 700, PV_B))),
+        '36': (f'PV-RCNN card vs CPU, one train step (cut: '
+               f'{VOXEL_TRAIN_CUT})', lambda: pvrcnn_train_cpu_phase(
+                   cut_batch('pv_rcnn', VOXEL_TRAIN_CUT, 810),
+                   cut=VOXEL_TRAIN_CUT)),
+        '42': ('Voxel R-CNN card vs CPU, one request (B=1)',
+               lambda: voxelrcnn_cpu_phase(*_voxel_request(
+                   'voxel_rcnn_car', 1100, VR_B))),
+        '44': (f'Voxel R-CNN card vs CPU, one train step (cut: '
+               f'{VOXEL_TRAIN_CUT})', lambda: pvrcnn_train_cpu_phase(
+                   cut_batch('voxel_rcnn_car', VOXEL_TRAIN_CUT, 1210),
+                   'voxel_rcnn_car', cut=VOXEL_TRAIN_CUT)),
+        '46': ('CenterPoint card vs CPU, one request (B=1)',
+               lambda: centerpoint_cpu_phase(*_voxel_request(
+                   'waymo_models/centerpoint', 1300, CP_B, CP_N, 5))),
+        '48': (f'CenterPoint card vs CPU, one train step (cut: '
+               f'{CP_TRAIN_CUT})', lambda: centerpoint_train_cpu_phase(
+                   _waymo_cut_frame('waymo_models/centerpoint', 1450))),
+        '52': ('PV-RCNN++ card vs CPU, one request (B=1)',
+               lambda: pvpp_cpu_phase(*_voxel_request(
+                   'waymo_models/pv_rcnn_plusplus', 1800, PP_B, CP_N, 5,
+                   named=True))),
+        '55': (f'PV-RCNN++ card vs CPU, one train step (cut: '
+               f'{PP_TRAIN_CUT})', lambda: pvpp_train_cpu_phase(
+                   _pvpp_cut_frame(1900))),
+    }
+    for name, phase, seed in (
+            ('waymo_models/centerpoint_pillar_1x', '61', 2290),
+            ('waymo_models/centerpoint_dyn_pillar_1x', '64', 2390)):
+        checks[phase] = (
+            f'{name} card vs CPU, one train step (cut: {CP_TRAIN_CUT})',
+            lambda name=name, seed=seed: centerpoint_train_cpu_phase(
+                _waymo_cut_frame(name, seed), name))
+    for k, (name, seed) in enumerate(MH_CONFIGS.items()):
+        _, channels, velocity, cut = _mh_setting(name)
+        checks[str(68 + 3 * k)] = (
+            f'{name} card vs CPU, one train step (cut: {cut})',
+            lambda name=name, seed=seed, channels=channels,
+            velocity=velocity, cut=cut: mh_train_cpu_phase(
+                cut_batch(name, cut, seed + 90, channels, velocity), name,
+                cut))
+    for k, (name, seed) in enumerate(PA_CONFIGS.items()):
+        checks[str(79 + 3 * k)] = (
+            f'{name} card vs CPU, one request (B=1)',
+            lambda name=name, seed=seed: _parta2_request_check(name, seed))
+        checks[str(80 + 3 * k)] = (
+            f'{name} card vs CPU, one train step (cut: {VOXEL_TRAIN_CUT})',
+            lambda name=name, seed=seed: parta2_train_cpu_phase(
+                cut_batch(name, VOXEL_TRAIN_CUT, seed + 90), name,
+                VOXEL_TRAIN_CUT))
+    al_seed, al_n, al_channels = AL_CONFIGS['kitti_models/AL']
+    checks['86'] = (
+        'kitti_models/AL card vs CPU, one request (B=1)',
+        lambda: al_cpu_phase(*_voxel_request(
+            'kitti_models/AL', al_seed, AL_B, al_n, al_channels, named=True,
+            build=build_al_detector)))
+    checks['87'] = (
+        f'kitti_models/AL card vs CPU, one train step (cut: {AL_TRAIN_CUT})',
+        lambda: al_train_cpu_phase(
+            al_cut_batch('kitti_models/AL', AL_TRAIN_CUT, al_seed + 95),
+            'kitti_models/AL', AL_TRAIN_CUT))
+    checks['93'] = ('CaDDN card vs CPU, one request (B=1)',
+                    _caddn_request_check)
+    checks['95'] = (
+        f'CaDDN card vs CPU, one train step (cut: {CADDN_TRAIN_CUT})',
+        lambda: caddn_train_cpu_phase(
+            caddn_frames(CADDN_SEED + 95, 1, CADDN_TRAIN_CUT)[0]))
+    checks['99'] = ('IASSD_FS card vs CPU, one scene',
+                    lambda: family_cpu_phase('IASSD_FS'))
+    checks['101'] = ('IASSD_FS card vs CPU, one train step',
+                     lambda: family_train_cpu_phase(_scene_batch(
+                         FAMILY_SEEDS['IASSD_FS'] + 90, 1, 'cpu')))
+    for name, phase in (('IASSD_rand', '103'), ('IASSD_ds', '105'),
+                        ('IASSD_ry', '107'), ('IASSD_msg_shared', '109')):
+        checks[phase] = (f'{name} card vs CPU, one scene',
+                         lambda name=name: family_cpu_phase(name))
+    return checks
+
+
+def _voxel_request(name, seed, b, n=N, channels=4, named=False,
+                   build=None):
+    """The inputs of a voxel or pillar detector's card-vs-CPU request
+    (phases 31, 42, 46, 52, 79, 82, 86): ``build(name, 'cuda')``'s model
+    (``build_voxel_detector`` unless given; weights from seed 0, as the
+    serving phase's) and the first frame of the serving phase's first
+    batch (seed ``seed`` of ``pv_host_batches``: a frame's host job alone
+    where the config takes its frames alone, else the batch's), on the
+    card: (model, config or ``name`` when ``named``, frame)."""
+    from spsnet_torch.runtime.trainer import device_batch
+    cfg, model = (build or build_voxel_detector)(name, 'cuda')
+    job = _frame_jobs(cfg, [seed], b)[0]
+    host = _serve_host(cfg, b, n, channels, job)[0]
+    frame = device_batch({k: v[:1] for k, v in host.items()}, 'cuda')
+    return model, name if named else cfg, frame
+
+
+def _scans(seed, b):
+    """``synthetic_scan_batch(seed, b, N)`` on the card (the IA-SSD and
+    PointRCNN requests' scans)."""
+    from spsnet_torch.utils.synthetic import synthetic_scan_batch
+    return torch.from_numpy(synthetic_scan_batch(seed, b, N)).cuda()
+
+
+def build_iassd(device):
+    """IA-SSD.yaml at full width on ``device``, weights from seed 0 (as
+    ``kernel_inputs``): (detector, config)."""
+    from spsnet_torch.models import build_detector
+    from spsnet_torch.zoo import iassd_kitti_cfg
+    cfg = iassd_kitti_cfg()
+    return build_detector(cfg.MODEL, len(cfg.CLASS_NAMES), device=device,
+                          generator=torch.Generator().manual_seed(0)), cfg
+
+
+def _parta2_request_check(name, seed):
+    """Phases 79, 82: ``parta2_cpu_phase`` on the serving phase's model
+    and first frame."""
+    model, cfg, frame = _voxel_request(name, seed, PA_B)
+    return parta2_cpu_phase(model, name, frame, cfg.MODEL.POST_PROCESSING)
+
+
+def _caddn_request_check():
+    """Phase 93: ``caddn_cpu_phase`` on the serving phase's model and the
+    first frame of its first batch."""
+    cfg, model = build_caddn_server('cuda')
+    frames = caddn_frames(CADDN_SEED, CADDN_B)[0]
+    return caddn_cpu_phase(model, {k: v[:1].cuda() for k, v in frames.items()},
+                           cfg.MODEL.POST_PROCESSING)
+
+
+def _waymo_cut_frame(name, seed):
+    """One frame of the Waymo train batches of seeds (seed, seed + 1) of
+    ``name`` on CP_TRAIN_CUT, on the CPU (phases 48, 61, 64)."""
+    cfg = build_centerpoint_trainer('cpu', cut=True, name=name)[0]
+    batch = pv_train_batches(cfg, [seed, seed + 1], sizes=WAYMO_SIZES,
+                             n=CP_TRAIN_CUT['points'], channels=5)[0][0]
+    return {k: v[:1].cpu() for k, v in batch.items()}
+
+
+def _pvpp_cut_frame(seed):
+    """Phase 55's frame: as ``_waymo_cut_frame`` on PP_TRAIN_CUT."""
+    cfg = build_pvpp_trainer('cpu', cut=True)[0]
+    batch = pv_train_batches(cfg, [seed, seed + 1], sizes=WAYMO_SIZES,
+                             n=PP_TRAIN_CUT['points'], channels=5)[0][0]
+    return {k: v[:1].cpu() for k, v in batch.items()}
+
+
+def run_beside() -> int:
+    """``--beside``: the checks of ``beside_checks`` in phase order, each
+    with its header, with BESIDE_THREADS CPU threads; the peak card memory
+    of each; the records as one JSON line last. Returns 1 after the first
+    that fails."""
+    torch.set_num_threads(BESIDE_THREADS)
+    out = {}
+    for key, (title, run) in beside_checks().items():
+        log(f'== {key}. {title}')
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            rec = run()
+        except Exception:
+            import traceback
+            traceback.print_exc(file=sys.stdout)
+            log(f'phase {key} failed')
+            return 1
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        if isinstance(rec, dict):
+            rec['peak_gib'] = peak
+        log(f'  peak card memory {peak:.3f} GiB')
+        out[key] = rec
+        torch.cuda.empty_cache()
+    log(json.dumps({'beside': out}, default=float))
+    return 0
+
+
+class Beside:
+    """The checks of ``beside_checks`` in a second process
+    (``chip_smoke.py --beside``), started after phase 3 so that the
+    kernels' device times there are the card's alone: they share the card
+    and the host with the phases that run meanwhile, whose host and device
+    times they may lengthen. ``later`` records where each record goes;
+    ``finish`` waits for the process, prints its log (each line after
+    'beside| ') and puts the records in place, or raises if it failed."""
+
+    def __init__(self):
+        import tempfile
+        self.out = tempfile.TemporaryFile(mode='w+')
+        self.t0 = time.perf_counter() - _T0
+        self.proc = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), '--beside'],
+            stdout=self.out, stderr=subprocess.STDOUT, text=True)
+        self.slots = []
+        log(f'  the card-vs-CPU checks of phases '
+            f'{", ".join(beside_checks())} run in a second process from '
+            f'now on (pid {self.proc.pid})')
+
+    def later(self, container, key, phase):
+        self.slots.append((container, key, phase))
+
+    def finish(self):
+        t = time.perf_counter() - _T0
+        rc = self.proc.wait()
+        self.out.seek(0)
+        lines = self.out.read().splitlines()
+        log(f'== the card-vs-CPU checks beside the card phases: a second '
+            f'process from {self.t0:.1f} s, waited for from {t:.1f} s, done '
+            f'at {time.perf_counter() - _T0:.1f} s, exit {rc}; its log:')
+        result = [k for k, line in enumerate(lines)
+                  if line.startswith('{"beside": ')]
+        for k, line in enumerate(lines):
+            if k not in result:
+                print(f'beside| {line}', flush=True)
+        if rc != 0 or not result:
+            raise AssertionError(f'the card-vs-CPU checks beside failed '
+                                 f'(exit {rc})')
+        recs = json.loads(lines[result[-1]])['beside']
+        for container, key, phase in self.slots:
+            if container is not None:
+                container[key] = recs[phase]
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self.out.close()
+
+
+_BESIDE = None
+
+
+def later(container, key, phase):
+    """Put the record of check ``phase`` of ``beside_checks`` at
+    ``container[key]``: when it runs beside (``Beside``), once it is done;
+    else now, in line."""
+    title, run = beside_checks()[phase]
+    if _BESIDE is not None:
+        log(f'== {phase}. {title}: beside, in the second process (its log '
+            'at the end)')
+        _BESIDE.later(container, key, phase)
+        return
+    log(f'== {phase}. {title}')
+    rec = run()
+    if container is not None:
+        container[key] = rec
 
 
 def card_and_build():
@@ -8130,6 +8854,8 @@ def main(argv=()) -> int:
     if list(argv) == ['--bev-algorithm']:
         log(json.dumps({'bev_algorithm_ms': bev_algorithm_phase()}))
         return 0
+    if list(argv) == ['--beside']:
+        return run_beside()
     if list(argv) == ['--fault-check']:
         return fault_check()
     if len(argv) == 2 and argv[0] == '--fault-check':
@@ -8139,10 +8865,9 @@ def main(argv=()) -> int:
     if argv:
         print('usage: chip_smoke.py [--phase3 ROOT | --jitter-study | '
               '--bev-algorithm | --fault-check [MODELS] | '
-              '--pvpp-train-repeat N]',
+              '--pvpp-train-repeat N | --beside]',
               file=sys.stderr)
         return 2
-    from spsnet_torch.runtime.trainer import make_eval_step
 
     smi = card_and_build()
     inp = kernel_inputs()
@@ -8155,6 +8880,19 @@ def main(argv=()) -> int:
                                    shapes['errs'][entry['name']])
         if entry['name'] == 'fps':
             entry['sfps_calls'] = shapes['sfps']
+    global _BESIDE
+    _BESIDE = Beside()
+    try:
+        return _run_paths(smi, inp, entries, kernel_dev)
+    finally:
+        _BESIDE.stop()
+
+
+def _run_paths(smi, inp, entries, kernel_dev) -> int:
+    """Phases 4-109 after phases 1-3, the card-vs-CPU checks of
+    ``beside_checks`` beside them in a second process; the kernels line and
+    the result line."""
+    from spsnet_torch.runtime.trainer import make_eval_step
     cfg, model, requests = inp['cfg'], inp['model'], inp['requests']
     sps_cfg, sps_pre, sps_model = inp['sps']
     sps_requests, train_batches = inp['sps_requests'], inp['train_batches']
@@ -8170,8 +8908,7 @@ def main(argv=()) -> int:
         f'{[round(t, 3) for t in times]}; scenes/s {B / ms * 1e3:.2f} '
         f'on {smi}')
 
-    log('== 5. card vs CPU, one scene')
-    cpu_phase(model, cfg, requests[0][:1])
+    later(None, None, '5')
 
     log('== 6. where the time goes: one request')
     serve_profile = profile_phase(lambda: detect(model, requests[0], post),
@@ -8188,9 +8925,7 @@ def main(argv=()) -> int:
         f'{[round(t, 3) for t in step_times]}; steps/s '
         f'{1e3 / step_ms:.3f} on {smi}')
 
-    log('== 8. card vs CPU, one train step')
-    train_cpu_phase(lambda device: build_trainer(cfg, device, 1),
-                    _scene_batch(100, 1, 'cpu'), 2)
+    later(None, None, '8')
 
     log('== 9. where the time goes: one train step')
     train_profile = profile_phase(lambda: step(train_batches[0]),
@@ -8217,8 +8952,7 @@ def main(argv=()) -> int:
         f'{[round(t, 3) for t in sps_times]}; scenes/s '
         f'{B / sps_ms * 1e3:.2f} on {smi}')
 
-    log('== 11. SPSNet card vs CPU, one scene')
-    spsnet_cpu_phase(sps_cfg, sps_pre, sps_model, sps_requests[0])
+    later(None, None, '11')
 
     log('== 12. where the time goes: one SPSNet request')
     sps_profile = profile_phase(lambda: sps_step(sps_requests[0]),
@@ -8255,9 +8989,7 @@ def main(argv=()) -> int:
         f'{[round(t, 3) for t in sps_step_times]}; steps/s '
         f'{1e3 / sps_step_ms:.3f} on {smi}')
 
-    log('== 15. SPSNet card vs CPU, one train step')
-    train_cpu_phase(lambda device: build_spsnet_trainer(device)[:3],
-                    _scene_batch(100, 1, 'cpu'), 2)
+    later(None, None, '15')
 
     log('== 16. stability train path')
     stab_model, _, stab_step = build_stability_trainer('cuda')
@@ -8272,8 +9004,7 @@ def main(argv=()) -> int:
         f'{[round(t, 3) for t in stab_times]}; steps/s '
         f'{1e3 / stab_ms:.3f}; foreground share {fg_share:.4f} on {smi}')
 
-    log('== 17. stability card vs CPU, one train step')
-    train_cpu_phase(build_stability_trainer, _scene_batch(300, 1, 'cpu'), 0)
+    later(None, None, '17')
 
     log('== 18. where the time goes: one SPSNet train step, one stability '
         'train step')
@@ -8311,8 +9042,7 @@ def main(argv=()) -> int:
     prcnn_shapes = pointrcnn_shapes_phase(prcnn, requests[0])
     chunked = chunked_fps_phase(requests[0][..., :3].contiguous())
 
-    log('== 21. PointRCNN card vs CPU, one scene')
-    pointrcnn_cpu_phase(prcnn, prcnn_cfg, requests[0][:1].contiguous())
+    later(None, None, '21')
 
     log('== 22. where the time goes: one PointRCNN request, its proposal NMS')
     proposals = prcnn.roi_head.proposal_layer
@@ -8369,9 +9099,7 @@ def main(argv=()) -> int:
         prcnn_model, dict(prcnn_batches[0], rngs=step_rngs(0)),
         first_layer=0)
 
-    log('== 26. PointRCNN card vs CPU, one train step')
-    prcnn_train['card_vs_cpu'] = pointrcnn_train_cpu_phase(
-        _scene_batch(610, 1, 'cpu'))
+    later(prcnn_train, 'card_vs_cpu', '26')
 
     log('== 27. RoI targets and loss on jittered gt, card vs CPU')
     prcnn_train['reg_corner'] = roi_target_loss_phase(
@@ -8414,6 +9142,9 @@ def main(argv=()) -> int:
     parta2 = parta2_phases(smi)
     al = al_phases(smi)
     caddn = caddn_phases(smi)
+    family, family_entries, family_fps = family_phases(smi)
+    entries += family_entries
+    _BESIDE.finish()
 
     paths = {'serve': launches, 'train': train_launches,
              'spsnet': sps_launches, 'fps_entries': entry_launches,
@@ -8437,7 +9168,8 @@ def main(argv=()) -> int:
              **{name: rec['launches'] for name, rec in multihead.items()},
              **{name: rec['launches'] for name, rec in parta2.items()},
              **{name: rec['launches'] for name, rec in al.items()},
-             **{name: rec['launches'] for name, rec in caddn.items()}}
+             **{name: rec['launches'] for name, rec in caddn.items()},
+             **{name: rec['launches'] for name, rec in family.items()}}
     for entry in entries:
         entry['launches_by_path'] = {path: counts.get(entry['name'], 0)
                                      for path, counts in paths.items()}
@@ -8469,7 +9201,9 @@ def main(argv=()) -> int:
                                            calls['errs']['ball_query'])
         if name == 'fps':
             entry['max_abs_err'] = max(entry['max_abs_err'],
-                                       chunked.pop('err'))
+                                       chunked.pop('err'),
+                                       *(c.pop('err') for c in family_fps))
+            entry['point_family_calls'] = family_fps
             entry['chunked_call'] = chunked
             entry['pvrcnnpp_sector_calls'] = pvpp_shapes['fps']
             entry['pvrcnnpp_sector_at_k'] = pvpp_shapes['fps_at_k']
@@ -8509,7 +9243,7 @@ def main(argv=()) -> int:
                     'pvrcnnpp_resnet': pvpp_resnet,
                     'pvrcnnpp_train': pvpp_train, 'pillars': pillars,
                     'multihead': multihead, 'parta2': parta2, 'al': al,
-                    'caddn': caddn, 'card': smi}))
+                    'caddn': caddn, 'point_family': family, 'card': smi}))
     log(smi)
     log(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -10,7 +10,13 @@
 // Function, per center m of batch row b and per radius r (one or two radii
 // share one pass): the indices of the first `nsample` points, in index
 // order, with d2 < r*r (strict); slots past the last hit repeat the first
-// hit; a ball with no hit is all zeros.
+// hit; a ball with no hit is all zeros. The annulus form (kAnnulus, the
+// dilated grouping's `ball_query_dilated`, spsnet_tpu/ops/grouping.py:
+// 167-213, and the reference's `ball_query_dilated_kernel_fast`) takes a
+// lower squared radius a radius too: a hit is r_min^2 <= d2 < r^2, or
+// d2 <= 0 (the center itself always hits). Every annulus hit lies below
+// r^2, so the early stop and the guard below hold for it unchanged; only
+// a radius of 0, whose d2 <= 0 hits lie on it, needs the guard widened.
 //
 // What bounds it on the H100: arithmetic and issue. Each (center, point)
 // pair costs ~10 fp32 operations; the bytes (points, centers, indices) are
@@ -136,12 +142,21 @@ __device__ __forceinline__ float open_r2(int cnt_a, int nsa, float r2a,
   return fmaxf(cnt_a < nsa ? r2a : -1.f, cnt_b < nsb ? r2b : -1.f);
 }
 
-template <int W, bool kBulk>
+// Whether a squared distance hits a radius: below r2, and in the annulus
+// form also at least r2min, or at most 0.
+template <bool kAnnulus>
+__device__ __forceinline__ bool hits(float d2, float r2, float r2min) {
+  if (kAnnulus) return (d2 >= r2min && d2 < r2) || d2 <= 0.f;
+  return d2 < r2;
+}
+
+template <int W, bool kBulk, bool kAnnulus>
 __global__ void __launch_bounds__(kThreads)
     ball_query_kernel(const float* __restrict__ xyz,
                       const float* __restrict__ ctr, int64_t* __restrict__ out_a,
                       int64_t* __restrict__ out_b, int N, int M, float r2a,
-                      int nsa, float r2b, int nsb) {
+                      int nsa, float r2b, int nsb, float r2a_min,
+                      float r2b_min) {
   // kBulk: the ring of two tiles; else one tile, or the row if shorter (a
   // larger reservation costs the small layers occupancy)
   extern __shared__ __align__(16) float ring[];
@@ -194,7 +209,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int w = 0; w < W; ++w) {
       d2[w] = sq_dist(cx[w], cy[w], cz[w], px, py, pz);
       if (ragged && !in) d2[w] = __int_as_float(0x7f800000);  // +inf
-      any |= d2[w] < r2g[w];
+      any |= d2[w] < r2g[w] || (kAnnulus && r2g[w] >= 0.f && d2[w] <= 0.f);
     }
     // one center: its ballots are the guard (a vote first would add one)
     if (W > 1 && !__any_sync(kFull, any)) return;
@@ -205,12 +220,14 @@ __global__ void __launch_bounds__(kThreads)
         // both ballots at once; a full radius only counts (pos >= nsample
         // stores nothing), so radius b stores nothing when nsb == 0
         const size_t m = row0 + m0 + w;
-        const unsigned ma = __ballot_sync(kFull, d2[w] < r2a);
-        const unsigned mb = __ballot_sync(kFull, d2[w] < r2b);
-        take_hits(ma, d2[w] < r2a, base + t, lane, out_a + m * nsa, nsa,
-                  cnt_a[w], first_a[w]);
-        take_hits(mb, d2[w] < r2b, base + t, lane, out_b + m * nsb, nsb,
-                  cnt_b[w], first_b[w]);
+        const bool ha = hits<kAnnulus>(d2[w], r2a, r2a_min);
+        const bool hb = hits<kAnnulus>(d2[w], r2b, r2b_min);
+        const unsigned ma = __ballot_sync(kFull, ha);
+        const unsigned mb = __ballot_sync(kFull, hb);
+        take_hits(ma, ha, base + t, lane, out_a + m * nsa, nsa, cnt_a[w],
+                  first_a[w]);
+        take_hits(mb, hb, base + t, lane, out_b + m * nsb, nsb, cnt_b[w],
+                  first_b[w]);
         if (W > 1) r2g[w] = open_r2(cnt_a[w], nsa, r2a, cnt_b[w], nsb, r2b);
       }
       done = done && cnt_a[w] >= nsa && cnt_b[w] >= nsb;
@@ -318,10 +335,13 @@ int spsnet_ball_query_warp_centers(int B, int M) { return warp_centers(B, M); }
 
 // xyz (B, N, 3) and ctr (B, M, 3) fp32 contiguous; out_a (B, M, nsa) and
 // out_b (B, M, nsb) int64 (out_b unused when nsb == 0). r2a/r2b are the
-// squared radii. Returns a cudaError_t code (0 on success).
+// squared radii; with `annulus` non-zero, r2a_min/r2b_min their lower
+// squared radii (the annulus form). Returns a cudaError_t code (0 on
+// success).
 int spsnet_ball_query(const void* xyz, const void* ctr, void* out_a,
                       void* out_b, int B, int N, int M, float r2a, int nsa,
-                      float r2b, int nsb, void* stream) {
+                      float r2b, int nsb, int annulus, float r2a_min,
+                      float r2b_min, void* stream) {
   if (B < 1 || B > 65535 || N < 1 || M < 1 || nsa < 1 || nsb < 0 ||
       (nsb > 0 && out_b == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -335,14 +355,19 @@ int spsnet_ball_query(const void* xyz, const void* ctr, void* out_a,
   const dim3 grid((M + per_cta - 1) / per_cta, B);
   const int tiled = bulk ? 2 * kTile : (N < kTile ? N : kTile);
   const size_t smem = sizeof(float) * 3 * tiled;
-  auto kernel = w == 1 ? (bulk ? ball_query_kernel<1, true>
-                               : ball_query_kernel<1, false>)
-                       : (bulk ? ball_query_kernel<2, true>
-                               : ball_query_kernel<2, false>);
+  auto kernel =
+      annulus ? (w == 1 ? (bulk ? ball_query_kernel<1, true, true>
+                                : ball_query_kernel<1, false, true>)
+                        : (bulk ? ball_query_kernel<2, true, true>
+                                : ball_query_kernel<2, false, true>))
+              : (w == 1 ? (bulk ? ball_query_kernel<1, true, false>
+                                : ball_query_kernel<1, false, false>)
+                        : (bulk ? ball_query_kernel<2, true, false>
+                                : ball_query_kernel<2, false, false>));
   kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(xyz), static_cast<const float*>(ctr),
       static_cast<int64_t*>(out_a), static_cast<int64_t*>(out_b), N, M, r2a,
-      nsa, r2b, nsb);
+      nsa, r2b, nsb, r2a_min, r2b_min);
   return static_cast<int>(cudaGetLastError());
 }
 

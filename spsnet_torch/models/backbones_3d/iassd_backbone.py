@@ -8,7 +8,9 @@ AGGREGATION_MLPS, CONFIDENCE_MLPS, LAYER_INPUT, CTR_INDEX,
 MAX_TRANSLATE_RANGE, USE_SURFACE, and SS_RADIUS_LIST / SS_NSAMPLE_LIST
 (S-FPS's swap ball, the first entry of a layer's list). The layers live in
 ``SA_modules``, as in the reference state dict. ``fps_seeding`` (an
-``ops.FpsSeeding`` or None) goes to every SA layer's D-FPS.
+``ops.FpsSeeding`` or None) goes to every SA layer's D-FPS, ``msg_shared``
+(off by default) to every SA layer's grouping, and the forward's
+``sampling_generator`` to the Rand samplers.
 
 The same class serves as ``PAGNet_Backbone`` (``backbones_3d/
 PAGNet_backbone.py``): with ``USE_SURFACE`` a DenseEdgeConv 60-d surface
@@ -44,7 +46,7 @@ def _input_index(layer_input):
 class IASSDBackbone(nn.Module):
 
     def __init__(self, model_cfg, num_class: int, input_channels: int,
-                 fps_seeding=None):
+                 fps_seeding=None, msg_shared: bool = False):
         super().__init__()
         self.fps_seeding = fps_seeding
         sa_cfg = model_cfg.SA_CONFIG
@@ -94,7 +96,8 @@ class IASSDBackbone(nn.Module):
                     ss_radius=(ss_radii[k][0] if ss_radii and ss_radii[k]
                                else None),
                     ss_nsample=(ss_nsamples[k][0]
-                                if ss_nsamples and ss_nsamples[k] else None))
+                                if ss_nsamples and ss_nsamples[k] else None),
+                    msg_shared=msg_shared)
             elif layer_type == 'Vote_Layer':
                 self.dfps_static.append(False)
                 self.npoint0.append(0)
@@ -108,11 +111,13 @@ class IASSDBackbone(nn.Module):
         self.SA_modules = nn.ModuleList(modules)
         self.num_point_features = channel_out_list[-1]
 
-    def forward(self, batch):
+    def forward(self, batch, sampling_generator=None):
         """
         Args:
             batch: dict with 'points' (B, N, 3 + C) [x, y, z, feat...] and
                 optionally 'stds' (B, N) from the stability model (SPSNet).
+            sampling_generator: a CPU ``torch.Generator`` for the Rand
+                samplers, or None.
         Returns: ``batch`` updated with centers / centers_origin /
             ctr_offsets (B, M, 3), centers_features (B, M, C), encoder_xyz,
             encoder_features and sa_ins_preds (lists, one entry per layer).
@@ -144,7 +149,8 @@ class IASSDBackbone(nn.Module):
                     fps_ordered.append(False)
                 li_xyz, li_features, li_cls_pred, sampled_idx, stds = module(
                     xyz_input, feat_input, li_cls_pred, ctr_xyz=ctr_xyz,
-                    stds=stds, input_fps_ordered=fps_ordered[in_idx])
+                    stds=stds, input_fps_ordered=fps_ordered[in_idx],
+                    sampling_generator=sampling_generator)
                 if self.SF_extract is not None and i <= 3:
                     if i == 0:
                         surface = self.SF_extract(xyz)

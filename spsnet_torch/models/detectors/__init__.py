@@ -105,14 +105,18 @@ def resolve_device(device) -> torch.device:
 def build_detector(model_cfg, num_class: int, device='cuda',
                    generator: torch.Generator | None = None,
                    input_channels: int = 4, fps_seeding=None,
-                   class_names=None, **geometry):
+                   class_names=None, msg_shared: bool = False, **geometry):
     """Build the detector named by ``model_cfg.NAME`` on ``device`` in eval
     mode, with seeded random weights drawn from ``generator`` (a CPU
     ``torch.Generator``; seed 0 when None). Load trained weights with
     ``load_state_dict`` or ``utils.weights.load_flax``; call ``.train()``
     for the train step (``runtime.trainer``). ``fps_seeding``
     (``ops.FpsSeeding``) turns on seeded D-FPS in the SA layers and the
-    VSA; None, the default, keeps exact FPS. The voxel detectors take their
+    VSA; None, the default, keeps exact FPS. ``msg_shared`` groups the
+    IA-SSD family's multi-scale SA layers from one ball query and one
+    gather (``ops.msg_shared_group``, the JAX package's ``set_msg_shared
+    (True)``); off, the default, each scale keeps its own first-k
+    neighbours. The voxel detectors take their
     ``voxel_size``, ``point_cloud_range`` and ``final_grid_zyx`` from
     ``geometry``, which ``build_detector_from_cfg`` derives (CaDDN its
     ``voxel_size`` and ``point_cloud_range``), and
@@ -124,8 +128,9 @@ def build_detector(model_cfg, num_class: int, device='cuda',
     if name not in _DETECTORS or missing:
         raise NotImplementedError(
             f'detector {name} ({", ".join(missing) or "no such detector"}): '
-            f'the port serves and trains {sorted(_DETECTORS)}; the rest of '
-            f'the point family is ROADMAP Queue 1 item E')
+            f'the port serves and trains {sorted(_DETECTORS)}; what is left '
+            f'of the JAX package is data parallel training and the host '
+            f'side (ROADMAP Queue 1 items D and G)')
     cls = detector_class(model_cfg)
     if cls is CaDDN:
         model = cls(model_cfg, num_class, **geometry)
@@ -134,6 +139,9 @@ def build_detector(model_cfg, num_class: int, device='cuda',
             geometry['fps_seeding'] = fps_seeding
         model = cls(model_cfg, num_class, input_channels,
                     class_names=class_names, **geometry)
+    elif cls is IASSD:
+        model = cls(model_cfg, num_class, input_channels, fps_seeding,
+                    msg_shared)
     else:
         model = cls(model_cfg, num_class, input_channels, fps_seeding)
     if generator is None:
@@ -144,7 +152,7 @@ def build_detector(model_cfg, num_class: int, device='cuda',
 
 def build_detector_from_cfg(cfg, device='cuda',
                             generator: torch.Generator | None = None,
-                            fps_seeding=None):
+                            fps_seeding=None, msg_shared: bool = False):
     """Build from a full experiment config, as ``spsnet_tpu/models/
     detectors/__init__.py:66-105`` does: the class names, the point
     channels from DATA_CONFIG's POINT_FEATURE_ENCODING, and for the voxel
@@ -180,4 +188,5 @@ def build_detector_from_cfg(cfg, device='cuda',
     return build_detector(cfg.MODEL, len(cfg.CLASS_NAMES), device=device,
                           generator=generator, input_channels=channels,
                           fps_seeding=fps_seeding,
-                          class_names=list(cfg.CLASS_NAMES), **geometry)
+                          class_names=list(cfg.CLASS_NAMES),
+                          msg_shared=msg_shared, **geometry)

@@ -23,8 +23,8 @@ from .blocks import MLPHead, SharedMLP
 
 
 def _sampler_kind(stype: str) -> str:
-    """The JAX package's dispatch order (``sa_module.py:71-119``), cut to
-    the samplers ported so far."""
+    """The JAX package's dispatch (``spsnet_tpu/models/sa_module.py:
+    80-131``): the same tests in the same order."""
     if 'cls' in stype or 'ctr' in stype:
         return 'ctr'
     if 'sss' in stype or 'ss' in stype:
@@ -33,9 +33,17 @@ def _sampler_kind(stype: str) -> str:
         return 'sfps'
     if 'D-FPS' in stype or 'DFS' in stype:
         return 'dfps'
-    raise NotImplementedError(
-        f'sampler {stype}: F-FPS, FS, Rand, ds-FPS and ry-FPS are ROADMAP '
-        'Queue 1 item E')
+    if 'F-FPS' in stype or 'FFS' in stype:
+        return 'ffps'
+    if stype == 'FS':
+        return 'fs'
+    if 'Rand' in stype:
+        return 'rand'
+    if stype in ('ds_FPS', 'ds-FPS'):
+        return 'ds_fps'
+    if stype in ('ry_FPS', 'ry-FPS'):
+        return 'ry_fps'
+    raise NotImplementedError(stype)
 
 
 class SAModuleMSGWithSampling(nn.Module):
@@ -43,7 +51,11 @@ class SAModuleMSGWithSampling(nn.Module):
     confidence. ``mlps`` entries exclude the input width (``in_channels``);
     the relative xyz is prepended (use_xyz). ``ss_radius`` and
     ``ss_nsample`` give S-FPS's swap ball, ``sfps_min_unique`` its
-    degeneracy guard (``samplers.sample_sfps``)."""
+    degeneracy guard (``samplers.sample_sfps``). With ``dilated_group``
+    scale i groups the annulus [radii[i - 1], radii[i]) (scale 0 the ball
+    of radii[0]), all scales through one annulus query; ``msg_shared``
+    (off by default) groups a max-pool layer of two or more scales, not
+    dilated, from one query and one gather (``ops.msg_shared_group``)."""
 
     def __init__(self, in_channels: int, npoint_list: Sequence[int],
                  sample_range_list: Sequence[int],
@@ -56,11 +68,8 @@ class SAModuleMSGWithSampling(nn.Module):
                  fps_seeding: Optional[ops.FpsSeeding] = None,
                  ss_radius: Optional[float] = None,
                  ss_nsample: Optional[int] = None,
-                 sfps_min_unique: int = 3500):
+                 sfps_min_unique: int = 3500, msg_shared: bool = False):
         super().__init__()
-        if dilated_group:
-            raise NotImplementedError(
-                'DILATED_GROUP (ROADMAP Queue 1 item E)')
         if pool_method not in ('max_pool', 'avg_pool'):
             raise NotImplementedError(pool_method)
         self.npoint_list = list(npoint_list)
@@ -68,6 +77,11 @@ class SAModuleMSGWithSampling(nn.Module):
         self.sampler_kinds = [_sampler_kind(s) for s in sample_type_list]
         self.radii = list(radii)
         self.nsamples = list(nsamples)
+        self.dilated_group = dilated_group
+        # JAX's msg_shared_enabled (spsnet_tpu/ops/grouping.py:337-344) and
+        # its max-pool test (sa_module.py:158-160)
+        self.msg_shared = (msg_shared and pool_method == 'max_pool'
+                           and not dilated_group and len(self.radii) >= 2)
         self.pool_method = pool_method
         self.fps_seeding = fps_seeding
         self.ss_radius, self.ss_nsample = ss_radius, ss_nsample
@@ -87,9 +101,11 @@ class SAModuleMSGWithSampling(nn.Module):
             if confidence_mlp else None)
 
     def _sample(self, xyz, cls_features, input_fps_ordered: bool,
-                stds=None):
+                stds=None, features=None, sampling_generator=None):
         """Run the configured sampler chain -> ((B, M) int64 indices, the
-        per-point stds carried along the picks, or None)."""
+        per-point stds carried along the picks, or None). A range's picks
+        index its own slice, and are gathered from the whole input, as in
+        both the JAX package and the reference."""
         B = xyz.shape[0]
         sampled, last_end = [], 0
         for kind, srange, npoint in zip(self.sampler_kinds,
@@ -99,6 +115,8 @@ class SAModuleMSGWithSampling(nn.Module):
                 continue
             end = None if srange == -1 else srange
             xyz_t = xyz[:, last_end:end]
+            feat_t = features[:, last_end:end] \
+                if features is not None else None
             cls_t = cls_features[:, last_end:end] \
                 if cls_features is not None else None
             at_head = last_end == 0
@@ -119,6 +137,22 @@ class SAModuleMSGWithSampling(nn.Module):
                 idx, stds = samplers.sample_sfps(
                     xyz_t, stds, npoint, self.ss_radius, self.ss_nsample,
                     self.sfps_min_unique)
+            elif kind in ('ffps', 'fs'):
+                if feat_t is None:
+                    raise ValueError(f'the {kind} sampler needs features')
+                idx = (samplers.sample_ffps if kind == 'ffps'
+                       else samplers.sample_fs)(xyz_t, feat_t, npoint)
+            elif kind == 'rand':
+                if sampling_generator is None:
+                    raise ValueError('the Rand sampler needs a '
+                                     'sampling_generator (a CPU '
+                                     'torch.Generator)')
+                idx = samplers.sample_rand(sampling_generator, B, n_t,
+                                           npoint, xyz.device)
+            elif kind == 'ds_fps':
+                idx = samplers.sample_ds_fps(xyz_t, npoint)
+            elif kind == 'ry_fps':
+                idx = samplers.sample_ry_fps(xyz_t, npoint)
             elif input_fps_ordered and at_head and not ops.fps_seeding_active(
                     self.fps_seeding, npoint, allow_seed=True):
                 # prefix nesting: xyz_t is (a head slice of) an exact D-FPS
@@ -135,14 +169,17 @@ class SAModuleMSGWithSampling(nn.Module):
         return torch.cat(sampled, dim=-1), stds
 
     def forward(self, xyz, features=None, cls_features=None, ctr_xyz=None,
-                stds=None, input_fps_ordered: bool = False):
+                stds=None, input_fps_ordered: bool = False,
+                sampling_generator=None):
         """
         Args:
             xyz: (B, N, 3); features: (B, N, C) or None;
             cls_features: (B, N, num_class) from the previous confidence MLP;
             ctr_xyz: (B, M, 3) centers to group around instead of sampling;
             stds: (B, N) per-point stability (SPSNet) or None, carried
-                along the picks.
+                along the picks;
+            sampling_generator: a CPU ``torch.Generator`` for the Rand
+                sampler (which raises without one).
         Returns:
             new_xyz (B, M, 3), new_features (B, M, C'), cls_preds or None,
             sampled_idx (B, M) or None, stds (B, M), (B, N) or None.
@@ -150,22 +187,32 @@ class SAModuleMSGWithSampling(nn.Module):
         sampled_idx = None
         if ctr_xyz is None:
             sampled_idx, stds = self._sample(xyz, cls_features,
-                                             input_fps_ordered, stds)
+                                             input_fps_ordered, stds,
+                                             features, sampling_generator)
             new_xyz = ops.gather_points(xyz, sampled_idx)
         else:
             new_xyz = ctr_xyz
 
         if self.radii:
-            multi_idx = ops.ball_query_multi(self.radii, self.nsamples,
-                                             xyz.contiguous(),
-                                             new_xyz.contiguous())
-            scale_feats = []
-            for r, s, mlp, idx in zip(self.radii, self.nsamples, self.mlps,
-                                      multi_idx):
-                grouped, _ = ops.query_and_group(r, s, xyz, new_xyz,
-                                                 features, idx=idx)
-                scale_feats.append(ops.masked_pool(mlp(grouped), None,
-                                                   self.pool_method))
+            xyz_c, ctr_c = xyz.contiguous(), new_xyz.contiguous()
+            if self.msg_shared:
+                grouped, valids = ops.msg_shared_group(
+                    self.radii, self.nsamples, xyz_c, ctr_c, features)
+                scale_feats = [ops.masked_pool(mlp(grouped), valid,
+                                               self.pool_method)
+                               for mlp, valid in zip(self.mlps, valids)]
+            else:
+                lows = ([0.0, *self.radii[:-1]] if self.dilated_group
+                        else None)
+                multi_idx = ops.ball_query_multi(self.radii, self.nsamples,
+                                                 xyz_c, ctr_c, min_radii=lows)
+                scale_feats = []
+                for r, s, mlp, idx in zip(self.radii, self.nsamples,
+                                          self.mlps, multi_idx):
+                    grouped, _ = ops.query_and_group(r, s, xyz, new_xyz,
+                                                     features, idx=idx)
+                    scale_feats.append(ops.masked_pool(mlp(grouped), None,
+                                                       self.pool_method))
             new_features = torch.cat(scale_feats, dim=-1)
             if self.aggregation_layer is not None:
                 new_features = self.aggregation_layer(new_features)

@@ -1,9 +1,14 @@
 """Point downsampling strategies of the IA-SSD and SPSNet paths.
 
-One function per ``SAMPLE_METHOD_LIST`` entry ported so far
+One function per ``SAMPLE_METHOD_LIST`` entry
 (``pointnet2_modules.py:267-419``, as in ``spsnet_tpu/models/samplers.py``):
 
 - ``D-FPS``     — euclidean farthest point sampling, exact or seeded;
+- ``F-FPS``     — FPS over the squared distances of xyz and features;
+- ``FS``        — F-FPS and exact D-FPS concatenated (2 npoint picks);
+- ``Rand``      — one random subset shared across the batch;
+- ``ds-FPS``/``ry-FPS`` — exact FPS in four partitions of the points
+                   sorted by radius or by azimuth;
 - ``ctr``/``cls`` — top-k of sigmoid(max class logit) (IA-SSD ctr_aware);
 - ``sss``       — top-k of the class score times the stability score
                    ``1 - sigmoid(stds / 8 - 3)`` (SPSNet's sss_aware);
@@ -15,6 +20,7 @@ along their picks (None when there is none).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .. import ops
@@ -82,3 +88,95 @@ def sample_sfps(xyz, stds, npoint: int, ss_radius: float, ss_nsample: int,
     n_unique = 1 + (row0[1:] != row0[:-1]).sum()
     idx = torch.where(n_unique < min_unique, base, swapped)
     return idx, _gather_stds(stds, idx)
+
+
+def sample_ffps(xyz, features, npoint: int):
+    """F-FPS (``spsnet_tpu/models/samplers.py:66-69``): FPS over the
+    (B, N, N) squared distances of ``[xyz, features]``, without gradient.
+    (B, N, 3), (B, N, C) -> (B, npoint) int64."""
+    with torch.no_grad():
+        feat = torch.cat([xyz, features], dim=-1).contiguous()
+        return ops.farthest_point_sample_with_dist(
+            ops.calc_square_dist(feat, feat), npoint)
+
+
+def sample_fs(xyz, features, npoint: int):
+    """3DSSD's fusion sampling: [F-FPS picks, exact D-FPS picks] ->
+    (B, 2 npoint) int64. The D-FPS half is never seeded."""
+    idx1 = sample_ffps(xyz, features, npoint)
+    idx2 = ops.farthest_point_sample(xyz.contiguous(), npoint)
+    return torch.cat([idx1, idx2], dim=-1)
+
+
+def draw_permutation(generator: torch.Generator, n: int):
+    """A permutation of ``n`` drawn on the host from a CPU generator."""
+    return torch.randperm(n, generator=generator)
+
+
+def sample_rand(generator, batch_size: int, n: int, npoint: int, device):
+    """Random subset: the first ``npoint`` of one permutation of ``n``
+    (``draw_permutation`` from the CPU ``generator``; a test feeds another
+    package's permutation through it), shared across the batch
+    (``pointnet2_modules.py:370-371``) -> (batch_size, npoint) int64 on
+    ``device``."""
+    idx = draw_permutation(generator, n)[:npoint]
+    return idx.to(device, non_blocking=True)[None].expand(batch_size, npoint)
+
+
+def partition_order(keys):
+    """(B, N) keys -> the stable ascending order of each row, int64."""
+    return torch.argsort(keys, dim=-1, stable=True)
+
+
+def _partitioned_fps(xyz, keys, npoint: int, part_num: int = 4):
+    """ds-FPS / ry-FPS (``pointnet2_modules.py:372-419``): the points
+    sorted by ``keys`` (``partition_order``), split into ``part_num``
+    contiguous partitions of N / part_num, exact FPS of npoint / part_num
+    picks in each (one launch over the (B part_num, N / part_num) rows),
+    mapped back to the input's indices. -> (B, npoint) int64."""
+    B, N, _ = xyz.shape
+    if N % part_num or npoint % part_num:
+        raise ValueError(f'partitioned FPS needs N={N} and npoint={npoint} '
+                         f'to be multiples of part_num={part_num}')
+    order = partition_order(keys)
+    per = N // part_num
+    xyz_div = xyz.gather(1, order[..., None].expand(-1, -1, 3)).reshape(
+        B * part_num, per, 3).contiguous()
+    sub = ops.farthest_point_sample(xyz_div, npoint // part_num)
+    offs = torch.arange(part_num, device=xyz.device)[None, :, None] * per
+    flat = (sub.reshape(B, part_num, -1) + offs).reshape(B, npoint)
+    return order.gather(1, flat)
+
+
+def _fma32(a, b, c):
+    """fp32 ``a * b + c`` rounded once, as a fused multiply-add rounds it:
+    the product is exact in float64, the sum rounded there and then to
+    fp32 (the two roundings part from one only where the float64 sum lands
+    exactly between two fp32 values)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def ds_fps_keys(xyz):
+    """ds-FPS's keys ``||xyz|| - 5`` as XLA:CPU computes JAX's
+    ``jnp.linalg.norm``: the squares summed as the fused chain
+    ``fma(z, z, fma(y, y, x * x))``, the root taken in float64 and rounded
+    once (the correctly rounded fp32 root; torch's fp32 CPU ``sqrt`` is an
+    ulp off at times), so that the card and the CPU sort alike."""
+    x, y, z = xyz[..., 0], xyz[..., 1], xyz[..., 2]
+    s = _fma32(z, z, _fma32(y, y, x * x))
+    return torch.sqrt(s.double()).float() - 5.0
+
+
+def ry_fps_keys(xyz):
+    """ry-FPS's keys ``arctan(x / (y + 1e-12))`` in fp32."""
+    return torch.atan(xyz[..., 0] / (xyz[..., 1] + np.float32(1e-12)))
+
+
+def sample_ds_fps(xyz, npoint: int, part_num: int = 4):
+    """ds-FPS: partitioned FPS over the points sorted by radius."""
+    return _partitioned_fps(xyz, ds_fps_keys(xyz), npoint, part_num)
+
+
+def sample_ry_fps(xyz, npoint: int, part_num: int = 4):
+    """ry-FPS: partitioned FPS over the points sorted by azimuth."""
+    return _partitioned_fps(xyz, ry_fps_keys(xyz), npoint, part_num)

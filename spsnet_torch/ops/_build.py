@@ -8,8 +8,10 @@ hash covers the sources and the flags, so an edited source is rebuilt.
 
 Every kernel wrapper adds one to ``LAUNCHES[name]`` where it launches its
 kernel and nowhere else, so a run can show which kernels its path went
-through. ``fps.cu`` holds two kernels (``fps``, ``fps_seeded``); every
-other source holds one, named as its library.
+through. ``fps.cu`` holds two kernels (``fps``, ``fps_seeded``),
+``ball_query.cu`` two forms of one (``ball_query``, and
+``ball_query_annulus`` for the dilated grouping's annulus); every other
+source holds one, named as its library.
 """
 from __future__ import annotations
 
@@ -46,15 +48,18 @@ SIGNATURES = {
             'spsnet_fps_threads': [],
             'spsnet_fps_max_active_clusters': [_I, _I, _I]},
     'ball_query': {'spsnet_ball_query': [_P, _P, _P, _P, _I, _I, _I, _F, _I,
-                                         _F, _I, _P],
+                                         _F, _I, _I, _F, _F, _P],
                    'spsnet_ball_query_warp_centers': [_I, _I]},
     'seed_min': {'spsnet_seed_min': [_P, _P, _P, _I, _I, _I, _P],
                  'spsnet_seed_min_shape': [_I, _I, _I, _IP]},
     'three_nn': {'spsnet_three_nn': [_P, _P, _P, _P, _P, _P, _I, _I, _I,
                                      _P],
                  'spsnet_three_nn_workspace': [_I, _I]},
+    'fps_dist': {'spsnet_fps_dist': [_P, _P, _I, _I, _I, _P],
+                 'spsnet_fps_dist_max_n': []},
 }
-KERNELS = ('fps', 'fps_seeded', 'ball_query', 'seed_min', 'three_nn')
+KERNELS = ('fps', 'fps_seeded', 'ball_query', 'ball_query_annulus',
+           'seed_min', 'three_nn', 'fps_dist')
 
 LAUNCHES = {name: 0 for name in KERNELS}
 _LIBS: dict = {}

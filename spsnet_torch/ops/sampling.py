@@ -27,8 +27,17 @@ each: on a shuffled cloud, a spatially stratified approximation of FPS.
 It is off unless an ``FpsChunks`` is passed; on the card it is a reshape
 around the exact kernel.
 
+F-FPS (``farthest_point_sample_with_dist``, as
+``spsnet_tpu/ops/sampling.py:200-225``) runs the same step loop over a
+precomputed (B, N, N) squared-distance matrix: the first pick is index 0,
+each step lowers the running min (from 1e10) by the last pick's row and
+picks the argmax, NaN above every number and the lowest index winning
+ties. JAX computes it in XLA; its kernel here, ``csrc/fps_dist.cu``, is
+not a port of a Pallas kernel.
+
 Each op runs its plain version for a CPU tensor and its kernel for a CUDA
-tensor (``csrc/fps.cu``, ``csrc/seed_min.cu``); there is no other path.
+tensor (``csrc/fps.cu``, ``csrc/seed_min.cu``, ``csrc/fps_dist.cu``);
+there is no other path.
 """
 from __future__ import annotations
 
@@ -51,6 +60,64 @@ def calc_square_dist(a, b):
     a_sq = (a * a).sum(-1, keepdim=True)
     b_sq = (b * b).sum(-1, keepdim=True)
     return a_sq + b_sq.transpose(1, 2) - 2.0 * torch.bmm(a, b.transpose(1, 2))
+
+
+def _check_dist(dist_mat, npoint):
+    if dist_mat.dim() != 3 or dist_mat.shape[1] != dist_mat.shape[2] or \
+            dist_mat.dtype != torch.float32:
+        raise ValueError(f'dist_mat must be (B, N, N) float32, got '
+                         f'{tuple(dist_mat.shape)} {dist_mat.dtype}')
+    if not 1 <= npoint <= dist_mat.shape[1]:
+        raise ValueError(f'npoint must be in [1, N={dist_mat.shape[1]}], '
+                         f'got {npoint}')
+
+
+def farthest_point_sample_with_dist_plain(dist_mat, npoint: int):
+    """Plain F-FPS over a (B, N, N) float32 squared-distance matrix ->
+    (B, npoint) int64: ``torch.minimum`` (NaN on either side gives NaN)
+    and ``argmax`` (NaN first, then the first maximal index), as JAX's
+    ``jnp.minimum`` and ``jnp.argmax``."""
+    _check_dist(dist_mat, npoint)
+    B, N, _ = dist_mat.shape
+    dist = torch.full((B, N), 1e10, dtype=torch.float32,
+                      device=dist_mat.device)
+    last = torch.zeros(B, dtype=torch.int64, device=dist_mat.device)
+    out = torch.zeros((B, npoint), dtype=torch.int64, device=dist_mat.device)
+    rows = torch.arange(B, device=dist_mat.device)
+    for j in range(1, npoint):
+        dist = torch.minimum(dist, dist_mat[rows, last])
+        last = dist.argmax(dim=1)
+        out[:, j] = last
+    return out
+
+
+def farthest_point_sample_with_dist_kernel(dist_mat, npoint: int):
+    """F-FPS through the CUDA kernel ``csrc/fps_dist.cu`` (one CTA a row,
+    the running minima in shared memory): (B, N, N) float32 -> (B, npoint)
+    int64 on the device of ``dist_mat``."""
+    _check_dist(dist_mat, npoint)
+    _require_cuda('F-FPS', dist_mat)
+    lib = _build.library('fps_dist')
+    B, N, _ = dist_mat.shape
+    max_n = lib.spsnet_fps_dist_max_n()
+    if N > max_n:
+        raise ValueError(f'the F-FPS kernel takes N <= {max_n}, got {N}')
+    out = torch.empty((B, npoint), dtype=torch.int64, device=dist_mat.device)
+    with torch.cuda.device(dist_mat.device):
+        err = lib.spsnet_fps_dist(dist_mat.data_ptr(), out.data_ptr(), B, N,
+                                  npoint, _build.stream_ptr(dist_mat.device))
+    _build.check(err, 'fps_dist')
+    _build.LAUNCHES['fps_dist'] += 1
+    return out
+
+
+def farthest_point_sample_with_dist(dist_mat, npoint: int):
+    """F-FPS over a precomputed (B, N, N) squared-distance matrix ->
+    (B, npoint) int64: the plain version for a CPU tensor, the kernel for
+    a CUDA tensor."""
+    if dist_mat.device.type == 'cpu':
+        return farthest_point_sample_with_dist_plain(dist_mat, npoint)
+    return farthest_point_sample_with_dist_kernel(dist_mat, npoint)
 
 
 def sq_dist_to(xyz, pt):

@@ -1823,3 +1823,202 @@ def test_tiny_caddn_request_on_the_card_matches_the_cpu(cuda):
     dc = post_processing(c, cfg.POST_PROCESSING)
     assert torch.equal(dg['count'].cpu(), dc['count'])
     assert torch.equal(dg['indices'].cpu(), dc['indices'])
+
+
+# ------------------------------------------- the rest of the point family
+
+def _fps_dist_matrix(cuda, case, B, N):
+    """A (B, N, N) F-FPS distance matrix on the card: ``calc_square_dist``
+    of a synthetic scan's xyz and 64 features ('random'), of duplicated
+    rows ('tied'), a constant matrix, or random rows with NaN entries in
+    the first row read, a later row and a whole column ('nan')."""
+    from spsnet_torch.ops import calc_square_dist
+    if case == 'constant':
+        return torch.full((B, N, N), 2.5, device=cuda)
+    n = N // 2 if case == 'tied' else N
+    xyz = _scans(N, B, n)
+    feat = torch.from_numpy(np.random.default_rng(N).normal(
+        size=(B, n, 64)).astype(np.float32))
+    f = torch.cat([xyz, feat], -1).to(cuda)
+    if case == 'tied':
+        f = torch.cat([f, f], 1)
+    m = calc_square_dist(f, f).contiguous()
+    if case == 'nan':
+        m[0, 0, N // 3] = float('nan')
+        m[-1, N // 2, 7] = float('nan')
+        m[:, :, N - 1] = float('nan')
+    return m
+
+
+@pytest.mark.parametrize('case,B,N,M', [
+    ('random', 1, 512, 128), ('random', 8, 512, 512),
+    ('random', 1, 1024, 300), ('random', 8, 1024, 512),
+    ('random', 1, 4096, 512), ('random', 8, 4096, 512),  # IASSD_FS layer 1
+    ('random', 2, 1500, 700),      # N no multiple of a warp or of the CTA
+    ('random', 1, 20000, 64),      # shared memory past 48 KB
+    ('random', 3, 4096, 1),        # one pick
+    ('tied', 2, 2048, 256), ('constant', 2, 1024, 40), ('nan', 3, 1024, 64),
+])
+def test_fps_dist_kernel_matches_plain(cuda, case, B, N, M):
+    """K7 against the plain F-FPS on the same matrix, tolerance 0: one
+    launch a call; ties to the lowest index; NaN entries picked as
+    ``torch.minimum`` and ``argmax`` pick them."""
+    m = _fps_dist_matrix(cuda, case, B, N)
+    before = _build.LAUNCHES['fps_dist']
+    got = sampling.farthest_point_sample_with_dist_kernel(m, M)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES['fps_dist'] - before == 1
+    want = sampling.farthest_point_sample_with_dist_plain(m, M)
+    assert torch.equal(got, want)
+    assert torch.equal(got, sampling.farthest_point_sample_with_dist(m, M))
+
+
+def test_fps_dist_kernel_rejects_what_it_cannot_take(cuda):
+    with pytest.raises(ValueError, match='N, N'):
+        sampling.farthest_point_sample_with_dist_kernel(
+            torch.zeros(1, 4, 5, device=cuda), 2)
+    with pytest.raises(ValueError, match='contiguous'):
+        sampling.farthest_point_sample_with_dist_kernel(
+            torch.zeros(1, 8, 8, device=cuda).transpose(1, 2), 2)
+
+
+@pytest.mark.parametrize('radii,lows,nsamples', [
+    ((0.5, 1.0), (0.0, 0.5), (8, 64)),    # a dilated pair on the spheres
+    ((1.0, 1.5), (0.5, 1.0), (40, 16)),
+    ((1.0,), (1.0,), (4,)),               # an empty annulus: centers only
+])
+def test_annulus_kernel_matches_plain_on_the_sphere(cuda, radii, lows,
+                                                    nsamples):
+    """The annulus at its three boundaries on the 0.5 m lattice: the
+    center (d2 == 0) hits, a point at exactly r_min hits, one at exactly
+    r_max misses; one launch a pair of radii, counted as
+    ball_query_annulus."""
+    pts, ctr = _lattice(cuda)
+    before = dict(_build.LAUNCHES)
+    got = ball_query_multi_kernel(radii, nsamples, pts, ctr, min_radii=lows)
+    torch.cuda.synchronize()
+    assert {k: n - before[k] for k, n in _build.LAUNCHES.items()} == \
+        {k: (len(radii) + 1) // 2 * (k == 'ball_query_annulus')
+         for k in before}
+    for g, w in zip(got, ball_query_multi_plain(radii, nsamples, pts, ctr,
+                                                min_radii=lows)):
+        assert torch.equal(g, w)
+    d2 = ((pts[0, got[-1][0, :37]] - ctr[0, :37, None]) ** 2).sum(-1)
+    assert (d2 < radii[-1] ** 2 + 1e-6).all()
+
+
+@pytest.mark.parametrize('M,N', [(1024, 16384), (8192 // 8, 4097),
+                                  (4096, 16384)])
+def test_annulus_kernel_every_warp_shape_and_load_path(cuda, M, N):
+    """Both numbers of centers a warp (B M below and at 8192) and both
+    load paths (N % 4 != 0 takes the plain loads)."""
+    pts = _scans(M + N, 2, N).to(cuda)
+    ctr = pts[:, :M].contiguous()
+    radii, lows, nsamples = (0.2, 0.8), (0.0, 0.2), (16, 32)
+    got = ball_query_multi_kernel(radii, nsamples, pts, ctr, min_radii=lows)
+    torch.cuda.synchronize()
+    for g, w in zip(got, ball_query_multi_plain(radii, nsamples, pts, ctr,
+                                                min_radii=lows)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize('layer', [0, 1, 2])
+def test_annulus_kernel_at_the_iassd_fs_shapes(cuda, layer):
+    """IASSD_FS's dilated layers on 8 scans: layer 0 (4096 centers of
+    16384 points, 0.2 / 0.8), layer 1 (1024 of 4096, 0.8 / 1.6), layer 2
+    (512 of 1024, 1.6 / 4.8), centers the first points of an FPS chain."""
+    n, m, radii, ns = ((16384, 4096, (0.2, 0.8), (16, 32)),
+                       (4096, 1024, (0.8, 1.6), (16, 32)),
+                       (1024, 512, (1.6, 4.8), (16, 32)))[layer]
+    from spsnet_torch.ops import gather_points
+    pts = _scans(70 + layer, 8, 16384).to(cuda)
+    if n < 16384:
+        pts = gather_points(pts, farthest_point_sample_kernel(pts, n))
+    pts = pts.contiguous()
+    ctr = pts[:, :m].contiguous()
+    lows = (0.0, radii[0])
+    got = ball_query_multi_kernel(radii, ns, pts, ctr, min_radii=lows)
+    torch.cuda.synchronize()
+    for g, w in zip(got, ball_query_multi_plain(radii, ns, pts, ctr,
+                                                min_radii=lows)):
+        assert torch.equal(g, w)
+
+
+def test_point_family_forward_on_the_card_matches_the_cpu(cuda):
+    """The tiny IA-SSD with ds-FPS, and F-FPS and FS over dilated groups,
+    on the card against the CPU from the same weights:
+    K7, K1 and K2's annulus launch; the card's F-FPS picks equal the
+    CPU's or lie within the distances' rounding slack, and its ctr_aware
+    picks a top-k order of the CPU's scores within 1e-5 (then both are
+    replayed); sampled points equal, predictions within 1e-4."""
+    from spsnet_torch.models import build_detector, samplers
+    from spsnet_torch.utils.synthetic import synthetic_scan_batch
+    from spsnet_torch.zoo import tiny_iassd_cfg
+    cfg = tiny_iassd_cfg()
+    sa = cfg.BACKBONE_3D.SA_CONFIG
+    sa.SAMPLE_METHOD_LIST = [['ds-FPS'], ['FS'], ['F-FPS'], ['ctr_aware'],
+                             [], []]
+    sa.NPOINT_LIST = [[128], [32], [32], [16], [-1], [16]]
+    sa.DILATED_GROUP = [True, True, True, False, False, False]
+    cfg.POINT_HEAD.LOSS_CONFIG.SAMPLE_METHOD_LIST = sa.SAMPLE_METHOD_LIST
+    gpu = build_detector(cfg, 3, device=cuda)
+    cpu = build_detector(cfg, 3, device='cpu')
+    cpu.load_state_dict(gpu.state_dict())
+    pts = torch.from_numpy(synthetic_scan_batch(3, 2, 512))
+    own, own_ctr = samplers.sample_ffps, samplers.sample_ctr_aware
+    picks, ctr = [], []
+
+    def record(xyz, features, npoint):
+        picks.append(own(xyz, features, npoint))
+        return picks[-1]
+
+    def record_ctr(cls_features, npoint):
+        ctr.append(own_ctr(cls_features, npoint))
+        return ctr[-1]
+
+    def replay_ctr(cls_features, npoint):
+        # the random-weight sigmoids tie within a few ulps: the card's
+        # picks must be a top-k order of this run's scores within 1e-5
+        want = next(card_ctr).cpu()
+        scores = torch.sigmoid(cls_features.amax(-1))
+        own_pick = own_ctr(cls_features, npoint)
+        assert float((scores.gather(1, want) - scores.gather(1, own_pick))
+                     .abs().max()) <= 1e-5
+        return want
+
+    samplers.sample_ffps, samplers.sample_ctr_aware = record, record_ctr
+    _build.reset_launches()
+    try:
+        with torch.no_grad():
+            g = gpu({'points': pts.to(cuda)})
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+        card, card_ctr = iter(list(picks)), iter(list(ctr))
+
+        def replay(xyz, features, npoint):
+            mine = own(xyz, features, npoint)
+            want = next(card).cpu()
+            if not torch.equal(mine, want):
+                feat = torch.cat([xyz, features], -1)
+                mat = sampling.calc_square_dist(feat, feat)
+                slack = 1e-6 * float((feat.double() ** 2).sum(-1).max())
+                dist = torch.full(mat.shape[:2], 1e10)
+                rows = torch.arange(mat.shape[0])
+                for s in range(1, npoint):
+                    dist = torch.minimum(dist, mat[rows, want[:, s - 1]])
+                    assert float((dist.amax(1) - dist[rows, want[:, s]])
+                                 .max()) <= slack
+            return want
+
+        samplers.sample_ffps, samplers.sample_ctr_aware = replay, replay_ctr
+        with torch.no_grad():
+            c = cpu({'points': pts})
+    finally:
+        samplers.sample_ffps, samplers.sample_ctr_aware = own, own_ctr
+    assert launches['fps_dist'] == 2 and launches['ball_query_annulus'] == 3
+    assert launches['fps'] == 2 and launches['ball_query'] == 1
+    for k in range(1, 5):  # the sampling layers' points; 5, 6 are votes
+        assert torch.equal(g['encoder_xyz'][k].cpu(), c['encoder_xyz'][k])
+    for key in ('centers', 'batch_cls_preds', 'batch_box_preds'):
+        torch.testing.assert_close(g[key].cpu(), c[key], rtol=1e-4,
+                                   atol=1e-4)

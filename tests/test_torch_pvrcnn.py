@@ -512,7 +512,8 @@ def test_unported_detectors_raise_naming_item_f(case):
     but nuScenes' AL.yaml (which neither package builds,
     ``tests/test_torch_al_configs.py``) names only modules the port has;
     a config block naming one it lacks still raises NotImplementedError
-    naming the block, and item E for the rest of the point family."""
+    naming the block, and items D and G, what is left of the JAX
+    package."""
     if case == 'every_config':
         paths = sorted((ROOT / 'tools' / 'cfgs').glob('*_models/*.yaml'))
         assert len(paths) == 41
@@ -525,7 +526,7 @@ def test_unported_detectors_raise_naming_item_f(case):
     cfg.MODEL.MAP_TO_BEV.NAME = 'MadeUpCollapse'
     assert unported_modules(cfg.MODEL) == ['MAP_TO_BEV MadeUpCollapse']
     with pytest.raises(NotImplementedError,
-                       match='MAP_TO_BEV MadeUpCollapse.*item E'):
+                       match='MAP_TO_BEV MadeUpCollapse.*items D and G'):
         build_detector_from_cfg(cfg, device='cpu')
 
 

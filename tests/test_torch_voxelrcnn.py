@@ -292,11 +292,26 @@ class _Request:
 # -------------------------------------------------- the ROADMAP pointers
 
 def test_unported_samplers_and_dilated_groups_name_item_e():
+    """Item E is ported: every sampler name of the JAX package's dispatch
+    and dilated grouping build in the port, and a sampler name that
+    neither package knows raises NotImplementedError naming it in both
+    (``spsnet_tpu/models/sa_module.py:130-131``)."""
+    from spsnet_tpu.models.sa_module import \
+        SAModuleMSGWithSampling as JaxSAModule
     from spsnet_torch.models.sa_module import (SAModuleMSGWithSampling,
                                                _sampler_kind)
-    with pytest.raises(NotImplementedError, match='item E'):
-        _sampler_kind('F-FPS')
-    with pytest.raises(NotImplementedError, match='item E'):
-        SAModuleMSGWithSampling(1, [16], [-1], ['D-FPS'], [[0.2]], [[4]],
-                                [[[8]]], 3, dilated_group=True)
+    for name in ('ctr_aware', 'sss_aware', 'S-FPS', 'D-FPS', 'F-FPS', 'FS',
+                 'Rand', 'ds-FPS', 'ry_FPS'):
+        _sampler_kind(name)
+    SAModuleMSGWithSampling(1, [16], [-1], ['D-FPS'], [0.2, 0.4], [4, 8],
+                            [[8], [8]], 3, dilated_group=True)
+    xyz = np.random.default_rng(0).normal(size=(1, 32, 3)).astype(np.float32)
+    kw = dict(npoint_list=[8], sample_range_list=[-1],
+              sample_type_list=['Made-Up-FPS'], radii=[], nsamples=[],
+              mlps=[], num_class=3)
+    with pytest.raises(NotImplementedError, match='Made-Up-FPS'):
+        JaxSAModule(**kw).init(jax.random.PRNGKey(0), xyz, xyz,
+                               train=False)
+    with pytest.raises(NotImplementedError, match='Made-Up-FPS'):
+        SAModuleMSGWithSampling(3, **kw)
 
