@@ -468,10 +468,13 @@ Phases, in order; any failure raises and the exit code is not 0:
     one request;
 98. K7 against the plain F-FPS on the matrices of that path's two F-FPS
     calls ((8, 4096) -> 512 and (8, 1024) -> 512), with
-    ``calc_square_dist``'s device time; K2's annulus against its plain
-    version at the three dilated layers; K1 against plain FPS at FS's
-    D-FPS half ((8, 4096) -> 512) and ds-FPS's partitions ((32, 4096) ->
-    1024); events, device times, bounds;
+    ``calc_square_dist``'s device time and K7's time a step beside K1's
+    over the same points at the same cluster size (the gap is K7's row
+    load), and on an adversarial (8, 4096) matrix (NaN, -0.0 and +0.0,
+    negatives, +-inf, ties: ``adversarial_dist``); K2's annulus against
+    its plain version at the three dilated layers; K1 against plain FPS
+    at FS's D-FPS half ((8, 4096) -> 512) and ds-FPS's partitions ((32,
+    4096) -> 1024); events, device times, bounds;
 99. one IASSD_FS scene card vs CPU: the CPU's F-FPS picks equal the
     card's or lie within the distances' rounding slack (``ffps_picks``),
     then replayed; as phase 5 otherwise;
@@ -8171,12 +8174,15 @@ def family_train_cpu_phase(batch):
     return {'card': card, 'baseline': base, 'by_module': modules}
 
 
-def fps_dist_call(dmat, npoint, what):
+def fps_dist_call(dmat, npoint, what, xyz=None):
     """K7 against the plain F-FPS on one matrix: identical picks (tolerance
     0), event times, the device time of a call, bound (each row read
     once: the npoint - 1 rows the steps read, the picks written; a min and
-    a compare an entry and step). Returns the call's record (with
-    'err')."""
+    a compare an entry and step). With ``xyz`` (b, n, 3) also K1's device
+    time over those points to npoint at its own cluster size, beside K7's
+    a step: K1 reads no row, so the gap is K7's row load. Returns the
+    call's record (with 'err')."""
+    from spsnet_torch.ops import _build
     from spsnet_torch.ops import sampling as smp
     b, n, _ = dmat.shape
     want, plain = events_ms(
@@ -8189,12 +8195,69 @@ def fps_dist_call(dmat, npoint, what):
         dmat, npoint), reps=5)
     bnd, by = bound_ms(b * (npoint - 1) * n * 4 + b * npoint * 8,
                        b * (npoint - 1) * n * 2)
+    c = _build.library('fps_dist').spsnet_fps_dist_cluster_size(b, n)
+    step = dev * 1e3 / (npoint - 1)
     log(f'  fps_dist {what} ({b}, {n}, {n}) -> {npoint}: kernel {ms:.3f} ms '
-        f'(events), {dev:.4f} ms (device), {dev * 1e3 / (npoint - 1):.3f} us '
-        f'a step; plain {plain:.3f} ms; bound {bnd:.4f} ms ({by})')
-    return {'layer': what, 'B': b, 'N': n, 'npoint': npoint, 'ms': ms,
-            'device_ms': dev, 'plain_ms': plain, 'bound_ms': bnd,
-            'bound_by': by, 'err': err}
+        f'(events), {dev:.4f} ms (device), {step:.3f} us a step at C = {c}; '
+        f'plain {plain:.3f} ms; bound {bnd:.4f} ms ({by})')
+    rec = {'layer': what, 'B': b, 'N': n, 'npoint': npoint, 'ms': ms,
+           'device_ms': dev, 'us_a_step': step, 'cluster': c,
+           'plain_ms': plain, 'bound_ms': bnd, 'bound_by': by, 'err': err}
+    if xyz is not None:
+        k1 = device_ms(lambda: smp.farthest_point_sample_kernel(
+            xyz, npoint), reps=5) * 1e3 / (npoint - 1)
+        k1_c = _build.library('fps').spsnet_fps_cluster_size(b, n)
+        log(f'    K1 ({b}, {n}, 3) -> {npoint} at C = {k1_c}: {k1:.3f} us '
+            f'a step (device); K7 - K1 = {step - k1:.3f} us a step')
+        rec.update(k1_us_a_step=k1, k1_cluster=k1_c)
+    return rec
+
+
+def adversarial_dist(b, n, seed=98):
+    """A (b, n, n) F-FPS matrix on the card whose batch rows stress K7's
+    order (the mode is the row's index mod 4), each with a diagonal of
+    -inf (a pick leaves the race): 0, negative entries and zeros of both
+    signs (so the maxima are -0.0 and +0.0); 1, integers -50..50 with
+    zeros of both signs (ties everywhere); 2, the same with one NaN entry
+    in about 1e6 (a NaN reaches the minima at a random step, then its
+    column wins every step); 3, the integers with one entry in 1e3 at
+    +inf or -inf."""
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+
+    def draw(*shape):
+        return torch.rand(shape, generator=gen, device='cuda')
+    zero = torch.where(draw(b, n, n) < 0.5, -0.0, 0.0)
+    m = torch.floor(draw(b, n, n) * 101.0) - 50.0
+    m = torch.where(m == 0, zero, m)
+    m[0::4] = torch.where(draw(*m[0::4].shape) < 0.5, -draw(*m[0::4].shape),
+                          zero[0::4])
+    m[2::4] = torch.where(draw(*m[2::4].shape) < 1e-6, float('nan'),
+                          m[2::4])
+    m[3::4] = torch.where(draw(*m[3::4].shape) < 1e-3,
+                          torch.where(zero[3::4] == 0, float('inf'),
+                                      -float('inf')), m[3::4])
+    m.diagonal(dim1=1, dim2=2).fill_(-float('inf'))
+    return m.contiguous()
+
+
+def ffps_inputs(model, scans):
+    """The F-FPS calls of one no-grad forward of ``model`` (an IASSD_FS) on
+    ``scans``: [(the features that ``calc_square_dist`` takes, npoint)] in
+    call order, and the forward's encoder points."""
+    from spsnet_torch.models import samplers
+    own = samplers.sample_ffps
+    inputs = []
+
+    def keep(xyz, features, npoint):
+        inputs.append((torch.cat([xyz, features], -1).contiguous(), npoint))
+        return own(xyz, features, npoint)
+    samplers.sample_ffps = keep
+    try:
+        with torch.no_grad():
+            enc = model({'points': scans})['encoder_xyz']
+    finally:
+        samplers.sample_ffps = own
+    return inputs, enc
 
 
 def family_shapes_phase(model, scans):
@@ -8210,18 +8273,7 @@ def family_shapes_phase(model, scans):
     from spsnet_torch.ops import calc_square_dist
     from spsnet_torch.ops import sampling as smp
     from spsnet_torch.ops.grouping import ball_query_multi_kernel
-    own = samplers.sample_ffps
-    inputs = []
-
-    def keep(xyz, features, npoint):
-        inputs.append((torch.cat([xyz, features], -1).contiguous(), npoint))
-        return own(xyz, features, npoint)
-    samplers.sample_ffps = keep
-    try:
-        with torch.no_grad():
-            enc = model({'points': scans})['encoder_xyz']
-    finally:
-        samplers.sample_ffps = own
+    inputs, enc = ffps_inputs(model, scans)
     xyz = scans[..., :3].contiguous()
     order = samplers.partition_order(samplers.ds_fps_keys(xyz))
     parts = xyz.gather(1, order[..., None].expand(-1, -1, 3)).reshape(
@@ -8238,9 +8290,12 @@ def family_shapes_phase(model, scans):
                 lambda f=feat: calc_square_dist(f, f))[0])
         log(f'  calc_square_dist ({tuple(feat.shape)}): {dist_ms[-1]:.4f} '
             f'ms (device, its kernels)')
-        calls.append(fps_dist_call(dmat, npoint, f'layer {k + 1}'))
+        calls.append(fps_dist_call(dmat, npoint, f'layer {k + 1}',
+                                   feat[..., :3].contiguous()))
         calls[-1]['calc_square_dist_device_ms'] = dist_ms[-1]
         del dmat
+    adversarial = fps_dist_call(adversarial_dist(B, 4096), 512,
+                                'adversarial')
     backbone = model.backbone_3d
     balls = []
     for k, module in enumerate(backbone.SA_modules):
@@ -8258,19 +8313,22 @@ def family_shapes_phase(model, scans):
         log(f'    device time {call["device_ms"]:.4f} ms a call')
         balls.append(call)
 
-    def entry(name, source, replaces, items, shape):
+    def entry(name, source, replaces, items, shape, checked=()):
         return {'name': name, 'route': 'cuda', 'source': source,
                 'replaces': replaces, 'match': True,
-                'max_abs_err': max(c.pop('err') for c in items),
+                'max_abs_err': max(c.pop('err')
+                                   for c in items + list(checked)),
                 **{key: sum(c[key] for c in items)
                    for key in ('ms', 'plain_ms', 'bound_ms', 'device_ms')},
                 'bound_by': 'operations' if any(
                     c['bound_by'] == 'operations' for c in items) else
-                'bytes', 'library_ms': None, 'shape': shape, 'calls': items}
+                'bytes', 'library_ms': None, 'shape': shape, 'calls': items,
+                **({'checked_also': checked} if checked else {})}
     return [entry('fps_dist', 'spsnet_torch/csrc/fps_dist.cu',
                   'spsnet_tpu/ops/sampling.py:201 farthest_point_sample_'
                   'with_dist (XLA, not a Pallas kernel)', calls,
-                  'sum of the two calls of an IASSD_FS forward (B=8)'),
+                  'sum of the two calls of an IASSD_FS forward (B=8): '
+                  '(8, 4096) -> 512 and (8, 1024) -> 512', [adversarial]),
             entry('ball_query_annulus', 'spsnet_torch/csrc/ball_query.cu',
                   'spsnet_tpu/ops/pallas/d2.py:33', balls,
                   'sum of the three dilated layers of an IASSD_FS forward '
@@ -8641,7 +8699,7 @@ def card_and_build():
     log('== 2. build')
     log(f'  kernels built in {_build.build_all():.2f} s '
         f'({_build.build_dir()})')
-    for name in ('fps', 'ball_query', 'seed_min', 'three_nn'):
+    for name in ('fps', 'ball_query', 'seed_min', 'three_nn', 'fps_dist'):
         if hasattr(_build, 'ptxas_report'):
             for line in _build.ptxas_report(name):
                 log(f'  ptxas {name}: {line}')

@@ -29,9 +29,14 @@ one call, ``chip_smoke.device_ms``):
    ROOT``) the
    ``three_nn.cu`` of another checkout, e.g. the parent commit's, unpacked
    under ``build/``; device time of a call (pre-pass and scan,
-   ``chip_smoke.device_ms_by_kernel``) and the pairs scanned.
+   ``chip_smoke.device_ms_by_kernel``) and the pairs scanned;
+4. K7, F-FPS over a distance matrix (``csrc/fps_dist.cu``), at IASSD_FS's
+   two calls, (8, 4096) -> 512 and (8, 1024) -> 512, on the matrices of
+   the path's own features: every cluster size C against the rule's,
+   CTAs of 128 and 512 threads against 256, and (``--parent ROOT``) the
+   ``fps_dist.cu`` of another checkout, timed first and last.
 
-    python3 launch_sweep.py [--k6-only] [--parent ROOT]
+    python3 launch_sweep.py [--k6-only | --k7-only] [--parent ROOT]
 
 Prints one line per variant and shape, then one JSON line with every
 number and the card's name and power limit. Exits non-zero without a card.
@@ -91,11 +96,24 @@ def seed_min_variant(src, threads=128, points=4, policy=True, fmin=False,
 
 def fps_variant(src):
     """csrc/fps.cu with the cluster size settable (``set_c``)."""
-    text = _sub(src, 'const int C = cluster_size(B, N);\n  const int shard',
-                'const int C = g_c > 0 ? g_c : cluster_size(B, N);\n'
-                '  const int shard')
+    text = _sub(src, 'const int C = cluster_size(B, N, kThreads);',
+                'const int C = g_c > 0 ? g_c : '
+                'cluster_size(B, N, kThreads);')
     text = _sub(text, 'template <bool kSeeded>\ncudaError_t dispatch(',
                 'int g_c = 0;\ntemplate <bool kSeeded>\ncudaError_t dispatch(')
+    return text + '\nextern "C" void set_c(int c) { g_c = c; }\n'
+
+
+def fps_dist_variant(src, threads=256):
+    """csrc/fps_dist.cu with the cluster size settable (``set_c``) and
+    another CTA width."""
+    text = _sub(src, 'const int C = cluster_size(B, N, kThreads);',
+                'const int C = g_c > 0 ? g_c : '
+                'cluster_size(B, N, kThreads);')
+    text = _sub(text, '// One instantiation per power-of-two share',
+                'int g_c = 0;\n// One instantiation per power-of-two share')
+    text = _sub(text, 'constexpr int kThreads = 256;',
+                f'constexpr int kThreads = {threads};')
     return text + '\nextern "C" void set_c(int c) { g_c = c; }\n'
 
 
@@ -129,8 +147,8 @@ def build(variants):
     for name, text in variants.items():
         (OUT / f'{name}.cu').write_text(text)
         procs[name] = subprocess.Popen(
-            [nvcc, *_build.NVCC_FLAGS, '-o', str(OUT / f'{name}.so'),
-             str(OUT / f'{name}.cu')],
+            [nvcc, *_build.NVCC_FLAGS, '-I', str(_build.CSRC), '-o',
+             str(OUT / f'{name}.so'), str(OUT / f'{name}.cu')],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs = {}
     for name, proc in procs.items():
@@ -334,6 +352,79 @@ def sweep_three_nn(results, parent=None):
               f'{results[key + " (sum)"][1]:.3f} ms', flush=True)
 
 
+def fps_dist_inputs():
+    """The matrices of IASSD_FS's two F-FPS calls (FS's at layer 1, layer
+    2's) in a forward of chip_smoke's first IASSD_FS request, with their
+    npoint."""
+    import chip_smoke as cs
+    from spsnet_torch.ops import calc_square_dist
+    from spsnet_torch.utils.synthetic import synthetic_scan_batch
+    _, model = cs.build_family('IASSD_FS', 'cuda')
+    scans = torch.from_numpy(synthetic_scan_batch(
+        cs.FAMILY_SEEDS['IASSD_FS'], cs.B, cs.N)).cuda()
+    inputs, _ = cs.ffps_inputs(model, scans)
+    with torch.no_grad():
+        return [(calc_square_dist(f, f).contiguous(), m) for f, m in inputs]
+
+
+def sweep_fps_dist(results, parent=None):
+    """K7 at each cluster size and CTA width against the rule's, and the
+    parent's, in the order parent, rule, the others, rule, parent; every
+    variant held to the plain F-FPS first."""
+    import chip_smoke as cs
+    from spsnet_torch.ops.sampling import \
+        farthest_point_sample_with_dist_plain
+    src = (ROOT / 'spsnet_torch/csrc/fps_dist.cu').read_text()
+    variants = {'kept': fps_dist_variant(src),
+                't128': fps_dist_variant(src, 128),
+                't512': fps_dist_variant(src, 512)}
+    if parent:
+        variants['parent'] = (Path(parent) / 'spsnet_torch/csrc/fps_dist.cu'
+                              ).read_text()
+    libs = build(variants)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    stream = torch.cuda.current_stream().cuda_stream
+    for lib in libs.values():
+        lib.spsnet_fps_dist.argtypes = [P, P, I, I, I, P]
+    cases = [(m, npoint, farthest_point_sample_with_dist_plain(m, npoint))
+             for m, npoint in fps_dist_inputs()]
+    rule = libs['kept'].spsnet_fps_dist_cluster_size
+    runs = [('kept', 0)] + [(name, c) for name in ('kept', 't128', 't512')
+                            for c in (2, 4, 8, 16)] + [('kept', 0)]
+    if parent:
+        runs = [('parent', 0)] + runs + [('parent', 0)]
+    for name, c in runs:
+        lib = libs[name]
+        if name != 'parent':
+            lib.set_c(c)
+        threads = int(name[1:]) if name[0] == 't' else 256
+        for mat, npoint, want in cases:
+            b, n, _ = mat.shape
+            if c and n > c * threads * 16:
+                continue  # more than 16 columns a thread: no instantiation
+            out = torch.empty(b, npoint, dtype=torch.int64, device='cuda')
+
+            def call(m=mat, o=out, b=b, n=n, k=npoint):
+                err = lib.spsnet_fps_dist(m.data_ptr(), o.data_ptr(), b, n, k,
+                                          stream)
+                if err:
+                    raise RuntimeError(f'fps_dist {name} C={c}: CUDA error '
+                                       f'{err}')
+            call()
+            torch.cuda.synchronize()
+            if not torch.equal(out, want):
+                raise AssertionError(f'fps_dist {name} C={c} ({b}, {n}) -> '
+                                     f'{npoint}: != plain')
+            ms = [cs.device_ms(call, reps=5) for _ in range(2)]
+            label = 'one CTA a row' if name == 'parent' else \
+                f'C={c or rule(b, n)}' + (' (rule)' if name == 'kept' and (
+                    not c or c == rule(b, n)) else '')
+            key = f'fps_dist {name} ({b}, {n}) -> {npoint} {label}'
+            results.setdefault(key, []).extend(ms)
+            print(f'{key}: {ms[0]:.4f} {ms[1]:.4f} ms, '
+                  f'{ms[0] * 1e3 / (npoint - 1):.3f} us a step', flush=True)
+
+
 def main(argv=()) -> int:
     if not torch.cuda.is_available():
         print('launch_sweep: no CUDA device', file=sys.stderr)
@@ -345,10 +436,13 @@ def main(argv=()) -> int:
                           text=True, check=True).stdout.strip()
     print(card, flush=True)
     results = {}
+    if '--k7-only' not in argv:
+        if '--k6-only' not in argv:
+            sweep_seed_min(results)
+            sweep_fps(results)
+        sweep_three_nn(results, parent)
     if '--k6-only' not in argv:
-        sweep_seed_min(results)
-        sweep_fps(results)
-    sweep_three_nn(results, parent)
+        sweep_fps_dist(results, parent)
     print(json.dumps({'launch_sweep': results, 'card': card}))
     return 0
 

@@ -87,15 +87,15 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "cluster_step.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
+using namespace spsnet_cluster;
+
 constexpr int kMaxN = 65536;
-constexpr int kMaxCluster = 16;
-constexpr int kMaxPPT = 16;
-constexpr int kFastPPT = 4;  // points a thread that cluster_size() aims at
 constexpr int kThreads = 256;  // T, the threads of a CTA
 constexpr int kWarps = kThreads / 32;
 
@@ -108,11 +108,6 @@ __device__ __forceinline__ float sq_dist(float ax, float ay, float az,
                    __fmul_rn(dz, dz));
 }
 
-__device__ __forceinline__ void cluster_barrier() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
 // The warp's best of (m, i) pairs (m desc, i asc; every lane gets it) and
 // the lane that holds it.
 __device__ __forceinline__ void warp_best(int& m, int& i, int& src) {
@@ -122,46 +117,6 @@ __device__ __forceinline__ void warp_best(int& m, int& i, int& src) {
   src = __ffs(__ballot_sync(kFull, cand == wi)) - 1;
   m = wm;
   i = wi;
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar))
-               : "memory");
-}
-
-// Arrive on `bar` and expect `bytes` more in its current phase.
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_addr(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-  }
-}
-
-// The shared::cluster address of local shared `addr` in CTA `rank`.
-__device__ __forceinline__ uint32_t peer_addr(uint32_t addr, int rank) {
-  uint32_t out;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-               : "=r"(out)
-               : "r"(addr), "r"(rank));
-  return out;
 }
 
 // A record (value bits, index, x bits, y bits | z) into CTA `rank`'s slot,
@@ -345,29 +300,6 @@ __global__ void __launch_bounds__(kThreads)
   cluster_barrier();
 }
 
-int pow2_ceil(int x) {
-  int p = 1;
-  while (p < x) p <<= 1;
-  return p;
-}
-
-// The fixed rule: B * C <= 132 SMs where possible (16 for B <= 8, 8 for
-// B <= 16, 4 for B <= 33, else 2), but at least enough CTAs that a thread
-// holds <= kFastPPT points (up to 16 CTAs; a thread then holds <= kMaxPPT,
-// so any N <= kMaxN fits), and no more than leave each thread one point.
-// Measured on the H100 (PERF.md): C = 16 ahead of 8 and 4 at (8, 16384);
-// at B > 8, C = 16 ahead of 8 at (16, 16384) and 4 ahead of 2 at
-// (64, 4096), 4 points a thread each time, and more CTAs than that no
-// faster.
-int cluster_size(int B, int N) {
-  const int by_rows = B <= 8 ? 16 : B <= 16 ? 8 : B <= 33 ? 4 : 2;
-  const int per_cta = kThreads * kFastPPT;
-  const int need = pow2_ceil((N + per_cta - 1) / per_cta);
-  const int useful = pow2_ceil((N + kThreads - 1) / kThreads);
-  const int c = need > by_rows ? need : (useful < by_rows ? useful : by_rows);
-  return c < 2 ? 2 : (c > kMaxCluster ? kMaxCluster : c);
-}
-
 template <int PPT, bool kSeeded>
 cudaError_t launch(const float* xyz, const uint8_t* valid, const float* d0,
                    const int64_t* seeds, int64_t* out, int B, int N,
@@ -416,7 +348,7 @@ cudaError_t dispatch(const float* xyz, const uint8_t* valid, const float* d0,
                      const int64_t* seeds, int64_t* out, int B, int N,
                      int npoint, int k0, cudaStream_t s,
                      int* active = nullptr) {
-  const int C = cluster_size(B, N);
+  const int C = cluster_size(B, N, kThreads);
   const int shard = (N + C - 1) / C;
   switch (pow2_ceil((shard + kThreads - 1) / kThreads)) {
 #define SPSNET_FPS_LAUNCH(P)                                             \
@@ -438,7 +370,9 @@ extern "C" {
 int spsnet_fps_max_n() { return kMaxN; }
 
 // The cluster size of a launch over (B, N), and the threads of its CTAs.
-int spsnet_fps_cluster_size(int B, int N) { return cluster_size(B, N); }
+int spsnet_fps_cluster_size(int B, int N) {
+  return cluster_size(B, N, kThreads);
+}
 
 int spsnet_fps_threads() { return kThreads; }
 

@@ -4,7 +4,8 @@ Each source in ``spsnet_torch/csrc/`` is compiled by ``nvcc`` for
 ``sm_90a`` into its own shared library with a plain C interface, and loaded
 with ``ctypes``. The build runs at first use (never at import), all sources
 in parallel, into ``build/spsnet_torch/<hash>/`` at the repo root, where the
-hash covers the sources and the flags, so an edited source is rebuilt.
+hash covers the sources, the headers they share (``*.cuh``) and the flags,
+so an edited source is rebuilt.
 
 Every kernel wrapper adds one to ``LAUNCHES[name]`` where it launches its
 kernel and nowhere else, so a run can show which kernels its path went
@@ -56,7 +57,8 @@ SIGNATURES = {
                                      _P],
                  'spsnet_three_nn_workspace': [_I, _I]},
     'fps_dist': {'spsnet_fps_dist': [_P, _P, _I, _I, _I, _P],
-                 'spsnet_fps_dist_max_n': []},
+                 'spsnet_fps_dist_max_n': [],
+                 'spsnet_fps_dist_cluster_size': [_I, _I]},
 }
 KERNELS = ('fps', 'fps_seeded', 'ball_query', 'ball_query_annulus',
            'seed_min', 'three_nn', 'fps_dist')
@@ -86,6 +88,9 @@ def build_dir() -> Path:
     for name in sorted(SIGNATURES):
         h.update(name.encode())
         h.update((CSRC / f'{name}.cu').read_bytes())
+    for header in sorted(CSRC.glob('*.cuh')):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16]
 
 

@@ -33,7 +33,9 @@ precomputed (B, N, N) squared-distance matrix: the first pick is index 0,
 each step lowers the running min (from 1e10) by the last pick's row and
 picks the argmax, NaN above every number and the lowest index winning
 ties. JAX computes it in XLA; its kernel here, ``csrc/fps_dist.cu``, is
-not a port of a Pallas kernel.
+not a port of a Pallas kernel. The kernel ranks the running minima by an
+unsigned key (``fps_dist_key`` is its CPU twin) and shares a row across
+a thread-block cluster, as the exact FPS kernel does.
 
 Each op runs its plain version for a CPU tensor and its kernel for a CUDA
 tensor (``csrc/fps.cu``, ``csrc/seed_min.cu``, ``csrc/fps_dist.cu``);
@@ -91,10 +93,22 @@ def farthest_point_sample_with_dist_plain(dist_mat, npoint: int):
     return out
 
 
+def fps_dist_key(values):
+    """The order key by which ``csrc/fps_dist.cu`` ranks float32 running
+    minima, as int64 in [0, 2**32): a negative float's bits flipped, a
+    non-negative one's with the sign bit set, -0.0 as +0.0 and every NaN
+    0xffffffff, so that the keys order as ``argmax`` ranks the floats (NaN
+    first, -0.0 tied with +0.0)."""
+    u = values.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    u = torch.where(u == 0x80000000, 0, u)
+    key = torch.where(u >= 0x80000000, 0xFFFFFFFF - u, u | 0x80000000)
+    return torch.where(torch.isnan(values), 0xFFFFFFFF, key)
+
+
 def farthest_point_sample_with_dist_kernel(dist_mat, npoint: int):
-    """F-FPS through the CUDA kernel ``csrc/fps_dist.cu`` (one CTA a row,
-    the running minima in shared memory): (B, N, N) float32 -> (B, npoint)
-    int64 on the device of ``dist_mat``."""
+    """F-FPS through the CUDA kernel ``csrc/fps_dist.cu`` (a cluster of CTAs
+    a row, the running minima in registers): (B, N, N) float32 ->
+    (B, npoint) int64 on the device of ``dist_mat``."""
     _check_dist(dist_mat, npoint)
     _require_cuda('F-FPS', dist_mat)
     lib = _build.library('fps_dist')

@@ -31,8 +31,12 @@ the middle, voxel centres in z-major order, queries at 1e6, NaN and inf,
 +-0 and 1e-20, M no multiple of 32), B from 1 to 8 and PV-RCNN++'s three
 VectorPool shapes; its pairs counter against the plain tiled scan's, and
 at x_conv3's shape below the pairs of the unculled prefix; the masked FPS
-at the sector masks of a Waymo scan. Indices must be equal, and the min
-distances to the seeds and the three-NN distances bit for bit.
+at the sector masks of a Waymo scan. For F-FPS over a distance matrix:
+ties, NaN, negative entries, maxima at -0.0 and +0.0, all-NaN rows, N at
+the kernel's largest and off its shards, B = 1 and 32 (the cluster
+rule's largest and smallest cluster), npoint = N. Indices must be equal,
+and the min distances to the seeds and the three-NN distances bit for
+bit.
 
 These tests need a CUDA card and skip without one. On the H100:
 
@@ -1830,11 +1834,33 @@ def test_tiny_caddn_request_on_the_card_matches_the_cpu(cuda):
 def _fps_dist_matrix(cuda, case, B, N):
     """A (B, N, N) F-FPS distance matrix on the card: ``calc_square_dist``
     of a synthetic scan's xyz and 64 features ('random'), of duplicated
-    rows ('tied'), a constant matrix, or random rows with NaN entries in
-    the first row read, a later row and a whole column ('nan')."""
+    rows ('tied'), a constant matrix, random rows with NaN entries in
+    the first row read, a later row and a whole column ('nan'); normal
+    entries, most of them negative ('negative'); negative entries and
+    zeros of both signs, so that the maxima are -0.0 and +0.0 ('zeros');
+    a row whose every matrix entry is NaN and one where a few whole rows
+    are ('all_nan'); uniform entries drawn on the card ('uniform', for N
+    whose matrix numpy would take long to draw)."""
     from spsnet_torch.ops import calc_square_dist
     if case == 'constant':
         return torch.full((B, N, N), 2.5, device=cuda)
+    if case == 'uniform':
+        gen = torch.Generator(device=cuda).manual_seed(N)
+        return torch.rand((B, N, N), generator=gen, device=cuda)
+    rng = np.random.default_rng(N + B)
+    if case == 'negative':
+        return torch.from_numpy(
+            (rng.normal(size=(B, N, N)) - 1.0).astype(np.float32)).to(cuda)
+    if case == 'zeros':
+        m = np.where(rng.random((B, N, N)) < 0.5, -rng.random((B, N, N)),
+                     rng.choice(np.float32([-0.0, 0.0]), (B, N, N)))
+        m[:, np.arange(N), np.arange(N)] = -1.0  # a pick leaves the race
+        return torch.from_numpy(m.astype(np.float32)).to(cuda)
+    if case == 'all_nan':
+        m = rng.random((B, N, N)).astype(np.float32)
+        m[0] = np.nan
+        m[1:, rng.integers(0, N, 4)] = np.nan
+        return torch.from_numpy(m).to(cuda)
     n = N // 2 if case == 'tied' else N
     xyz = _scans(N, B, n)
     feat = torch.from_numpy(np.random.default_rng(N).normal(
@@ -1858,6 +1884,16 @@ def _fps_dist_matrix(cuda, case, B, N):
     ('random', 1, 20000, 64),      # shared memory past 48 KB
     ('random', 3, 4096, 1),        # one pick
     ('tied', 2, 2048, 256), ('constant', 2, 1024, 40), ('nan', 3, 1024, 64),
+    ('negative', 2, 2048, 512),    # negative entries
+    ('zeros', 2, 2048, 256),       # maxima at -0.0 and +0.0
+    ('all_nan', 2, 1024, 64),      # every entry NaN / whole NaN rows
+    ('uniform', 1, 65536, 16),     # the largest N
+    ('random', 2, 5000, 300),      # shards of 313 columns (C = 16)
+    ('random', 1, 12293, 100),     # shards of 769 columns
+    ('random', 1, 8192, 512),      # B = 1, the largest cluster
+    ('random', 32, 4096, 512),     # B = 32
+    ('random', 32, 300, 300),      # B = 32, the smallest cluster, M = N
+    ('random', 2, 3000, 3000),     # M = N
 ])
 def test_fps_dist_kernel_matches_plain(cuda, case, B, N, M):
     """K7 against the plain F-FPS on the same matrix, tolerance 0: one
@@ -1871,6 +1907,15 @@ def test_fps_dist_kernel_matches_plain(cuda, case, B, N, M):
     want = sampling.farthest_point_sample_with_dist_plain(m, M)
     assert torch.equal(got, want)
     assert torch.equal(got, sampling.farthest_point_sample_with_dist(m, M))
+
+
+def test_fps_dist_cluster_rule_reaches_both_ends(cuda):
+    """The cases above at B = 1 and B = 32 run K7 at the cluster rule's
+    largest and smallest cluster."""
+    lib = _build.library('fps_dist')
+    sizes = [lib.spsnet_fps_dist_cluster_size(b, n)
+             for b, n in ((1, 8192), (32, 4096), (32, 300))]
+    assert sizes[0] == 16 and sizes[2] == 2, sizes
 
 
 def test_fps_dist_kernel_rejects_what_it_cannot_take(cuda):

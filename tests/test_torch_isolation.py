@@ -164,6 +164,9 @@ def test_import_cpu_forward_and_train_step_load_no_jax_and_build_nothing():
     module is loaded and no kernel is built."""
     env = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}
     env['PYTHONPATH'] = str(ROOT)
+    # one intra-op thread, as in the test modules: the child runs beside
+    # the suite's other workers
+    env['OMP_NUM_THREADS'] = '1'
     res = subprocess.run([sys.executable, '-c', _CHILD], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr

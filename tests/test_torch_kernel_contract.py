@@ -11,8 +11,11 @@ maxima tie (a lattice, a cloud repeated so that equal points lie far apart
 in index order), masks that leave one or no valid point, radii in
 descending order, N that is no multiple of 4 (a row that is not 16-byte
 aligned), and for the min distance to the seeds one seed, seed counts off
-a split, one point, a point past a tile, and seeds that are points.
-Inputs are made with numpy from fixed seeds; indices must be equal.
+a split, one point, a point past a tile, and seeds that are points. The
+order key of F-FPS over a distance matrix (``csrc/fps_dist.cu``) is held
+to ``argmax``'s ranking by hypothesis tests on NaN, +-0, +-inf, negatives
+and ties. Inputs are made with numpy from fixed seeds; indices must be
+equal.
 """
 import numpy as np
 import jax.numpy as jnp
@@ -409,3 +412,72 @@ def test_k6_wrapper_refuses_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match='float32'):
         ti.three_nn_kernel(u.double(), k)
     assert torch.equal(ti.three_nn(u, k)[1], ti.three_nn_plain(u, k)[1])
+
+
+# F-FPS over a distance matrix (csrc/fps_dist.cu) ranks the running minima
+# by an unsigned key; ``ts.fps_dist_key`` is its CPU twin. Its order must
+# be the plain version's: ``torch.minimum`` then ``argmax`` (NaN first,
+# -0.0 tied with +0.0, the lowest index on ties).
+
+_KEY_SPECIALS = (np.nan, -np.nan, np.inf, -np.inf, 0.0, -0.0, 1e10, -1e-3,
+                 -1.0, 1.0, 1e-45, -1e-45, 3.4e38, -3.4e38)
+
+
+@st.composite
+def _key_values(draw, max_n=40):
+    """float32 (n,): normal values at a drawn scale, many of them negative,
+    with repeats (ties) and entries set to NaN (either sign), +-inf, +-0,
+    subnormals and the extremes."""
+    rng = np.random.default_rng(draw(st.integers(0, 2 ** 32 - 1)))
+    n = draw(st.integers(1, max_n))
+    v = (rng.normal(size=n) * 10.0 ** rng.integers(-40, 38)).astype(
+        np.float32)
+    if draw(st.booleans()):
+        v = v[rng.integers(0, n, n)]
+    for _ in range(draw(st.integers(0, n))):
+        v[rng.integers(0, n)] = draw(st.sampled_from(_KEY_SPECIALS))
+    return torch.from_numpy(v.astype(np.float32))
+
+
+@settings(max_examples=300, deadline=None, database=None, derandomize=True)
+@given(_key_values())
+def test_fps_dist_key_orders_as_argmax_ranks(v):
+    """For every pair: key above iff NaN against a number or the larger
+    number; keys equal iff both NaN or equal numbers (so -0.0 == +0.0);
+    the first maximal key is ``argmax``'s pick."""
+    key = ts.fps_dist_key(v)
+    assert int(key.min()) >= 0 and int(key.max()) <= 0xFFFFFFFF
+    a, b = v[:, None], v[None, :]
+    na, nb = torch.isnan(a), torch.isnan(b)
+    above = (na & ~nb) | (~na & ~nb & (a > b))
+    equal = (na & nb) | (a == b)
+    assert torch.equal(key[:, None] > key[None, :], above)
+    assert torch.equal(key[:, None] == key[None, :], equal)
+    assert int(key.argmax()) == int(v.argmax())
+
+
+@settings(max_examples=150, deadline=None, database=None, derandomize=True)
+@given(_key_values(max_n=24), st.integers(0, 2 ** 32 - 1), st.booleans())
+def test_fps_dist_by_keys_is_the_plain_f_fps(values, seed, signed_zeros):
+    """The kernel's step loop on the CPU (minima by ``torch.minimum``, the
+    pick as the first maximal key) gives the plain F-FPS's picks on
+    matrices drawn from the same values: negatives, +-0, NaN, +-inf and
+    ties; with ``signed_zeros`` every positive entry becomes -0.0 or +0.0,
+    so that the maxima are zeros of both signs."""
+    rng = np.random.default_rng(seed)
+    n = values.shape[0]
+    mat = values[torch.from_numpy(rng.integers(0, n, (2, n, n)))]
+    if signed_zeros:
+        zeros = torch.from_numpy(rng.choice(np.float32([-0.0, 0.0]),
+                                            mat.shape))
+        mat = torch.where(mat > 0, zeros, mat)
+    npoint = int(rng.integers(1, n + 1))
+    want = ts.farthest_point_sample_with_dist_plain(mat, npoint)
+    mind = torch.full((2, n), 1e10)
+    last = torch.zeros(2, dtype=torch.int64)
+    got = torch.zeros((2, npoint), dtype=torch.int64)
+    for j in range(1, npoint):
+        mind = torch.minimum(mind, mat[torch.arange(2), last])
+        last = ts.fps_dist_key(mind).argmax(1)
+        got[:, j] = last
+    assert torch.equal(got, want)

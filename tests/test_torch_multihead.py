@@ -156,7 +156,8 @@ def test_anchor_head_multi_forward_matches_jax(which):
     correction within tolerance."""
     jm, variables, head = _heads(which)
     x = _bev(1)
-    jout = jm.apply(variables, {'spatial_features_2d': x}, train=False)
+    jout = jax.jit(lambda v, b: jm.apply(v, b, train=False))(
+        variables, {'spatial_features_2d': x})
     head.eval()
     with torch.no_grad():
         out = head({'spatial_features_2d': _t(x.transpose(0, 3, 1, 2))})
@@ -219,8 +220,8 @@ def test_anchor_head_multi_targets_loss_and_gradients_match_jax(which):
             ret, StaticConfig(JaxEDict(copy.deepcopy(loss_cfg))), 3,
             jm.bind(variables).box_coder, *dirs)
         return loss, (tb, ret, mut)
-    (jloss, (jtb, jret, jmut)), (jgp, jgx) = jax.value_and_grad(
-        jax_loss, argnums=(0, 1), has_aux=True)(
+    (jloss, (jtb, jret, jmut)), (jgp, jgx) = jax.jit(jax.value_and_grad(
+        jax_loss, argnums=(0, 1), has_aux=True))(
             variables['params'], batch['spatial_features_2d'])
 
     head.train()

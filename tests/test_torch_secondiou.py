@@ -203,7 +203,8 @@ def test_second_head_eval_matches_jax():
     jm, variables, head = _head_pair(10)
     batch = _head_batch(11, False)
     assert _near_thresh(batch['batch_box_preds'], 0.7) > 1e-5
-    jout = jm.apply(variables, batch, train=False)
+    jout = jax.jit(lambda v, b: jm.apply(v, b, train=False))(variables,
+                                                            batch)
     head.eval()
     tb = {k: _t(v) for k, v in batch.items()}
     tb['spatial_features_2d'] = tb['spatial_features_2d'].permute(0, 3, 1, 2)
@@ -226,10 +227,10 @@ def _dropout_masks(jm, variables, batch, rngs):
     """The JAX head's two Dropout masks in a train forward (shared_fc's
     after its first block, iou_layers' after its first), as kept / not
     kept (an entry the ReLU zeroed is 0 either way)."""
-    _, state = jm.apply(variables, batch, train=True, rngs=rngs,
-                        mutable=['batch_stats', 'intermediates'],
-                        capture_intermediates=lambda m, _:
-                        type(m).__name__ == 'Dropout')
+    _, state = jax.jit(lambda v, b: jm.apply(
+        v, b, train=True, rngs=rngs, mutable=['batch_stats', 'intermediates'],
+        capture_intermediates=lambda m, _: type(m).__name__ == 'Dropout'))(
+            variables, batch)
     inter = state['intermediates']
     masks = [np.asarray(inter['shared_fc']['Dropout_0']['__call__'][0]),
              np.asarray(inter['iou_layers']['SharedMLP_0']['Dropout_0'][
@@ -278,8 +279,8 @@ def test_second_head_train_matches_jax_with_replayed_draws():
             out['second_head_ret'], StaticConfig(JaxEDict(copy.deepcopy(
                 loss_cfg))))
         return loss, (out['second_head_ret'], state['batch_stats'])
-    (jl, (jret, jstats)), (jgrad, jbox) = jax.value_and_grad(
-        jloss, argnums=(0, 1), has_aux=True)(variables['params'],
+    (jl, (jret, jstats)), (jgrad, jbox) = jax.jit(jax.value_and_grad(
+        jloss, argnums=(0, 1), has_aux=True))(variables['params'],
                                              batch['batch_box_preds'])
     assert all(0 < (~m).mean() < 1 for m in masks)
 
@@ -475,10 +476,10 @@ def test_tiny_secondiou_serves_as_jax(tiny):
     jm, variables, model = tiny['jm'], tiny['variables'], tiny['model']
     batch = {k: v for k, v in tiny['batch'].items() if k != 'gt_boxes'}
     post = tiny['cfg'].POST_PROCESSING
-    jout = jm.apply(variables, {k: v.numpy() for k, v in batch.items()},
-                    train=False)
-    jd = jax_post_processing(jout, StaticConfig(JaxEDict(copy.deepcopy(
-        post))), class_names=['Car'])
+    jpost = StaticConfig(JaxEDict(copy.deepcopy(post)))
+    jout, jd = jax.jit(lambda v, b: (lambda o: (o, jax_post_processing(
+        o, jpost, class_names=['Car'])))(jm.apply(v, b, train=False)))(
+            variables, {k: v.numpy() for k, v in batch.items()})
     with torch.no_grad():
         out = model(batch)
     for key in ('batch_box_preds', 'batch_cls_preds', 'batch_roi_scores'):
