@@ -18,7 +18,8 @@
                                           # cbgs_pp_multihead,
                                           # cbgs_second_multihead,PartA2,
                                           # PartA2_free,AL; CaDDN is phase
-                                          # 96, IASSD_FS phase 110)
+                                          # 96, IASSD_FS phase 110, DDP
+                                          # phase 113)
     python3 chip_smoke.py --pvpp-train-repeat N  # phase 54's steps N times
                                           # under each gt at the proposals
     python3 chip_smoke.py --beside        # the card-vs-CPU checks that
@@ -488,7 +489,28 @@ Phases, in order; any failure raises and the exit code is not 0:
     one scene card vs CPU (the partition sorts held and replayed,
     ``partition_picks``);
 110. ``--fault-check IASSD_FS``: phase 101 refuses the card's gradients
-    of each module of FAMILY_FAULTS scaled by 1.3.
+    of each module of FAMILY_FAULTS scaled by 1.3;
+111. data parallel at world 1 (a process of its own, deterministic
+    algorithms): IA-SSD.yaml's train step with seeded D-FPS, TRAIN_B x
+    16384 scenes, through ``init_distributed('cuda')`` over NCCL and
+    ``make_train_step(..., group=)`` under DDP, DDP_STEPS steps in turns
+    with the plain step from the same weights: loss terms, parameters, BN
+    buffers and optimizer state the same bits after each step, TRAIN_LAUNCHES
+    a step; NCCL's version, then DDP_TIMED more steps of each in turns
+    (deterministic algorithms off) timed;
+112. data parallel at world 2 on the one card: two processes over gloo
+    (``--ddp-rank``; NCCL takes one rank a device) each take one step of
+    IA-SSD.yaml (DDP_B x 16384 scenes a rank) and of pv_rcnn.yaml (one
+    frame a rank at 16 000 voxels), every decision held to the card's
+    one-process step over the joined batch (``PrcnnDecisions``,
+    ``topk_picks``) and replayed; the ranks' states the same bits, and
+    against the joined step the loss terms, gradients, updated
+    parameters, modules and BN statistics within the limits of the
+    card-vs-CPU train checks (5 x a 1e-6 weight jitter's baseline and the
+    ceilings); both ranks' step times (two processes sharing one card);
+113. ``--fault-check DDP``: phase 112 refuses rank 1's gradients of one
+    module scaled by 1.3 and a run with every loss normalizer over the
+    rank's own batch, each for IA-SSD and PV-RCNN (DDP_FAULTS).
 
 The card-vs-CPU train steps (phases 8, 15, 17, 26, 36, 44, 48, 55, 61,
 64, 68, 71, 74, 77, 80, 83, 87, 95, 101), the card-vs-CPU requests of
@@ -1971,7 +1993,7 @@ def _step_difference(a, b, lr):
             'two_lr': 2 * lr}
 
 
-def _require_step_within(card, base, lr):
+def _require_step_within(card, base, lr, what='card vs CPU'):
     """The card's step (``_step_difference`` against the CPU's) within
     TRAIN_GRAD_FACTOR times the jitter baseline ``base`` and within the
     fixed ceilings, no entry beyond 2 lr. Returns the two limits."""
@@ -1989,31 +2011,31 @@ def _require_step_within(card, base, lr):
     if card['grad_rel_l2'] > grad_limit or \
             card['param_beyond'] > beyond_limit or \
             card['param_max'] > 2 * lr * (1 + 1e-3):
-        raise AssertionError(f'card vs CPU train step: {note}')
-    log(f'  card vs CPU: {note}')
+        raise AssertionError(f'{what} train step: {note}')
+    log(f'  {what}: {note}')
     return {'grad_limit': grad_limit, 'beyond_limit': beyond_limit}
 
 
-def _require_modules_within(by_module):
+def _require_modules_within(by_module, what='card vs CPU'):
     """Each module's gradient relative L2 card vs CPU (``by_module``: name
     -> [card, baseline]) at most TRAIN_MODULE_CEIL; logs the five largest."""
     top = sorted(by_module, key=lambda k: -by_module[k][0])[:5]
     log(f'  gradient relative L2 of {len(by_module)} modules three names '
-        f'deep, the largest five card vs CPU and baseline: ' +
+        f'deep, the largest five {what} and baseline: ' +
         ', '.join(f'{k} {by_module[k][0]:.4f} / {by_module[k][1]:.4f}'
                   for k in top) + f' (limit {TRAIN_MODULE_CEIL})')
     if by_module[top[0]][0] > TRAIN_MODULE_CEIL:
-        raise AssertionError(f'card vs CPU gradients of {top[0]}: relative '
+        raise AssertionError(f'{what} gradients of {top[0]}: relative '
                              f'L2 {by_module[top[0]][0]:.4f} over '
                              f'{TRAIN_MODULE_CEIL}')
 
 
-def _require_bn_within(stats):
+def _require_bn_within(stats, what='card vs CPU'):
     """The card's BN running statistics' relative L2 against the CPU's
     (``stats[0]``) within TRAIN_GRAD_FACTOR times the jitter baseline's
     (``stats[1]``) and within TRAIN_BN_CEIL. Returns the limit."""
     limit = min(TRAIN_GRAD_FACTOR * stats[1], TRAIN_BN_CEIL)
-    note = (f'card vs CPU BN running stats: relative L2 {stats[0]:.3e} '
+    note = (f'{what} BN running stats: relative L2 {stats[0]:.3e} '
             f'(limit {limit:.3e}: {TRAIN_GRAD_FACTOR} x the baseline or '
             f'{TRAIN_BN_CEIL}, the less)')
     if stats[0] > limit:
@@ -2683,8 +2705,9 @@ class PrcnnDecisions:
                 raise AssertionError(self.notes[-1])
         return self._use('fps', want)
 
-    def ball(self, real, radii, nsamples, xyz, new_xyz):
-        own = real(radii, nsamples, xyz, new_xyz)
+    def ball(self, real, radii, nsamples, xyz, new_xyz, min_radii=None):
+        own = real(radii, nsamples, xyz, new_xyz) if min_radii is None \
+            else real(radii, nsamples, xyz, new_xyz, min_radii=min_radii)
         if self.mode == 'record':
             self.inputs['ball'].append((xyz.detach().cpu(),
                                         new_xyz.detach().cpu()))
@@ -2693,6 +2716,9 @@ class PrcnnDecisions:
         if self.mode == 'check' and not all(
                 torch.equal(o, w) for o, w in zip(own, want)):
             self.differ['ball'] += 1
+            if min_radii is not None and any(min_radii):
+                raise AssertionError('ball query: an annulus query differs '
+                                     '(no slack rule for its inner radius)')
             e = self._inputs_apart('ball', xyz, new_xyz)
             ratio = max(ball_within(xyz.detach().cpu(), new_xyz.detach().cpu(),
                                     r, w.cpu(), o.cpu(), e)
@@ -2730,8 +2756,10 @@ class PrcnnDecisions:
             import spsnet_torch.ops as ops_pkg
             hooked, ops_pkg.nms_bev = ops_pkg.nms_bev, real
             try:
-                nms_agrees(want[0], boxes.detach(), scores.detach(), valid,
-                           thresh, pre_maxsize, post_maxsize,
+                nms_agrees(want[0], boxes.detach().cpu(),
+                           scores.detach().cpu(),
+                           None if valid is None else valid.cpu(), thresh,
+                           pre_maxsize, post_maxsize,
                            'proposal NMS (train) indices')
             finally:
                 ops_pkg.nms_bev = hooked
@@ -3134,7 +3162,7 @@ FAMILY_FAULTS = (('backbone_3d.SA_modules.1', 1.3),
                  ('point_head.box_center_layers', 1.3))
 _FAULT_MODELS = ('pointrcnn', 'pvrcnn', 'voxel_rcnn', 'pvrcnnpp',
                  'centerpoint_pillar', 'centerpoint_dyn_pillar',
-                 *MH_FAULTS, *PA_FAULTS, 'AL', 'CaDDN', 'IASSD_FS')
+                 *MH_FAULTS, *PA_FAULTS, 'AL', 'CaDDN', 'IASSD_FS', 'DDP')
 
 
 def fault_check(models=_FAULT_MODELS) -> int:
@@ -3254,6 +3282,21 @@ def fault_check(models=_FAULT_MODELS) -> int:
              _scene_batch(FAMILY_SEEDS['IASSD_FS'] + 90, 1, 'cpu'),
              FAMILY_FAULTS, 0)
         n += len(FAMILY_FAULTS)
+    if 'DDP' in models:
+        log('== 112 as it runs')
+        phases.ddp_world2_phase('the card')
+        for name, fault in DDP_FAULTS:
+            what = f'{name}: ' + ' '.join(str(v) for v in fault)
+            real_log, phases.log = phases.log, lambda *a: None
+            try:
+                phases.ddp_world2_phase('the card', (name,), fault)
+                missed.append(what)
+                real_log(f'NOT REFUSED: phase 112 with {what}')
+            except AssertionError as e:
+                real_log(f'refused: phase 112 with {what}: {e}')
+            finally:
+                phases.log = real_log
+        n += len(DDP_FAULTS)
     log(f'{n - len(missed)} of {n} faults refused')
     return 1 if missed else 0
 
@@ -8900,6 +8943,438 @@ def phase3_of(root) -> int:
     return 0
 
 
+# data parallel (phases 111-113): phase 111 takes DDP_STEPS IA-SSD train
+# steps of TRAIN_B scenes plain and under DDP at world 1 over NCCL, in
+# turns from the same weights; phase 112 takes one world-2 step of IA-SSD
+# (DDP_B scenes a rank) and of PV-RCNN (one frame a rank at the train
+# voxel limit) in two processes on the one card over gloo (NCCL takes one
+# rank a device), each held to the card's one-process step over the joined
+# batch; a child process may take DDP_CHILD_TIMEOUT seconds
+DDP_STEPS, DDP_B, DDP_CHILD_TIMEOUT = 3, 2, 240
+# phase 111's timing: DDP_TIMED more steps of each, in turns (which goes
+# first alternating), without deterministic algorithms
+DDP_TIMED = 10
+# --fault-check DDP (phase 113): phase 112 of one model with rank 1's
+# gradients of one module scaled, or with every loss normalizer over the
+# rank's own batch (what plain DDP trains); each run must be refused
+DDP_FAULTS = (('iassd', ('scale', 'backbone_3d.SA_modules.0', 1.3)),
+              ('pvrcnn', ('scale', 'pfe', 1.3)),
+              ('iassd', ('normalizers',)), ('pvrcnn', ('normalizers',)))
+
+
+def _children(args_of, n, what, env=None):
+    """Run ``n`` copies of this script (``args_of(k)`` their arguments,
+    ``env`` added to their environment) side by side, at most
+    DDP_CHILD_TIMEOUT seconds in all; print their logs (each line after
+    '{what}{k}| '). Raises AssertionError if a check of one failed (exit
+    code 3, ``_child``), RuntimeError if one crashed or hung."""
+    import os
+    import tempfile
+    logs = [tempfile.TemporaryFile(mode='w+') for _ in range(n)]
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), *args_of(k)],
+        stdout=logs[k], stderr=subprocess.STDOUT, text=True,
+        env=dict(os.environ, **(env or {}))) for k in range(n)]
+    deadline = time.monotonic() + DDP_CHILD_TIMEOUT
+    try:
+        for proc in procs:
+            proc.wait(timeout=max(deadline - time.monotonic(), 1))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for k, (proc, out) in enumerate(zip(procs, logs)):
+        out.seek(0)
+        for line in out.read().splitlines():
+            print(f'{what}{k}| {line}', flush=True)
+        out.close()
+    codes = [proc.returncode for proc in procs]
+    if 3 in codes:
+        raise AssertionError(f'a check of the {what} processes failed: exit '
+                             f'codes {codes}')
+    if any(codes):
+        raise RuntimeError(f'{what} processes failed or hung: exit codes '
+                           f'{codes} (a kill after {DDP_CHILD_TIMEOUT} s '
+                           'shows as -9)')
+
+
+def _child(fn, *args) -> int:
+    """A child process's phase: exit code 3 when one of its checks fails
+    (an AssertionError), which ``_children`` tells apart from a crash."""
+    try:
+        return fn(*args)
+    except AssertionError:
+        import traceback
+        traceback.print_exc(file=sys.stdout)
+        return 3
+
+
+def ddp_world1_child(out_path) -> int:
+    """``--ddp-world1 OUT``, phase 111's process (deterministic algorithms,
+    with CUBLAS_WORKSPACE_CONFIG set before cuBLAS starts, so that two runs
+    of one step are the same bits): IA-SSD.yaml's train step plain and
+    through ``init_distributed('cuda')`` at world 1 over NCCL under DDP
+    (``make_train_step(..., group=)``), DDP_STEPS steps each over the same
+    batches in turns, from the same weights; after each step the loss,
+    parameters, BN buffers and optimizer state must be identical and each
+    step must launch TRAIN_LAUNCHES. Then DDP_TIMED more steps of each in
+    turns, deterministic algorithms off, time the two. Writes the times as
+    JSON to OUT."""
+    import torch.distributed as dist
+    from spsnet_torch import parallel
+    from spsnet_torch.ops import _build
+    from spsnet_torch.runtime.trainer import make_train_step
+    from spsnet_torch.zoo import iassd_kitti_cfg
+    torch.use_deterministic_algorithms(True)
+    device = parallel.init_distributed(
+        'cuda', init_method=f'file://{out_path}.store', rank=0, world_size=1)
+    try:
+        backend = dist.get_backend()
+        nccl = '.'.join(str(v) for v in torch.cuda.nccl.version())
+        log(f'  backend {backend} (NCCL {nccl}), world '
+            f'{parallel.world()}, device {device}')
+        if backend != 'nccl':
+            raise AssertionError(f'backend {backend}, want nccl')
+        cfg = iassd_kitti_cfg()
+        plain, plain_opt, plain_step = build_trainer(cfg, 'cuda', 0)
+        model, opt, _ = build_trainer(cfg, 'cuda', 0)
+        step = make_train_step(model, opt, group=parallel.world_group())
+        batches = [_scene_batch(1000 + s, TRAIN_B, 'cuda')
+                   for s in range(DDP_STEPS)]
+        times = {'plain': [], 'ddp': []}
+        launches = {k: 0 for k in _build.LAUNCHES}
+        for k, batch in enumerate(batches):
+            losses = {}
+            for what, fn in (('plain', plain_step), ('ddp', step)):
+                torch.cuda.synchronize()
+                seen = dict(_build.LAUNCHES)
+                t0 = time.perf_counter()
+                losses[what] = fn(batch)
+                torch.cuda.synchronize()
+                times[what].append((time.perf_counter() - t0) * 1e3)
+                n = {name: _build.LAUNCHES[name] - seen[name]
+                     for name in _build.LAUNCHES}
+                if n != {name: TRAIN_LAUNCHES.get(name, 0) for name in n}:
+                    raise AssertionError(f'{what} step launches {n}, want '
+                                         f'{TRAIN_LAUNCHES}')
+                if what == 'ddp':
+                    launches = {name: launches[name] + n[name] for name in n}
+            _require_same_training(plain, plain_opt, model, opt, losses, k)
+            log(f'  step {k + 1}: plain {times["plain"][-1]:.3f} ms, DDP '
+                f'{times["ddp"][-1]:.3f} ms, loss '
+                f'{float(losses["ddp"][0]):.4f}; loss, tb terms, parameters, '
+                'BN buffers and optimizer state identical')
+        torch.use_deterministic_algorithms(False)
+        timed = {'plain': [], 'ddp': []}
+        for k in range(DDP_TIMED):
+            order = (('plain', plain_step), ('ddp', step))
+            for what, fn in order if k % 2 == 0 else order[::-1]:
+                timed[what].append(_timed_step(fn, batches[k % DDP_STEPS]))
+    finally:
+        dist.destroy_process_group()
+    Path(out_path).write_text(json.dumps({
+        'nccl': nccl, 'plain_ms': times['plain'], 'ddp_ms': times['ddp'],
+        'timed_plain_ms': timed['plain'], 'timed_ddp_ms': timed['ddp'],
+        'launches': launches}))
+    return 0
+
+
+def _require_same_training(plain, plain_opt, model, opt, losses, k):
+    """Raise unless two trainings are the same bits after step ``k``."""
+    (la, ta), (lb, tb) = losses['plain'], losses['ddp']
+    if not torch.equal(la, lb) or any(not torch.equal(ta[key], tb[key])
+                                      for key in ta if torch.is_tensor(
+                                          ta[key])):
+        raise AssertionError(f'step {k + 1}: DDP loss terms differ')
+    for (name, a), b in zip(plain.state_dict().items(),
+                            model.state_dict().values()):
+        if not torch.equal(a, b):
+            raise AssertionError(f'step {k + 1}: DDP {name} differs')
+    sa, sb = (o.inner.state_dict()['state'] for o in (plain_opt, opt))
+    if sa.keys() != sb.keys() or plain_opt.count != opt.count:
+        raise AssertionError(f'step {k + 1}: DDP optimizer state differs')
+    for i, entry in sa.items():
+        for key, v in entry.items():
+            if not torch.equal(torch.as_tensor(v), torch.as_tensor(
+                    sb[i][key])):
+                raise AssertionError(f'step {k + 1}: DDP optimizer {key} of '
+                                     f'parameter {i} differs')
+
+
+def ddp_world1_phase(smi):
+    """Phase 111 in a process of its own (``ddp_world1_child``); returns
+    its record with the medians."""
+    import tempfile
+    log('== 111. IA-SSD train steps at world 1 over NCCL under DDP vs plain')
+    out = Path(tempfile.mkdtemp(prefix='ddp_world1_')) / 'record.json'
+    _children(lambda k: ['--ddp-world1', str(out)], 1, 'world1 ',
+              {'CUBLAS_WORKSPACE_CONFIG': ':4096:8'})
+    rec = json.loads(out.read_text())
+    rec['plain_median_ms'] = statistics.median(rec['timed_plain_ms'])
+    rec['ddp_median_ms'] = statistics.median(rec['timed_ddp_ms'])
+    log(f'  ms/train step (B={TRAIN_B}, N={N}), the checked steps '
+        f'(deterministic algorithms): plain '
+        f'{[round(t, 3) for t in rec["plain_ms"]]}, DDP '
+        f'{[round(t, 3) for t in rec["ddp_ms"]]}; {DDP_TIMED} steps each in '
+        f'turns: plain median {rec["plain_median_ms"]:.3f} all '
+        f'{[round(t, 3) for t in rec["timed_plain_ms"]]}; DDP at world 1 '
+        f'over NCCL {rec["nccl"]} median {rec["ddp_median_ms"]:.3f} all '
+        f'{[round(t, 3) for t in rec["timed_ddp_ms"]]} on {smi}')
+    return rec
+
+
+def _ddp_factory(name):
+    """(build() -> (model, optimizer, step), the decisions' class) of
+    phase 112's ``name``: IA-SSD.yaml with seeded D-FPS as phase 7
+    trains it, pv_rcnn.yaml as phase 34 does (seed-0 weights each)."""
+    if name == 'iassd':
+        from spsnet_torch.zoo import iassd_kitti_cfg
+        cfg = iassd_kitti_cfg()
+        return (lambda: build_trainer(cfg, 'cuda', 0)), PrcnnDecisions
+    return (lambda: build_pvrcnn_trainer('cuda')[1:]), PvDecisions
+
+
+def _ddp_joined_batch(name, model):
+    """(the joined batch of phase 112's ``name`` on the card, the RoI
+    sampling's thresholds): 2 DDP_B synthetic scenes; 2 pv_rcnn.yaml train
+    frames at 16 000 voxels with gt at the proposals of ``model``."""
+    if name == 'iassd':
+        return _scene_batch(1100, 2 * DDP_B, 'cuda'), ()
+    cfg = voxel_cfg('pv_rcnn')
+    tcfg = cfg.MODEL.ROI_HEAD.TARGET_CONFIG
+    return gt_at_proposals(model, pv_train_batches(cfg, [1200])[0][0]), \
+        tuple(float(tcfg[k]) for k in ('CLS_BG_THRESH_LO', 'CLS_BG_THRESH',
+                                        'REG_FG_THRESH', 'CLS_FG_THRESH'))
+
+
+def _timed_step(step, batch):
+    """Milliseconds of one train step (host clock to a synchronize)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(batch)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def _rows(x, rows):
+    """The frames ``rows`` of a decision record (tensors, frame first)."""
+    if torch.is_tensor(x):
+        return x[rows].cpu()
+    if isinstance(x, (tuple, list)):
+        return type(x)(_rows(v, rows) for v in x)
+    if isinstance(x, dict):
+        return {k: _rows(v, rows) for k, v in x.items()}
+    return x
+
+
+_DDP_LAUNCHES = {'iassd': TRAIN_LAUNCHES, 'pvrcnn': PV_LAUNCHES}
+
+
+def ddp_world2_phase(smi, models=('iassd', 'pvrcnn'), fault=None):
+    """Phase 112: for each of ``models``, the card's one-process step over
+    the joined batch (its decisions recorded) and the same step from
+    weights jittered by WEIGHT_JITTER (replaying them), then two ranks on
+    the card over gloo (``ddp_rank_child``: each its half of the batch
+    through ``make_train_step(..., group=)``, every decision held to the
+    joined step's within its slack and replayed). The ranks' states must
+    be the same bits; the loss terms within TRAIN_LOSS_RTOL of the joined
+    step's, the gradients and updated parameters within TRAIN_GRAD_FACTOR
+    of the jitter baseline and the fixed ceilings (as the card-vs-CPU
+    train checks), each module within TRAIN_MODULE_CEIL, the BN running
+    statistics within TRAIN_BN_CEIL. ``fault`` (phase 113) breaks the
+    ranks' step. Returns {model: record}."""
+    import copy
+    import tempfile
+    tmp = Path(tempfile.mkdtemp(prefix='ddp_world2_'))
+    from spsnet_torch import parallel
+    inputs, joined = {}, {}
+    for name in models:
+        build, kind = _ddp_factory(name)
+        model, opt, step = build()
+        batch, thresholds = _ddp_joined_batch(name, model)
+        init = {k: v.detach().cpu().clone()
+                for k, v in model.state_dict().items()}
+        jit, _, jit_step = build()
+        jit.load_state_dict(model.state_dict())
+        gen = torch.Generator().manual_seed(5)
+        with torch.no_grad():
+            for p in jit.parameters():
+                p.mul_(1 + WEIGHT_JITTER * torch.randn(
+                    p.shape, generator=gen).to(p.device))
+        rec = kind('record')
+        with prcnn_decisions(rec), topk_picks() as picks:
+            loss, tb = step(batch)
+        with prcnn_decisions(kind('replay', rec)), \
+                topk_picks(replay=picks if picks else None):
+            jit_step(batch)
+        half = batch['points'].shape[0] // 2
+        inputs[name] = {'init': init, 'fault': fault, 'ranks': [
+            {'batch': {k: v.cpu() for k, v in parallel.local_rows(
+                batch, r, 2).items()},
+             'used': _rows(rec.used, slice(r * half, (r + 1) * half)),
+             'inputs': _rows(rec.inputs, slice(r * half, (r + 1) * half)),
+             'picks': _rows(picks, slice(r * half, (r + 1) * half)),
+             'thresholds': thresholds} for r in range(2)]}
+        joined[name] = (model, opt, step, batch, jit, loss, tb)
+    torch.save(inputs, tmp / 'inputs.pt')
+    log(f'  the joined steps on the card ({", ".join(models)}); two ranks '
+        'over gloo on the card now')
+    _children(lambda r: ['--ddp-rank', str(r), str(tmp)], 2, 'rank')
+    ranks = [torch.load(tmp / f'rank{r}.pt', weights_only=False)
+             for r in range(2)]
+    out = {}
+    for name in models:
+        model, opt, step, batch, jit, loss, tb = joined[name]
+        r0, r1 = ranks[0][name], ranks[1][name]
+        for key in ('grads', 'state'):
+            for k, v in r0[key].items():
+                if not torch.equal(v, r1[key][k]):
+                    raise AssertionError(f'{name}: rank 0 and rank 1 {key} '
+                                         f'{k} differ')
+        worst = {}
+        for key in ('loss', *sorted(tb)):
+            want = float(loss if key == 'loss' else tb[key])
+            got = r0['loss'] if key == 'loss' else r0['tb'][key]
+            worst[key] = abs(got - want) / max(abs(want), 1e-12)
+            if worst[key] > TRAIN_LOSS_RTOL:
+                raise AssertionError(f'{name} world 2 vs joined {key}: {got} '
+                                     f'vs {want}')
+        ref = copy.deepcopy(model).cpu()      # deepcopy drops the grads
+        shadow = copy.deepcopy(ref)
+        shadow.load_state_dict(r0['state'])
+        for (n, p), q, g in zip(shadow.named_parameters(), ref.parameters(),
+                                model.parameters()):
+            p.grad, q.grad = r0['grads'][n], g.grad.detach().cpu()
+        lr = opt.lr_fn(0)
+        diff = _step_difference(shadow, ref, lr)
+        base = _step_difference(jit, ref, lr)
+        log(f'  {name}: world 2 vs joined loss terms, largest relative '
+            f'difference {max(worst.values()):.3e} '
+            f'({max(worst, key=worst.get)}; tolerance {TRAIN_LOSS_RTOL})')
+        log(f'  {name}: world 2 vs joined after the step: {diff}')
+        log(f'  {name}: joined with weights x (1 + {WEIGHT_JITTER} N(0, 1)) '
+            f'vs joined (the jitter baseline): {base}')
+        what = f'{name}: world 2 vs joined'
+        limits = _require_step_within(diff, base, lr, what)
+        by_module = _grad_by_module((shadow, jit), ref)
+        _require_modules_within(by_module, what)
+        stats = [_bn_stats_rel_l2(a, ref) for a in (shadow, jit)]
+        limits['bn_limit'] = _require_bn_within(stats, what)
+        for note in r0['notes'] + r1['notes']:
+            log(f'  {name}: {note}')
+        ms = _timed_step(step, batch)
+        log(f'  {name}: ms/train step, rank 0 {r0["ms"]:.3f}, rank 1 '
+            f'{r1["ms"]:.3f} (a second step; two processes sharing one '
+            f'card, B = {r0["frames"]} a rank; not a scaling number); the '
+            f'joined batch\'s one-process step (a second step) {ms:.3f} ms on '
+            f'{smi}')
+        out[name] = {'card': diff, 'baseline': base, 'limits': limits,
+                     'bn_stats': stats, 'loss_rel': worst,
+                     'rank_ms': [r0['ms'], r1['ms']], 'joined_ms': ms,
+                     'differ': [r0['differ'], r1['differ']],
+                     'launches': {k: r0['launches'][k] + r1['launches'][k]
+                                  for k in r0['launches']}}
+    return out
+
+
+def _local_normalizers():
+    """Phase 113's second fault: every loss normalizer over the rank's own
+    batch, as plain DDP trains."""
+    from spsnet_torch.models.dense_heads import (anchor_head, iassd_head,
+                                                 point_head_box,
+                                                 point_head_simple)
+    from spsnet_torch.models.roi_heads import pointrcnn_head
+    for mod in (anchor_head, iassd_head, point_head_box, point_head_simple,
+                pointrcnn_head):
+        for name, local in (('global_sum', lambda t: t),
+                            ('global_mean', lambda x: x.mean()),
+                            ('global_count', lambda n: n)):
+            if hasattr(mod, name):
+                setattr(mod, name, local)
+
+
+def ddp_rank_child(rank, tmp) -> int:
+    """``--ddp-rank R DIR``, rank R of phase 112 on ``cuda:0`` over gloo
+    (a ``file://`` store in DIR): for each model of DIR/inputs.pt, the
+    joined step's weights, this rank's half of the batch through
+    ``make_train_step(..., group=)``, every decision held to the joined
+    step's (``PrcnnDecisions`` 'check', ``topk_picks`` replay) and the
+    launches to the path's; writes the loss terms, gradients (after the
+    clip), state, notes and time to DIR/rankR.pt."""
+    import torch.distributed as dist
+    from spsnet_torch import parallel
+    from spsnet_torch.ops import _build
+    from spsnet_torch.runtime.trainer import make_train_step
+    rank, tmp = int(rank), Path(tmp)
+    parallel.init_distributed('cuda:0', backend='gloo',
+                              init_method=f'file://{tmp}/store', rank=rank,
+                              world_size=2)
+    log('  (the decision notes below name the joined step \'card\' and '
+        'this rank \'CPU\')')
+    try:
+        inputs = torch.load(tmp / 'inputs.pt', weights_only=False)
+        out = {}
+        for name, spec in inputs.items():
+            build, kind = _ddp_factory(name)
+            model, opt, _ = build()
+            model.load_state_dict(spec['init'])
+            fault = spec['fault'] or ('none',)
+            if fault[0] == 'scale' and rank == 1:
+                for n, p in model.named_parameters():
+                    if n.startswith(fault[1]):
+                        p.register_hook(lambda g, f=fault[2]: g * f)
+            elif fault[0] == 'normalizers':
+                _local_normalizers()
+            step = make_train_step(model, opt, group=parallel.world_group())
+            mine = spec['ranks'][rank]
+            ref = kind('record')
+            ref.used, ref.inputs = mine['used'], mine['inputs']
+            checked = kind('check', ref, mine['thresholds'])
+            batch = {k: v.cuda() for k, v in mine['batch'].items()}
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            with prcnn_decisions(checked), \
+                    topk_picks(replay=mine['picks'] or None):
+                loss, tb = step(batch)
+            torch.cuda.synchronize()
+            first_ms = (time.perf_counter() - t0) * 1e3
+            launches = dict(_build.LAUNCHES)
+            want = {k: _DDP_LAUNCHES[name].get(k, 0) for k in launches}
+            if launches != want:
+                raise AssertionError(f'{name} rank {rank} launches '
+                                     f'{launches}, want {want}')
+            out[name] = {
+                'loss': float(loss),
+                'tb': {k: float(v) for k, v in tb.items()},
+                'grads': {n: p.grad.detach().cpu()
+                          for n, p in model.named_parameters()},
+                'state': {k: v.detach().cpu()
+                          for k, v in model.state_dict().items()},
+                'notes': checked.notes, 'differ': checked.differ,
+                'first_ms': first_ms, 'ms': _timed_step(step, batch),
+                'launches': launches,
+                'frames': int(batch['points'].shape[0])}
+            log(f'  {name}: the checked step {first_ms:.3f} ms, loss '
+                f'{float(loss):.4f}, launches {launches}; a second step '
+                f'{out[name]["ms"]:.3f} ms')
+        torch.save(out, tmp / f'rank{rank}.pt')
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def ddp_phases(smi):
+    """Phases 111 and 112; returns their records."""
+    world1 = ddp_world1_phase(smi)
+    log('== 112. world-2 train steps, two processes on the card over gloo, '
+        'vs the joined step')
+    return {'world1': world1, 'world2': ddp_world2_phase(smi)}
+
+
 def main(argv=()) -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -8920,6 +9395,10 @@ def main(argv=()) -> int:
         return fault_check(argv[1].split(','))
     if len(argv) == 2 and argv[0] == '--pvpp-train-repeat':
         return pvpp_train_repeat(int(argv[1]))
+    if len(argv) == 2 and argv[0] == '--ddp-world1':
+        return _child(ddp_world1_child, argv[1])
+    if len(argv) == 3 and argv[0] == '--ddp-rank':
+        return _child(ddp_rank_child, argv[1], argv[2])
     if argv:
         print('usage: chip_smoke.py [--phase3 ROOT | --jitter-study | '
               '--bev-algorithm | --fault-check [MODELS] | '
@@ -9203,6 +9682,7 @@ def _run_paths(smi, inp, entries, kernel_dev) -> int:
     family, family_entries, family_fps = family_phases(smi)
     entries += family_entries
     _BESIDE.finish()
+    ddp = ddp_phases(smi)
 
     paths = {'serve': launches, 'train': train_launches,
              'spsnet': sps_launches, 'fps_entries': entry_launches,
@@ -9227,7 +9707,10 @@ def _run_paths(smi, inp, entries, kernel_dev) -> int:
              **{name: rec['launches'] for name, rec in parta2.items()},
              **{name: rec['launches'] for name, rec in al.items()},
              **{name: rec['launches'] for name, rec in caddn.items()},
-             **{name: rec['launches'] for name, rec in family.items()}}
+             **{name: rec['launches'] for name, rec in family.items()},
+             'ddp_world1': ddp['world1']['launches'],
+             **{f'ddp_world2_{name}': rec['launches']
+                for name, rec in ddp['world2'].items()}}
     for entry in entries:
         entry['launches_by_path'] = {path: counts.get(entry['name'], 0)
                                      for path, counts in paths.items()}
@@ -9301,7 +9784,8 @@ def _run_paths(smi, inp, entries, kernel_dev) -> int:
                     'pvrcnnpp_resnet': pvpp_resnet,
                     'pvrcnnpp_train': pvpp_train, 'pillars': pillars,
                     'multihead': multihead, 'parta2': parta2, 'al': al,
-                    'caddn': caddn, 'point_family': family, 'card': smi}))
+                    'caddn': caddn, 'point_family': family,
+                    'data_parallel': ddp, 'card': smi}))
     log(smi)
     log(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -17,7 +17,29 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import draw_rows, step_world, sum_over_ranks
 from ..utils.common import to_device
+
+
+def _global_stats(x, dims):
+    """(var, mean), biased, of ``x`` over ``dims`` and over the active
+    data-parallel step's ranks (``parallel.step_group``), keepdim; None
+    outside such a step. Two passes of a differentiable all-reduce: the
+    sums and the count give the mean, then the squared deviations from it
+    the variance. The sums cross the ranks in float64, so the count is
+    exact and the ranks' order costs no precision."""
+    if step_world() == 1:
+        return None
+    s = x.sum(dim=dims, keepdim=True)
+    stats = torch.cat([s.double().flatten(),
+                       s.new_full((1,), x.numel() // s.numel(),
+                                  dtype=torch.float64)])
+    stats = sum_over_ranks(stats)
+    n = stats[-1]
+    mean = (stats[:-1] / n).to(x.dtype).reshape(s.shape)
+    d = x - mean
+    var = sum_over_ranks((d * d).sum(dim=dims).double()) / n
+    return var.to(x.dtype).reshape(s.shape), mean
 
 
 def _flax_batch_norm(bn, x, dims):
@@ -31,8 +53,19 @@ def _flax_batch_norm(bn, x, dims):
     in fp32 row after row. For the 442 368 rows of PV-RCNN training's
     RoI-grid pool (channel means up to 9x their spread) its output is 6.3e-6
     relative off float64, an H100's ``F.batch_norm`` 3.4e-7 and this form
-    1.4e-7 (``chip_smoke.py`` phase 36)."""
-    if x.device.type == 'cpu':
+    1.4e-7 (``chip_smoke.py`` phase 36).
+
+    Inside a data-parallel step of more than one rank the statistics are
+    the joined batch's (``_global_stats``), as under the JAX package's one
+    program over the mesh (``spsnet_tpu/models/blocks.py:33-38``), on
+    every device; the running statistics then move alike on every rank."""
+    stats = _global_stats(x, dims)
+    if stats is not None:
+        var, mean = stats
+        y = (x - mean) * torch.rsqrt(var + bn.eps) * \
+            bn.weight.reshape(mean.shape) + bn.bias.reshape(mean.shape)
+        var, mean = var.detach().flatten(), mean.detach().flatten()
+    elif x.device.type == 'cpu':
         var, mean = torch.var_mean(x, dim=dims, unbiased=False, keepdim=True)
         y = (x - mean) * torch.rsqrt(var + bn.eps) * \
             bn.weight.reshape(mean.shape) + bn.bias.reshape(mean.shape)
@@ -89,7 +122,9 @@ class Dropout(nn.Dropout):
     step's 'dropout' stream, ``runtime.trainer.step_rngs``), as flax's
     Dropout draws from the 'dropout' rng: each element is kept with
     probability 1 - p and scaled by 1 / (1 - p). The identity in eval mode
-    and at p = 0, where it draws nothing."""
+    and at p = 0, where it draws nothing. In a data-parallel step the mask
+    is the joined batch's rows of this rank (``parallel.draw_rows``): the
+    leading axis of ``x`` is frame-major."""
 
     def forward(self, x, generator=None):
         if not self.training or self.p == 0:
@@ -98,8 +133,9 @@ class Dropout(nn.Dropout):
             raise ValueError('Dropout in training needs the step generator '
                              "(batch['rngs']['dropout'])")
         keep_prob = 1.0 - self.p
-        keep = to_device(torch.rand(x.shape, generator=generator) < keep_prob,
-                         x.device)
+        keep = to_device(draw_rows(
+            lambda shape, g: torch.rand(shape, generator=g), x.shape,
+            generator) < keep_prob, x.device)
         return torch.where(keep, x / keep_prob, 0.0)
 
 

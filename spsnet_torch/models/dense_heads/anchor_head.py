@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...parallel import global_count
 from ...utils import box_coder as box_coder_lib
 from ...utils import loss_utils
 from ...utils.common import limit_period
@@ -441,11 +442,12 @@ def anchor_head_loss(ret, loss_cfg, num_class: int, num_dir_bins: int,
     ``code_weights``; with direction logits, the softmax cross entropy
     against the bin of the gt heading, floor(limit_period(heading -
     dir_offset, 0, 2 pi) / (2 pi / bins)). Each weight is divided by its
-    frame's positives (at least 1) and each term by B. Returns (loss, tb)
+    frame's positives (at least 1) and each term by B (the joined batch's
+    in a data-parallel step, ``parallel.global_count``). Returns (loss, tb)
     with 'rpn_loss_cls', 'rpn_loss_loc', 'rpn_loss_dir' and 'rpn_loss'."""
     lw = loss_cfg.LOSS_WEIGHTS
     labels = ret['box_cls_labels']                               # (B, N)
-    B = labels.shape[0]
+    B = global_count(labels.shape[0])
     positives = labels > 0
     pos_norm = positives.sum(dim=1, keepdim=True).float().clamp(min=1.0)
     cls_w = (float(lw.get('neg_cls_weight', 1.0)) * (labels == 0).float() +

@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...parallel import global_mean, global_sum
 from ...utils import box_coder as box_coder_lib
 from ...utils import box_utils, loss_utils
 from ..blocks import MLPHead
@@ -126,7 +127,7 @@ class MLTSSDHead(IASSDHead):
 
 
 def _masked_mean(x, mask, eps=1.0):
-    return (x * mask).sum() / mask.sum().clamp(min=eps)
+    return (x * mask).sum() / global_sum(mask.sum()).clamp(min=eps)
 
 
 def _one_hot_fg(labels, num_class):
@@ -161,11 +162,13 @@ def _vote_loss(ret, vote_type, num_class):
         has_ins = ins_cnt > 0
         ins_loss = ins_sum / ins_cnt.clamp(min=1.0)
         return torch.where(has_ins, ins_loss, 0.0).sum() \
-            / has_ins.sum().clamp(min=1)
+            / global_sum(has_ins.sum()).clamp(min=1)
     losses, present = [], []
+    counts = global_sum(torch.stack([(cot.cls_labels == c).float().sum()
+                                     for c in range(1, num_class + 1)]))
     for c in range(1, num_class + 1):
         m = (cot.cls_labels == c).float()
-        cnt = m.sum()
+        cnt = counts[c - 1]
         losses.append((per_elem * m[..., None]).sum()
                       / (cnt * 3.0).clamp(min=1.0))
         present.append((cnt > 0).float())
@@ -177,7 +180,12 @@ def iassd_head_loss(ret, loss_cfg, num_class, box_coder,
                     sa_centerness_mask=True, sample_method_list=None):
     """Total head loss from the forward's ``head_ret`` -> (loss, tb dict of
     each term), differentiable through the predictions
-    (``spsnet_tpu/models/dense_heads/iassd_head.py:158-303``)."""
+    (``spsnet_tpu/models/dense_heads/iassd_head.py:158-303``). Every
+    batch-level normalizer (the positives, the classes and instances
+    present, the points of the orientation residual's mean) counts the
+    joined batch inside a data-parallel step (``parallel.global_sum``), so
+    each rank's loss is its share of the joined batch's; 'center_pos_num'
+    is the rank's own count."""
     lw = loss_cfg.LOSS_WEIGHTS
     tb = {}
     cls_loss_fn = loss_utils.build_cls_loss(loss_cfg.LOSS_CLS)
@@ -197,7 +205,7 @@ def iassd_head_loss(ret, loss_cfg, num_class, box_coder,
         labels = t.cls_labels
         positives = labels > 0
         weights = ((labels == 0) | positives).float() \
-            / positives.float().sum().clamp(min=1.0)
+            / global_sum(positives.float().sum()).clamp(min=1.0)
         one_hot = _one_hot_fg(labels, num_class)
         if sa_centerness_mask and sample_method_list is not None and \
                 'ctr' in sample_method_list[i + 1][0]:
@@ -217,7 +225,8 @@ def iassd_head_loss(ret, loss_cfg, num_class, box_coder,
     ct = ret['center_targets']
     labels = ct.cls_labels
     positives = labels > 0
-    pos_norm = positives.float().sum()
+    pos_count = positives.float().sum()
+    pos_norm = global_sum(pos_count)
     cls_weights = ((labels == 0) | positives).float() / pos_norm.clamp(min=1.0)
     one_hot = _one_hot_fg(labels, num_class)
     if loss_cfg.get('CENTERNESS_REGULARIZATION', False):
@@ -228,7 +237,7 @@ def iassd_head_loss(ret, loss_cfg, num_class, box_coder,
                            cls_weights).mean(dim=-1).sum() \
         * lw['point_cls_weight']
     tb['center_loss_cls'] = cls_loss
-    tb['center_pos_num'] = pos_norm
+    tb['center_pos_num'] = pos_count
 
     # bin-orientation box loss (``:684-750``)
     box_preds = ret['center_box_preds']
@@ -245,8 +254,9 @@ def iassd_head_loss(ret, loss_cfg, num_class, box_coder,
     res_at_label = box_preds[..., 6 + bins:6 + 2 * bins].gather(
         -1, label_bin_id[..., None])[..., 0]
     # the reference's quirk: a mean over ALL points, times sum(reg_weights)
-    loss_ori_reg = loss_utils.smooth_l1(res_at_label - box_labels[..., 7],
-                                        beta=1.0).mean() * reg_weights.sum()
+    loss_ori_reg = global_mean(loss_utils.smooth_l1(
+        res_at_label - box_labels[..., 7], beta=1.0)) \
+        * global_sum(reg_weights.sum())
     box_loss = (loss_xyzwhl + loss_ori_reg + loss_ori_cls) \
         * lw['point_box_weight']
     tb['center_loss_box'] = box_loss

@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...parallel import global_sum
 from ...utils import box_coder as box_coder_lib
 from ...utils import box_utils, loss_utils
 from ..blocks import MLPHead
@@ -71,11 +72,12 @@ def point_head_box_loss(ret, loss_cfg, num_class: int):
     """Stage-1 loss (``spsnet_tpu/models/dense_heads/point_head_box.py:
     72-93``): the focal loss of every cared-for point (label >= 0) and the
     weighted smooth-L1 of the box residuals of the foreground points, both
-    normalised by the count of foreground points. Returns (loss, tb)."""
+    normalised by the count of foreground points (the joined batch's in a
+    data-parallel step, ``parallel.global_sum``). Returns (loss, tb)."""
     lw = loss_cfg.LOSS_WEIGHTS
     labels = ret['targets'].cls_labels
     positives = labels > 0
-    pos_norm = positives.float().sum().clamp(min=1.0)
+    pos_norm = global_sum(positives.float().sum()).clamp(min=1.0)
     cls_weights = ((labels == 0) | positives).float() / pos_norm
     one_hot = F.one_hot(labels.clamp(min=0), num_class + 1)[..., 1:].float()
     cls_loss = loss_utils.sigmoid_focal_loss(

@@ -12,6 +12,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...parallel import global_sum
 from ...utils import box_utils, loss_utils
 from ..blocks import MLPHead
 from . import target_assign
@@ -44,13 +45,14 @@ class PointHeadSimple(nn.Module):
 
 def point_head_simple_loss(ret, loss_cfg):
     """The focal loss of every cared-for keypoint (label >= 0) against its
-    one-hot target, normalised by the count of foreground keypoints
+    one-hot target, normalised by the count of foreground keypoints (the
+    joined batch's in a data-parallel step, ``parallel.global_sum``)
     (``point_head_template.py``), times point_cls_weight. Returns (loss,
     {'point_loss_cls': loss})."""
     labels = ret['targets'].cls_labels
     positives = labels > 0
     weights = ((labels == 0) | positives).float() / \
-        positives.float().sum().clamp(min=1.0)
+        global_sum(positives.float().sum()).clamp(min=1.0)
     num_class = ret['point_cls_preds'].shape[-1]
     one_hot = F.one_hot(labels.clamp(min=0), num_class + 1)[..., 1:].float()
     loss = loss_utils.sigmoid_focal_loss(ret['point_cls_preds'], one_hot,

@@ -27,6 +27,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ...parallel import global_sum
 from ...utils import box_coder as box_coder_lib
 from ...utils import loss_utils
 from ...utils.common import rotate_points_along_z
@@ -221,7 +222,9 @@ def pointrcnn_head_loss(ret, loss_cfg, box_coder):
     ``box_coder.encode`` of their gt in the RoI's frame, the RoI at the
     origin with zero heading as the anchor; with
     CORNER_LOSS_REGULARIZATION, the corner loss of the refined boxes
-    against the gt in the lidar frame. Returns (loss, tb)."""
+    against the gt in the lidar frame. The counts of cared-for and
+    foreground RoIs are the joined batch's in a data-parallel step
+    (``parallel.global_sum``). Returns (loss, tb)."""
     lw = loss_cfg.LOSS_WEIGHTS
     t = ret['targets']
     B, R = t.rcnn_cls_labels.shape
@@ -230,7 +233,7 @@ def pointrcnn_head_loss(ret, loss_cfg, box_coder):
     care = (labels >= 0).float()
     bce = loss_utils.sigmoid_cross_entropy_with_logits(
         ret['rcnn_cls'].reshape(B, R), labels.clamp(0.0, 1.0))
-    cls_loss = (bce * care).sum() / care.sum().clamp(min=1.0) * \
+    cls_loss = (bce * care).sum() / global_sum(care.sum()).clamp(min=1.0) * \
         lw['rcnn_cls_weight']
     tb['rcnn_loss_cls'] = cls_loss
 
@@ -241,7 +244,7 @@ def pointrcnn_head_loss(ret, loss_cfg, box_coder):
                         dim=-1)
     reg_targets = box_coder.encode(t.gt_of_rois[..., :code_size], anchors)
     fg = t.reg_valid_mask.float()
-    fg_sum = fg.sum().clamp(min=1.0)
+    fg_sum = global_sum(fg.sum()).clamp(min=1.0)
     reg_loss = loss_utils.weighted_smooth_l1(
         ret['rcnn_reg'].reshape(B, R, code_size), reg_targets,
         code_weights=lw.get('code_weights', None))

@@ -22,6 +22,7 @@ import torch
 
 from ... import ops
 from ...ops.grouping import first_k_hits
+from ...parallel import draw_rows
 from ...utils import box_utils
 from ...utils.common import rotate_points_along_z, to_device
 
@@ -54,10 +55,17 @@ def draw_roi_sampling(generator: torch.Generator, B: int, R: int, M: int,
     sampled a frame, drawn from ``generator`` (a CPU ``torch.Generator``)
     and copied to ``device`` without a stream sync. The JAX package draws
     them per frame from ``split(key, 3)`` (``roi_utils.py:71-72,100,106``):
-    the same roles, other bits."""
-    rand = torch.rand((B, R), generator=generator)
-    fg_hard = torch.randint(0, DRAW_HIGH, (B, M), generator=generator)
-    easy = torch.randint(0, DRAW_HIGH, (B, M), generator=generator)
+    the same roles, other bits. In a data-parallel step each of the three
+    is the joined batch's draw, of which this rank keeps its frames
+    (``parallel.draw_rows``)."""
+    def uniform(shape, g):
+        return torch.rand(shape, generator=g)
+
+    def integers(shape, g):
+        return torch.randint(0, DRAW_HIGH, shape, generator=g)
+    rand = draw_rows(uniform, (B, R), generator)
+    fg_hard = draw_rows(integers, (B, M), generator)
+    easy = draw_rows(integers, (B, M), generator)
     return RoiDraws(*(to_device(t, device) for t in (rand, fg_hard, easy)))
 
 

@@ -3,8 +3,12 @@ inside it, and the epoch loop (``spsnet_tpu/runtime/trainer.py:77-307``;
 reference ``tools/train_utils/train_utils.py``): forward in train mode, the
 detector's loss, backward, global-norm clip and the scheduled optimizer
 step; forward in eval mode and the NMS; epoch-end checkpoints, auto-resume
-and a graceful stop on SIGTERM/SIGUSR1. One process on one device; data
-parallel is a later slice.
+and a graceful stop on SIGTERM/SIGUSR1. One process a device: given a
+process group (``parallel.init_distributed``), the step runs the model
+under ``DistributedDataParallel`` and trains the joined batch's objective
+(global BatchNorm statistics, loss normalizers and draws,
+``spsnet_torch.parallel``); the eval results of the ranks merge on rank 0
+(``merge_results_dist``).
 """
 from __future__ import annotations
 
@@ -14,7 +18,10 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.nn.parallel import DistributedDataParallel
 
+from .. import parallel
 from ..config import EDict
 from ..models.blocks import init_weights
 from ..models.detectors import resolve_device
@@ -39,7 +46,27 @@ def step_rngs(step: int) -> dict:
             for name, seed in STREAMS.items()}
 
 
-def make_train_step(model, optimizer, preprocess=None):
+def require_global_losses(model):
+    """Raise unless every batch-level term of ``model``'s loss is global
+    across the ranks of a data-parallel step: IA-SSD (SPSNet, PAGNet),
+    PointRCNN and PV-RCNN over an anchor RPN. The rest is ROADMAP Queue 1
+    item D1b."""
+    from ..models.dense_heads.anchor_head import (AnchorHeadMulti,
+                                                  AnchorHeadSingle)
+    from ..models.detectors import IASSD, PVRCNN, PointRCNN
+    kind = type(model)
+    if kind in (IASSD, PointRCNN) or (kind is PVRCNN and isinstance(
+            model.dense_head, (AnchorHeadSingle, AnchorHeadMulti))):
+        return
+    raise NotImplementedError(
+        f'{kind.__name__}: data parallel trains IA-SSD, SPSNet, PointRCNN '
+        'and PV-RCNN over an anchor RPN; the other losses are not yet '
+        'global across ranks (ROADMAP Queue 1 item D1b: center_head_loss, '
+        'center_head_iou_loss, second_head_loss, point_intra_part_loss and '
+        'MaskedBatchNorm, image_vfe_loss, cpgnet_criterion)')
+
+
+def make_train_step(model, optimizer, preprocess=None, group=None):
     """``step(batch) -> (loss, tb)``: one update of ``model`` from a batch
     dict ('points' (B, N, 3 + C), 'gt_boxes' (B, T, 8); a voxel detector's
     ``voxel_batch(mode='train')`` with the gt boxes) on its device. The
@@ -49,20 +76,45 @@ def make_train_step(model, optimizer, preprocess=None):
     step)``). The model reads the step's RoI-sampling and dropout
     generators from ``batch['rngs']`` (``step_rngs`` of the update count).
     So a resumed run draws the same numbers. The loss and the tb terms come
-    back as detached tensors on the device, so a step waits for nothing."""
+    back as detached tensors on the device, so a step waits for nothing.
+
+    With a process ``group`` (``parallel.world_group()``), ``batch`` is
+    this rank's share of the joined batch (the same shape on every rank),
+    the forward runs under ``DistributedDataParallel`` over ``group``
+    (``broadcast_buffers=False``: global BatchNorm keeps every rank's
+    buffers equal) and at world > 1 inside ``parallel.step_group`` over a
+    group of its own: BatchNorm statistics, loss normalizers and draws are
+    the joined batch's, each rank's loss is its share of the joined
+    batch's loss, and the rank backpropagates ``world`` times it, so that
+    DDP's mean of the gradients is the joined batch's gradient; the clip
+    and the update then see it. The loss and tb terms returned are the
+    joined batch's. At world > 1 ``require_global_losses`` must pass."""
+    forward, collectives, world = model, None, 1
+    if group is not None:
+        world = dist.get_world_size(group)
+        if world > 1:
+            require_global_losses(model)
+            collectives = parallel.new_step_group(group)
+        # every parameter of the admitted detectors gets a gradient each
+        # step, so DDP searches the graph for none
+        forward = DistributedDataParallel(model, process_group=group,
+                                          broadcast_buffers=False)
+
     def train_step(batch):
-        if preprocess is not None:
-            with torch.no_grad():
-                batch = preprocess(
-                    batch, torch.Generator().manual_seed(optimizer.count))
-        model.train()
-        out = model(dict(batch, rngs=step_rngs(optimizer.count)))
-        loss, tb = model.loss(out)
-        optimizer.zero_grad()
-        loss.backward()
-        optimizer.step()
-        return loss.detach(), {k: v.detach() if torch.is_tensor(v) else v
-                               for k, v in tb.items()}
+        with parallel.step_group(collectives):
+            if preprocess is not None:
+                with torch.no_grad():
+                    batch = preprocess(
+                        batch, torch.Generator().manual_seed(optimizer.count))
+            model.train()
+            out = forward(dict(batch, rngs=step_rngs(optimizer.count)))
+            loss, tb = model.loss(out)
+            optimizer.zero_grad()
+            (loss * world if world > 1 else loss).backward()
+            optimizer.step()
+            loss, tb = parallel.sum_terms(loss.detach(), tb)
+        return loss, {k: v.detach() if torch.is_tensor(v) else v
+                      for k, v in tb.items()}
     return train_step
 
 
@@ -92,7 +144,9 @@ class StabilityPreprocess:
     (``stability.hook.apply_stability_hook``). ``preprocess(batch,
     generator)`` draws the (B, N) noise of the ``random`` method from
     ``generator``, a CPU ``torch.Generator``, so a seed gives the same noise
-    on every device; the ``stability`` method draws none."""
+    on every device (in a data-parallel step, this rank's rows of the
+    joined batch's noise, ``parallel.draw_rows``); the ``stability``
+    method draws none."""
 
     def __init__(self, model, delete_number: int, method: str):
         self.model = model
@@ -103,8 +157,9 @@ class StabilityPreprocess:
         noise = None
         if self.method == 'random':
             points = batch['points']
-            noise = torch.rand(points.shape[:2], generator=generator).to(
-                points.device)
+            noise = parallel.draw_rows(
+                lambda shape, g: torch.rand(shape, generator=g),
+                points.shape[:2], generator).to(points.device)
         return apply_stability_hook(self.model, batch, noise,
                                     delete_number=self.delete_number,
                                     method=self.method)
@@ -134,6 +189,38 @@ def make_stability_preprocess(hook_cfg, device='cuda',
                                str(hook_cfg.get('DELETE_METHOD', 'stability')))
 
 
+def merge_results_dist(det_annos, group=None):
+    """Every rank's eval results (a list of per-frame records) on rank 0
+    in dataset order, None on the others (``spsnet_tpu/runtime/trainer.py:
+    336-366``, over ``all_gather_object``): ``ShardedSampler`` hands rank
+    i the indices i, i + P, ..., so a round-robin interleave restores the
+    order; the longer ranks' tails follow. A world of one returns
+    ``det_annos``."""
+    parts = parallel.all_gather_host(det_annos, group)
+    if len(parts) == 1:
+        return det_annos
+    if parallel.rank(group) != 0:
+        return None
+    merged = []
+    for frames in zip(*parts):
+        merged.extend(frames)
+    for k in range(min(len(p) for p in parts), max(len(p) for p in parts)):
+        merged.extend(p[k] for p in parts if k < len(p))
+    return merged
+
+
+def dedup_by_frame_id(det_annos):
+    """``det_annos`` without the sampler's padding repeats: the first
+    record of each 'frame_id' (``spsnet_tpu/runtime/trainer.py:310``)."""
+    seen, out = set(), []
+    for anno in det_annos:
+        fid = str(anno.get('frame_id'))
+        if fid not in seen:
+            seen.add(fid)
+            out.append(anno)
+    return out
+
+
 def device_batch(batch, device):
     """The numeric arrays of ``batch`` as tensors on ``device``; other
     entries (frame ids, metadata) stay on the host and are dropped."""
@@ -151,13 +238,20 @@ class Trainer:
     """Trains ``model`` (on its device) with ``cfg.OPTIMIZATION``, behind
     the stability preprocess of ``cfg.MODEL.STABILITY_HOOK`` when the
     config has one (SPSNet); saves a checkpoint of the model, the optimizer
-    and the step count at the end of each epoch into ``output_dir/ckpt``."""
+    and the step count at the end of each epoch into ``output_dir/ckpt``.
+    With a process ``group`` each rank trains on its share of the batch
+    (``make_train_step``; the loader's ``sampler``, a ``ShardedSampler``,
+    moves to each epoch), rank 0 alone writes the checkpoints, of the
+    model itself (no DDP ``module.`` prefix: a checkpoint resumes at any
+    world size), and the others wait for it."""
 
     def __init__(self, cfg, model, output_dir, total_iters_each_epoch: int,
-                 logger=None):
+                 logger=None, group=None, sampler=None):
         self.cfg = cfg
         self.model = model
         self.logger = logger
+        self.group, self.sampler = group, sampler
+        self.rank = 0 if group is None else dist.get_rank(group)
         self.device = next(model.parameters()).device
         self.total_epochs = int(cfg.OPTIMIZATION.NUM_EPOCHS)
         self.total_iters_each_epoch = total_iters_each_epoch
@@ -171,7 +265,7 @@ class Trainer:
         self.preprocess = None if hook is None else \
             make_stability_preprocess(hook, device=self.device)
         self.train_step = make_train_step(model, self.optimizer,
-                                          self.preprocess)
+                                          self.preprocess, group)
 
     def state_dict(self):
         return {'model': self.model.state_dict(),
@@ -193,7 +287,8 @@ class Trainer:
         """Epochs ``start_epoch`` .. NUM_EPOCHS - 1 over ``train_loader`` (an
         iterable of batch dicts). SIGTERM or SIGUSR1 stops the loop at the
         next step boundary without a checkpoint: checkpoint k means k epochs
-        completed, so resume redoes the interrupted epoch. Returns the
+        completed, so resume redoes the interrupted epoch; with a group of
+        more than one rank, all stop when one has the signal. Returns the
         epochs completed."""
         stop = {'hit': False}
 
@@ -208,11 +303,13 @@ class Trainer:
                 pass
         try:
             for epoch in range(start_epoch, self.total_epochs):
+                if self.sampler is not None:
+                    self.sampler.set_epoch(epoch)
                 t0 = time.perf_counter()
                 for n_iter, batch in enumerate(train_loader, 1):
                     loss, _ = self.train_step(device_batch(batch,
                                                            self.device))
-                    if stop['hit']:
+                    if self._any_rank(stop['hit']):
                         if self.logger:
                             self.logger.info(
                                 'stop signal in epoch %d: exiting without '
@@ -221,7 +318,10 @@ class Trainer:
                     if self.logger and n_iter % log_every == 0:
                         self.logger.info('epoch %d iter %d loss %.4f', epoch,
                                          n_iter, float(loss))
-                self.ckpt.save(epoch + 1, self.state_dict())
+                if self.rank == 0:
+                    self.ckpt.save(epoch + 1, self.state_dict())
+                if self.group is not None:
+                    dist.barrier(self.group)
                 if self.logger:
                     self.logger.info('epoch %d done in %.1fs', epoch,
                                      time.perf_counter() - t0)
@@ -229,3 +329,12 @@ class Trainer:
             for sig, handler in saved:
                 signal.signal(sig, handler)
         return self.total_epochs
+
+    def _any_rank(self, hit: bool) -> bool:
+        """``hit`` on any rank of the group (one all-reduce a step at world
+        > 1), so that every rank stops at the same step."""
+        if self.group is None or dist.get_world_size(self.group) == 1:
+            return hit
+        flag = torch.tensor([float(hit)], device=self.device)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=self.group)
+        return bool(flag.item())
