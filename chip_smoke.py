@@ -501,16 +501,24 @@ Phases, in order; any failure raises and the exit code is not 0:
 112. data parallel at world 2 on the one card: two processes over gloo
     (``--ddp-rank``; NCCL takes one rank a device) each take one step of
     IA-SSD.yaml (DDP_B x 16384 scenes a rank) and of pv_rcnn.yaml (one
-    frame a rank at 16 000 voxels), every decision held to the card's
-    one-process step over the joined batch (``PrcnnDecisions``,
-    ``topk_picks``) and replayed; the ranks' states the same bits, and
-    against the joined step the loss terms, gradients, updated
-    parameters, modules and BN statistics within the limits of the
-    card-vs-CPU train checks (5 x a 1e-6 weight jitter's baseline and the
-    ceilings); both ranks' step times (two processes sharing one card);
+    frame a rank at 16 000 voxels), and two steps (DDP_STEPS_OF) of one
+    frame a rank of Waymo's centerpoint.yaml and pv_rcnn_plusplus.yaml,
+    PartA2.yaml, AL.yaml (with USE_DET_FOR_SEM and per-point labels: its
+    semantic loss and Lovasz order), CaDDN.yaml and second_iou.yaml, on
+    the crops of their card-vs-CPU train steps, and of the stability
+    model (sf_unc.yaml, 16384 points); every decision held to the card's
+    one-process steps over the joined batch (``PrcnnDecisions`` and its
+    subclasses, ``topk_picks``) and replayed; the ranks' states the same
+    bits, and against the joined steps the loss terms of each step, the
+    last step's gradients, the updated parameters, modules and BN and
+    MaskedBatchNorm statistics within the limits of the card-vs-CPU train
+    checks (5 x a 1e-6 weight jitter's baseline and the ceilings); both
+    ranks' step times (two processes sharing one card);
 113. ``--fault-check DDP``: phase 112 refuses rank 1's gradients of one
     module scaled by 1.3 and a run with every loss normalizer over the
-    rank's own batch, each for IA-SSD and PV-RCNN (DDP_FAULTS).
+    rank's own batch, each for IA-SSD and PV-RCNN, AL with its Lovasz
+    order over the rank's own points and PartA2 with its MaskedBatchNorm
+    statistics over the rank's own cells (DDP_FAULTS).
 
 The card-vs-CPU train steps (phases 8, 15, 17, 26, 36, 44, 48, 55, 61,
 64, 68, 71, 74, 77, 80, 83, 87, 95, 101), the card-vs-CPU requests of
@@ -6763,6 +6771,9 @@ class PartDecisions(PvDecisions):
         own = real(points, rois, pool_size)
         if self.mode == 'record':
             self.inputs['cells'].append(rois.detach().cpu())
+            # the pairs' rows and slots a frame (phase 112 splits them)
+            self.inputs.setdefault('cells_shape', []).append(
+                (points.shape[1], rois.shape[1] * int(pool_size) ** 3))
             return self._use('cells', own)
         want = tuple(w.to(o.device) for w, o in zip(self._ref('cells'), own))
         if self.mode == 'check':
@@ -8945,12 +8956,21 @@ def phase3_of(root) -> int:
 
 # data parallel (phases 111-113): phase 111 takes DDP_STEPS IA-SSD train
 # steps of TRAIN_B scenes plain and under DDP at world 1 over NCCL, in
-# turns from the same weights; phase 112 takes one world-2 step of IA-SSD
-# (DDP_B scenes a rank) and of PV-RCNN (one frame a rank at the train
-# voxel limit) in two processes on the one card over gloo (NCCL takes one
-# rank a device), each held to the card's one-process step over the joined
-# batch; a child process may take DDP_CHILD_TIMEOUT seconds
-DDP_STEPS, DDP_B, DDP_CHILD_TIMEOUT = 3, 2, 240
+# turns from the same weights; phase 112 takes world-2 steps of each of
+# DDP_MODELS (IA-SSD: DDP_B scenes a rank; the others one frame a rank) in
+# two processes on the one card over gloo (NCCL takes one rank a device),
+# each held to the card's one-process steps over the joined batch; the
+# child processes may take DDP_CHILD_TIMEOUT seconds
+DDP_STEPS, DDP_B, DDP_CHILD_TIMEOUT = 3, 2, 480
+DDP_MODELS = ('iassd', 'pvrcnn', 'centerpoint', 'pvrcnnpp', 'parta2', 'al',
+              'caddn', 'secondiou', 'stability')
+# phase 112's steps a model (DDP finds a parameter without a gradient at
+# the second); IA-SSD and PV-RCNN keep their one
+DDP_STEPS_OF = {'iassd': 1, 'pvrcnn': 1}
+# the seeds of phase 112's joined batches
+DDP_SEEDS = {'centerpoint': 4400, 'pvrcnnpp': 4500, 'parta2': 4600,
+             'al': 4700, 'caddn': 4800, 'secondiou': 4900,
+             'stability': 5000}
 # phase 111's timing: DDP_TIMED more steps of each, in turns (which goes
 # first alternating), without deterministic algorithms
 DDP_TIMED = 10
@@ -8959,7 +8979,8 @@ DDP_TIMED = 10
 # rank's own batch (what plain DDP trains); each run must be refused
 DDP_FAULTS = (('iassd', ('scale', 'backbone_3d.SA_modules.0', 1.3)),
               ('pvrcnn', ('scale', 'pfe', 1.3)),
-              ('iassd', ('normalizers',)), ('pvrcnn', ('normalizers',)))
+              ('iassd', ('normalizers',)), ('pvrcnn', ('normalizers',)),
+              ('al', ('lovasz',)), ('parta2', ('masked_bn',)))
 
 
 def _children(args_of, n, what, env=None):
@@ -9126,28 +9147,160 @@ def ddp_world1_phase(smi):
     return rec
 
 
+def _ddp_al_trainer():
+    """AL.yaml as phase 87 trains it (AL_TRAIN_CUT), with USE_DET_FOR_SEM:
+    the batch's 'sem_labels' add the semantic loss (``sem_seg_loss``, its
+    Lovasz order over the joined points) to the detection loss."""
+    cfg, model, opt, step = build_al_trainer('cuda', 'kitti_models/AL',
+                                             AL_TRAIN_CUT)
+    model.model_cfg.DENSE_HEAD.USE_DET_FOR_SEM = True
+    return cfg, model, opt, step
+
+
+def _ddp_sgd(cfg, model, make_step):
+    """(model, optimizer, step) of a model that phase 112 takes two steps
+    of: SGD with the config's momentum at its one-cycle schedule's first
+    rate (LR / DIV_FACTOR), the clip as configured. An update linear in
+    the gradient keeps the ranks' rounding rounding in the weights that
+    the second step starts from; AdamW's first step moves an entry whose
+    gradient is rounding by a whole rate either way, after which the
+    second step's scores part far beyond any decision's slack (PV-RCNN++'s
+    CenterHead top-500 by 3.2e-2 on an H100 80GB HBM3 at 700 W)."""
+    from spsnet_torch.config import EDict
+    opt_cfg = cfg.OPTIMIZATION
+    opt = _kitti_optimizer(EDict(dict(
+        opt_cfg, OPTIMIZER='sgd',
+        LR=float(opt_cfg.LR) / float(opt_cfg.DIV_FACTOR))),
+        model.parameters())
+    return model, opt, make_step(model, opt, None)
+
+
+class IouDecisions(PvDecisions):
+    """``PvDecisions`` of SECOND-IoU in phase 112. Its proposal NMS ranks
+    the anchor head's raw class logits (``SECONDHead.proposals``), where
+    PV-RCNN's ranks their sigmoids, the scores PV_SCORE_TOL was measured
+    on (4.5e-5 apart card vs CPU): the two runs' logits are held on that
+    scale, through their sigmoid, a monotone map that keeps the
+    candidates' order (world 2 vs joined at step 1, 2.403e-4 apart as
+    logits on an H100 80GB HBM3 at 700 W; the joined step's own sigmoids move
+    4.452e-5 under a 1e-7 weight jitter). The NMS itself runs on the
+    logits."""
+
+    def nms(self, real, boxes, scores, thresh, pre_maxsize=4096,
+            post_maxsize=500, valid=None):
+        logits = scores
+
+        def on_logits(b, s, t, **kwargs):
+            return real(b, logits.to(s.device), t, **kwargs)
+        return super().nms(on_logits, boxes, torch.sigmoid(scores), thresh,
+                           pre_maxsize, post_maxsize, valid)
+
+
 def _ddp_factory(name):
-    """(build() -> (model, optimizer, step), the decisions' class) of
-    phase 112's ``name``: IA-SSD.yaml with seeded D-FPS as phase 7
-    trains it, pv_rcnn.yaml as phase 34 does (seed-0 weights each)."""
+    """(build() -> (model, optimizer, step), the decisions' class or None
+    where the step takes no decision that near ties could flip, make_step
+    (model, optimizer, group) -> the data-parallel step) of phase 112's
+    ``name``: IA-SSD.yaml with seeded D-FPS as phase 7 trains it,
+    pv_rcnn.yaml as phase 34 does, the other models as their card-vs-CPU
+    train steps build them (seed-0 weights each); the stability model's
+    step is ``make_stability_train_step``."""
+    from spsnet_torch.runtime.trainer import make_train_step
+
+    def det_step(model, opt, group):
+        return make_train_step(model, opt, group=group)
     if name == 'iassd':
         from spsnet_torch.zoo import iassd_kitti_cfg
         cfg = iassd_kitti_cfg()
-        return (lambda: build_trainer(cfg, 'cuda', 0)), PrcnnDecisions
-    return (lambda: build_pvrcnn_trainer('cuda')[1:]), PvDecisions
+        return (lambda: build_trainer(cfg, 'cuda', 0)), PrcnnDecisions, \
+            det_step
+    if name == 'pvrcnn':
+        return (lambda: build_pvrcnn_trainer('cuda')[1:]), PvDecisions, \
+            det_step
+    if name == 'stability':
+        from spsnet_torch.stability import make_stability_train_step
+        from spsnet_torch.zoo import stability_cfg
+
+        def stab_step(model, opt, group):
+            return make_stability_train_step(model, opt, 0, group)
+        return (lambda: _ddp_sgd(stability_cfg(),
+                                 build_stability_trainer('cuda')[0],
+                                 stab_step)), None, stab_step
+    builds = {
+        'centerpoint': (lambda: build_centerpoint_trainer('cuda', True),
+                        None),
+        'pvrcnnpp': (lambda: build_pvpp_trainer('cuda', cut=True),
+                     PpDecisions),
+        'parta2': (lambda: build_pvrcnn_trainer(
+            'cuda', 'kitti_models/PartA2', VOXEL_TRAIN_CUT), PartDecisions),
+        'secondiou': (lambda: build_pvrcnn_trainer(
+            'cuda', 'kitti_models/second_iou', MH_TRAIN_CUT['kitti']),
+            IouDecisions),
+        'al': (_ddp_al_trainer, None),
+        'caddn': (lambda: build_caddn_trainer('cuda', CADDN_TRAIN_CUT),
+                  None)}
+    make, kind = builds[name]
+    return (lambda: _ddp_sgd(*make()[:2], det_step)), kind, det_step
+
+
+def _thresholds(cfg):
+    """The RoI sampling's thresholds of ``cfg`` (``PrcnnDecisions``)."""
+    tcfg = cfg.MODEL.ROI_HEAD.TARGET_CONFIG
+    return tuple(float(tcfg[k]) for k in ('CLS_BG_THRESH_LO', 'CLS_BG_THRESH',
+                                          'REG_FG_THRESH', 'CLS_FG_THRESH'))
+
+
+def _two_frames(batches):
+    """The first two frames of the first of ``pv_train_batches``."""
+    return {k: v[:2] for k, v in batches[0][0].items()}
 
 
 def _ddp_joined_batch(name, model):
     """(the joined batch of phase 112's ``name`` on the card, the RoI
     sampling's thresholds): 2 DDP_B synthetic scenes; 2 pv_rcnn.yaml train
-    frames at 16 000 voxels with gt at the proposals of ``model``."""
+    frames at 16 000 voxels with gt at the proposals of ``model``; two
+    frames of each other model on its card-vs-CPU train step's crop (the
+    two-stage ones with gt at the proposals, AL's with per-point labels in
+    [-1, SEM_CLS)); two stability scenes of N points."""
+    seed = DDP_SEEDS.get(name)
     if name == 'iassd':
         return _scene_batch(1100, 2 * DDP_B, 'cuda'), ()
-    cfg = voxel_cfg('pv_rcnn')
-    tcfg = cfg.MODEL.ROI_HEAD.TARGET_CONFIG
-    return gt_at_proposals(model, pv_train_batches(cfg, [1200])[0][0]), \
-        tuple(float(tcfg[k]) for k in ('CLS_BG_THRESH_LO', 'CLS_BG_THRESH',
-                                        'REG_FG_THRESH', 'CLS_FG_THRESH'))
+    if name == 'stability':
+        return _scene_batch(seed, 2, 'cuda'), ()
+    if name == 'pvrcnn':
+        cfg = voxel_cfg('pv_rcnn')
+        return gt_at_proposals(model, pv_train_batches(cfg, [1200])[0][0]), \
+            _thresholds(cfg)
+    if name in ('centerpoint', 'pvrcnnpp'):
+        cut, build = (CP_TRAIN_CUT, build_centerpoint_trainer) \
+            if name == 'centerpoint' else (PP_TRAIN_CUT, build_pvpp_trainer)
+        cfg = build('cpu', cut=True)[0]
+        batch = _two_frames(pv_train_batches(
+            cfg, [seed, seed + 1], sizes=WAYMO_SIZES, n=cut['points'],
+            channels=5))
+        if name == 'centerpoint':
+            return batch, ()
+        return gt_at_proposals(model, batch), _thresholds(cfg)
+    if name in ('parta2', 'secondiou'):
+        cfg_name, cut = ('kitti_models/PartA2', VOXEL_TRAIN_CUT) \
+            if name == 'parta2' else ('kitti_models/second_iou',
+                                      MH_TRAIN_CUT['kitti'])
+        cfg = voxel_cfg(cfg_name, cut)
+        batch = _two_frames(pv_train_batches(cfg, [seed], n=cut['points']))
+        return gt_at_proposals(model, batch), _thresholds(cfg)
+    if name == 'al':
+        _, _, channels = AL_CONFIGS['kitti_models/AL']
+        batch = _two_frames(pv_train_batches(
+            al_cfg('kitti_models/AL', AL_TRAIN_CUT), [seed],
+            sizes=_al_sizes('kitti_models/AL'), n=AL_TRAIN_CUT['points'],
+            channels=channels))
+        gen = torch.Generator().manual_seed(seed)
+        sem_cls = model.backbone_3d.cls_out.out_features
+        batch['sem_labels'] = torch.randint(
+            -1, sem_cls, batch['points'].shape[:2], generator=gen,
+            dtype=torch.int32).cuda()
+        return batch, ()
+    frames, _ = caddn_frames(seed, 2, CADDN_TRAIN_CUT)
+    return {k: v.cuda() for k, v in frames.items()}, ()
 
 
 def _timed_step(step, batch):
@@ -9170,55 +9323,138 @@ def _rows(x, rows):
     return x
 
 
-_DDP_LAUNCHES = {'iassd': TRAIN_LAUNCHES, 'pvrcnn': PV_LAUNCHES}
+def _rank_used(rec, rank, half):
+    """Rank ``rank``'s share of a joined step's decisions ``rec.used``,
+    ``half`` frames a rank: the frames' rows of each; the RoI-aware
+    pool's (voxel, cell) pairs (flat indices into (B, V) and (B, R G^3),
+    ``PartDecisions.cells``) those of the rank's frames, re-indexed."""
+    used = {k: v for k, v in rec.used.items() if k != 'cells'}
+    out = _rows(used, slice(rank * half, (rank + 1) * half))
+    if 'cells' in rec.used:
+        out['cells'] = []
+        for (row, slot), (v, s) in zip(rec.used['cells'],
+                                       rec.inputs['cells_shape']):
+            row, slot = row.cpu(), slot.cpu()
+            keep = (row // v >= rank * half) & (row // v < (rank + 1) * half)
+            out['cells'].append((row[keep] - rank * half * v,
+                                 slot[keep] - rank * half * s))
+    return out
 
 
-def ddp_world2_phase(smi, models=('iassd', 'pvrcnn'), fault=None):
-    """Phase 112: for each of ``models``, the card's one-process step over
-    the joined batch (its decisions recorded) and the same step from
-    weights jittered by WEIGHT_JITTER (replaying them), then two ranks on
-    the card over gloo (``ddp_rank_child``: each its half of the batch
-    through ``make_train_step(..., group=)``, every decision held to the
-    joined step's within its slack and replayed). The ranks' states must
-    be the same bits; the loss terms within TRAIN_LOSS_RTOL of the joined
+def _decisions(rec):
+    """``prcnn_decisions(rec)``, or nothing for a model without them."""
+    return prcnn_decisions(rec) if rec is not None \
+        else contextlib.nullcontext()
+
+
+def _prefix_fps(checked):
+    """A rank's check of the joined step's FPS picks where the call is
+    narrower: PV-RCNN++'s sectorized FPS runs each sector for the largest
+    quota of the batch's frames (``sector_fps_dense``; FPS is prefix
+    stable), which a rank's frame alone may not reach; the rank's call is
+    held to the prefix of the joined call's picks, and replays it."""
+    own = checked.fps
+
+    def fps(real, xyz, npoint, *args, **kwargs):
+        ref = checked.ref.used['fps']
+        k = len(checked.used['fps'])
+        if k < len(ref) and ref[k].shape[-1] > npoint:
+            ref[k] = ref[k][..., :npoint]
+        return own(real, xyz, npoint, *args, **kwargs)
+    checked.fps = fps
+    return checked
+
+
+_DDP_LAUNCHES = {'iassd': TRAIN_LAUNCHES, 'pvrcnn': PV_LAUNCHES,
+                 'pvrcnnpp': PP_LAUNCHES, 'stability': STAB_TRAIN_LAUNCHES}
+
+
+def _host_copy(tree):
+    """``tree`` (dicts, lists, tensors) with every tensor cloned to the
+    CPU."""
+    if torch.is_tensor(tree):
+        return tree.detach().cpu().clone()
+    if isinstance(tree, dict):
+        return {k: _host_copy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_host_copy(v) for v in tree)
+    return tree
+
+
+def _jittered(build, state, opt_state):
+    """A fresh model of ``build`` at ``state`` (and its optimizer at a copy
+    of ``opt_state``: loading keeps the state's tensors, which the steps
+    then update in place), its weights then times (1 + WEIGHT_JITTER N(0,
+    1)): (model, step)."""
+    import copy
+    jit, jit_opt, jit_step = build()
+    jit.load_state_dict(state)
+    jit_opt.load_state_dict(copy.deepcopy(opt_state))
+    gen = torch.Generator().manual_seed(5)
+    with torch.no_grad():
+        for p in jit.parameters():
+            p.mul_(1 + WEIGHT_JITTER * torch.randn(
+                p.shape, generator=gen).to(p.device))
+    return jit, jit_step
+
+
+def ddp_world2_phase(smi, models=DDP_MODELS, fault=None):
+    """Phase 112: for each of ``models``, the card's one-process steps
+    over the joined batch (DDP_STEPS_OF; their decisions recorded), each
+    also from its start's weights jittered by WEIGHT_JITTER (replaying
+    them), then two ranks on the card over gloo (``ddp_rank_child``: each
+    its half of the batch through the data-parallel step, every decision
+    held to the joined step's within its slack and replayed; a second step
+    starts from the joined step's weights and optimizer state, so that
+    each step is held alone). The ranks' states must be the same bits;
+    after each step the loss terms within TRAIN_LOSS_RTOL of the joined
     step's, the gradients and updated parameters within TRAIN_GRAD_FACTOR
-    of the jitter baseline and the fixed ceilings (as the card-vs-CPU
-    train checks), each module within TRAIN_MODULE_CEIL, the BN running
-    statistics within TRAIN_BN_CEIL. ``fault`` (phase 113) breaks the
-    ranks' step. Returns {model: record}."""
+    of the jitter baseline and the fixed ceilings (as the card-vs-CPU train
+    checks), each module within TRAIN_MODULE_CEIL, the BN and
+    MaskedBatchNorm running statistics within TRAIN_BN_CEIL. ``fault``
+    (phase 113) breaks the ranks' step. Returns {model: record}."""
     import copy
     import tempfile
     tmp = Path(tempfile.mkdtemp(prefix='ddp_world2_'))
     from spsnet_torch import parallel
     inputs, joined = {}, {}
     for name in models:
-        build, kind = _ddp_factory(name)
+        build, kind, _ = _ddp_factory(name)
         model, opt, step = build()
         batch, thresholds = _ddp_joined_batch(name, model)
-        init = {k: v.detach().cpu().clone()
-                for k, v in model.state_dict().items()}
-        jit, _, jit_step = build()
-        jit.load_state_dict(model.state_dict())
-        gen = torch.Generator().manual_seed(5)
-        with torch.no_grad():
-            for p in jit.parameters():
-                p.mul_(1 + WEIGHT_JITTER * torch.randn(
-                    p.shape, generator=gen).to(p.device))
-        rec = kind('record')
-        with prcnn_decisions(rec), topk_picks() as picks:
-            loss, tb = step(batch)
-        with prcnn_decisions(kind('replay', rec)), \
-                topk_picks(replay=picks if picks else None):
-            jit_step(batch)
-        half = batch['points'].shape[0] // 2
-        inputs[name] = {'init': init, 'fault': fault, 'ranks': [
-            {'batch': {k: v.cpu() for k, v in parallel.local_rows(
+        half = next(v for v in batch.values()
+                    if torch.is_tensor(v)).shape[0] // 2
+        starts, recs, picks, after = [], [], [], []
+        for _ in range(DDP_STEPS_OF.get(name, 2)):
+            start = (copy.deepcopy(model.state_dict()),
+                     copy.deepcopy(opt.state_dict()))
+            starts.append(_host_copy(start))
+            lr = opt.lr_fn(opt.count)
+            rec = kind('record') if kind is not None else None
+            with _decisions(rec), topk_picks() as own:
+                terms = step(batch)
+            ref = copy.deepcopy(model).cpu()      # deepcopy drops the grads
+            for q, g in zip(ref.parameters(), model.parameters()):
+                q.grad = g.grad.detach().cpu()
+            jit, jit_step = _jittered(build, *start)
+            with _decisions(kind('replay', rec) if kind is not None
+                            else None), topk_picks(replay=own or None):
+                jit_step(batch)
+            recs.append(rec)
+            picks.append(own)
+            after.append((terms, ref, jit, lr))
+        inputs[name] = {'fault': fault, 'starts': starts, 'ranks': [{
+            'batch': {k: v.cpu() for k, v in parallel.local_rows(
                 batch, r, 2).items()},
-             'used': _rows(rec.used, slice(r * half, (r + 1) * half)),
-             'inputs': _rows(rec.inputs, slice(r * half, (r + 1) * half)),
-             'picks': _rows(picks, slice(r * half, (r + 1) * half)),
-             'thresholds': thresholds} for r in range(2)]}
-        joined[name] = (model, opt, step, batch, jit, loss, tb)
+            'used': [None if rec is None else _rank_used(rec, r, half)
+                     for rec in recs],
+            'inputs': [None if rec is None else _rows(
+                rec.inputs, slice(r * half, (r + 1) * half))
+                for rec in recs],
+            'picks': [_rows(own, slice(r * half, (r + 1) * half))
+                      for own in picks],
+            'thresholds': thresholds} for r in range(2)]}
+        joined[name] = (step, batch, after)
     torch.save(inputs, tmp / 'inputs.pt')
     log(f'  the joined steps on the card ({", ".join(models)}); two ranks '
         'over gloo on the card now')
@@ -9227,52 +9463,56 @@ def ddp_world2_phase(smi, models=('iassd', 'pvrcnn'), fault=None):
              for r in range(2)]
     out = {}
     for name in models:
-        model, opt, step, batch, jit, loss, tb = joined[name]
+        step, batch, after = joined[name]
         r0, r1 = ranks[0][name], ranks[1][name]
-        for key in ('grads', 'state'):
-            for k, v in r0[key].items():
-                if not torch.equal(v, r1[key][k]):
-                    raise AssertionError(f'{name}: rank 0 and rank 1 {key} '
-                                         f'{k} differ')
-        worst = {}
-        for key in ('loss', *sorted(tb)):
-            want = float(loss if key == 'loss' else tb[key])
-            got = r0['loss'] if key == 'loss' else r0['tb'][key]
-            worst[key] = abs(got - want) / max(abs(want), 1e-12)
-            if worst[key] > TRAIN_LOSS_RTOL:
-                raise AssertionError(f'{name} world 2 vs joined {key}: {got} '
-                                     f'vs {want}')
-        ref = copy.deepcopy(model).cpu()      # deepcopy drops the grads
-        shadow = copy.deepcopy(ref)
-        shadow.load_state_dict(r0['state'])
-        for (n, p), q, g in zip(shadow.named_parameters(), ref.parameters(),
-                                model.parameters()):
-            p.grad, q.grad = r0['grads'][n], g.grad.detach().cpu()
-        lr = opt.lr_fn(0)
-        diff = _step_difference(shadow, ref, lr)
-        base = _step_difference(jit, ref, lr)
-        log(f'  {name}: world 2 vs joined loss terms, largest relative '
-            f'difference {max(worst.values()):.3e} '
-            f'({max(worst, key=worst.get)}; tolerance {TRAIN_LOSS_RTOL})')
-        log(f'  {name}: world 2 vs joined after the step: {diff}')
-        log(f'  {name}: joined with weights x (1 + {WEIGHT_JITTER} N(0, 1)) '
-            f'vs joined (the jitter baseline): {base}')
-        what = f'{name}: world 2 vs joined'
-        limits = _require_step_within(diff, base, lr, what)
-        by_module = _grad_by_module((shadow, jit), ref)
-        _require_modules_within(by_module, what)
-        stats = [_bn_stats_rel_l2(a, ref) for a in (shadow, jit)]
-        limits['bn_limit'] = _require_bn_within(stats, what)
+        rec_steps = []
+        for s, ((loss, tb), ref, jit, lr) in enumerate(after):
+            g0, g1 = r0['steps'][s], r1['steps'][s]
+            tag = '' if len(after) == 1 else f' (step {s + 1})'
+            for key in ('grads', 'state'):
+                for k, v in g0[key].items():
+                    if not torch.equal(v, g1[key][k]):
+                        raise AssertionError(f'{name}{tag}: rank 0 and rank '
+                                             f'1 {key} {k} differ')
+            worst = {}
+            for key in ('loss', *sorted(tb)):
+                want = float(loss if key == 'loss' else tb[key])
+                got = g0['loss'] if key == 'loss' else g0['tb'][key]
+                worst[key] = abs(got - want) / max(abs(want), 1e-12)
+                if worst[key] > TRAIN_LOSS_RTOL:
+                    raise AssertionError(f'{name} world 2 vs joined{tag} '
+                                         f'{key}: {got} vs {want}')
+            shadow = copy.deepcopy(ref)
+            shadow.load_state_dict(g0['state'])
+            for n, p in shadow.named_parameters():
+                p.grad = g0['grads'][n]
+            diff = _step_difference(shadow, ref, lr)
+            base = _step_difference(jit, ref, lr)
+            log(f'  {name}{tag}: world 2 vs joined loss terms, largest '
+                f'relative difference {max(worst.values()):.3e} '
+                f'({max(worst, key=worst.get)}; tolerance '
+                f'{TRAIN_LOSS_RTOL})')
+            log(f'  {name}{tag}: world 2 vs joined after the step: {diff}')
+            log(f'  {name}{tag}: joined with weights x (1 + {WEIGHT_JITTER} '
+                f'N(0, 1)) vs joined (the jitter baseline): {base}')
+            what = f'{name}{tag}: world 2 vs joined'
+            limits = _require_step_within(diff, base, lr, what)
+            by_module = _grad_by_module((shadow, jit), ref)
+            _require_modules_within(by_module, what)
+            stats = [_bn_stats_rel_l2(a, ref) for a in (shadow, jit)]
+            limits['bn_limit'] = _require_bn_within(stats, what)
+            rec_steps.append({'card': diff, 'baseline': base,
+                              'limits': limits, 'bn_stats': stats,
+                              'loss_rel': worst})
         for note in r0['notes'] + r1['notes']:
             log(f'  {name}: {note}')
         ms = _timed_step(step, batch)
         log(f'  {name}: ms/train step, rank 0 {r0["ms"]:.3f}, rank 1 '
-            f'{r1["ms"]:.3f} (a second step; two processes sharing one '
-            f'card, B = {r0["frames"]} a rank; not a scaling number); the '
-            f'joined batch\'s one-process step (a second step) {ms:.3f} ms on '
-            f'{smi}')
-        out[name] = {'card': diff, 'baseline': base, 'limits': limits,
-                     'bn_stats': stats, 'loss_rel': worst,
+            f'{r1["ms"]:.3f} (a step after the checked ones; two processes '
+            f'sharing one card, B = {r0["frames"]} a rank; not a scaling '
+            f'number); the joined batch\'s one-process step (after its '
+            f'checked ones) {ms:.3f} ms on {smi}')
+        out[name] = {'steps': rec_steps,
                      'rank_ms': [r0['ms'], r1['ms']], 'joined_ms': ms,
                      'differ': [r0['differ'], r1['differ']],
                      'launches': {k: r0['launches'][k] + r1['launches'][k]
@@ -9296,18 +9536,38 @@ def _local_normalizers():
                 setattr(mod, name, local)
 
 
+def _local_lovasz():
+    """Phase 113's AL fault: the Lovasz order of the semantic loss over
+    the rank's own points alone."""
+    from spsnet_torch.utils import loss_utils
+
+    def weights(err, fg):
+        order = torch.argsort(-err, dim=1, stable=True)
+        grad = loss_utils.lovasz_grad(fg.gather(1, order))
+        return torch.zeros_like(grad).scatter_(1, order, grad)
+    loss_utils._joined_lovasz_weights = weights
+
+
+def _local_masked_bn():
+    """Phase 113's PartA2 fault: MaskedBatchNorm's statistics over the
+    rank's own active cells."""
+    from spsnet_torch.models.roi_heads import parta2_head
+    parta2_head.step_world = lambda: 1
+
+
 def ddp_rank_child(rank, tmp) -> int:
     """``--ddp-rank R DIR``, rank R of phase 112 on ``cuda:0`` over gloo
-    (a ``file://`` store in DIR): for each model of DIR/inputs.pt, the
-    joined step's weights, this rank's half of the batch through
-    ``make_train_step(..., group=)``, every decision held to the joined
-    step's (``PrcnnDecisions`` 'check', ``topk_picks`` replay) and the
-    launches to the path's; writes the loss terms, gradients (after the
-    clip), state, notes and time to DIR/rankR.pt."""
+    (a ``file://`` store in DIR): for each model of DIR/inputs.pt, each
+    joined step's start (weights and optimizer state), this rank's half of
+    the batch through the model's data-parallel step
+    (``make_train_step(..., group=)``, or ``make_stability_train_step``),
+    the step's decisions held to the joined step's (``PrcnnDecisions``
+    'check', ``topk_picks`` replay) and the launches to the path's; writes
+    each step's loss terms, gradients (after the clip) and state, the
+    notes and a time to DIR/rankR.pt."""
     import torch.distributed as dist
     from spsnet_torch import parallel
     from spsnet_torch.ops import _build
-    from spsnet_torch.runtime.trainer import make_train_step
     rank, tmp = int(rank), Path(tmp)
     parallel.init_distributed('cuda:0', backend='gloo',
                               init_method=f'file://{tmp}/store', rank=rank,
@@ -9318,9 +9578,8 @@ def ddp_rank_child(rank, tmp) -> int:
         inputs = torch.load(tmp / 'inputs.pt', weights_only=False)
         out = {}
         for name, spec in inputs.items():
-            build, kind = _ddp_factory(name)
+            build, kind, make_step = _ddp_factory(name)
             model, opt, _ = build()
-            model.load_state_dict(spec['init'])
             fault = spec['fault'] or ('none',)
             if fault[0] == 'scale' and rank == 1:
                 for n, p in model.named_parameters():
@@ -9328,38 +9587,56 @@ def ddp_rank_child(rank, tmp) -> int:
                         p.register_hook(lambda g, f=fault[2]: g * f)
             elif fault[0] == 'normalizers':
                 _local_normalizers()
-            step = make_train_step(model, opt, group=parallel.world_group())
+            elif fault[0] == 'lovasz':
+                _local_lovasz()
+            elif fault[0] == 'masked_bn':
+                _local_masked_bn()
+            step = make_step(model, opt, parallel.world_group())
             mine = spec['ranks'][rank]
-            ref = kind('record')
-            ref.used, ref.inputs = mine['used'], mine['inputs']
-            checked = kind('check', ref, mine['thresholds'])
             batch = {k: v.cuda() for k, v in mine['batch'].items()}
+            notes, differ, steps = [], [], []
             torch.cuda.synchronize()
             _build.reset_launches()
             t0 = time.perf_counter()
-            with prcnn_decisions(checked), \
-                    topk_picks(replay=mine['picks'] or None):
-                loss, tb = step(batch)
+            for s, (state, opt_state) in enumerate(spec['starts']):
+                model.load_state_dict(state)
+                opt.load_state_dict(opt_state)
+                checked = None
+                if kind is not None:
+                    ref = kind('record')
+                    ref.used, ref.inputs = mine['used'][s], mine['inputs'][s]
+                    checked = _prefix_fps(kind('check', ref,
+                                               mine['thresholds']))
+                with _decisions(checked), \
+                        topk_picks(replay=mine['picks'][s] or None):
+                    loss, tb = step(batch)
+                steps.append({
+                    'loss': float(loss),
+                    'tb': {k: float(v) for k, v in tb.items()},
+                    'grads': {n: p.grad.detach().cpu()
+                              for n, p in model.named_parameters()},
+                    'state': {k: v.detach().cpu().clone()
+                              for k, v in model.state_dict().items()}})
+                if checked is not None:
+                    notes += checked.notes
+                    differ.append(checked.differ)
             torch.cuda.synchronize()
             first_ms = (time.perf_counter() - t0) * 1e3
             launches = dict(_build.LAUNCHES)
-            want = {k: _DDP_LAUNCHES[name].get(k, 0) for k in launches}
+            want = {k: len(steps) * _DDP_LAUNCHES.get(name, {}).get(k, 0)
+                    for k in launches}
             if launches != want:
                 raise AssertionError(f'{name} rank {rank} launches '
                                      f'{launches}, want {want}')
             out[name] = {
-                'loss': float(loss),
-                'tb': {k: float(v) for k, v in tb.items()},
-                'grads': {n: p.grad.detach().cpu()
-                          for n, p in model.named_parameters()},
-                'state': {k: v.detach().cpu()
-                          for k, v in model.state_dict().items()},
-                'notes': checked.notes, 'differ': checked.differ,
+                'steps': steps, 'notes': notes, 'differ': differ,
                 'first_ms': first_ms, 'ms': _timed_step(step, batch),
                 'launches': launches,
-                'frames': int(batch['points'].shape[0])}
-            log(f'  {name}: the checked step {first_ms:.3f} ms, loss '
-                f'{float(loss):.4f}, launches {launches}; a second step '
+                'frames': int(next(v for v in batch.values()
+                                   if torch.is_tensor(v)).shape[0])}
+            log(f'  {name}: the {len(steps)} checked step(s) '
+                f'{first_ms:.3f} ms, loss {steps[-1]["loss"]:.4f}, '
+                f'launches {launches}; a step after them '
                 f'{out[name]["ms"]:.3f} ms')
         torch.save(out, tmp / f'rank{rank}.pt')
     finally:

@@ -21,6 +21,7 @@ import torch
 from torch import nn
 
 from ...ops.boxes import topk_desc
+from ...parallel import global_sum
 from ...utils.common import true_div
 
 
@@ -137,14 +138,15 @@ def gaussian_focal_loss(pred_hm, gt_hm, eps: float = 1e-4):
     """Penalty-reduced focal loss over (B, C, H, W) logits and heatmap
     targets (``centernet_utils.neg_loss_cornernet``): the positives are the
     heatmap's peaks (value 1), the negatives weighted by (1 - target)^4;
-    the sum over the number of positives, at least 1."""
+    the sum over the number of positives, at least 1 (the joined batch's
+    in a data-parallel step, ``parallel.global_sum``)."""
     pred = torch.sigmoid(pred_hm).clamp(eps, 1 - eps)
     pos = (gt_hm >= 1.0).to(pred.dtype)
     neg_weights = torch.pow(1 - gt_hm, 4)
     pos_loss = torch.log(pred) * torch.pow(1 - pred, 2) * pos
     neg_loss = torch.log(1 - pred) * torch.pow(pred, 2) * neg_weights * \
         (1 - pos)
-    num_pos = pos.sum().clamp(min=1.0)
+    num_pos = global_sum(pos.sum()).clamp(min=1.0)
     return -(pos_loss.sum() + neg_loss.sum()) / num_pos
 
 
@@ -234,7 +236,8 @@ def center_head_loss(ret, loss_cfg):
     """(loss, tb) of the plain CenterHead: the focal heatmap loss times
     cls_weight, plus the masked L1 of the 8 regression channels at the
     centre pixels, weighted by code_weights, over the gt count (at least
-    1) times loc_weight; tb 'hm_loss', 'loc_loss', 'center_loss'."""
+    1; the joined batch's in a data-parallel step) times loc_weight; tb
+    'hm_loss', 'loc_loss', 'center_loss'."""
     lw = loss_cfg.LOSS_WEIGHTS
     hm_loss = gaussian_focal_loss(ret['heatmap'], ret['heatmap_target']) * \
         lw.get('cls_weight', 1.0)
@@ -243,7 +246,7 @@ def center_head_loss(ret, loss_cfg):
     mask = ret['masks'].to(preds.dtype)[..., None]
     code_w = preds.new_tensor(list(lw.get('code_weights', [1.0] * 8))[:8])
     l1 = (at_inds - ret['box_targets'][..., :8]).abs() * mask * code_w
-    loc_loss = l1.sum() / mask.sum().clamp(min=1.0) * \
+    loc_loss = l1.sum() / global_sum(mask.sum()).clamp(min=1.0) * \
         lw.get('loc_weight', 2.0)
     total = hm_loss + loc_loss
     return total, {'hm_loss': hm_loss, 'loc_loss': loc_loss,

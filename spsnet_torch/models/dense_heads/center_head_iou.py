@@ -37,6 +37,7 @@ from torch import nn
 
 from ... import ops
 from ...ops.boxes import topk_desc
+from ...parallel import global_sum
 from ..blocks import BatchNormNCHW
 from .center_head import assign_center_targets, gaussian_focal_loss
 
@@ -293,8 +294,9 @@ def center_head_iou_loss(ret, loss_cfg, head_order):
     the masked L1 of the HEAD_ORDER maps at the centre pixels and, with an
     'iou' map, the L1 between it and 2 * IoU3D - 1 of the detached decoded
     boxes (clamped to +-200) and their gt (``center_head_iou.py get_loss``
-    :501-583); tb holds 'hm_loss_head_{g}', 'loc_loss_head_{g}',
-    'iou_loss_{g}' and 'rpn_loss'."""
+    :501-583), each over its count (the joined batch's in a data-parallel
+    step, ``parallel.global_sum``); tb holds 'hm_loss_head_{g}',
+    'loc_loss_head_{g}', 'iou_loss_{g}' and 'rpn_loss'."""
     lw = loss_cfg.LOSS_WEIGHTS
     total = 0.0
     tb = {}
@@ -309,7 +311,7 @@ def center_head_iou_loss(ret, loss_cfg, head_order):
         code_w = reg.new_tensor(
             list(lw.get('code_weights', [1.0] * C))[:C])
         l1 = (at_inds - tgt['boxes'][..., :C]).abs() * mask * code_w
-        loc_loss = l1.sum() / mask.sum().clamp(min=1.0) * \
+        loc_loss = l1.sum() / global_sum(mask.sum()).clamp(min=1.0) * \
             lw.get('loc_weight', 0.25)
         total = total + hm_loss + loc_loss
         tb[f'hm_loss_head_{gi}'] = hm_loss
@@ -321,7 +323,7 @@ def center_head_iou_loss(ret, loss_cfg, head_order):
             target = 2.0 * ops.boxes_iou3d_paired(dec, tgt['gt7']) - 1.0
             iou_at = _flat(pred['iou'])[..., 0].gather(1, tgt['inds'])
             iou_loss = ((iou_at - target).abs() * m).sum() / \
-                (m.sum() + 1e-4) * lw.get('iou_weight', 1.0)
+                (global_sum(m.sum()) + 1e-4) * lw.get('iou_weight', 1.0)
             total = total + iou_loss
             tb[f'iou_loss_{gi}'] = iou_loss
     tb['rpn_loss'] = total

@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...parallel import global_sum
 from ...utils import box_coder as box_coder_lib
 from ...utils import box_utils, loss_utils
 from ...utils.common import rotate_points_along_z
@@ -110,8 +111,9 @@ def point_intra_part_loss(ret, loss_cfg):
     box coder, of the ignore-banded class labels, ignored rows out),
     normalised by the positives; the part locations' BCE over the
     foreground, over 3 times its count; with a box coder the smooth-L1 of
-    the box residuals over the positives. Returns (loss, tb) with
-    'point_seg_loss', 'point_part_loss' and 'point_box_loss'."""
+    the box residuals over the positives. Each count is the joined batch's
+    in a data-parallel step (``parallel.global_sum``). Returns (loss, tb)
+    with 'point_seg_loss', 'point_part_loss' and 'point_box_loss'."""
     lw = loss_cfg.LOSS_WEIGHTS
     fg = ret['fg_mask']
     valid = ret['valid'].float()
@@ -119,10 +121,10 @@ def point_intra_part_loss(ret, loss_cfg):
     if 'box_targets' in ret:
         labels = ret['box_targets'].cls_labels
         weights = (labels >= 0).float() * valid / \
-            (labels > 0).float().sum().clamp(min=1.0)
+            global_sum((labels > 0).float().sum()).clamp(min=1.0)
         one_hot = F.one_hot(labels.clamp(min=0), num_class + 1)
     else:
-        weights = valid / fg.float().sum().clamp(min=1.0)
+        weights = valid / global_sum(fg.float().sum()).clamp(min=1.0)
         one_hot = F.one_hot(fg.long(), num_class + 1)
     seg_loss = loss_utils.sigmoid_focal_loss(
         ret['point_cls_preds'], one_hot[..., 1:].float(), weights).sum() * \
@@ -131,7 +133,7 @@ def point_intra_part_loss(ret, loss_cfg):
     bce = loss_utils.sigmoid_cross_entropy_with_logits(
         ret['point_part_preds'], ret['part_targets'])
     part_loss = (bce * fg_f[..., None]).sum() / \
-        (fg_f.sum() * 3.0).clamp(min=1.0) * \
+        (global_sum(fg_f.sum()) * 3.0).clamp(min=1.0) * \
         float(lw.get('point_part_weight', 1.0))
     tb = {'point_seg_loss': seg_loss, 'point_part_loss': part_loss}
     total = seg_loss + part_loss
@@ -140,7 +142,7 @@ def point_intra_part_loss(ret, loss_cfg):
         pos = (t.cls_labels > 0).float()
         box_loss = loss_utils.weighted_smooth_l1(
             ret['point_box_preds_raw'], t.box_labels,
-            weights=pos / pos.sum().clamp(min=1.0),
+            weights=pos / global_sum(pos.sum()).clamp(min=1.0),
             code_weights=lw.get('code_weights', None)).sum() * \
             float(lw.get('point_box_weight', 1.0))
         tb['point_box_loss'] = box_loss

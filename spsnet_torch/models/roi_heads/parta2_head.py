@@ -23,6 +23,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ...parallel import step_world, sum_over_ranks
 from ...utils import box_coder as box_coder_lib
 from ...utils import box_utils
 from ..blocks import MLPHead, SharedMLP
@@ -83,6 +84,20 @@ def roiaware_pool(points, features, rois, pool_size: int, method='max',
     return out.reshape(B, R, G3, C)
 
 
+def _global_masked_stats(x, mask, dims):
+    """(n, mean, var), biased, of ``x`` over the active cells of ``mask``
+    on every rank of the active data-parallel step, n clipped at 2, as
+    ``blocks._global_stats``: two passes of a differentiable all-reduce,
+    the sums and the count in float64."""
+    s = (x * mask).sum(dims).double()
+    stats = sum_over_ranks(torch.cat([s, mask.sum().double().reshape(1)]))
+    n = stats[-1].clamp(min=2.0)
+    mean = (stats[:-1] / n).to(x.dtype)
+    d = (x - mean[:, None, None, None]) ** 2 * mask
+    var = (sum_over_ranks(d.sum(dims).double()) / n).to(x.dtype)
+    return n.to(x.dtype), mean, var
+
+
 class MaskedBatchNorm(nn.BatchNorm3d):
     """The BatchNorm of spconv's sparse tensors as a dense grid's twin: in
     training its statistics run over the active cells only (``mask`` (N, 1,
@@ -91,7 +106,9 @@ class MaskedBatchNorm(nn.BatchNorm3d):
     decay 0.99) and eps 1e-3 (``parta2_head.py:75-103`` of the JAX
     package). The port's other BatchNorms (``blocks.BatchNormLast``,
     ``BatchNormNCHW``) keep flax's biased rule. Eval normalises every cell
-    by the running statistics."""
+    by the running statistics. Inside a data-parallel step of more than one
+    rank the count, mean and variance are those of every rank's active
+    cells (``_global_masked_stats``), and so is the running rule's n."""
 
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=1e-3, momentum=0.01)
@@ -99,10 +116,13 @@ class MaskedBatchNorm(nn.BatchNorm3d):
     def forward(self, x, mask):
         if not self.training:
             return super().forward(x)
-        n = mask.sum().clamp(min=2.0)
         dims = (0, 2, 3, 4)
-        mean = (x * mask).sum(dims) / n
-        var = ((x - mean[:, None, None, None]) ** 2 * mask).sum(dims) / n
+        if step_world() > 1:
+            n, mean, var = _global_masked_stats(x, mask, dims)
+        else:
+            n = mask.sum().clamp(min=2.0)
+            mean = (x * mask).sum(dims) / n
+            var = ((x - mean[:, None, None, None]) ** 2 * mask).sum(dims) / n
         with torch.no_grad():
             m = self.momentum
             self.running_mean.copy_((1 - m) * self.running_mean + m * mean)

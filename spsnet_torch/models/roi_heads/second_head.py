@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ...parallel import global_sum
 from ...utils.common import true_div
 from ..blocks import MLPHead, SharedMLP
 from ..detectors.detector3d import class_agnostic_nms_batch
@@ -165,7 +166,8 @@ def second_head_loss(ret, loss_cfg):
     """The IoU head's loss (``second_head.py:182-206``): IOU_LOSS
     'BinaryCrossEntropy' (with logits), 'L2' or 'smoothL1' (beta 1/9) of
     'rcnn_iou' against the targets' ``rcnn_cls_labels``, averaged over the
-    RoIs whose label is not below 0, times LOSS_WEIGHTS.rcnn_iou_weight.
+    RoIs whose label is not below 0 (the joined batch's in a data-parallel
+    step, ``parallel.global_sum``), times LOSS_WEIGHTS.rcnn_iou_weight.
     Returns (loss, {'rcnn_iou_loss': loss})."""
     labels = ret['targets'].rcnn_cls_labels
     logits = ret['rcnn_iou']
@@ -183,6 +185,6 @@ def second_head_loss(ret, loss_cfg):
     else:
         raise NotImplementedError(f'IOU_LOSS {kind}')
     care = (labels >= 0).float()
-    loss = (per * care).sum() / care.sum().clamp(min=1.0) * \
+    loss = (per * care).sum() / global_sum(care.sum()).clamp(min=1.0) * \
         float(loss_cfg.LOSS_WEIGHTS.get('rcnn_iou_weight', 1.0))
     return loss, {'rcnn_iou_loss': loss}

@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...parallel import global_count
 from ...utils.common import true_div
 from ..blocks import BatchNormNCHW
 from .pillar_vfe import f32
@@ -281,7 +282,9 @@ def image_vfe_loss(ret, batch, loss_cfg, disc_cfg, downsample: int):
     of the logits at the binned depth, weighted fg_weight inside a 2D box
     (full-resolution [x1, y1, x2, y2] of 'gt_boxes2d' (B, N, 4) over the
     factor; a box with x2 <= x1 is padding) and bg_weight elsewhere, the
-    mean over B x Hf x Wf times ``weight``. Returns (loss, {'ddn_loss'})."""
+    mean over B x Hf x Wf (B the joined batch's in a data-parallel step,
+    ``parallel.global_count``) times ``weight``. Returns (loss,
+    {'ddn_loss'})."""
     logits = ret['depth_logits']                     # (B, D + 1, Hf, Wf)
     B, _, Hf, Wf = logits.shape
     target = depth_targets(batch['depth_maps'], disc_cfg, downsample,
@@ -293,6 +296,6 @@ def image_vfe_loss(ret, batch, loss_cfg, disc_cfg, downsample: int):
     fg = foreground(batch['gt_boxes2d'], downsample, (Hf, Wf))
     weights = torch.where(fg, f32(loss_cfg.get('fg_weight', 13.0)),
                           f32(loss_cfg.get('bg_weight', 1.0)))
-    loss = (pix_loss * weights).sum() / float(B * Hf * Wf) * \
+    loss = (pix_loss * weights).sum() / float(global_count(B) * Hf * Wf) * \
         f32(loss_cfg.get('weight', 3.0))
     return loss, {'ddn_loss': loss}

@@ -154,6 +154,11 @@ def step_world() -> int:
     return _Step.world
 
 
+def step_rank() -> int:
+    """This rank's place in the active step (0 outside ``step_group``)."""
+    return _Step.rank
+
+
 def global_sum(t):
     """``t`` summed over the active step's ranks, detached: a count or a
     weight sum that normalizes a loss. ``t`` itself at world 1."""
@@ -212,6 +217,20 @@ def draw_rows(draw, shape, generator):
     n = shape[0]
     full = draw((n * _Step.world, *shape[1:]), generator)
     return full[_Step.rank * n:(_Step.rank + 1) * n]
+
+
+def gather_rows(t):
+    """The joined tensor of the active step's ranks along the leading axis,
+    in rank order, detached; ``t`` itself at world 1. One all-reduce into
+    a zero buffer of ``world`` blocks, each rank filling its own: gloo
+    offers CUDA tensors only ``all_reduce`` and ``broadcast``."""
+    if _Step.world == 1:
+        return t
+    n = t.shape[0]
+    out = t.new_zeros((n * _Step.world, *t.shape[1:]))
+    out[_Step.rank * n:(_Step.rank + 1) * n] = t.detach()
+    dist.all_reduce(out, group=_Step.group)
+    return out
 
 
 def sum_terms(loss, tb: dict):

@@ -4,11 +4,11 @@ reference ``tools/train_utils/train_utils.py``): forward in train mode, the
 detector's loss, backward, global-norm clip and the scheduled optimizer
 step; forward in eval mode and the NMS; epoch-end checkpoints, auto-resume
 and a graceful stop on SIGTERM/SIGUSR1. One process a device: given a
-process group (``parallel.init_distributed``), the step runs the model
-under ``DistributedDataParallel`` and trains the joined batch's objective
-(global BatchNorm statistics, loss normalizers and draws,
-``spsnet_torch.parallel``); the eval results of the ranks merge on rank 0
-(``merge_results_dist``).
+process group (``parallel.init_distributed``), the step runs any detector
+of the registry under ``DistributedDataParallel`` and trains the joined
+batch's objective (global BatchNorm statistics, loss normalizers, the
+Lovasz order and draws, ``spsnet_torch.parallel``); the eval results of
+the ranks merge on rank 0 (``merge_results_dist``).
 """
 from __future__ import annotations
 
@@ -48,22 +48,28 @@ def step_rngs(step: int) -> dict:
 
 def require_global_losses(model):
     """Raise unless every batch-level term of ``model``'s loss is global
-    across the ranks of a data-parallel step: IA-SSD (SPSNet, PAGNet),
-    PointRCNN and PV-RCNN over an anchor RPN. The rest is ROADMAP Queue 1
-    item D1b."""
-    from ..models.dense_heads.anchor_head import (AnchorHeadMulti,
-                                                  AnchorHeadSingle)
-    from ..models.detectors import IASSD, PVRCNN, PointRCNN
-    kind = type(model)
-    if kind in (IASSD, PointRCNN) or (kind is PVRCNN and isinstance(
-            model.dense_head, (AnchorHeadSingle, AnchorHeadMulti))):
+    across the ranks of a data-parallel step: every class of the detector
+    registry (``models.detectors``, PartA2_free's ``PartA2FreeNet`` and
+    the AL stack's ``ALNet`` among them). Another module's loss is not
+    known to be, and is refused."""
+    from ..models import detectors
+    classes = {*detectors._DETECTORS.values(), detectors.PartA2FreeNet}
+    if type(model) in classes:
         return
     raise NotImplementedError(
-        f'{kind.__name__}: data parallel trains IA-SSD, SPSNet, PointRCNN '
-        'and PV-RCNN over an anchor RPN; the other losses are not yet '
-        'global across ranks (ROADMAP Queue 1 item D1b: center_head_loss, '
-        'center_head_iou_loss, second_head_loss, point_intra_part_loss and '
-        'MaskedBatchNorm, image_vfe_loss, cpgnet_criterion)')
+        f'{type(model).__name__}: data parallel trains the detectors of the '
+        f'registry ({", ".join(sorted(c.__name__ for c in classes))}), '
+        'whose loss normalizers, BatchNorm statistics and draws are global '
+        'across the ranks; this module is not one of them')
+
+
+def _unused_parameters(model) -> bool:
+    """Whether a step may leave parameters of ``model`` without a
+    gradient, which DDP must then search for each step: the AL stack's
+    semantic branch without 'sem_labels' (or its detection head with
+    SEM_TASK). Every parameter of the other detectors gets a gradient."""
+    from ..models.detectors import ALNet
+    return isinstance(model, ALNet)
 
 
 def make_train_step(model, optimizer, preprocess=None, group=None):
@@ -88,17 +94,18 @@ def make_train_step(model, optimizer, preprocess=None, group=None):
     batch's loss, and the rank backpropagates ``world`` times it, so that
     DDP's mean of the gradients is the joined batch's gradient; the clip
     and the update then see it. The loss and tb terms returned are the
-    joined batch's. At world > 1 ``require_global_losses`` must pass."""
+    joined batch's. At world > 1 ``require_global_losses`` must pass.
+    DDP searches for parameters without a gradient only where a step may
+    leave some (``_unused_parameters``)."""
     forward, collectives, world = model, None, 1
     if group is not None:
         world = dist.get_world_size(group)
         if world > 1:
             require_global_losses(model)
             collectives = parallel.new_step_group(group)
-        # every parameter of the admitted detectors gets a gradient each
-        # step, so DDP searches the graph for none
-        forward = DistributedDataParallel(model, process_group=group,
-                                          broadcast_buffers=False)
+        forward = DistributedDataParallel(
+            model, process_group=group, broadcast_buffers=False,
+            find_unused_parameters=_unused_parameters(model))
 
     def train_step(batch):
         with parallel.step_group(collectives):

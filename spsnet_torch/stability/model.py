@@ -21,7 +21,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from .. import ops
+from .. import ops, parallel
 from ..models.dense_heads import target_assign
 from ..models.sa_module import SAModuleMSGWithSampling
 from ..models.surface_feature import FeatureExtraction
@@ -92,7 +92,9 @@ class GenerateCenter(nn.Module):
         """batch: dict with 'points' (B, N, 3 + C). Returns a dict with
         soc_feature, mu, logvar, layer_xyz and, in eval mode, 'stds' (B, M);
         in training 'center_pred' (B, M, 3), its latent drawn from
-        ``generator`` (a CPU ``torch.Generator``, required)."""
+        ``generator`` (a CPU ``torch.Generator``, required; in a
+        data-parallel step this rank's rows of the joined batch's draw,
+        ``parallel.draw_rows``)."""
         points = batch['points']
         xyz = points[..., 0:3].contiguous()
         features = points[..., 3:] if points.shape[-1] > 3 else None
@@ -108,7 +110,9 @@ class GenerateCenter(nn.Module):
             if generator is None:
                 raise ValueError('the training forward draws its latent from '
                                  'an explicit torch.Generator')
-            eps = torch.randn(mu.shape, generator=generator).to(mu.device)
+            eps = parallel.draw_rows(
+                lambda shape, g: torch.randn(shape, generator=g), mu.shape,
+                generator).to(mu.device)
             # the reference reparametrises with std = exp(0.5 * logvar)
             z = mu + eps * torch.exp(0.5 * logvar)
             ret['center_pred'] = self.obj_encoder(soc_feature, z)
@@ -154,14 +158,23 @@ def generate_center_loss(model, ret, gt_boxes, code_weights=None):
     N(mu, sigma) with sigma = exp(logvar) (the reference's scale, not
     exp(logvar / 2)): from N(0, 1) on the foreground and from N(mu, 20) on
     the background, each a mean over its points. Returns (loss, tb) with
-    the JAX package's tb keys."""
+    the JAX package's tb keys.
+
+    In a data-parallel step the counts are the joined batch's
+    (``parallel.global_sum``) and the parameter term, which is no batch
+    term, is ``1 / world`` of itself on each rank: the ranks' shares (and
+    DDP's mean of their gradients times the world) then count it once, as
+    the JAX package's one program over the mesh does
+    (``spsnet_tpu/stability/model.py:143-168``)."""
     fg_mask, gt_offsets = assign_stability_targets(ret['layer_xyz'], gt_boxes)
     fg = fg_mask.to(torch.float32)
-    pos_norm = fg.sum().clamp(min=1.0)
+    pos_norm = parallel.global_sum(fg.sum()).clamp(min=1.0)
     reg = loss_utils.weighted_smooth_l1(
         ret['center_pred'], gt_offsets.detach(), weights=fg / pos_norm,
         code_weights=code_weights).sum()
     l2 = 5e-4 * params_l2_norm_sum(model)
+    if parallel.step_world() > 1:
+        l2 = l2 / parallel.step_world()
     mu = ret['mu']
     sigma = torch.exp(ret['logvar']) + _SCALE_EPS
     kl_fg_all = _kl_diag_normal(torch.zeros_like(mu), torch.ones_like(sigma),
@@ -169,7 +182,8 @@ def generate_center_loss(model, ret, gt_boxes, code_weights=None):
     kl_fg = 5e-2 * (kl_fg_all * fg).sum() / pos_norm
     bg = 1.0 - fg
     kl_bg_all = _kl_diag_normal(mu, torch.full_like(sigma, 20.0), mu, sigma)
-    kl_bg = 5e-2 * (kl_bg_all * bg).sum() / bg.sum().clamp(min=1.0)
+    kl_bg = 5e-2 * (kl_bg_all * bg).sum() / \
+        parallel.global_sum(bg.sum()).clamp(min=1.0)
     loss = reg + l2 + kl_fg + kl_bg
     return loss, {'center_loss_box': reg, 'l2_reg': l2, 'lattent_loss': kl_fg,
                   'lattent_loss2': kl_bg, 'loss': loss}

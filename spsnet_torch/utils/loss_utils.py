@@ -2,13 +2,16 @@
 reference ``pcdet/utils/loss_utils.py``): elementwise, no reduction unless
 stated. ``WeightedCrossEntropy`` names the reference's sigmoid CE
 (``WeightedClassificationLoss``, :232). The AL family's semantic loss
-(``cpgnet_criterion``, with ``lovasz_softmax``) reduces to scalars."""
+(``cpgnet_criterion``, with ``lovasz_softmax``) reduces to scalars: inside
+a data-parallel step, each rank's additive share of the joined batch's
+(``parallel``: global counts, the Lovasz sort over the joined points)."""
 from __future__ import annotations
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import parallel
 from . import box_utils
 from .common import true_div
 
@@ -131,19 +134,45 @@ def lovasz_softmax(probs, labels, valid=None, classes='present'):
     in descending order by a stable sort (``jnp.argsort(-err)``'s order):
     tied errors keep their point order, which decides each one's share of
     the gradient. ``classes`` 'present' averages over the classes with a
-    foreground point, anything else over all."""
+    foreground point, anything else over all.
+
+    Inside a data-parallel step of more than one rank (the points
+    frame-major, so the ranks' blocks in rank order are the joined order)
+    the sort and ``lovasz_grad`` run over the joined points
+    (``_joined_lovasz_weights``) and the rank's share is the sum over its
+    own points of each error times its weight, over the joined batch's
+    present classes: with the order fixed the term is linear in the
+    errors, so the shares add up to the joined value and its gradient."""
     P, C = probs.shape
     if valid is None:
         valid = torch.ones(P, dtype=torch.bool, device=probs.device)
     fg = ((labels[None] == torch.arange(C, device=labels.device)[:, None])
           & valid).to(probs.dtype)
     err = (fg - probs.t()).abs() * valid
-    order = torch.argsort(-err, dim=1, stable=True)
-    losses = (err.gather(1, order) * lovasz_grad(fg.gather(1, order))).sum(1)
+    if parallel.step_world() > 1:
+        losses = (err * _joined_lovasz_weights(err, fg)).sum(1)
+    else:
+        order = torch.argsort(-err, dim=1, stable=True)
+        losses = (err.gather(1, order) *
+                  lovasz_grad(fg.gather(1, order))).sum(1)
     if classes == 'present':
-        present = (fg.sum(1) > 0).to(probs.dtype)
+        present = (parallel.global_sum(fg.sum(1)) > 0).to(probs.dtype)
         return (losses * present).sum() / present.sum().clamp(min=1.0)
     return losses.mean()
+
+
+def _joined_lovasz_weights(err, fg):
+    """(C, P) weights of this rank's points: ``lovasz_grad`` of the joined
+    batch's ground truth in the stable descending order of its errors, at
+    each point's place in that order. Ties keep the joined points' order,
+    as the joined batch's sort does."""
+    C, P = err.shape
+    joined = parallel.gather_rows(torch.cat([err.t(), fg.t()], 1)).t()
+    order = torch.argsort(-joined[:C], dim=1, stable=True)
+    grad = lovasz_grad(joined[C:].gather(1, order))
+    weights = torch.zeros_like(grad).scatter_(1, order, grad)
+    own = parallel.step_rank()
+    return weights[:, own * P:(own + 1) * P]
 
 
 def cpgnet_criterion(logits, target, weight='dynamic-log', ignore=None,
@@ -158,6 +187,11 @@ def cpgnet_criterion(logits, target, weight='dynamic-log', ignore=None,
 
     Args: logits (P, C); target (P,) int (clipped to [0, C - 1]); valid
     (P,) bool, the points that count.
+    Inside a data-parallel step the class counts, n and the weight sum are
+    the joined batch's (``parallel.global_sum``) and the Lovasz term is
+    this rank's share (``lovasz_softmax``): each value is the rank's
+    additive share of the joined batch's.
+
     Returns: {'loss_wce', 'loss_ls', 'loss'}.
     """
     P, C = logits.shape
@@ -166,8 +200,8 @@ def cpgnet_criterion(logits, target, weight='dynamic-log', ignore=None,
     tgt = target.long().clamp(0, C - 1)
     onehot = F.one_hot(tgt, C).to(logits.dtype) * valid[:, None]
     if isinstance(weight, str) and weight.startswith('dynamic'):
-        cnt = onehot.sum(0)
-        n = valid.sum().clamp(min=1).to(logits.dtype)
+        cnt = parallel.global_sum(onehot.sum(0))
+        n = parallel.global_sum(valid.sum()).clamp(min=1).to(logits.dtype)
         freq = torch.log(cnt + 1) / torch.log(n + 1) \
             if weight == 'dynamic-log' else cnt / n
         w = 1.0 / (freq + 1e-3)
@@ -178,7 +212,8 @@ def cpgnet_criterion(logits, target, weight='dynamic-log', ignore=None,
         w[list(ignore)] = 0.0
     per_pt_w = w[tgt] * valid
     ce = -(onehot * torch.log_softmax(logits, -1)).sum(-1)
-    loss_wce = (ce * per_pt_w).sum() / per_pt_w.sum().clamp(min=1e-9)
+    loss_wce = (ce * per_pt_w).sum() / \
+        parallel.global_sum(per_pt_w.sum()).clamp(min=1e-9)
     loss_ls = lovasz_softmax(torch.softmax(logits, -1), tgt, valid,
                              classes) if with_ls else logits.new_zeros(())
     return {'loss_wce': loss_wce, 'loss_ls': loss_ls,
@@ -190,15 +225,17 @@ def sem_seg_loss(sem_pred, sem_labels, loss_weights, fg_only=False):
     SEM_TASK and USE_DET_FOR_SEM branches): ``cpgnet_criterion`` of the
     (B, N, C) logits against the (B, N) labels over the points labelled
     >= 0 (with ``fg_only``, > 0, the loss scaled by their share of the B N
-    points), times LOSS_WEIGHTS' sem_weight (3.0); its class weights
-    sem_cs_weight ('dynamic-log'), its ignored classes sem_ignore."""
+    points; both the joined batch's in a data-parallel step), times
+    LOSS_WEIGHTS' sem_weight (3.0); its class weights sem_cs_weight
+    ('dynamic-log'), its ignored classes sem_ignore."""
     B, N, C = sem_pred.shape
     flat_t = sem_labels.reshape(B * N)
     valid = flat_t >= 0
     ratio = 1.0
     if fg_only:
         valid = valid & (flat_t > 0)
-        ratio = true_div(valid.sum().to(sem_pred.dtype), float(B * N))
+        ratio = true_div(parallel.global_sum(valid.sum()).to(sem_pred.dtype),
+                         float(parallel.global_count(B * N)))
     out = cpgnet_criterion(
         sem_pred.reshape(B * N, C), flat_t,
         weight=loss_weights.get('sem_cs_weight', 'dynamic-log'),

@@ -3,8 +3,8 @@ against the JAX package's, the batch helpers of ``spsnet_torch.parallel``,
 and, in two worker processes over gloo (``tests/torch_ddp_cases.py``,
 spawned once for the module), global BatchNorm against flax's BatchNorm
 over the joined batch, its world-1 path bit for bit, the eval merge in
-the JAX package's order and the refusal of a detector whose losses are
-not yet global.
+the JAX package's order, the gate that admits every detector of the
+registry and refuses any other module.
 """
 import jax
 import jax.numpy as jnp
@@ -16,7 +16,7 @@ from flax import linen as fnn
 from spsnet_tpu.data.loader import ShardedSampler as JaxShardedSampler
 from spsnet_torch import parallel
 from spsnet_torch.data.loader import ShardedSampler
-from spsnet_torch.models import build_detector
+from spsnet_torch.models import build_detector, detectors
 from spsnet_torch.runtime.trainer import (dedup_by_frame_id,
                                           require_global_losses)
 from spsnet_torch.zoo import tiny_iassd_cfg, tiny_pointrcnn_cfg
@@ -100,10 +100,20 @@ def test_outside_a_step_everything_is_local():
 
 
 def test_require_global_losses_admits_the_ported_detectors():
+    """Every class of the detector registry (PartA2_free's and the AL
+    stack's among them) is admitted; a module of another class is
+    refused, its message naming the registry's classes."""
     for cfg in (tiny_iassd_cfg(), tiny_pointrcnn_cfg()):
         require_global_losses(build_detector(cfg, 3, device='cpu'))
-    with pytest.raises(NotImplementedError, match='item D1b'):
+    classes = {*detectors._DETECTORS.values(), detectors.PartA2FreeNet,
+               detectors.ALNet}
+    assert len(classes) == 13
+    for cls in classes:
+        require_global_losses(cls.__new__(cls))
+    with pytest.raises(NotImplementedError, match='Linear: data parallel '
+                       'trains the detectors of the registry') as e:
         require_global_losses(torch.nn.Linear(2, 2))
+    assert all(cls.__name__ in str(e.value) for cls in classes)
 
 
 @pytest.fixture(scope='module')
@@ -195,8 +205,10 @@ def test_batch_helpers_in_a_world_of_two(world2):
 
 
 def test_data_parallel_refuses_a_detector_without_global_losses(world2):
-    """At world 2 ``make_train_step`` refuses PointPillar, naming ROADMAP
-    item D1b, and admits IA-SSD."""
+    """At world 2 ``make_train_step`` refuses a module that is no detector
+    of the registry, whose losses are not known to be global, and admits
+    PointPillar and IA-SSD."""
     for rec in world2:
-        assert rec['gate'] is not None and 'item D1b' in rec['gate']
+        assert rec['gate'] is not None and 'Made_up' in rec['gate']
         assert 'PointPillar' in rec['gate'] and rec['iassd_admitted']
+        assert rec['pillar_admitted']
